@@ -1,0 +1,120 @@
+#!/usr/bin/env python3
+"""Short first check of the port's CUDA kernels on a GPU.
+
+    python3 examples/kernel_check_torch.py
+
+Compiles each ``.cu`` with ``-Xptxas -v`` (registers, shared memory, spills),
+builds and loads the library, compares both kernels with their plain PyTorch
+versions and with ``torch.fft`` at a few shapes, then times them beside the
+library and the plain copies over a sweep of row lengths at a fixed 2^26
+elements (512 MiB of complex64).  The run to make after touching a CUDA
+source and before the full ``chip_smoke.py``.  Needs one CUDA device and
+``nvcc``; exits non-zero without them or when a kernel disagrees.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+if not torch.cuda.is_available():
+    sys.stderr.write("kernel_check_torch.py: no CUDA device available\n")
+    sys.exit(1)
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "..", "src"))
+
+from repro_torch.kernels import (_build, fft_rows_op,  # noqa: E402
+                                 fft_rows_transpose_op)
+from repro_torch.kernels.fft.kernel import fft_rows_plain  # noqa: E402
+
+SHAPES = [(64, 2), (64, 4), (64, 8), (37, 1024), (100, 2048), (256, 4096),
+          (1024, 8192)]
+SWEEP_ELEMENTS = 1 << 26
+SWEEP_LENGTHS = [64, 256, 1024, 2048, 4096, 8192]
+
+
+def time_ms(fn, reps: int = 10) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def main() -> None:
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card, "| torch", torch.__version__, "| cuda", torch.version.cuda, flush=True)
+
+    nvcc = _build._find_nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in _build.source_files():
+            if src.suffix != ".cu":
+                continue
+            done = subprocess.run(
+                [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src),
+                 "-o", os.path.join(tmp, src.stem + ".o")],
+                capture_output=True, text=True)
+            print(f"--- {src.name} (exit {done.returncode})\n{done.stderr.strip()}",
+                  flush=True)
+            if done.returncode != 0:
+                sys.exit(1)
+    t0 = time.perf_counter()
+    _build.load_library()
+    print(f"build + load: {time.perf_counter() - t0:.2f} s", flush=True)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    for rows, n in SHAPES:
+        x = torch.complex(torch.randn(rows, n, generator=gen, device="cuda"),
+                          torch.randn(rows, n, generator=gen, device="cuda"))
+        tol = 1e-3 * n ** 0.5
+        for radix in (2, 4):
+            for inverse in (False, True):
+                plain = fft_rows_plain(x, inverse=inverse, radix=radix)
+                lib = torch.fft.ifft(x) if inverse else torch.fft.fft(x)
+                k1 = fft_rows_op(x, inverse=inverse, radix=radix)
+                k2 = fft_rows_transpose_op(x, inverse=inverse, radix=radix)
+                torch.cuda.synchronize()
+                errs = {"k1_vs_plain": float((k1 - plain).abs().max()),
+                        "k2_vs_plain": float((k2 - plain.T).abs().max()),
+                        "k1_vs_library": float((k1 - lib).abs().max())}
+                print(json.dumps({"rows": rows, "n": n, "radix": radix,
+                                  "inverse": inverse, "atol": tol, **errs}),
+                      flush=True)
+                if max(errs.values()) > tol:
+                    sys.exit(f"kernel disagrees: {errs} > {tol}")
+
+    for n in SWEEP_LENGTHS:
+        x = torch.randn(SWEEP_ELEMENTS // n, n, dtype=torch.complex64, device="cuda")
+        print(json.dumps({
+            "card": card, "rows": x.shape[0], "n": n,
+            "fft_rows_ms": time_ms(lambda: fft_rows_op(x)),
+            "fft_rows_radix2_ms": time_ms(lambda: fft_rows_op(x, radix=2)),
+            "fft_rows_transpose_ms": time_ms(lambda: fft_rows_transpose_op(x)),
+            "torch_fft_ms": time_ms(lambda: torch.fft.fft(x)),
+            "torch_fft_T_contiguous_ms": time_ms(
+                lambda: torch.fft.fft(x).T.contiguous()),
+            "T_contiguous_ms": time_ms(lambda: x.T.contiguous()),
+            "clone_ms": time_ms(lambda: x.clone())}), flush=True)
+    print("OK")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,19 @@
+"""The paper's primary contribution: FPMs, POPTA/HPOPTA partitioning,
+padding selection, and the PFFT-LB / PFFT-FPM / PFFT-FPM-PAD algorithms."""
+
+from repro_torch.core.fpm import SpeedFunction, FPMSet, build_fpm, save_fpms, load_fpms, fft_flops
+from repro_torch.core.partition import PartitionResult, popta, hpopta, lb_partition, partition_rows
+from repro_torch.core.padding import determine_pad_length, smooth_candidates, pad_to_smooth, is_smooth
+from repro_torch.core.pfft import (pfft_lb, pfft_fpm, pfft_fpm_pad, pfft_fpm_czt,
+                                   czt_dft, segment_row_ffts, plan_segment_batches)
+from repro_torch.core.api import plan_pfft, PfftPlan
+from repro_torch.plan.config import PlanConfig
+
+__all__ = [
+    "SpeedFunction", "FPMSet", "build_fpm", "save_fpms", "load_fpms", "fft_flops",
+    "PartitionResult", "popta", "hpopta", "lb_partition", "partition_rows",
+    "determine_pad_length", "smooth_candidates", "pad_to_smooth", "is_smooth",
+    "pfft_lb", "pfft_fpm", "pfft_fpm_pad", "pfft_fpm_czt", "czt_dft",
+    "segment_row_ffts", "plan_segment_batches",
+    "plan_pfft", "PfftPlan", "PlanConfig",
+]

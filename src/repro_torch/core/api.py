@@ -1,0 +1,231 @@
+"""Plan-style user API (mirrors fftw's plan/execute lifecycle).
+
+    plan = plan_pfft(n=4096, fpms=fpms, method="fpm-pad",
+                     config=PlanConfig(radix=4))
+    out  = plan.execute(signal)     # reusable
+
+Counterpart of ``repro.core.api`` for the 2-D complex methods.  The plan
+captures everything host-side once — the partition ``d``, the pad lengths,
+the execution schedule (``SegmentSchedule``: one ``PlanConfig`` per segment)
+*and* the dispatch groups' row-index tensors, already on the plan's device —
+so ``execute`` only launches device work: the analogue of building an fftw
+plan once and calling ``fftw_execute`` repeatedly.  A single explicit
+``config=`` becomes the degenerate one-entry-per-segment schedule.
+
+A plan lives on one device: ``device=None`` is the CUDA device and raises
+when there is none; ``device="cpu"`` runs the kernels' plain PyTorch
+versions on the host.
+
+Not in this package yet, and refused with ``NotImplementedError`` rather than
+quietly ignored: ``tune="estimate"|"measure"`` and ``wisdom=`` (the planner
+slice), ``mesh=`` (the distributed slice), and the ``rfft-*`` methods (the
+real-input slice).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Any, Literal
+
+import numpy as np
+import torch
+
+from repro_torch._device import as_tensor, resolve_device
+from repro_torch.core.fpm import FPMSet
+from repro_torch.core.partition import PartitionResult, lb_partition, partition_rows
+from repro_torch.core.pfft import _pfft_limb, device_groups
+from repro_torch.plan.config import PlanConfig, normalize_pad
+from repro_torch.plan.schedule import SegmentSchedule
+
+Method = Literal["lb", "fpm", "fpm-pad", "fpm-czt"]
+TuneMode = Literal["off", "estimate", "measure"]
+
+_PAD_STRATEGY = {"lb": "none", "fpm": "none", "fpm-pad": "fpm",
+                 "fpm-czt": "czt"}
+_REAL_METHODS = frozenset({"rfft-lb", "rfft-fpm", "rfft-fpm-pad"})
+
+__all__ = ["PfftPlan", "plan_pfft"]
+
+
+@dataclasses.dataclass
+class PfftPlan:
+    n: int
+    method: Method
+    partition: PartitionResult
+    pad_lengths: np.ndarray | None
+    config: PlanConfig
+    schedule: SegmentSchedule
+    tuning: dict[str, Any]
+    device: torch.device
+    # The planned input dtype name ("complex64" | "complex128").
+    dtype: str = "complex64"
+    # schedule.batch_groups() with the row indices as tensors on ``device``,
+    # made once here so that execute copies no index to the device.
+    _groups: list[tuple] = dataclasses.field(default_factory=list, repr=False,
+                                             compare=False)
+
+    def _run(self, m: torch.Tensor) -> torch.Tensor:
+        return _pfft_limb(m, self.partition.d, schedule=self.schedule,
+                          groups=self._groups)
+
+    def execute(self, m) -> torch.Tensor:
+        """Run the planned transform; leading batch dims are looped.
+
+        ``m``: ``(..., n, n)``, a tensor on the plan's device or a host
+        array (copied there).  A batch gives what transforming each
+        ``(n, n)`` signal alone gives, stacked — the fused kernel takes one
+        matrix at a time, so the batch is a loop of launches.
+        """
+        if not isinstance(m, torch.Tensor):
+            m = as_tensor(m, self.device)
+        if m.device != self.device:
+            raise ValueError(
+                f"plan lives on {self.device}, signal on {m.device}; move "
+                "the signal or plan for its device")
+        if m.ndim < 2 or tuple(m.shape[-2:]) != (self.n, self.n):
+            raise ValueError(
+                f"plan is for ({self.n}, {self.n}) signals "
+                f"(optionally with leading batch dims), got {tuple(m.shape)}")
+        if m.ndim == 2:
+            return self._run(m)
+        lead = m.shape[:-2]
+        flat = m.reshape((-1, self.n, self.n))
+        out = torch.stack([self._run(x) for x in flat])
+        return out.reshape(lead + (self.n, self.n))
+
+    def execute_many(self, ms, *, pad_to: int | None = None) -> list:
+        """Serve a cohort: stack same-size signals into ONE batched execute.
+
+        ``ms`` is a sequence of ``(n, n)`` host signals (many users'
+        concurrent requests for the same transform).  Stacking, padding
+        with zero signals up to ``pad_to``, and unstacking happen on the
+        host (numpy), so the device sees exactly one transfer in and one
+        out; the returned results are numpy views into the fetched batch.
+        """
+        if not ms:
+            return []
+        shape = (self.n, self.n)
+        arrs = [np.asarray(m) for m in ms]
+        for m in arrs:
+            if m.shape != shape:
+                raise ValueError(
+                    f"execute_many stacks {shape} signals, got {m.shape}")
+        batch = np.stack(arrs)
+        b = len(arrs)
+        if pad_to is not None and pad_to > b:
+            batch = np.concatenate(
+                [batch, np.zeros((pad_to - b,) + batch.shape[1:], batch.dtype)])
+        out = self.execute(torch.from_numpy(batch).to(self.device)).cpu().numpy()
+        return [out[i] for i in range(b)]
+
+    @property
+    def d(self) -> np.ndarray:
+        return self.partition.d
+
+    def with_schedule(self, schedule: SegmentSchedule,
+                      tuning: dict[str, Any] | None = None) -> "PfftPlan":
+        """Same problem, new execution schedule: a fresh plan whose
+        executor runs ``schedule`` on the captured partition and device."""
+        return dataclasses.replace(
+            self, schedule=schedule, config=schedule.anchor_config,
+            tuning=dict(tuning) if tuning is not None else dict(self.tuning),
+            _groups=device_groups(schedule, self.device))
+
+
+def _resolve_schedule(n: int, method: Method, part: PartitionResult,
+                      pads: np.ndarray | None, config: PlanConfig | None
+                      ) -> tuple[SegmentSchedule, dict[str, Any]]:
+    """The plan's execution schedule and where it came from: an explicit
+    config, else the default (library FFT, batched dispatch).  The method
+    owns the pad semantics (``normalize_pad``): an explicit ``PlanConfig()``
+    on fpm-czt still runs Bluestein and a drifted ``pad="czt"`` on fpm-pad
+    still runs the paper's crop."""
+    pad_strategy = _PAD_STRATEGY[method]
+    if config is not None:
+        cfg, source = normalize_pad(config, pad_strategy), "explicit"
+    else:
+        cfg, source = PlanConfig(pad=pad_strategy), "off"
+    return (SegmentSchedule.homogeneous(cfg, n, part.d, pads),
+            {"mode": "off", "source": source})
+
+
+def plan_pfft(n: int, *, p: int | None = None, fpms: FPMSet | None = None,
+              method: Method = "fpm", eps: float = 0.05,
+              tune: TuneMode = "off", wisdom: str | None = None,
+              config: PlanConfig | None = None, dtype: str = "complex64",
+              mesh=None, device: str | torch.device | None = None,
+              use_stockham: bool | None = None,
+              fused: bool | None = None) -> PfftPlan:
+    """Build a reusable plan; see the module docstring for the lifecycle.
+
+    ``method``: ``"lb"`` (needs ``p``), ``"fpm"``, ``"fpm-pad"``,
+    ``"fpm-czt"`` (need ``fpms``).  ``config`` picks the execution variant
+    (default: library FFT).  ``use_stockham=``/``fused=`` are deprecated
+    shims for the legacy flag API (they build an explicit config).
+    """
+    if tune not in ("off", "estimate", "measure"):
+        raise ValueError(f"tune must be 'off'|'estimate'|'measure', got {tune!r}")
+    if method in _REAL_METHODS:
+        raise NotImplementedError(
+            f"method={method!r}: the real-input pipeline is not in "
+            "repro_torch yet; it comes with the slice that ports the "
+            "packed-real kernels (rfft_rows, rfft_rows_transpose)")
+    if method not in _PAD_STRATEGY:
+        raise ValueError(f"unknown method {method!r}")
+    if tune != "off":
+        raise NotImplementedError(
+            f"tune={tune!r}: the planner (cost model, tuner) is not in "
+            "repro_torch yet; it comes with the planner slice — pass an "
+            "explicit config=PlanConfig(...)")
+    if wisdom is not None:
+        raise NotImplementedError(
+            "wisdom=: the wisdom store is not in repro_torch yet; it comes "
+            "with the planner slice")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh=: distributed plans are not in repro_torch yet; they come "
+            "with the distributed slice")
+    if np.dtype(dtype).kind != "c":
+        raise ValueError(
+            f"method={method!r} transforms complex input (got dtype="
+            f"{dtype!r}); real signals wait for the 'rfft-*' methods")
+    if use_stockham is not None or fused is not None:
+        if config is not None:
+            raise ValueError("pass either config= or the legacy flags "
+                             "(use_stockham/fused), not both")
+        warnings.warn(
+            "plan_pfft: use_stockham=/fused= are deprecated; pass "
+            "config=PlanConfig(...)", DeprecationWarning, stacklevel=2)
+        pad_strategy = _PAD_STRATEGY[method]
+        # The flag API ignored fused= on the padded methods (pad semantics
+        # are per-processor); the shim must too.
+        config = PlanConfig.from_flags(
+            use_stockham=bool(use_stockham),
+            fused=bool(fused) and pad_strategy == "none",
+            pad=pad_strategy)
+
+    if method == "lb":
+        if p is None:
+            raise ValueError(f"method={method!r} requires p")
+        part = lb_partition(n, p)
+        pads = None
+    else:
+        if fpms is None:
+            raise ValueError(f"method={method!r} requires fpms")
+        part = partition_rows(n, fpms, eps)
+        if method == "fpm-pad":
+            from repro_torch.plan.pads import fpm_pad_lengths
+            pads = fpm_pad_lengths(fpms, part.d, n)
+        elif method == "fpm-czt":
+            from repro_torch.plan.pads import czt_fft_lengths
+            pads = czt_fft_lengths(fpms, part.d, n, limit_ratio=2.0)
+        else:
+            pads = None
+
+    device = resolve_device(device)
+    schedule, tuning = _resolve_schedule(n, method, part, pads, config)
+    return PfftPlan(n=n, method=method, partition=part, pad_lengths=pads,
+                    config=schedule.anchor_config, schedule=schedule,
+                    tuning=tuning, device=device, dtype=dtype,
+                    _groups=device_groups(schedule, device))

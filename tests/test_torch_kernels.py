@@ -1,0 +1,307 @@
+"""Kernel modules of the PyTorch port against the JAX package.
+
+On the CPU the port's ops run the kernels' plain PyTorch versions; the
+reference runs its Pallas kernels in interpret mode.  Same numpy inputs to
+both.  The CUDA kernels themselves are checked on the card by
+``chip_smoke.py``; here the arithmetic they share with the plain versions,
+the wrappers' contracts and the launch-shape choices are.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from _torch_parity import complex_signal, to_numpy, to_torch
+
+from repro.kernels.fft import kernel as ref_kernel
+from repro.kernels.fft.ops import fft_rows_op as ref_fft_rows_op
+from repro.kernels.fused.ops import fft_rows_transpose_op as ref_fused_op
+
+from repro_torch import kernels as port_kernels
+from repro_torch.kernels import _build
+from repro_torch.kernels.fft import kernel as port_kernel
+from repro_torch.kernels.fft.ops import (fft_rows_op, pick_radix,
+                                         pick_rows_per_cta, pick_threads,
+                                         resolve_call_params)
+from repro_torch.kernels.fft.ref import fft_rows_ref
+from repro_torch.kernels.fused import kernel as port_fused_kernel
+from repro_torch.kernels.fused.ops import fft_rows_transpose_op
+
+PLANE_FNS = {2: ("stockham_planes", "stockham_planes"),
+             4: ("stockham_planes_radix4", "stockham_planes_radix4")}
+
+
+def planes(seed, rows, n):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((rows, n)).astype(np.float32),
+            rng.standard_normal((rows, n)).astype(np.float32))
+
+
+# ------------------------------------------------------- plain stage loops
+
+@pytest.mark.parametrize("n", [2, 8, 32, 128, 512, 2048])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("radix", [2, 4])
+def test_stockham_planes_match_reference(n, inverse, radix):
+    """Same arithmetic, another library's cos/sin: 1e-4 * sqrt(n)."""
+    re, im = planes(n, 4, n)
+    ref_name, port_name = PLANE_FNS[radix]
+    rre, rim = getattr(ref_kernel, ref_name)(jnp.asarray(re), jnp.asarray(im),
+                                             inverse=inverse)
+    pre, pim = getattr(port_kernel, port_name)(to_torch(re), to_torch(im),
+                                               inverse=inverse)
+    tol = 1e-4 * n ** 0.5
+    np.testing.assert_allclose(to_numpy(pre), np.asarray(rre), atol=tol)
+    np.testing.assert_allclose(to_numpy(pim), np.asarray(rim), atol=tol)
+
+
+@pytest.mark.parametrize("radix", [2, 4])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_apply_stockham_matches_reference(radix, inverse):
+    re, im = planes(7, 3, 64)
+    rre, rim = ref_kernel.apply_stockham(jnp.asarray(re), jnp.asarray(im),
+                                         radix=radix, inverse=inverse)
+    pre, pim = port_kernel.apply_stockham(to_torch(re), to_torch(im),
+                                          radix=radix, inverse=inverse)
+    np.testing.assert_allclose(to_numpy(pre), np.asarray(rre), atol=1e-4 * 8)
+    np.testing.assert_allclose(to_numpy(pim), np.asarray(rim), atol=1e-4 * 8)
+
+
+def test_apply_stockham_rejects_radix():
+    re, im = planes(0, 2, 8)
+    with pytest.raises(ValueError, match="unsupported radix"):
+        port_kernel.apply_stockham(to_torch(re), to_torch(im), radix=3)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8, 32, 128, 2048, 8192])
+@pytest.mark.parametrize("radix", [2, 4])
+def test_stockham_stage_count_equal(n, radix):
+    assert (port_kernel.stockham_stage_count(n, radix)
+            == ref_kernel.stockham_stage_count(n, radix))
+
+
+@pytest.mark.parametrize("args", [(12, 2), (0, 2), (8, 3)])
+def test_stockham_stage_count_errors(args):
+    with pytest.raises(ValueError):
+        ref_kernel.stockham_stage_count(*args)
+    with pytest.raises(ValueError):
+        port_kernel.stockham_stage_count(*args)
+
+
+@pytest.mark.parametrize("n", [2, 4, 16, 256])
+def test_pick_radix_equal(n):
+    from repro.kernels.fft.ops import pick_radix as ref_pick_radix
+    assert pick_radix(n) == ref_pick_radix(n)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("radix", [2, 4])
+def test_plain_versions_match_library_oracle(inverse, radix):
+    x = to_torch(complex_signal(3, 5, 128))
+    want = fft_rows_ref(x, inverse=inverse)
+    tol = 1e-3 * 128 ** 0.5
+    got = port_kernel.fft_rows_plain(x, inverse=inverse, radix=radix)
+    np.testing.assert_allclose(to_numpy(got), to_numpy(want), atol=tol)
+    got_t = port_fused_kernel.fft_rows_transpose_plain(x, inverse=inverse,
+                                                       radix=radix)
+    assert got_t.is_contiguous() and got_t.shape == (128, 5)
+    np.testing.assert_allclose(to_numpy(got_t), to_numpy(want).T, atol=tol)
+
+
+# ------------------------------------------------------------------- ops
+
+@pytest.mark.parametrize("rows", [1, 3, 8, 13])
+@pytest.mark.parametrize("n", [16, 256])
+@pytest.mark.parametrize("radix", [None, 2, 4])
+def test_fft_rows_op_matches_reference(rows, n, radix):
+    x = complex_signal(rows * n, rows, n)
+    want = np.asarray(ref_fft_rows_op(jnp.asarray(x), radix=radix))
+    got = fft_rows_op(to_torch(x), radix=radix)
+    assert got.dtype == torch.complex64 and got.shape == (rows, n)
+    np.testing.assert_allclose(to_numpy(got), want, atol=1e-3 * n ** 0.5)
+
+
+@pytest.mark.parametrize("rows", [1, 3, 8, 13])
+@pytest.mark.parametrize("n", [16, 256])
+@pytest.mark.parametrize("radix", [None, 2, 4])
+def test_fft_rows_transpose_op_matches_reference(rows, n, radix):
+    x = complex_signal(rows * n + 1, rows, n)
+    want = np.asarray(ref_fused_op(jnp.asarray(x), radix=radix))
+    got = fft_rows_transpose_op(to_torch(x), radix=radix)
+    assert got.dtype == torch.complex64 and got.shape == (n, rows)
+    assert got.is_contiguous()
+    np.testing.assert_allclose(to_numpy(got), want, atol=1e-3 * n ** 0.5)
+
+
+@pytest.mark.parametrize("op_pair", ["plain", "fused"])
+@pytest.mark.parametrize("radix", [2, 4])
+def test_ops_inverse_match_reference(op_pair, radix):
+    x = complex_signal(11, 6, 64)
+    ref_op, port_op = ((ref_fft_rows_op, fft_rows_op) if op_pair == "plain"
+                       else (ref_fused_op, fft_rows_transpose_op))
+    want = np.asarray(ref_op(jnp.asarray(x), inverse=True, radix=radix))
+    got = port_op(to_torch(x), inverse=True, radix=radix)
+    np.testing.assert_allclose(to_numpy(got), want, atol=1e-3 * 8)
+
+
+def test_fft_rows_op_roundtrip():
+    x = to_torch(complex_signal(5, 7, 32))
+    back = fft_rows_op(fft_rows_op(x), inverse=True)
+    np.testing.assert_allclose(to_numpy(back), to_numpy(x), atol=2e-3)
+
+
+def test_fft_rows_op_batched_leading_dims():
+    x = complex_signal(2, 2, 3, 32)
+    want = np.asarray(ref_fft_rows_op(jnp.asarray(x)))
+    got = fft_rows_op(to_torch(x))
+    assert got.shape == (2, 3, 32)
+    np.testing.assert_allclose(to_numpy(got), want, atol=2e-3)
+
+
+@pytest.mark.parametrize("dtype,want", [(np.complex64, torch.complex64),
+                                        (np.complex128, torch.complex128),
+                                        (np.float32, torch.complex64),
+                                        (np.float64, torch.complex128)])
+def test_ops_compute_in_f32_and_return_result_type(dtype, want):
+    """Whatever comes in is transformed in float32 and returned as
+    ``result_type(x, complex64)`` — x64 on or off, the reference's rule."""
+    x = complex_signal(4, 4, 16)
+    x = (x if np.dtype(dtype).kind == "c" else x.real).astype(dtype)
+    got = fft_rows_op(to_torch(x))
+    got_t = fft_rows_transpose_op(to_torch(x))
+    assert got.dtype == want and got_t.dtype == want
+    oracle = np.fft.fft(x.astype(np.complex64), axis=-1)
+    np.testing.assert_allclose(to_numpy(got), oracle, atol=4e-3)
+    np.testing.assert_allclose(to_numpy(got_t), oracle.T, atol=4e-3)
+
+
+def test_ops_length_one_is_identity():
+    x = to_torch(complex_signal(0, 5, 1))
+    np.testing.assert_array_equal(to_numpy(fft_rows_op(x)), to_numpy(x))
+    np.testing.assert_array_equal(to_numpy(fft_rows_transpose_op(x)),
+                                  to_numpy(x).T)
+
+
+# ----------------------------------------------------------------- errors
+
+def test_ops_reject_non_pow2_like_reference():
+    with pytest.raises(ValueError, match="power-of-two length, got 12"):
+        ref_fft_rows_op(jnp.ones((4, 12), jnp.complex64))
+    with pytest.raises(ValueError, match="power-of-two length, got 12"):
+        fft_rows_op(torch.ones((4, 12), dtype=torch.complex64))
+    with pytest.raises(ValueError, match="power-of-two length, got 12"):
+        fft_rows_transpose_op(torch.ones((4, 12), dtype=torch.complex64))
+
+
+@pytest.mark.parametrize("shape", [(16,), (2, 4, 16)])
+def test_fused_op_rejects_non_2d_like_reference(shape):
+    with pytest.raises(ValueError, match="fused op takes a 2-D matrix"):
+        ref_fused_op(jnp.ones(shape, jnp.complex64))
+    with pytest.raises(ValueError, match="fused op takes a 2-D matrix"):
+        fft_rows_transpose_op(torch.ones(shape, dtype=torch.complex64))
+
+
+@pytest.mark.parametrize("op", [fft_rows_op, fft_rows_transpose_op])
+def test_ops_raise_named_error_above_length_limit(op):
+    """A power-of-two length the kernels cannot hold raises; nothing
+    switches to the library in their place."""
+    n = 2 * port_kernel.MAX_KERNEL_N
+    with pytest.raises(port_kernel.KernelLengthError, match=str(n)):
+        op(torch.ones((2, n), dtype=torch.complex64))
+    assert issubclass(port_kernel.KernelLengthError, ValueError)
+
+
+@pytest.mark.parametrize("op", [fft_rows_op, fft_rows_transpose_op])
+def test_ops_refuse_non_contiguous_input(op):
+    x = to_torch(complex_signal(1, 16, 16)).T
+    with pytest.raises(ValueError, match="contiguous"):
+        op(x)
+    np.testing.assert_allclose(to_numpy(op(x.contiguous())),
+                               to_numpy(op(x.clone(memory_format=torch.contiguous_format))))
+
+
+@pytest.mark.parametrize("op", [fft_rows_op, fft_rows_transpose_op])
+def test_ops_reject_bad_radix(op):
+    with pytest.raises(ValueError, match="unsupported radix"):
+        op(torch.ones((2, 8), dtype=torch.complex64), radix=8)
+
+
+@pytest.mark.parametrize("launcher", [port_kernel.fft_rows_cuda,
+                                      port_fused_kernel.fft_rows_transpose_cuda])
+def test_cuda_launchers_refuse_what_the_kernel_does_not_take(launcher):
+    """The launchers never run a plain version: a CPU tensor is an error."""
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        launcher(torch.ones((2, 8), dtype=torch.complex64))
+
+
+@pytest.mark.parametrize("op", [fft_rows_op, fft_rows_transpose_op])
+def test_host_arrays_default_to_the_card_and_raise_without_one(op, monkeypatch):
+    """Input that is not a tensor goes to the default device, which is the
+    CUDA device: without one the call raises instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        op(complex_signal(0, 4, 8))
+
+
+# ------------------------------------------------ launch shape, build, counts
+
+@pytest.mark.parametrize("n", [2, 8, 64, 256, 1024, 2048, 4096, 8192])
+@pytest.mark.parametrize("rows", [1, 37, 256, 8192, 100000])
+@pytest.mark.parametrize("fused", [False, True])
+def test_launch_shape_fits_the_card(n, rows, fused):
+    r, radix, threads = resolve_call_params(n, rows, None, None, fused=fused)
+    assert radix == pick_radix(n)
+    assert 1 <= r <= max(rows, 1)
+    row_elems = n + 1 if fused else n
+    assert 2 * r * row_elems * 8 <= port_kernel.SMEM_BUDGET
+    assert 64 <= threads <= 1024 and threads & (threads - 1) == 0
+    assert threads == pick_threads(n, r, radix)
+    if fused:
+        assert r <= 16 and (r < 4 or r % 4 == 0 or r == rows)
+    assert r == pick_rows_per_cta(n, rows, fused=fused)
+
+
+def test_whole_row_limit_is_what_shared_memory_holds():
+    n = port_kernel.MAX_KERNEL_N
+    assert 2 * (n + 1) * 8 <= port_kernel.SMEM_BUDGET < 2 * (2 * n) * 8
+
+
+def test_cpu_ops_launch_nothing_and_build_nothing():
+    port_kernels.reset_launch_counts()
+    x = to_torch(complex_signal(0, 4, 32))
+    fft_rows_op(x)
+    fft_rows_transpose_op(x)
+    assert port_kernels.launch_counts() == {"fft_rows": 0,
+                                            "fft_rows_transpose": 0}
+    assert _build._library is None  # nothing compiled or loaded by CPU work
+
+
+def test_kernel_sources_are_plain_cuda_built_for_sm_90a():
+    names = [p.name for p in _build.source_files()]
+    assert names == ["fft_rows.cu", "fft_rows_transpose.cu", "stockham.cuh"]
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert "-use_fast_math" not in _build.NVCC_FLAGS
+    for path in _build.source_files():
+        text = path.read_text()
+        assert "torch/extension.h" not in text and "__sincosf(" not in text
+        if path.suffix == ".cu":
+            assert '#include "stockham.cuh"' in text
+            assert "Replaces the TPU kernel" in text and "Bound on this card" in text
+    assert "sincospif" in (_build.csrc_dir() / "stockham.cuh").read_text()
+
+
+def test_build_directory_is_keyed_by_the_sources(tmp_path, monkeypatch):
+    """A changed source gives another directory, so a stale library is
+    never loaded."""
+    before = _build._source_hash()
+    copy = tmp_path / "csrc"
+    copy.mkdir()
+    for path in _build.source_files():
+        (copy / path.name).write_text(path.read_text())
+    monkeypatch.setattr(_build, "csrc_dir", lambda: copy)
+    assert _build._source_hash() == before
+    (copy / "stockham.cuh").write_text(
+        (copy / "stockham.cuh").read_text() + "\n// changed\n")
+    assert _build._source_hash() != before
+    assert _build.build_root().name == "build"
