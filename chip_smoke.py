@@ -9,17 +9,28 @@ each of which ends the run with a non-zero exit code when it fails:
 
 1. ``env``       versions, ``nvcc``, the card's name and power limit, SM count.
 2. ``build``     compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``.
-3. ``kernels``   every kernel against its plain PyTorch version on the card
-                 (ragged row counts, odd and even log2 n, the full width), then
-                 its time beside the plain version's, the library's and the
-                 card's bound at the main path's shape.
+3. ``kernels``   every kernel against its plain PyTorch version and the
+                 library on the card (ragged and odd row counts, odd and even
+                 log2 n, the full width; the transpose bit for bit), then its
+                 time beside the plain version's, the library's and the card's
+                 bound at the main path's shape.
 4. ``main_path`` FPMs timed on the card, then ``plan_pfft(...).execute`` for
                  PFFT-LB / PFFT-FPM at N = 8192 and PFFT-FPM-PAD / PFFT-FPM-CZT
                  at N = 4096 under the library, kernel and fused configs, each
                  checked against its oracle, with the kernels' launch counts
                  showing which path ran.
+5. ``main_path_real`` the same for the real-input methods: ``rfft-lb`` /
+                 ``rfft-fpm`` at N = 8192 and ``rfft-fpm-pad`` at N = 4096
+                 (float32 signals, half-spectrum output), a batch,
+                 ``execute_many`` and ``irfft2(rfft2(x))``.
+6. ``microbench_fused`` the reference microbenchmark's fused-vs-unfused pair:
+                 ``transpose_op(fft_rows_op(m))`` against
+                 ``fft_rows_transpose_op(m)``, the path the blocked transpose
+                 kernel lies on.
 
-Every line but the last is a log or a JSON record; the last line is
+Each path (4, 5, 6) is driven once with the launch counts set to 0 just
+before and read just after; each of its kernels must have launched.  Every
+line but the last is a log or a JSON record; the last line is
 ``{"ok": true, "device": {...}}`` and is printed only when every phase passed.
 """
 
@@ -44,12 +55,17 @@ if not torch.cuda.is_available():
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch.core import (FPMSet, PlanConfig, SpeedFunction, build_fpm,  # noqa: E402
-                              plan_pfft)
+                              irfft2, plan_pfft, rfft2)
 from repro_torch.fft import fft_rows  # noqa: E402
 from repro_torch.kernels import (_build, fft_rows_op, fft_rows_transpose_op,  # noqa: E402
-                                 launch_counts, reset_launch_counts)
+                                 launch_counts, reset_launch_counts,
+                                 rfft_rows_op, rfft_rows_transpose_op,
+                                 transpose_op)
 from repro_torch.kernels.fft.kernel import fft_rows_plain  # noqa: E402
+from repro_torch.kernels.fft.real import rfft_rows_plain  # noqa: E402
 from repro_torch.kernels.fused.kernel import fft_rows_transpose_plain  # noqa: E402
+from repro_torch.kernels.fused.real import rfft_rows_transpose_plain  # noqa: E402
+from repro_torch.kernels.transpose.kernel import transpose_plain  # noqa: E402
 
 SEED = 0
 P = 4
@@ -63,7 +79,14 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 KERNEL_SHAPES = [(64, 8), (37, 1024), (100, 2048), (256, 4096), (1024, 1024),
                  (4096, 4096), (8192, 8192)]
+# Odd row counts leave the packed real kernels an unpaired last row.
+REAL_KERNEL_SHAPES = [(64, 8), (37, 1024), (101, 2048), (255, 4096), (8192, 8192)]
+TRANSPOSE_SHAPES = [(1, 1), (37, 129), (1000, 3), (4096, 8192), (8192, 8192)]
+# Every other element size the transpose kernel is built for, at small shapes.
+TRANSPOSE_OTHER_DTYPES = [torch.uint8, torch.float16, torch.float64, torch.complex128]
 MAIN_SHAPE = (8192, 8192)
+MICROBENCH_N = (1024, 8192)
+SOURCES = "src/repro_torch/kernels/csrc/"
 
 
 def log(phase: str, **fields) -> None:
@@ -101,12 +124,39 @@ def random_signal(gen: torch.Generator, *shape: int) -> torch.Tensor:
     return torch.complex(re, im) * math.sqrt(0.5)
 
 
+def random_real(gen: torch.Generator, *shape: int) -> torch.Tensor:
+    """Unit-variance float32 noise on the card, from the seeded generator."""
+    return torch.randn(*shape, generator=gen, device="cuda")
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     if a.shape != b.shape:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
-    if not bool(torch.isfinite(torch.view_as_real(a)).all()):
+    if not bool(torch.isfinite(torch.view_as_real(a) if a.is_complex() else a).all()):
         raise AssertionError("non-finite values in the result")
     return float((a - b).abs().max())
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes moved
+    once over the memory rate and the operations over the float32 rate."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def kernel_record(name: str, replaces: str, shape, err: float, limits: dict,
+                  kernel, plain, library) -> dict:
+    """One record of the ``kernels`` line, timed here (launch counts are
+    filled in after the paths have run)."""
+    ms = time_ms(kernel, reps=20)
+    return {"name": name, "route": "cuda", "source": SOURCES + name + ".cu",
+            "replaces": replaces, "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": time_ms(plain, reps=3, warmup=1), **limits,
+            "library_ms": time_ms(library, reps=20), "shape": list(shape),
+            "max_err": err, "kernel_ms": ms}
 
 
 # ------------------------------------------------------------------ phases
@@ -169,38 +219,102 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
                 del plain, got, got_t, lib
         del x
 
+    check_real_kernels(gen, worst)
+    check_transpose(gen, worst)
+
     rows, n = MAIN_SHAPE
+    nh = n // 2 + 1
     x = random_signal(gen, rows, n)
-    nbytes = 2 * rows * n * 8                     # read once, written once
-    flops = 5.0 * rows * n * math.log2(n)
-    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_FP32_FLOPS * 1e3
-    bound = {"bound_ms": max(by_bytes, by_ops),
-             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
-    records = []
-    for name, source, replaces, kernel, plain, library in (
-        ("fft_rows", "src/repro_torch/kernels/csrc/fft_rows.cu",
-         "src/repro/kernels/fft/kernel.py:209",
-         lambda: fft_rows_op(x, radix=4),
-         lambda: fft_rows_plain(x, radix=4),
-         lambda: torch.fft.fft(x)),
-        ("fft_rows_transpose", "src/repro_torch/kernels/csrc/fft_rows_transpose.cu",
-         "src/repro/kernels/fused/kernel.py:64",
-         lambda: fft_rows_transpose_op(x, radix=4),
-         lambda: fft_rows_transpose_plain(x, radix=4),
-         lambda: torch.fft.fft(x).T.contiguous()),
-    ):
-        ms = time_ms(kernel, reps=20)
-        record = {"name": name, "route": "cuda", "source": source,
-                  "replaces": replaces, "launches": None,
-                  "max_abs_err": worst[name], "ms": ms,
-                  "plain_ms": time_ms(plain, reps=3, warmup=1),
-                  **bound, "library_ms": time_ms(library, reps=20),
-                  "shape": [rows, n], "bytes": nbytes, "flops": flops}
-        record["max_err"] = record["max_abs_err"]
-        record["kernel_ms"] = record["ms"]
-        records.append(record)
-    return records
+    xr = random_real(gen, rows, n)
+    # Complex row FFT: rows*n*8 bytes read once and written once.
+    complex_limits = bound(2 * rows * n * 8, 5.0 * rows * n * math.log2(n))
+    # Packed real row FFT: rows*n*4 read, rows*nh*8 written; one complex FFT
+    # per row pair plus the split (8 operations per bin of a pair).
+    real_limits = bound(rows * n * 4 + rows * nh * 8,
+                        5.0 * (rows / 2) * n * math.log2(n) + 8.0 * (rows / 2) * nh)
+    # Transpose of complex64: rows*n*8 read and written, no arithmetic.
+    transpose_limits = bound(2 * rows * n * 8, 0.0)
+    return [
+        kernel_record("fft_rows", "src/repro/kernels/fft/kernel.py:209", MAIN_SHAPE,
+                      worst["fft_rows"], complex_limits,
+                      lambda: fft_rows_op(x, radix=4),
+                      lambda: fft_rows_plain(x, radix=4),
+                      lambda: torch.fft.fft(x)),
+        kernel_record("fft_rows_transpose", "src/repro/kernels/fused/kernel.py:64",
+                      MAIN_SHAPE, worst["fft_rows_transpose"], complex_limits,
+                      lambda: fft_rows_transpose_op(x, radix=4),
+                      lambda: fft_rows_transpose_plain(x, radix=4),
+                      lambda: torch.fft.fft(x).T.contiguous()),
+        kernel_record("rfft_rows", "src/repro/kernels/fft/real.py:91", MAIN_SHAPE,
+                      worst["rfft_rows"], real_limits,
+                      lambda: rfft_rows_op(xr),
+                      lambda: rfft_rows_plain(xr, radix=4),
+                      lambda: torch.fft.rfft(xr)),
+        kernel_record("rfft_rows_transpose", "src/repro/kernels/fused/real.py:58",
+                      MAIN_SHAPE, worst["rfft_rows_transpose"], real_limits,
+                      lambda: rfft_rows_transpose_op(xr),
+                      lambda: rfft_rows_transpose_plain(xr, radix=4),
+                      lambda: torch.fft.rfft(xr).T.contiguous()),
+        kernel_record("transpose", "src/repro/kernels/transpose/kernel.py:31",
+                      MAIN_SHAPE, worst["transpose"], transpose_limits,
+                      lambda: transpose_op(x),
+                      lambda: transpose_plain(x),
+                      lambda: x.T.contiguous()),
+    ]
+
+
+def check_real_kernels(gen: torch.Generator, worst: dict) -> None:
+    """K3 and K4 against their plain versions and ``torch.fft.rfft`` (and its
+    transposed copy) on unit-variance float32 rows, ``atol = 1e-3·sqrt(n)``;
+    ``worst`` gets the errors against the plain versions at the main shape."""
+    for rows, n in REAL_KERNEL_SHAPES:
+        x = random_real(gen, rows, n)
+        tol = 1e-3 * math.sqrt(n)
+        lib = torch.fft.rfft(x)
+        for radix in (2, 4):
+            plain = rfft_rows_plain(x, radix=radix)
+            got = rfft_rows_op(x, radix=radix)
+            got_t = rfft_rows_transpose_op(x, radix=radix)
+            torch.cuda.synchronize()
+            errs = {"rfft_rows_err": max_abs_err(got, plain),
+                    "rfft_rows_transpose_err": max_abs_err(got_t, plain.T),
+                    "rfft_rows_vs_library_err": max_abs_err(got, lib),
+                    "rfft_rows_transpose_vs_library_err": max_abs_err(got_t, lib.T)}
+            log("kernels", rows=rows, n=n, radix=radix, atol=tol, **errs)
+            if max(errs.values()) > tol:
+                raise AssertionError(
+                    f"real kernel disagrees at rows={rows} n={n} radix={radix}: "
+                    f"{errs} > {tol}")
+            if (rows, n) == MAIN_SHAPE and radix == 4:
+                worst["rfft_rows"] = errs["rfft_rows_err"]
+                worst["rfft_rows_transpose"] = errs["rfft_rows_transpose_err"]
+            del plain, got, got_t
+        del x, lib
+
+
+def check_transpose(gen: torch.Generator, worst: dict) -> None:
+    """K5 bit for bit against its plain version and ``x.T.contiguous()``:
+    float32 and complex64 at every shape, the other element sizes at the
+    small ones."""
+    worst["transpose"] = 0.0
+    for r, c in TRANSPOSE_SHAPES:
+        dtypes = [torch.float32, torch.complex64]
+        if r * c < 1 << 20:
+            dtypes += TRANSPOSE_OTHER_DTYPES
+        for dtype in dtypes:
+            x = random_real(gen, r, c)
+            if dtype.is_complex:
+                x = torch.complex(x, random_real(gen, r, c))
+            x = (x * 100).to(dtype)
+            got = transpose_op(x)
+            torch.cuda.synchronize()
+            exact = (torch.equal(got, transpose_plain(x))
+                     and torch.equal(got, x.T.contiguous()))
+            log("kernels", transpose=[r, c], dtype=str(dtype).removeprefix("torch."),
+                bit_exact=exact)
+            if not exact:
+                raise AssertionError(f"transpose differs at {(r, c)} {dtype}")
+            del x, got
 
 
 def measured_fpms(n: int) -> tuple[FPMSet, FPMSet]:
@@ -244,6 +358,8 @@ def padded_oracle(signal: torch.Tensor, d, pads) -> torch.Tensor:
     def phase(mat: torch.Tensor) -> torch.Tensor:
         parts, off = [], 0
         for rows, length in zip(d.tolist(), pads.tolist()):
+            if rows == 0:  # an idle processor: no rows, no transform
+                continue
             seg = mat[off:off + rows]
             if length > n:
                 seg = torch.nn.functional.pad(seg, (0, length - n))
@@ -255,16 +371,18 @@ def padded_oracle(signal: torch.Tensor, d, pads) -> torch.Tensor:
 
 
 def check_execute(plan, signal, oracle, label: str, expect: dict[str, int],
-                  runs: list[tuple]) -> None:
+                  runs: list[tuple], phase: str = "main_path") -> None:
     """One execute of ``plan``: right against ``oracle``, and through the
-    kernels exactly as often as ``expect`` says (launch-count deltas)."""
+    kernels exactly as often as ``expect`` says (launch-count deltas; a
+    kernel ``expect`` does not name must not launch)."""
     before = launch_counts()
     out = plan.execute(signal)
     torch.cuda.synchronize()
     delta = {k: v - before[k] for k, v in launch_counts().items()}
+    expect = {k: expect.get(k, 0) for k in delta}
     tol = 2e-4 * plan.n
     err = max_abs_err(out, oracle)
-    log("main_path", run=label, method=plan.method, n=plan.n,
+    log(phase, run=label, method=plan.method, n=plan.n,
         config=plan.config.describe(), d=plan.d.tolist(),
         pad_lengths=None if plan.pad_lengths is None else plan.pad_lengths.tolist(),
         schedule=plan.schedule.describe(), max_abs_err=err, atol=tol,
@@ -276,16 +394,8 @@ def check_execute(plan, signal, oracle, label: str, expect: dict[str, int],
     runs.append((label, plan, signal, delta))
 
 
-def phase_main_path(gen: torch.Generator) -> tuple[dict[str, int], list[tuple]]:
-    """Drive the main path once, with the launch counts set to 0 just before
-    and read just after.  Returns the counts and the checked runs (for the
-    timing pass, which is not part of the counted drive)."""
-    library = PlanConfig()
-    kernel = PlanConfig(radix=4)
-    fused = PlanConfig(fused=True)
-    none = {"fft_rows": 0, "fft_rows_transpose": 0}
-    runs: list[tuple] = []
-
+def phase_fpms() -> dict[int, tuple[FPMSet, FPMSet]]:
+    """The FPMs of both paths, timed on the card before any counted drive."""
     fpms = {}
     for n in (N_UNPADDED, N_PADDED):
         t0 = time.perf_counter()
@@ -294,6 +404,29 @@ def phase_main_path(gen: torch.Generator) -> tuple[dict[str, int], list[tuple]]:
         log("main_path", step="fpm", n=n, seconds=round(time.perf_counter() - t0, 2),
             xs=homo[0].xs.tolist(), ys=homo[0].ys.tolist(),
             gflops=np.round(homo[0].speed / 1e9, 1).tolist())
+    return fpms
+
+
+def end_drive(path: str, kernels: tuple[str, ...]) -> dict[str, int]:
+    """Read the counts just after a path's drive; each of its kernels must
+    have launched."""
+    counts = launch_counts()
+    log(path, launches=counts)
+    for name in kernels:
+        if counts[name] < 1:
+            raise AssertionError(f"the {path} path never launched {name}")
+    return counts
+
+
+def phase_main_path(gen: torch.Generator, fpms) -> tuple[dict[str, int], list[tuple]]:
+    """Drive the complex main path once, with the launch counts set to 0 just
+    before and read just after.  Returns the counts and the checked runs (for
+    the timing pass, which is not part of the counted drive)."""
+    library = PlanConfig()
+    kernel = PlanConfig(radix=4)
+    fused = PlanConfig(fused=True)
+    none: dict[str, int] = {}
+    runs: list[tuple] = []
 
     reset_launch_counts()          # ---- the main path's single drive starts
 
@@ -367,26 +500,158 @@ def phase_main_path(gen: torch.Generator) -> tuple[dict[str, int], list[tuple]]:
     if len(outs) != 3 or err > 2e-4 * n:
         raise AssertionError(f"execute_many: {len(outs)} results, error {err}")
 
-    counts = launch_counts()       # ---- the main path's single drive ends
-    for name, count in counts.items():
-        if count < 1:
-            raise AssertionError(f"the main path never launched {name}")
-    return counts, runs
+    # ---- the main path's single drive ends
+    return end_drive("main_path", ("fft_rows", "fft_rows_transpose")), runs
+
+
+def phase_main_path_real(gen: torch.Generator, fpms) -> tuple[dict[str, int], list[tuple]]:
+    """Drive the real-input path once (``rfft-*`` plans, ``rfft2`` /
+    ``irfft2``), with the launch counts set to 0 just before and read just
+    after.  Returns the counts and the checked runs."""
+    library = PlanConfig()
+    kernel = PlanConfig(radix=4)
+    fused = PlanConfig(fused=True)
+    unfused_kernels = {"rfft_rows": 1, "fft_rows": 1}
+    fused_kernels = {"rfft_rows_transpose": 1, "fft_rows_transpose": 1}
+    runs: list[tuple] = []
+
+    reset_launch_counts()          # ---- the real path's single drive starts
+
+    # rfft-lb and rfft-fpm at the full width, against torch.fft.rfft2.  Both
+    # phases are one dispatch group each (phase 2 covers N//2+1 rows).
+    n = N_UNPADDED
+    signal = random_real(gen, n, n)
+    oracle = torch.fft.rfft2(signal)
+    homo, hetero = fpms[n]
+    for method, kwargs in (("rfft-lb", {"p": P}), ("rfft-fpm", {"fpms": homo}),
+                           ("rfft-fpm", {"fpms": hetero})):
+        tag = method + ("-hetero" if kwargs.get("fpms") is hetero else "")
+        for cfg, expect in ((library, {}), (kernel, unfused_kernels),
+                            (fused, fused_kernels)):
+            plan = plan_pfft(n, method=method, config=cfg, dtype="float32", **kwargs)
+            check_execute(plan, signal, oracle, f"{tag}/{cfg.describe()}",
+                          expect, runs, "main_path_real")
+    del oracle
+
+    # rfft-fpm-pad at N = 4096 (padded-signal semantics): against the complex
+    # fpm-pad plan's half spectrum on the upcast signal and against the
+    # library-only padded oracle.  Under the kernel config every power-of-two
+    # group of phase 1 goes to K3 and of the clipped phase 2 to K1.
+    n = N_PADDED
+    nh = n // 2 + 1
+    signal = random_real(gen, n, n)
+    homo, hetero = fpms[n]
+    for tag, model in (("rfft-fpm-pad", homo), ("rfft-fpm-pad-hetero", hetero)):
+        ref_plan = plan_pfft(n, method="fpm-pad", fpms=model, config=library)
+        plan = plan_pfft(n, method="rfft-fpm-pad", fpms=model, config=library,
+                         dtype="float32")
+        busy = plan.d > 0
+        if not np.array_equal(plan.pad_lengths[busy], ref_plan.pad_lengths[busy]):
+            raise AssertionError(f"{tag}: real pads {plan.pad_lengths} differ "
+                                 f"from complex pads {ref_plan.pad_lengths}")
+        upcast = signal.to(torch.complex64)
+        ref = ref_plan.execute(upcast)[:, :nh]
+        err = max_abs_err(ref, padded_oracle(upcast, plan.d, plan.pad_lengths)[:, :nh])
+        if err > 2e-4 * n:
+            raise AssertionError(f"{tag}: complex plan vs padded oracle {err}")
+        check_execute(plan, signal, ref, f"{tag}/{library.describe()}", {}, runs,
+                      "main_path_real")
+        plan = plan_pfft(n, method="rfft-fpm-pad", fpms=model, config=kernel,
+                         dtype="float32")
+        groups1, groups2 = plan._groups
+        pow2 = [sum(1 for length, *_ in g if not length & (length - 1))
+                for g in (groups1, groups2)]
+        check_execute(plan, signal, ref, f"{tag}/{kernel.describe()}",
+                      {"rfft_rows": pow2[0], "fft_rows": pow2[1]}, runs,
+                      "main_path_real")
+    hetero_pads = plan_pfft(n, method="rfft-fpm-pad", fpms=hetero,
+                            dtype="float32").pad_lengths.tolist()
+    if not any(length > n for length in hetero_pads):
+        raise AssertionError(f"the padded real run did not pad: {hetero_pads}")
+    del ref, upcast
+
+    # A (2, N, N) real batch (launches double), execute_many of three host
+    # signals, and irfft2(rfft2(x)) at the full width.
+    n = N_BATCH
+    batch = random_real(gen, 2, n, n)
+    oracle = torch.fft.rfft2(batch)
+    for cfg, expect in ((kernel, {"rfft_rows": 2, "fft_rows": 2}),
+                        (fused, {"rfft_rows_transpose": 2, "fft_rows_transpose": 2})):
+        plan = plan_pfft(n, p=P, method="rfft-lb", config=cfg, dtype="float32")
+        check_execute(plan, batch, oracle, f"batch2-rfft-lb/{cfg.describe()}",
+                      expect, runs, "main_path_real")
+    rng = np.random.default_rng(SEED)
+    hosts = [rng.standard_normal((n, n)).astype(np.float32) for _ in range(3)]
+    plan = plan_pfft(n, p=P, method="rfft-lb", config=fused, dtype="float32")
+    outs = plan.execute_many(hosts, pad_to=4)
+    err = max(float(np.abs(o - np.fft.rfft2(h)).max()) for o, h in zip(outs, hosts))
+    log("main_path_real", run="execute_many/3 of 4", n=n, max_abs_err=err,
+        atol=2e-4 * n)
+    if len(outs) != 3 or err > 2e-4 * n or outs[0].shape != (n, n // 2 + 1):
+        raise AssertionError(f"execute_many: {len(outs)} results, error {err}")
+
+    n = N_UNPADDED
+    x = random_real(gen, n, n)
+    back = irfft2(rfft2(x))
+    torch.cuda.synchronize()
+    err = max_abs_err(back, x)
+    log("main_path_real", run="irfft2(rfft2(x))", n=n, max_abs_err=err, atol=1e-4)
+    if err > 1e-4 or back.dtype != torch.float32:
+        raise AssertionError(f"irfft2(rfft2(x)): error {err}, dtype {back.dtype}")
+    del x, back
+
+    # ---- the real path's single drive ends
+    return end_drive("main_path_real", ("rfft_rows", "rfft_rows_transpose",
+                                        "fft_rows", "fft_rows_transpose")), runs
+
+
+def phase_microbench_fused(gen: torch.Generator, card: str) -> dict[str, int]:
+    """The reference microbenchmark's ``fused`` sweep: the unfused phase
+    ``transpose_op(fft_rows_op(m))`` (two launches) against the fused
+    ``fft_rows_transpose_op(m)`` (one), checked equal, then timed.  The
+    counted drive is the check; the timing follows it."""
+    reset_launch_counts()          # ---- the microbenchmark's drive starts
+    signals = {}
+    for n in MICROBENCH_N:
+        m = random_signal(gen, n, n)
+        unfused = transpose_op(fft_rows_op(m))
+        fused = fft_rows_transpose_op(m)
+        torch.cuda.synchronize()
+        tol = 1e-3 * math.sqrt(n)
+        errs = {"unfused_vs_fused_err": max_abs_err(unfused, fused),
+                "fused_vs_library_err": max_abs_err(fused, torch.fft.fft(m).T)}
+        log("microbench_fused", n=n, atol=tol, **errs)
+        if max(errs.values()) > tol:
+            raise AssertionError(f"microbench_fused at n={n}: {errs} > {tol}")
+        signals[n] = m
+        del unfused, fused
+    counts = end_drive("microbench_fused", ("fft_rows", "fft_rows_transpose",
+                                            "transpose"))
+    for n, m in signals.items():
+        log("microbench_fused", card=card, n=n,
+            unfused_ms=time_ms(lambda: transpose_op(fft_rows_op(m)), reps=20),
+            fused_ms=time_ms(lambda: fft_rows_transpose_op(m), reps=20),
+            torch_fft_T_contiguous_ms=time_ms(lambda: torch.fft.fft(m).T.contiguous(),
+                                              reps=20))
+    return counts
 
 
 def time_runs(runs: list[tuple], card: str) -> None:
-    """Median time of each checked execute beside ``torch.fft.fft2``'s on the
-    same signal.  Runs after the launch counts were read."""
-    fft2_ms: dict[int, float] = {}
+    """Median time of each checked execute beside the library's 2-D FFT on
+    the same signal (``torch.fft.fft2``, or ``torch.fft.rfft2`` for a real
+    signal).  Runs after the launch counts were read."""
+    library_ms: dict[int, float] = {}
     for label, plan, signal, delta in runs:
-        if id(signal) not in fft2_ms:
-            fft2_ms[id(signal)] = time_ms(lambda: torch.fft.fft2(signal),
-                                          reps=5, warmup=1)
+        real = not signal.is_complex()
+        library = torch.fft.rfft2 if real else torch.fft.fft2
+        if id(signal) not in library_ms:
+            library_ms[id(signal)] = time_ms(lambda: library(signal), reps=5, warmup=1)
+        key = "torch_rfft2_ms" if real else "torch_fft2_ms"
         log("main_path_time", card=card, run=label, method=plan.method,
             n=plan.n, batch=list(signal.shape[:-2]),
             config=plan.config.describe(), launches=delta,
             execute_ms=time_ms(lambda: plan.execute(signal), reps=5, warmup=1),
-            torch_fft2_ms=fft2_ms[id(signal)])
+            **{key: library_ms[id(signal)]})
 
 
 def main() -> None:
@@ -397,10 +662,17 @@ def main() -> None:
     card = phase_env()
     phase_build()
     records = phase_kernels(gen)
-    counts, runs = phase_main_path(gen)
+    fpms = phase_fpms()
+    complex_counts, runs = phase_main_path(gen, fpms)
+    real_counts, real_runs = phase_main_path_real(gen, fpms)
+    bench_counts = phase_microbench_fused(gen, card)
     for record in records:
-        record["launches"] = counts[record["name"]]
-    time_runs(runs, card)
+        by_path = {"main_path": complex_counts[record["name"]],
+                   "main_path_real": real_counts[record["name"]],
+                   "microbench_fused": bench_counts[record["name"]]}
+        record["launches"] = sum(by_path.values())
+        record["launches_by_path"] = by_path
+    time_runs(runs + real_runs, card)
     log("done", seconds=round(time.perf_counter() - t0, 1),
         peak_memory_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2))
     print(card, flush=True)

@@ -4,10 +4,11 @@
     python3 examples/kernel_check_torch.py
 
 Compiles each ``.cu`` with ``-Xptxas -v`` (registers, shared memory, spills),
-builds and loads the library, compares both kernels with their plain PyTorch
-versions and with ``torch.fft`` at a few shapes, then times them beside the
-library and the plain copies over a sweep of row lengths at a fixed 2^26
-elements (512 MiB of complex64).  The run to make after touching a CUDA
+builds and loads the library, compares every kernel with its plain PyTorch
+version and with ``torch.fft`` (the transpose: bit for bit with
+``x.T.contiguous()``) at a few shapes, then times them beside the library and
+the plain copies over a sweep of row lengths at a fixed 2^26 elements (512 MiB
+of complex64, 256 MiB of float32 for the real kernels).  The run to make after touching a CUDA
 source and before the full ``chip_smoke.py``.  Needs one CUDA device and
 ``nvcc``; exits non-zero without them or when a kernel disagrees.
 """
@@ -32,11 +33,19 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", "src"))
 
 from repro_torch.kernels import (_build, fft_rows_op,  # noqa: E402
-                                 fft_rows_transpose_op)
+                                 fft_rows_transpose_op, rfft_rows_op,
+                                 rfft_rows_transpose_op, transpose_op)
 from repro_torch.kernels.fft.kernel import fft_rows_plain  # noqa: E402
+from repro_torch.kernels.fft.real import rfft_rows_plain  # noqa: E402
+from repro_torch.kernels.transpose.kernel import transpose_plain  # noqa: E402
 
 SHAPES = [(64, 2), (64, 4), (64, 8), (37, 1024), (100, 2048), (256, 4096),
           (1024, 8192)]
+REAL_SHAPES = [(1, 2), (3, 4), (64, 8), (37, 1024), (101, 2048), (255, 4096),
+               (1023, 8192)]
+TRANSPOSE_SHAPES = [(1, 1), (37, 129), (1000, 3), (257, 4099)]
+TRANSPOSE_DTYPES = [torch.uint8, torch.float16, torch.float32, torch.complex64,
+                    torch.complex128]
 SWEEP_ELEMENTS = 1 << 26
 SWEEP_LENGTHS = [64, 256, 1024, 2048, 4096, 8192]
 
@@ -101,6 +110,39 @@ def main() -> None:
                 if max(errs.values()) > tol:
                     sys.exit(f"kernel disagrees: {errs} > {tol}")
 
+    for rows, n in REAL_SHAPES:
+        x = torch.randn(rows, n, generator=gen, device="cuda")
+        tol = 1e-3 * n ** 0.5
+        lib = torch.fft.rfft(x)
+        for radix in (2, 4):
+            plain = rfft_rows_plain(x, radix=radix)
+            k3 = rfft_rows_op(x, radix=radix)
+            k4 = rfft_rows_transpose_op(x, radix=radix)
+            torch.cuda.synchronize()
+            errs = {"k3_vs_plain": float((k3 - plain).abs().max()),
+                    "k4_vs_plain": float((k4 - plain.T).abs().max()),
+                    "k3_vs_library": float((k3 - lib).abs().max()),
+                    "k4_vs_library": float((k4 - lib.T).abs().max())}
+            print(json.dumps({"rows": rows, "n": n, "radix": radix, "atol": tol,
+                              **errs}), flush=True)
+            if max(errs.values()) > tol:
+                sys.exit(f"real kernel disagrees: {errs} > {tol}")
+
+    for r, c in TRANSPOSE_SHAPES:
+        for dtype in TRANSPOSE_DTYPES:
+            x = torch.randn(r, c, generator=gen, device="cuda",
+                            dtype=torch.float64 if dtype == torch.complex128
+                            else torch.float32)
+            x = (torch.complex(x, -x) if dtype.is_complex else x * 50).to(dtype)
+            got = transpose_op(x)
+            torch.cuda.synchronize()
+            exact = (torch.equal(got, x.T.contiguous())
+                     and torch.equal(got, transpose_plain(x)))
+            print(json.dumps({"transpose": [r, c], "dtype": str(dtype),
+                              "bit_exact": exact}), flush=True)
+            if not exact:
+                sys.exit(f"transpose differs at {(r, c)} {dtype}")
+
     for n in SWEEP_LENGTHS:
         x = torch.randn(SWEEP_ELEMENTS // n, n, dtype=torch.complex64, device="cuda")
         print(json.dumps({
@@ -112,7 +154,17 @@ def main() -> None:
             "torch_fft_T_contiguous_ms": time_ms(
                 lambda: torch.fft.fft(x).T.contiguous()),
             "T_contiguous_ms": time_ms(lambda: x.T.contiguous()),
+            "transpose_op_ms": time_ms(lambda: transpose_op(x)),
             "clone_ms": time_ms(lambda: x.clone())}), flush=True)
+        xr = torch.randn(SWEEP_ELEMENTS // n, n, device="cuda")
+        print(json.dumps({
+            "card": card, "rows": xr.shape[0], "n": n, "dtype": "float32",
+            "rfft_rows_ms": time_ms(lambda: rfft_rows_op(xr)),
+            "rfft_rows_transpose_ms": time_ms(lambda: rfft_rows_transpose_op(xr)),
+            "torch_rfft_ms": time_ms(lambda: torch.fft.rfft(xr)),
+            "torch_rfft_T_contiguous_ms": time_ms(
+                lambda: torch.fft.rfft(xr).T.contiguous())}), flush=True)
+        del x, xr
     print("OK")
 
 

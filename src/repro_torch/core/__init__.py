@@ -5,8 +5,10 @@ from repro_torch.core.fpm import SpeedFunction, FPMSet, build_fpm, save_fpms, lo
 from repro_torch.core.partition import PartitionResult, popta, hpopta, lb_partition, partition_rows
 from repro_torch.core.padding import determine_pad_length, smooth_candidates, pad_to_smooth, is_smooth
 from repro_torch.core.pfft import (pfft_lb, pfft_fpm, pfft_fpm_pad, pfft_fpm_czt,
-                                   czt_dft, segment_row_ffts, plan_segment_batches)
-from repro_torch.core.api import plan_pfft, PfftPlan
+                                   czt_dft, segment_row_ffts, plan_segment_batches,
+                                   rpfft_lb, rpfft_fpm, rpfft_fpm_pad,
+                                   halfspec_distribution, segment_row_rffts)
+from repro_torch.core.api import plan_pfft, PfftPlan, rfft2, irfft2
 from repro_torch.plan.config import PlanConfig
 
 __all__ = [
@@ -15,5 +17,7 @@ __all__ = [
     "determine_pad_length", "smooth_candidates", "pad_to_smooth", "is_smooth",
     "pfft_lb", "pfft_fpm", "pfft_fpm_pad", "pfft_fpm_czt", "czt_dft",
     "segment_row_ffts", "plan_segment_batches",
-    "plan_pfft", "PfftPlan", "PlanConfig",
+    "rpfft_lb", "rpfft_fpm", "rpfft_fpm_pad",
+    "halfspec_distribution", "segment_row_rffts",
+    "plan_pfft", "PfftPlan", "rfft2", "irfft2", "PlanConfig",
 ]

@@ -4,7 +4,7 @@
                      config=PlanConfig(radix=4))
     out  = plan.execute(signal)     # reusable
 
-Counterpart of ``repro.core.api`` for the 2-D complex methods.  The plan
+Counterpart of ``repro.core.api`` for the 2-D methods.  The plan
 captures everything host-side once — the partition ``d``, the pad lengths,
 the execution schedule (``SegmentSchedule``: one ``PlanConfig`` per segment)
 *and* the dispatch groups' row-index tensors, already on the plan's device —
@@ -12,14 +12,16 @@ so ``execute`` only launches device work: the analogue of building an fftw
 plan once and calling ``fftw_execute`` repeatedly.  A single explicit
 ``config=`` becomes the degenerate one-entry-per-segment schedule.
 
+The ``rfft-*`` methods plan the real-input transform: ``execute`` takes a
+real (N, N) signal and returns its (N, N//2+1) half spectrum.
+
 A plan lives on one device: ``device=None`` is the CUDA device and raises
 when there is none; ``device="cpu"`` runs the kernels' plain PyTorch
 versions on the host.
 
 Not in this package yet, and refused with ``NotImplementedError`` rather than
 quietly ignored: ``tune="estimate"|"measure"`` and ``wisdom=`` (the planner
-slice), ``mesh=`` (the distributed slice), and the ``rfft-*`` methods (the
-real-input slice).
+slice) and ``mesh=`` (the distributed slice).
 """
 
 from __future__ import annotations
@@ -34,18 +36,50 @@ import torch
 from repro_torch._device import as_tensor, resolve_device
 from repro_torch.core.fpm import FPMSet
 from repro_torch.core.partition import PartitionResult, lb_partition, partition_rows
-from repro_torch.core.pfft import _pfft_limb, device_groups
+from repro_torch.core.pfft import (_pfft_limb, _rpfft_limb, device_groups,
+                                   real_limb_groups)
 from repro_torch.plan.config import PlanConfig, normalize_pad
 from repro_torch.plan.schedule import SegmentSchedule
 
-Method = Literal["lb", "fpm", "fpm-pad", "fpm-czt"]
+Method = Literal["lb", "fpm", "fpm-pad", "fpm-czt",
+                 "rfft-lb", "rfft-fpm", "rfft-fpm-pad"]
 TuneMode = Literal["off", "estimate", "measure"]
 
 _PAD_STRATEGY = {"lb": "none", "fpm": "none", "fpm-pad": "fpm",
-                 "fpm-czt": "czt"}
+                 "fpm-czt": "czt",
+                 "rfft-lb": "none", "rfft-fpm": "none", "rfft-fpm-pad": "fpm"}
+
+# The real-input half-spectrum pipeline: same partition/pad machinery as the
+# base method (the name after the ``rfft-`` prefix), but the plan transforms
+# a real (N, N) signal into its (N, N//2+1) half spectrum.  The executor
+# routes on the schedule's ``real`` flag: a real-flagged schedule runs the
+# half-spectrum limb, a complex-family one upcasts and crops to the same
+# deliverable.  No ``rfft-fpm-czt``: the real pipeline has no Bluestein form.
 _REAL_METHODS = frozenset({"rfft-lb", "rfft-fpm", "rfft-fpm-pad"})
 
-__all__ = ["PfftPlan", "plan_pfft"]
+__all__ = ["PfftPlan", "plan_pfft", "rfft2", "irfft2"]
+
+
+def _base_method(method: str) -> str:
+    """The partitioning family a method uses: ``rfft-fpm-pad`` pads and
+    partitions exactly like ``fpm-pad``; the prefix only changes what the
+    transform delivers."""
+    return method[5:] if method in _REAL_METHODS else method
+
+
+def _ctype_for(dtype: str) -> torch.dtype:
+    return (torch.complex128 if np.dtype(dtype) == np.dtype(np.float64)
+            else torch.complex64)
+
+
+def _plan_groups(method: str, schedule: SegmentSchedule, d: np.ndarray,
+                 device: torch.device):
+    """The dispatch groups the plan's executor runs, made once on its
+    device: the real limb's two phases for a real-flagged schedule of a
+    real method, else the complex limb's."""
+    if method in _REAL_METHODS and schedule.anchor_config.real:
+        return real_limb_groups(schedule, d, device)
+    return device_groups(schedule, device)
 
 
 @dataclasses.dataclass
@@ -58,16 +92,28 @@ class PfftPlan:
     schedule: SegmentSchedule
     tuning: dict[str, Any]
     device: torch.device
-    # The planned input dtype name ("complex64" | "complex128").
+    # The planned input dtype name ("complex64" | "complex128", or
+    # "float32" | "float64" for the rfft-* methods).
     dtype: str = "complex64"
-    # schedule.batch_groups() with the row indices as tensors on ``device``,
-    # made once here so that execute copies no index to the device.
-    _groups: list[tuple] = dataclasses.field(default_factory=list, repr=False,
-                                             compare=False)
+    # The dispatch groups with the row indices as tensors on ``device``
+    # (``_plan_groups``), made once here so that execute copies no index to
+    # the device.
+    _groups: Any = dataclasses.field(default_factory=list, repr=False,
+                                     compare=False)
 
     def _run(self, m: torch.Tensor) -> torch.Tensor:
-        return _pfft_limb(m, self.partition.d, schedule=self.schedule,
-                          groups=self._groups)
+        """Route as the reference's ``_build_raw`` does: a real method with
+        a real-flagged schedule runs the half-spectrum limb; one with a
+        complex-family schedule upcasts, runs the complex limb and crops."""
+        d = self.partition.d
+        if self.method in _REAL_METHODS:
+            if self.schedule.anchor_config.real:
+                return _rpfft_limb(m, d, schedule=self.schedule,
+                                   groups=self._groups)
+            return _pfft_limb(m.to(_ctype_for(self.dtype)), d,
+                              schedule=self.schedule,
+                              groups=self._groups)[:, :self.n // 2 + 1]
+        return _pfft_limb(m, d, schedule=self.schedule, groups=self._groups)
 
     def execute(self, m) -> torch.Tensor:
         """Run the planned transform; leading batch dims are looped.
@@ -75,7 +121,9 @@ class PfftPlan:
         ``m``: ``(..., n, n)``, a tensor on the plan's device or a host
         array (copied there).  A batch gives what transforming each
         ``(n, n)`` signal alone gives, stacked — the fused kernel takes one
-        matrix at a time, so the batch is a loop of launches.
+        matrix at a time, so the batch is a loop of launches.  The result
+        is ``(..., n, n)``, or ``(..., n, n//2+1)`` for the ``rfft-*``
+        methods.
         """
         if not isinstance(m, torch.Tensor):
             m = as_tensor(m, self.device)
@@ -92,7 +140,7 @@ class PfftPlan:
         lead = m.shape[:-2]
         flat = m.reshape((-1, self.n, self.n))
         out = torch.stack([self._run(x) for x in flat])
-        return out.reshape(lead + (self.n, self.n))
+        return out.reshape(lead + out.shape[1:])
 
     def execute_many(self, ms, *, pad_to: int | None = None) -> list:
         """Serve a cohort: stack same-size signals into ONE batched execute.
@@ -130,7 +178,8 @@ class PfftPlan:
         return dataclasses.replace(
             self, schedule=schedule, config=schedule.anchor_config,
             tuning=dict(tuning) if tuning is not None else dict(self.tuning),
-            _groups=device_groups(schedule, self.device))
+            _groups=_plan_groups(self.method, schedule, self.partition.d,
+                                 self.device))
 
 
 def _resolve_schedule(n: int, method: Method, part: PartitionResult,
@@ -140,12 +189,17 @@ def _resolve_schedule(n: int, method: Method, part: PartitionResult,
     config, else the default (library FFT, batched dispatch).  The method
     owns the pad semantics (``normalize_pad``): an explicit ``PlanConfig()``
     on fpm-czt still runs Bluestein and a drifted ``pad="czt"`` on fpm-pad
-    still runs the paper's crop."""
+    still runs the paper's crop.  Real methods also own the transform: an
+    explicit config is real-flagged so the executor runs the half-spectrum
+    pipeline."""
     pad_strategy = _PAD_STRATEGY[method]
+    real = method in _REAL_METHODS
     if config is not None:
         cfg, source = normalize_pad(config, pad_strategy), "explicit"
+        if real and not cfg.real:
+            cfg = dataclasses.replace(cfg, real=True)
     else:
-        cfg, source = PlanConfig(pad=pad_strategy), "off"
+        cfg, source = PlanConfig(pad=pad_strategy, real=real), "off"
     return (SegmentSchedule.homogeneous(cfg, n, part.d, pads),
             {"mode": "off", "source": source})
 
@@ -160,17 +214,15 @@ def plan_pfft(n: int, *, p: int | None = None, fpms: FPMSet | None = None,
     """Build a reusable plan; see the module docstring for the lifecycle.
 
     ``method``: ``"lb"`` (needs ``p``), ``"fpm"``, ``"fpm-pad"``,
-    ``"fpm-czt"`` (need ``fpms``).  ``config`` picks the execution variant
-    (default: library FFT).  ``use_stockham=``/``fused=`` are deprecated
-    shims for the legacy flag API (they build an explicit config).
+    ``"fpm-czt"`` (need ``fpms``), and their real-input forms
+    ``"rfft-lb"``, ``"rfft-fpm"``, ``"rfft-fpm-pad"`` (``dtype="float32"``
+    or ``"float64"``; ``execute`` returns the (N, N//2+1) half spectrum).
+    ``config`` picks the execution variant (default: library FFT).
+    ``use_stockham=``/``fused=`` are deprecated shims for the legacy flag
+    API (they build an explicit config).
     """
     if tune not in ("off", "estimate", "measure"):
         raise ValueError(f"tune must be 'off'|'estimate'|'measure', got {tune!r}")
-    if method in _REAL_METHODS:
-        raise NotImplementedError(
-            f"method={method!r}: the real-input pipeline is not in "
-            "repro_torch yet; it comes with the slice that ports the "
-            "packed-real kernels (rfft_rows, rfft_rows_transpose)")
     if method not in _PAD_STRATEGY:
         raise ValueError(f"unknown method {method!r}")
     if tune != "off":
@@ -186,10 +238,17 @@ def plan_pfft(n: int, *, p: int | None = None, fpms: FPMSet | None = None,
         raise NotImplementedError(
             "mesh=: distributed plans are not in repro_torch yet; they come "
             "with the distributed slice")
-    if np.dtype(dtype).kind != "c":
+    real = method in _REAL_METHODS
+    base = _base_method(method)
+    kind = np.dtype(dtype).kind
+    if real and kind != "f":
+        raise ValueError(
+            f"method={method!r} transforms real input; pass dtype='float32' "
+            f"or 'float64' (got {dtype!r})")
+    if not real and kind == "f":
         raise ValueError(
             f"method={method!r} transforms complex input (got dtype="
-            f"{dtype!r}); real signals wait for the 'rfft-*' methods")
+            f"{dtype!r}); use an 'rfft-*' method for real signals")
     if use_stockham is not None or fused is not None:
         if config is not None:
             raise ValueError("pass either config= or the legacy flags "
@@ -205,7 +264,7 @@ def plan_pfft(n: int, *, p: int | None = None, fpms: FPMSet | None = None,
             fused=bool(fused) and pad_strategy == "none",
             pad=pad_strategy)
 
-    if method == "lb":
+    if base == "lb":
         if p is None:
             raise ValueError(f"method={method!r} requires p")
         part = lb_partition(n, p)
@@ -214,10 +273,15 @@ def plan_pfft(n: int, *, p: int | None = None, fpms: FPMSet | None = None,
         if fpms is None:
             raise ValueError(f"method={method!r} requires fpms")
         part = partition_rows(n, fpms, eps)
-        if method == "fpm-pad":
+        if base == "fpm-pad" and real:
+            # Even pads only: the half-spectrum crop identity holds for any
+            # length >= n, and the model picks among even beneficial lengths.
+            from repro_torch.plan.pads import rfft_pad_lengths
+            pads = rfft_pad_lengths(fpms, part.d, n)
+        elif base == "fpm-pad":
             from repro_torch.plan.pads import fpm_pad_lengths
             pads = fpm_pad_lengths(fpms, part.d, n)
-        elif method == "fpm-czt":
+        elif base == "fpm-czt":
             from repro_torch.plan.pads import czt_fft_lengths
             pads = czt_fft_lengths(fpms, part.d, n, limit_ratio=2.0)
         else:
@@ -228,4 +292,29 @@ def plan_pfft(n: int, *, p: int | None = None, fpms: FPMSet | None = None,
     return PfftPlan(n=n, method=method, partition=part, pad_lengths=pads,
                     config=schedule.anchor_config, schedule=schedule,
                     tuning=tuning, device=device, dtype=dtype,
-                    _groups=device_groups(schedule, device))
+                    _groups=_plan_groups(method, schedule, part.d, device))
+
+
+def rfft2(m, *, p: int = 1, tune: TuneMode = "off", wisdom: str | None = None,
+          mesh=None) -> torch.Tensor:
+    """One-shot planned real-input 2-D DFT -> (N, N//2+1) half spectrum.
+
+    Builds an ``rfft-lb`` plan for ``m``'s size, dtype and device and
+    executes it once.  A host array goes to the default (CUDA) device.  For
+    the plan-once/run-many lifecycle (or the FPM methods) use
+    ``plan_pfft(method='rfft-...')`` directly.
+    """
+    m = as_tensor(m)
+    if m.ndim < 2 or m.shape[-1] != m.shape[-2]:
+        raise ValueError(f"rfft2 plans square (N, N) signals, got {tuple(m.shape)}")
+    plan = plan_pfft(m.shape[-1], p=p, method="rfft-lb", tune=tune,
+                     wisdom=wisdom, dtype=str(m.dtype).removeprefix("torch."),
+                     mesh=mesh, device=m.device)
+    return plan.execute(m)
+
+
+def irfft2(h, *, n: int | None = None) -> torch.Tensor:
+    """Inverse of ``rfft2``: half spectrum back to the real signal
+    (``repro_torch.fft.irfft2``; pass ``n`` for odd original lengths)."""
+    from repro_torch.fft.fft2d import irfft2 as _irfft2
+    return _irfft2(h, n=n)

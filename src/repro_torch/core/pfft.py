@@ -1,6 +1,6 @@
 """PFFT-LB / PFFT-FPM / PFFT-FPM-PAD — the paper's parallel 2-D DFT methods.
 
-Counterpart of the complex half of ``repro.core.pfft``.  Three layers:
+Counterpart of ``repro.core.pfft``.  Three layers:
 
 1. **Abstract-processor versions** — faithful to the paper's Algorithms
    1/3/6/7: the N rows are split into ``p`` segments per the distribution
@@ -19,15 +19,20 @@ Counterpart of the complex half of ``repro.core.pfft``.  Three layers:
    freedom via the Bluestein/chirp-Z identity: the N-point DFT is computed
    with FFTs of any model-chosen length m >= 2N-1.
 
+The real-input variants (``rpfft_*``, ``_rpfft_limb``) transform a real
+signal into its (N, N//2+1) half spectrum: phase 1 runs packed real row FFTs
+over the N rows, phase 2 complex row FFTs over the N//2+1 surviving spectral
+rows under the prefix-clipped schedule.
+
 Functions take their device from the tensor they are given.  The row phases
 refuse non-contiguous input on the kernel path, so the limb makes each
 transposed copy explicitly (``.T.contiguous()``); its time is part of the
-unfused path's time.  The real-input limbs (``rpfft_*``) wait for the slice
-that ports the packed-real kernels.
+unfused path's time.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import warnings
 
@@ -37,18 +42,25 @@ import torch
 from repro_torch._device import as_tensor, complex_result_type
 from repro_torch.core.fpm import FPMSet
 from repro_torch.core.partition import PartitionResult, lb_partition, partition_rows
-from repro_torch.fft.fft2d import fft_rows, fft_rows_then_transpose
+from repro_torch.fft.fft2d import (fft_rows, fft_rows_then_transpose,
+                                   rfft_rows, rfft_rows_then_transpose)
 from repro_torch.plan.config import PlanConfig, normalize_pad
-from repro_torch.plan.schedule import SegmentSchedule
+from repro_torch.plan.schedule import SegmentPlan, SegmentSchedule
 
 __all__ = [
     "pfft_lb",
     "pfft_fpm",
     "pfft_fpm_pad",
     "pfft_fpm_czt",
+    "rpfft_lb",
+    "rpfft_fpm",
+    "rpfft_fpm_pad",
     "czt_dft",
     "device_groups",
+    "halfspec_distribution",
+    "real_limb_groups",
     "segment_row_ffts",
+    "segment_row_rffts",
     "plan_segment_batches",
 ]
 
@@ -319,6 +331,221 @@ def pfft_fpm_pad(m, fpms: FPMSet, eps: float = 0.05, *,
     part = partition_rows(n, fpms, eps)
     pads = fpm_pad_lengths(fpms, part.d, n)
     out = _pfft_limb(m, part.d, pad_lengths=pads, config=cfg)
+    return (out, part, pads) if return_partition else out
+
+
+# ---------------------------------------------------------------------------
+# Real-input (half-spectrum) variants: rows are real, phase 1 runs rffts
+# (two rows per complex FFT), phase 2 transforms only the N//2+1
+# Hermitian-unique spectral columns.
+# ---------------------------------------------------------------------------
+
+def halfspec_distribution(d: np.ndarray, nh: int) -> np.ndarray:
+    """Clip a row distribution to the first ``nh`` half-spectrum rows.
+
+    Phase 2 of the real pipeline transforms the ``nh = N//2+1`` surviving
+    spectral rows; prefix-clipping keeps spectral row ``j < nh`` on the
+    *same* processor that owns row ``j`` in the complex path, so a padded
+    real transform computes exactly ``complex_result[:, :nh]`` (identical
+    per-row pad lengths).
+    """
+    d = np.asarray(d)
+    offs = np.concatenate([[0], np.cumsum(d)])
+    lo = np.minimum(offs[:-1], nh)
+    hi = np.minimum(offs[1:], nh)
+    return (hi - lo).astype(np.int64)
+
+
+def _clip_schedule(schedule: SegmentSchedule, d: np.ndarray,
+                   nh: int) -> tuple[np.ndarray, SegmentSchedule]:
+    """(clipped distribution, clipped schedule) covering ``nh`` rows.
+
+    Entries keep their index/length/config; rows shrink per
+    ``halfspec_distribution`` and emptied segments drop out.
+    """
+    d2 = halfspec_distribution(d, nh)
+    entries = []
+    for e in schedule.entries:
+        rows = int(d2[e.index])
+        if rows <= 0:
+            continue
+        entries.append(SegmentPlan(index=e.index, rows=rows,
+                                   length=e.length, config=e.config))
+    return d2, SegmentSchedule(n=schedule.n, entries=tuple(entries))
+
+
+def real_limb_groups(schedule: SegmentSchedule, d: np.ndarray,
+                     device: torch.device) -> tuple[list[tuple], list[tuple]]:
+    """The real limb's dispatch groups on ``device``: those of phase 1
+    (``schedule`` over the N real rows) and of phase 2 (the prefix-clipped
+    schedule over the N//2+1 spectral rows).  A plan computes both once."""
+    _, clipped = _clip_schedule(schedule, np.asarray(d), schedule.n // 2 + 1)
+    return device_groups(schedule, device), device_groups(clipped, device)
+
+
+def _group_row_rffts(rows: torch.Tensor, length: int, n: int,
+                     config: PlanConfig, backend: str | None) -> torch.Tensor:
+    """One dispatch group's real phase-1 program: rfft ``rows`` at
+    effective ``length``, cropped to the N//2+1 half spectrum.
+
+    The crop identity: for any pad length L >= N, bins 0..N//2 of the
+    length-L transform are exactly the first N//2+1 bins the complex
+    pad-and-crop path keeps — so the padded real phase equals the padded
+    complex phase's half spectrum, column for column.
+    """
+    nh = n // 2 + 1
+    if config.pad == "czt":
+        raise ValueError("the real pipeline has no Bluestein form "
+                         "(PlanConfig rejects real+czt)")
+    kwargs = config.row_fft_kwargs(backend)
+    if length > n:
+        rows = torch.nn.functional.pad(rows, (0, length - n))
+        return rfft_rows(rows, **kwargs)[:, :nh]
+    return rfft_rows(rows, **kwargs)
+
+
+def segment_row_rffts(m, d: np.ndarray, *, pad_lengths=None,
+                      config: PlanConfig | None = None,
+                      schedule: SegmentSchedule | None = None,
+                      backend: str | None = None,
+                      groups: list[tuple] | None = None) -> torch.Tensor:
+    """Real phase 1: processor i runs row rffts on its d_i real rows.
+
+    The (rows, N) real matrix comes back as the (rows, N//2+1) complex
+    half spectrum; grouping/dispatch semantics are exactly
+    ``segment_row_ffts``'s (same ``SegmentSchedule.batch_groups``), and
+    ``groups`` is ``device_groups(schedule, m.device)`` computed ahead.
+    """
+    m = as_tensor(m)
+    n = m.shape[-1]
+    nh = n // 2 + 1
+    if schedule is not None:
+        if config is not None or pad_lengths is not None:
+            raise ValueError(
+                "segment_row_rffts: pass either schedule= (which carries "
+                "its own lengths) or config=/pad_lengths=, not both")
+    else:
+        if config is None:
+            config = PlanConfig(real=True)
+        schedule = SegmentSchedule.homogeneous(config, n, d, pad_lengths)
+    if int(np.sum(np.asarray(d))) != m.shape[0]:
+        raise ValueError(
+            f"distribution sums to {int(np.sum(np.asarray(d)))} rows, "
+            f"matrix has {m.shape[0]}")
+    if schedule.total_rows != m.shape[0]:
+        raise ValueError(
+            f"schedule covers {schedule.total_rows} rows, "
+            f"matrix has {m.shape[0]}")
+
+    if groups is None:
+        groups = device_groups(schedule, m.device)
+    if len(groups) == 1:
+        length, cfg, idx, _ = groups[0]
+        if len(idx) == m.shape[0] and np.array_equal(idx, np.arange(len(idx))):
+            return _group_row_rffts(m, length, n, cfg, backend)
+    out = torch.empty((m.shape[0], nh), dtype=complex_result_type(m),
+                      device=m.device)
+    for length, cfg, _, idx_t in groups:
+        res = _group_row_rffts(m.index_select(0, idx_t), length, n, cfg, backend)
+        out.index_copy_(0, idx_t, res.to(out.dtype))
+    return out
+
+
+def _rpfft_limb(m, d: np.ndarray, *, pad_lengths=None,
+                config: PlanConfig | None = None,
+                schedule: SegmentSchedule | None = None,
+                groups: tuple[list[tuple], list[tuple]] | None = None
+                ) -> torch.Tensor:
+    """Real PFFT_LIMB: real rows -> T -> complex rows on the half spectrum.
+
+    Returns the (N, N//2+1) half spectrum of the 2-D DFT (``rfft2``
+    layout).  Phase 1 rffts each segment (half the complex FFTs via row
+    packing); phase 2 runs *complex* row FFTs over the nh surviving
+    spectral rows under the prefix-clipped schedule
+    (``halfspec_distribution``), so per-processor pad lengths apply to
+    exactly the rows the complex path would pad.  A homogeneous
+    ``fused=True`` schedule with no padding runs both phases as fused
+    kernel launches, like ``_pfft_limb``.  ``groups`` is
+    ``real_limb_groups(schedule, d, m.device)`` computed ahead (a plan
+    does, once); without it the index tensors are made in this call.
+    """
+    m = as_tensor(m)
+    if schedule is not None:
+        if config is not None or pad_lengths is not None:
+            raise ValueError(
+                "_rpfft_limb: pass either schedule= (which carries its own "
+                "lengths) or config=/pad_lengths=, not both")
+    else:
+        if config is None:
+            config = PlanConfig(real=True)
+        schedule = SegmentSchedule.homogeneous(config, m.shape[-1], d,
+                                               pad_lengths)
+    if m.ndim != 2 or m.shape[0] != m.shape[1]:
+        raise ValueError("PFFT operates on square N x N signal matrices")
+    if not m.is_floating_point():
+        raise ValueError(
+            f"the real pipeline takes a real-valued matrix, got {m.dtype}")
+    m = m.contiguous()
+    n = m.shape[-1]
+    nh = n // 2 + 1
+    common = schedule.common_config
+    if (common is not None and common.fused
+            and all(e.length == schedule.n for e in schedule)):
+        fused_radix = common.radix if common.radix == 4 else None
+        h = rfft_rows_then_transpose(m, radix=fused_radix)    # (nh, n)
+        return fft_rows_then_transpose(h, radix=fused_radix)  # (n, nh)
+    if groups is None:
+        groups = real_limb_groups(schedule, d, m.device)
+    h = segment_row_rffts(m, d, schedule=schedule, groups=groups[0])
+    h = h.T.contiguous()                                      # (nh, n)
+    d2, sched2 = _clip_schedule(schedule, np.asarray(d), nh)
+    h = segment_row_ffts(h, d2, schedule=sched2, groups=groups[1])
+    return h.T.contiguous()                                   # (n, nh)
+
+
+def _real_config(config: PlanConfig | None) -> PlanConfig:
+    """Default/force the ``real`` flag for the rpfft entry points."""
+    if config is None:
+        return PlanConfig(real=True)
+    return config if config.real else dataclasses.replace(config, real=True)
+
+
+def rpfft_lb(m, p: int, *, config: PlanConfig | None = None) -> torch.Tensor:
+    """Real-input PFFT-LB: even row distribution, half-spectrum output."""
+    m = as_tensor(m)
+    cfg = _real_config(config)
+    d = lb_partition(m.shape[0], p).d
+    return _rpfft_limb(m, d, config=cfg)
+
+
+def rpfft_fpm(m, fpms: FPMSet, eps: float = 0.05, *,
+              config: PlanConfig | None = None,
+              return_partition: bool = False):
+    """Real-input PFFT-FPM: FPM-optimal row distribution, half-spectrum
+    output.  The partition is computed for the full N rows (phase 1 sees
+    all of them); phase 2 prefix-clips it to the half spectrum."""
+    m = as_tensor(m)
+    n = m.shape[0]
+    cfg = _real_config(config)
+    part: PartitionResult = partition_rows(n, fpms, eps)
+    out = _rpfft_limb(m, part.d, config=cfg)
+    return (out, part) if return_partition else out
+
+
+def rpfft_fpm_pad(m, fpms: FPMSet, eps: float = 0.05, *,
+                  config: PlanConfig | None = None,
+                  return_partition: bool = False):
+    """Real-input PFFT-FPM-PAD: per-processor row padding chosen by
+    ``rfft_pad_lengths`` (even lengths only), padded-signal DFT semantics
+    — the output equals the complex ``pfft_fpm_pad`` result's first
+    N//2+1 columns, bin for bin."""
+    from repro_torch.plan.pads import rfft_pad_lengths  # lazy: plan imports core
+    m = as_tensor(m)
+    n = m.shape[0]
+    cfg = normalize_pad(_real_config(config), "fpm")
+    part = partition_rows(n, fpms, eps)
+    pads = rfft_pad_lengths(fpms, part.d, n)
+    out = _rpfft_limb(m, part.d, pad_lengths=pads, config=cfg)
     return (out, part, pads) if return_partition else out
 
 

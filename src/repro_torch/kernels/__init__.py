@@ -1,23 +1,34 @@
-"""CUDA kernels for the paper's compute hot spots (the row FFT and the fused
-row FFT -> transposed write), each with an op wrapper, a plain PyTorch version
-and a launch count.  The kernels are compiled at their first launch on a CUDA
-tensor (``_build``); importing this package builds and probes nothing."""
+"""CUDA kernels for the paper's compute hot spots (the row FFT, the fused
+row FFT -> transposed write, their packed-real siblings and the blocked
+transpose), each with an op wrapper, a plain PyTorch version and a launch
+count.  The kernels are compiled at their first launch on a CUDA tensor
+(``_build``); importing this package builds and probes nothing."""
 
 from repro_torch.kernels.fft import kernel as _fft_kernel
+from repro_torch.kernels.fft import real as _real_kernel
 from repro_torch.kernels.fft.ops import fft_rows_op
+from repro_torch.kernels.fft.real import rfft_rows_op
 from repro_torch.kernels.fused import kernel as _fused_kernel
+from repro_torch.kernels.fused import real as _fused_real_kernel
 from repro_torch.kernels.fused.ops import fft_rows_transpose_op
+from repro_torch.kernels.fused.real import rfft_rows_transpose_op
+from repro_torch.kernels.transpose import kernel as _transpose_kernel
+from repro_torch.kernels.transpose.ops import transpose_op
 
 __all__ = ["fft_rows_op", "fft_rows_transpose_op", "launch_counts",
-           "reset_launch_counts"]
+           "reset_launch_counts", "rfft_rows_op", "rfft_rows_transpose_op",
+           "transpose_op"]
+
+_COUNTED = {"fft_rows": _fft_kernel, "fft_rows_transpose": _fused_kernel,
+            "rfft_rows": _real_kernel, "rfft_rows_transpose": _fused_real_kernel,
+            "transpose": _transpose_kernel}
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last reset, by kernel name."""
-    return {"fft_rows": _fft_kernel.launch_count(),
-            "fft_rows_transpose": _fused_kernel.launch_count()}
+    return {name: module.launch_count() for name, module in _COUNTED.items()}
 
 
 def reset_launch_counts() -> None:
-    _fft_kernel.reset_launch_count()
-    _fused_kernel.reset_launch_count()
+    for module in _COUNTED.values():
+        module.reset_launch_count()

@@ -30,13 +30,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LIB_NAME = "librepro_torch_kernels.so"
 
 # name -> (restype, argtypes).  Pointers and the stream are c_void_p (a bare
-# Python int would be cut to 32 bits), row counts are 64-bit.
-_SIGNATURE = (ctypes.c_int,
-              [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-               ctypes.c_void_p])
-_FUNCTIONS = {"repro_fft_rows": _SIGNATURE,
-              "repro_fft_rows_transpose": _SIGNATURE}
+# Python int would be cut to 32 bits), row and column counts are 64-bit.
+_PTR, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# (in, out, rows, n, radix, inverse, rows_per_cta, threads, stream)
+_COMPLEX_ROWS = (_INT, [_PTR, _PTR, _LL, _INT, _INT, _INT, _INT, _INT, _PTR])
+# (in, out, rows, n, radix, rows_per_cta, threads, stream): forward only
+_REAL_ROWS = (_INT, [_PTR, _PTR, _LL, _INT, _INT, _INT, _INT, _PTR])
+_FUNCTIONS = {"repro_fft_rows": _COMPLEX_ROWS,
+              "repro_fft_rows_transpose": _COMPLEX_ROWS,
+              "repro_rfft_rows": _REAL_ROWS,
+              "repro_rfft_rows_transpose": _REAL_ROWS,
+              # (in, out, r, c, elem_bytes, stream)
+              "repro_transpose": (_INT, [_PTR, _PTR, _LL, _LL, _INT, _PTR])}
 
 _lock = threading.Lock()
 _library: ctypes.CDLL | None = None

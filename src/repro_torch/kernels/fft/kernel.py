@@ -209,12 +209,15 @@ def fft_rows_plain(x: torch.Tensor, *, inverse: bool = False,
     return torch.complex(re, im)
 
 
-def check_kernel_input(x: torch.Tensor, name: str) -> tuple[int, int]:
-    """What both CUDA launchers require of their input; returns (rows, n)."""
+def check_kernel_input(x: torch.Tensor, name: str,
+                       dtype: torch.dtype = torch.complex64) -> tuple[int, int]:
+    """What the row-FFT launchers require of their input (``dtype``:
+    complex64, or float32 for the real kernels); returns (rows, n)."""
     if not x.is_cuda:
         raise ValueError(f"{name}: input must be a CUDA tensor, got {x.device}")
-    if x.dtype != torch.complex64:
-        raise ValueError(f"{name}: input must be complex64, got {x.dtype}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name}: input must be {str(dtype).removeprefix('torch.')}, "
+                         f"got {x.dtype}")
     if x.ndim != 2:
         raise ValueError(f"{name}: input must be 2-D (rows, n), got {tuple(x.shape)}")
     if not x.is_contiguous():
@@ -227,21 +230,18 @@ def check_kernel_input(x: torch.Tensor, name: str) -> tuple[int, int]:
     return rows, n
 
 
-def launch(fn_name: str, x: torch.Tensor, out: torch.Tensor, *, radix: int,
-           inverse: bool, rows_per_cta: int, threads: int) -> None:
-    """Launch one of the library's row-FFT kernels on the current stream of
-    ``x``'s device; raises when the launch is refused."""
+def launch(fn_name: str, x: torch.Tensor, out: torch.Tensor, **args) -> None:
+    """Launch one of the library's kernels, ``fn_name(in, out, *args,
+    stream)``, on the current stream of ``x``'s device; raises when the
+    launch is refused.  ``args`` are passed in the order given."""
     lib = _build.load_library()
-    rows, n = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, fn_name)(x.data_ptr(), out.data_ptr(), rows, n, radix,
-                                    int(inverse), rows_per_cta, threads, stream)
+        err = getattr(lib, fn_name)(x.data_ptr(), out.data_ptr(), *args.values(),
+                                    stream)
     if err != 0:
-        raise KernelLaunchError(
-            f"{fn_name}(rows={rows}, n={n}, radix={radix}, "
-            f"rows_per_cta={rows_per_cta}, threads={threads}) failed with "
-            f"CUDA error {err}")
+        detail = ", ".join(f"{k}={v}" for k, v in args.items())
+        raise KernelLaunchError(f"{fn_name}({detail}) failed with CUDA error {err}")
 
 
 def fft_rows_cuda(x: torch.Tensor, *, inverse: bool = False, radix: int = 4,
@@ -259,7 +259,7 @@ def fft_rows_cuda(x: torch.Tensor, *, inverse: bool = False, radix: int = 4,
     out = torch.empty_like(x)
     if rows == 0:
         return out
-    launch("repro_fft_rows", x, out, radix=radix, inverse=inverse,
-           rows_per_cta=rows_per_cta, threads=threads)
+    launch("repro_fft_rows", x, out, rows=rows, n=n, radix=radix,
+           inverse=int(inverse), rows_per_cta=rows_per_cta, threads=threads)
     _launches += 1
     return out

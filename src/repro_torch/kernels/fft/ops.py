@@ -64,14 +64,17 @@ def pick_threads(n: int, rows_per_cta: int, radix: int) -> int:
 
 
 def resolve_call_params(n: int, rows: int, rows_per_cta: int | None,
-                        radix: int | None, *, fused: bool = False
-                        ) -> tuple[int, int, int]:
-    """Shared prologue of the row-FFT op wrappers (plain and fused): validate
-    the length and fill in rows_per_cta/radix/threads defaults."""
+                        radix: int | None, *, fused: bool = False,
+                        name: str | None = None) -> tuple[int, int, int]:
+    """Shared prologue of the row-FFT op wrappers (plain and fused, complex
+    and real): validate the length and fill in rows_per_cta/radix/threads
+    defaults.  ``rows`` counts what one CTA row holds (a complex row, or a
+    packed pair of real rows); ``name`` is the op named in errors."""
     if n & (n - 1) or n < 1:
         raise ValueError(f"cuda fft kernel requires power-of-two length, got {n}")
     if n > MAX_KERNEL_N:
-        raise KernelLengthError("fft_rows_transpose_op" if fused else "fft_rows_op", n)
+        raise KernelLengthError(
+            name or ("fft_rows_transpose_op" if fused else "fft_rows_op"), n)
     if radix is None:
         radix = pick_radix(n)
     if radix not in (2, 4):

@@ -1,0 +1,137 @@
+"""Batched *real* row FFT (two real rows packed per complex FFT): the plain
+PyTorch version, the launcher of the CUDA kernel ``csrc/rfft_rows.cu`` and
+the public op.
+
+Counterpart of ``repro.kernels.fft.real``.  A real length-``n`` row has a
+conjugate-symmetric spectrum, so only the ``n//2+1`` Hermitian-unique bins are
+computed and stored.  Two real rows ``a, b`` are packed as ``z = a + i*b``, one
+complex Stockham FFT (the stage loop of ``kernels.fft.kernel``) gives ``Z``,
+and the conjugate split recovers both spectra:
+
+    A[k] = (Z[k] + conj(Z[n-k])) / 2     = FFT(a)[k]
+    B[k] = (Z[k] - conj(Z[n-k])) / 2i    = FFT(b)[k]
+
+so the row phase runs half the complex FFTs.  The plain version works on
+float planes like the reference (full-width split, then re-interleave and
+crop); the CUDA kernel writes the ``n//2+1`` bins of each row straight to its
+place, so the op pads, re-interleaves and crops nothing on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch._device import as_tensor, complex_result_type
+from repro_torch.kernels.fft.kernel import (SMEM_BUDGET, apply_stockham,
+                                            check_kernel_input, launch)
+from repro_torch.kernels.fft.ops import resolve_call_params
+
+__all__ = ["launch_count", "prepare_real_rows", "reset_launch_count",
+           "rfft_rows_cuda", "rfft_rows_op", "rfft_rows_plain",
+           "unpack_packed_fft"]
+
+_launches = 0
+
+
+def launch_count() -> int:
+    """How many times ``rfft_rows_cuda`` has launched its kernel."""
+    return _launches
+
+
+def reset_launch_count() -> None:
+    global _launches
+    _launches = 0
+
+
+def _reverse_bins(x: torch.Tensor) -> torch.Tensor:
+    """``x[..., (n - k) mod n]``: bin 0 stays, bins 1..n-1 reverse."""
+    return torch.cat([x[..., :1], x[..., 1:].flip(-1)], dim=-1)
+
+
+def unpack_packed_fft(zr: torch.Tensor, zi: torch.Tensor):
+    """Split ``Z = FFT(a + i*b)`` planes into FFT(a) and FFT(b) planes.
+
+    Returns ``(a_re, a_im, b_re, b_im)``, each full-width (callers crop to
+    the half spectrum).
+    """
+    rzr = _reverse_bins(zr)
+    rzi = _reverse_bins(zi)
+    return ((zr + rzr) * 0.5, (zi - rzi) * 0.5,
+            (zi + rzi) * 0.5, (rzr - zr) * 0.5)
+
+
+def rfft_rows_plain(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
+    """The kernel's plain version: (rows, n) float32 -> (rows, n//2+1)
+    complex64, by the plane stage loop, the split, the row re-interleave and
+    the crop.  An odd row count gets one zero row to pair with, as in the
+    reference.  Runs on whatever device ``x`` lies on."""
+    rows, n = x.shape
+    if rows % 2:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 1))
+    zr, zi = apply_stockham(x[0::2], x[1::2], radix=radix)
+    a_re, a_im, b_re, b_im = unpack_packed_fft(zr, zi)
+    out = torch.stack([torch.complex(a_re, a_im), torch.complex(b_re, b_im)], dim=1)
+    return out.reshape(-1, n)[:rows, :n // 2 + 1].contiguous()
+
+
+def rfft_rows_cuda(x: torch.Tensor, *, radix: int = 4, rows_per_cta: int = 1,
+                   threads: int = 256) -> torch.Tensor:
+    """Launch ``csrc/rfft_rows.cu``: (rows, n) float32 CUDA tensor -> its
+    (rows, n//2+1) complex64 half spectrum per row.  ``rows_per_cta``
+    counts row pairs.  Does not synchronise."""
+    global _launches
+    rows, n = check_kernel_input(x, "rfft_rows_cuda", torch.float32)
+    if radix not in (2, 4):
+        raise ValueError(f"unsupported radix {radix}")
+    if 2 * rows_per_cta * n * 8 > SMEM_BUDGET:
+        raise ValueError(
+            f"rfft_rows_cuda: rows_per_cta={rows_per_cta} row pairs of length "
+            f"{n} need more than {SMEM_BUDGET} bytes of shared memory")
+    out = torch.empty((rows, n // 2 + 1), dtype=torch.complex64, device=x.device)
+    if rows == 0:
+        return out
+    launch("repro_rfft_rows", x, out, rows=rows, n=n, radix=radix,
+           rows_per_cta=rows_per_cta, threads=threads)
+    _launches += 1
+    return out
+
+
+def prepare_real_rows(x: torch.Tensor, name: str) -> torch.Tensor:
+    """The real kernels compute in float32 whatever real type comes in.
+    Complex input and input that is not contiguous are refused, on either
+    device (no hidden copy in a measured phase)."""
+    if x.is_complex():
+        raise ValueError(f"{name}: takes real input, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(
+            f"{name}: input must be contiguous (make the copy explicit with "
+            ".contiguous())")
+    return x if x.dtype == torch.float32 else x.to(torch.float32)
+
+
+def rfft_rows_op(x, *, rows_per_cta: int | None = None,
+                 radix: int | None = None) -> torch.Tensor:
+    """Real row FFT via the packed CUDA kernel.
+
+    x: (..., rows, n) real -> (..., rows, n//2+1) complex half spectrum,
+    matching ``torch.fft.rfft(x, dim=-1)``.  ``radix=None`` auto-selects;
+    ``rows_per_cta`` counts row pairs.  Computes in float32 and returns
+    ``promote(x.dtype, complex64)``.
+    """
+    x = as_tensor(x)
+    if x.ndim < 2:
+        raise ValueError(f"rfft_rows_op takes (..., rows, n) input, got shape {tuple(x.shape)}")
+    n = x.shape[-1]
+    x2 = prepare_real_rows(x, "rfft_rows_op").reshape(-1, n)
+    rows_per_cta, radix, threads = resolve_call_params(
+        n, (x2.shape[0] + 1) // 2, rows_per_cta, radix, name="rfft_rows_op")
+    out_dtype = complex_result_type(x)
+    out_shape = tuple(x.shape[:-1]) + (n // 2 + 1,)
+    if n == 1:  # the length-1 DFT is the identity
+        return x2.to(out_dtype).reshape(out_shape)
+    if x2.is_cuda:
+        out = rfft_rows_cuda(x2, radix=radix, rows_per_cta=rows_per_cta,
+                             threads=threads)
+    else:
+        out = rfft_rows_plain(x2, radix=radix)
+    return out.to(out_dtype).reshape(out_shape)

@@ -1,6 +1,10 @@
 from repro_torch.kernels.fused.kernel import (fft_rows_transpose_cuda,
                                               fft_rows_transpose_plain)
 from repro_torch.kernels.fused.ops import fft_rows_transpose_op
+from repro_torch.kernels.fused.real import (rfft_rows_transpose_cuda,
+                                            rfft_rows_transpose_op,
+                                            rfft_rows_transpose_plain)
 
 __all__ = ["fft_rows_transpose_cuda", "fft_rows_transpose_plain",
-           "fft_rows_transpose_op"]
+           "fft_rows_transpose_op", "rfft_rows_transpose_cuda",
+           "rfft_rows_transpose_op", "rfft_rows_transpose_plain"]

@@ -54,7 +54,7 @@ def fft_rows_transpose_cuda(x: torch.Tensor, *, inverse: bool = False,
     out = torch.empty((n, rows), dtype=x.dtype, device=x.device)
     if rows == 0:
         return out
-    launch("repro_fft_rows_transpose", x, out, radix=radix, inverse=inverse,
-           rows_per_cta=rows_per_cta, threads=threads)
+    launch("repro_fft_rows_transpose", x, out, rows=rows, n=n, radix=radix,
+           inverse=int(inverse), rows_per_cta=rows_per_cta, threads=threads)
     _launches += 1
     return out

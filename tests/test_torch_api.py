@@ -187,10 +187,7 @@ def test_plan_legacy_flags_warn_and_build_an_explicit_config():
 
 @pytest.mark.parametrize("kwargs,names", [
     ({"tune": "estimate"}, "planner"), ({"tune": "measure"}, "planner"),
-    ({"wisdom": "w.json"}, "planner"), ({"mesh": object()}, "distributed"),
-    ({"method": "rfft-lb", "dtype": "float32"}, "real-input"),
-    ({"method": "rfft-fpm", "dtype": "float32"}, "real-input"),
-    ({"method": "rfft-fpm-pad", "dtype": "float32"}, "real-input")])
+    ({"wisdom": "w.json"}, "planner"), ({"mesh": object()}, "distributed")])
 def test_later_slices_raise_not_implemented(kwargs, names):
     """What is not ported yet is refused by name, never run as tune='off'."""
     args = {"p": 2, "method": "lb", "device": "cpu", **kwargs}
@@ -219,7 +216,7 @@ def test_package_exports_only_what_exists():
             assert hasattr(mod, name), name
     assert set(port_core.__all__) <= set(ref_core.__all__)
     assert set(port_plan.__all__) <= set(ref_plan.__all__)
-    for later in ("rfft2", "plan_pfft3", "rpfft_lb", "pfft1_large"):
+    for later in ("plan_pfft3", "pfft1_large", "pfft3_lb"):
         assert later in ref_core.__all__ and not hasattr(port_core, later)
 
 

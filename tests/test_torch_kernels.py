@@ -272,21 +272,24 @@ def test_cpu_ops_launch_nothing_and_build_nothing():
     x = to_torch(complex_signal(0, 4, 32))
     fft_rows_op(x)
     fft_rows_transpose_op(x)
-    assert port_kernels.launch_counts() == {"fft_rows": 0,
-                                            "fft_rows_transpose": 0}
+    assert port_kernels.launch_counts() == {
+        "fft_rows": 0, "fft_rows_transpose": 0, "rfft_rows": 0,
+        "rfft_rows_transpose": 0, "transpose": 0}
     assert _build._library is None  # nothing compiled or loaded by CPU work
 
 
 def test_kernel_sources_are_plain_cuda_built_for_sm_90a():
     names = [p.name for p in _build.source_files()]
-    assert names == ["fft_rows.cu", "fft_rows_transpose.cu", "stockham.cuh"]
+    assert names == ["fft_rows.cu", "fft_rows_transpose.cu", "rfft_rows.cu",
+                     "rfft_rows_transpose.cu", "stockham.cuh", "transpose.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "-use_fast_math" not in _build.NVCC_FLAGS
     for path in _build.source_files():
         text = path.read_text()
         assert "torch/extension.h" not in text and "__sincosf(" not in text
         if path.suffix == ".cu":
-            assert '#include "stockham.cuh"' in text
+            # Every row FFT shares the stage loop; the transpose has none.
+            assert ('#include "stockham.cuh"' in text) == ("fft" in path.stem)
             assert "Replaces the TPU kernel" in text and "Bound on this card" in text
     assert "sincospif" in (_build.csrc_dir() / "stockham.cuh").read_text()
 
