@@ -79,12 +79,15 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 KERNEL_SHAPES = [(64, 8), (37, 1024), (100, 2048), (256, 4096), (1024, 1024),
                  (4096, 4096), (8192, 8192)]
-# Odd row counts leave the packed real kernels an unpaired last row.
-REAL_KERNEL_SHAPES = [(64, 8), (37, 1024), (101, 2048), (255, 4096), (8192, 8192)]
+MAIN_SHAPE = (8192, 8192)
+# Every length the packed real kernel is instantiated for (n = 2 ... 8192),
+# at an odd row count (an unpaired last row, few pairs per CTA) and an even
+# one (2^20 elements), and the main path's shape.
+REAL_KERNEL_SHAPES = [(rows, 1 << e) for e in range(1, 14)
+                      for rows in (37, max(2, (1 << 20) >> e))] + [MAIN_SHAPE]
 TRANSPOSE_SHAPES = [(1, 1), (37, 129), (1000, 3), (4096, 8192), (8192, 8192)]
 # Every other element size the transpose kernel is built for, at small shapes.
 TRANSPOSE_OTHER_DTYPES = [torch.uint8, torch.float16, torch.float64, torch.complex128]
-MAIN_SHAPE = (8192, 8192)
 MICROBENCH_N = (1024, 8192)
 SOURCES = "src/repro_torch/kernels/csrc/"
 

@@ -11,10 +11,17 @@ the plain copies over a sweep of row lengths at a fixed 2^26 elements (512 MiB
 of complex64, 256 MiB of float32 for the real kernels).  The run to make after touching a CUDA
 source and before the full ``chip_smoke.py``.  Needs one CUDA device and
 ``nvcc``; exits non-zero without them or when a kernel disagrees.
+
+    python3 examples/kernel_check_torch.py --rfft-rows-only
+
+checks and times the packed real row kernel alone (every shape of
+``REAL_SHAPES``, its column of the sweep): the run to repeat, in turns, on
+copies of the tree that differ in one change to that kernel.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import statistics
@@ -41,8 +48,10 @@ from repro_torch.kernels.transpose.kernel import transpose_plain  # noqa: E402
 
 SHAPES = [(64, 2), (64, 4), (64, 8), (37, 1024), (100, 2048), (256, 4096),
           (1024, 8192)]
-REAL_SHAPES = [(1, 2), (3, 4), (64, 8), (37, 1024), (101, 2048), (255, 4096),
-               (1023, 8192)]
+# Every length the packed real kernel is instantiated for, at an odd and an
+# even row count.
+REAL_SHAPES = [(rows, 1 << e) for e in range(1, 14)
+               for rows in (37, max(2, (1 << 20) >> e))] + [(1, 2), (1023, 8192)]
 TRANSPOSE_SHAPES = [(1, 1), (37, 129), (1000, 3), (257, 4099)]
 TRANSPOSE_DTYPES = [torch.uint8, torch.float16, torch.float32, torch.complex64,
                     torch.complex128]
@@ -66,6 +75,10 @@ def time_ms(fn, reps: int = 10) -> float:
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--rfft-rows-only", action="store_true",
+                        help="check and time the packed real row kernel alone")
+    only_k3 = parser.parse_args().rfft_rows_only
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -90,7 +103,7 @@ def main() -> None:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    for rows, n in SHAPES:
+    for rows, n in [] if only_k3 else SHAPES:
         x = torch.complex(torch.randn(rows, n, generator=gen, device="cuda"),
                           torch.randn(rows, n, generator=gen, device="cuda"))
         tol = 1e-3 * n ** 0.5
@@ -117,18 +130,20 @@ def main() -> None:
         for radix in (2, 4):
             plain = rfft_rows_plain(x, radix=radix)
             k3 = rfft_rows_op(x, radix=radix)
-            k4 = rfft_rows_transpose_op(x, radix=radix)
             torch.cuda.synchronize()
             errs = {"k3_vs_plain": float((k3 - plain).abs().max()),
-                    "k4_vs_plain": float((k4 - plain.T).abs().max()),
-                    "k3_vs_library": float((k3 - lib).abs().max()),
-                    "k4_vs_library": float((k4 - lib.T).abs().max())}
+                    "k3_vs_library": float((k3 - lib).abs().max())}
+            if not only_k3:
+                k4 = rfft_rows_transpose_op(x, radix=radix)
+                torch.cuda.synchronize()
+                errs |= {"k4_vs_plain": float((k4 - plain.T).abs().max()),
+                         "k4_vs_library": float((k4 - lib.T).abs().max())}
             print(json.dumps({"rows": rows, "n": n, "radix": radix, "atol": tol,
                               **errs}), flush=True)
             if max(errs.values()) > tol:
                 sys.exit(f"real kernel disagrees: {errs} > {tol}")
 
-    for r, c in TRANSPOSE_SHAPES:
+    for r, c in [] if only_k3 else TRANSPOSE_SHAPES:
         for dtype in TRANSPOSE_DTYPES:
             x = torch.randn(r, c, generator=gen, device="cuda",
                             dtype=torch.float64 if dtype == torch.complex128
@@ -144,6 +159,13 @@ def main() -> None:
                 sys.exit(f"transpose differs at {(r, c)} {dtype}")
 
     for n in SWEEP_LENGTHS:
+        xr = torch.randn(SWEEP_ELEMENTS // n, n, device="cuda")
+        if only_k3:
+            print(json.dumps({
+                "card": card, "rows": xr.shape[0], "n": n, "dtype": "float32",
+                "rfft_rows_ms": time_ms(lambda: rfft_rows_op(xr)),
+                "torch_rfft_ms": time_ms(lambda: torch.fft.rfft(xr))}), flush=True)
+            continue
         x = torch.randn(SWEEP_ELEMENTS // n, n, dtype=torch.complex64, device="cuda")
         print(json.dumps({
             "card": card, "rows": x.shape[0], "n": n,
@@ -156,7 +178,6 @@ def main() -> None:
             "T_contiguous_ms": time_ms(lambda: x.T.contiguous()),
             "transpose_op_ms": time_ms(lambda: transpose_op(x)),
             "clone_ms": time_ms(lambda: x.clone())}), flush=True)
-        xr = torch.randn(SWEEP_ELEMENTS // n, n, device="cuda")
         print(json.dumps({
             "card": card, "rows": xr.shape[0], "n": n, "dtype": "float32",
             "rfft_rows_ms": time_ms(lambda: rfft_rows_op(xr)),

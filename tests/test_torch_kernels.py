@@ -280,7 +280,7 @@ def test_cpu_ops_launch_nothing_and_build_nothing():
 
 def test_kernel_sources_are_plain_cuda_built_for_sm_90a():
     names = [p.name for p in _build.source_files()]
-    assert names == ["fft_rows.cu", "fft_rows_transpose.cu", "rfft_rows.cu",
+    assert names == ["fft_rows.cu", "fft_rows_transpose.cu", "regfft.cuh", "rfft_rows.cu",
                      "rfft_rows_transpose.cu", "stockham.cuh", "transpose.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "-use_fast_math" not in _build.NVCC_FLAGS
@@ -288,10 +288,14 @@ def test_kernel_sources_are_plain_cuda_built_for_sm_90a():
         text = path.read_text()
         assert "torch/extension.h" not in text and "__sincosf(" not in text
         if path.suffix == ".cu":
-            # Every row FFT shares the stage loop; the transpose has none.
-            assert ('#include "stockham.cuh"' in text) == ("fft" in path.stem)
+            # Every row FFT runs a shared stage loop (stockham.cuh, or
+            # regfft.cuh, which builds on it); the transpose has none.
+            shared = any(f'#include "{h}"' in text for h in ("stockham.cuh", "regfft.cuh"))
+            assert shared == ("fft" in path.stem)
             assert "Replaces the TPU kernel" in text and "Bound on this card" in text
-    assert "sincospif" in (_build.csrc_dir() / "stockham.cuh").read_text()
+    for header in ("stockham.cuh", "regfft.cuh"):
+        assert "sincospif" in (_build.csrc_dir() / header).read_text()
+    assert '#include "stockham.cuh"' in (_build.csrc_dir() / "regfft.cuh").read_text()
 
 
 def test_build_directory_is_keyed_by_the_sources(tmp_path, monkeypatch):
