@@ -10,8 +10,9 @@ each of which ends the run with a non-zero exit code when it fails:
 1. ``env``       versions, ``nvcc``, the card's name and power limit, SM count.
 2. ``build``     compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``.
 3. ``kernels``   every kernel against its plain PyTorch version and the
-                 library on the card (ragged and odd row counts, odd and even
-                 log2 n, the full width; the transpose bit for bit), then its
+                 library on the card (ragged and odd row counts, every length
+                 the row kernels K1 and K3 are built for, the full width; the
+                 transpose bit for bit), then its
                  time beside the plain version's, the library's and the card's
                  bound at the main path's shape.
 4. ``main_path`` FPMs timed on the card, then ``plan_pfft(...).execute`` for
@@ -80,6 +81,12 @@ PEAK_FP32_FLOPS = 67e12
 KERNEL_SHAPES = [(64, 8), (37, 1024), (100, 2048), (256, 4096), (1024, 1024),
                  (4096, 4096), (8192, 8192)]
 MAIN_SHAPE = (8192, 8192)
+# Every length the complex row kernel K1 is instantiated for (n = 2 ... 8192),
+# at two odd row counts: 37 (few rows, a ragged last CTA wherever a CTA
+# holds several rows) and 2^20 elements plus 5 rows (a full grid with a
+# ragged last CTA up to n = 1024).
+COMPLEX_KERNEL_SHAPES = [(rows, 1 << e) for e in range(1, 14)
+                         for rows in (37, ((1 << 20) >> e) + 5)]
 # Every length the packed real kernel is instantiated for (n = 2 ... 8192),
 # at an odd row count (an unpaired last row, few pairs per CTA) and an even
 # one (2^20 elements), and the main path's shape.
@@ -130,6 +137,13 @@ def random_signal(gen: torch.Generator, *shape: int) -> torch.Tensor:
 def random_real(gen: torch.Generator, *shape: int) -> torch.Tensor:
     """Unit-variance float32 noise on the card, from the seeded generator."""
     return torch.randn(*shape, generator=gen, device="cuda")
+
+
+def row_fft_tol(n: int, inverse: bool) -> float:
+    """``1e-3·sqrt(n)`` on the unscaled transform of unit-variance rows.  The
+    inverse's 1/n scale shrinks its values, and so its tolerance, by n: at
+    the forward's tolerance an inverse that wrote zeros would pass."""
+    return 1e-3 * math.sqrt(n) / (n if inverse else 1)
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -193,9 +207,9 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
     worst = {"fft_rows": 0.0, "fft_rows_transpose": 0.0}
     for rows, n in KERNEL_SHAPES:
         x = random_signal(gen, rows, n)
-        tol = 1e-3 * math.sqrt(n)
         for radix in (2, 4):
             for inverse in (False, True):
+                tol = row_fft_tol(n, inverse)
                 plain = fft_rows_plain(x, inverse=inverse, radix=radix)
                 got = fft_rows_op(x, inverse=inverse, radix=radix)
                 torch.cuda.synchronize()
@@ -222,6 +236,7 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
                 del plain, got, got_t, lib
         del x
 
+    check_complex_kernel(gen)
     check_real_kernels(gen, worst)
     check_transpose(gen, worst)
 
@@ -264,6 +279,32 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
                       lambda: transpose_plain(x),
                       lambda: x.T.contiguous()),
     ]
+
+
+def check_complex_kernel(gen: torch.Generator) -> None:
+    """K1 at every length it is instantiated for, both directions, both
+    radices (the plain version's stage loop), against ``fft_rows_plain`` and
+    ``torch.fft.fft`` / ``ifft``, ``atol = row_fft_tol(n, inverse)``."""
+    for rows, n in COMPLEX_KERNEL_SHAPES:
+        x = random_signal(gen, rows, n)
+        for inverse in (False, True):
+            tol = row_fft_tol(n, inverse)
+            lib = torch.fft.ifft(x) if inverse else torch.fft.fft(x)
+            for radix in (2, 4):
+                plain = fft_rows_plain(x, inverse=inverse, radix=radix)
+                got = fft_rows_op(x, inverse=inverse, radix=radix)
+                torch.cuda.synchronize()
+                errs = {"fft_rows_err": max_abs_err(got, plain),
+                        "fft_rows_vs_library_err": max_abs_err(got, lib)}
+                log("kernels", rows=rows, n=n, radix=radix, inverse=inverse,
+                    atol=tol, **errs)
+                if max(errs.values()) > tol:
+                    raise AssertionError(
+                        f"fft_rows disagrees at rows={rows} n={n} radix={radix} "
+                        f"inverse={inverse}: {errs} > {tol}")
+                del plain, got
+            del lib
+        del x
 
 
 def check_real_kernels(gen: torch.Generator, worst: dict) -> None:

@@ -13,10 +13,14 @@ source and before the full ``chip_smoke.py``.  Needs one CUDA device and
 ``nvcc``; exits non-zero without them or when a kernel disagrees.
 
     python3 examples/kernel_check_torch.py --rfft-rows-only
+    python3 examples/kernel_check_torch.py --fft-rows-only
 
-checks and times the packed real row kernel alone (every shape of
-``REAL_SHAPES``, its column of the sweep): the run to repeat, in turns, on
-copies of the tree that differ in one change to that kernel.
+check and time the packed real row kernel alone (every shape of
+``REAL_SHAPES``, its column of the sweep), or the complex row kernel alone
+(every shape of ``COMPLEX_SHAPES`` in both directions, its columns of the
+sweep, forward and inverse): the run to repeat, in turns, on copies of the
+tree that differ in one change to that kernel.  Every run prints the
+complex row kernel's registers and spills per length and direction.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -46,8 +51,14 @@ from repro_torch.kernels.fft.kernel import fft_rows_plain  # noqa: E402
 from repro_torch.kernels.fft.real import rfft_rows_plain  # noqa: E402
 from repro_torch.kernels.transpose.kernel import transpose_plain  # noqa: E402
 
+# The fused row kernel's shapes (the complex row kernel has its own below).
 SHAPES = [(64, 2), (64, 4), (64, 8), (37, 1024), (100, 2048), (256, 4096),
           (1024, 8192)]
+# Every length the complex row kernel is instantiated for, at an odd row
+# count and at 2^20 elements plus 5 rows (a ragged last CTA where a CTA holds
+# several rows).
+COMPLEX_SHAPES = [(rows, 1 << e) for e in range(1, 14)
+                  for rows in (37, ((1 << 20) >> e) + 5)]
 # Every length the packed real kernel is instantiated for, at an odd and an
 # even row count.
 REAL_SHAPES = [(rows, 1 << e) for e in range(1, 14)
@@ -74,11 +85,38 @@ def time_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def fft_rows_registers(ptxas: str) -> list[dict]:
+    """Registers and spill bytes of each instantiation of the complex row
+    kernel, from ``nvcc -Xptxas -v`` output."""
+    out, current = [], None
+    for line in ptxas.splitlines():
+        m = re.search(r"Compiling entry function '\S*fft_rows_kernelILi(\d+)ELb([01])E", line)
+        if m:
+            current = {"n": 1 << int(m.group(1)),
+                       "direction": "inverse" if m.group(2) == "1" else "forward"}
+            out.append(current)
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            current["spill_stores"], current["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+            current = None
+    return sorted(out, key=lambda r: (r["direction"], r["n"]))
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--rfft-rows-only", action="store_true",
-                        help="check and time the packed real row kernel alone")
-    only_k3 = parser.parse_args().rfft_rows_only
+    only = parser.add_mutually_exclusive_group()
+    only.add_argument("--rfft-rows-only", action="store_true",
+                      help="check and time the packed real row kernel alone")
+    only.add_argument("--fft-rows-only", action="store_true",
+                      help="check and time the complex row kernel alone")
+    args = parser.parse_args()
+    only_k3, only_k1 = args.rfft_rows_only, args.fft_rows_only
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -87,43 +125,65 @@ def main() -> None:
     nvcc = _build._find_nvcc()
     with tempfile.TemporaryDirectory() as tmp:
         for src in _build.source_files():
-            if src.suffix != ".cu":
+            if src.suffix != ".cu" or (only_k1 and src.name != "fft_rows.cu"):
                 continue
             done = subprocess.run(
                 [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src),
                  "-o", os.path.join(tmp, src.stem + ".o")],
                 capture_output=True, text=True)
-            print(f"--- {src.name} (exit {done.returncode})\n{done.stderr.strip()}",
-                  flush=True)
+            if done.returncode != 0 or not only_k1:
+                print(f"--- {src.name} (exit {done.returncode})\n{done.stderr.strip()}",
+                      flush=True)
             if done.returncode != 0:
                 sys.exit(1)
+            if src.name == "fft_rows.cu":
+                for record in fft_rows_registers(done.stderr):
+                    print(json.dumps({"ptxas": "fft_rows_kernel", **record}), flush=True)
     t0 = time.perf_counter()
     _build.load_library()
     print(f"build + load: {time.perf_counter() - t0:.2f} s", flush=True)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    for rows, n in [] if only_k3 else SHAPES:
+    for rows, n in [] if only_k3 else COMPLEX_SHAPES:
         x = torch.complex(torch.randn(rows, n, generator=gen, device="cuda"),
                           torch.randn(rows, n, generator=gen, device="cuda"))
-        tol = 1e-3 * n ** 0.5
-        for radix in (2, 4):
-            for inverse in (False, True):
-                plain = fft_rows_plain(x, inverse=inverse, radix=radix)
-                lib = torch.fft.ifft(x) if inverse else torch.fft.fft(x)
+        for inverse in (False, True):
+            # 1e-3*sqrt(n) on the unscaled transform: the inverse's 1/n
+            # scale shrinks its values, and so its tolerance, by n.
+            tol = 1e-3 * n ** 0.5 / (n if inverse else 1)
+            lib = torch.fft.ifft(x) if inverse else torch.fft.fft(x)
+            for radix in (2, 4):
                 k1 = fft_rows_op(x, inverse=inverse, radix=radix)
-                k2 = fft_rows_transpose_op(x, inverse=inverse, radix=radix)
                 torch.cuda.synchronize()
-                errs = {"k1_vs_plain": float((k1 - plain).abs().max()),
-                        "k2_vs_plain": float((k2 - plain.T).abs().max()),
+                errs = {"k1_vs_plain": float((k1 - fft_rows_plain(
+                            x, inverse=inverse, radix=radix)).abs().max()),
                         "k1_vs_library": float((k1 - lib).abs().max())}
                 print(json.dumps({"rows": rows, "n": n, "radix": radix,
                                   "inverse": inverse, "atol": tol, **errs}),
                       flush=True)
                 if max(errs.values()) > tol:
-                    sys.exit(f"kernel disagrees: {errs} > {tol}")
+                    sys.exit(f"complex row kernel disagrees: {errs} > {tol}")
 
-    for rows, n in REAL_SHAPES:
+    for rows, n in [] if only_k3 or only_k1 else SHAPES:
+        x = torch.complex(torch.randn(rows, n, generator=gen, device="cuda"),
+                          torch.randn(rows, n, generator=gen, device="cuda"))
+        for radix in (2, 4):
+            for inverse in (False, True):
+                tol = 1e-3 * n ** 0.5 / (n if inverse else 1)
+                plain = fft_rows_plain(x, inverse=inverse, radix=radix)
+                lib = torch.fft.ifft(x) if inverse else torch.fft.fft(x)
+                k2 = fft_rows_transpose_op(x, inverse=inverse, radix=radix)
+                torch.cuda.synchronize()
+                errs = {"k2_vs_plain": float((k2 - plain.T).abs().max()),
+                        "k2_vs_library": float((k2 - lib.T).abs().max())}
+                print(json.dumps({"rows": rows, "n": n, "radix": radix,
+                                  "inverse": inverse, "atol": tol, **errs}),
+                      flush=True)
+                if max(errs.values()) > tol:
+                    sys.exit(f"fused row kernel disagrees: {errs} > {tol}")
+
+    for rows, n in [] if only_k1 else REAL_SHAPES:
         x = torch.randn(rows, n, generator=gen, device="cuda")
         tol = 1e-3 * n ** 0.5
         lib = torch.fft.rfft(x)
@@ -143,7 +203,7 @@ def main() -> None:
             if max(errs.values()) > tol:
                 sys.exit(f"real kernel disagrees: {errs} > {tol}")
 
-    for r, c in [] if only_k3 else TRANSPOSE_SHAPES:
+    for r, c in [] if only_k3 or only_k1 else TRANSPOSE_SHAPES:
         for dtype in TRANSPOSE_DTYPES:
             x = torch.randn(r, c, generator=gen, device="cuda",
                             dtype=torch.float64 if dtype == torch.complex128
@@ -159,6 +219,17 @@ def main() -> None:
                 sys.exit(f"transpose differs at {(r, c)} {dtype}")
 
     for n in SWEEP_LENGTHS:
+        if only_k1:
+            x = torch.randn(SWEEP_ELEMENTS // n, n, dtype=torch.complex64, device="cuda")
+            print(json.dumps({
+                "card": card, "rows": x.shape[0], "n": n,
+                "fft_rows_ms": time_ms(lambda: fft_rows_op(x)),
+                "fft_rows_inverse_ms": time_ms(lambda: fft_rows_op(x, inverse=True)),
+                "torch_fft_ms": time_ms(lambda: torch.fft.fft(x)),
+                "torch_ifft_ms": time_ms(lambda: torch.fft.ifft(x)),
+                "clone_ms": time_ms(lambda: x.clone())}), flush=True)
+            del x
+            continue
         xr = torch.randn(SWEEP_ELEMENTS // n, n, device="cuda")
         if only_k3:
             print(json.dumps({

@@ -27,7 +27,7 @@
 // f + f/16.  Unpadded, the write y[(j*16 + u)*s + q] at s = 1 puts the 16
 // threads of a half-warp 16 float2 apart, one bank: a 16-way conflict.  With
 // the padding every exchange write and read of every plan is conflict-free
-// (checked on the CPU by tests/test_torch_rfft.py's model of the passes).
+// (checked on the CPU by the model of the passes in tests/_torch_parity.py).
 //
 // Every thread of the CTA must call fft_row: the exchange synchronises the
 // CTA.  A caller with no row for a thread passes zeros and stores nothing.

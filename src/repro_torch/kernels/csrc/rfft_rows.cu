@@ -113,7 +113,8 @@ int launch(const void* in, void* out, long long rows, int pairs_per_cta, int thr
 // Launches on `stream` and does not synchronise.  Returns a CUDA error code
 // (0 = launched).  `in` is (rows, n) float32, `out` a distinct
 // (rows, n/2 + 1) complex64 buffer; `rows_per_cta` counts row pairs and,
-// with `threads`, must be the shape kernels/fft/real.py::real_rows_plan gives.
+// with `threads`, must be the shape kernels/fft/kernel.py::complex_rows_plan
+// gives for (rows + 1) / 2 pairs.
 extern "C" int repro_rfft_rows(const void* in, void* out, long long rows, int n,
                                int radix, int rows_per_cta, int threads, void* stream) {
     if (rows <= 0) return 0;

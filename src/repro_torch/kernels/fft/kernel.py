@@ -1,18 +1,26 @@
 """Batched row FFT (Stockham autosort, radix-4/radix-2): the plain PyTorch
-version and the launcher of the CUDA kernel ``csrc/fft_rows.cu``.
+version, the launch plan and the launcher of the CUDA kernel
+``csrc/fft_rows.cu``.
 
 Counterpart of ``repro.kernels.fft.kernel``.  The stage loop is the same in
-both packages and in the CUDA source (``csrc/stockham.cuh``): the row is viewed
-as ``(ncur, s)``, a radix-r pass combines the r parts ``v[t*m:(t+1)*m]`` of
-length ``m = ncur // r`` and writes slot ``u`` of butterfly ``j`` scaled by
-``w_j^u``, ``w_j = exp(sign*2*pi*i*j/ncur)``.  No pass needs a bit-reversal
-gather, which is why the formulation suits a kernel: every pass is a strided
-read, a few adds and multiplies, and a strided write.
+both packages and in ``csrc/stockham.cuh``, which the fused kernels run: the
+row is viewed as ``(ncur, s)``, a radix-r pass combines the r parts
+``v[t*m:(t+1)*m]`` of length ``m = ncur // r`` and writes slot ``u`` of
+butterfly ``j`` scaled by ``w_j^u``, ``w_j = exp(sign*2*pi*i*j/ncur)``.  No
+pass needs a bit-reversal gather, which is why the formulation suits a
+kernel: every pass is a strided read, a few adds and multiplies, and a strided
+write.
 
 The plain versions work on two float planes ``(re, im)`` like the reference,
 so the two can be compared plane for plane; ``fft_rows_plain`` wraps them for
 interleaved complex tensors, which is what the CUDA kernel reads and writes
 (one ``float2`` per element, through ``torch.view_as_real``).
+
+The CUDA kernel holds each row's points in registers (``csrc/regfft.cuh``):
+its passes (radix 16, then one radix-2^r pass) and launch shape depend only on
+``n`` and the row count, and ``complex_rows_plan`` mirrors its instantiation
+table.  ``radix`` is validated, as in the reference, and chooses the plain
+version's stage loop only.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ __all__ = [
     "KernelLaunchError",
     "KernelLengthError",
     "apply_stockham",
+    "complex_rows_plan",
     "fft_rows_cuda",
     "fft_rows_plain",
     "launch_count",
@@ -40,10 +49,17 @@ __all__ = [
 
 # Dynamic shared memory a CTA may opt in to on an H100 (227 KB).
 SMEM_BUDGET = 232448
-# A row ping-pongs between two shared buffers of 8*n bytes each (the fused
-# kernel pads each by one element), so whole-row-in-shared-memory holds for
-# power-of-two n up to this length.
+# The fused kernels (``csrc/fft_rows_transpose.cu``, ``rfft_rows_transpose.cu``)
+# hold two whole rows in shared memory, 2 * 8 * (n + 1) bytes, so every row
+# kernel takes power-of-two n up to this length and no further.
 MAX_KERNEL_N = 8192
+# Points of a row one thread of a register-resident kernel holds (at most),
+# and the threads a CTA aims at when a row needs fewer (``csrc/regfft.cuh``).
+_POINTS = 16
+_CTA_THREADS = 256
+# CTAs wanted before rows are packed more than one to a CTA (two waves of an
+# H100's 132 SMs).
+_MIN_CTAS = 264
 
 _launches = 0
 
@@ -244,21 +260,48 @@ def launch(fn_name: str, x: torch.Tensor, out: torch.Tensor, **args) -> None:
         raise KernelLaunchError(f"{fn_name}({detail}) failed with CUDA error {err}")
 
 
-def fft_rows_cuda(x: torch.Tensor, *, inverse: bool = False, radix: int = 4,
-                  rows_per_cta: int = 1, threads: int = 256) -> torch.Tensor:
+def complex_rows_plan(n: int, rows: int) -> tuple[int, int, int, list[int], int]:
+    """The launch shape of a register-resident row kernel for ``rows`` rows
+    of length ``n`` (a power of two, 2 <= n <= 8192), as ``csrc/fft_rows.cu``
+    and ``csrc/rfft_rows.cu`` (a packed pair of real rows in the place of a
+    row) instantiate it: ``(rows_per_cta, threads, points_per_thread,
+    radices, smem_bytes)``.
+
+    A row is held by ``n / points_per_thread`` threads with
+    ``points_per_thread = min(16, n)`` points each.  ``log2 n = 4q + r``
+    gives ``q`` radix-16 passes and one radix-``2^r`` pass (below n = 16,
+    one radix-n pass).  A CTA takes as many rows as make 256 threads, fewer
+    (down to one row or one warp) while the grid would not fill the card.
+    The exchange buffer holds the CTA's rows with one float2 of padding per
+    16: 69632 bytes at n = 8192, so two CTAs share an SM.
+    """
+    if n < 2 or n & (n - 1):
+        raise ValueError(f"complex_rows_plan: length {n} must be a power of two >= 2")
+    points = min(_POINTS, n)
+    group = n // points
+    log2n = n.bit_length() - 1
+    log2p = points.bit_length() - 1
+    radices = [points] * (log2n // log2p) + ([1 << log2n % log2p] if log2n % log2p else [])
+    per_cta = max(1, _CTA_THREADS // group)
+    while per_cta > 1 and per_cta * group > 32 and -(-rows // per_cta) < _MIN_CTAS:
+        per_cta //= 2
+    elements = per_cta * n
+    return per_cta, per_cta * group, points, radices, 8 * (elements + -(-elements // 16))
+
+
+def fft_rows_cuda(x: torch.Tensor, *, inverse: bool = False,
+                  radix: int = 4) -> torch.Tensor:
     """Launch ``csrc/fft_rows.cu``: (rows, n) complex64 CUDA tensor -> its
-    row-wise DFT.  Does not synchronise."""
+    row-wise DFT, in the launch shape of ``complex_rows_plan``.  Does not
+    synchronise."""
     global _launches
     rows, n = check_kernel_input(x, "fft_rows_cuda")
     if radix not in (2, 4):
         raise ValueError(f"unsupported radix {radix}")
-    if 2 * rows_per_cta * n * 8 > SMEM_BUDGET:
-        raise ValueError(
-            f"fft_rows_cuda: rows_per_cta={rows_per_cta} rows of length {n} "
-            f"need more than {SMEM_BUDGET} bytes of shared memory")
     out = torch.empty_like(x)
     if rows == 0:
         return out
+    rows_per_cta, threads, *_ = complex_rows_plan(n, rows)
     launch("repro_fft_rows", x, out, rows=rows, n=n, radix=radix,
            inverse=int(inverse), rows_per_cta=rows_per_cta, threads=threads)
     _launches += 1

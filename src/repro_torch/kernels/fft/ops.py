@@ -1,11 +1,13 @@
 """Public op for the row-FFT kernel.
 
 Counterpart of ``repro.kernels.fft.ops``.  Handles the leading batch
-dimensions, the float32 compute type, the radix default and the launch shape
-(rows per CTA from a shared-memory budget, threads from the butterflies a CTA
-holds).  A CUDA tensor goes to the CUDA kernel or the call raises; a CPU tensor
-goes to the kernel's plain PyTorch version.  Nothing is padded: the kernel
-masks its ragged last block.
+dimensions, the float32 compute type and the radix default, and, for the fused
+kernels on ``csrc/stockham.cuh``, the launch shape (rows per CTA from a
+shared-memory budget, threads from the butterflies a CTA holds); the
+register-resident row kernels take theirs from ``complex_rows_plan``.  A CUDA
+tensor goes to the CUDA kernel or the call raises; a CPU tensor goes to the
+kernel's plain PyTorch version.  Nothing is padded: the kernels mask their
+ragged last block.
 """
 
 from __future__ import annotations
@@ -13,20 +15,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch._device import as_tensor, complex_result_type
-from repro_torch.kernels.fft.kernel import (MAX_KERNEL_N, SMEM_BUDGET,
+from repro_torch.kernels.fft.kernel import (_MIN_CTAS, MAX_KERNEL_N, SMEM_BUDGET,
                                             KernelLengthError, fft_rows_cuda,
                                             fft_rows_plain)
 
 __all__ = ["fft_rows_op", "pick_radix", "pick_rows_per_cta", "pick_threads",
-           "prepare_rows", "resolve_call_params"]
-
-# Elements one CTA of the unfused kernel aims to hold: enough butterflies for
-# 512 threads at radix 4, and two shared buffers of 16 KiB each, so several
-# CTAs share an SM.  Longer rows take one row per CTA.
-_CTA_ELEMENTS = 2048
-# CTAs wanted before rows are packed more than one to a CTA (two waves of an
-# H100's 132 SMs).
-_MIN_CTAS = 264
+           "prepare_rows", "resolve_call_params", "resolve_radix"]
 
 
 def pick_radix(n: int) -> int:
@@ -35,25 +29,19 @@ def pick_radix(n: int) -> int:
     return 4 if n >= 4 else 2
 
 
-def pick_rows_per_cta(n: int, rows: int, *, fused: bool = False) -> int:
-    """Rows one CTA transforms.
-
-    Unfused: as many as make up ``_CTA_ELEMENTS`` elements, fewer while the
-    grid would not fill the card.  Fused: up to 16, so that a CTA's
+def pick_rows_per_cta(n: int, rows: int) -> int:
+    """Rows one CTA of a fused kernel transforms: up to 16, so that a CTA's
     transposed store writes ``rows_per_cta * 8`` contiguous bytes per output
-    row — a multiple of 4 (whole 32-byte sectors) when 4 or more fit.  Both
-    are bounded by two shared buffers per row within ``SMEM_BUDGET``.
-    """
-    if fused:
-        r = min(16, SMEM_BUDGET // (2 * (n + 1) * 8))
-        if r >= 4:
-            r -= r % 4
-    else:
-        r = min(_CTA_ELEMENTS // n, SMEM_BUDGET // (2 * n * 8))
+    row — a multiple of 4 (whole 32-byte sectors) when 4 or more fit —
+    bounded by two shared buffers of ``n + 1`` elements per row within
+    ``SMEM_BUDGET``, and fewer (in steps of 4) while the grid would not fill
+    the card."""
+    r = min(16, SMEM_BUDGET // (2 * (n + 1) * 8))
+    if r >= 4:
+        r -= r % 4
     r = max(r, 1)
-    step = 4 if fused else 1
-    while r > step and -(-rows // r) < _MIN_CTAS:
-        r = max(step, r // 2)
+    while r > 4 and -(-rows // r) < _MIN_CTAS:
+        r = max(4, r // 2)
     return max(1, min(r, max(rows, 1)))
 
 
@@ -63,24 +51,29 @@ def pick_threads(n: int, rows_per_cta: int, radix: int) -> int:
     return int(min(1024, max(64, 1 << max(butterflies - 1, 0).bit_length())))
 
 
-def resolve_call_params(n: int, rows: int, rows_per_cta: int | None,
-                        radix: int | None, *, fused: bool = False,
-                        name: str | None = None) -> tuple[int, int, int]:
-    """Shared prologue of the row-FFT op wrappers (plain and fused, complex
-    and real): validate the length and fill in rows_per_cta/radix/threads
-    defaults.  ``rows`` counts what one CTA row holds (a complex row, or a
-    packed pair of real rows); ``name`` is the op named in errors."""
+def resolve_radix(n: int, radix: int | None, name: str) -> int:
+    """Shared prologue of the row-FFT op wrappers: validate the length and
+    fill in the radix default.  ``name`` is the op named in errors."""
     if n & (n - 1) or n < 1:
         raise ValueError(f"cuda fft kernel requires power-of-two length, got {n}")
     if n > MAX_KERNEL_N:
-        raise KernelLengthError(
-            name or ("fft_rows_transpose_op" if fused else "fft_rows_op"), n)
+        raise KernelLengthError(name, n)
     if radix is None:
         radix = pick_radix(n)
     if radix not in (2, 4):
         raise ValueError(f"unsupported radix {radix}")
+    return radix
+
+
+def resolve_call_params(n: int, rows: int, rows_per_cta: int | None,
+                        radix: int | None, *,
+                        name: str = "fft_rows_transpose_op") -> tuple[int, int, int]:
+    """``resolve_radix`` plus the launch shape of a fused kernel: fill in
+    the rows_per_cta and threads defaults.  ``rows`` counts what one CTA row
+    holds (a complex row, or a packed pair of real rows)."""
+    radix = resolve_radix(n, radix, name)
     if rows_per_cta is None:
-        rows_per_cta = pick_rows_per_cta(n, rows, fused=fused)
+        rows_per_cta = pick_rows_per_cta(n, rows)
     return rows_per_cta, radix, pick_threads(n, rows_per_cta, radix)
 
 
@@ -95,11 +88,13 @@ def prepare_rows(x: torch.Tensor, name: str) -> torch.Tensor:
     return x if x.dtype == torch.complex64 else x.to(torch.complex64)
 
 
-def fft_rows_op(x, *, inverse: bool = False, rows_per_cta: int | None = None,
+def fft_rows_op(x, *, inverse: bool = False,
                 radix: int | None = None) -> torch.Tensor:
     """Complex row FFT via the CUDA kernel. x: (..., rows, n) complex.
 
-    ``radix=None`` auto-selects (radix 4 with radix-2 tail for n >= 4).
+    ``radix=None`` auto-selects (radix 4 with radix-2 tail for n >= 4); it
+    chooses the plain version's stage loop, while the CUDA kernel's passes
+    and launch shape depend on ``n`` only (``complex_rows_plan``).
     Computes in float32 and returns ``promote(x.dtype, complex64)``.
     """
     x = as_tensor(x)
@@ -107,14 +102,12 @@ def fft_rows_op(x, *, inverse: bool = False, rows_per_cta: int | None = None,
         raise ValueError(f"fft_rows_op takes (..., rows, n) input, got shape {tuple(x.shape)}")
     n = x.shape[-1]
     x2 = prepare_rows(x, "fft_rows_op").reshape(-1, n)
-    rows_per_cta, radix, threads = resolve_call_params(
-        n, x2.shape[0], rows_per_cta, radix)
+    radix = resolve_radix(n, radix, "fft_rows_op")
     out_dtype = complex_result_type(x)
     if n == 1:  # the length-1 DFT is the identity: no pass to run
         return x2.to(out_dtype).reshape(x.shape).clone()
     if x2.is_cuda:
-        out = fft_rows_cuda(x2, inverse=inverse, radix=radix,
-                            rows_per_cta=rows_per_cta, threads=threads)
+        out = fft_rows_cuda(x2, inverse=inverse, radix=radix)
     else:
         out = fft_rows_plain(x2, inverse=inverse, radix=radix)
     return out.to(out_dtype).reshape(x.shape)

@@ -17,8 +17,8 @@ crop); the CUDA kernel writes the ``n//2+1`` bins of each row straight to its
 place, so the op pads, re-interleaves and crops nothing on the card.
 
 The CUDA kernel holds a row pair's points in registers (``csrc/regfft.cuh``):
-its passes and launch shape depend only on ``n`` and the pair count, and
-``real_rows_plan`` mirrors its instantiation table.  ``radix`` is validated,
+its passes and launch shape depend only on ``n`` and the pair count: the
+shape is ``complex_rows_plan``'s, with a packed pair in the place of a row.  ``radix`` is validated,
 as in the reference, and chooses the plain version's stage loop only.
 """
 
@@ -28,18 +28,13 @@ import torch
 
 from repro_torch._device import as_tensor, complex_result_type
 from repro_torch.kernels.fft.kernel import (apply_stockham, check_kernel_input,
-                                            launch)
-from repro_torch.kernels.fft.ops import _MIN_CTAS, resolve_call_params
+                                            complex_rows_plan, launch)
+from repro_torch.kernels.fft.ops import resolve_radix
 
-__all__ = ["launch_count", "prepare_real_rows", "real_rows_plan",
-           "reset_launch_count", "rfft_rows_cuda", "rfft_rows_op",
+__all__ = ["launch_count", "prepare_real_rows", "reset_launch_count", "rfft_rows_cuda", "rfft_rows_op",
            "rfft_rows_plain", "unpack_packed_fft"]
 
 _launches = 0
-# Points of a row one thread of the kernel holds in registers (at most).
-_POINTS = 16
-# Threads a CTA of the kernel aims at when a pair needs fewer.
-_CTA_THREADS = 256
 
 
 def launch_count() -> int:
@@ -83,38 +78,10 @@ def rfft_rows_plain(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     return out.reshape(-1, n)[:rows, :n // 2 + 1].contiguous()
 
 
-def real_rows_plan(n: int, pairs: int) -> tuple[int, int, int, list[int], int]:
-    """The CUDA kernel's launch shape for ``pairs`` row pairs of length
-    ``n`` (a power of two, 2 <= n <= 8192), as ``csrc/rfft_rows.cu``
-    instantiates it: ``(pairs_per_cta, threads, points_per_thread, radices,
-    smem_bytes)``.
-
-    A pair is held by ``n / points_per_thread`` threads with
-    ``points_per_thread = min(16, n)`` points each.  ``log2 n = 4q + r``
-    gives ``q`` radix-16 passes and one radix-``2^r`` pass (below n = 16,
-    one radix-n pass).  A CTA takes as many pairs as make 256 threads, fewer
-    (down to one pair or one warp) while the grid would not fill the card.
-    The exchange buffer holds the CTA's pairs with one float2 of padding
-    per 16.
-    """
-    if n < 2 or n & (n - 1):
-        raise ValueError(f"real_rows_plan: length {n} must be a power of two >= 2")
-    points = min(_POINTS, n)
-    group = n // points
-    log2n = n.bit_length() - 1
-    log2p = points.bit_length() - 1
-    radices = [points] * (log2n // log2p) + ([1 << log2n % log2p] if log2n % log2p else [])
-    per_cta = max(1, _CTA_THREADS // group)
-    while per_cta > 1 and per_cta * group > 32 and -(-pairs // per_cta) < _MIN_CTAS:
-        per_cta //= 2
-    elements = per_cta * n
-    return per_cta, per_cta * group, points, radices, 8 * (elements + -(-elements // 16))
-
-
 def rfft_rows_cuda(x: torch.Tensor, *, radix: int = 4) -> torch.Tensor:
     """Launch ``csrc/rfft_rows.cu``: (rows, n) float32 CUDA tensor -> its
-    (rows, n//2+1) complex64 half spectrum per row, in the launch shape of
-    ``real_rows_plan``.  Does not synchronise."""
+    (rows, n//2+1) complex64 half spectrum per row, in the launch shape
+    ``complex_rows_plan`` gives for its row pairs.  Does not synchronise."""
     global _launches
     rows, n = check_kernel_input(x, "rfft_rows_cuda", torch.float32)
     if radix not in (2, 4):
@@ -122,7 +89,7 @@ def rfft_rows_cuda(x: torch.Tensor, *, radix: int = 4) -> torch.Tensor:
     out = torch.empty((rows, n // 2 + 1), dtype=torch.complex64, device=x.device)
     if rows == 0:
         return out
-    pairs_per_cta, threads, *_ = real_rows_plan(n, (rows + 1) // 2)
+    pairs_per_cta, threads, *_ = complex_rows_plan(n, (rows + 1) // 2)
     launch("repro_rfft_rows", x, out, rows=rows, n=n, radix=radix,
            rows_per_cta=pairs_per_cta, threads=threads)
     _launches += 1
@@ -154,9 +121,8 @@ def rfft_rows_op(x, *, radix: int | None = None) -> torch.Tensor:
         raise ValueError(f"rfft_rows_op takes (..., rows, n) input, got shape {tuple(x.shape)}")
     n = x.shape[-1]
     x2 = prepare_real_rows(x, "rfft_rows_op").reshape(-1, n)
-    # Checks the length and fills in the radix; the CUDA launch shape comes
-    # from real_rows_plan.
-    _, radix, _ = resolve_call_params(n, 1, 1, radix, name="rfft_rows_op")
+    # The CUDA launch shape comes from complex_rows_plan.
+    radix = resolve_radix(n, radix, "rfft_rows_op")
     out_dtype = complex_result_type(x)
     out_shape = tuple(x.shape[:-1]) + (n // 2 + 1,)
     if n == 1:  # the length-1 DFT is the identity

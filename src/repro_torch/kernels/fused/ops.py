@@ -28,8 +28,7 @@ def fft_rows_transpose_op(x, *, inverse: bool = False,
         raise ValueError(f"fused op takes a 2-D matrix, got shape {tuple(x.shape)}")
     rows, n = x.shape
     x2 = prepare_rows(x, "fft_rows_transpose_op")
-    rows_per_cta, radix, threads = resolve_call_params(
-        n, rows, rows_per_cta, radix, fused=True)
+    rows_per_cta, radix, threads = resolve_call_params(n, rows, rows_per_cta, radix)
     out_dtype = complex_result_type(x)
     if n == 1:  # the length-1 DFT is the identity: only the transpose is left
         return x2.to(out_dtype).T.contiguous()

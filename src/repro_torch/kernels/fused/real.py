@@ -77,7 +77,7 @@ def rfft_rows_transpose_op(x, *, rows_per_cta: int | None = None,
     rows, n = x.shape
     x2 = prepare_real_rows(x, "rfft_rows_transpose_op")
     rows_per_cta, radix, threads = resolve_call_params(
-        n, (rows + 1) // 2, rows_per_cta, radix, fused=True,
+        n, (rows + 1) // 2, rows_per_cta, radix,
         name="rfft_rows_transpose_op")
     out_dtype = complex_result_type(x)
     if n == 1:  # the length-1 DFT is the identity: only the transpose is left

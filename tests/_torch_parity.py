@@ -8,6 +8,8 @@ its ops run the kernels' plain versions).  Only the tests import both.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -72,3 +74,59 @@ def both_padding_fpms(n: int):
     ref = ref_core.FPMSet([ref_core.SpeedFunction(xs, ys, sp, name=name)
                            for xs, ys, sp, name in arrays])
     return ref, convert.fpms_from_arrays(arrays)
+
+
+def _pad(f):
+    """Padded index of element f of a register-resident kernel's exchange
+    buffer (``csrc/regfft.cuh``: one float2 of padding per 16)."""
+    return f + (f >> 4)
+
+
+def kernel_pass_model(z: torch.Tensor, plan, *, inverse: bool = False):
+    """A register-resident kernel's passes (``csrc/regfft.cuh``) in float64,
+    thread by thread, on the rows of ``z`` (complex rows, or packed real
+    pairs), in the launch shape ``plan`` = ``(rows_per_cta, threads, points,
+    radices, smem_bytes)`` of ``complex_rows_plan``:
+    thread t of a row's group holds x[t + k*T] in its registers, runs
+    ``points / r`` butterflies of radix r (butterfly b takes slots
+    b + u*(points/r)), twiddles and writes slot u to y[(j*r + u)*s + q];
+    ``inverse`` flips the sign and scales by 1/n.  Returns the transform and,
+    per exchange access of every thread of a CTA of ``rows_per_cta`` rows,
+    the worst number of a half-warp's 16 threads that hit one shared-memory
+    bank."""
+    rows, n = z.shape
+    per_cta, _, points, radices, smem = plan
+    sign = 1.0 if inverse else -1.0
+    group = n // points
+    t = torch.arange(group)
+    mine = t[:, None] + torch.arange(points)[None, :] * group    # (T, points)
+    x = z.to(torch.complex128)
+    accesses = [mine[:, k] for k in range(points)]
+    log2s = 0
+    for pass_, r in enumerate(radices):
+        b = points // r
+        u = torch.arange(r)
+        dft = torch.exp(sign * 2j * math.pi * torch.outer(u, u).double() / r)
+        y = torch.einsum("uv,ptvb->ptub", dft, x[:, mine].reshape(rows, group, r, b))
+        i = t[:, None] + torch.arange(b)[None, :] * group        # butterflies
+        s, ncur = 1 << log2s, n >> log2s
+        j, q = i >> log2s, i & (s - 1)
+        y = y * torch.exp(sign * 2j * math.pi
+                          * (j[:, None, :] * u[None, :, None]).double() / ncur)
+        dest = ((j[:, None, :] * r + u[None, :, None]) << log2s) + q[:, None, :]
+        assert sorted(dest.flatten().tolist()) == list(range(n))
+        if pass_ < len(radices) - 1:
+            accesses += [dest[:, uu, bb] for uu in range(r) for bb in range(b)]
+        else:  # the last pass leaves natural order: its slots are its reads
+            assert torch.equal(dest.reshape(group, points), mine)
+        x = torch.empty_like(x)
+        x[:, dest.flatten()] = y.reshape(rows, -1)
+        log2s += r.bit_length() - 1
+    worst = 1
+    for a in accesses:  # every thread of a CTA, row by row
+        f = (torch.arange(per_cta)[:, None] * n + a[None, :]).flatten()
+        assert int(_pad(f).max()) < smem // 8
+        for h in range(0, f.numel(), 16):
+            banks = (_pad(f[h:h + 16]) % 16).tolist()
+            worst = max(worst, max(banks.count(v) for v in banks))
+    return (x / n if inverse else x), worst

@@ -248,18 +248,17 @@ def test_host_arrays_default_to_the_card_and_raise_without_one(op, monkeypatch):
 
 @pytest.mark.parametrize("n", [2, 8, 64, 256, 1024, 2048, 4096, 8192])
 @pytest.mark.parametrize("rows", [1, 37, 256, 8192, 100000])
-@pytest.mark.parametrize("fused", [False, True])
-def test_launch_shape_fits_the_card(n, rows, fused):
-    r, radix, threads = resolve_call_params(n, rows, None, None, fused=fused)
+def test_launch_shape_fits_the_card(n, rows):
+    """K2 holds ``r`` rows in two shared buffers of n + 1 elements (K1's
+    plan is tested in ``test_torch_regfft.py``)."""
+    r, radix, threads = resolve_call_params(n, rows, None, None)
     assert radix == pick_radix(n)
     assert 1 <= r <= max(rows, 1)
-    row_elems = n + 1 if fused else n
-    assert 2 * r * row_elems * 8 <= port_kernel.SMEM_BUDGET
+    assert 2 * r * (n + 1) * 8 <= port_kernel.SMEM_BUDGET
     assert 64 <= threads <= 1024 and threads & (threads - 1) == 0
     assert threads == pick_threads(n, r, radix)
-    if fused:
-        assert r <= 16 and (r < 4 or r % 4 == 0 or r == rows)
-    assert r == pick_rows_per_cta(n, rows, fused=fused)
+    assert r <= 16 and (r < 4 or r % 4 == 0 or r == rows)
+    assert r == pick_rows_per_cta(n, rows)
 
 
 def test_whole_row_limit_is_what_shared_memory_holds():
@@ -289,13 +288,19 @@ def test_kernel_sources_are_plain_cuda_built_for_sm_90a():
         assert "torch/extension.h" not in text and "__sincosf(" not in text
         if path.suffix == ".cu":
             # Every row FFT runs a shared stage loop (stockham.cuh, or
-            # regfft.cuh, which builds on it); the transpose has none.
+            # regfft.cuh, which builds on it); the transpose has none.  K1
+            # and K3 run regfft.cuh's passes, K2 and K4 stockham.cuh's.
             shared = any(f'#include "{h}"' in text for h in ("stockham.cuh", "regfft.cuh"))
             assert shared == ("fft" in path.stem)
             assert "Replaces the TPU kernel" in text and "Bound on this card" in text
     for header in ("stockham.cuh", "regfft.cuh"):
         assert "sincospif" in (_build.csrc_dir() / header).read_text()
     assert '#include "stockham.cuh"' in (_build.csrc_dir() / "regfft.cuh").read_text()
+    for name in ("fft_rows.cu", "rfft_rows.cu"):
+        text = (_build.csrc_dir() / name).read_text()
+        assert '#include "regfft.cuh"' in text and "stockham_rows" not in text
+    for name in ("fft_rows_transpose.cu", "rfft_rows_transpose.cu"):
+        assert "stockham_rows" in (_build.csrc_dir() / name).read_text()
 
 
 def test_build_directory_is_keyed_by_the_sources(tmp_path, monkeypatch):

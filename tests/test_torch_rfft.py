@@ -13,7 +13,6 @@ for the transpose, which moves bits.
 """
 
 import ast
-import math
 import os
 
 import numpy as np
@@ -23,7 +22,7 @@ import jax.numpy as jnp
 
 from _hypothesis_compat import given, settings, st
 from _torch_parity import (both_fpms, both_padding_fpms, complex_signal,
-                           to_numpy, to_torch)
+                           kernel_pass_model, to_numpy, to_torch)
 
 import repro.core as ref_core
 import repro.core.pfft as ref_pfft
@@ -41,6 +40,7 @@ import repro_torch.fft as port_fft
 import repro_torch.plan as port_plan
 from repro_torch import kernels as port_kernels
 from repro_torch.kernels import _build
+from repro_torch.kernels.fft import kernel as port_fft_kernel
 from repro_torch.kernels.fft import real as port_real
 from repro_torch.kernels.fft.kernel import (MAX_KERNEL_N, SMEM_BUDGET,
                                             KernelLengthError)
@@ -171,14 +171,15 @@ def test_real_ops_refuse_complex_non_contiguous_and_bad_radix(op):
 
 @pytest.mark.parametrize("n", [2, 64, 1024, 8192])
 @pytest.mark.parametrize("rows", [1, 37, 8192])
-@pytest.mark.parametrize("fused", [False, True])
-def test_real_launch_shape_fits_the_card(n, rows, fused):
-    """A CTA holds ``rows_per_cta`` row pairs in two shared buffers (of
-    stride n + 1 in the fused kernel): what the launchers check."""
+def test_real_launch_shape_fits_the_card(n, rows):
+    """A CTA of K4 holds ``rows_per_cta`` row pairs in two shared buffers of
+    stride n + 1: what its launcher checks.  K3 launches K1's plan with a
+    pair in the place of a row, tested at these pair counts in
+    ``test_torch_regfft.py``."""
     pairs = (rows + 1) // 2
-    r, radix, threads = resolve_call_params(n, pairs, None, None, fused=fused)
+    r, radix, threads = resolve_call_params(n, pairs, None, None)
     assert 1 <= r <= pairs
-    assert 2 * r * (n + 1 if fused else n) * 8 <= SMEM_BUDGET
+    assert 2 * r * (n + 1) * 8 <= SMEM_BUDGET
     assert 64 <= threads <= 1024 and radix == (4 if n >= 4 else 2)
 
 
@@ -187,71 +188,16 @@ def test_real_launch_shape_fits_the_card(n, rows, fused):
 LENGTHS = [1 << e for e in range(1, 14)]
 
 
-@pytest.mark.parametrize("pairs", [1, 4, 4096])
-@pytest.mark.parametrize("n", LENGTHS)
-def test_real_rows_plan_fits_the_card(n, pairs):
-    per_cta, threads, points, radices, smem = port_real.real_rows_plan(n, pairs)
-    assert int(np.prod(radices)) == n
-    assert threads * points == per_cta * n
-    assert points <= 16 and threads <= 1024 and smem <= SMEM_BUDGET
-    assert per_cta & (per_cta - 1) == 0
-    if n == MAX_KERNEL_N:  # two CTAs share an SM
-        assert (per_cta, threads, radices) == (1, 512, [16, 16, 16, 2])
-        assert smem <= SMEM_BUDGET // 2
-
-
 def test_real_rows_plan_mirrors_the_cuda_header():
+    """K3 runs the header's plan with a packed pair in the place of a row,
+    at every length, and its launcher refuses any other shape."""
     text = (_build.csrc_dir() / "regfft.cuh").read_text()
-    assert f"kMaxPoints = {port_real._POINTS};" in text
-    assert f"kCtaThreads = {port_real._CTA_THREADS};" in text
-
-
-def _pad(f):
-    return f + (f >> 4)
-
-
-def kernel_pass_model(z: torch.Tensor, sign: float = -1.0):
-    """The CUDA kernel's passes (``csrc/regfft.cuh``) in float64, thread by
-    thread: thread t of a pair's group holds x[t + k*T] in its registers,
-    runs ``points / r`` butterflies of radix r (butterfly b takes slots
-    b + u*(points/r)), twiddles and writes slot u to y[(j*r + u)*s + q].
-    Returns the transform and, per exchange access, the worst number of a
-    half-warp's 16 threads that hit one shared-memory bank."""
-    pairs, n = z.shape
-    per_cta, _, points, radices, smem = port_real.real_rows_plan(n, pairs)
-    group = n // points
-    t = torch.arange(group)
-    mine = t[:, None] + torch.arange(points)[None, :] * group    # (T, points)
-    x = z.to(torch.complex128)
-    accesses = [mine[:, k] for k in range(points)]
-    log2s = 0
-    for pass_, r in enumerate(radices):
-        b = points // r
-        u = torch.arange(r)
-        dft = torch.exp(sign * 2j * math.pi * torch.outer(u, u).double() / r)
-        y = torch.einsum("uv,ptvb->ptub", dft, x[:, mine].reshape(pairs, group, r, b))
-        i = t[:, None] + torch.arange(b)[None, :] * group        # butterflies
-        s, ncur = 1 << log2s, n >> log2s
-        j, q = i >> log2s, i & (s - 1)
-        y = y * torch.exp(sign * 2j * math.pi
-                          * (j[:, None, :] * u[None, :, None]).double() / ncur)
-        dest = ((j[:, None, :] * r + u[None, :, None]) << log2s) + q[:, None, :]
-        assert sorted(dest.flatten().tolist()) == list(range(n))
-        if pass_ < len(radices) - 1:
-            accesses += [dest[:, uu, bb] for uu in range(r) for bb in range(b)]
-        else:  # the last pass leaves natural order: its slots are its reads
-            assert torch.equal(dest.reshape(group, points), mine)
-        x = torch.empty_like(x)
-        x[:, dest.flatten()] = y.reshape(pairs, -1)
-        log2s += r.bit_length() - 1
-    worst = 1
-    for a in accesses:  # every thread of a CTA, pair by pair
-        f = (torch.arange(per_cta)[:, None] * n + a[None, :]).flatten()
-        assert int(_pad(f).max()) < smem // 8
-        for h in range(0, f.numel(), 16):
-            banks = (_pad(f[h:h + 16]) % 16).tolist()
-            worst = max(worst, max(banks.count(v) for v in banks))
-    return x, worst
+    assert f"kMaxPoints = {port_fft_kernel._POINTS};" in text
+    assert f"kCtaThreads = {port_fft_kernel._CTA_THREADS};" in text
+    source = (_build.csrc_dir() / "rfft_rows.cu").read_text()
+    assert "fft_row<LOG2N, false>" in source and "cudaErrorInvalidValue" in source
+    for e in range(1, 14):
+        assert f"case 1 << {e}: return launch<{e}>(" in source
 
 
 @pytest.mark.parametrize("n", LENGTHS)
@@ -259,7 +205,7 @@ def test_kernel_pass_model_is_the_dft_and_its_exchange_is_conflict_free(n):
     rng = np.random.default_rng(n)
     a, b = rng.standard_normal((2, 3, n))
     z = torch.complex(torch.from_numpy(a), torch.from_numpy(b))
-    got, worst = kernel_pass_model(z)
+    got, worst = kernel_pass_model(z, port_fft_kernel.complex_rows_plan(n, 3))
     torch.testing.assert_close(got, torch.fft.fft(z), rtol=0, atol=1e-9 * n)
     assert worst == 1
     # ... and after the kernel's split, the plain version's half spectra.
