@@ -11,8 +11,8 @@ each of which ends the run with a non-zero exit code when it fails:
 2. ``build``     compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``.
 3. ``kernels``   every kernel against its plain PyTorch version and the
                  library on the card (ragged and odd row counts, every length
-                 the row kernels K1 and K3 are built for, the full width; the
-                 transpose bit for bit), then its
+                 the row kernels K1, K3 and K4 are built for, ragged clusters
+                 of K4, the full width; the transpose bit for bit), then its
                  time beside the plain version's, the library's and the card's
                  bound at the main path's shape.
 4. ``main_path`` FPMs timed on the card, then ``plan_pfft(...).execute`` for
@@ -87,11 +87,14 @@ MAIN_SHAPE = (8192, 8192)
 # ragged last CTA up to n = 1024).
 COMPLEX_KERNEL_SHAPES = [(rows, 1 << e) for e in range(1, 14)
                          for rows in (37, ((1 << 20) >> e) + 5)]
-# Every length the packed real kernel is instantiated for (n = 2 ... 8192),
+# Every length the packed real kernels are instantiated for (n = 2 ... 8192),
 # at an odd row count (an unpaired last row, few pairs per CTA) and an even
-# one (2^20 elements), and the main path's shape.
-REAL_KERNEL_SHAPES = [(rows, 1 << e) for e in range(1, 14)
-                      for rows in (37, max(2, (1 << 20) >> e))] + [MAIN_SHAPE]
+# one (2^20 elements), the main path's shape, and at n = 4096 and 8192, where
+# a CTA holds one pair, 2*(4k+1) and 2*(4k+1)+1 rows: 1 and 2 pairs in the
+# last cluster of 4 CTAs, with even and odd rows.
+REAL_KERNEL_SHAPES = ([(rows, 1 << e) for e in range(1, 14)
+                       for rows in (37, max(2, (1 << 20) >> e))] + [MAIN_SHAPE]
+                      + [(rows, n) for n in (4096, 8192) for rows in (258, 259)])
 TRANSPOSE_SHAPES = [(1, 1), (37, 129), (1000, 3), (4096, 8192), (8192, 8192)]
 # Every other element size the transpose kernel is built for, at small shapes.
 TRANSPOSE_OTHER_DTYPES = [torch.uint8, torch.float16, torch.float64, torch.complex128]

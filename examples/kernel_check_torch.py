@@ -14,13 +14,17 @@ source and before the full ``chip_smoke.py``.  Needs one CUDA device and
 
     python3 examples/kernel_check_torch.py --rfft-rows-only
     python3 examples/kernel_check_torch.py --fft-rows-only
+    python3 examples/kernel_check_torch.py --rfft-rows-transpose-only
 
 check and time the packed real row kernel alone (every shape of
-``REAL_SHAPES``, its column of the sweep), or the complex row kernel alone
+``REAL_SHAPES``, its column of the sweep), the complex row kernel alone
 (every shape of ``COMPLEX_SHAPES`` in both directions, its columns of the
-sweep, forward and inverse): the run to repeat, in turns, on copies of the
-tree that differ in one change to that kernel.  Every run prints the
-complex row kernel's registers and spills per length and direction.
+sweep, forward and inverse), or the fused real row kernel alone (every shape
+of ``REAL_SHAPES``, its sweep beside ``rfft(x).T.contiguous()`` and
+``x.clone()``): the run to repeat, in turns, on copies of the tree that
+differ in one change to that kernel.  Every run prints the registers and
+spills per length of the complex row kernel (and direction) and of the fused
+real row kernel, where it compiles them.
 """
 
 from __future__ import annotations
@@ -59,10 +63,12 @@ SHAPES = [(64, 2), (64, 4), (64, 8), (37, 1024), (100, 2048), (256, 4096),
 # several rows).
 COMPLEX_SHAPES = [(rows, 1 << e) for e in range(1, 14)
                   for rows in (37, ((1 << 20) >> e) + 5)]
-# Every length the packed real kernel is instantiated for, at an odd and an
-# even row count.
-REAL_SHAPES = [(rows, 1 << e) for e in range(1, 14)
-               for rows in (37, max(2, (1 << 20) >> e))] + [(1, 2), (1023, 8192)]
+# Every length the packed real kernels are instantiated for, at an odd and an
+# even row count; at n = 4096 and 8192 also 2*(4k+1) rows: one pair in the
+# last cluster of 4 CTAs.
+REAL_SHAPES = ([(rows, 1 << e) for e in range(1, 14)
+                for rows in (37, max(2, (1 << 20) >> e))]
+               + [(1, 2), (1023, 8192), (258, 4096), (258, 8192)])
 TRANSPOSE_SHAPES = [(1, 1), (37, 129), (1000, 3), (257, 4099)]
 TRANSPOSE_DTYPES = [torch.uint8, torch.float16, torch.float32, torch.complex64,
                     torch.complex128]
@@ -85,15 +91,18 @@ def time_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def fft_rows_registers(ptxas: str) -> list[dict]:
-    """Registers and spill bytes of each instantiation of the complex row
-    kernel, from ``nvcc -Xptxas -v`` output."""
+def kernel_registers(ptxas: str, kernel: str) -> list[dict]:
+    """Registers and spill bytes of each instantiation of ``kernel`` (a
+    kernel templated on log2 n, and on the direction when it has one), from
+    ``nvcc -Xptxas -v`` output."""
     out, current = [], None
     for line in ptxas.splitlines():
-        m = re.search(r"Compiling entry function '\S*fft_rows_kernelILi(\d+)ELb([01])E", line)
+        m = re.search(r"Compiling entry function '\S*?\d%s_kernelILi(\d+)E(Lb([01])E)?"
+                      % kernel, line)
         if m:
-            current = {"n": 1 << int(m.group(1)),
-                       "direction": "inverse" if m.group(2) == "1" else "forward"}
+            current = {"n": 1 << int(m.group(1))}
+            if m.group(2):
+                current["direction"] = "inverse" if m.group(3) == "1" else "forward"
             out.append(current)
             continue
         if current is None:
@@ -105,7 +114,7 @@ def fft_rows_registers(ptxas: str) -> list[dict]:
         if m:
             current["registers"] = int(m.group(1))
             current = None
-    return sorted(out, key=lambda r: (r["direction"], r["n"]))
+    return sorted(out, key=lambda r: (r.get("direction", ""), r["n"]))
 
 
 def main() -> None:
@@ -115,8 +124,14 @@ def main() -> None:
                       help="check and time the packed real row kernel alone")
     only.add_argument("--fft-rows-only", action="store_true",
                       help="check and time the complex row kernel alone")
+    only.add_argument("--rfft-rows-transpose-only", action="store_true",
+                      help="check and time the fused real row kernel alone")
     args = parser.parse_args()
     only_k3, only_k1 = args.rfft_rows_only, args.fft_rows_only
+    only_k4 = args.rfft_rows_transpose_only
+    # The one source a kernel-alone mode compiles (the others: every source).
+    needed = "fft_rows.cu" if only_k1 else "rfft_rows_transpose.cu" if only_k4 else None
+    registers = {"fft_rows.cu": "fft_rows", "rfft_rows_transpose.cu": "rfft_rows_transpose"}
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -125,27 +140,28 @@ def main() -> None:
     nvcc = _build._find_nvcc()
     with tempfile.TemporaryDirectory() as tmp:
         for src in _build.source_files():
-            if src.suffix != ".cu" or (only_k1 and src.name != "fft_rows.cu"):
+            if src.suffix != ".cu" or needed not in (None, src.name):
                 continue
             done = subprocess.run(
                 [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src),
                  "-o", os.path.join(tmp, src.stem + ".o")],
                 capture_output=True, text=True)
-            if done.returncode != 0 or not only_k1:
+            if done.returncode != 0 or needed is None:
                 print(f"--- {src.name} (exit {done.returncode})\n{done.stderr.strip()}",
                       flush=True)
             if done.returncode != 0:
                 sys.exit(1)
-            if src.name == "fft_rows.cu":
-                for record in fft_rows_registers(done.stderr):
-                    print(json.dumps({"ptxas": "fft_rows_kernel", **record}), flush=True)
+            if src.name in registers:
+                for record in kernel_registers(done.stderr, registers[src.name]):
+                    print(json.dumps({"ptxas": registers[src.name] + "_kernel", **record}),
+                          flush=True)
     t0 = time.perf_counter()
     _build.load_library()
     print(f"build + load: {time.perf_counter() - t0:.2f} s", flush=True)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    for rows, n in [] if only_k3 else COMPLEX_SHAPES:
+    for rows, n in [] if only_k3 or only_k4 else COMPLEX_SHAPES:
         x = torch.complex(torch.randn(rows, n, generator=gen, device="cuda"),
                           torch.randn(rows, n, generator=gen, device="cuda"))
         for inverse in (False, True):
@@ -165,7 +181,7 @@ def main() -> None:
                 if max(errs.values()) > tol:
                     sys.exit(f"complex row kernel disagrees: {errs} > {tol}")
 
-    for rows, n in [] if only_k3 or only_k1 else SHAPES:
+    for rows, n in [] if only_k3 or only_k1 or only_k4 else SHAPES:
         x = torch.complex(torch.randn(rows, n, generator=gen, device="cuda"),
                           torch.randn(rows, n, generator=gen, device="cuda"))
         for radix in (2, 4):
@@ -189,10 +205,12 @@ def main() -> None:
         lib = torch.fft.rfft(x)
         for radix in (2, 4):
             plain = rfft_rows_plain(x, radix=radix)
-            k3 = rfft_rows_op(x, radix=radix)
-            torch.cuda.synchronize()
-            errs = {"k3_vs_plain": float((k3 - plain).abs().max()),
-                    "k3_vs_library": float((k3 - lib).abs().max())}
+            errs = {}
+            if not only_k4:
+                k3 = rfft_rows_op(x, radix=radix)
+                torch.cuda.synchronize()
+                errs |= {"k3_vs_plain": float((k3 - plain).abs().max()),
+                         "k3_vs_library": float((k3 - lib).abs().max())}
             if not only_k3:
                 k4 = rfft_rows_transpose_op(x, radix=radix)
                 torch.cuda.synchronize()
@@ -203,7 +221,7 @@ def main() -> None:
             if max(errs.values()) > tol:
                 sys.exit(f"real kernel disagrees: {errs} > {tol}")
 
-    for r, c in [] if only_k3 or only_k1 else TRANSPOSE_SHAPES:
+    for r, c in [] if only_k3 or only_k1 or only_k4 else TRANSPOSE_SHAPES:
         for dtype in TRANSPOSE_DTYPES:
             x = torch.randn(r, c, generator=gen, device="cuda",
                             dtype=torch.float64 if dtype == torch.complex128
@@ -231,6 +249,14 @@ def main() -> None:
             del x
             continue
         xr = torch.randn(SWEEP_ELEMENTS // n, n, device="cuda")
+        if only_k4:
+            print(json.dumps({
+                "card": card, "rows": xr.shape[0], "n": n, "dtype": "float32",
+                "rfft_rows_transpose_ms": time_ms(lambda: rfft_rows_transpose_op(xr)),
+                "torch_rfft_T_contiguous_ms": time_ms(
+                    lambda: torch.fft.rfft(xr).T.contiguous()),
+                "clone_ms": time_ms(lambda: xr.clone())}), flush=True)
+            continue
         if only_k3:
             print(json.dumps({
                 "card": card, "rows": xr.shape[0], "n": n, "dtype": "float32",

@@ -3,8 +3,8 @@ version, the launch plan and the launcher of the CUDA kernel
 ``csrc/fft_rows.cu``.
 
 Counterpart of ``repro.kernels.fft.kernel``.  The stage loop is the same in
-both packages and in ``csrc/stockham.cuh``, which the fused kernels run: the
-row is viewed as ``(ncur, s)``, a radix-r pass combines the r parts
+both packages and in ``csrc/stockham.cuh``, which the fused complex kernel
+runs: the row is viewed as ``(ncur, s)``, a radix-r pass combines the r parts
 ``v[t*m:(t+1)*m]`` of length ``m = ncur // r`` and writes slot ``u`` of
 butterfly ``j`` scaled by ``w_j^u``, ``w_j = exp(sign*2*pi*i*j/ncur)``.  No
 pass needs a bit-reversal gather, which is why the formulation suits a
@@ -49,9 +49,9 @@ __all__ = [
 
 # Dynamic shared memory a CTA may opt in to on an H100 (227 KB).
 SMEM_BUDGET = 232448
-# The fused kernels (``csrc/fft_rows_transpose.cu``, ``rfft_rows_transpose.cu``)
-# hold two whole rows in shared memory, 2 * 8 * (n + 1) bytes, so every row
-# kernel takes power-of-two n up to this length and no further.
+# The fused complex kernel (``csrc/fft_rows_transpose.cu``) holds two whole
+# rows in shared memory, 2 * 8 * (n + 1) bytes, so every row kernel takes
+# power-of-two n up to this length and no further.
 MAX_KERNEL_N = 8192
 # Points of a row one thread of a register-resident kernel holds (at most),
 # and the threads a CTA aims at when a row needs fewer (``csrc/regfft.cuh``).

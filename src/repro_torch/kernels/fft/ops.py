@@ -2,12 +2,12 @@
 
 Counterpart of ``repro.kernels.fft.ops``.  Handles the leading batch
 dimensions, the float32 compute type and the radix default, and, for the fused
-kernels on ``csrc/stockham.cuh``, the launch shape (rows per CTA from a
-shared-memory budget, threads from the butterflies a CTA holds); the
-register-resident row kernels take theirs from ``complex_rows_plan``.  A CUDA
-tensor goes to the CUDA kernel or the call raises; a CPU tensor goes to the
-kernel's plain PyTorch version.  Nothing is padded: the kernels mask their
-ragged last block.
+complex kernel on ``csrc/stockham.cuh`` (``fft_rows_transpose.cu``), the launch
+shape (rows per CTA from a shared-memory budget, threads from the butterflies
+a CTA holds); the register-resident row kernels, the fused real one among
+them, take theirs from ``complex_rows_plan``.  A CUDA tensor goes to the CUDA
+kernel or the call raises; a CPU tensor goes to the kernel's plain PyTorch
+version.  Nothing is padded: the kernels mask their ragged last block.
 """
 
 from __future__ import annotations
@@ -30,12 +30,12 @@ def pick_radix(n: int) -> int:
 
 
 def pick_rows_per_cta(n: int, rows: int) -> int:
-    """Rows one CTA of a fused kernel transforms: up to 16, so that a CTA's
-    transposed store writes ``rows_per_cta * 8`` contiguous bytes per output
-    row — a multiple of 4 (whole 32-byte sectors) when 4 or more fit —
-    bounded by two shared buffers of ``n + 1`` elements per row within
-    ``SMEM_BUDGET``, and fewer (in steps of 4) while the grid would not fill
-    the card."""
+    """Rows one CTA of the fused complex kernel transforms: up to 16, so
+    that a CTA's transposed store writes ``rows_per_cta * 8`` contiguous
+    bytes per output row — a multiple of 4 (whole 32-byte sectors) when 4
+    or more fit — bounded by two shared buffers of ``n + 1`` elements per
+    row within ``SMEM_BUDGET``, and fewer (in steps of 4) while the grid
+    would not fill the card."""
     r = min(16, SMEM_BUDGET // (2 * (n + 1) * 8))
     if r >= 4:
         r -= r % 4
@@ -68,9 +68,8 @@ def resolve_radix(n: int, radix: int | None, name: str) -> int:
 def resolve_call_params(n: int, rows: int, rows_per_cta: int | None,
                         radix: int | None, *,
                         name: str = "fft_rows_transpose_op") -> tuple[int, int, int]:
-    """``resolve_radix`` plus the launch shape of a fused kernel: fill in
-    the rows_per_cta and threads defaults.  ``rows`` counts what one CTA row
-    holds (a complex row, or a packed pair of real rows)."""
+    """``resolve_radix`` plus the launch shape of the fused complex kernel:
+    fill in the rows_per_cta and threads defaults for ``rows`` rows."""
     radix = resolve_radix(n, radix, name)
     if rows_per_cta is None:
         rows_per_cta = pick_rows_per_cta(n, rows)

@@ -2,24 +2,37 @@
 launcher of the CUDA kernel ``csrc/rfft_rows_transpose.cu`` and the public op.
 
 Counterpart of ``repro.kernels.fused.real``: the real-pipeline sibling of
-``kernels.fused``.  Two real rows are packed per complex Stockham FFT and
-split as in ``kernels.fft.real``, and both half spectra are stored straight
-to their transposed place in the ``(n//2+1, rows)`` output — phase 1 of the
-fused real 2-D DFT, with no half-spectrum matrix in device memory between the
-row transforms and the transpose.
-"""
+``kernels.fused``.  Two real rows are packed per complex FFT and split as in
+``kernels.fft.real``, and both half spectra are stored straight to their
+transposed place in the ``(n//2+1, rows)`` output — phase 1 of the fused real
+2-D DFT, with no half-spectrum matrix in device memory between the row
+transforms and the transpose.
+
+The CUDA kernel runs ``rfft_rows.cu``'s register-resident passes
+(``csrc/regfft.cuh``) in the launch shape ``complex_rows_plan`` gives for the
+row pairs, then stores the split transposed with the pairs of a CTA side by
+side in each output row; where a CTA holds one pair (n >= 4096), the CTAs of
+a thread-block cluster store their pairs side by side, each a slice of the
+bins (``rfft_rows_transpose_plan``).  ``radix`` is validated, as in the
+reference, and chooses the plain version's stage loop only."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch._device import as_tensor, complex_result_type
-from repro_torch.kernels.fft.kernel import SMEM_BUDGET, check_kernel_input, launch
-from repro_torch.kernels.fft.ops import resolve_call_params
+from repro_torch.kernels.fft.kernel import (_CTA_THREADS, check_kernel_input,
+                                            complex_rows_plan, launch)
+from repro_torch.kernels.fft.ops import resolve_radix
 from repro_torch.kernels.fft.real import prepare_real_rows, rfft_rows_plain
 
-__all__ = ["launch_count", "reset_launch_count", "rfft_rows_transpose_cuda",
-           "rfft_rows_transpose_op", "rfft_rows_transpose_plain"]
+__all__ = ["STORE_CLUSTER", "launch_count", "reset_launch_count",
+           "rfft_rows_transpose_cuda", "rfft_rows_transpose_op",
+           "rfft_rows_transpose_plain", "rfft_rows_transpose_plan"]
+
+# CTAs of a cluster that store their pairs side by side where a CTA holds
+# one pair (``kStoreCluster`` of ``csrc/rfft_rows_transpose.cu``).
+STORE_CLUSTER = 4
 
 _launches = 0
 
@@ -40,51 +53,57 @@ def rfft_rows_transpose_plain(x: torch.Tensor, *, radix: int = 2) -> torch.Tenso
     return rfft_rows_plain(x, radix=radix).T.contiguous()
 
 
-def rfft_rows_transpose_cuda(x: torch.Tensor, *, radix: int = 4,
-                             rows_per_cta: int = 1,
-                             threads: int = 256) -> torch.Tensor:
+def rfft_rows_transpose_plan(n: int, rows: int) -> tuple[int, int, int, int]:
+    """The launch shape of ``csrc/rfft_rows_transpose.cu`` for ``rows`` real
+    rows of length ``n``: ``(pairs_per_cta, threads, cluster, blocks)``.
+    Pairs per CTA and threads are ``complex_rows_plan``'s for the row pairs;
+    where a CTA holds one pair (a pair needs the CTA's 256 threads or more,
+    n >= 4096) CTAs run in clusters of ``STORE_CLUSTER``, over a grid padded
+    to a multiple of it, else alone (``cluster`` 1)."""
+    pairs = (rows + 1) // 2
+    per_cta, threads, points, _, _ = complex_rows_plan(n, pairs)
+    cluster = STORE_CLUSTER if n // points >= _CTA_THREADS else 1
+    ctas = -(-pairs // per_cta)
+    return per_cta, threads, cluster, -(-ctas // cluster) * cluster
+
+
+def rfft_rows_transpose_cuda(x: torch.Tensor, *, radix: int = 4) -> torch.Tensor:
     """Launch ``csrc/rfft_rows_transpose.cu``: (rows, n) float32 CUDA tensor
-    -> ``rfft_rows(x).T`` of shape (n//2+1, rows), complex64.
-    ``rows_per_cta`` counts row pairs.  Does not synchronise."""
+    -> ``rfft_rows(x).T`` of shape (n//2+1, rows), complex64, in the launch
+    shape of ``rfft_rows_transpose_plan`` (the C side picks the cluster from
+    n).  Does not synchronise."""
     global _launches
     rows, n = check_kernel_input(x, "rfft_rows_transpose_cuda", torch.float32)
     if radix not in (2, 4):
         raise ValueError(f"unsupported radix {radix}")
-    if 2 * rows_per_cta * (n + 1) * 8 > SMEM_BUDGET:
-        raise ValueError(
-            f"rfft_rows_transpose_cuda: rows_per_cta={rows_per_cta} row pairs "
-            f"of length {n} need more than {SMEM_BUDGET} bytes of shared memory")
     out = torch.empty((n // 2 + 1, rows), dtype=torch.complex64, device=x.device)
     if rows == 0:
         return out
+    pairs_per_cta, threads, *_ = rfft_rows_transpose_plan(n, rows)
     launch("repro_rfft_rows_transpose", x, out, rows=rows, n=n, radix=radix,
-           rows_per_cta=rows_per_cta, threads=threads)
+           rows_per_cta=pairs_per_cta, threads=threads)
     _launches += 1
     return out
 
 
-def rfft_rows_transpose_op(x, *, rows_per_cta: int | None = None,
-                           radix: int | None = None) -> torch.Tensor:
+def rfft_rows_transpose_op(x, *, radix: int | None = None) -> torch.Tensor:
     """Fused ``rfft_rows(x).T`` in one kernel launch.
 
     x: (rows, n) real -> (n//2+1, rows) complex, the transposed half
-    spectrum.  Computes in float32 and returns ``promote(x.dtype,
-    complex64)``.
+    spectrum.  ``radix=None`` auto-selects.  Computes in float32 and returns
+    ``promote(x.dtype, complex64)``.
     """
     x = as_tensor(x)
     if x.ndim != 2:
         raise ValueError(f"fused op takes a 2-D matrix, got shape {tuple(x.shape)}")
-    rows, n = x.shape
+    n = x.shape[1]
     x2 = prepare_real_rows(x, "rfft_rows_transpose_op")
-    rows_per_cta, radix, threads = resolve_call_params(
-        n, (rows + 1) // 2, rows_per_cta, radix,
-        name="rfft_rows_transpose_op")
+    radix = resolve_radix(n, radix, "rfft_rows_transpose_op")
     out_dtype = complex_result_type(x)
     if n == 1:  # the length-1 DFT is the identity: only the transpose is left
         return x2.to(out_dtype).T.contiguous()
     if x2.is_cuda:
-        out = rfft_rows_transpose_cuda(x2, radix=radix, rows_per_cta=rows_per_cta,
-                                       threads=threads)
+        out = rfft_rows_transpose_cuda(x2, radix=radix)
     else:
         out = rfft_rows_transpose_plain(x2, radix=radix)
     return out.to(out_dtype)

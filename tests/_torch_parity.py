@@ -130,3 +130,140 @@ def kernel_pass_model(z: torch.Tensor, plan, *, inverse: bool = False):
             banks = (_pad(f[h:h + 16]) % 16).tolist()
             worst = max(worst, max(banks.count(v) for v in banks))
     return (x / n if inverse else x), worst
+
+
+def k4_swizzle(n: int, per_cta: int) -> tuple[int, int, int]:
+    """The XOR swizzle of K4's Z buffer (``csrc/rfft_rows_transpose.cu``,
+    ``Swizzle``): bin k of the CTA's pair p goes to slot ``f ^ h(f >> 4)``,
+    f = k*P + p, P = ``per_cta``.  h moves the bits of the 16-slot block
+    number m = f >> 4 that vary across a half-warp's writes (the bins of a
+    thread's neighbours) into the bank bits that are fixed there, and leaves
+    the bits at and above log2 P alone, so that the store's reads, 16
+    consecutive f or a run across two blocks, stay conflict-free.  Returns
+    ``(s, bits, shift)`` with h(m) = ((m >> s) & (2**bits - 1)) << shift."""
+    group = n // min(16, n)
+    lanes_k = min(group.bit_length() - 1, 4)   # bits of k a half-warp's writes vary
+    lp = per_cta.bit_length() - 1
+    if lp >= 4:
+        return lp - 4, lanes_k, 4 - lanes_k
+    return 0, max(lanes_k + lp - 4, 0), 4 - lanes_k
+
+
+def k4_slot(f, swizzle):
+    s, bits, shift = swizzle
+    return f ^ (((f >> 4 >> s) & ((1 << bits) - 1)) << shift)
+
+
+def _worst_bank_count(slots: np.ndarray, live: np.ndarray) -> int:
+    """Worst number of a half-warp's live lanes that hit one bank, over
+    ``slots`` of shape (..., 16): a float2 slot is two 4-byte banks, so 16
+    slots cover the 32 banks, as in ``kernel_pass_model``."""
+    banks = np.where(live, slots % 16, -1)
+    return max(1, max(int((banks == b).sum(-1).max(initial=0)) for b in range(16)))
+
+
+def k4_store_model(z: torch.Tensor, rows: int, plan, *, cluster: int = 1):
+    """K4's split and transposed store (``csrc/rfft_rows_transpose.cu``) in
+    float64, thread by thread, in its launch shape: ``plan`` is
+    ``complex_rows_plan(n, pairs)`` (P pairs per CTA, T threads), ``z`` the
+    (pairs, n) transforms of the packed pairs (``kernel_pass_model``'s Z),
+    ``rows`` the real row count (odd: the last pair has no b).
+
+    Each CTA writes its pairs' Z once to its buffer, bin k of pair p at
+    ``k4_slot(k*P + p)``, from the registers of the passes (thread t of
+    pair p holds bins t + c*n/16).  The store runs idx over (k, p), p
+    fastest, reads Z[k] and Z[(n - k) mod n], and writes A to out[k, a] and
+    B to out[k, a + 1], a = 2 * pair, unless a + 1 = rows.  With ``cluster``
+    C > 1 (P = 1) CTA rank r of a cluster stores the bins of its slice
+    r*S ... r*S + S - 1 (S = ceil((n/2 + 1) / C)) for the C pairs of the
+    cluster, idx over (k, q) with q fastest, reading pair q's buffer in CTA
+    q.  A CTA with no pair writes zeros to its buffer and stores nothing.
+
+    Returns ``(out, writes, worst_bank, runs)``: the (n//2+1, rows) result;
+    how often each element, and the column past the last, was written
+    (shape (n//2+1, rows + 1)); the worst bank count per half-warp of the
+    buffer's writes and of the store's reads (per target CTA in a cluster);
+    and for every warp instruction and output row it writes,
+    ``(bytes, contiguous, full)``: the bytes written, whether they form one
+    run, and whether the CTA (cluster) that wrote them holds its P (C) pairs,
+    each with its b."""
+    pairs, n = z.shape
+    per_cta, threads, points = plan[:3]
+    group = n // points
+    nh = n // 2 + 1
+    if cluster > 1 and per_cta != 1:
+        raise ValueError("the cluster store holds one pair per CTA")
+    swz = k4_swizzle(n, per_cta)
+    lp = per_cta.bit_length() - 1
+    zz = z.to(torch.complex128).numpy()
+    out = np.zeros((nh, rows + 1), np.complex128)
+    writes = np.zeros((nh, rows + 1), np.int64)
+    worst, runs = 1, []
+    tid = np.arange(threads)
+    p_of, t_of = tid // group, tid % group
+    held = t_of[:, None] + np.arange(points)[None, :] * group      # (T, points)
+    write_slots = k4_slot((held << lp) + p_of[:, None], swz)
+    span = per_cta * cluster                 # pairs one store reaches
+    if cluster == 1:
+        total, lq, slice_len = per_cta * nh, lp, nh
+    else:
+        slice_len = -(-nh // cluster)
+        total, lq = slice_len * cluster, cluster.bit_length() - 1
+    iters = -(-total // threads)
+    idx = tid[None, :] + np.arange(iters)[:, None] * threads       # (iters, T)
+    for first in range(0, pairs, span):
+        bufs = []
+        for c in range(cluster):
+            buf = np.zeros(per_cta * n, np.complex128)
+            for q in range(per_cta):
+                if first + c * per_cta + q < pairs:
+                    mine = p_of == q
+                    buf[write_slots[mine]] = zz[first + c * per_cta + q][held[mine]]
+            bufs.append(buf)
+        hw = write_slots.T.reshape(points, -1, 16)
+        worst = max(worst, _worst_bank_count(hw, np.ones(hw.shape, bool)))
+        full = first + span <= pairs and 2 * (first + span) <= rows
+        for rank in range(cluster):
+            k = rank * slice_len + (idx >> lq)
+            q = idx & ((1 << lq) - 1)
+            live = (idx < total) & (k < nh)
+            kr = (n - k) & (n - 1)
+            if cluster == 1:
+                src = np.zeros_like(q)
+                s1, s2 = k4_slot((k << lp) + q, swz), k4_slot((kr << lp) + q, swz)
+            else:
+                src, s1, s2 = q, k, kr
+            zk = np.zeros(idx.shape, np.complex128)
+            zr = np.zeros(idx.shape, np.complex128)
+            for target, buf in enumerate(bufs):
+                sel = live & (src == target)
+                for s in (s1, s2):
+                    worst = max(worst, _worst_bank_count(
+                        s.reshape(iters, -1, 16), sel.reshape(iters, -1, 16)))
+                zk[sel], zr[sel] = buf[s1[sel]], buf[s2[sel]]
+            spec = (0.5 * (zk.real + zr.real) + 0.5j * (zk.imag - zr.imag),
+                    0.5 * (zk.imag + zr.imag) + 0.5j * (zr.real - zk.real))
+            a = 2 * (first + q)
+            store = live & (first + q < pairs)
+            stores = (store, store & (a + 1 < rows))
+            for half in (0, 1):
+                m = stores[half]
+                np.add.at(writes, (k[m], a[m] + half), 1)
+                out[k[m], a[m] + half] = spec[half][m]
+            # Per (warp instruction, output row): the element columns written.
+            keys, cols = [], []
+            for half in (0, 1):
+                it, lane = np.nonzero(stores[half])
+                keys.append(np.stack([it, lane // 32, k[it, lane]], 1))
+                cols.append(a[it, lane] + half)
+            keys, cols = np.concatenate(keys), np.concatenate(cols)
+            uniq, inverse = np.unique(keys, axis=0, return_inverse=True)
+            inverse = inverse.reshape(-1)
+            lo = np.full(len(uniq), np.iinfo(np.int64).max)
+            hi = np.full(len(uniq), -1)
+            count = np.bincount(inverse, minlength=len(uniq))
+            np.minimum.at(lo, inverse, cols)
+            np.maximum.at(hi, inverse, cols)
+            runs += [(8 * int(c), bool(h - l + 1 == c), full)
+                     for c, l, h in zip(count, lo, hi)]
+    return out[:, :rows], writes, worst, runs

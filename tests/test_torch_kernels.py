@@ -288,19 +288,18 @@ def test_kernel_sources_are_plain_cuda_built_for_sm_90a():
         assert "torch/extension.h" not in text and "__sincosf(" not in text
         if path.suffix == ".cu":
             # Every row FFT runs a shared stage loop (stockham.cuh, or
-            # regfft.cuh, which builds on it); the transpose has none.  K1
-            # and K3 run regfft.cuh's passes, K2 and K4 stockham.cuh's.
+            # regfft.cuh, which builds on it); the transpose has none.  K1,
+            # K3 and K4 run regfft.cuh's passes, K2 stockham.cuh's.
             shared = any(f'#include "{h}"' in text for h in ("stockham.cuh", "regfft.cuh"))
             assert shared == ("fft" in path.stem)
             assert "Replaces the TPU kernel" in text and "Bound on this card" in text
     for header in ("stockham.cuh", "regfft.cuh"):
         assert "sincospif" in (_build.csrc_dir() / header).read_text()
     assert '#include "stockham.cuh"' in (_build.csrc_dir() / "regfft.cuh").read_text()
-    for name in ("fft_rows.cu", "rfft_rows.cu"):
+    for name in ("fft_rows.cu", "rfft_rows.cu", "rfft_rows_transpose.cu"):
         text = (_build.csrc_dir() / name).read_text()
         assert '#include "regfft.cuh"' in text and "stockham_rows" not in text
-    for name in ("fft_rows_transpose.cu", "rfft_rows_transpose.cu"):
-        assert "stockham_rows" in (_build.csrc_dir() / name).read_text()
+    assert "stockham_rows" in (_build.csrc_dir() / "fft_rows_transpose.cu").read_text()
 
 
 def test_build_directory_is_keyed_by_the_sources(tmp_path, monkeypatch):

@@ -22,7 +22,7 @@ import jax.numpy as jnp
 
 from _hypothesis_compat import given, settings, st
 from _torch_parity import (both_fpms, both_padding_fpms, complex_signal,
-                           kernel_pass_model, to_numpy, to_torch)
+                           k4_store_model, kernel_pass_model, to_numpy, to_torch)
 
 import repro.core as ref_core
 import repro.core.pfft as ref_pfft
@@ -44,7 +44,7 @@ from repro_torch.kernels.fft import kernel as port_fft_kernel
 from repro_torch.kernels.fft import real as port_real
 from repro_torch.kernels.fft.kernel import (MAX_KERNEL_N, SMEM_BUDGET,
                                             KernelLengthError)
-from repro_torch.kernels.fft.ops import resolve_call_params
+from repro_torch.kernels.fft.ops import resolve_radix
 from repro_torch.kernels.fused import real as port_fused_real
 from repro_torch.kernels.transpose import kernel as port_transpose
 from repro_torch.kernels.transpose.ops import transpose_op
@@ -169,18 +169,28 @@ def test_real_ops_refuse_complex_non_contiguous_and_bad_radix(op):
         op(torch.ones((2, 8)), radix=8)
 
 
-@pytest.mark.parametrize("n", [2, 64, 1024, 8192])
+@pytest.mark.parametrize("n", [2, 64, 256, 1024, 4096, 8192])
 @pytest.mark.parametrize("rows", [1, 37, 8192])
 def test_real_launch_shape_fits_the_card(n, rows):
-    """A CTA of K4 holds ``rows_per_cta`` row pairs in two shared buffers of
-    stride n + 1: what its launcher checks.  K3 launches K1's plan with a
-    pair in the place of a row, tested at these pair counts in
-    ``test_torch_regfft.py``."""
+    """K3 and K4 launch K1's plan with a packed pair in the place of a row
+    (tested at these pair counts in ``test_torch_regfft.py``).  K4 keeps
+    the CTA's Z, P pairs of n float2, in the exchange buffer; where a CTA
+    holds one pair (n >= 4096, two CTAs an SM) it runs in clusters of four,
+    over a grid padded to a multiple of four."""
     pairs = (rows + 1) // 2
-    r, radix, threads = resolve_call_params(n, pairs, None, None)
-    assert 1 <= r <= pairs
-    assert 2 * r * (n + 1) * 8 <= SMEM_BUDGET
-    assert 64 <= threads <= 1024 and radix == (4 if n >= 4 else 2)
+    per_cta, threads, points, _, smem = port_fft_kernel.complex_rows_plan(n, pairs)
+    assert 1 <= per_cta <= max(1, 256 * points // n) and per_cta & (per_cta - 1) == 0
+    assert 32 <= threads == per_cta * (n // points) <= 1024
+    assert 8 * per_cta * n < smem <= SMEM_BUDGET
+    assert resolve_radix(n, None, "rfft_rows_transpose_op") == (4 if n >= 4 else 2)
+    k4_per_cta, k4_threads, cluster, blocks = port_fused_real.rfft_rows_transpose_plan(n, rows)
+    assert (k4_per_cta, k4_threads) == (per_cta, threads)
+    assert blocks % cluster == 0 and 0 <= blocks * per_cta - pairs < cluster * per_cta
+    if n >= 4096:   # one pair a CTA: a cluster of 4 (at most 8 is portable)
+        assert per_cta == 1 and smem <= SMEM_BUDGET // 2
+        assert cluster == port_fused_real.STORE_CLUSTER == 4
+    else:
+        assert cluster == 1
 
 
 # ---------------------------------------- K3's CUDA pass plan, on the CPU
@@ -198,6 +208,126 @@ def test_real_rows_plan_mirrors_the_cuda_header():
     assert "fft_row<LOG2N, false>" in source and "cudaErrorInvalidValue" in source
     for e in range(1, 14):
         assert f"case 1 << {e}: return launch<{e}>(" in source
+
+
+def test_k4_source_runs_the_register_passes_in_k1s_plan():
+    """K4 (``rfft_rows_transpose.cu``) runs K3's passes on ``regfft.cuh`` in
+    the launch shape of ``rfft_rows_transpose_plan`` (checked by its
+    launcher, any other shape refused), at every length; its buffer swizzle
+    and cluster store are the ones ``k4_store_model`` checks."""
+    source = (_build.csrc_dir() / "rfft_rows_transpose.cu").read_text()
+    assert '#include "regfft.cuh"' in source and "stockham_rows" not in source
+    assert "fft_row<LOG2N, false>" in source and "cudaErrorInvalidValue" in source
+    assert "__launch_bounds__(Plan<LOG2N>::MAX_THREADS, Plan<LOG2N>::MIN_BLOCKS)" in source
+    assert "threads != pairs_per_cta * P::GROUP" in source
+    assert "pairs_per_cta > P::MAX_ROWS" in source
+    assert "exchange_elems(pairs_per_cta, P::N)" in source
+    for e in range(1, 14):
+        assert f"case 1 << {e}: return launch<{e}>(" in source
+    assert "case 1 << 14" not in source
+    # The swizzle: the model's k4_swizzle, written as the kernel writes it.
+    for line in ("LG = LOG2N < 4 ? 0 : LOG2N - 4;", "LANES_K = LG < 4 ? LG : 4;",
+                 "bits = log2_pairs >= 4 ? LANES_K : LANES_K + log2_pairs - 4;",
+                 "s = log2_pairs >= 4 ? log2_pairs - 4 : 0;",
+                 "return f ^ (((f >> 4 >> s) & mask) << (4 - LANES_K));"):
+        assert line in source, line
+    assert "smem[slot(((t + c * G) << log2_pairs) + local)] = v[c];" in source
+    assert "smem[slot(idx)]" in source
+    assert "smem[slot((((N - k) & (N - 1)) << log2_pairs) + p)]" in source
+    # The cluster: its size, where it is used, the padded grid, the
+    # occupancy check, two barriers and the reads of the other CTAs.
+    assert f"kStoreCluster = {port_fused_real.STORE_CLUSTER};" in source
+    assert "return Plan<LOG2N>::MAX_ROWS == 1 ? kStoreCluster : 1;" in source
+    assert "blocks = (ctas + C - 1) / C * C;" in source
+    assert "cudaLaunchAttributeClusterDimension" in source
+    assert "cudaOccupancyMaxActiveClusters" in source
+    assert source.count("cluster.sync();") == 2
+    assert "constexpr int S = (NH + C - 1) / C;" in source
+    assert "const int k = rank * S + (idx >> LOG2C);" in source
+    assert "cluster.map_shared_rank(smem, q)" in source
+
+
+# Row counts of K4's store model, odd and even: at every length a CTA (or a
+# cluster of four) that holds all its pairs and a ragged last one (P <= 32
+# pairs a CTA at these counts; 37 and 38 pairs leave 1 and 2 in the last
+# cluster).
+K4_ROWS = [74, 75]
+
+
+def k4_inputs(n, rows):
+    """Seeded float32 rows, and the float64 Z of their packed pairs from the
+    model of the passes (an odd count pairs its last row with zeros)."""
+    x = real_signal(31 * n + rows, rows, n)
+    xp = np.concatenate([x, np.zeros((rows % 2, n), np.float32)]).astype(np.float64)
+    z = torch.complex(torch.from_numpy(xp[0::2]), torch.from_numpy(xp[1::2]))
+    plan = port_fft_kernel.complex_rows_plan(n, z.shape[0])
+    got, worst = kernel_pass_model(z, plan)
+    assert worst == 1
+    return x, got, plan
+
+
+@pytest.mark.parametrize("rows", K4_ROWS)
+@pytest.mark.parametrize("n", LENGTHS)
+def test_k4_store_model_is_the_transposed_half_spectrum(n, rows):
+    """The model of K4's split and store, fed the model of its passes:
+    ``np.fft.rfft(x).T`` at ``1e-9·n``, every output element written once and
+    the unpaired column never, no bank conflict in the buffer's writes or
+    the store's reads (of each CTA's buffer, in a cluster), and each warp's
+    writes to one output row one contiguous run of 16·P bytes (a warp's 32
+    lanes: 16·min(P, 32)) wherever the CTA (the cluster of four, at
+    n >= 4096) holds its P pairs."""
+    x, z, plan = k4_inputs(n, rows)
+    cluster = port_fused_real.rfft_rows_transpose_plan(n, rows)[2]
+    out, writes, worst, runs = k4_store_model(z, rows, plan, cluster=cluster)
+    np.testing.assert_allclose(out, np.fft.rfft(x.astype(np.float64)).T,
+                               rtol=0, atol=1e-9 * n)
+    assert (writes[:, :rows] == 1).all() and not writes[:, rows].any()
+    assert worst == 1
+    assert all(contiguous for _, contiguous, _ in runs)
+    full = [nbytes for nbytes, _, whole in runs if whole]
+    assert full and min(full) >= 16 * min(plan[0] * cluster, 32)
+
+
+@pytest.mark.parametrize("n", LENGTHS)
+def test_k4_store_is_conflict_free_and_wide_at_every_plan(n):
+    """Every launch shape K4 takes at length n (the pair counts of K1's plan
+    tests, 1 … 100000 pairs: 1 … 256 pairs a CTA): the buffer's writes and
+    the store's reads are conflict-free, and each warp writes one run of
+    16·min(P·C, 32) bytes per output row (P pairs a CTA, C CTAs a cluster).
+    The bank pattern and the runs do not depend on the data: zeros, and
+    the pairs of two full groups, stand for the grid."""
+    widths, per_ctas = [], set()
+    for grid_pairs in (100000, 4096, 2048, 128, 19, 2, 1):
+        plan = port_fft_kernel.complex_rows_plan(n, grid_pairs)
+        per_cta, _, cluster, _ = port_fused_real.rfft_rows_transpose_plan(n, 2 * grid_pairs)
+        if per_cta in per_ctas:
+            continue
+        per_ctas.add(per_cta)
+        pairs = min(grid_pairs, 2 * per_cta * cluster)
+        z = torch.zeros((pairs, n), dtype=torch.complex128)
+        _, writes, worst, runs = k4_store_model(z, 2 * pairs, plan, cluster=cluster)
+        assert worst == 1, (per_cta, cluster)
+        assert (writes[:, :2 * pairs] == 1).all()
+        assert all(contiguous for _, contiguous, _ in runs)
+        widths += [nbytes / (16 * min(per_cta * cluster, 32))
+                   for nbytes, _, full in runs if full]
+    assert widths and min(widths) >= 1
+    assert max(per_ctas) == max(1, 256 * min(16, n) // n)
+
+
+@pytest.mark.parametrize("rows", K4_ROWS)
+@pytest.mark.parametrize("n", LENGTHS)
+def test_k4_store_model_matches_reference_rfft_rows_transpose_op(n, rows):
+    """The model of K4 against the reference's fused real op (Pallas,
+    interpret mode) at ``1e-3·sqrt(n)``, and the port's op on the CPU (the
+    plain version) against both."""
+    x, z, plan = k4_inputs(n, rows)
+    cluster = port_fused_real.rfft_rows_transpose_plan(n, rows)[2]
+    got, *_ = k4_store_model(z, rows, plan, cluster=cluster)
+    want = np.asarray(ref_rfused_op(jnp.asarray(x)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3 * np.sqrt(n))
+    plain = to_numpy(port_fused_real.rfft_rows_transpose_op(to_torch(x)))
+    np.testing.assert_allclose(plain, got, rtol=0, atol=1e-3 * np.sqrt(n))
 
 
 @pytest.mark.parametrize("n", LENGTHS)
