@@ -11,8 +11,9 @@ each of which ends the run with a non-zero exit code when it fails:
 2. ``build``     compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``.
 3. ``kernels``   every kernel against its plain PyTorch version and the
                  library on the card (ragged and odd row counts, every length
-                 the row kernels K1, K3 and K4 are built for, ragged clusters
-                 of K4, the full width; the transpose bit for bit), then its
+                 the row kernels K1-K4 are built for, both directions of K1
+                 and K2, ragged clusters of K2 and K4, the full width; the
+                 transpose bit for bit), then its
                  time beside the plain version's, the library's and the card's
                  bound at the main path's shape.
 4. ``main_path`` FPMs timed on the card, then ``plan_pfft(...).execute`` for
@@ -81,12 +82,15 @@ PEAK_FP32_FLOPS = 67e12
 KERNEL_SHAPES = [(64, 8), (37, 1024), (100, 2048), (256, 4096), (1024, 1024),
                  (4096, 4096), (8192, 8192)]
 MAIN_SHAPE = (8192, 8192)
-# Every length the complex row kernel K1 is instantiated for (n = 2 ... 8192),
-# at two odd row counts: 37 (few rows, a ragged last CTA wherever a CTA
-# holds several rows) and 2^20 elements plus 5 rows (a full grid with a
-# ragged last CTA up to n = 1024).
+# Every length the complex row kernels K1 and K2 are instantiated for (n = 2
+# ... 8192), at two odd row counts: 37 (few rows, a ragged last CTA wherever
+# a CTA holds several rows) and 2^20 elements plus 5 rows (a full grid with a
+# ragged last CTA up to n = 1024, a ragged last cluster of K2 from 2048 on).
 COMPLEX_KERNEL_SHAPES = [(rows, 1 << e) for e in range(1, 14)
                          for rows in (37, ((1 << 20) >> e) + 5)]
+# Where K2 runs in clusters of 4 one-row CTAs: 8k + 1, 8k + 7 and 4097 rows
+# (phase 2 of a fused rfft-* plan at N = 8192) leave the last one ragged.
+K2_RAGGED_SHAPES = [(rows, n) for n in (4096, 8192) for rows in (257, 263, 4097)]
 # Every length the packed real kernels are instantiated for (n = 2 ... 8192),
 # at an odd row count (an unpaired last row, few pairs per CTA) and an even
 # one (2^20 elements), the main path's shape, and at n = 4096 and 8192, where
@@ -285,27 +289,34 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
 
 
 def check_complex_kernel(gen: torch.Generator) -> None:
-    """K1 at every length it is instantiated for, both directions, both
-    radices (the plain version's stage loop), against ``fft_rows_plain`` and
+    """K1 and K2 at every length they are instantiated for, K2 also at its
+    ragged clusters, both directions, both radices (the plain version's
+    stage loop), against ``fft_rows_plain`` (transposed for K2) and
     ``torch.fft.fft`` / ``ifft``, ``atol = row_fft_tol(n, inverse)``."""
-    for rows, n in COMPLEX_KERNEL_SHAPES:
+    for rows, n in COMPLEX_KERNEL_SHAPES + K2_RAGGED_SHAPES:
         x = random_signal(gen, rows, n)
         for inverse in (False, True):
             tol = row_fft_tol(n, inverse)
             lib = torch.fft.ifft(x) if inverse else torch.fft.fft(x)
             for radix in (2, 4):
                 plain = fft_rows_plain(x, inverse=inverse, radix=radix)
-                got = fft_rows_op(x, inverse=inverse, radix=radix)
+                got_t = fft_rows_transpose_op(x, inverse=inverse, radix=radix)
                 torch.cuda.synchronize()
-                errs = {"fft_rows_err": max_abs_err(got, plain),
-                        "fft_rows_vs_library_err": max_abs_err(got, lib)}
+                errs = {"fft_rows_transpose_err": max_abs_err(got_t, plain.T),
+                        "fft_rows_transpose_vs_library_err": max_abs_err(got_t, lib.T)}
+                if (rows, n) in COMPLEX_KERNEL_SHAPES:
+                    got = fft_rows_op(x, inverse=inverse, radix=radix)
+                    torch.cuda.synchronize()
+                    errs |= {"fft_rows_err": max_abs_err(got, plain),
+                             "fft_rows_vs_library_err": max_abs_err(got, lib)}
+                    del got
                 log("kernels", rows=rows, n=n, radix=radix, inverse=inverse,
                     atol=tol, **errs)
                 if max(errs.values()) > tol:
                     raise AssertionError(
-                        f"fft_rows disagrees at rows={rows} n={n} radix={radix} "
-                        f"inverse={inverse}: {errs} > {tol}")
-                del plain, got
+                        f"complex row kernel disagrees at rows={rows} n={n} "
+                        f"radix={radix} inverse={inverse}: {errs} > {tol}")
+                del plain, got_t
             del lib
         del x
 

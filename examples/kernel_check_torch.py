@@ -15,16 +15,22 @@ source and before the full ``chip_smoke.py``.  Needs one CUDA device and
     python3 examples/kernel_check_torch.py --rfft-rows-only
     python3 examples/kernel_check_torch.py --fft-rows-only
     python3 examples/kernel_check_torch.py --rfft-rows-transpose-only
+    python3 examples/kernel_check_torch.py --fft-rows-transpose-only
 
 check and time the packed real row kernel alone (every shape of
 ``REAL_SHAPES``, its column of the sweep), the complex row kernel alone
 (every shape of ``COMPLEX_SHAPES`` in both directions, its columns of the
-sweep, forward and inverse), or the fused real row kernel alone (every shape
+sweep, forward and inverse), the fused real row kernel alone (every shape
 of ``REAL_SHAPES``, its sweep beside ``rfft(x).T.contiguous()`` and
-``x.clone()``): the run to repeat, in turns, on copies of the tree that
+``x.clone()``), or the fused complex row kernel alone (every shape of
+``COMPLEX_SHAPES`` and ``K2_RAGGED_SHAPES`` in both directions, its sweep
+forward and inverse beside ``fft(x).T.contiguous()``, the complex row kernel
+and ``x.clone()``, then its time at n = 8192 over ``K2_ROW_COUNTS``, where
+the output rows are and are not whole 32-byte sectors apart): the run to
+repeat, in turns, on copies of the tree that
 differ in one change to that kernel.  Every run prints the registers and
-spills per length of the complex row kernel (and direction) and of the fused
-real row kernel, where it compiles them.
+spills per length (and direction) of the complex row kernels and of the
+fused real row kernel, where it compiles them.
 """
 
 from __future__ import annotations
@@ -55,14 +61,18 @@ from repro_torch.kernels.fft.kernel import fft_rows_plain  # noqa: E402
 from repro_torch.kernels.fft.real import rfft_rows_plain  # noqa: E402
 from repro_torch.kernels.transpose.kernel import transpose_plain  # noqa: E402
 
-# The fused row kernel's shapes (the complex row kernel has its own below).
-SHAPES = [(64, 2), (64, 4), (64, 8), (37, 1024), (100, 2048), (256, 4096),
-          (1024, 8192)]
-# Every length the complex row kernel is instantiated for, at an odd row
+# Every length the complex row kernels are instantiated for, at an odd row
 # count and at 2^20 elements plus 5 rows (a ragged last CTA where a CTA holds
 # several rows).
 COMPLEX_SHAPES = [(rows, 1 << e) for e in range(1, 14)
                   for rows in (37, ((1 << 20) >> e) + 5)]
+# Where the fused complex row kernel runs in clusters of one-row CTAs,
+# 8k + 1, 8k + 7 and 4097 rows: a ragged last cluster.
+K2_RAGGED_SHAPES = [(rows, n) for n in (4096, 8192) for rows in (257, 263, 4097)]
+# Row counts of the fused complex row kernel at n = 8192: a multiple of 4
+# puts each output row a whole number of 32-byte sectors after the last;
+# 4097 is phase 2 of a fused rfft-* plan at N = 8192.
+K2_ROW_COUNTS = [4096, 4097, 4098, 4100, 8192, 8193, 8194, 8196]
 # Every length the packed real kernels are instantiated for, at an odd and an
 # even row count; at n = 4096 and 8192 also 2*(4k+1) rows: one pair in the
 # last cluster of 4 CTAs.
@@ -126,12 +136,18 @@ def main() -> None:
                       help="check and time the complex row kernel alone")
     only.add_argument("--rfft-rows-transpose-only", action="store_true",
                       help="check and time the fused real row kernel alone")
+    only.add_argument("--fft-rows-transpose-only", action="store_true",
+                      help="check and time the fused complex row kernel alone")
     args = parser.parse_args()
     only_k3, only_k1 = args.rfft_rows_only, args.fft_rows_only
-    only_k4 = args.rfft_rows_transpose_only
+    only_k4, only_k2 = args.rfft_rows_transpose_only, args.fft_rows_transpose_only
+    run_k1 = not (only_k3 or only_k4 or only_k2)
+    run_k2 = not (only_k3 or only_k4 or only_k1)
     # The one source a kernel-alone mode compiles (the others: every source).
-    needed = "fft_rows.cu" if only_k1 else "rfft_rows_transpose.cu" if only_k4 else None
-    registers = {"fft_rows.cu": "fft_rows", "rfft_rows_transpose.cu": "rfft_rows_transpose"}
+    needed = ("fft_rows.cu" if only_k1 else "rfft_rows_transpose.cu" if only_k4
+              else "fft_rows_transpose.cu" if only_k2 else None)
+    registers = {"fft_rows.cu": "fft_rows", "rfft_rows_transpose.cu": "rfft_rows_transpose",
+                 "fft_rows_transpose.cu": "fft_rows_transpose"}
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -161,7 +177,9 @@ def main() -> None:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    for rows, n in [] if only_k3 or only_k4 else COMPLEX_SHAPES:
+    shapes = ((COMPLEX_SHAPES if run_k1 or run_k2 else [])
+              + (K2_RAGGED_SHAPES if run_k2 else []))
+    for rows, n in shapes:
         x = torch.complex(torch.randn(rows, n, generator=gen, device="cuda"),
                           torch.randn(rows, n, generator=gen, device="cuda"))
         for inverse in (False, True):
@@ -170,36 +188,25 @@ def main() -> None:
             tol = 1e-3 * n ** 0.5 / (n if inverse else 1)
             lib = torch.fft.ifft(x) if inverse else torch.fft.fft(x)
             for radix in (2, 4):
-                k1 = fft_rows_op(x, inverse=inverse, radix=radix)
-                torch.cuda.synchronize()
-                errs = {"k1_vs_plain": float((k1 - fft_rows_plain(
-                            x, inverse=inverse, radix=radix)).abs().max()),
-                        "k1_vs_library": float((k1 - lib).abs().max())}
+                plain = fft_rows_plain(x, inverse=inverse, radix=radix)
+                errs = {}
+                if run_k1 and (rows, n) in COMPLEX_SHAPES:
+                    k1 = fft_rows_op(x, inverse=inverse, radix=radix)
+                    torch.cuda.synchronize()
+                    errs |= {"k1_vs_plain": float((k1 - plain).abs().max()),
+                             "k1_vs_library": float((k1 - lib).abs().max())}
+                if run_k2:
+                    k2 = fft_rows_transpose_op(x, inverse=inverse, radix=radix)
+                    torch.cuda.synchronize()
+                    errs |= {"k2_vs_plain": float((k2 - plain.T).abs().max()),
+                             "k2_vs_library": float((k2 - lib.T).abs().max())}
                 print(json.dumps({"rows": rows, "n": n, "radix": radix,
                                   "inverse": inverse, "atol": tol, **errs}),
                       flush=True)
                 if max(errs.values()) > tol:
                     sys.exit(f"complex row kernel disagrees: {errs} > {tol}")
 
-    for rows, n in [] if only_k3 or only_k1 or only_k4 else SHAPES:
-        x = torch.complex(torch.randn(rows, n, generator=gen, device="cuda"),
-                          torch.randn(rows, n, generator=gen, device="cuda"))
-        for radix in (2, 4):
-            for inverse in (False, True):
-                tol = 1e-3 * n ** 0.5 / (n if inverse else 1)
-                plain = fft_rows_plain(x, inverse=inverse, radix=radix)
-                lib = torch.fft.ifft(x) if inverse else torch.fft.fft(x)
-                k2 = fft_rows_transpose_op(x, inverse=inverse, radix=radix)
-                torch.cuda.synchronize()
-                errs = {"k2_vs_plain": float((k2 - plain.T).abs().max()),
-                        "k2_vs_library": float((k2 - lib.T).abs().max())}
-                print(json.dumps({"rows": rows, "n": n, "radix": radix,
-                                  "inverse": inverse, "atol": tol, **errs}),
-                      flush=True)
-                if max(errs.values()) > tol:
-                    sys.exit(f"fused row kernel disagrees: {errs} > {tol}")
-
-    for rows, n in [] if only_k1 else REAL_SHAPES:
+    for rows, n in [] if only_k1 or only_k2 else REAL_SHAPES:
         x = torch.randn(rows, n, generator=gen, device="cuda")
         tol = 1e-3 * n ** 0.5
         lib = torch.fft.rfft(x)
@@ -221,7 +228,7 @@ def main() -> None:
             if max(errs.values()) > tol:
                 sys.exit(f"real kernel disagrees: {errs} > {tol}")
 
-    for r, c in [] if only_k3 or only_k1 or only_k4 else TRANSPOSE_SHAPES:
+    for r, c in [] if not (run_k1 and run_k2) else TRANSPOSE_SHAPES:
         for dtype in TRANSPOSE_DTYPES:
             x = torch.randn(r, c, generator=gen, device="cuda",
                             dtype=torch.float64 if dtype == torch.complex128
@@ -245,6 +252,21 @@ def main() -> None:
                 "fft_rows_inverse_ms": time_ms(lambda: fft_rows_op(x, inverse=True)),
                 "torch_fft_ms": time_ms(lambda: torch.fft.fft(x)),
                 "torch_ifft_ms": time_ms(lambda: torch.fft.ifft(x)),
+                "clone_ms": time_ms(lambda: x.clone())}), flush=True)
+            del x
+            continue
+        if only_k2:
+            x = torch.randn(SWEEP_ELEMENTS // n, n, dtype=torch.complex64, device="cuda")
+            print(json.dumps({
+                "card": card, "rows": x.shape[0], "n": n,
+                "fft_rows_transpose_ms": time_ms(lambda: fft_rows_transpose_op(x)),
+                "fft_rows_transpose_inverse_ms": time_ms(
+                    lambda: fft_rows_transpose_op(x, inverse=True)),
+                "fft_rows_ms": time_ms(lambda: fft_rows_op(x)),
+                "torch_fft_T_contiguous_ms": time_ms(
+                    lambda: torch.fft.fft(x).T.contiguous()),
+                "torch_ifft_T_contiguous_ms": time_ms(
+                    lambda: torch.fft.ifft(x).T.contiguous()),
                 "clone_ms": time_ms(lambda: x.clone())}), flush=True)
             del x
             continue
@@ -283,6 +305,15 @@ def main() -> None:
             "torch_rfft_T_contiguous_ms": time_ms(
                 lambda: torch.fft.rfft(xr).T.contiguous())}), flush=True)
         del x, xr
+    for rows in K2_ROW_COUNTS if only_k2 else []:
+        x = torch.randn(rows, 8192, dtype=torch.complex64, device="cuda")
+        print(json.dumps({
+            "card": card, "rows": rows, "n": 8192,
+            "fft_rows_transpose_ms": time_ms(lambda: fft_rows_transpose_op(x)),
+            "fft_rows_ms": time_ms(lambda: fft_rows_op(x)),
+            "torch_fft_T_contiguous_ms": time_ms(
+                lambda: torch.fft.fft(x).T.contiguous())}), flush=True)
+        del x
     print("OK")
 
 

@@ -19,8 +19,13 @@
 // The radix-16 butterfly is two in-register radix-4 stages with the
 // omega_16 constants as literals.  Twiddles: two sincospif per thread per
 // pass, on the exact arguments 2j/ncur and 8j/ncur (ncur is a power of two),
-// the other powers w^u = w^(u mod 4) * (w^4)^(u div 4) by products;
-// __sincosf and -use_fast_math stay out for the reason stockham.cuh gives.
+// the other powers w^u = w^(u mod 4) * (w^4)^(u div 4) by products.
+// sincospif, not __sincosf and not a table: the argument 2j/ncur is exact in
+// float, sincospif reduces it in units of pi without rounding and is good to
+// about 1 ulp for every j, whereas __sincosf loses absolute accuracy as |x|
+// grows towards 2*pi, which a length-8192 transform would show (so no
+// -use_fast_math either).  A table would add a read stream to kernels bound
+// by bytes, so the arithmetic stays until measured otherwise.
 //
 // Exchange buffer: one per CTA, rows side by side (row r at r*n), used in
 // place: __syncthreads, write, __syncthreads, read.  Element f is stored at
@@ -34,9 +39,43 @@
 
 #pragma once
 
-#include "stockham.cuh"  // cadd, csub, cmul, allow_dynamic_smem
+#include <cuda_runtime.h>
 
 namespace repro {
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+    return make_float2(a.x + b.x, a.y + b.y);
+}
+
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+    return make_float2(a.x - b.x, a.y - b.y);
+}
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+    return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+__device__ __forceinline__ float2 cscale(float2 a, float k) {
+    return make_float2(a.x * k, a.y * k);
+}
+
+// Opt in to more than 48 KiB of dynamic shared memory, once per kernel and
+// process; returns a CUDA error code (0 = success).
+template <typename Kernel>
+inline int allow_dynamic_smem(Kernel kernel, int* configured, int bytes) {
+    if (bytes <= *configured) return 0;
+    int device = 0, limit = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) return (int)err;
+    if (bytes > limit) return (int)cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+    if (err != cudaSuccess) return (int)err;
+    *configured = limit;
+    return 0;
+}
+
 namespace regfft {
 
 constexpr int kMaxPoints = 16;

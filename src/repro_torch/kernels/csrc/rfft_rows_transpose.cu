@@ -37,13 +37,10 @@
 // barriers and stores nothing.
 //
 // The buffer holds bin k of pair p at slot f ^ h(f >> 4), f = k*P + p
-// (Swizzle below).  The store's reads are then 16 consecutive f, or a run
-// that crosses one 16-slot block, per half-warp; h leaves the bits at and
-// above log2 P alone, which keeps both conflict-free, and moves the bits of
-// the block number that vary across a half-warp's writes (16 bins a thread
-// group apart) into the bank bits that are fixed there.  Unswizzled, those
-// writes conflict up to 16-way (n = 256, 16 pairs a CTA);
-// tests/_torch_parity.py::k4_store_model checks every plan on the CPU.
+// (tstore.cuh, Swizzle, shared with fft_rows_transpose.cu): the writes from
+// registers and the store's reads are conflict-free at every plan
+// (tests/_torch_parity.py::k4_store_model checks it on the CPU).  The
+// cluster size rule and the launch in clusters are tstore.cuh's too.
 //
 // An odd row count leaves the last pair without b: it is read as 0 and its
 // column is not stored.  A CTA of the ragged last grid step loads zeros for
@@ -53,40 +50,24 @@
 
 #include <cooperative_groups.h>
 
-#include "regfft.cuh"
+#include "tstore.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
 using repro::regfft::Plan;
+using repro::tstore::Swizzle;
 
 // CTAs of a cluster whose store covers the pairs of all of them, at the
-// lengths where a CTA holds one pair (n >= 4096); 1 (no cluster) elsewhere.
-// 2 and 8 were slower than 4 at 8192 x 8192 on an H100 (PERF.md).
+// lengths where a CTA holds one pair (n >= 4096: 16 bytes of a pair per
+// output row, half a sector); 1 (no cluster) elsewhere.  2 and 8 were
+// slower than 4 at 8192 x 8192 on an H100 (PERF.md).
 constexpr int kStoreCluster = 4;
 
 template <int LOG2N>
 __host__ __device__ constexpr int store_cluster() {
-    return Plan<LOG2N>::MAX_ROWS == 1 ? kStoreCluster : 1;
+    return repro::tstore::store_cluster<LOG2N, 16>(kStoreCluster);
 }
-
-// Slot of element f = k*P + p of the Z buffer; P = 2^log2_pairs.  A
-// half-warp's writes vary the low min(LG, 4) bits of k (LG = log2 of the
-// threads of a pair) and, below 16 threads a pair, the low 4 - LG bits of p.
-template <int LOG2N>
-struct Swizzle {
-    static constexpr int LG = LOG2N < 4 ? 0 : LOG2N - 4;
-    static constexpr int LANES_K = LG < 4 ? LG : 4;
-    int s, mask;
-    __device__ explicit Swizzle(int log2_pairs) {
-        const int bits = log2_pairs >= 4 ? LANES_K : LANES_K + log2_pairs - 4;
-        s = log2_pairs >= 4 ? log2_pairs - 4 : 0;
-        mask = bits > 0 ? (1 << bits) - 1 : 0;
-    }
-    __device__ __forceinline__ int operator()(int f) const {
-        return f ^ (((f >> 4 >> s) & mask) << (4 - LANES_K));
-    }
-};
 
 // The split of bin k of pair pa/2 from Z[k] and Z[(n-k) mod n], stored at
 // out[k*rows + pa] (A) and out[k*rows + pa + 1] (B, unless pa + 1 = rows).
@@ -179,7 +160,7 @@ rfft_rows_transpose_kernel(const float* __restrict__ in, float2* __restrict__ ou
 // One instantiation: checks that the launcher's shape is this one's
 // (pairs_per_cta a power of two up to MAX_ROWS, threads = pairs_per_cta *
 // GROUP) and launches, in clusters of store_cluster<LOG2N>() CTAs over a
-// grid padded to a multiple of them.
+// grid padded to a multiple of them (tstore.cuh).
 template <int LOG2N>
 int launch(const void* in, void* out, long long rows, int pairs_per_cta, int threads,
            cudaStream_t stream) {
@@ -195,39 +176,11 @@ int launch(const void* in, void* out, long long rows, int pairs_per_cta, int thr
     if (err != 0) return err;
     int log2_pairs = 0;
     while ((1 << log2_pairs) < pairs_per_cta) ++log2_pairs;
-    constexpr int C = store_cluster<LOG2N>();
+    static int active_clusters = 0;
     const long long ctas = ((rows + 1) / 2 + pairs_per_cta - 1) / pairs_per_cta;
-    const long long blocks = (ctas + C - 1) / C * C;
-    if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-    if constexpr (C == 1) {
-        rfft_rows_transpose_kernel<LOG2N><<<(unsigned)blocks, threads, (size_t)smem,
-                                            stream>>>((const float*)in, (float2*)out, rows,
-                                                      log2_pairs);
-        return (int)cudaGetLastError();
-    } else {
-        cudaLaunchConfig_t config = {};
-        config.gridDim = dim3((unsigned)blocks);
-        config.blockDim = dim3((unsigned)threads);
-        config.dynamicSmemBytes = (size_t)smem;
-        config.stream = stream;
-        cudaLaunchAttribute cluster;
-        cluster.id = cudaLaunchAttributeClusterDimension;
-        cluster.val.clusterDim.x = C;
-        cluster.val.clusterDim.y = 1;
-        cluster.val.clusterDim.z = 1;
-        config.attrs = &cluster;
-        config.numAttrs = 1;
-        static int active_clusters = 0;  // checked once: the shape fits an SM pair
-        if (active_clusters == 0) {
-            cudaError_t e = cudaOccupancyMaxActiveClusters(
-                &active_clusters, rfft_rows_transpose_kernel<LOG2N>, &config);
-            if (e != cudaSuccess) return (int)e;
-            if (active_clusters <= 0) return (int)cudaErrorInvalidConfiguration;
-        }
-        cudaError_t e = cudaLaunchKernelEx(&config, rfft_rows_transpose_kernel<LOG2N>,
-                                           (const float*)in, (float2*)out, rows, log2_pairs);
-        return (int)(e != cudaSuccess ? e : cudaGetLastError());
-    }
+    return repro::tstore::launch<store_cluster<LOG2N>()>(
+        rfft_rows_transpose_kernel<LOG2N>, ctas, threads, smem, stream, &active_clusters,
+        (const float*)in, (float2*)out, rows, log2_pairs);
 }
 
 }  // namespace

@@ -3,24 +3,25 @@ version, the launch plan and the launcher of the CUDA kernel
 ``csrc/fft_rows.cu``.
 
 Counterpart of ``repro.kernels.fft.kernel``.  The stage loop is the same in
-both packages and in ``csrc/stockham.cuh``, which the fused complex kernel
-runs: the row is viewed as ``(ncur, s)``, a radix-r pass combines the r parts
-``v[t*m:(t+1)*m]`` of length ``m = ncur // r`` and writes slot ``u`` of
-butterfly ``j`` scaled by ``w_j^u``, ``w_j = exp(sign*2*pi*i*j/ncur)``.  No
-pass needs a bit-reversal gather, which is why the formulation suits a
-kernel: every pass is a strided read, a few adds and multiplies, and a strided
-write.
+both packages: the row is viewed as ``(ncur, s)``, a radix-r pass combines
+the r parts ``v[t*m:(t+1)*m]`` of length ``m = ncur // r`` and writes slot
+``u`` of butterfly ``j`` scaled by ``w_j^u``, ``w_j =
+exp(sign*2*pi*i*j/ncur)``.  No pass needs a bit-reversal gather, which is why
+the formulation suits a kernel: every pass is a strided read, a few adds and
+multiplies, and a strided write.
 
 The plain versions work on two float planes ``(re, im)`` like the reference,
 so the two can be compared plane for plane; ``fft_rows_plain`` wraps them for
 interleaved complex tensors, which is what the CUDA kernel reads and writes
 (one ``float2`` per element, through ``torch.view_as_real``).
 
-The CUDA kernel holds each row's points in registers (``csrc/regfft.cuh``):
-its passes (radix 16, then one radix-2^r pass) and launch shape depend only on
-``n`` and the row count, and ``complex_rows_plan`` mirrors its instantiation
-table.  ``radix`` is validated, as in the reference, and chooses the plain
-version's stage loop only.
+The CUDA row kernels (this one, the fused ``fft_rows_transpose.cu`` and the
+packed real ones) hold each row's points in registers (``csrc/regfft.cuh``):
+their passes (radix 16, then one radix-2^r pass, on the same ``(ncur, s)``
+view) and launch shape depend only on ``n`` and the row count, and
+``complex_rows_plan`` mirrors their instantiation table.  ``radix`` is
+validated, as in the reference, and chooses the plain version's stage loop
+only.
 """
 
 from __future__ import annotations
@@ -49,9 +50,8 @@ __all__ = [
 
 # Dynamic shared memory a CTA may opt in to on an H100 (227 KB).
 SMEM_BUDGET = 232448
-# The fused complex kernel (``csrc/fft_rows_transpose.cu``) holds two whole
-# rows in shared memory, 2 * 8 * (n + 1) bytes, so every row kernel takes
-# power-of-two n up to this length and no further.
+# The row kernels are instantiated for power-of-two n up to this length
+# (``regfft::Plan<13>``) and no further.
 MAX_KERNEL_N = 8192
 # Points of a row one thread of a register-resident kernel holds (at most),
 # and the threads a CTA aims at when a row needs fewer (``csrc/regfft.cuh``).
@@ -69,15 +69,15 @@ class KernelLaunchError(RuntimeError):
 
 
 class KernelLengthError(ValueError):
-    """A power-of-two row length above ``MAX_KERNEL_N``: the kernels hold a
-    whole row in shared memory, and nothing switches to the library in
+    """A power-of-two row length above ``MAX_KERNEL_N``: the kernels are
+    instantiated up to ``Plan<13>``, and nothing switches to the library in
     their place."""
 
     def __init__(self, name: str, n: int) -> None:
         super().__init__(
             f"{name}: power-of-two length {n} exceeds the kernel limit "
-            f"{MAX_KERNEL_N} (a whole row must fit in shared memory); use "
-            "the library backend (radix=None) for this length")
+            f"{MAX_KERNEL_N} (the kernels are instantiated up to Plan<13>); "
+            "use the library backend (radix=None) for this length")
 
 
 def launch_count() -> int:

@@ -1,22 +1,36 @@
-"""Fused row FFT -> transposed write: the plain PyTorch version and the
-launcher of the CUDA kernel ``csrc/fft_rows_transpose.cu``.
+"""Fused row FFT -> transposed write: the plain PyTorch version, the launch
+plan and the launcher of the CUDA kernel ``csrc/fft_rows_transpose.cu``.
 
 Counterpart of ``repro.kernels.fused.kernel``.  The unfused pipeline writes
 the row-transformed matrix to device memory and reads it back to transpose
-it; the fused kernel runs the same Stockham stage loop and stores each
-transformed row block straight to its transposed place in the ``(n, rows)``
-output, so the intermediate matrix never exists.
+it; the fused kernel stores each transformed row straight to its transposed
+place in the ``(n, rows)`` output, so the intermediate matrix never exists.
+
+The CUDA kernel runs ``fft_rows.cu``'s register-resident passes
+(``csrc/regfft.cuh``) in the launch shape of ``complex_rows_plan``, then
+stores the rows of a CTA side by side in each output row; where a whole CTA
+holds fewer rows than make a 32-byte sector (n >= 2048), the CTAs of a
+thread-block cluster store their rows side by side, each a slice of the bins
+(``fft_rows_transpose_plan``).  ``radix`` is validated, as in the reference,
+and chooses the plain version's stage loop only.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.fft.kernel import (SMEM_BUDGET, check_kernel_input,
-                                            fft_rows_plain, launch)
+from repro_torch.kernels.fft.kernel import (_CTA_THREADS, check_kernel_input,
+                                            complex_rows_plan, fft_rows_plain,
+                                            launch)
 
-__all__ = ["fft_rows_transpose_cuda", "fft_rows_transpose_plain",
-           "launch_count", "reset_launch_count"]
+__all__ = ["STORE_CLUSTER", "fft_rows_transpose_cuda", "fft_rows_transpose_plain",
+           "fft_rows_transpose_plan", "launch_count", "reset_launch_count"]
+
+# CTAs of a cluster where a CTA holds one row (``kStoreCluster`` of
+# ``csrc/fft_rows_transpose.cu``): 8 bytes of each row per output row, so a
+# cluster stores 8 * STORE_CLUSTER = 32 contiguous bytes, a whole sector, of
+# each.
+STORE_CLUSTER = 4
 
 _launches = 0
 
@@ -38,22 +52,35 @@ def fft_rows_transpose_plain(x: torch.Tensor, *, inverse: bool = False,
     return fft_rows_plain(x, inverse=inverse, radix=radix).T.contiguous()
 
 
+def fft_rows_transpose_plan(n: int, rows: int) -> tuple[int, int, int, int]:
+    """The launch shape of ``csrc/fft_rows_transpose.cu`` for ``rows`` rows of
+    length ``n``: ``(rows_per_cta, threads, cluster, blocks)``.  Rows per CTA
+    and threads are ``complex_rows_plan``'s; where the rows a whole CTA of
+    256 threads holds (``max_rows``, at least one) give less than a 32-byte
+    sector of each output row (n >= 2048), CTAs run in clusters of
+    ``STORE_CLUSTER // max_rows`` over a grid padded to a multiple of it,
+    else alone (``cluster`` 1)."""
+    per_cta, threads, points, _, _ = complex_rows_plan(n, rows)
+    max_rows = max(1, _CTA_THREADS * points // n)
+    cluster = STORE_CLUSTER // max_rows if 8 * max_rows < 32 else 1
+    ctas = -(-rows // per_cta)
+    return per_cta, threads, cluster, -(-ctas // cluster) * cluster
+
+
 def fft_rows_transpose_cuda(x: torch.Tensor, *, inverse: bool = False,
-                            radix: int = 4, rows_per_cta: int = 1,
-                            threads: int = 256) -> torch.Tensor:
+                            radix: int = 4) -> torch.Tensor:
     """Launch ``csrc/fft_rows_transpose.cu``: (rows, n) complex64 CUDA tensor
-    -> ``FFT_rows(x).T`` of shape (n, rows).  Does not synchronise."""
+    -> ``FFT_rows(x).T`` of shape (n, rows), in the launch shape of
+    ``fft_rows_transpose_plan`` (the C side picks the cluster from n).  Does
+    not synchronise."""
     global _launches
     rows, n = check_kernel_input(x, "fft_rows_transpose_cuda")
     if radix not in (2, 4):
         raise ValueError(f"unsupported radix {radix}")
-    if 2 * rows_per_cta * (n + 1) * 8 > SMEM_BUDGET:
-        raise ValueError(
-            f"fft_rows_transpose_cuda: rows_per_cta={rows_per_cta} rows of "
-            f"length {n} need more than {SMEM_BUDGET} bytes of shared memory")
     out = torch.empty((n, rows), dtype=x.dtype, device=x.device)
     if rows == 0:
         return out
+    rows_per_cta, threads, *_ = fft_rows_transpose_plan(n, rows)
     launch("repro_fft_rows_transpose", x, out, rows=rows, n=n, radix=radix,
            inverse=int(inverse), rows_per_cta=rows_per_cta, threads=threads)
     _launches += 1

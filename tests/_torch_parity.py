@@ -267,3 +267,94 @@ def k4_store_model(z: torch.Tensor, rows: int, plan, *, cluster: int = 1):
             runs += [(8 * int(c), bool(h - l + 1 == c), full)
                      for c, l, h in zip(count, lo, hi)]
     return out[:, :rows], writes, worst, runs
+
+
+def k2_store_model(z, rows: int, plan, *, cluster: int = 1):
+    """K2's transposed store (``csrc/fft_rows_transpose.cu``) in float64,
+    thread by thread, in its launch shape: ``plan`` is
+    ``complex_rows_plan(n, rows)`` (P rows per CTA, T threads), ``z`` the
+    (rows, n) row transforms (``kernel_pass_model``'s Z), or None for the
+    pattern alone.
+
+    Each CTA writes its rows' Z once to its buffer, bin k of row p at
+    ``k4_slot(k*P + p)``, from the registers of the passes (thread t of row
+    p holds bins t + c*n/16).  The C = ``cluster`` CTAs of a cluster (C = 1:
+    a CTA alone) then store their W = C*P rows side by side: CTA rank r
+    stores bins r*S ... r*S + S - 1 (S = n/C) of all of them, idx =
+    (k - r*S)*W + q with q fastest, reading row q from the buffer of CTA
+    q // P at ``k4_slot(k*P + q % P)``, and writes out[k, row0 + q] unless
+    row0 + q >= rows.  A CTA with no row writes zeros to its buffer and
+    stores nothing.
+
+    Returns ``(out, writes, worst_bank, runs)``: the (n, rows) result (None
+    without ``z``); how often each element, and the column past the last,
+    was written (shape (n, rows + 1)); the worst bank count per half-warp of
+    the buffer's writes and of the store's reads (per target CTA); and for
+    every warp instruction and output row it writes, as three arrays, the
+    bytes written, whether they form one run, and whether the cluster (the
+    CTA) that wrote them holds all its W rows."""
+    per_cta, threads, points = plan[:3]
+    n = points * (threads // per_cta)
+    group = n // points
+    swz = k4_swizzle(n, per_cta)
+    lp = per_cta.bit_length() - 1
+    wide = per_cta * cluster                  # rows one store reaches
+    lw = wide.bit_length() - 1
+    slice_len = n // cluster
+    tid = np.arange(threads)
+    p_of, t_of = tid // group, tid % group
+    held = t_of[:, None] + np.arange(points)[None, :] * group      # (T, points)
+    write_slots = k4_slot((held << lp) + p_of[:, None], swz)
+    assert np.unique(write_slots).size == write_slots.size
+    assert write_slots.max() < per_cta * n
+    hw = write_slots.T.reshape(points, -1, 16)
+    worst = _worst_bank_count(hw, np.ones(hw.shape, bool))
+    # The store: step c of thread t is idx = t + c*T (C, R, T) of each rank.
+    idx = tid[None, :] + np.arange(points)[:, None] * threads
+    q = np.broadcast_to(idx & (wide - 1), (cluster,) + idx.shape)
+    k = np.arange(cluster)[:, None, None] * slice_len + (idx >> lw)
+    src = q >> lp
+    read_slots = k4_slot((k << lp) + (q & (per_cta - 1)), swz)
+    for target in range(cluster):
+        worst = max(worst, _worst_bank_count(read_slots.reshape(-1, 16),
+                                             (src == target).reshape(-1, 16)))
+    # Each warp instruction (rank, c, warp) and output row k is a run; lanes
+    # of one run differ in q only.
+    run_of = ((np.arange(cluster)[:, None, None] * points
+               + np.arange(points)[None, :, None]) * (threads // 32)
+              + tid[None, None, :] // 32) * n + k
+    span = cluster * points * (threads // 32) * n             # run keys a cluster
+    zz = None if z is None else z.to(torch.complex128).numpy()
+    out = None if zz is None else np.zeros((n, rows + 1), np.complex128)
+    writes = np.zeros((n, rows + 1), np.int32)
+    runs = ([], [], [])
+    clusters = -(-rows // wide)
+    chunk = max(1, (1 << 21) // (wide * n))
+    for c0 in range(0, clusters, chunk):
+        firsts = np.arange(c0, min(c0 + chunk, clusters))[:, None, None, None] * wide
+        row = firsts + q                                             # (B, C, R, T)
+        live = row < rows
+        if zz is not None:
+            rows_here = np.arange(firsts.size * wide) + c0 * wide
+            zc = np.zeros((rows_here.size, n), np.complex128)
+            zc[rows_here < rows] = zz[rows_here[rows_here < rows]]
+            zc = zc.reshape(firsts.size, cluster, per_cta, n)
+            buf = np.zeros((firsts.size, cluster, per_cta * n), np.complex128)
+            buf[:, :, write_slots] = zc[:, :, p_of[:, None], held]
+            value = buf[np.arange(firsts.size)[:, None, None, None], src, read_slots]
+            out[np.broadcast_to(k, row.shape)[live], row[live]] = value[live]
+        np.add.at(writes, (np.broadcast_to(k, row.shape)[live], row[live]), 1)
+        # In memory order the run keys do not decrease (k grows with the
+        # lane), so each run is one stretch of the live lanes.
+        keys = (np.arange(firsts.size)[:, None, None, None] * span + run_of)[live]
+        cols = row[live]
+        assert (np.diff(keys) >= 0).all()
+        starts = np.flatnonzero(np.r_[True, keys[1:] != keys[:-1]])
+        count = np.diff(np.r_[starts, keys.size])
+        lo = np.minimum.reduceat(cols, starts)
+        hi = np.maximum.reduceat(cols, starts)
+        runs[0].append(8 * count)
+        runs[1].append(hi - lo + 1 == count)
+        runs[2].append((firsts.reshape(-1) + wide <= rows)[keys[starts] // span])
+    runs = tuple(np.concatenate(part) for part in runs)
+    return (None if out is None else out[:, :rows]), writes, worst, runs

@@ -21,9 +21,7 @@ from repro.kernels.fused.ops import fft_rows_transpose_op as ref_fused_op
 from repro_torch import kernels as port_kernels
 from repro_torch.kernels import _build
 from repro_torch.kernels.fft import kernel as port_kernel
-from repro_torch.kernels.fft.ops import (fft_rows_op, pick_radix,
-                                         pick_rows_per_cta, pick_threads,
-                                         resolve_call_params)
+from repro_torch.kernels.fft.ops import fft_rows_op, pick_radix
 from repro_torch.kernels.fft.ref import fft_rows_ref
 from repro_torch.kernels.fused import kernel as port_fused_kernel
 from repro_torch.kernels.fused.ops import fft_rows_transpose_op
@@ -249,21 +247,40 @@ def test_host_arrays_default_to_the_card_and_raise_without_one(op, monkeypatch):
 @pytest.mark.parametrize("n", [2, 8, 64, 256, 1024, 2048, 4096, 8192])
 @pytest.mark.parametrize("rows", [1, 37, 256, 8192, 100000])
 def test_launch_shape_fits_the_card(n, rows):
-    """K2 holds ``r`` rows in two shared buffers of n + 1 elements (K1's
-    plan is tested in ``test_torch_regfft.py``)."""
-    r, radix, threads = resolve_call_params(n, rows, None, None)
-    assert radix == pick_radix(n)
-    assert 1 <= r <= max(rows, 1)
-    assert 2 * r * (n + 1) * 8 <= port_kernel.SMEM_BUDGET
-    assert 64 <= threads <= 1024 and threads & (threads - 1) == 0
-    assert threads == pick_threads(n, r, radix)
-    assert r <= 16 and (r < 4 or r % 4 == 0 or r == rows)
-    assert r == pick_rows_per_cta(n, rows)
+    """K2's launch shape (``fft_rows_transpose_plan``): K1's rows per CTA
+    and threads (K1's plan is tested in ``test_torch_regfft.py``), a grid of
+    whole clusters padded by less than one, a cluster where the rows of a
+    whole CTA give less than a 32-byte sector per output row (n >= 2048)
+    and of as many CTAs as ``STORE_CLUSTER`` rows' worth there, and at
+    n >= 4096 one row a CTA in half an SM's shared memory."""
+    per_cta, threads, cluster, blocks = port_fused_kernel.fft_rows_transpose_plan(n, rows)
+    k1_per_cta, k1_threads, points, _, smem = port_kernel.complex_rows_plan(n, rows)
+    assert (per_cta, threads) == (k1_per_cta, k1_threads)
+    assert blocks % cluster == 0 and 0 <= blocks * per_cta - rows < cluster * per_cta
+    max_rows = max(1, 256 // (n // points))
+    assert 1 <= per_cta <= max_rows
+    if n >= 2048:
+        assert 8 * max_rows < 32 and cluster > 1
+        assert cluster * max_rows == port_fused_kernel.STORE_CLUSTER
+    else:
+        assert 8 * max_rows >= 32 and cluster == 1
+    if n >= 4096:
+        assert per_cta == 1 and smem <= port_kernel.SMEM_BUDGET // 2
 
 
 def test_whole_row_limit_is_what_shared_memory_holds():
+    """``MAX_KERNEL_N`` is the top of K2's instantiation table: every power
+    of two up to it in both directions, nothing above; and a row of that
+    length (one a CTA) fits twice in an SM's shared memory."""
     n = port_kernel.MAX_KERNEL_N
-    assert 2 * (n + 1) * 8 <= port_kernel.SMEM_BUDGET < 2 * (2 * n) * 8
+    source = (_build.csrc_dir() / "fft_rows_transpose.cu").read_text()
+    top = n.bit_length() - 1
+    for e in range(1, top + 1):
+        assert f"case 1 << {e}: return launch_dir<{e}>(" in source
+    assert f"case 1 << {top + 1}" not in source
+    assert "launch<LOG2N, true>" in source and "launch<LOG2N, false>" in source
+    per_cta, _, _, _, smem = port_kernel.complex_rows_plan(n, 1 << 20)
+    assert per_cta == 1 and 2 * smem <= port_kernel.SMEM_BUDGET
 
 
 def test_cpu_ops_launch_nothing_and_build_nothing():
@@ -280,26 +297,25 @@ def test_cpu_ops_launch_nothing_and_build_nothing():
 def test_kernel_sources_are_plain_cuda_built_for_sm_90a():
     names = [p.name for p in _build.source_files()]
     assert names == ["fft_rows.cu", "fft_rows_transpose.cu", "regfft.cuh", "rfft_rows.cu",
-                     "rfft_rows_transpose.cu", "stockham.cuh", "transpose.cu"]
+                     "rfft_rows_transpose.cu", "transpose.cu", "tstore.cuh"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "-use_fast_math" not in _build.NVCC_FLAGS
     for path in _build.source_files():
         text = path.read_text()
         assert "torch/extension.h" not in text and "__sincosf(" not in text
+        assert "stockham_rows" not in text and "stockham.cuh" not in text
         if path.suffix == ".cu":
-            # Every row FFT runs a shared stage loop (stockham.cuh, or
-            # regfft.cuh, which builds on it); the transpose has none.  K1,
-            # K3 and K4 run regfft.cuh's passes, K2 stockham.cuh's.
-            shared = any(f'#include "{h}"' in text for h in ("stockham.cuh", "regfft.cuh"))
+            # Every row FFT runs regfft.cuh's passes (the fused ones through
+            # tstore.cuh, which includes it); the transpose has none.
+            shared = any(f'#include "{h}"' in text for h in ("regfft.cuh", "tstore.cuh"))
             assert shared == ("fft" in path.stem)
             assert "Replaces the TPU kernel" in text and "Bound on this card" in text
-    for header in ("stockham.cuh", "regfft.cuh"):
-        assert "sincospif" in (_build.csrc_dir() / header).read_text()
-    assert '#include "stockham.cuh"' in (_build.csrc_dir() / "regfft.cuh").read_text()
-    for name in ("fft_rows.cu", "rfft_rows.cu", "rfft_rows_transpose.cu"):
-        text = (_build.csrc_dir() / name).read_text()
-        assert '#include "regfft.cuh"' in text and "stockham_rows" not in text
-    assert "stockham_rows" in (_build.csrc_dir() / "fft_rows_transpose.cu").read_text()
+    assert "sincospif" in (_build.csrc_dir() / "regfft.cuh").read_text()
+    assert '#include "regfft.cuh"' in (_build.csrc_dir() / "tstore.cuh").read_text()
+    for name in ("fft_rows.cu", "rfft_rows.cu"):
+        assert '#include "regfft.cuh"' in (_build.csrc_dir() / name).read_text()
+    for name in ("fft_rows_transpose.cu", "rfft_rows_transpose.cu"):
+        assert '#include "tstore.cuh"' in (_build.csrc_dir() / name).read_text()
 
 
 def test_build_directory_is_keyed_by_the_sources(tmp_path, monkeypatch):
@@ -312,7 +328,7 @@ def test_build_directory_is_keyed_by_the_sources(tmp_path, monkeypatch):
         (copy / path.name).write_text(path.read_text())
     monkeypatch.setattr(_build, "csrc_dir", lambda: copy)
     assert _build._source_hash() == before
-    (copy / "stockham.cuh").write_text(
-        (copy / "stockham.cuh").read_text() + "\n// changed\n")
+    (copy / "regfft.cuh").write_text(
+        (copy / "regfft.cuh").read_text() + "\n// changed\n")
     assert _build._source_hash() != before
     assert _build.build_root().name == "build"

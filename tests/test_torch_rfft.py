@@ -214,9 +214,13 @@ def test_k4_source_runs_the_register_passes_in_k1s_plan():
     """K4 (``rfft_rows_transpose.cu``) runs K3's passes on ``regfft.cuh`` in
     the launch shape of ``rfft_rows_transpose_plan`` (checked by its
     launcher, any other shape refused), at every length; its buffer swizzle
-    and cluster store are the ones ``k4_store_model`` checks."""
+    and cluster store are the ones ``k4_store_model`` checks (the swizzle,
+    the cluster rule and the launch in clusters in ``tstore.cuh``, which K2
+    shares)."""
     source = (_build.csrc_dir() / "rfft_rows_transpose.cu").read_text()
-    assert '#include "regfft.cuh"' in source and "stockham_rows" not in source
+    header = (_build.csrc_dir() / "tstore.cuh").read_text()
+    assert '#include "tstore.cuh"' in source and "stockham_rows" not in source
+    assert '#include "regfft.cuh"' in header
     assert "fft_row<LOG2N, false>" in source and "cudaErrorInvalidValue" in source
     assert "__launch_bounds__(Plan<LOG2N>::MAX_THREADS, Plan<LOG2N>::MIN_BLOCKS)" in source
     assert "threads != pairs_per_cta * P::GROUP" in source
@@ -226,21 +230,25 @@ def test_k4_source_runs_the_register_passes_in_k1s_plan():
         assert f"case 1 << {e}: return launch<{e}>(" in source
     assert "case 1 << 14" not in source
     # The swizzle: the model's k4_swizzle, written as the kernel writes it.
+    assert "using repro::tstore::Swizzle;" in source
     for line in ("LG = LOG2N < 4 ? 0 : LOG2N - 4;", "LANES_K = LG < 4 ? LG : 4;",
-                 "bits = log2_pairs >= 4 ? LANES_K : LANES_K + log2_pairs - 4;",
-                 "s = log2_pairs >= 4 ? log2_pairs - 4 : 0;",
+                 "bits = log2_rows >= 4 ? LANES_K : LANES_K + log2_rows - 4;",
+                 "s = log2_rows >= 4 ? log2_rows - 4 : 0;",
                  "return f ^ (((f >> 4 >> s) & mask) << (4 - LANES_K));"):
-        assert line in source, line
+        assert line in header, line
     assert "smem[slot(((t + c * G) << log2_pairs) + local)] = v[c];" in source
     assert "smem[slot(idx)]" in source
     assert "smem[slot((((N - k) & (N - 1)) << log2_pairs) + p)]" in source
     # The cluster: its size, where it is used, the padded grid, the
     # occupancy check, two barriers and the reads of the other CTAs.
+    # (16 bytes of a pair per output row: a cluster where a CTA holds one.)
     assert f"kStoreCluster = {port_fused_real.STORE_CLUSTER};" in source
-    assert "return Plan<LOG2N>::MAX_ROWS == 1 ? kStoreCluster : 1;" in source
-    assert "blocks = (ctas + C - 1) / C * C;" in source
-    assert "cudaLaunchAttributeClusterDimension" in source
-    assert "cudaOccupancyMaxActiveClusters" in source
+    assert "return repro::tstore::store_cluster<LOG2N, 16>(kStoreCluster);" in source
+    assert "return regfft::Plan<LOG2N>::MAX_ROWS * UNIT < 32" in header
+    assert "repro::tstore::launch<store_cluster<LOG2N>()>(" in source
+    assert "blocks = (ctas + C - 1) / C * C;" in header
+    assert "cudaLaunchAttributeClusterDimension" in header
+    assert "cudaOccupancyMaxActiveClusters" in header
     assert source.count("cluster.sync();") == 2
     assert "constexpr int S = (NH + C - 1) / C;" in source
     assert "const int k = rank * S + (idx >> LOG2C);" in source
