@@ -25,12 +25,22 @@ each of which ends the run with a non-zero exit code when it fails:
                  ``rfft-fpm`` at N = 8192 and ``rfft-fpm-pad`` at N = 4096
                  (float32 signals, half-spectrum output), a batch,
                  ``execute_many`` and ``irfft2(rfft2(x))``.
-6. ``microbench_fused`` the reference microbenchmark's fused-vs-unfused pair:
+6. ``planner``   the single-device planner: ``plan_pfft(tune="estimate")``
+                 for ``fpm`` / ``rfft-fpm`` / ``fpm-pad`` at N = 8192,
+                 ``tune="measure"`` into a fresh wisdom file for ``lb`` and
+                 ``rfft-lb`` at N = 1024 ... 8192 and the padded ``fpm-pad``
+                 at N = 8192 (pads up to 16384), each plan executed and
+                 checked; the whole candidate pot raced at N = 8192 (complex
+                 and real; lb at 1024 ... 4096 too) beside its estimates under the
+                 committed and the freshly fitted cost constants; the same
+                 plans again from the warm store (no launch while planning)
+                 and from a ``PlanCache``; ``fit_cost_params`` of the store.
+7. ``microbench_fused`` the reference microbenchmark's fused-vs-unfused pair:
                  ``transpose_op(fft_rows_op(m))`` against
                  ``fft_rows_transpose_op(m)``, the path the blocked transpose
                  kernel lies on.
 
-Each path (4, 5, 6) is driven once with the launch counts set to 0 just
+Each path (4, 5, 6, 7) is driven once with the launch counts set to 0 just
 before and read just after; each of its kernels must have launched.  Every
 line but the last is a log or a JSON record; the last line is
 ``{"ok": true, "device": {...}}`` and is printed only when every phase passed.
@@ -38,12 +48,14 @@ line but the last is a log or a JSON record; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -57,7 +69,7 @@ if not torch.cuda.is_available():
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch.core import (FPMSet, PlanConfig, SpeedFunction, build_fpm,  # noqa: E402
-                              irfft2, plan_pfft, rfft2)
+                              fft_flops, irfft2, lb_partition, plan_pfft, rfft2)
 from repro_torch.fft import fft_rows  # noqa: E402
 from repro_torch.kernels import (_build, fft_rows_op, fft_rows_transpose_op,  # noqa: E402
                                  launch_counts, reset_launch_counts,
@@ -68,6 +80,9 @@ from repro_torch.kernels.fft.real import rfft_rows_plain  # noqa: E402
 from repro_torch.kernels.fused.kernel import fft_rows_transpose_plain  # noqa: E402
 from repro_torch.kernels.fused.real import rfft_rows_transpose_plain  # noqa: E402
 from repro_torch.kernels.transpose.kernel import transpose_plain  # noqa: E402
+from repro_torch.plan import (CostParams, PlanCache, candidate_configs,  # noqa: E402
+                              estimate_cost, fit_cost_params, measure_configs,
+                              measure_rfft_configs, record_wisdom, wisdom_key)
 
 SEED = 0
 P = 4
@@ -103,6 +118,11 @@ TRANSPOSE_SHAPES = [(1, 1), (37, 129), (1000, 3), (4096, 8192), (8192, 8192)]
 # Every other element size the transpose kernel is built for, at small shapes.
 TRANSPOSE_OTHER_DTYPES = [torch.uint8, torch.float16, torch.float64, torch.complex128]
 MICROBENCH_N = (1024, 8192)
+# The planner's measured problems: lb and rfft-lb over these N (>= 8 wisdom
+# entries with fpm-pad, so that fit_cost_params fits); the lb pots raced at
+# each N are calibration samples (four sizes, so that the fit can tell the
+# compute terms from the traffic term).
+PLANNER_N = (1024, 2048, 4096, 8192)
 SOURCES = "src/repro_torch/kernels/csrc/"
 
 
@@ -663,6 +683,203 @@ def phase_main_path_real(gen: torch.Generator, fpms) -> tuple[dict[str, int], li
                                         "fft_rows", "fft_rows_transpose")), runs
 
 
+def planned_oracle(plan, signal: torch.Tensor) -> torch.Tensor:
+    """What ``plan.execute(signal)`` must give: the library's 2-D FFT (half
+    spectrum for a real method), or the padded-signal oracle."""
+    if plan.method.endswith("fpm-pad"):
+        return padded_oracle(signal, plan.d, plan.pad_lengths)
+    return torch.fft.rfft2(signal) if plan.method.startswith("rfft-") \
+        else torch.fft.fft2(signal)
+
+
+def timed_plan(**kwargs):
+    """``plan_pfft(**kwargs)`` with its host time and the kernel launches
+    made while planning (a measured plan races the kernels)."""
+    before = launch_counts()
+    t0 = time.perf_counter()
+    plan = plan_pfft(**kwargs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    delta = {k: v - before[k] for k, v in launch_counts().items()}
+    return plan, seconds, delta
+
+
+def check_planned(plan, signal: torch.Tensor, label: str, runs: list[tuple],
+                  **fields) -> None:
+    """Execute a tuned plan once against its oracle (``2e-4·N``) and log its
+    pick beside the top three of its ranking."""
+    oracle = planned_oracle(plan, signal)
+    before = launch_counts()
+    out = plan.execute(signal)
+    torch.cuda.synchronize()
+    delta = {k: v - before[k] for k, v in launch_counts().items()}
+    err = max_abs_err(out, oracle)
+    tol = 2e-4 * plan.n
+    top3 = [(PlanConfig.from_dict(c).describe(), t)
+            for c, t in plan.tuning.get("ranked", [])[:3]]
+    log("planner", run=label, method=plan.method, n=plan.n,
+        source=plan.tuning["source"], pick=plan.schedule.describe(),
+        chosen_path=plan.tuning.get("chosen_path"),
+        calibrated=plan.tuning.get("calibrated"), top3=top3,
+        pad_lengths=None if plan.pad_lengths is None else plan.pad_lengths.tolist(),
+        max_abs_err=err, atol=tol, execute_launches=delta, **fields)
+    if err > tol:
+        raise AssertionError(f"{label}: max error {err} > {tol}")
+    runs.append((label, plan, signal, delta))
+
+
+def race_pot(store: str | None, n: int, d, real: bool,
+             committed: CostParams) -> dict:
+    """Race the whole candidate pot of an (n, d) problem on the card, as
+    the reference's planner microbenchmark does; with a ``store``, record
+    each candidate's time there as a calibration sample (keys
+    ``...|race=<config>``, which no plan looks up; ``d`` is then the lb
+    partition the fit assumes for a bare config)."""
+    cands = candidate_configs(n, d=d)
+    events: dict = {}
+    if real:
+        pot = [dataclasses.replace(c, real=True) for c in cands] + cands
+        times = measure_rfft_configs(pot, n, d=d, events=events)
+    else:
+        times = measure_configs(cands, n, d=d, events=events)
+    if store is not None:
+        key = wisdom_key(n=n, dtype="complex64", p=len(d), method="lb",
+                         backend="cuda")
+        for cfg, t in times.items():
+            record_wisdom(store, f"{key}|race={cfg.describe()}", cfg,
+                          mode="measure", time_s=t)
+    return {"n": n, "d": [int(r) for r in d], "real": real, "times": times,
+            "events": events,
+            "committed": {c: estimate_cost(c, n=n, d=d, params=committed)
+                          for c in times}}
+
+
+def phase_planner(gen: torch.Generator, fpms, records: list[dict],
+                  card: str) -> tuple[dict[str, int], list[tuple]]:
+    """Drive the planner once, with the launch counts set to 0 just before
+    and read just after: (a) estimate at full width, (b) measure into a
+    fresh wisdom file and race the candidate pots, (c) the same plans from
+    the warm store and a ``PlanCache``, (d) calibrate.  K1-K4 must each
+    launch (the races run every candidate)."""
+    n = N_UNPADDED
+    homo, hetero = fpms[n]
+    committed = CostParams.for_backend("cuda")
+    lib_ms = next(r["library_ms"] for r in records if r["name"] == "fft_rows")
+    log("planner", card=card, committed=dataclasses.asdict(committed),
+        library_rate_flops=float(fft_flops(*MAIN_SHAPE)) / (lib_ms * 1e-3))
+    signals = {}
+    for m in PLANNER_N:
+        signals[m] = (random_signal(gen, m, m), random_real(gen, m, m))
+    runs: list[tuple] = []
+
+    reset_launch_counts()          # ---- the planner's single drive starts
+
+    # (a) estimate at full width over the card-timed FPMs, and over the
+    # synthetic hetero ones for the padded method (pads up to 2N).
+    complex_sig, real_sig = signals[n]
+    est = {}
+    for method, model, sig, dtype in (("fpm", homo, complex_sig, "complex64"),
+                                      ("rfft-fpm", homo, real_sig, "float32"),
+                                      ("fpm-pad", hetero, complex_sig, "complex64")):
+        plan, seconds, delta = timed_plan(n=n, method=method, fpms=model,
+                                          tune="estimate", dtype=dtype)
+        if any(delta.values()):
+            raise AssertionError(f"estimate {method} launched {delta}")
+        est[method] = plan
+        check_planned(plan, sig, f"estimate/{method}", runs, plan_s=seconds)
+
+    # (b) measure into a fresh wisdom file: >= 8 problems, then the pots.
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "wisdom.json")
+        problems = []
+        for m in PLANNER_N:
+            problems += [(dict(n=m, p=P, method="lb"), signals[m][0]),
+                         (dict(n=m, p=P, method="rfft-lb", dtype="float32"),
+                          signals[m][1])]
+        problems.append((dict(n=n, fpms=hetero, method="fpm-pad"), complex_sig))
+        cold = {}
+        for kwargs, sig in problems:
+            plan, seconds, delta = timed_plan(tune="measure", wisdom=store, **kwargs)
+            label = f"measure/{kwargs['method']}/{kwargs['n']}"
+            cold[label] = seconds
+            if plan.tuning["source"] != "measure":
+                raise AssertionError(f"{label}: source {plan.tuning['source']}")
+            check_planned(plan, sig, label, runs, plan_s=seconds,
+                          plan_launches=delta,
+                          measured=plan.tuning.get("measured"),
+                          measured_event_s=plan.tuning.get("measured_event_s"),
+                          group_measured=plan.tuning.get("group_measured"))
+        padded = plan
+        if 2 * n not in padded.pad_lengths.tolist():
+            raise AssertionError(f"fpm-pad did not pad to 2N: {padded.pad_lengths}")
+
+        # The lb pots are calibration samples; at N = 8192 the pots of the
+        # estimated fpm / rfft-fpm plans (their d) say whether the
+        # estimate's pick is the measured winner.
+        races = {("lb", m): race_pot(store, m, lb_partition(m, P).d, False,
+                                     committed) for m in PLANNER_N}
+        fpm_d = est["fpm"].d
+        races["fpm"] = (races[("lb", n)] if np.array_equal(fpm_d, lb_partition(n, P).d)
+                        else race_pot(None, n, fpm_d, False, committed))
+        races["rfft-fpm"] = race_pot(None, n, est["rfft-fpm"].d, True, committed)
+        fitted = fit_cost_params(store)
+        with open(store) as fh:
+            entries = len(json.load(fh)["entries"])
+        log("planner", step="fit", card=card, entries=entries,
+            fitted=dataclasses.asdict(fitted))
+        for name, race in races.items():
+            winner = min(race["times"], key=race["times"].get)
+            for cfg, t in sorted(race["times"].items(), key=lambda kv: kv[1]):
+                log("planner", race=str(name), n=race["n"], d=race["d"],
+                    config=cfg.describe(), measured_s=t,
+                    event_s=race["events"].get(cfg),
+                    est_committed_s=race["committed"][cfg],
+                    est_fitted_s=estimate_cost(cfg, n=race["n"], d=np.asarray(race["d"]),
+                                               params=fitted),
+                    winner=cfg == winner)
+            if name in est:
+                pick = est[name].config
+                log("planner", race=name, estimate_pick=pick.describe(),
+                    measured_winner=winner.describe(),
+                    pick_is_winner=pick == winner,
+                    pick_over_winner=race["times"][pick] / race["times"][winner])
+
+        # (c) warm: the same plan calls served from the store, no launch
+        # while planning; then a PlanCache hit.
+        warm = {}
+        for kwargs, _ in problems:
+            plan, seconds, delta = timed_plan(tune="measure", wisdom=store, **kwargs)
+            label = f"measure/{kwargs['method']}/{kwargs['n']}"
+            warm[label] = seconds
+            if plan.tuning["source"] != "wisdom" or any(delta.values()):
+                raise AssertionError(f"warm {label}: source "
+                                     f"{plan.tuning['source']}, launches {delta}")
+        cache = PlanCache()
+        kwargs = problems[-1][0]
+        cache.get("fpm-pad", lambda: plan_pfft(tune="measure", wisdom=store, **kwargs))
+        t0 = time.perf_counter()
+        _, hit = cache.get("fpm-pad", lambda: plan_pfft(tune="measure", wisdom=store,
+                                                        **kwargs))
+        cache_s = time.perf_counter() - t0
+        if not hit:
+            raise AssertionError("PlanCache missed a key it holds")
+        log("planner", step="plan_host_s", card=card, cold_measure=cold,
+            warm_wisdom=warm, plan_cache_hit=cache_s, cache=cache.stats_dict())
+
+        # (d) calibrate: the store's fit, and a tuned plan that uses it.
+        plan, seconds, delta = timed_plan(n=n, p=2, method="lb", tune="estimate",
+                                          wisdom=store)
+        log("planner", step="calibrate", fit=dataclasses.asdict(fit_cost_params(store)),
+            calibrated=plan.tuning["calibrated"], pick=plan.schedule.describe(),
+            plan_s=seconds)
+        if not plan.tuning["calibrated"]:
+            raise AssertionError("a store of measured entries left the model uncalibrated")
+
+    # ---- the planner's single drive ends
+    return end_drive("planner", ("fft_rows", "fft_rows_transpose", "rfft_rows",
+                                 "rfft_rows_transpose")), runs
+
+
 def phase_microbench_fused(gen: torch.Generator, card: str) -> dict[str, int]:
     """The reference microbenchmark's ``fused`` sweep: the unfused phase
     ``transpose_op(fft_rows_op(m))`` (two launches) against the fused
@@ -723,14 +940,16 @@ def main() -> None:
     fpms = phase_fpms()
     complex_counts, runs = phase_main_path(gen, fpms)
     real_counts, real_runs = phase_main_path_real(gen, fpms)
+    planner_counts, planner_runs = phase_planner(gen, fpms, records, card)
     bench_counts = phase_microbench_fused(gen, card)
     for record in records:
         by_path = {"main_path": complex_counts[record["name"]],
                    "main_path_real": real_counts[record["name"]],
+                   "planner": planner_counts[record["name"]],
                    "microbench_fused": bench_counts[record["name"]]}
         record["launches"] = sum(by_path.values())
         record["launches_by_path"] = by_path
-    time_runs(runs + real_runs, card)
+    time_runs(runs + real_runs + planner_runs, card)
     log("done", seconds=round(time.perf_counter() - t0, 1),
         peak_memory_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2))
     print(card, flush=True)

@@ -4,11 +4,11 @@
    timing row-FFT batches on the device at a grid of problem sizes.
 2. PARTITION the rows (POPTA/HPOPTA choose automatically per the epsilon
    tolerance test).
-3. Plan PFFT-LB / PFFT-FPM / PFFT-FPM-CZT / PFFT-FPM-PAD with explicit
-   execution configs — the library FFT, the hand-written CUDA row-FFT kernel
-   (``radix=4``) and the fused FFT->transpose kernel (``fused=True``) — and
-   execute them against ``torch.fft.fft2``.  (The model-driven tuner,
-   ``tune="estimate"``, is not in the port yet.)
+3. Plan PFFT-LB / PFFT-FPM / PFFT-FPM-CZT / PFFT-FPM-PAD with the
+   model-driven tuner (``tune="estimate"``: the cost model ranks the library
+   FFT, the hand-written CUDA row-FFT kernel ``radix=4`` and the fused
+   FFT->transpose kernel ``fused=True``) and execute them against
+   ``torch.fft.fft2``.
 
 Run on the GPU (builds the kernels with nvcc at first use):
 
@@ -68,20 +68,26 @@ def main() -> None:
 
     # -- 2+3. plan & execute -------------------------------------------------
     oracle = torch.fft.fft2(signal)
-    configs = [PlanConfig(), PlanConfig(radix=4), PlanConfig(fused=True)]
     for method in ("lb", "fpm", "fpm-czt"):
-        for config in configs if method != "fpm-czt" else configs[:1]:
-            plan = plan_pfft(n, p=P, fpms=fpms, method=method, config=config,
-                             device=device)
-            err = float((plan.execute(signal) - oracle).abs().max())
-            print(f"method={method:8s} d={plan.d} "
-                  f"config=[{plan.config.describe()}] max_err={err:.2e}")
+        plan = plan_pfft(n, p=P, fpms=fpms, method=method, tune="estimate",
+                         device=device)
+        err = float((plan.execute(signal) - oracle).abs().max())
+        print(f"method={method:8s} d={plan.d} config=[{plan.config.describe()}] "
+              f"(chosen: {plan.tuning['source']}) max_err={err:.2e}")
 
-    plan = plan_pfft(n, fpms=fpms, method="fpm-pad", config=PlanConfig(radix=4),
+    plan = plan_pfft(n, fpms=fpms, method="fpm-pad", tune="estimate",
                      device=device)
     plan.execute(signal)
     print(f"method=fpm-pad  d={plan.d} pad_lengths={plan.pad_lengths} "
           f"config=[{plan.config.describe()}] (padded-signal DFT semantics)")
+    print("plan.tuning['source']:", plan.tuning["source"])
+
+    # An explicit config skips the tuner: the fused FFT->transpose kernel.
+    plan = plan_pfft(n, p=P, method="lb", config=PlanConfig(fused=True),
+                     device=device)
+    err = float((plan.execute(signal) - oracle).abs().max())
+    print(f"method=lb       config=[{plan.config.describe()}] "
+          f"(chosen: {plan.tuning['source']}) max_err={err:.2e}")
 
     # Batched execute: leading batch dims are transformed one by one.
     batch = torch.stack([signal, signal.flip(0)])

@@ -1,7 +1,6 @@
-"""Plan-style user API (mirrors fftw's plan/execute lifecycle).
+"""Plan-style user API (mirrors fftw's plan/execute/wisdom lifecycle).
 
-    plan = plan_pfft(n=4096, fpms=fpms, method="fpm-pad",
-                     config=PlanConfig(radix=4))
+    plan = plan_pfft(n=4096, fpms=fpms, method="fpm-pad", tune="estimate")
     out  = plan.execute(signal)     # reusable
 
 Counterpart of ``repro.core.api`` for the 2-D methods.  The plan
@@ -19,9 +18,26 @@ A plan lives on one device: ``device=None`` is the CUDA device and raises
 when there is none; ``device="cpu"`` runs the kernels' plain PyTorch
 versions on the host.
 
+``tune`` selects how the variant is chosen (fftw's ESTIMATE/MEASURE):
+
+* ``"off"`` — the default config (library FFT, batched dispatch), or an
+  explicit ``config=``/legacy flags.
+* ``"estimate"`` — rank the candidate space with the cost model
+  (``repro_torch.plan.cost``, the constants of the plan's device type), per
+  distinct effective FFT length (``tune_schedule``); no device work.
+* ``"measure"`` — additionally time the Pareto top-k candidates per
+  length group on the plan's device.
+
+``wisdom=path`` consults/feeds the persistent store
+(``repro_torch.plan.wisdom``, the reference's file format) keyed by (n,
+dtype, p, method, backend = the plan's device type): a hit skips tuning
+entirely, and a measured choice is recorded so fresh processes are served
+from disk.  When the store holds enough measured entries, the estimate cost
+model is re-calibrated from them (``repro_torch.plan.calibrate``) before
+ranking.
+
 Not in this package yet, and refused with ``NotImplementedError`` rather than
-quietly ignored: ``tune="estimate"|"measure"`` and ``wisdom=`` (the planner
-slice) and ``mesh=`` (the distributed slice).
+quietly ignored: ``mesh=`` (the distributed slice).
 """
 
 from __future__ import annotations
@@ -38,8 +54,13 @@ from repro_torch.core.fpm import FPMSet
 from repro_torch.core.partition import PartitionResult, lb_partition, partition_rows
 from repro_torch.core.pfft import (_pfft_limb, _rpfft_limb, device_groups,
                                    real_limb_groups)
+from repro_torch.plan.calibrate import fit_cost_params
 from repro_torch.plan.config import PlanConfig, normalize_pad
+from repro_torch.plan.cost import CostParams
 from repro_torch.plan.schedule import SegmentSchedule
+from repro_torch.plan.tune import tune_rfft, tune_schedule
+from repro_torch.plan.wisdom import (lookup_wisdom, partition_digest,
+                                     record_wisdom, wisdom_key)
 
 Method = Literal["lb", "fpm", "fpm-pad", "fpm-czt",
                  "rfft-lb", "rfft-fpm", "rfft-fpm-pad"]
@@ -183,25 +204,99 @@ class PfftPlan:
 
 
 def _resolve_schedule(n: int, method: Method, part: PartitionResult,
-                      pads: np.ndarray | None, config: PlanConfig | None
+                      pads: np.ndarray | None, fpms: FPMSet | None,
+                      tune: TuneMode, wisdom: str | None,
+                      config: PlanConfig | None, dtype: str,
+                      device: torch.device
                       ) -> tuple[SegmentSchedule, dict[str, Any]]:
-    """The plan's execution schedule and where it came from: an explicit
-    config, else the default (library FFT, batched dispatch).  The method
-    owns the pad semantics (``normalize_pad``): an explicit ``PlanConfig()``
-    on fpm-czt still runs Bluestein and a drifted ``pad="czt"`` on fpm-pad
-    still runs the paper's crop.  Real methods also own the transform: an
-    explicit config is real-flagged so the executor runs the half-spectrum
-    pipeline."""
+    """Pick the plan's execution schedule and say where it came from.
+
+    Resolution order: explicit config > wisdom hit > tuner > default.
+    A wisdom hit applies even at ``tune="off"`` — passing ``wisdom=path``
+    *is* the request to use stored plans (FFTW reads wisdom regardless of
+    planner rigor) — but only when the stored schedule still describes
+    the current partition (a stale structure is a miss, never an error).
+    ``tuning["source"]`` records which branch won.  The key's backend and
+    the tuner's measurements are the plan's device.
+    """
     pad_strategy = _PAD_STRATEGY[method]
     real = method in _REAL_METHODS
-    if config is not None:
-        cfg, source = normalize_pad(config, pad_strategy), "explicit"
+
+    def normalize(cfg: PlanConfig) -> PlanConfig:
+        """The method owns the pad semantics (``normalize_pad``: an
+        explicit ``PlanConfig()`` on fpm-czt still runs Bluestein and a
+        drifted ``pad="czt"`` on fpm-pad still runs the paper's crop).
+        Real methods also own the transform: an explicit config is
+        real-flagged so the executor runs the half-spectrum pipeline (a
+        tuner-chosen complex fallback keeps its own flag — that flag *is*
+        the race's verdict)."""
+        cfg = normalize_pad(cfg, pad_strategy)
         if real and not cfg.real:
             cfg = dataclasses.replace(cfg, real=True)
+        return cfg
+
+    tuning: dict[str, Any] = {"mode": tune}
+    if config is not None:
+        tuning["source"] = "explicit"
+        return SegmentSchedule.homogeneous(normalize(config), n, part.d,
+                                           pads), tuning
+
+    # The lb partition is a function of (n, p); the FPM partitions (and
+    # pad lengths) depend on the FPMSet and eps, so they digest into the
+    # key — a different model must not be served another model's plan.
+    detail = (partition_digest(part.d, pads)
+              if _base_method(method) != "lb" else None)
+    key = wisdom_key(n=n, dtype=dtype, p=len(part.d), method=method,
+                     backend=device.type, detail=detail)
+    tuning["wisdom_key"] = key
+    if wisdom is not None:
+        hit = lookup_wisdom(wisdom, key)
+        if hit is not None:
+            plan, entry = hit
+            if isinstance(plan, SegmentSchedule):
+                # Structure AND pad semantics must match: an entry whose
+                # config pad drifted from the method's strategy would
+                # execute the wrong transform (czt vs pad-and-crop), so
+                # it is a miss like every other kind of drift.
+                ok = (plan.matches(part.d, pads)
+                      and all(e.config.pad == pad_strategy for e in plan))
+                schedule = plan if ok else None
+            else:
+                schedule = SegmentSchedule.homogeneous(normalize(plan), n,
+                                                       part.d, pads)
+            if schedule is not None:
+                tuning["source"] = "wisdom"
+                tuning["wisdom_entry"] = entry
+                return schedule, tuning
+
+    if tune == "off":
+        tuning["source"] = "off"
+        return SegmentSchedule.homogeneous(
+            PlanConfig(pad=pad_strategy, real=real), n, part.d,
+            pads), tuning
+
+    params = None
+    if wisdom is not None:
+        # Enough measured entries on this device type re-fit the cost
+        # constants (the committed ones below the sample threshold).
+        params = fit_cost_params(wisdom, backend=device.type)
+        tuning["calibrated"] = params != CostParams.for_backend(device.type)
+    if real:
+        schedule, info = tune_rfft(n, d=part.d, pad_lengths=pads,
+                                   fpms=fpms, mode=tune, pad=pad_strategy,
+                                   params=params, dtype=np.dtype(dtype),
+                                   device=device)
     else:
-        cfg, source = PlanConfig(pad=pad_strategy, real=real), "off"
-    return (SegmentSchedule.homogeneous(cfg, n, part.d, pads),
-            {"mode": "off", "source": source})
+        schedule, info = tune_schedule(n, d=part.d, pad_lengths=pads,
+                                       fpms=fpms, mode=tune,
+                                       pad=pad_strategy, params=params,
+                                       dtype=np.dtype(dtype), device=device)
+    tuning.update(info)
+    tuning["source"] = tune
+    if wisdom is not None and tune == "measure":
+        record_wisdom(wisdom, key, schedule, mode="measure",
+                      time_s=info.get("time_s"))
+    return schedule, tuning
 
 
 def plan_pfft(n: int, *, p: int | None = None, fpms: FPMSet | None = None,
@@ -217,23 +312,18 @@ def plan_pfft(n: int, *, p: int | None = None, fpms: FPMSet | None = None,
     ``"fpm-czt"`` (need ``fpms``), and their real-input forms
     ``"rfft-lb"``, ``"rfft-fpm"``, ``"rfft-fpm-pad"`` (``dtype="float32"``
     or ``"float64"``; ``execute`` returns the (N, N//2+1) half spectrum).
-    ``config`` picks the execution variant (default: library FFT).
+    ``config`` picks the execution variant; without one, ``wisdom=`` and
+    ``tune=`` choose it (module docstring), else the default (library
+    FFT).  For the ``rfft-*`` methods the tuner races the real pipeline
+    against the upcast-and-crop complex fallback and the plan routes on
+    the winner; ``plan.tuning["chosen_path"]`` says which side won.
     ``use_stockham=``/``fused=`` are deprecated shims for the legacy flag
-    API (they build an explicit config).
+    API (they build an explicit config, so tuning is skipped).
     """
     if tune not in ("off", "estimate", "measure"):
         raise ValueError(f"tune must be 'off'|'estimate'|'measure', got {tune!r}")
     if method not in _PAD_STRATEGY:
         raise ValueError(f"unknown method {method!r}")
-    if tune != "off":
-        raise NotImplementedError(
-            f"tune={tune!r}: the planner (cost model, tuner) is not in "
-            "repro_torch yet; it comes with the planner slice — pass an "
-            "explicit config=PlanConfig(...)")
-    if wisdom is not None:
-        raise NotImplementedError(
-            "wisdom=: the wisdom store is not in repro_torch yet; it comes "
-            "with the planner slice")
     if mesh is not None:
         raise NotImplementedError(
             "mesh=: distributed plans are not in repro_torch yet; they come "
@@ -255,7 +345,8 @@ def plan_pfft(n: int, *, p: int | None = None, fpms: FPMSet | None = None,
                              "(use_stockham/fused), not both")
         warnings.warn(
             "plan_pfft: use_stockham=/fused= are deprecated; pass "
-            "config=PlanConfig(...)", DeprecationWarning, stacklevel=2)
+            "config=PlanConfig(...) or let tune='estimate'|'measure' choose",
+            DeprecationWarning, stacklevel=2)
         pad_strategy = _PAD_STRATEGY[method]
         # The flag API ignored fused= on the padded methods (pad semantics
         # are per-processor); the shim must too.
@@ -288,7 +379,8 @@ def plan_pfft(n: int, *, p: int | None = None, fpms: FPMSet | None = None,
             pads = None
 
     device = resolve_device(device)
-    schedule, tuning = _resolve_schedule(n, method, part, pads, config)
+    schedule, tuning = _resolve_schedule(n, method, part, pads, fpms, tune,
+                                         wisdom, config, dtype, device)
     return PfftPlan(n=n, method=method, partition=part, pad_lengths=pads,
                     config=schedule.anchor_config, schedule=schedule,
                     tuning=tuning, device=device, dtype=dtype,

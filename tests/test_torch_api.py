@@ -1,7 +1,8 @@
 """The slice as a whole: ``plan_pfft(...).execute`` of the PyTorch port against
 the JAX package's plan on the same FPMs — equal partitions, pad lengths and
 schedules, outputs within ``2e-4 * N`` — plus what the port refuses until a
-later slice, its default device, and that it imports nothing of JAX."""
+later slice (``mesh=``), its default device, and that it imports nothing of
+JAX.  The planner (``tune=``, ``wisdom=``) is ``tests/test_torch_plan.py``'s."""
 
 import ast
 import os
@@ -185,9 +186,7 @@ def test_plan_legacy_flags_warn_and_build_an_explicit_config():
     assert b.config.fused and b.tuning["source"] == "explicit"
 
 
-@pytest.mark.parametrize("kwargs,names", [
-    ({"tune": "estimate"}, "planner"), ({"tune": "measure"}, "planner"),
-    ({"wisdom": "w.json"}, "planner"), ({"mesh": object()}, "distributed")])
+@pytest.mark.parametrize("kwargs,names", [({"mesh": object()}, "distributed")])
 def test_later_slices_raise_not_implemented(kwargs, names):
     """What is not ported yet is refused by name, never run as tune='off'."""
     args = {"p": 2, "method": "lb", "device": "cpu", **kwargs}

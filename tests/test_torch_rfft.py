@@ -819,9 +819,7 @@ def test_real_plan_execute_many():
         np.testing.assert_allclose(g, np.fft.rfft2(x), atol=2e-4 * n)
 
 
-@pytest.mark.parametrize("kwargs,names", [
-    ({"tune": "estimate"}, "planner"), ({"wisdom": "w.json"}, "planner"),
-    ({"mesh": object()}, "distributed")])
+@pytest.mark.parametrize("kwargs,names", [({"mesh": object()}, "distributed")])
 def test_real_methods_keep_later_slices_not_implemented(kwargs, names):
     with pytest.raises(NotImplementedError, match=names):
         port_core.plan_pfft(8, p=2, method="rfft-lb", dtype="float32",
