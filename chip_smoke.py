@@ -12,8 +12,9 @@ each of which ends the run with a non-zero exit code when it fails:
 3. ``kernels``   every kernel against its plain PyTorch version and the
                  library on the card (ragged and odd row counts, every length
                  the row kernels K1-K4 are built for, both directions of K1
-                 and K2, ragged clusters of K2 and K4, the full width; the
-                 transpose bit for bit), then its
+                 and K2, ragged clusters of K2 and K4, the full width, the
+                 row blocks of the batched paths 8-10 and of the fused
+                 batch; the transpose bit for bit), then its
                  time beside the plain version's, the library's and the card's
                  bound at the main path's shape.
 4. ``main_path`` FPMs timed on the card, then ``plan_pfft(...).execute`` for
@@ -39,11 +40,35 @@ each of which ends the run with a non-zero exit code when it fails:
                  ``transpose_op(fft_rows_op(m))`` against
                  ``fft_rows_transpose_op(m)``, the path the blocked transpose
                  kernel lies on.
+8. ``pfft3``     ``plan_pfft3(512, p=4)`` on a 512^3 cube under the library and
+                 ``radix=4`` (one K1 launch per pass) against
+                 ``torch.fft.fftn``; ``pfft3_fpm`` / ``pfft3_fpm_pad`` at 256^3
+                 over synthetic FPMs (pads of 2N and 5N/4); a ``tune=
+                 "estimate"`` and a ``tune="measure"`` plan; the axis
+                 rotations timed.
+9. ``pfft1_large`` ``plan_pfft1_large(2**26)`` (8192 x 8192 four-step) under the
+                 library and ``radix=4`` (2 K1 launches) against
+                 ``torch.fft.fft``; a composite and a prime N (0 launches);
+                 the ``tune="measure"`` lifecycle at 2^24.
+10. ``serve``    one ``FFTService`` answers a mixed stream of 24 requests
+                 (``rfft-lb``, ``lb``, ``fpm``, ``pfft3-lb``, ``pfft1-large``),
+                 every result against its ``torch.fft`` oracle, with the
+                 service's record of each dispatch (cohort, launches, the
+                 seconds of each step), requests/s, p50 and p99; a priced
+                 ``AdmissionError`` and a ``DeadlineExceeded``; a second
+                 service on the same wisdom file with ``retunes == 0``; cohorts
+                 of 1, 3 and 8 under ``radix=4`` with the same launches.
 
-Each path (4, 5, 6, 7) is driven once with the launch counts set to 0 just
-before and read just after; each of its kernels must have launched.  Every
-line but the last is a log or a JSON record; the last line is
-``{"ok": true, "device": {...}}`` and is printed only when every phase passed.
+Then, outside the counted drives: every checked 2-D execute timed beside the
+library, and a fused batch's two layouts (batched, and the per-signal
+loop) checked against the library and timed at N = 1024 ... 8192 and
+batches of 2 and 8.  Tolerances of the paths 8-10:
+``2e-4·sqrt(elements of one signal)`` (the 2-D ``2e-4·N``).
+
+Each path (4-10) is driven once with the launch counts set to 0 just before
+and read just after; each of its kernels must have launched.  Every line but
+the last is a log or a JSON record; the last line is ``{"ok": true,
+"device": {...}}`` and is printed only when every phase passed.
 """
 
 from __future__ import annotations
@@ -69,7 +94,10 @@ if not torch.cuda.is_available():
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch.core import (FPMSet, PlanConfig, SpeedFunction, build_fpm,  # noqa: E402
-                              fft_flops, irfft2, lb_partition, plan_pfft, rfft2)
+                              fft_flops, four_step_factors, irfft2,
+                              lb_partition, partition_rows,
+                              pfft3_fpm, pfft3_fpm_pad, plan_pfft,
+                              plan_pfft1_large, plan_pfft3, rfft2)
 from repro_torch.fft import fft_rows  # noqa: E402
 from repro_torch.kernels import (_build, fft_rows_op, fft_rows_transpose_op,  # noqa: E402
                                  launch_counts, reset_launch_counts,
@@ -80,6 +108,8 @@ from repro_torch.kernels.fft.real import rfft_rows_plain  # noqa: E402
 from repro_torch.kernels.fused.kernel import fft_rows_transpose_plain  # noqa: E402
 from repro_torch.kernels.fused.real import rfft_rows_transpose_plain  # noqa: E402
 from repro_torch.kernels.transpose.kernel import transpose_plain  # noqa: E402
+from repro_torch.launch.serve_fft import (AdmissionError, DeadlineExceeded,  # noqa: E402
+                                          FFTService, _bucket)
 from repro_torch.plan import (CostParams, PlanCache, candidate_configs,  # noqa: E402
                               estimate_cost, fit_cost_params, measure_configs,
                               measure_rfft_configs, record_wisdom, wisdom_key)
@@ -123,6 +153,33 @@ MICROBENCH_N = (1024, 8192)
 # each N are calibration samples (four sizes, so that the fit can tell the
 # compute terms from the traffic term).
 PLANNER_N = (1024, 2048, 4096, 8192)
+# The 3-D path: a 512^3 complex64 cube (1 GiB) for plan_pfft3 and the
+# estimate plan; 256^3 for the FPM methods (pads up to 512) and the measure
+# plan.  The huge-1-D path: 2^26 (an 8192 x 8192 four-step, 512 MiB); a
+# composite length whose factors are not powers of two (1000 x 1000) and a
+# prime (one library FFT); the measure lifecycle at 2^24.
+N_PFFT3 = 512
+N_PFFT3_PAD = 256
+N_LARGE = 1 << 26
+N_LARGE_LIBRARY = (1_000_000, 1_000_003)
+N_LARGE_MEASURE = 1 << 24
+# The served stream: (method, count, shape, real input, library oracle).
+SERVE_STREAM = [("rfft-lb", 8, (2048, 2048), True, torch.fft.rfft2),
+                ("lb", 6, (4096, 4096), False, torch.fft.fft2),
+                ("fpm", 4, (8192, 8192), False, torch.fft.fft2),
+                ("pfft3-lb", 3, (256, 256, 256), False, torch.fft.fftn),
+                ("pfft1-large", 3, (1 << 24,), False, torch.fft.fft)]
+# Cohorts of 1, 3 and 8 under radix=4: N_BATCH^2 signals, these cubes and
+# lines.
+COHORT_SIZES = (1, 3, 8)
+N_COHORT_CUBE = 128
+N_COHORT_LINE = 1 << 22
+# Predicted-makespan budget of one serving tick (the stream's cohorts,
+# priced by the "cuda" constants, take ~0.13 s in all).
+SERVE_TICK_BUDGET_S = 0.1
+# The fused batch's two layouts are timed at these (N, batch).
+FUSED_BATCH_SHAPES = [(1024, 2), (1024, 8), (4096, 2), (4096, 8), (8192, 2),
+                      (8192, 8)]
 SOURCES = "src/repro_torch/kernels/csrc/"
 
 
@@ -265,6 +322,7 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
 
     check_complex_kernel(gen)
     check_real_kernels(gen, worst)
+    check_batched_shapes(gen)
     check_transpose(gen, worst)
 
     rows, n = MAIN_SHAPE
@@ -370,6 +428,111 @@ def check_real_kernels(gen: torch.Generator, worst: dict) -> None:
         del x, lib
 
 
+def batched_row_shapes() -> dict[str, set[tuple[int, int]]]:
+    """The (rows, n) blocks the batched paths give the row kernels K1-K4: a
+    stack of B signals runs each phase once over the rows of all of them.
+    A 2-D stack of B gives B·n rows (B·(n/2+1) in phase 2 of a real plan);
+    a cube's pass B·n^2 rows; a four-step line n1 x n2 B·n2 rows of n1,
+    then B·n1 of n2.  B is the bucket of each served cohort, whole or
+    split by a tick's budget, and of the cohorts of ``COHORT_SIZES``, and
+    each batch of ``FUSED_BATCH_SHAPES``
+    (fused kernels only); the 512^3 and 256^3 cubes and the 2^26 and 2^24
+    lines of the ``pfft3`` and ``pfft1_large`` paths run as one."""
+    shapes = {name: set() for name in ("fft_rows", "fft_rows_transpose",
+                                       "rfft_rows", "rfft_rows_transpose")}
+
+    def square(n: int, b: int, real: bool, kernels: tuple[str, ...]) -> None:
+        # ``kernels``: the complex ones that may run (K1, K2); a real
+        # plan's phase 1 runs their real siblings (K3, K4) on B·n rows.
+        for name in kernels:
+            if real:
+                shapes["r" + name].add((b * n, n))
+            shapes[name].add((b * (n // 2 + 1) if real else b * n, n))
+
+    def cube(n: int, b: int) -> None:
+        shapes["fft_rows"].add((b * n * n, n))
+
+    def line(n: int, b: int) -> None:
+        n1, n2 = four_step_factors(n)
+        shapes["fft_rows"].update({(b * n2, n1), (b * n1, n2)})
+
+    both = ("fft_rows", "fft_rows_transpose")
+    for _, count, shape, real, _ in SERVE_STREAM:
+        for b in {_bucket(k) for k in range(1, count + 1)}:
+            if len(shape) == 2:
+                square(shape[0], b, real, both)
+            elif len(shape) == 3:
+                cube(shape[0], b)
+            else:
+                line(shape[0], b)
+    for b in {_bucket(size) for size in COHORT_SIZES}:
+        square(N_BATCH, b, False, both)
+        square(N_BATCH, b, True, both)
+        cube(N_COHORT_CUBE, b)
+        line(N_COHORT_LINE, b)
+    for n, b in FUSED_BATCH_SHAPES:
+        square(n, b, False, ("fft_rows_transpose",))
+        square(n, b, True, ("fft_rows_transpose",))
+    for n in (N_PFFT3, N_PFFT3_PAD):
+        cube(n, 1)
+    for n in (N_LARGE, N_LARGE_MEASURE):
+        line(n, 1)
+    return shapes
+
+
+def check_batched_shapes(gen: torch.Generator) -> None:
+    """K1-K4 forward at the row blocks of ``batched_row_shapes`` (up to
+    65536 rows of 8192, 2^29 elements) against their plain versions and the
+    library, ``atol = row_fft_tol(n, False)``."""
+    shapes = batched_row_shapes()
+    for rows, n in sorted(shapes["fft_rows"] | shapes["fft_rows_transpose"]):
+        x = random_signal(gen, rows, n)
+        tol = row_fft_tol(n, False)
+        plain = fft_rows_plain(x, radix=4)
+        lib = torch.fft.fft(x)
+        errs = {}
+        if (rows, n) in shapes["fft_rows"]:
+            got = fft_rows_op(x, radix=4)
+            torch.cuda.synchronize()
+            errs |= {"fft_rows_err": max_abs_err(got, plain),
+                     "fft_rows_vs_library_err": max_abs_err(got, lib)}
+            del got
+        if (rows, n) in shapes["fft_rows_transpose"]:
+            got = fft_rows_transpose_op(x, radix=4)
+            torch.cuda.synchronize()
+            errs |= {"fft_rows_transpose_err": max_abs_err(got, plain.T),
+                     "fft_rows_transpose_vs_library_err": max_abs_err(got, lib.T)}
+            del got
+        log("kernels", batched=True, rows=rows, n=n, atol=tol, **errs)
+        if max(errs.values()) > tol:
+            raise AssertionError(f"complex row kernel disagrees at the batched "
+                                 f"shape rows={rows} n={n}: {errs} > {tol}")
+        del x, plain, lib
+    for rows, n in sorted(shapes["rfft_rows"] | shapes["rfft_rows_transpose"]):
+        x = random_real(gen, rows, n)
+        tol = row_fft_tol(n, False)
+        plain = rfft_rows_plain(x, radix=4)
+        lib = torch.fft.rfft(x)
+        errs = {}
+        if (rows, n) in shapes["rfft_rows"]:
+            got = rfft_rows_op(x, radix=4)
+            torch.cuda.synchronize()
+            errs |= {"rfft_rows_err": max_abs_err(got, plain),
+                     "rfft_rows_vs_library_err": max_abs_err(got, lib)}
+            del got
+        if (rows, n) in shapes["rfft_rows_transpose"]:
+            got = rfft_rows_transpose_op(x, radix=4)
+            torch.cuda.synchronize()
+            errs |= {"rfft_rows_transpose_err": max_abs_err(got, plain.T),
+                     "rfft_rows_transpose_vs_library_err": max_abs_err(got, lib.T)}
+            del got
+        log("kernels", batched=True, rows=rows, n=n, atol=tol, **errs)
+        if max(errs.values()) > tol:
+            raise AssertionError(f"real row kernel disagrees at the batched "
+                                 f"shape rows={rows} n={n}: {errs} > {tol}")
+        del x, plain, lib
+
+
 def check_transpose(gen: torch.Generator, worst: dict) -> None:
     """K5 bit for bit against its plain version and ``x.T.contiguous()``:
     float32 and complex64 at every shape, the other element sizes at the
@@ -425,6 +588,21 @@ def measured_fpms(n: int) -> tuple[FPMSet, FPMSet]:
                      for i, sp in enumerate(
                          [base.speed, base.speed, slow_pow2, slow_odd])])
     return homo, hetero
+
+
+def synthetic_pad_fpms(n: int) -> FPMSet:
+    """Four processors with flat speed functions but for one length each:
+    P2 eight times faster at 2N (a power-of-two pad) and P3 at 5N/4 (a
+    non-power-of-two pad), so that the partition is balanced and both pads
+    engage whatever the card's timings say.  A model of no device."""
+    xs = np.array(sorted({1, n // 8, n // 4, n // 2, n}))
+    ys = np.array([n, 5 * n // 4, 2 * n])
+    flat = np.full((len(xs), len(ys)), 1e9)
+    fast_pow2, fast_odd = flat.copy(), flat.copy()
+    fast_pow2[:, 2] *= 8.0
+    fast_odd[:, 1] *= 8.0
+    return FPMSet([SpeedFunction(xs, ys, sp, name=f"P{i}")
+                   for i, sp in enumerate([flat, flat, fast_pow2, fast_odd])])
 
 
 def padded_oracle(signal: torch.Tensor, d, pads) -> torch.Tensor:
@@ -557,13 +735,15 @@ def phase_main_path(gen: torch.Generator, fpms) -> tuple[dict[str, int], list[tu
 
     # Batches: (2, N, N) through execute, three host signals through
     # execute_many, and radix=2 + fused, which still runs the fused kernel.
+    # Each phase runs once over the rows of both signals: the launches of
+    # one signal.
     n = N_BATCH
     batch = random_signal(gen, 2, n, n)
     oracle = torch.fft.fft2(batch)
-    for cfg, expect in ((kernel, {"fft_rows": 4, "fft_rows_transpose": 0}),
-                        (fused, {"fft_rows": 0, "fft_rows_transpose": 4}),
+    for cfg, expect in ((kernel, {"fft_rows": 2, "fft_rows_transpose": 0}),
+                        (fused, {"fft_rows": 0, "fft_rows_transpose": 2}),
                         (PlanConfig(radix=2, fused=True),
-                         {"fft_rows": 0, "fft_rows_transpose": 4})):
+                         {"fft_rows": 0, "fft_rows_transpose": 2})):
         plan = plan_pfft(n, p=P, method="lb", config=cfg)
         check_execute(plan, batch, oracle, f"batch2-lb/{cfg.describe()}",
                       expect, runs)
@@ -648,13 +828,12 @@ def phase_main_path_real(gen: torch.Generator, fpms) -> tuple[dict[str, int], li
         raise AssertionError(f"the padded real run did not pad: {hetero_pads}")
     del ref, upcast
 
-    # A (2, N, N) real batch (launches double), execute_many of three host
-    # signals, and irfft2(rfft2(x)) at the full width.
+    # A (2, N, N) real batch (the launches of one signal), execute_many of
+    # three host signals, and irfft2(rfft2(x)) at the full width.
     n = N_BATCH
     batch = random_real(gen, 2, n, n)
     oracle = torch.fft.rfft2(batch)
-    for cfg, expect in ((kernel, {"rfft_rows": 2, "fft_rows": 2}),
-                        (fused, {"rfft_rows_transpose": 2, "fft_rows_transpose": 2})):
+    for cfg, expect in ((kernel, unfused_kernels), (fused, fused_kernels)):
         plan = plan_pfft(n, p=P, method="rfft-lb", config=cfg, dtype="float32")
         check_execute(plan, batch, oracle, f"batch2-rfft-lb/{cfg.describe()}",
                       expect, runs, "main_path_real")
@@ -911,6 +1090,371 @@ def phase_microbench_fused(gen: torch.Generator, card: str) -> dict[str, int]:
     return counts
 
 
+def signal_tol(elements: int) -> float:
+    """``2e-4·sqrt(elements of one signal)``: the 2-D rule ``2e-4·N`` carried
+    to a cube (``2e-4·N^1.5``) and a line (``2e-4·sqrt(N)``)."""
+    return 2e-4 * math.sqrt(elements)
+
+
+def check_run(phase: str, label: str, fn, oracle: torch.Tensor,
+              expect: dict[str, int], tol: float, **fields) -> torch.Tensor:
+    """``fn()`` once: within ``tol`` of ``oracle`` and through the kernels
+    exactly as often as ``expect`` says (a kernel it does not name must not
+    launch).  Returns the result."""
+    before = launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    delta = {k: v - before[k] for k, v in launch_counts().items()}
+    expect = {k: expect.get(k, 0) for k in delta}
+    err = max_abs_err(out, oracle)
+    log(phase, run=label, max_abs_err=err, atol=tol, launches=delta, **fields)
+    if err > tol:
+        raise AssertionError(f"{label}: max error {err} > {tol}")
+    if delta != expect:
+        raise AssertionError(f"{label}: launches {delta}, expected {expect}")
+    return out
+
+
+def planned(make):
+    """``make()`` (a plan factory) with its host seconds and the kernel
+    launches made while planning."""
+    before = launch_counts()
+    t0 = time.perf_counter()
+    plan = make()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return plan, seconds, {k: v - before[k] for k, v in launch_counts().items()}
+
+
+def padded_oracle3(cube: torch.Tensor, d, pads) -> torch.Tensor:
+    """PFFT3-FPM-PAD's semantics written out with the library alone: three
+    passes, each padding every processor's planes' rows to its length,
+    transforming, cropping back to N bins, then rotating the axes."""
+    n = cube.shape[-1]
+    for _ in range(3):
+        parts, off = [], 0
+        for rows, length in zip(d.tolist(), pads.tolist()):
+            if rows == 0:
+                continue
+            seg = cube[off:off + rows]
+            if length > n:
+                seg = torch.nn.functional.pad(seg, (0, length - n))
+            parts.append(torch.fft.fft(seg, dim=-1)[..., :n])
+            off += rows
+        cube = torch.cat(parts, 0).movedim(-1, 0).contiguous()
+    return cube
+
+
+def phase_pfft3(gen: torch.Generator, card: str) -> dict[str, int]:
+    """Drive the 3-D path once, with the launch counts set to 0 just before
+    and read just after: ``plan_pfft3(512, p=4)`` under the library and
+    ``radix=4`` (one K1 launch per pass) against ``torch.fft.fftn``;
+    ``pfft3_fpm`` / ``pfft3_fpm_pad`` at N = 256 over synthetic FPMs
+    (``synthetic_pad_fpms``: pads of 2N and 5N/4 that engage; the padded
+    one against the library-only padded oracle); a ``tune="estimate"`` plan at 512 and a ``tune="measure"`` one
+    at 256 into a temporary wisdom file, served warm from it after."""
+    library, kernel = PlanConfig(), PlanConfig(radix=4)
+    hetero = synthetic_pad_fpms(N_PFFT3_PAD)
+    big = random_signal(gen, N_PFFT3, N_PFFT3, N_PFFT3)
+    oracle = torch.fft.fftn(big)
+    small = random_signal(gen, N_PFFT3_PAD, N_PFFT3_PAD, N_PFFT3_PAD)
+    small_oracle = torch.fft.fftn(small)
+    tol, small_tol = signal_tol(big.numel()), signal_tol(small.numel())
+    plans = {}
+
+    reset_launch_counts()          # ---- the 3-D path's single drive starts
+
+    for cfg, expect in ((library, {}), (kernel, {"fft_rows": 3})):
+        plan = plan_pfft3(N_PFFT3, p=P, config=cfg)
+        plans[cfg.describe()] = plan
+        check_run("pfft3", f"plan_pfft3/{cfg.describe()}",
+                  lambda: plan.execute(big), oracle, expect, tol, n=N_PFFT3,
+                  p=P, d=plan.d.tolist())
+    # Unpadded segments share one dispatch group: one launch per pass.
+    for cfg, expect in ((library, {}), (kernel, {"fft_rows": 3})):
+        check_run("pfft3", f"pfft3_fpm/{cfg.describe()}",
+                  lambda: pfft3_fpm(small, hetero, config=cfg), small_oracle,
+                  expect, small_tol, n=N_PFFT3_PAD,
+                  d=partition_rows(N_PFFT3_PAD, hetero, 0.05).d.tolist())
+    _, part, pads = pfft3_fpm_pad(small, hetero, return_partition=True)
+    if not any(length > N_PFFT3_PAD for length in pads.tolist()):
+        raise AssertionError(f"the padded 3-D run did not pad: {pads}")
+    ref = padded_oracle3(small, part.d, pads)
+    busy = {length for rows, length in zip(part.d.tolist(), pads.tolist())
+            if rows > 0}
+    pow2 = sum(1 for length in busy if not length & (length - 1))
+    for cfg, expect in ((library, {}), (kernel, {"fft_rows": 3 * pow2})):
+        check_run("pfft3", f"pfft3_fpm_pad/{cfg.describe()}",
+                  lambda: pfft3_fpm_pad(small, hetero, config=cfg), ref, expect,
+                  small_tol, n=N_PFFT3_PAD, d=part.d.tolist(),
+                  pad_lengths=pads.tolist())
+
+    plan, seconds, delta = planned(lambda: plan_pfft3(N_PFFT3, p=P,
+                                                      tune="estimate"))
+    if any(delta.values()):
+        raise AssertionError(f"estimate plan_pfft3 launched {delta}")
+    check_run("pfft3", "estimate/512", lambda: plan.execute(big), oracle,
+              {"fft_rows": 3} if plan.config.radix == 4 else {}, tol,
+              pick=plan.config.describe(), plan_s=seconds,
+              top3=[(PlanConfig.from_dict(c).describe(), t)
+                    for c, _, t in plan.tuning["ranked"][:3]])
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "wisdom.json")
+        plan, seconds, delta = planned(lambda: plan_pfft3(
+            N_PFFT3_PAD, tune="measure", wisdom=store))
+        check_run("pfft3", "measure/256", lambda: plan.execute(small),
+                  small_oracle, {"fft_rows": 3} if plan.config.radix == 4 else {},
+                  small_tol, pick=plan.config.describe(), plan_s=seconds,
+                  plan_launches=delta, measured=plan.tuning["measured"],
+                  measured_event_s=plan.tuning.get("measured_event_s"),
+                  local_pass_s=plan.tuning["pfft3"]["local_pass_s"])
+        warm, seconds, delta = planned(lambda: plan_pfft3(
+            N_PFFT3_PAD, tune="measure", wisdom=store))
+        log("pfft3", run="warm/256", source=warm.tuning["source"],
+            plan_s=seconds, plan_launches=delta)
+        if warm.tuning["source"] != "wisdom" or any(delta.values()):
+            raise AssertionError(f"warm plan_pfft3: {warm.tuning['source']}, {delta}")
+
+    # ---- the 3-D path's single drive ends
+    counts = end_drive("pfft3", ("fft_rows",))
+    log("pfft3_time", card=card, n=N_PFFT3, p=P,
+        torch_fftn_ms=time_ms(lambda: torch.fft.fftn(big), reps=5, warmup=1),
+        **{f"execute_ms/{k}": time_ms(lambda: v.execute(big), reps=5, warmup=1)
+           for k, v in plans.items()},
+        rotations_per_transform=3, rotation_bytes=2 * big.numel() * 8,
+        rotation_ms=time_ms(lambda: big.movedim(-1, -3).contiguous(), reps=5,
+                            warmup=1),
+        clone_ms=time_ms(lambda: big.clone(), reps=5, warmup=1))
+    return counts
+
+
+def phase_pfft1_large(gen: torch.Generator, card: str) -> dict[str, int]:
+    """Drive the huge-1-D path once, with the launch counts set to 0 just
+    before and read just after: ``plan_pfft1_large(2**26)`` (8192 x 8192
+    four-step) under the library and ``radix=4`` (2 K1 launches) against
+    ``torch.fft.fft``; a composite non-power-of-two and a prime N under
+    ``radix=4`` (their phase lengths fall to the library: 0 launches); the
+    ``tune="measure"`` lifecycle at 2^24 into a temporary wisdom file, and
+    a warm second plan that launches nothing while planning."""
+    library, kernel = PlanConfig(), PlanConfig(radix=4)
+    x = random_signal(gen, N_LARGE)
+    oracle = torch.fft.fft(x)
+    plans = {}
+
+    reset_launch_counts()          # ---- the huge-1-D path's single drive starts
+
+    for cfg, expect in ((library, {}), (kernel, {"fft_rows": 2})):
+        plan, seconds, _ = planned(lambda: plan_pfft1_large(N_LARGE, config=cfg))
+        plans[cfg.describe()] = plan
+        check_run("pfft1_large", f"plan_pfft1_large/{cfg.describe()}",
+                  lambda: plan.execute(x), oracle, expect, signal_tol(N_LARGE),
+                  n=N_LARGE, n1=plan.n1, n2=plan.n2, plan_s=seconds)
+    for n in N_LARGE_LIBRARY:
+        v = random_signal(gen, n)
+        plan = plan_pfft1_large(n, config=kernel)
+        check_run("pfft1_large", f"plan_pfft1_large/{n}/{kernel.describe()}",
+                  lambda: plan.execute(v), torch.fft.fft(v), {}, signal_tol(n),
+                  n=n, n1=plan.n1, n2=plan.n2)
+    n = N_LARGE_MEASURE
+    v = random_signal(gen, n)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "wisdom.json")
+        plan, seconds, delta = planned(lambda: plan_pfft1_large(
+            n, tune="measure", wisdom=store))
+        check_run("pfft1_large", f"measure/{n}", lambda: plan.execute(v),
+                  torch.fft.fft(v), {"fft_rows": 2} if plan.config.radix == 4 else {},
+                  signal_tol(n), pick=plan.config.describe(), plan_s=seconds,
+                  plan_launches=delta, ranked=plan.tuning["ranked"],
+                  measured=plan.tuning["measured"],
+                  measured_event_s=plan.tuning.get("measured_event_s"))
+        warm, seconds, delta = planned(lambda: plan_pfft1_large(
+            n, tune="measure", wisdom=store))
+        log("pfft1_large", run=f"warm/{n}", source=warm.tuning["source"],
+            plan_s=seconds, plan_launches=delta)
+        if warm.tuning["source"] != "wisdom" or any(delta.values()):
+            raise AssertionError(f"warm plan_pfft1_large: {warm.tuning['source']}, "
+                                 f"{delta}")
+
+    # ---- the huge-1-D path's single drive ends
+    counts = end_drive("pfft1_large", ("fft_rows",))
+    square = x.view(plans[library.describe()].n1, -1)
+    log("pfft1_large_time", card=card, n=N_LARGE,
+        torch_fft_ms=time_ms(lambda: torch.fft.fft(x), reps=5, warmup=1),
+        **{f"execute_ms/{k}": time_ms(lambda: v.execute(x), reps=5, warmup=1)
+           for k, v in plans.items()},
+        transposed_copies_per_transform=3,
+        transpose_ms=time_ms(lambda: square.T.contiguous(), reps=5, warmup=1),
+        twiddle_ms=time_ms(lambda: square * plans[library.describe()]._twiddle,
+                           reps=5, warmup=1))
+    return counts
+
+
+def host_signals(gen: torch.Generator, count: int, shape: tuple, real: bool):
+    """``count`` host numpy signals, drawn on the card from the seeded
+    generator (much faster than numpy at these sizes)."""
+    make = random_real if real else random_signal
+    return [make(gen, *shape).cpu().numpy() for _ in range(count)]
+
+
+def serve_stream(gen: torch.Generator) -> list[tuple]:
+    """The mixed request stream: (method, host signal, oracle on the card)."""
+    stream = []
+    for method, count, shape, real, lib in SERVE_STREAM:
+        for m in host_signals(gen, count, shape, real):
+            stream.append((method, m, lib(torch.from_numpy(m).cuda())))
+    return stream
+
+
+def drive_service(svc, stream, label: str, card: str) -> dict:
+    """Enqueue the whole stream, drain it, check every result against its
+    oracle, and log requests/s, p50 / p99 and the service's record of each
+    dispatch (``stats()["cohorts"]``: cohort, config, kernel launches, and
+    the seconds of stacking, the copy in, the execute and the copy out)."""
+    svc.reset_stats()
+    t0 = time.perf_counter()
+    tickets = [svc.enqueue(m, method=method) for method, m, _ in stream]
+    svc.drain()
+    seconds = time.perf_counter() - t0
+    errs = []
+    for (method, m, oracle), ticket in zip(stream, tickets):
+        got = torch.from_numpy(ticket.result()).cuda()
+        err = max_abs_err(got, oracle)
+        errs.append(err)
+        if err > signal_tol(m.size):
+            raise AssertionError(f"{label}: {method} {m.shape} error {err}")
+    stats = svc.stats()
+    lat = np.asarray(stats["latencies_s"]) * 1e3
+    record = {"requests": len(tickets), "served": stats["served"],
+              "seconds": seconds, "requests_per_s": len(tickets) / seconds,
+              "p50_ms": float(np.percentile(lat, 50)),
+              "p99_ms": float(np.percentile(lat, 99)),
+              "ticks": stats["ticks"], "dispatches": stats["dispatches"],
+              "cohorts": stats["cohorts"], "max_abs_err": max(errs),
+              "sources": stats["sources"], "plan_cache": stats["plan_cache"]}
+    log("serve", card=card, run=label, **record)
+    if stats["served"] != len(stream):
+        raise AssertionError(f"{label}: served {stats['served']} of {len(stream)}")
+    return record
+
+
+def phase_serve(gen: torch.Generator, fpms, card: str) -> dict[str, int]:
+    """Drive the serving layer once, with the launch counts set to 0 just
+    before and read just after: one ``FFTService`` answers the mixed stream
+    of 24 requests (cold, then again warm from its ``PlanCache``), a priced
+    ``AdmissionError`` and a ``DeadlineExceeded``, a second service on the
+    same wisdom file (``retunes == 0``), and ``execute_many`` under
+    ``radix=4`` at cohort sizes 1, 3 and 8 for each request family (the
+    same launches whatever the size)."""
+    stream = serve_stream(gen)
+    homo = fpms[N_UNPADDED][0]
+    methods = tuple(dict.fromkeys(method for method, *_ in SERVE_STREAM))
+    kernel = PlanConfig(radix=4)
+
+    reset_launch_counts()          # ---- the serving path's single drive starts
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "wisdom.json")
+        svc = FFTService(p=P, fpms=homo, tune="estimate", wisdom=store,
+                         methods=methods, tick_budget_s=SERVE_TICK_BUDGET_S)
+        drive_service(svc, stream, "cold", card)
+        drive_service(svc, stream, "warm_plan_cache", card)
+        if svc.stats()["plan_cache"]["retunes"]:
+            raise AssertionError("the warm pass re-tuned")
+
+        tight = FFTService(tune="estimate", max_request_s=1e-4)
+        try:
+            tight.enqueue(stream[0][1], method=stream[0][0])
+        except AdmissionError as err:
+            log("serve", run="admission", error=str(err),
+                predicted_s=err.predicted_s, budget_s=err.budget_s)
+        else:
+            raise AssertionError("max_request_s admitted an oversized request")
+        doomed = svc.enqueue(stream[0][1], method=stream[0][0], deadline_s=1e-4)
+        time.sleep(0.002)
+        svc.drain()
+        try:
+            doomed.result()
+        except DeadlineExceeded as err:
+            log("serve", run="deadline", error=str(err),
+                predicted_s=err.predicted_s, budget_s=err.budget_s)
+        else:
+            raise AssertionError("a lapsed deadline was served")
+
+        second = FFTService(p=P, fpms=homo, tune="estimate", wisdom=store,
+                            methods=methods, tick_budget_s=SERVE_TICK_BUDGET_S)
+        record = drive_service(second, stream, "second_service_warm_wisdom", card)
+        if record["plan_cache"]["retunes"] != 0:
+            raise AssertionError(f"second service retuned: {record['plan_cache']}")
+
+    # Unfused cohorts: the same launches whatever the cohort size.
+    families = [("lb", lambda: plan_pfft(N_BATCH, p=P, method="lb", config=kernel),
+                 (N_BATCH, N_BATCH), False, torch.fft.fft2),
+                ("rfft-lb", lambda: plan_pfft(N_BATCH, p=P, method="rfft-lb",
+                                              config=kernel, dtype="float32"),
+                 (N_BATCH, N_BATCH), True, torch.fft.rfft2),
+                ("pfft3-lb", lambda: plan_pfft3(N_COHORT_CUBE, p=P, config=kernel),
+                 (N_COHORT_CUBE,) * 3, False, torch.fft.fftn),
+                ("pfft1-large", lambda: plan_pfft1_large(N_COHORT_LINE, config=kernel),
+                 (N_COHORT_LINE,), False, torch.fft.fft)]
+    for method, make, shape, real, lib in families:
+        plan = make()
+        per_size = {}
+        for size in COHORT_SIZES:
+            hosts = host_signals(gen, size, shape, real)
+            before = launch_counts()
+            outs = plan.execute_many(hosts, pad_to=_bucket(size))
+            per_size[size] = {k: v - before[k] for k, v in launch_counts().items()}
+            err = max(max_abs_err(torch.from_numpy(o).cuda(),
+                                  lib(torch.from_numpy(h).cuda()))
+                      for o, h in zip(outs, hosts))
+            if err > signal_tol(hosts[0].size):
+                raise AssertionError(f"{method} cohort of {size}: error {err}")
+        log("serve", run="cohort_launches", method=method, config=kernel.describe(),
+            launches_by_size=per_size)
+        if per_size[1] != per_size[3] or per_size[1] != per_size[8] \
+                or not any(per_size[1].values()):
+            raise AssertionError(f"{method}: launches depend on the cohort size "
+                                 f"{per_size}")
+
+    # ---- the serving path's single drive ends
+    return end_drive("serve", ("fft_rows", "rfft_rows"))
+
+
+def time_fused_batch(gen: torch.Generator, card: str) -> None:
+    """A fused batch's two layouts, on the same stack, in turns (batched,
+    loop, loop, batched): ``plan.execute`` of the stack (K2 — K4 then K2
+    for the real plan — over B·n rows, and one permuting copy) against the
+    per-signal loop (each matrix alone, stacked), complex and real, beside
+    the library.  Each layout is first held against the library within
+    ``2e-4·n``."""
+    fused = PlanConfig(fused=True)
+    for n, b in FUSED_BATCH_SHAPES:
+        x = random_signal(gen, b, n, n)
+        xr = random_real(gen, b, n, n)
+        plans = {"complex": (plan_pfft(n, p=P, method="lb", config=fused), x,
+                             torch.fft.fft2),
+                 "real": (plan_pfft(n, p=P, method="rfft-lb", config=fused,
+                                    dtype="float32"), xr, torch.fft.rfft2)}
+        record = {}
+        for kind, (plan, sig, lib) in plans.items():
+            layouts = {"batched": lambda: plan.execute(sig),
+                       "loop": lambda: torch.stack([plan.execute(s) for s in sig])}
+            want = lib(sig)
+            for layout, fn in layouts.items():
+                err = max_abs_err(fn(), want)
+                record[f"{kind}_{layout}_err"] = err
+                if err > signal_tol(n * n):
+                    raise AssertionError(f"fused batch {kind} {layout} at "
+                                         f"{n} x {b}: error {err}")
+            del want
+            for layout in ("batched", "loop", "loop", "batched"):
+                record.setdefault(f"{kind}_{layout}_ms", []).append(
+                    time_ms(layouts[layout], reps=5, warmup=1))
+            record[f"{kind}_library_ms"] = time_ms(lambda: lib(sig), reps=5, warmup=1)
+        log("fused_batch_time", card=card, n=n, batch=b, **record)
+        del x, xr, plans
+
+
 def time_runs(runs: list[tuple], card: str) -> None:
     """Median time of each checked execute beside the library's 2-D FFT on
     the same signal (``torch.fft.fft2``, or ``torch.fft.rfft2`` for a real
@@ -942,14 +1486,17 @@ def main() -> None:
     real_counts, real_runs = phase_main_path_real(gen, fpms)
     planner_counts, planner_runs = phase_planner(gen, fpms, records, card)
     bench_counts = phase_microbench_fused(gen, card)
+    paths = {"main_path": complex_counts, "main_path_real": real_counts,
+             "planner": planner_counts, "microbench_fused": bench_counts,
+             "pfft3": phase_pfft3(gen, card),
+             "pfft1_large": phase_pfft1_large(gen, card),
+             "serve": phase_serve(gen, fpms, card)}
     for record in records:
-        by_path = {"main_path": complex_counts[record["name"]],
-                   "main_path_real": real_counts[record["name"]],
-                   "planner": planner_counts[record["name"]],
-                   "microbench_fused": bench_counts[record["name"]]}
+        by_path = {path: counts[record["name"]] for path, counts in paths.items()}
         record["launches"] = sum(by_path.values())
         record["launches_by_path"] = by_path
     time_runs(runs + real_runs + planner_runs, card)
+    time_fused_batch(gen, card)
     log("done", seconds=round(time.perf_counter() - t0, 1),
         peak_memory_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2))
     print(card, flush=True)

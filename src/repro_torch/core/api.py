@@ -36,6 +36,14 @@ from disk.  When the store holds enough measured entries, the estimate cost
 model is re-calibrated from them (``repro_torch.plan.calibrate``) before
 ranking.
 
+The 3-D (``plan_pfft3``: cubic N^3 signals, the single-device axis
+passes) and huge-1-D (``plan_pfft1_large``: the four-step pipeline) plans
+follow the same lifecycle.  Every plan's ``execute`` takes leading batch
+dimensions and runs each dispatch group of each phase once over the rows
+of all the signals, so a batch costs the launches of one signal on the
+unfused paths; ``execute_many`` stacks host signals into one such batch
+(the serving layer's surface, ``repro_torch.launch.serve_fft``).
+
 Not in this package yet, and refused with ``NotImplementedError`` rather than
 quietly ignored: ``mesh=`` (the distributed slice).
 """
@@ -43,6 +51,7 @@ quietly ignored: ``mesh=`` (the distributed slice).
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 from typing import Any, Literal
 
@@ -52,7 +61,7 @@ import torch
 from repro_torch._device import as_tensor, resolve_device
 from repro_torch.core.fpm import FPMSet
 from repro_torch.core.partition import PartitionResult, lb_partition, partition_rows
-from repro_torch.core.pfft import (_pfft_limb, _rpfft_limb, device_groups,
+from repro_torch.core.pfft import (_complex_limb, _real_limb, device_groups,
                                    real_limb_groups)
 from repro_torch.plan.calibrate import fit_cost_params
 from repro_torch.plan.config import PlanConfig, normalize_pad
@@ -78,7 +87,12 @@ _PAD_STRATEGY = {"lb": "none", "fpm": "none", "fpm-pad": "fpm",
 # deliverable.  No ``rfft-fpm-czt``: the real pipeline has no Bluestein form.
 _REAL_METHODS = frozenset({"rfft-lb", "rfft-fpm", "rfft-fpm-pad"})
 
-__all__ = ["PfftPlan", "plan_pfft", "rfft2", "irfft2"]
+__all__ = ["PfftPlan", "plan_pfft", "rfft2", "irfft2",
+           "Pfft3Plan", "plan_pfft3",
+           "Pfft1LargePlan", "plan_pfft1_large", "pfft1_large"]
+
+_NO_MESH = ("mesh=: distributed plans are not in repro_torch yet; they come "
+            "with the distributed slice")
 
 
 def _base_method(method: str) -> str:
@@ -125,68 +139,53 @@ class PfftPlan:
     def _run(self, m: torch.Tensor) -> torch.Tensor:
         """Route as the reference's ``_build_raw`` does: a real method with
         a real-flagged schedule runs the half-spectrum limb; one with a
-        complex-family schedule upcasts, runs the complex limb and crops."""
+        complex-family schedule upcasts, runs the complex limb and crops.
+        ``m`` is a contiguous ``(..., n, n)`` stack."""
         d = self.partition.d
         if self.method in _REAL_METHODS:
             if self.schedule.anchor_config.real:
-                return _rpfft_limb(m, d, schedule=self.schedule,
-                                   groups=self._groups)
-            return _pfft_limb(m.to(_ctype_for(self.dtype)), d,
-                              schedule=self.schedule,
-                              groups=self._groups)[:, :self.n // 2 + 1]
-        return _pfft_limb(m, d, schedule=self.schedule, groups=self._groups)
+                if not m.is_floating_point():
+                    raise ValueError("the real pipeline takes a real-valued "
+                                     f"matrix, got {m.dtype}")
+                return _real_limb(m, d, self.schedule, self._groups)
+            return _complex_limb(m.to(_ctype_for(self.dtype)), d,
+                                 self.schedule,
+                                 self._groups)[..., :self.n // 2 + 1]
+        return _complex_limb(m, d, self.schedule, self._groups)
 
     def execute(self, m) -> torch.Tensor:
-        """Run the planned transform; leading batch dims are looped.
+        """Run the planned transform; leading batch dims are batched.
 
         ``m``: ``(..., n, n)``, a tensor on the plan's device or a host
         array (copied there).  A batch gives what transforming each
-        ``(n, n)`` signal alone gives, stacked — the fused kernel takes one
-        matrix at a time, so the batch is a loop of launches.  The result
-        is ``(..., n, n)``, or ``(..., n, n//2+1)`` for the ``rfft-*``
-        methods.
+        ``(n, n)`` signal alone gives, stacked: each dispatch group of each
+        unfused phase runs once over the rows of all the signals (one
+        launch of the row kernel per group under ``radix=4``, whatever the
+        batch), and a fused schedule runs its two fused launches over them
+        and one permuting copy.  The result is ``(..., n, n)``, or ``(...,
+        n, n//2+1)`` for the ``rfft-*`` methods.
         """
-        if not isinstance(m, torch.Tensor):
-            m = as_tensor(m, self.device)
-        if m.device != self.device:
-            raise ValueError(
-                f"plan lives on {self.device}, signal on {m.device}; move "
-                "the signal or plan for its device")
+        m = _on_plan_device(m, self.device)
         if m.ndim < 2 or tuple(m.shape[-2:]) != (self.n, self.n):
             raise ValueError(
                 f"plan is for ({self.n}, {self.n}) signals "
                 f"(optionally with leading batch dims), got {tuple(m.shape)}")
-        if m.ndim == 2:
-            return self._run(m)
-        lead = m.shape[:-2]
-        flat = m.reshape((-1, self.n, self.n))
-        out = torch.stack([self._run(x) for x in flat])
-        return out.reshape(lead + out.shape[1:])
+        return self._run(m.contiguous())
 
-    def execute_many(self, ms, *, pad_to: int | None = None) -> list:
+    def execute_many(self, ms, *, pad_to: int | None = None,
+                     stages: dict | None = None) -> list:
         """Serve a cohort: stack same-size signals into ONE batched execute.
 
         ``ms`` is a sequence of ``(n, n)`` host signals (many users'
-        concurrent requests for the same transform).  Stacking, padding
-        with zero signals up to ``pad_to``, and unstacking happen on the
-        host (numpy), so the device sees exactly one transfer in and one
-        out; the returned results are numpy views into the fetched batch.
+        concurrent requests for the same transform); ``pad_to`` rounds the
+        stack up with zero signals (computed and dropped).  Stacking,
+        padding and unstacking happen on the host (numpy), so the device
+        sees exactly one transfer in and one out, and the returned results
+        are numpy views into the fetched batch — the copy back to the host
+        is where the call waits for the device.  A ``stages`` dict receives
+        the seconds of the four steps (``_execute_many``).
         """
-        if not ms:
-            return []
-        shape = (self.n, self.n)
-        arrs = [np.asarray(m) for m in ms]
-        for m in arrs:
-            if m.shape != shape:
-                raise ValueError(
-                    f"execute_many stacks {shape} signals, got {m.shape}")
-        batch = np.stack(arrs)
-        b = len(arrs)
-        if pad_to is not None and pad_to > b:
-            batch = np.concatenate(
-                [batch, np.zeros((pad_to - b,) + batch.shape[1:], batch.dtype)])
-        out = self.execute(torch.from_numpy(batch).to(self.device)).cpu().numpy()
-        return [out[i] for i in range(b)]
+        return _execute_many(self, ms, (self.n, self.n), pad_to, stages)
 
     @property
     def d(self) -> np.ndarray:
@@ -201,6 +200,58 @@ class PfftPlan:
             tuning=dict(tuning) if tuning is not None else dict(self.tuning),
             _groups=_plan_groups(self.method, schedule, self.partition.d,
                                  self.device))
+
+
+def _on_plan_device(m, device: torch.device) -> torch.Tensor:
+    """A host array is copied to the plan's device; a tensor must already
+    lie there."""
+    if not isinstance(m, torch.Tensor):
+        return as_tensor(m, device)
+    if m.device != device:
+        raise ValueError(
+            f"plan lives on {device}, signal on {m.device}; move "
+            "the signal or plan for its device")
+    return m
+
+
+def _execute_many(plan, ms, shape: tuple[int, ...], pad_to: int | None,
+                  stages: dict | None = None) -> list:
+    """The shared cohort-stacking core of every plan's ``execute_many``:
+    host-side stack (+ zero-pad to the bucket), the copy to the plan's
+    device, one batched ``execute``, the copy back and host-side unstack.
+    See ``PfftPlan.execute_many`` for why.  The device is synchronized
+    after the copy in and after the execute (the copy back waits for it
+    anyway), so that ``stages``, when given, receives each step's seconds
+    on the host's clock: ``stack_s``, ``to_device_s``, ``execute_s``,
+    ``to_host_s``."""
+    if not ms:
+        return []
+    arrs = [np.asarray(m) for m in ms]
+    for m in arrs:
+        if m.shape != shape:
+            raise ValueError(
+                f"execute_many stacks {shape} signals, got {m.shape}")
+    cuda = plan.device.type == "cuda"
+    t0 = time.perf_counter()
+    batch = np.stack(arrs)
+    b = len(arrs)
+    if pad_to is not None and pad_to > b:
+        batch = np.concatenate(
+            [batch, np.zeros((pad_to - b,) + batch.shape[1:], batch.dtype)])
+    t1 = time.perf_counter()
+    dev = torch.from_numpy(batch).to(plan.device)
+    if cuda:
+        torch.cuda.synchronize(plan.device)
+    t2 = time.perf_counter()
+    res = plan.execute(dev)
+    if cuda:
+        torch.cuda.synchronize(plan.device)
+    t3 = time.perf_counter()
+    out = res.cpu().numpy()
+    if stages is not None:
+        stages.update(stack_s=t1 - t0, to_device_s=t2 - t1,
+                      execute_s=t3 - t2, to_host_s=time.perf_counter() - t3)
+    return [out[i] for i in range(b)]
 
 
 def _resolve_schedule(n: int, method: Method, part: PartitionResult,
@@ -325,9 +376,7 @@ def plan_pfft(n: int, *, p: int | None = None, fpms: FPMSet | None = None,
     if method not in _PAD_STRATEGY:
         raise ValueError(f"unknown method {method!r}")
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: distributed plans are not in repro_torch yet; they come "
-            "with the distributed slice")
+        raise NotImplementedError(_NO_MESH)
     real = method in _REAL_METHODS
     base = _base_method(method)
     kind = np.dtype(dtype).kind
@@ -410,3 +459,245 @@ def irfft2(h, *, n: int | None = None) -> torch.Tensor:
     (``repro_torch.fft.irfft2``; pass ``n`` for odd original lengths)."""
     from repro_torch.fft.fft2d import irfft2 as _irfft2
     return _irfft2(h, n=n)
+
+
+# ---------------------------------------------------------------------- 3-D
+
+def _wisdom_config(wisdom: str | None, key: str, tuning: dict[str, Any]
+                   ) -> PlanConfig | None:
+    """A stored config for ``key`` (a schedule or another kind of entry
+    is a miss), with ``tuning`` marked as served from wisdom."""
+    if wisdom is None:
+        return None
+    hit = lookup_wisdom(wisdom, key)
+    if hit is None or not isinstance(hit[0], PlanConfig):
+        return None
+    tuning["source"] = "wisdom"
+    tuning["wisdom_entry"] = hit[1]
+    return normalize_pad(hit[0], "none")
+
+
+@dataclasses.dataclass
+class Pfft3Plan:
+    """A planned 3-D transform — same plan/execute/wisdom lifecycle as
+    ``PfftPlan``, for cubic N^3 signals: the single-device axis passes
+    (``core.pfft3d``) over an lb partition of the planes into ``p``
+    segments, with their dispatch groups' plane indices made once on the
+    plan's device."""
+    n: int
+    method: str
+    config: PlanConfig
+    tuning: dict[str, Any]
+    device: torch.device
+    p: int = 1
+    dtype: str = "complex64"
+    _groups: Any = dataclasses.field(default_factory=list, repr=False,
+                                     compare=False)
+
+    @property
+    def d(self) -> np.ndarray:
+        return lb_partition(self.n, self.p).d
+
+    def execute(self, m) -> torch.Tensor:
+        """Run the planned transform; leading batch dims are batched (each
+        dispatch group of each pass runs once over the planes of all the
+        cubes)."""
+        from repro_torch.core.pfft3d import _pfft3
+        m = _on_plan_device(m, self.device)
+        if m.ndim < 3 or tuple(m.shape[-3:]) != (self.n,) * 3:
+            raise ValueError(
+                f"plan is for ({self.n}, {self.n}, {self.n}) signals "
+                f"(optionally with leading batch dims), got {tuple(m.shape)}")
+        return _pfft3(m, self.d, config=self.config, groups=self._groups)
+
+    def execute_many(self, ms, *, pad_to: int | None = None,
+                     stages: dict | None = None) -> list:
+        """Serve a cohort of cubes in ONE batched execute — the 3-D
+        sibling of ``PfftPlan.execute_many``."""
+        return _execute_many(self, ms, (self.n,) * 3, pad_to, stages)
+
+
+def plan_pfft3(n: int, *, p: int | None = None, mesh=None,
+               tune: TuneMode = "off", wisdom: str | None = None,
+               config: PlanConfig | None = None, dtype: str = "complex64",
+               device: str | torch.device | None = None) -> Pfft3Plan:
+    """Plan the 3-D transform; see ``plan_pfft`` for the lifecycle.
+
+    The plan runs the single-device axis passes over an lb partition of
+    ``p`` segments (default 1; 1 <= p <= N).  Resolution order: explicit
+    config > wisdom hit (also at ``tune="off"``) > tuner > default; the
+    wisdom key's backend is the plan's device type, and a measured pick
+    is recorded.  ``mesh=`` (the pencil pipeline) raises
+    ``NotImplementedError`` until the distributed slice, which also brings
+    the reference's ``axis_names=``.
+    """
+    if tune not in ("off", "estimate", "measure"):
+        raise ValueError(f"tune must be 'off'|'estimate'|'measure', got {tune!r}")
+    if np.dtype(dtype).kind != "c":
+        raise ValueError(
+            f"plan_pfft3 transforms complex input, got dtype={dtype!r}")
+    if mesh is not None:
+        raise NotImplementedError(_NO_MESH)
+    from repro_torch.core.pfft3d import plane_groups
+    from repro_torch.plan.tune import tune_pfft3
+
+    q = int(p) if p is not None else 1
+    if not 1 <= q <= n:
+        raise ValueError(f"need 1 <= p <= N, got p={q} for N={n}")
+    device = resolve_device(device)
+    method = "pfft3-lb"
+    tuning: dict[str, Any] = {"mode": tune}
+
+    def build(cfg: PlanConfig) -> Pfft3Plan:
+        return Pfft3Plan(n=n, method=method, config=cfg, tuning=tuning,
+                         device=device, p=q, dtype=dtype,
+                         _groups=plane_groups(n, lb_partition(n, q).d, None,
+                                              cfg, device))
+
+    if config is not None:
+        tuning["source"] = "explicit"
+        return build(normalize_pad(config, "none"))
+
+    key = wisdom_key(n=n, dtype=dtype, p=q, method=method,
+                     backend=device.type)
+    tuning["wisdom_key"] = key
+    stored = _wisdom_config(wisdom, key, tuning)
+    if stored is not None:
+        return build(stored)
+
+    if tune == "off":
+        tuning["source"] = "off"
+        return build(PlanConfig())
+
+    cfg, _, info = tune_pfft3(n, None, mode=tune,
+                              dtype=np.dtype(dtype), device=device)
+    tuning.update(info)
+    tuning["source"] = tune
+    if wisdom is not None and tune == "measure":
+        stats = info["pfft3"]
+        record_wisdom(wisdom, key, cfg, mode="measure",
+                      time_s=info.get("time_s"),
+                      extra={"comm_bytes": stats["comm_bytes"],
+                             "comm_time_s": stats["comm_time_meas_s"]})
+    return build(cfg)
+
+
+# ------------------------------------------------------------------ huge 1-D
+
+@dataclasses.dataclass
+class Pfft1LargePlan:
+    """A planned four-step huge-1-D transform (``core.pfft_large``); the
+    twiddle table is made once, on the plan's device."""
+    n: int
+    n1: int
+    n2: int
+    method: str
+    config: PlanConfig
+    tuning: dict[str, Any]
+    device: torch.device
+    dtype: str = "complex64"
+    _twiddle: Any = dataclasses.field(default=None, repr=False,
+                                      compare=False)
+
+    def execute(self, x) -> torch.Tensor:
+        """Run the planned transform; leading batch dims are batched (each
+        phase is one dispatch over the rows of all the lines)."""
+        from repro_torch.core.pfft_large import pfft1_large_apply
+        x = _on_plan_device(x, self.device)
+        if x.ndim < 1 or int(x.shape[-1]) != self.n:
+            raise ValueError(
+                f"plan is for length-{self.n} 1-D signals "
+                f"(optionally with leading batch dims), got {tuple(x.shape)}")
+        return pfft1_large_apply(x, config=self.config, n1=self.n1,
+                                 n2=self.n2, twiddle=self._twiddle)
+
+    def execute_many(self, xs, *, pad_to: int | None = None,
+                     stages: dict | None = None) -> list:
+        """Serve a cohort of lines in ONE batched execute — the 1-D
+        sibling of ``PfftPlan.execute_many``."""
+        return _execute_many(self, xs, (self.n,), pad_to, stages)
+
+
+def plan_pfft1_large(n: int, *, tune: TuneMode = "off",
+                     wisdom: str | None = None,
+                     config: PlanConfig | None = None,
+                     dtype: str = "complex64", n1: int | None = None,
+                     n2: int | None = None,
+                     device: str | torch.device | None = None
+                     ) -> Pfft1LargePlan:
+    """Plan one huge 1-D line through the EFFT four-step pipeline.
+
+    ``n1``/``n2`` pin the factorization (default: most-square split —
+    ``four_step_factors``); a non-default split enters the wisdom key as
+    a ``part=`` detail, since the best row-FFT variant depends on which
+    lengths the two phases actually run at.  A config that sends a phase
+    of a power-of-two length above ``MAX_KERNEL_N`` to the kernel raises
+    ``KernelLengthError`` here, before the twiddle table is made.
+    """
+    if tune not in ("off", "estimate", "measure"):
+        raise ValueError(f"tune must be 'off'|'estimate'|'measure', got {tune!r}")
+    if np.dtype(dtype).kind != "c":
+        raise ValueError(
+            f"plan_pfft1_large transforms complex input, got dtype={dtype!r}")
+    from repro_torch.core.pfft_large import four_step_factors, twiddle_table
+    from repro_torch.kernels.fft.kernel import MAX_KERNEL_N, KernelLengthError
+    from repro_torch.plan.tune import tune_pfft1_large
+
+    method = "pfft1-large"
+    f1, f2 = four_step_factors(n, n1=n1, n2=n2)
+    default = four_step_factors(n)
+    detail = f"{f1}x{f2}" if (f1, f2) != default else None
+    device = resolve_device(device)
+    tuning: dict[str, Any] = {"mode": tune, "n1": f1, "n2": f2}
+
+    def build(cfg: PlanConfig) -> Pfft1LargePlan:
+        if cfg.row_fft_kwargs()["backend"] == "cuda":
+            for length in (f2, f1):
+                if length > MAX_KERNEL_N and not length & (length - 1):
+                    raise KernelLengthError("plan_pfft1_large", length)
+        return Pfft1LargePlan(n=n, n1=f1, n2=f2, method=method, config=cfg,
+                              tuning=tuning, device=device, dtype=dtype,
+                              _twiddle=twiddle_table(f1, f2, device))
+
+    if config is not None:
+        tuning["source"] = "explicit"
+        return build(normalize_pad(config, "none"))
+
+    key = wisdom_key(n=n, dtype=dtype, p=1, method=method,
+                     backend=device.type, detail=detail)
+    tuning["wisdom_key"] = key
+    stored = _wisdom_config(wisdom, key, tuning)
+    if stored is not None:
+        return build(stored)
+
+    if tune == "off":
+        tuning["source"] = "off"
+        return build(PlanConfig())
+
+    cfg, info = tune_pfft1_large(n, n1=f1, n2=f2, mode=tune,
+                                 dtype=np.dtype(dtype), device=device)
+    tuning.update(info)
+    tuning["source"] = tune
+    if wisdom is not None and tune == "measure":
+        record_wisdom(wisdom, key, cfg, mode="measure",
+                      time_s=info.get("time_s"))
+    return build(cfg)
+
+
+def pfft1_large(x, *, tune: TuneMode = "off", wisdom: str | None = None,
+                n1: int | None = None, n2: int | None = None) -> torch.Tensor:
+    """One-shot planned four-step 1-D DFT of a long line.
+
+    Convenience wrapper over ``plan_pfft1_large`` for ``x``'s length,
+    dtype and device (a host array goes to the default, CUDA, device); use
+    the plan directly for the plan-once/run-many lifecycle.
+    """
+    x = as_tensor(x)
+    if x.ndim != 1:
+        raise ValueError(
+            f"pfft1_large transforms one 1-D line, got shape {tuple(x.shape)}")
+    dt = x.dtype if x.is_complex() else torch.complex64
+    plan = plan_pfft1_large(int(x.shape[0]), tune=tune, wisdom=wisdom,
+                            dtype=str(dt).removeprefix("torch."), n1=n1,
+                            n2=n2, device=x.device)
+    return plan.execute(x.to(dt))

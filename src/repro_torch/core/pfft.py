@@ -177,6 +177,9 @@ def segment_row_ffts(m, d: np.ndarray, *, pad_lengths=None,
                      groups: list[tuple] | None = None) -> torch.Tensor:
     """Step 2/4 of PFFT-FPM: processor i runs row FFTs on its d_i rows.
 
+    ``m`` is ``(rows, n)`` or a ``(..., rows, n)`` stack of such matrices;
+    each dispatch group runs once over its rows of all of them.
+
     ``pad_lengths[i]`` (optional) is N_padded for processor i; rows are
     zero-padded to that length, transformed, and cropped back to N bins
     (or chirp-Z-transformed at it when the config says ``pad='czt'``).
@@ -204,29 +207,48 @@ def segment_row_ffts(m, d: np.ndarray, *, pad_lengths=None,
         config = _coerce_config(config, "segment_row_ffts",
                                 use_stockham=use_stockham, batched=batched)
         schedule = SegmentSchedule.homogeneous(config, n, d, pad_lengths)
-    if int(np.sum(np.asarray(d))) != m.shape[0]:
+    if int(np.sum(np.asarray(d))) != m.shape[-2]:
         raise ValueError(
             f"distribution sums to {int(np.sum(np.asarray(d)))} rows, "
-            f"matrix has {m.shape[0]}")
-    if schedule.total_rows != m.shape[0]:
+            f"matrix has {m.shape[-2]}")
+    if schedule.total_rows != m.shape[-2]:
         raise ValueError(
             f"schedule covers {schedule.total_rows} rows, "
-            f"matrix has {m.shape[0]}")
+            f"matrix has {m.shape[-2]}")
 
     if groups is None:
         groups = device_groups(schedule, m.device)
+    return _grouped_rows(m, groups, n, lambda rows, length, cfg:
+                         _group_row_ffts(rows, length, n, cfg, backend))
+
+
+def _grouped_rows(m: torch.Tensor, groups: list[tuple], width: int,
+                  program) -> torch.Tensor:
+    """Run each dispatch group's ``program(rows, length, config)`` ONCE
+    over its rows of every matrix of ``m``: ``(..., rows, n)`` ->
+    ``(..., rows, width)``.
+
+    The group's rows (axis -2) of all leading matrices are gathered with
+    the group's index tensor and flattened into one ``(B·g, n)`` row
+    block, so a batch of B signals costs one dispatch per group, as one
+    signal does.  A single group covering every row in order needs no
+    gather or scatter at all.  Every row belongs to exactly one group, so
+    the result needs no initial value.
+    """
+    lead, rows, n = m.shape[:-2], m.shape[-2], m.shape[-1]
     if len(groups) == 1:
-        # Single plan covering every row in order: one dispatch, no
-        # gather/scatter at all.
         length, cfg, idx, _ = groups[0]
-        if len(idx) == m.shape[0] and np.array_equal(idx, np.arange(len(idx))):
-            return _group_row_ffts(m, length, n, cfg, backend)
-    # Every row belongs to exactly one group (checked above), so the
-    # result needs no initial value.
-    out = torch.empty(m.shape, dtype=complex_result_type(m), device=m.device)
+        if len(idx) == rows and np.array_equal(idx, np.arange(rows)):
+            res = program(m.reshape(-1, n), length, cfg)
+            return res.reshape(lead + (rows, width))
+    axis = m.ndim - 2
+    out = torch.empty(lead + (rows, width), dtype=complex_result_type(m),
+                      device=m.device)
     for length, cfg, _, idx_t in groups:
-        res = _group_row_ffts(m.index_select(0, idx_t), length, n, cfg, backend)
-        out.index_copy_(0, idx_t, res.to(out.dtype))
+        sel = m.index_select(axis, idx_t)
+        res = program(sel.reshape(-1, n), length, cfg)
+        out.index_copy_(axis, idx_t,
+                        res.reshape(sel.shape[:-1] + (width,)).to(out.dtype))
     return out
 
 
@@ -262,28 +284,66 @@ def _pfft_limb(m, d: np.ndarray, *, pad_lengths=None,
                                                pad_lengths)
     if m.ndim != 2 or m.shape[0] != m.shape[1]:
         raise ValueError("PFFT operates on square N x N signal matrices")
-    m = m.contiguous()
+    return _complex_limb(m.contiguous(), d, schedule, groups)
+
+
+def _fused_config(schedule: SegmentSchedule) -> PlanConfig | None:
+    """The schedule's config when it runs the fused phases, else None.  A
+    homogeneous ``fused=True`` schedule with no padding fuses:
+    segmentation without padding is purely a scheduling notion, so the
+    whole-matrix fused phase computes the identical value."""
     common = schedule.common_config
     if (common is not None and common.fused
             and all(e.length == schedule.n for e in schedule)):
-        # Segmentation without padding is purely a scheduling notion, so
-        # the whole-matrix fused phase computes the identical value.
-        # fft_rows_then_transpose itself computes the unfused value when
-        # the kernel doesn't apply (non-pow2 N, types wider than float32).
-        # radix=2 means the pure-tensor Stockham backend elsewhere, not a
-        # kernel radix: only an explicit radix-4 reaches the fused kernel
-        # (None lets it auto-pick 4).
-        fused_radix = common.radix if common.radix == 4 else None
-        m = fft_rows_then_transpose(m, radix=fused_radix)
-        m = fft_rows_then_transpose(m, radix=fused_radix)
-        return m
+        return common
+    return None
+
+
+def _complex_limb(m: torch.Tensor, d: np.ndarray, schedule: SegmentSchedule,
+                  groups: list[tuple] | None) -> torch.Tensor:
+    """Algorithm 3 on a contiguous ``(..., n, n)`` stack of signals.
+
+    The unfused phases run each dispatch group once over the rows of all
+    the signals (``_grouped_rows``), so a batch costs the launches of one
+    signal; the transposed copies are made explicitly.  So do the fused
+    phases (``_fused_phases``; ``fft_rows_then_transpose`` itself computes
+    the unfused value when the kernel does not apply: non-pow2 N, types
+    wider than float32).
+    """
+    fused = _fused_config(schedule)
+    if fused is not None:
+        return _fused_phases(m, fft_rows_then_transpose, fused)
     if groups is None:
         groups = device_groups(schedule, m.device)
     m = segment_row_ffts(m, d, schedule=schedule, groups=groups)
-    m = m.T.contiguous()
+    m = m.transpose(-1, -2).contiguous()
     m = segment_row_ffts(m, d, schedule=schedule, groups=groups)
-    m = m.T.contiguous()
-    return m
+    return m.transpose(-1, -2).contiguous()
+
+
+def _fused_phases(m: torch.Tensor, first, config: PlanConfig) -> torch.Tensor:
+    """The two fused phases of a contiguous ``(..., n, n)`` stack: ``first``
+    (``fft_rows_then_transpose``, or ``rfft_rows_then_transpose`` for the
+    real limb, width w = n or n//2+1), then ``fft_rows_then_transpose``.
+    radix=2 means the pure-tensor Stockham backend elsewhere, not a kernel
+    radix: only an explicit radix-4 reaches the fused kernel (None lets it
+    auto-pick 4).
+
+    A stack of B matrices runs as B·n rows: phase 1 writes ``(w, B·n)``,
+    whose ``(w·B, n)`` rows are exactly phase 2's rows of every matrix,
+    and phase 2 writes ``(n, w·B)`` — the result in ``(n, w, B)`` order,
+    which one permuting copy brings to ``(B, n, w)``.  Two launches
+    whatever B, for one more copy: on the H100 this beats transforming the
+    matrices one at a time at N = 1024 ... 8192 and B = 2 and 8 (PERF.md).
+    """
+    radix = config.radix if config.radix == 4 else None
+    n = m.shape[-1]
+    flat = m.reshape(-1, n)
+    b = flat.shape[0] // n
+    h = first(flat, radix=radix)                                 # (w, B·n)
+    w = h.shape[0]
+    z = fft_rows_then_transpose(h.reshape(w * b, n), radix=radix)  # (n, w·B)
+    return z.reshape(n, w, b).permute(2, 0, 1).reshape(m.shape[:-2] + (n, w))
 
 
 def pfft_lb(m, p: int, *, use_stockham: bool | None = None,
@@ -411,8 +471,8 @@ def segment_row_rffts(m, d: np.ndarray, *, pad_lengths=None,
                       groups: list[tuple] | None = None) -> torch.Tensor:
     """Real phase 1: processor i runs row rffts on its d_i real rows.
 
-    The (rows, N) real matrix comes back as the (rows, N//2+1) complex
-    half spectrum; grouping/dispatch semantics are exactly
+    The (..., rows, N) real matrices come back as the (..., rows, N//2+1)
+    complex half spectra; grouping/dispatch semantics are exactly
     ``segment_row_ffts``'s (same ``SegmentSchedule.batch_groups``), and
     ``groups`` is ``device_groups(schedule, m.device)`` computed ahead.
     """
@@ -428,27 +488,19 @@ def segment_row_rffts(m, d: np.ndarray, *, pad_lengths=None,
         if config is None:
             config = PlanConfig(real=True)
         schedule = SegmentSchedule.homogeneous(config, n, d, pad_lengths)
-    if int(np.sum(np.asarray(d))) != m.shape[0]:
+    if int(np.sum(np.asarray(d))) != m.shape[-2]:
         raise ValueError(
             f"distribution sums to {int(np.sum(np.asarray(d)))} rows, "
-            f"matrix has {m.shape[0]}")
-    if schedule.total_rows != m.shape[0]:
+            f"matrix has {m.shape[-2]}")
+    if schedule.total_rows != m.shape[-2]:
         raise ValueError(
             f"schedule covers {schedule.total_rows} rows, "
-            f"matrix has {m.shape[0]}")
+            f"matrix has {m.shape[-2]}")
 
     if groups is None:
         groups = device_groups(schedule, m.device)
-    if len(groups) == 1:
-        length, cfg, idx, _ = groups[0]
-        if len(idx) == m.shape[0] and np.array_equal(idx, np.arange(len(idx))):
-            return _group_row_rffts(m, length, n, cfg, backend)
-    out = torch.empty((m.shape[0], nh), dtype=complex_result_type(m),
-                      device=m.device)
-    for length, cfg, _, idx_t in groups:
-        res = _group_row_rffts(m.index_select(0, idx_t), length, n, cfg, backend)
-        out.index_copy_(0, idx_t, res.to(out.dtype))
-    return out
+    return _grouped_rows(m, groups, nh, lambda rows, length, cfg:
+                         _group_row_rffts(rows, length, n, cfg, backend))
 
 
 def _rpfft_limb(m, d: np.ndarray, *, pad_lengths=None,
@@ -485,22 +537,25 @@ def _rpfft_limb(m, d: np.ndarray, *, pad_lengths=None,
     if not m.is_floating_point():
         raise ValueError(
             f"the real pipeline takes a real-valued matrix, got {m.dtype}")
-    m = m.contiguous()
-    n = m.shape[-1]
-    nh = n // 2 + 1
-    common = schedule.common_config
-    if (common is not None and common.fused
-            and all(e.length == schedule.n for e in schedule)):
-        fused_radix = common.radix if common.radix == 4 else None
-        h = rfft_rows_then_transpose(m, radix=fused_radix)    # (nh, n)
-        return fft_rows_then_transpose(h, radix=fused_radix)  # (n, nh)
+    return _real_limb(m.contiguous(), d, schedule, groups)
+
+
+def _real_limb(m: torch.Tensor, d: np.ndarray, schedule: SegmentSchedule,
+               groups: tuple[list[tuple], list[tuple]] | None
+               ) -> torch.Tensor:
+    """The real limb on a contiguous ``(..., n, n)`` stack of real
+    signals -> ``(..., n, n//2+1)``; batches as ``_complex_limb`` does."""
+    nh = m.shape[-1] // 2 + 1
+    fused = _fused_config(schedule)
+    if fused is not None:
+        return _fused_phases(m, rfft_rows_then_transpose, fused)
     if groups is None:
         groups = real_limb_groups(schedule, d, m.device)
     h = segment_row_rffts(m, d, schedule=schedule, groups=groups[0])
-    h = h.T.contiguous()                                      # (nh, n)
+    h = h.transpose(-1, -2).contiguous()                      # (..., nh, n)
     d2, sched2 = _clip_schedule(schedule, np.asarray(d), nh)
     h = segment_row_ffts(h, d2, schedule=sched2, groups=groups[1])
-    return h.T.contiguous()                                   # (n, nh)
+    return h.transpose(-1, -2).contiguous()                   # (..., n, nh)
 
 
 def _real_config(config: PlanConfig | None) -> PlanConfig:

@@ -30,9 +30,10 @@ from repro_torch.plan.wisdom import (WISDOM_VERSION, load_wisdom,
                                      record_wisdom, topology_digest,
                                      wisdom_key)
 from repro_torch.plan.tune import (candidate_configs, measure_configs,
-                                   measure_rfft_configs,
+                                   measure_rfft_configs, pfft3_panel_space,
                                    segment_candidate_configs, tune_config,
-                                   tune_rfft, tune_schedule)
+                                   tune_pfft1_large, tune_pfft3, tune_rfft,
+                                   tune_schedule)
 from repro_torch.plan.calibrate import fit_cost_params
 
 __all__ = [
@@ -49,5 +50,6 @@ __all__ = [
     "record_wisdom", "topology_digest", "wisdom_key",
     "candidate_configs", "measure_configs", "measure_rfft_configs",
     "segment_candidate_configs", "tune_config", "tune_rfft", "tune_schedule",
+    "pfft3_panel_space", "tune_pfft3", "tune_pfft1_large",
     "fit_cost_params",
 ]

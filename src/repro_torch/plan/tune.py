@@ -1,6 +1,8 @@
 """Estimate/measure tuner — FFTW's planner loop over ``PlanConfig`` space.
 
-Counterpart of the single-device part of ``repro.plan.tune``.
+Counterpart of the single-device part of ``repro.plan.tune``, the 3-D
+(``tune_pfft3`` without a mesh) and huge-1-D (``tune_pfft1_large``) tuners
+included.
 ``candidate_configs`` enumerates the valid variant space for a problem
 (radix x fused x batched x pipeline_panels, pruned by structural
 constraints); ``tune_config`` ranks it:
@@ -45,7 +47,8 @@ from repro_torch.plan.schedule import SegmentSchedule
 
 __all__ = ["candidate_configs", "segment_candidate_configs",
            "measure_configs", "tune_config", "tune_schedule",
-           "measure_rfft_configs", "tune_rfft"]
+           "measure_rfft_configs", "tune_rfft", "pfft3_panel_space",
+           "tune_pfft3", "tune_pfft1_large"]
 
 
 def _is_pow2(n: int) -> bool:
@@ -630,3 +633,217 @@ def tune_rfft(n: int, *, d=None, pad_lengths=None, fpms: FPMSet | None = None,
     schedule = SegmentSchedule.homogeneous(winner, n, d, pad_lengths)
     info["schedule"] = schedule.to_dict()
     return schedule, info
+
+
+# ------------------------------------------------------- pfft3 / huge 1-D
+
+def pfft3_panel_space(n: int, r: int, c: int, max_panels: int = 8
+                      ) -> tuple[int, ...]:
+    """Candidate ``pipeline_panels`` for an N^3 problem on an r x c pencil
+    mesh: the powers of two up to ``max_panels`` dividing *both* local
+    extents (the pencil pipeline splits panels along whichever block axis
+    the current exchange leaves alone, so k must divide N/r and N/c
+    alike).  The one home of the rule, for the pencil tuner of the
+    distributed slice: without a mesh ``tune_pfft3`` offers k = 1 alone.
+    """
+    import math
+
+    r, c = int(r), int(c)
+    if r <= 0 or c <= 0 or n % r or n % c:
+        return (1,)
+    g = math.gcd(n // r, n // c)
+    ks = [k for k in (1, 2, 4, 8) if k <= max_panels and g % k == 0]
+    return tuple(ks) or (1,)
+
+
+def _pass_length(n: int, cfg: PlanConfig, pad_len: int | None) -> int:
+    """The effective row length of one local pass: ``pad_len``, else the
+    reference's default per pad semantics (the model-free smooth size for
+    the crop, the next power of two >= 2N-1 for czt, N otherwise)."""
+    if pad_len is not None:
+        return int(pad_len)
+    if cfg.dist_padded == "crop":
+        from repro_torch.core.padding import pad_to_smooth  # lazy: core imports plan
+        return pad_to_smooth(n)
+    if cfg.dist_padded == "czt":
+        return 1 << int(np.ceil(np.log2(2 * n - 1)))
+    return n
+
+
+def _measure_pfft3_local_pass(cfg: PlanConfig, n: int, length: int, dtype,
+                              rounds: int, device=None) -> float:
+    """Seconds of one *local* axis pass of the single-device transform:
+    the row-FFT program over the cube's N^2 rows at the effective length.
+    Subtracting three of these from the end-to-end time leaves what the
+    rotations (and, on a mesh, the exchanges) cost."""
+    from repro_torch.core.pfft import _group_row_ffts  # lazy: core imports plan
+
+    x = _signal((n * n, n), dtype, device)
+    pairs = _warmed([(cfg, lambda b: _group_row_ffts(b, length, n, cfg, None))],
+                    x)
+    return _timed_min(pairs, x, rounds)[cfg]
+
+
+def tune_pfft3(n: int, mesh=None, *,
+               mode: str = "estimate", pad: str = "none",
+               pad_len: int | None = None,
+               params: CostParams | None = None, top_k: int = 3,
+               dtype=np.complex64,
+               reps: int = 3, measure_retries: int = 0, device=None
+               ) -> tuple[PlanConfig, tuple[str, str] | None, dict]:
+    """Pick the best config for the single-device 3-D transform.
+
+    Returns ``(config, axes, info)`` as the reference does; ``axes`` (the
+    pencil orientation of a mesh) is ``None`` here.  ``mesh=`` is the
+    distributed slice's and raises ``NotImplementedError``; the
+    reference's ``axis_names=`` and ``panels=`` come with it.  Only a mesh
+    reads them: on one device every ``pipeline_panels`` runs the same
+    program, so the pot holds k = 1 alone (``pfft3_panel_space`` gives a
+    mesh's).  The ranking
+    prices each candidate with ``estimate_pfft3_cost`` at r = c = 1;
+    measure mode times the finalists' ``pfft3_lb(m, 1, config=c)`` on
+    ``device`` (wall time between two synchronizations, the CUDA-event
+    time beside it), then one local pass of the winner: ``info["pfft3"]``
+    carries ``local_pass_s`` and ``comm_time_meas_s = total − 3·pass``
+    (clamped at 0), which on one device is the time of the rotations.
+    The candidate pot is ``candidate_configs``' (no ``radix=4`` where N is
+    a power of two above ``MAX_KERNEL_N``), batched and unfused.
+    """
+    if mode not in ("estimate", "measure"):
+        raise ValueError(f"mode must be 'estimate' or 'measure', got {mode!r}")
+    if mesh is not None:
+        raise NotImplementedError(
+            "tune_pfft3(mesh=): pencil tuning is not in repro_torch yet; it "
+            "comes with the distributed slice")
+    r = c = 1
+    params = _params_for(params, device)
+    from repro_torch.plan.cost import estimate_pfft3_cost
+
+    # ``batched`` shapes segment dispatch (one whole-cube segment here)
+    # and the 3-D pipeline is unfused by construction — both knobs would
+    # only burn finalist slots on identical or invalid programs.
+    cands = [cfg for cfg in candidate_configs(n, pad=pad, d=None)
+             if cfg.batched and not cfg.fused]
+    ranked = sorted(((cfg, estimate_pfft3_cost(cfg, n=n, r=r, c=c,
+                                               params=params,
+                                               pad_len=pad_len))
+                     for cfg in cands), key=lambda kv: kv[1])
+    info: dict = {
+        "mode": mode,
+        "ranked": [(cfg.to_dict(), None, float(t)) for cfg, t in ranked],
+        "pfft3": {"r": r, "c": c, "hosts": 1, "axis_names": None,
+                  "comm_bytes": 0.0, "comm_time_est_s": 0.0},
+        "orientation": None,
+    }
+    if mode == "estimate":
+        return ranked[0][0], None, info
+
+    # One finalist per distinct program.
+    finalists, seen = [], set()
+    for cfg, _ in ranked:
+        key = _behavior_key(cfg, n, None, None)
+        if key not in seen:
+            seen.add(key)
+            finalists.append(cfg)
+        if len(finalists) >= max(top_k, 1):
+            break
+
+    from repro_torch.core.pfft3d import pfft3_lb  # lazy: core imports plan
+    events: dict = {}
+
+    def run_races() -> dict:
+        x = _signal((n, n, n), dtype, device)
+        pairs = _warmed([(cfg, lambda m, c=cfg: pfft3_lb(m, 1, config=c))
+                         for cfg in finalists], x)
+        return _timed_min(pairs, x, reps, events)
+
+    measured = _measure_with_retry(run_races, measure_retries)
+    winner = min(measured, key=measured.get)
+    info["measured"] = [(cfg.to_dict(), None, float(t))
+                        for cfg, t in measured.items()]
+    if events:
+        info["measured_event_s"] = [(cfg.to_dict(), None, float(events[cfg]))
+                                    for cfg in measured]
+    info["time_s"] = float(measured[winner])
+    local_s = _measure_with_retry(
+        lambda: _measure_pfft3_local_pass(winner, n,
+                                          _pass_length(n, winner, pad_len),
+                                          dtype, reps, device),
+        measure_retries)
+    info["pfft3"]["local_pass_s"] = float(local_s)
+    info["pfft3"]["comm_time_meas_s"] = float(
+        max(measured[winner] - 3.0 * local_s, 0.0))
+    info["pfft3"]["exchange"] = winner.exchange
+    return winner, None, info
+
+
+def tune_pfft1_large(n: int, *, n1: int | None = None, n2: int | None = None,
+                     mode: str = "estimate",
+                     params: CostParams | None = None, top_k: int = 3,
+                     dtype=np.complex64, reps: int = 3, device=None
+                     ) -> tuple[PlanConfig, dict]:
+    """Tune the four-step huge-1-D transform; returns (config, info).
+
+    The four-step decomposition runs two row-FFT phases at lengths n2 and
+    n1 (``core.pfft_large``), so the estimate prices each phase at its
+    own length with the config's backend multiplier — a radix kernel that
+    helps the pow2 side may be a library no-op on the other.  ``radix=4``
+    is offered only where the kernel takes both phase lengths (a power of
+    two above ``MAX_KERNEL_N`` would raise ``KernelLengthError``).  Measure
+    mode times the production ``pfft1_large_apply`` end to end on
+    ``device``, with each candidate's twiddle table made once, outside the
+    timed runs, as a plan makes it.
+    """
+    if mode not in ("estimate", "measure"):
+        raise ValueError(f"mode must be 'estimate' or 'measure', got {mode!r}")
+    from repro_torch.core.pfft_large import four_step_factors  # lazy
+
+    n1, n2 = four_step_factors(n, n1=n1, n2=n2)
+    params = _params_for(params, device)
+
+    radices: list[int | None] = [None]
+    if _is_pow2(n1) or _is_pow2(n2):
+        radices.append(2)
+        if _kernel_takes(n1) and _kernel_takes(n2):
+            radices.append(4)
+    cands = [PlanConfig(radix=rad) for rad in radices]
+
+    def est(cfg: PlanConfig) -> float:
+        compute = (
+            float(fft_flops(n1, n2)) / params.nominal_flops
+            * _compute_multiplier(cfg, n2, params)
+            + float(fft_flops(n2, n1)) / params.nominal_flops
+            * _compute_multiplier(cfg, n1, params))
+        itemsize = np.dtype(dtype).itemsize
+        traffic = 4.0 * n * itemsize / params.hbm_bytes_per_s
+        return compute + traffic + 2.0 * params.dispatch_overhead_s
+
+    ranked = sorted(((cfg, est(cfg)) for cfg in cands), key=lambda kv: kv[1])
+    info: dict = {
+        "mode": mode,
+        "ranked": [(cfg.to_dict(), float(t)) for cfg, t in ranked],
+        "four_step": {"n1": int(n1), "n2": int(n2)},
+    }
+    if mode == "estimate":
+        return ranked[0][0], info
+
+    from repro_torch.core.pfft_large import pfft1_large_apply, twiddle_table
+
+    finalists, seen = [], set()
+    for cfg, _ in ranked:
+        key = (_length_backend(cfg, n1), _length_backend(cfg, n2))
+        if key not in seen:
+            seen.add(key)
+            finalists.append(cfg)
+        if len(finalists) >= max(top_k, 1):
+            break
+    x = _signal((n,), dtype, device)
+    tw = twiddle_table(n1, n2, x.device)
+    pairs = _warmed([(cfg, lambda v, c=cfg: pfft1_large_apply(
+        v, config=c, n1=n1, n2=n2, twiddle=tw)) for cfg in finalists], x)
+    events: dict = {}
+    measured = _timed_min(pairs, x, reps, events)
+    winner = min(measured, key=measured.get)
+    _measured_info(info, measured, events, PlanConfig.to_dict)
+    info["time_s"] = float(measured[winner])
+    return winner, info
