@@ -58,6 +58,25 @@ each of which ends the run with a non-zero exit code when it fails:
                  ``AdmissionError`` and a ``DeadlineExceeded``; a second
                  service on the same wisdom file with ``retunes == 0``; cohorts
                  of 1, 3 and 8 under ``radix=4`` with the same launches.
+11. ``dist``     the distributed path (``plan_pfft(mesh=)``,
+                 ``core.pfft_dist``) on a world of one rank over NCCL, the
+                 exchange sending to itself: ``lb`` at N = 8192 under the
+                 library, ``radix=4``, fused and ``radix=4`` with 2, 4 and 8
+                 pipelined panels against ``torch.fft.fft2``; ``fpm-pad`` at
+                 4096 (padded to 8192) against the padded oracle;
+                 ``rfft-lb`` under ``radix=4`` and ``irpfft2_distributed``;
+                 ``tune="estimate"`` / ``"measure"`` plans (one rank:
+                 measure falls back to the estimate).  Each run timed
+                 beside the single-device plan of its config, with the
+                 ``aten::copy_`` calls of one execute counted by the host
+                 profiler; the self exchange and the phase's two copies
+                 timed alone.
+12. ``dist_gloo4`` 4 processes (this script with ``--dist-rank``) sharing
+                 the card over gloo with CUDA tensors, the exchange through
+                 the host: ``radix=4``, fused, the hierarchical exchange on 2
+                 emulated hosts x 2, 2 panels and ``rfft-lb`` at N = 8192,
+                 each rank on its (2048, 8192) block, rank 0 gathering the
+                 blocks against the library; every rank's launches checked.
 
 Then, outside the counted drives: every checked 2-D execute timed beside the
 library, and a fused batch's two layouts (batched, and the per-signal
@@ -65,8 +84,9 @@ loop) checked against the library and timed at N = 1024 ... 8192 and
 batches of 2 and 8.  Tolerances of the paths 8-10:
 ``2e-4·sqrt(elements of one signal)`` (the 2-D ``2e-4·N``).
 
-Each path (4-10) is driven once with the launch counts set to 0 just before
-and read just after; each of its kernels must have launched.  Every line but
+Each path (4-12) is driven once with the launch counts set to 0 just before
+and read just after; each of its kernels must have launched (the counts of
+``dist_gloo4`` are its four ranks' sums).  Every line but
 the last is a log or a JSON record; the last line is ``{"ok": true,
 "device": {...}}`` and is printed only when every phase passed.
 """
@@ -77,6 +97,8 @@ import dataclasses
 import json
 import math
 import os
+import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -93,11 +115,15 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
+import torch.distributed as dist  # noqa: E402
+
 from repro_torch.core import (FPMSet, PlanConfig, SpeedFunction, build_fpm,  # noqa: E402
                               fft_flops, four_step_factors, irfft2,
                               lb_partition, partition_rows,
                               pfft3_fpm, pfft3_fpm_pad, plan_pfft,
                               plan_pfft1_large, plan_pfft3, rfft2)
+from repro_torch.core.pfft_dist import (_pack, _send_recv,  # noqa: E402
+                                        irpfft2_distributed)
 from repro_torch.fft import fft_rows  # noqa: E402
 from repro_torch.kernels import (_build, fft_rows_op, fft_rows_transpose_op,  # noqa: E402
                                  launch_counts, reset_launch_counts,
@@ -108,10 +134,12 @@ from repro_torch.kernels.fft.real import rfft_rows_plain  # noqa: E402
 from repro_torch.kernels.fused.kernel import fft_rows_transpose_plain  # noqa: E402
 from repro_torch.kernels.fused.real import rfft_rows_transpose_plain  # noqa: E402
 from repro_torch.kernels.transpose.kernel import transpose_plain  # noqa: E402
+from repro_torch.launch.mesh import make_fft_mesh  # noqa: E402
 from repro_torch.launch.serve_fft import (AdmissionError, DeadlineExceeded,  # noqa: E402
                                           FFTService, _bucket)
 from repro_torch.plan import (CostParams, PlanCache, candidate_configs,  # noqa: E402
-                              estimate_cost, fit_cost_params, measure_configs,
+                              estimate_cost, fit_cost_params, halfspec_cols,
+                              measure_configs,
                               measure_rfft_configs, record_wisdom, wisdom_key)
 
 SEED = 0
@@ -180,6 +208,16 @@ SERVE_TICK_BUDGET_S = 0.1
 # The fused batch's two layouts are timed at these (N, batch).
 FUSED_BATCH_SHAPES = [(1024, 2), (1024, 8), (4096, 2), (4096, 8), (8192, 2),
                       (8192, 8)]
+# The distributed path: complex64 at N = 8192 on a world of one rank over
+# NCCL (the exchange sends to itself), its fpm-pad run at 4096 (padded to
+# 2N = 8192), the panel counts raced; then a world of GLOO_RANKS processes
+# sharing the card over gloo (the exchange through the host), 2 emulated
+# hosts x 2 for the hierarchical exchange.
+N_DIST = 8192
+N_DIST_PAD = 4096
+DIST_PANELS = (2, 4, 8)
+GLOO_RANKS = 4
+GLOO_TIMEOUT_S = 600
 SOURCES = "src/repro_torch/kernels/csrc/"
 
 
@@ -437,7 +475,8 @@ def batched_row_shapes() -> dict[str, set[tuple[int, int]]]:
     split by a tick's budget, and of the cohorts of ``COHORT_SIZES``, and
     each batch of ``FUSED_BATCH_SHAPES``
     (fused kernels only); the 512^3 and 256^3 cubes and the 2^26 and 2^24
-    lines of the ``pfft3`` and ``pfft1_large`` paths run as one."""
+    lines of the ``pfft3`` and ``pfft1_large`` paths run as one; and the
+    blocks of the distributed paths at 1 and GLOO_RANKS ranks."""
     shapes = {name: set() for name in ("fft_rows", "fft_rows_transpose",
                                        "rfft_rows", "rfft_rows_transpose")}
 
@@ -477,6 +516,16 @@ def batched_row_shapes() -> dict[str, set[tuple[int, int]]]:
         cube(n, 1)
     for n in (N_LARGE, N_LARGE_MEASURE):
         line(n, 1)
+    # The distributed paths: each rank's (N/p, N) block, its panels, the
+    # (hc/p, N) spectral rows of the real path's phase 2, and the fpm-pad
+    # run's rows at their padded length.
+    for p in (1, GLOO_RANKS):
+        rows = N_DIST // p
+        shapes["fft_rows"].update((rows // k, N_DIST) for k in (1, *DIST_PANELS))
+        shapes["fft_rows"].add((halfspec_cols(N_DIST, p) // p, N_DIST))
+        shapes["fft_rows_transpose"].add((rows, N_DIST))
+        shapes["rfft_rows"].add((rows, N_DIST))
+    shapes["fft_rows"].add((N_DIST_PAD, 2 * N_DIST_PAD))
     return shapes
 
 
@@ -1420,6 +1469,278 @@ def phase_serve(gen: torch.Generator, fpms, card: str) -> dict[str, int]:
     return end_drive("serve", ("fft_rows", "rfft_rows"))
 
 
+def one_rank_pad_fpms(n: int) -> FPMSet:
+    """One processor, flat but eight times faster at 2N, so that FPM-PAD
+    pads it to 2N (a power of two).  A model of no device."""
+    xs = np.array(sorted({1, n // 8, n // 4, n // 2, n}))
+    ys = np.array([n, 5 * n // 4, 2 * n])
+    speed = np.full((len(xs), len(ys)), 1e9)
+    speed[:, 2] *= 8.0
+    return FPMSet([SpeedFunction(xs, ys, speed, name="P0")])
+
+
+def dist_expect(cfg: PlanConfig, real: bool = False) -> dict[str, int]:
+    """Launches of one distributed transform under ``cfg`` on each rank:
+    K2 once per phase when fused, K1 once per panel of each phase under
+    radix=4 (the real path: K3 for its first phase, K1 for its second)."""
+    if real:
+        return {"rfft_rows": 1, "fft_rows": 1} if cfg.radix == 4 else {}
+    if cfg.fused:
+        return {"fft_rows_transpose": 2}
+    return {"fft_rows": 2 * cfg.pipeline_panels} if cfg.radix == 4 else {}
+
+
+def phase_dist(gen: torch.Generator, card: str) -> dict[str, int]:
+    """Drive the distributed path once at world size 1 over NCCL, with the
+    launch counts set to 0 just before and read just after:
+    ``plan_pfft(N_DIST, mesh=)`` under the library, ``radix=4``, fused and
+    ``radix=4`` with 2, 4 and 8 pipelined panels against
+    ``torch.fft.fft2``; ``fpm-pad`` at N_DIST_PAD (padded to 2N) against
+    the padded-signal oracle; ``rfft-lb`` under ``radix=4`` against
+    ``torch.fft.rfft2`` and ``irpfft2_distributed`` back to the signal;
+    ``tune="estimate"`` and ``tune="measure"`` plans (one rank: measure
+    falls back to estimate, ``info["measure_fallback"]``).  Then, outside
+    the drive, each run timed beside the single-device plan of the same
+    config, with the copies of one execute counted (``count_copies``), and
+    the exchange sending to itself and the phase's two copies timed alone.
+    The group is destroyed at the end."""
+    mesh = make_fft_mesh()
+    n = N_DIST
+    signal = random_signal(gen, n, n)
+    oracle = torch.fft.fft2(signal)
+    real = random_real(gen, n, n)
+    real_oracle = torch.fft.rfft2(real)
+    small = random_signal(gen, N_DIST_PAD, N_DIST_PAD)
+    tol = 2e-4 * n
+    configs = [PlanConfig(), PlanConfig(radix=4), PlanConfig(radix=4, fused=True),
+               *(PlanConfig(radix=4, pipeline_panels=k) for k in DIST_PANELS)]
+    plans = {}
+
+    reset_launch_counts()          # ---- the distributed path's single drive starts
+
+    for cfg in configs:
+        plan = plan_pfft(n, mesh=mesh, method="lb", config=cfg)
+        plans[f"lb/{cfg.describe()}"] = (plan, signal)
+        check_run("dist", f"lb/{cfg.describe()}", lambda: plan.execute(signal),
+                  oracle, dist_expect(cfg), tol, n=n, p=1,
+                  device=str(plan.device))
+    fpms = one_rank_pad_fpms(N_DIST_PAD)
+    for cfg in (PlanConfig(), PlanConfig(radix=4)):
+        plan = plan_pfft(N_DIST_PAD, mesh=mesh, method="fpm-pad", fpms=fpms,
+                         config=cfg)
+        if plan.pad_lengths.tolist() != [2 * N_DIST_PAD]:
+            raise AssertionError(f"fpm-pad did not pad to 2N: {plan.pad_lengths}")
+        plans[f"fpm-pad/{cfg.describe()}"] = (plan, small)
+        check_run("dist", f"fpm-pad/{cfg.describe()}", lambda: plan.execute(small),
+                  padded_oracle(small, plan.d, plan.pad_lengths),
+                  dist_expect(cfg), 2e-4 * N_DIST_PAD, n=N_DIST_PAD,
+                  pad_lengths=plan.pad_lengths.tolist())
+    kernel = PlanConfig(radix=4)
+    plan = plan_pfft(n, mesh=mesh, method="rfft-lb", dtype="float32",
+                     config=kernel)
+    plans["rfft-lb/radix=4"] = (plan, real)
+    half = check_run("dist", "rfft-lb/radix=4", lambda: plan.execute(real),
+                     real_oracle, dist_expect(kernel, real=True), tol, n=n)
+    # The inverse runs the library's FFTs, as the reference's does; 1e-3 on
+    # the unit-variance signal.
+    check_run("dist", "irpfft2_distributed", lambda: irpfft2_distributed(
+        half, mesh), real, {}, 1e-3, n=n)
+    # Planned from a fresh wisdom file: the first rank's lookup (a miss) is
+    # broadcast over the NCCL group, and each measure plan records its
+    # fallback pick (under its own key), as the reference's does.
+    store = os.path.join(tempfile.mkdtemp(), "wisdom.json")
+    for method, signal_in, ref in (("lb", signal, oracle),
+                                   ("rfft-lb", real, real_oracle)):
+        for tune in ("estimate", "measure"):
+            dtype = "float32" if method == "rfft-lb" else "complex64"
+            plan, seconds, delta = planned(lambda: plan_pfft(
+                n, mesh=mesh, method=method, tune=tune, dtype=dtype,
+                wisdom=store))
+            if any(delta.values()):
+                raise AssertionError(f"{method} {tune} plan launched {delta}")
+            if plan.tuning["source"] != tune:
+                raise AssertionError(f"{method}: planned from "
+                                     f"{plan.tuning['source']}, not {tune}")
+            if tune == "measure" and "measure_fallback" not in plan.tuning:
+                raise AssertionError(f"{method}: measure on one rank did not "
+                                     "fall back to the estimate")
+            cfg = plan.schedule.anchor_config
+            check_run("dist", f"{method}/tune={tune}", lambda: plan.execute(signal_in),
+                      ref, dist_expect(cfg, real=cfg.real), tol,
+                      pick=plan.schedule.describe(), plan_s=seconds,
+                      topology=plan.tuning["topology"],
+                      fallback=plan.tuning.get("measure_fallback"))
+
+    # ---- the distributed path's single drive ends
+    counts = end_drive("dist", ("fft_rows", "fft_rows_transpose", "rfft_rows"))
+    shutil.rmtree(os.path.dirname(store))
+
+    for label, (plan, x) in plans.items():
+        single = plan_pfft(plan.n, p=1, method=plan.method, fpms=plan_fpms(plan),
+                           config=plan.config, dtype=plan.dtype)
+        lib = torch.fft.rfft2 if plan.method.startswith("rfft") else torch.fft.fft2
+        log("dist_time", card=card, run=label, n=plan.n, p=1,
+            execute_ms=time_ms(lambda: plan.execute(x), reps=5, warmup=1),
+            single_device_ms=time_ms(lambda: single.execute(x), reps=5, warmup=1),
+            library_ms=time_ms(lambda: lib(x), reps=5, warmup=1),
+            copies=count_copies(lambda: plan.execute(x)),
+            single_device_copies=count_copies(lambda: single.execute(x)))
+    group = mesh.get_group("fft")
+    stack = _pack(signal, 1)
+    recv = _send_recv(stack, group).wait()
+    log("dist_time", card=card, run="exchange/self", n=n, p=1,
+        bytes=stack.numel() * 8,
+        exchange_ms=time_ms(lambda: _send_recv(stack, group).wait(), reps=5,
+                            warmup=1),
+        pack_ms=time_ms(lambda: _pack(signal, 1), reps=5, warmup=1),
+        place_ms=time_ms(lambda: recv.permute(2, 0, 1).contiguous(), reps=5,
+                         warmup=1),
+        clone_ms=time_ms(lambda: signal.clone(), reps=5, warmup=1))
+    dist.destroy_process_group()
+    return counts
+
+
+def count_copies(fn) -> int:
+    """The ``aten::copy_`` calls (``.contiguous()``, ``clone``, ``copy_``)
+    that one call of ``fn`` makes, counted by the host-side profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.key == "aten::copy_")
+
+
+def plan_fpms(plan):
+    """The FPMs a distributed fpm-pad plan was made from, for its
+    single-device twin (the same pads: one processor, N rows)."""
+    return one_rank_pad_fpms(plan.n) if plan.method == "fpm-pad" else None
+
+
+def gloo_runs(flat, hier) -> list[tuple]:
+    """(label, mesh, method, config) of the shared-card world's drive."""
+    kernel = PlanConfig(radix=4)
+    return [("lb/radix=4", flat, "lb", kernel),
+            ("lb/fused", flat, "lb", PlanConfig(radix=4, fused=True)),
+            ("lb/hier", hier, "lb", PlanConfig(radix=4, exchange="hier")),
+            ("lb/panels=2", flat, "lb", PlanConfig(radix=4, pipeline_panels=2)),
+            ("rfft-lb/radix=4", flat, "rfft-lb", kernel)]
+
+
+def dist_worker(rank: int, port: int, out: str) -> None:
+    """One rank of phase ``dist_gloo4``: every rank makes the same seeded
+    signal on the card, transforms its (N/4, N) row block under each of
+    ``gloo_runs`` (counted), and rank 0 gathers the blocks through the host
+    and holds them against the library's transform of the whole signal.
+    Then each run is timed (host clock between barriers).  Rank 0 writes the
+    JSON record to ``out``."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=GLOO_RANKS, rank=rank)
+    flat = make_fft_mesh(device_type="cuda", backend="gloo")
+    hier = make_fft_mesh(hosts=2, local=2, device_type="cuda", backend="gloo")
+    n, w = N_DIST, N_DIST // GLOO_RANKS
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    signal = random_signal(gen, n, n)
+    real = random_real(gen, n, n)
+    rows = slice(rank * w, (rank + 1) * w)
+    blocks = {"lb": signal[rows].contiguous(), "rfft-lb": real[rows].contiguous()}
+    plans, records = [], []
+
+    reset_launch_counts()          # ---- this rank's part of the drive starts
+
+    for label, mesh, method, cfg in gloo_runs(flat, hier):
+        real_in = method == "rfft-lb"
+        plan = plan_pfft(n, mesh=mesh, axis_name=mesh.mesh_dim_names[0],
+                         method=method, config=cfg,
+                         dtype="float32" if real_in else "complex64")
+        plans.append((label, plan, blocks[method]))
+        before = launch_counts()
+        out_block = plan.execute(blocks[method])
+        torch.cuda.synchronize()
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        parts = [torch.empty_like(torch.view_as_real(out_block.cpu()))
+                 for _ in range(GLOO_RANKS)] if rank == 0 else None
+        dist.gather(torch.view_as_real(out_block.cpu()), parts, dst=0)
+        record = {"run": label, "config": cfg.describe(), "launches": delta,
+                  "expect": dist_expect(cfg, real=real_in)}
+        if rank == 0:
+            full = torch.view_as_complex(torch.cat(parts)).cuda()
+            oracle = torch.fft.rfft2(real) if real_in else torch.fft.fft2(signal)
+            record.update(max_abs_err=max_abs_err(full, oracle), atol=2e-4 * n)
+        records.append(record)
+
+    counts = launch_counts()       # ---- this rank's part of the drive ends
+    for label, plan, block in plans:
+        times = []
+        for _ in range(3):
+            dist.barrier()
+            t0 = time.perf_counter()
+            plan.execute(block)
+            torch.cuda.synchronize()
+            dist.barrier()
+            times.append((time.perf_counter() - t0) * 1e3)
+        for record in records:
+            if record["run"] == label:
+                record["wall_ms"] = statistics.median(times)
+    seen = [None] * GLOO_RANKS
+    dist.all_gather_object(seen, {"counts": counts, "records": records})
+    if rank == 0:
+        with open(out, "w") as fh:
+            json.dump(seen, fh)
+    dist.destroy_process_group()
+
+
+def phase_dist_gloo4(card: str) -> dict[str, int]:
+    """Drive the distributed path once on GLOO_RANKS processes sharing the
+    card over gloo with CUDA tensors (``dist_worker``): ``radix=4``, fused,
+    the hierarchical exchange on 2 emulated hosts x 2, 2 pipelined panels and
+    ``rfft-lb`` at N = N_DIST, each gathered on rank 0 against the library.
+    Every rank must launch exactly ``dist_expect`` per run; the path's counts
+    are the sums over the ranks."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "gloo.json")
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--dist-rank", str(r), str(port), out],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True)
+                 for r in range(GLOO_RANKS)]
+        failed = []
+        try:
+            for r, proc in enumerate(procs):
+                _, err = proc.communicate(timeout=GLOO_TIMEOUT_S)
+                if proc.returncode:
+                    failed.append(f"rank {r} exited {proc.returncode}: {err[-2000:]}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+        if failed:
+            raise AssertionError("dist_gloo4: " + "\n".join(failed))
+        with open(out) as fh:
+            seen = json.load(fh)
+    for rank, part in enumerate(seen):
+        for record in part["records"]:
+            expect = {k: record["expect"].get(k, 0) for k in record["launches"]}
+            if record["launches"] != expect:
+                raise AssertionError(f"dist_gloo4 rank {rank} {record['run']}: "
+                                     f"launches {record['launches']}, expected {expect}")
+    for record in seen[0]["records"]:
+        log("dist_gloo4", card=card, ranks=GLOO_RANKS, n=N_DIST, **record)
+        if record["max_abs_err"] > record["atol"]:
+            raise AssertionError(f"dist_gloo4 {record['run']}: max error "
+                                 f"{record['max_abs_err']} > {record['atol']}")
+    counts = {k: sum(part["counts"][k] for part in seen) for k in seen[0]["counts"]}
+    log("dist_gloo4", launches=counts, launches_by_rank=[p["counts"] for p in seen])
+    for name in ("fft_rows", "fft_rows_transpose", "rfft_rows"):
+        if counts[name] < 1:
+            raise AssertionError(f"the dist_gloo4 path never launched {name}")
+    return counts
+
+
 def time_fused_batch(gen: torch.Generator, card: str) -> None:
     """A fused batch's two layouts, on the same stack, in turns (batched,
     loop, loop, batched): ``plan.execute`` of the stack (K2 — K4 then K2
@@ -1490,7 +1811,9 @@ def main() -> None:
              "planner": planner_counts, "microbench_fused": bench_counts,
              "pfft3": phase_pfft3(gen, card),
              "pfft1_large": phase_pfft1_large(gen, card),
-             "serve": phase_serve(gen, fpms, card)}
+             "serve": phase_serve(gen, fpms, card),
+             "dist": phase_dist(gen, card),
+             "dist_gloo4": phase_dist_gloo4(card)}
     for record in records:
         by_path = {path: counts[record["name"]] for path, counts in paths.items()}
         record["launches"] = sum(by_path.values())
@@ -1507,4 +1830,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dist-rank"]:
+        dist_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        main()

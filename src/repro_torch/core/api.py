@@ -44,8 +44,12 @@ of all the signals, so a batch costs the launches of one signal on the
 unfused paths; ``execute_many`` stacks host signals into one such batch
 (the serving layer's surface, ``repro_torch.launch.serve_fft``).
 
-Not in this package yet, and refused with ``NotImplementedError`` rather than
-quietly ignored: ``mesh=`` (the distributed slice).
+``plan_pfft(mesh=...)`` plans the distributed 2-D transform
+(``core.pfft_dist``) over a ``torch.distributed`` ``DeviceMesh``: every rank
+of the mesh plans alike (the decisions are agreed across ranks) and its
+``execute`` takes and returns this rank's ``(N/p, N)`` row block.  Not in
+this package yet, and refused with ``NotImplementedError`` rather than
+quietly ignored: ``plan_pfft3(mesh=...)`` (the 3-D mesh pipelines).
 """
 
 from __future__ import annotations
@@ -69,7 +73,9 @@ from repro_torch.plan.cost import CostParams
 from repro_torch.plan.schedule import SegmentSchedule
 from repro_torch.plan.tune import tune_rfft, tune_schedule
 from repro_torch.plan.wisdom import (lookup_wisdom, partition_digest,
-                                     record_wisdom, wisdom_key)
+                                     record_wisdom, topology_digest,
+                                     wisdom_key)
+from repro_torch.launch.mesh import first_rank_does, first_rank_value
 
 Method = Literal["lb", "fpm", "fpm-pad", "fpm-czt",
                  "rfft-lb", "rfft-fpm", "rfft-fpm-pad"]
@@ -91,8 +97,8 @@ __all__ = ["PfftPlan", "plan_pfft", "rfft2", "irfft2",
            "Pfft3Plan", "plan_pfft3",
            "Pfft1LargePlan", "plan_pfft1_large", "pfft1_large"]
 
-_NO_MESH = ("mesh=: distributed plans are not in repro_torch yet; they come "
-            "with the distributed slice")
+_NO_MESH = ("plan_pfft3(mesh=): the 3-D mesh pipelines are not in repro_torch "
+            "yet; they come with the next distributed slice")
 
 
 def _base_method(method: str) -> str:
@@ -108,10 +114,13 @@ def _ctype_for(dtype: str) -> torch.dtype:
 
 
 def _plan_groups(method: str, schedule: SegmentSchedule, d: np.ndarray,
-                 device: torch.device):
+                 device: torch.device, mesh=None):
     """The dispatch groups the plan's executor runs, made once on its
     device: the real limb's two phases for a real-flagged schedule of a
-    real method, else the complex limb's."""
+    real method, else the complex limb's; none for a distributed plan
+    (each rank transforms its whole block)."""
+    if mesh is not None:
+        return []
     if method in _REAL_METHODS and schedule.anchor_config.real:
         return real_limb_groups(schedule, d, device)
     return device_groups(schedule, device)
@@ -135,12 +144,28 @@ class PfftPlan:
     # the device.
     _groups: Any = dataclasses.field(default_factory=list, repr=False,
                                      compare=False)
+    # A distributed plan's mesh (``core.pfft_dist`` runs it), kept so that
+    # ``with_schedule`` rebuilds against the same ranks.
+    mesh: Any = None
+    axis_name: str = "fft"
+
+    @property
+    def rows(self) -> int:
+        """Rows of the block ``execute`` takes: N, or N/p on a mesh."""
+        return self.n if self.mesh is None else self.n // len(self.d)
 
     def _run(self, m: torch.Tensor) -> torch.Tensor:
         """Route as the reference's ``_build_raw`` does: a real method with
         a real-flagged schedule runs the half-spectrum limb; one with a
         complex-family schedule upcasts, runs the complex limb and crops.
-        ``m`` is a contiguous ``(..., n, n)`` stack."""
+        ``m`` is a contiguous ``(..., rows, n)`` stack."""
+        if self.mesh is not None:
+            if m.ndim == 2:
+                return self._run_distributed(m)
+            lead = m.shape[:-2]
+            flat = m.reshape((-1,) + tuple(m.shape[-2:]))
+            out = torch.stack([self._run_distributed(b) for b in flat])
+            return out.reshape(lead + tuple(out.shape[-2:]))
         d = self.partition.d
         if self.method in _REAL_METHODS:
             if self.schedule.anchor_config.real:
@@ -153,6 +178,20 @@ class PfftPlan:
                                  self._groups)[..., :self.n // 2 + 1]
         return _complex_limb(m, d, self.schedule, self._groups)
 
+    def _run_distributed(self, block: torch.Tensor) -> torch.Tensor:
+        """This rank's block through ``core.pfft_dist``, routed on the
+        schedule's family as ``_run`` routes."""
+        from repro_torch.core import pfft_dist
+        if self.method in _REAL_METHODS:
+            if self.schedule.anchor_config.real:
+                return pfft_dist.rpfft2_distributed(
+                    block, self.mesh, self.axis_name, schedule=self.schedule)
+            return pfft_dist.pfft2_distributed(
+                block.to(_ctype_for(self.dtype)), self.mesh, self.axis_name,
+                schedule=self.schedule)[:, :self.n // 2 + 1]
+        return pfft_dist.pfft2_distributed(block, self.mesh, self.axis_name,
+                                           schedule=self.schedule)
+
     def execute(self, m) -> torch.Tensor:
         """Run the planned transform; leading batch dims are batched.
 
@@ -164,11 +203,16 @@ class PfftPlan:
         batch), and a fused schedule runs its two fused launches over them
         and one permuting copy.  The result is ``(..., n, n)``, or ``(...,
         n, n//2+1)`` for the ``rfft-*`` methods.
+
+        A distributed plan takes this rank's ``(..., n/p, n)`` row blocks
+        and returns its blocks of the result, one distributed transform per
+        signal of the batch; every rank of the mesh calls it alike.
         """
         m = _on_plan_device(m, self.device)
-        if m.ndim < 2 or tuple(m.shape[-2:]) != (self.n, self.n):
+        if m.ndim < 2 or tuple(m.shape[-2:]) != (self.rows, self.n):
             raise ValueError(
-                f"plan is for ({self.n}, {self.n}) signals "
+                f"plan is for ({self.rows}, {self.n}) "
+                f"{'row blocks' if self.mesh is not None else 'signals'} "
                 f"(optionally with leading batch dims), got {tuple(m.shape)}")
         return self._run(m.contiguous())
 
@@ -185,7 +229,7 @@ class PfftPlan:
         is where the call waits for the device.  A ``stages`` dict receives
         the seconds of the four steps (``_execute_many``).
         """
-        return _execute_many(self, ms, (self.n, self.n), pad_to, stages)
+        return _execute_many(self, ms, (self.rows, self.n), pad_to, stages)
 
     @property
     def d(self) -> np.ndarray:
@@ -199,7 +243,7 @@ class PfftPlan:
             self, schedule=schedule, config=schedule.anchor_config,
             tuning=dict(tuning) if tuning is not None else dict(self.tuning),
             _groups=_plan_groups(self.method, schedule, self.partition.d,
-                                 self.device))
+                                 self.device, self.mesh))
 
 
 def _on_plan_device(m, device: torch.device) -> torch.Tensor:
@@ -258,7 +302,8 @@ def _resolve_schedule(n: int, method: Method, part: PartitionResult,
                       pads: np.ndarray | None, fpms: FPMSet | None,
                       tune: TuneMode, wisdom: str | None,
                       config: PlanConfig | None, dtype: str,
-                      device: torch.device
+                      device: torch.device, mesh=None, axis_name: str = "fft",
+                      pad_len: int | None = None
                       ) -> tuple[SegmentSchedule, dict[str, Any]]:
     """Pick the plan's execution schedule and say where it came from.
 
@@ -269,6 +314,16 @@ def _resolve_schedule(n: int, method: Method, part: PartitionResult,
     the current partition (a stale structure is a miss, never an error).
     ``tuning["source"]`` records which branch won.  The key's backend and
     the tuner's measurements are the plan's device.
+
+    With a ``mesh``, the plan is for ``core.pfft_dist``: the key gains the
+    mesh's ``topology_digest``, the tuner is the distributed one (measure
+    races finalists end to end on this mesh), and a measured pick is
+    recorded with its comm sample.  Every rank takes the first rank's
+    wisdom lookup and fitted constants, the tuners rank times agreed over
+    the axis, and the first rank alone writes the store (the others wait
+    at a barrier): all ranks resolve the same schedule.  ``pad_len`` is a
+    raw ``pfft2_distributed`` call's local FFT length, at which the
+    distributed tuner races.
     """
     pad_strategy = _PAD_STRATEGY[method]
     real = method in _REAL_METHODS
@@ -297,11 +352,24 @@ def _resolve_schedule(n: int, method: Method, part: PartitionResult,
     # key — a different model must not be served another model's plan.
     detail = (partition_digest(part.d, pads)
               if _base_method(method) != "lb" else None)
+    topo = panels = None
+    if mesh is not None:
+        from repro_torch.plan.tune import dist_panel_space
+        panels = dist_panel_space(n, len(part.d))
+        topo = topology_digest(mesh, axis_name, panels=panels)
+        tuning["topology"] = topo
     key = wisdom_key(n=n, dtype=dtype, p=len(part.d), method=method,
-                     backend=device.type, detail=detail)
+                     backend=device.type, detail=detail, topology=topo)
     tuning["wisdom_key"] = key
+
+    def agreed(fn):
+        """``fn()``, the first rank's answer on a mesh."""
+        if mesh is None:
+            return fn()
+        return first_rank_value(mesh, axis_name, fn)
+
     if wisdom is not None:
-        hit = lookup_wisdom(wisdom, key)
+        hit = agreed(lambda: lookup_wisdom(wisdom, key))
         if hit is not None:
             plan, entry = hit
             if isinstance(plan, SegmentSchedule):
@@ -315,6 +383,18 @@ def _resolve_schedule(n: int, method: Method, part: PartitionResult,
             else:
                 schedule = SegmentSchedule.homogeneous(normalize(plan), n,
                                                        part.d, pads)
+            if schedule is not None and mesh is not None:
+                # A distributed plan must lower to one SPMD program (and a
+                # real-family one to the real program's shape): anything
+                # ``core.pfft_dist`` would refuse is a miss.
+                from repro_torch.core import pfft_dist
+                try:
+                    if schedule.anchor_config.real:
+                        pfft_dist._validate_real_dist(None, schedule)
+                    else:
+                        pfft_dist.validate_spmd_schedule(schedule)
+                except ValueError:
+                    schedule = None
             if schedule is not None:
                 tuning["source"] = "wisdom"
                 tuning["wisdom_entry"] = entry
@@ -330,9 +410,20 @@ def _resolve_schedule(n: int, method: Method, part: PartitionResult,
     if wisdom is not None:
         # Enough measured entries on this device type re-fit the cost
         # constants (the committed ones below the sample threshold).
-        params = fit_cost_params(wisdom, backend=device.type)
+        params = agreed(lambda: fit_cost_params(wisdom, backend=device.type))
         tuning["calibrated"] = params != CostParams.for_backend(device.type)
-    if real:
+    if real and mesh is not None:
+        from repro_torch.plan.tune import tune_rfft_dist
+        schedule, info = tune_rfft_dist(
+            n, mesh, axis_name, mode=tune, pad=pad_strategy, fpms=fpms,
+            params=params, panels=panels, dtype=np.dtype(dtype))
+    elif mesh is not None:
+        from repro_torch.plan.tune import tune_dist_schedule
+        schedule, info = tune_dist_schedule(
+            n, mesh, axis_name, pad_lengths=pads, mode=tune,
+            pad=pad_strategy, pad_len=pad_len, fpms=fpms, params=params,
+            panels=panels, dtype=np.dtype(dtype))
+    elif real:
         schedule, info = tune_rfft(n, d=part.d, pad_lengths=pads,
                                    fpms=fpms, mode=tune, pad=pad_strategy,
                                    params=params, dtype=np.dtype(dtype),
@@ -345,16 +436,39 @@ def _resolve_schedule(n: int, method: Method, part: PartitionResult,
     tuning.update(info)
     tuning["source"] = tune
     if wisdom is not None and tune == "measure":
-        record_wisdom(wisdom, key, schedule, mode="measure",
-                      time_s=info.get("time_s"))
+        if mesh is None:
+            record_wisdom(wisdom, key, schedule, mode="measure",
+                          time_s=info.get("time_s"))
+        else:
+            extra = _dist_wisdom_extra(topo, info)
+            first_rank_does(mesh, axis_name, lambda: record_wisdom(
+                wisdom, key, schedule, mode="measure",
+                time_s=info.get("time_s"), extra=extra))
     return schedule, tuning
+
+
+def _dist_wisdom_extra(topo: str, info: dict) -> dict:
+    """What a measured distributed wisdom entry carries beside its plan:
+    the topology and the comm sample (total and per tier) that
+    ``fit_cost_params`` fits the interconnect constants from."""
+    extra: dict = {"topology": topo}
+    stats = info.get("dist", {})
+    if stats.get("comm_time_meas_s") is not None:
+        extra["comm_bytes"] = stats["comm_bytes"]
+        extra["comm_time_s"] = stats["comm_time_meas_s"]
+    if stats.get("comm_samples"):
+        extra["comm_samples"] = stats["comm_samples"]
+    if int(stats.get("hosts", 1)) > 1:
+        extra["hosts"] = int(stats["hosts"])
+    return extra
 
 
 def plan_pfft(n: int, *, p: int | None = None, fpms: FPMSet | None = None,
               method: Method = "fpm", eps: float = 0.05,
               tune: TuneMode = "off", wisdom: str | None = None,
               config: PlanConfig | None = None, dtype: str = "complex64",
-              mesh=None, device: str | torch.device | None = None,
+              mesh=None, axis_name: str = "fft",
+              device: str | torch.device | None = None,
               use_stockham: bool | None = None,
               fused: bool | None = None) -> PfftPlan:
     """Build a reusable plan; see the module docstring for the lifecycle.
@@ -370,13 +484,24 @@ def plan_pfft(n: int, *, p: int | None = None, fpms: FPMSet | None = None,
     the winner; ``plan.tuning["chosen_path"]`` says which side won.
     ``use_stockham=``/``fused=`` are deprecated shims for the legacy flag
     API (they build an explicit config, so tuning is skipped).
+
+    ``mesh=`` (a ``DeviceMesh``, ``launch.mesh.make_fft_mesh``) plans for
+    ``core.pfft_dist`` over its ``axis_name`` axis instead of the
+    single-device limb; every rank calls it alike, and the plan lives on
+    the rank's device (the host for a cpu mesh, the rank's card for a
+    cuda one; ``device=`` must agree).  N must divide by the axis size.
+    SPMD spreads rows evenly (one abstract processor per rank, N/p rows
+    each), so the FPMs drive per-rank pad lengths and execution variants
+    instead of row counts: plain ``"fpm"`` is refused (it would run as
+    ``"lb"``), ``"fpm-pad"``/``"fpm-czt"`` need ``fpms`` covering exactly
+    the axis, heterogeneous picks lower as device-group programs, and
+    ``"rfft-fpm-pad"`` is refused (the real distributed program is
+    unpadded).  ``execute`` then takes this rank's ``(N/p, N)`` block.
     """
     if tune not in ("off", "estimate", "measure"):
         raise ValueError(f"tune must be 'off'|'estimate'|'measure', got {tune!r}")
     if method not in _PAD_STRATEGY:
         raise ValueError(f"unknown method {method!r}")
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
     real = method in _REAL_METHODS
     base = _base_method(method)
     kind = np.dtype(dtype).kind
@@ -388,6 +513,9 @@ def plan_pfft(n: int, *, p: int | None = None, fpms: FPMSet | None = None,
         raise ValueError(
             f"method={method!r} transforms complex input (got dtype="
             f"{dtype!r}); use an 'rfft-*' method for real signals")
+    if mesh is not None:
+        p = _check_mesh_plan(n, method, p, fpms, mesh, axis_name)
+        device = _mesh_plan_device(mesh, device)
     if use_stockham is not None or fused is not None:
         if config is not None:
             raise ValueError("pass either config= or the legacy flags "
@@ -412,7 +540,10 @@ def plan_pfft(n: int, *, p: int | None = None, fpms: FPMSet | None = None,
     else:
         if fpms is None:
             raise ValueError(f"method={method!r} requires fpms")
-        part = partition_rows(n, fpms, eps)
+        # On a mesh SPMD spreads rows evenly: the FPMs drive per-rank pad
+        # lengths and execution variants, not row counts.
+        part = (lb_partition(n, p) if mesh is not None
+                else partition_rows(n, fpms, eps))
         if base == "fpm-pad" and real:
             # Even pads only: the half-spectrum crop identity holds for any
             # length >= n, and the model picks among even beneficial lengths.
@@ -429,28 +560,87 @@ def plan_pfft(n: int, *, p: int | None = None, fpms: FPMSet | None = None,
 
     device = resolve_device(device)
     schedule, tuning = _resolve_schedule(n, method, part, pads, fpms, tune,
-                                         wisdom, config, dtype, device)
+                                         wisdom, config, dtype, device,
+                                         mesh=mesh, axis_name=axis_name)
     return PfftPlan(n=n, method=method, partition=part, pad_lengths=pads,
                     config=schedule.anchor_config, schedule=schedule,
                     tuning=tuning, device=device, dtype=dtype,
-                    _groups=_plan_groups(method, schedule, part.d, device))
+                    _groups=_plan_groups(method, schedule, part.d, device,
+                                         mesh),
+                    mesh=mesh, axis_name=axis_name)
 
 
-def rfft2(m, *, p: int = 1, tune: TuneMode = "off", wisdom: str | None = None,
-          mesh=None) -> torch.Tensor:
+def _check_mesh_plan(n: int, method: str, p: int | None, fpms, mesh,
+                     axis_name: str) -> int:
+    """The mesh rules of ``plan_pfft`` (its docstring); returns p."""
+    from repro_torch.launch.mesh import axis_size
+    mesh_p = axis_size(mesh, axis_name)
+    base = _base_method(method)
+    if method in _REAL_METHODS and base == "fpm-pad":
+        raise ValueError(
+            "the distributed real path runs the homogeneous unpadded "
+            "program; use method='rfft-lb' with mesh=, or plan "
+            "'rfft-fpm-pad' single-device")
+    if p is None:
+        p = mesh_p
+    elif p != mesh_p:
+        raise ValueError(f"p={p} conflicts with mesh axis "
+                         f"{axis_name!r} size {mesh_p}")
+    if n % p:
+        raise ValueError(f"N={n} must be divisible by mesh axis "
+                         f"{axis_name}={p}")
+    if base == "fpm":
+        raise ValueError(
+            "plan_pfft(mesh=...) spreads rows evenly, so plain "
+            f"method={method!r} would run exactly as the 'lb' variant (its "
+            "FPMs can only move the *row* split, which SPMD fixes) — use "
+            "the 'lb' variant, or 'fpm-pad'/'fpm-czt' for FPM-driven "
+            "per-rank pads and execution variants")
+    if base != "lb" and fpms is not None and fpms.p != p:
+        raise ValueError(
+            f"plan_pfft(mesh=...) assigns one abstract processor per "
+            f"rank: fpms covers {fpms.p} processors but the mesh axis "
+            f"{axis_name!r} has {p} ranks")
+    return p
+
+
+def _mesh_plan_device(mesh, device) -> torch.device:
+    """A distributed plan's device: the rank's (``launch.mesh.mesh_device``);
+    an explicit ``device`` must be of the mesh's type."""
+    from repro_torch.launch.mesh import mesh_device
+    own = mesh_device(mesh)
+    if device is not None and torch.device(device).type != own.type:
+        raise ValueError(f"device={device!r} conflicts with the "
+                         f"{mesh.device_type} mesh")
+    return own
+
+
+def rfft2(m, *, p: int | None = None, tune: TuneMode = "off",
+          wisdom: str | None = None, mesh=None,
+          axis_name: str = "fft") -> torch.Tensor:
     """One-shot planned real-input 2-D DFT -> (N, N//2+1) half spectrum.
 
     Builds an ``rfft-lb`` plan for ``m``'s size, dtype and device and
     executes it once.  A host array goes to the default (CUDA) device.  For
     the plan-once/run-many lifecycle (or the FPM methods) use
-    ``plan_pfft(method='rfft-...')`` directly.
+    ``plan_pfft(method='rfft-...')`` directly.  ``p`` defaults to 1, or to
+    the axis size with ``mesh=``, where ``m`` is this rank's ``(N/p, N)``
+    row block and the result its ``(N/p, N//2+1)`` block.
     """
     m = as_tensor(m)
-    if m.ndim < 2 or m.shape[-1] != m.shape[-2]:
-        raise ValueError(f"rfft2 plans square (N, N) signals, got {tuple(m.shape)}")
-    plan = plan_pfft(m.shape[-1], p=p, method="rfft-lb", tune=tune,
-                     wisdom=wisdom, dtype=str(m.dtype).removeprefix("torch."),
-                     mesh=mesh, device=m.device)
+    rows = m.shape[-1]
+    if mesh is not None and m.ndim >= 2:
+        from repro_torch.launch.mesh import axis_size
+        rows = m.shape[-1] // axis_size(mesh, axis_name)
+    if m.ndim < 2 or m.shape[-2] != rows:
+        raise ValueError(
+            f"rfft2 plans square (N, N) signals (this rank's (N/p, N) block "
+            f"on a mesh), got {tuple(m.shape)}")
+    plan = plan_pfft(m.shape[-1], p=p if p is not None or mesh is not None
+                     else 1, method="rfft-lb", tune=tune, wisdom=wisdom,
+                     dtype=str(m.dtype).removeprefix("torch."), mesh=mesh,
+                     axis_name=axis_name,
+                     device=m.device if mesh is None else None)
     return plan.execute(m)
 
 

@@ -1,0 +1,338 @@
+"""Device meshes and multi-process launch for the distributed pipeline.
+
+Counterpart of ``repro.launch.mesh`` for the 2-D pipeline.  The port runs
+SPMD over ``torch.distributed``: one process per device, each holding its
+own block of the signal, so a mesh is a ``DeviceMesh`` over the ranks of the
+default process group and every rank takes part in every collective.
+
+* ``init_multihost`` / ``init_multihost_from_env`` bring a process into the
+  process group (torchrun's ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` /
+  ``MASTER_PORT`` contract); ``make_fft_mesh`` does so itself, for a world
+  of one process, when no group exists yet.
+* ``make_fft_mesh(hosts=, local=)`` builds the FFT axis *host-major*: rank
+  ``H*local + L`` is local device ``L`` of host ``H``, so the hierarchical
+  exchange's intra-host groups are contiguous runs along the axis.  The
+  host structure is kept on the mesh object itself, together with this
+  rank's two process groups of the hierarchical exchange, so a plan keeps
+  the hierarchy its mesh was built with whatever meshes come after.  The
+  groups are built while the first mesh of a host partition is built, on
+  every rank in the same order (creating a process group is collective),
+  and every later mesh of that partition reuses them.
+* ``mesh_host_shape`` reads ``(hosts, local)`` back: the structure
+  declared by ``hosts=``/``local=`` (emulated, as in the reference's
+  single-process tests) or, without them, the launcher's processes per host
+  (``LOCAL_WORLD_SIZE``).
+
+The device type decides the backend: ``"cuda"`` (the default, which raises
+without a card) runs NCCL, ``"cpu"`` runs gloo.  ``device_type="cuda",
+backend="gloo"`` (several ranks sharing one card, the exchange through the
+host) is taken only when asked for.
+
+The collectives every rank must agree on while planning (the first rank's
+wisdom lookup, the slowest rank's measured times) are the helpers at the
+end: under SPMD each rank plans for itself, and ranks that chose
+differently would meet at different collectives.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import socket
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+
+__all__ = ["make_fft_mesh", "mesh_host_shape", "register_emulated_hosts",
+           "host_major_devices", "init_multihost", "init_multihost_from_env",
+           "axis_size", "mesh_device"]
+
+_BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+
+
+@dataclasses.dataclass(frozen=True)
+class _HostLayout:
+    """A registered host structure: the host count and this rank's two
+    process groups of the hierarchical exchange (``None`` when the
+    hierarchy is degenerate)."""
+    hosts: int
+    intra: object = None
+    inter: object = None
+
+
+# The attribute of a DeviceMesh that holds its {axis_name: _HostLayout}.
+_LAYOUT_ATTR = "_fft_host_layouts"
+
+# (default process group, ranks along the axis, hosts) -> this rank's
+# (intra, inter) groups.  Filled on every rank alike (the builders are
+# called alike), so either every rank creates a partition's groups or none.
+_HIER_GROUPS: dict[tuple, tuple] = {}
+
+
+def _backend_for(device_type: str | None, backend: str | None) -> tuple[str, str]:
+    """(device type, backend): ``None`` is ``"cuda"``, which needs a card;
+    each device type's backend unless one is named."""
+    device_type = "cuda" if device_type is None else device_type
+    if device_type not in _BACKENDS:
+        raise ValueError(f"device_type must be 'cuda' or 'cpu', got {device_type!r}")
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "make_fft_mesh: device_type 'cuda' (the default) needs a CUDA "
+            "device and none is available; pass device_type='cpu' for gloo "
+            "ranks on the host")
+    backend = _BACKENDS[device_type] if backend is None else backend
+    if device_type == "cpu" and backend != "gloo":
+        raise ValueError(f"a cpu mesh runs gloo, got backend={backend!r}")
+    return device_type, backend
+
+
+def _set_cuda_device(rank: int) -> None:
+    """This process's card: the launcher's ``LOCAL_RANK``, else the rank
+    modulo the cards visible (several ranks may share one)."""
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    torch.cuda.set_device(local % torch.cuda.device_count())
+
+
+def init_multihost(coordinator_address: str, num_processes: int,
+                   process_id: int, *, device_type: str | None = None,
+                   backend: str | None = None) -> None:
+    """Join the default process group at ``coordinator_address``
+    (``host:port``, served by process 0); a second call is a no-op.
+
+    ``device_type`` / ``backend`` as ``make_fft_mesh`` takes them; a CUDA
+    process also selects its card here, before any communicator exists.
+    """
+    if dist.is_initialized():
+        return
+    device_type, backend = _backend_for(device_type, backend)
+    if device_type == "cuda":
+        _set_cuda_device(int(process_id))
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
+                            world_size=int(num_processes), rank=int(process_id))
+
+
+def init_multihost_from_env(*, device_type: str | None = None,
+                            backend: str | None = None) -> bool:
+    """``init_multihost`` from torchrun's ``MASTER_ADDR`` / ``MASTER_PORT`` /
+    ``WORLD_SIZE`` / ``RANK``; returns False when they are unset."""
+    if "MASTER_ADDR" not in os.environ or "RANK" not in os.environ:
+        return False
+    init_multihost(f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
+                   int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"]),
+                   device_type=device_type, backend=backend)
+    return True
+
+
+def _init_single_process(device_type: str, backend: str) -> None:
+    """A world of this process alone, on a free port of this host."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init_multihost(f"127.0.0.1:{port}", 1, 0, device_type=device_type,
+                   backend=backend)
+
+
+def host_major_devices(ranks=None) -> list[int]:
+    """The ranks (default: the whole world) sorted host-major: by (host,
+    rank), the host of a rank being ``rank // LOCAL_WORLD_SIZE`` under a
+    launcher that says how many processes each host runs."""
+    ranks = list(range(dist.get_world_size())) if ranks is None else list(ranks)
+    per_host = int(os.environ.get("LOCAL_WORLD_SIZE", 0)) or len(ranks) or 1
+    return sorted(ranks, key=lambda r: (r // per_host, r))
+
+
+def axis_size(mesh: DeviceMesh, axis_name: str) -> int:
+    """The number of ranks along ``axis_name``; ``KeyError`` for an axis
+    the mesh does not have (as ``jax.sharding.Mesh.shape[axis]``),
+    ``TypeError`` for what is not a ``DeviceMesh``."""
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(
+            "the distributed pipeline runs on a torch.distributed DeviceMesh "
+            f"(launch.mesh.make_fft_mesh), got {type(mesh).__name__}")
+    names = tuple(mesh.mesh_dim_names or ())
+    if axis_name not in names:
+        raise KeyError(f"mesh has no axis {axis_name!r}: {names}")
+    return int(mesh.size(names.index(axis_name)))
+
+
+def mesh_device(mesh: DeviceMesh) -> torch.device:
+    """The device this rank's blocks live on: the host for a cpu mesh, the
+    process's current card for a cuda one."""
+    if mesh.device_type == "cpu":
+        return torch.device("cpu")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _axis_ranks(mesh: DeviceMesh, axis_name: str) -> tuple[int, ...]:
+    axis_size(mesh, axis_name)
+    return tuple(int(r) for r in mesh.mesh.flatten().tolist())
+
+
+def register_emulated_hosts(mesh: DeviceMesh, axis_name: str, hosts: int) -> None:
+    """Declare that ``mesh``'s ``axis_name`` axis is ``hosts`` host-major
+    groups of ranks, with the process groups of the hierarchical exchange
+    over them (built for the first mesh of this partition, then reused).
+
+    The declaration lives on ``mesh`` alone: other meshes over the same
+    ranks, whatever their axis name, keep their own.  Collective: every
+    rank of the world calls it, in the same order as every other group
+    creation.  ``hosts=1`` clears a prior declaration on this mesh.
+    """
+    ranks = _axis_ranks(mesh, axis_name)
+    p = len(ranks)
+    hosts = int(hosts)
+    layouts = getattr(mesh, _LAYOUT_ATTR, None)
+    if layouts is None:
+        layouts = {}
+        setattr(mesh, _LAYOUT_ATTR, layouts)
+    if hosts <= 1:
+        layouts.pop(axis_name, None)
+        return
+    if p % hosts:
+        raise ValueError(f"{hosts} hosts do not divide the {p} ranks of "
+                         f"axis {axis_name!r}")
+    layout = _HostLayout(hosts)
+    if p // hosts > 1:
+        layout = _HostLayout(hosts, *_hier_process_groups(ranks, hosts))
+    layouts[axis_name] = layout
+
+
+def _hier_process_groups(ranks: tuple[int, ...], hosts: int) -> tuple:
+    """This rank's (intra-host, inter-host) groups over the host-major
+    ``ranks``: made once per partition (collectively), then reused."""
+    from repro_torch.core.pfft_dist import _hier_groups  # lazy: core imports launch
+    key = (dist.group.WORLD, ranks, hosts)
+    if key not in _HIER_GROUPS:
+        me = ranks.index(dist.get_rank())
+        mine = {}
+        families = _hier_groups(hosts, len(ranks) // hosts)
+        for tier, family in zip(("intra", "inter"), families):
+            for positions in family:
+                group = dist.new_group([ranks[i] for i in positions])
+                if me in positions:
+                    mine[tier] = group
+        _HIER_GROUPS[key] = (mine["intra"], mine["inter"])
+    return _HIER_GROUPS[key]
+
+
+def _layout(mesh: DeviceMesh, axis_name: str) -> _HostLayout | None:
+    """The host layout registered on ``mesh``'s axis, if any."""
+    return getattr(mesh, _LAYOUT_ATTR, {}).get(axis_name)
+
+
+def mesh_host_shape(mesh: DeviceMesh, axis_name: str = "fft") -> tuple[int, int]:
+    """``(hosts, local)`` along ``mesh``'s ``axis_name`` axis: the
+    registered host-major structure, else ``(1, p)`` (no exploitable
+    hierarchy; the exchange still works, with no fast tier to group on)."""
+    try:
+        ranks = _axis_ranks(mesh, axis_name)
+    except KeyError as err:
+        raise ValueError(*err.args) from None
+    layout = _layout(mesh, axis_name)
+    if layout is None:
+        return 1, len(ranks)
+    return layout.hosts, len(ranks) // layout.hosts
+
+
+def hier_process_groups(mesh: DeviceMesh, axis_name: str):
+    """This rank's (intra-host, inter-host) process groups of the
+    hierarchical exchange, built with the mesh; ``ValueError`` when the
+    axis has no non-degenerate host structure."""
+    _axis_ranks(mesh, axis_name)
+    layout = _layout(mesh, axis_name)
+    if layout is None or layout.intra is None:
+        raise ValueError(f"axis {axis_name!r} has no registered host "
+                         "hierarchy; build the mesh with make_fft_mesh(hosts=)")
+    return layout.intra, layout.inter
+
+
+def make_fft_mesh(p: int | None = None, axis_name: str = "fft", *,
+                  hosts: int | None = None, local: int | None = None,
+                  device_type: str | None = None,
+                  backend: str | None = None) -> DeviceMesh:
+    """1-D mesh for the distributed PFFT pipeline (and its tuner).
+
+    Spans the whole world of ranks: ``p`` defaults to the world size and
+    must equal it (each rank holds one block of the signal).  Without a
+    process group, one is made from torchrun's environment, else for this
+    process alone.  The axis name is part of the plan's
+    ``topology_digest``, so callers who rename it get distinct wisdom keys.
+
+    ``hosts``/``local`` make the axis host-major over ``hosts x local``
+    ranks (either may be derived from the other and the world size);
+    without either, the launcher's ``LOCAL_WORLD_SIZE`` gives the hosts
+    when it divides the world.  ``hosts=1`` is the flat mesh.  Every rank
+    must call this alike: it creates process groups.
+    """
+    device_type, backend = _backend_for(device_type, backend)
+    if not dist.is_initialized():
+        if not init_multihost_from_env(device_type=device_type, backend=backend):
+            _init_single_process(device_type, backend)
+    elif dist.get_backend() != backend:
+        raise ValueError(
+            f"the process group runs {dist.get_backend()!r}, the mesh asks "
+            f"for {backend!r} (device_type={device_type!r})")
+    if device_type == "cuda":
+        _set_cuda_device(dist.get_rank())
+    world = dist.get_world_size()
+    if hosts is None and local is None:
+        per_host = int(os.environ.get("LOCAL_WORLD_SIZE", 0))
+        if 1 < per_host < world and world % per_host == 0:
+            hosts = world // per_host
+    elif hosts is None:
+        hosts = (int(p) if p is not None else world) // int(local)
+    elif local is None:
+        local = (int(p) if p is not None else world) // int(hosts)
+    if hosts is not None and local is not None:
+        if int(hosts) < 1 or int(local) < 1:
+            raise ValueError(f"hosts x local must be positive, got {hosts}x{local}")
+        p = int(hosts) * int(local)
+    p = world if p is None else int(p)
+    if p != world:
+        raise ValueError(
+            f"the FFT mesh spans the whole world: p={p}, but {world} ranks "
+            "are in the process group (one rank per block of the signal)")
+    mesh = DeviceMesh(device_type, host_major_devices(), mesh_dim_names=(axis_name,))
+    register_emulated_hosts(mesh, axis_name, int(hosts) if hosts else 1)
+    return mesh
+
+
+# ----------------------------------------------- decisions agreed by ranks
+
+def _axis_group(mesh: DeviceMesh, axis_name: str):
+    axis_size(mesh, axis_name)
+    return mesh.get_group(axis_name)
+
+
+def first_rank_value(mesh: DeviceMesh, axis_name: str, fn):
+    """``fn()`` run on the axis's first rank alone and handed to every rank
+    (a wisdom lookup, fitted constants): one answer for the whole mesh."""
+    group = _axis_group(mesh, axis_name)
+    box = [fn() if dist.get_rank(group) == 0 else None]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
+                               group=group)
+    return box[0]
+
+
+def first_rank_does(mesh: DeviceMesh, axis_name: str, fn) -> None:
+    """``fn()`` on the axis's first rank alone (a wisdom write, under the
+    store's own lock), then a barrier, so no rank reads before it is done."""
+    group = _axis_group(mesh, axis_name)
+    if dist.get_rank(group) == 0:
+        fn()
+    dist.barrier(group=group)
+
+
+def max_over_axis(values: list[float], mesh: DeviceMesh,
+                  axis_name: str) -> list[float]:
+    """Each value's maximum over the ranks of the axis: a measured time of
+    an SPMD program is its slowest rank's, and every rank ranks the same
+    numbers."""
+    group = _axis_group(mesh, axis_name)
+    device = (mesh_device(mesh) if dist.get_backend(group) == "nccl"
+              else torch.device("cpu"))
+    t = torch.tensor([float(v) for v in values], dtype=torch.float64,
+                     device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return t.tolist()

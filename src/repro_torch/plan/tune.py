@@ -1,8 +1,9 @@
 """Estimate/measure tuner — FFTW's planner loop over ``PlanConfig`` space.
 
-Counterpart of the single-device part of ``repro.plan.tune``, the 3-D
-(``tune_pfft3`` without a mesh) and huge-1-D (``tune_pfft1_large``) tuners
-included.
+Counterpart of ``repro.plan.tune``: the single-device tuners, the 3-D
+(``tune_pfft3`` without a mesh) and huge-1-D (``tune_pfft1_large``) ones,
+and the 2-D distributed ones (``tune_dist_config``, ``tune_rfft_dist``,
+``tune_dist_schedule``) that plan for ``core.pfft_dist`` on a mesh.
 ``candidate_configs`` enumerates the valid variant space for a problem
 (radix x fused x batched x pipeline_panels, pruned by structural
 constraints); ``tune_config`` ranks it:
@@ -41,13 +42,18 @@ from repro_torch.core.fpm import FPMSet, fft_flops
 from repro_torch.kernels.fft.kernel import MAX_KERNEL_N
 from repro_torch.plan.config import PlanConfig
 from repro_torch.plan.cost import (CostParams, _compute_multiplier,
-                                   _segment_work, estimate_cost,
+                                   _segment_work, comm_phase_time,
+                                   dist_comm_bytes, dist_comm_time,
+                                   estimate_cost, estimate_grouped_cost,
                                    estimate_schedule_cost)
 from repro_torch.plan.schedule import SegmentSchedule
 
 __all__ = ["candidate_configs", "segment_candidate_configs",
-           "measure_configs", "tune_config", "tune_schedule",
-           "measure_rfft_configs", "tune_rfft", "pfft3_panel_space",
+           "measure_configs", "measure_dist_configs", "tune_config",
+           "tune_schedule", "tune_dist_config", "tune_dist_schedule",
+           "grouped_dist_schedule", "dist_panel_space",
+           "measure_rfft_configs", "measure_rfft_dist_configs",
+           "tune_rfft", "tune_rfft_dist", "pfft3_panel_space",
            "tune_pfft3", "tune_pfft1_large"]
 
 
@@ -76,8 +82,7 @@ def _measure_with_retry(thunk, retries: int = 0, base_s: float = 0.05):
     exponential backoff; re-raises after the budget is exhausted.
 
     ``retries=0`` (the default) raises the first failure: a measurement
-    that fails is never replaced by anything else here.  The distributed
-    tuners (a later slice) are its callers.
+    that fails is never replaced by anything else here.
     """
     delay = float(base_s)
     for attempt in range(int(retries) + 1):
@@ -323,8 +328,8 @@ def tune_config(n: int, *, d=None, pad_lengths=None, fpms: FPMSet | None = None,
 
     if comm_bytes:
         raise ValueError(
-            "measure mode with comm_bytes needs the mesh the bytes cross — "
-            "distributed tuning comes with the distributed slice")
+            "measure mode with comm_bytes needs the mesh the bytes cross: "
+            "tune_dist_config / tune_dist_schedule race on one")
     # One finalist per distinct *program*: ties in the ranking are often
     # configs whose differences are erased by the routing rules.
     finalists, seen = [], set()
@@ -420,8 +425,8 @@ def tune_schedule(n: int, *, d=None, pad_lengths=None,
 
     if mode == "measure" and comm_bytes:
         raise ValueError(
-            "measure mode with comm_bytes needs the mesh the bytes cross — "
-            "distributed tuning comes with the distributed slice")
+            "measure mode with comm_bytes needs the mesh the bytes cross: "
+            "tune_dist_config / tune_dist_schedule race on one")
 
     def group_time(cfg: PlanConfig, members, length: int) -> float:
         """Estimated makespan contribution of one length group under cfg."""
@@ -846,4 +851,514 @@ def tune_pfft1_large(n: int, *, n1: int | None = None, n2: int | None = None,
     winner = min(measured, key=measured.get)
     _measured_info(info, measured, events, PlanConfig.to_dict)
     info["time_s"] = float(measured[winner])
+    return winner, info
+
+
+# ------------------------------------------------------------- distributed
+#
+# The distributed tuners plan for ``core.pfft_dist`` on a ``DeviceMesh``:
+# every rank of the mesh calls them alike (SPMD), measures on its own
+# device, and ranks the times agreed over the axis (each item's slowest
+# rank, ``launch.mesh.max_over_axis``), so every rank picks the same
+# program and meets the others at the same collectives.  The shuffled
+# visiting order of ``_timed_min`` is seeded, hence the same on every rank.
+
+def dist_panel_space(n: int, p: int, max_panels: int = 8) -> tuple[int, ...]:
+    """Candidate ``pipeline_panels`` for an n x n problem on p devices:
+    the powers of two up to ``max_panels`` that divide the local row count
+    (``pfft2_distributed`` requires k | N/p).  The one home of the rule —
+    the tuner and ``plan_pfft(mesh=...)`` enumerate (and digest) the same
+    space."""
+    if p <= 0 or n % p:
+        return (1,)
+    n_loc = n // p
+    ks = [k for k in (1, 2, 4, 8) if k <= max_panels and n_loc % k == 0]
+    return tuple(ks) or (1,)
+
+
+def _agreed_times(pairs, x: torch.Tensor, rounds: int, mesh, axis_name: str,
+                  events: dict | None = None) -> dict:
+    """``_timed_min`` on this rank, then each item's time the maximum over
+    the ranks of the axis (and so the CUDA-event times in ``events``)."""
+    from repro_torch.launch.mesh import max_over_axis  # lazy: launch is thin
+    local_events: dict = {}
+    times = _timed_min(pairs, x, rounds, local_events)
+    items = list(times)
+    agreed = dict(zip(items, max_over_axis([times[i] for i in items], mesh,
+                                           axis_name)))
+    if events is not None and local_events:
+        events.update(zip(items, max_over_axis(
+            [local_events[i] for i in items], mesh, axis_name)))
+    return agreed
+
+
+def _mesh_signal(shape: tuple[int, ...], dtype, mesh) -> torch.Tensor:
+    """``_signal`` on the device of this rank of ``mesh``: every rank holds
+    the same seeded block (the times do not depend on the values)."""
+    from repro_torch.launch.mesh import mesh_device  # lazy: launch is thin
+    return _signal(shape, dtype, mesh_device(mesh))
+
+
+def _measure_local_phase(cfg: PlanConfig, n: int, p: int, pad_len: int,
+                         dtype, rounds: int, mesh, axis_name: str) -> float:
+    """Seconds of one *local* phase limb of the distributed pipeline: the
+    row-FFT program one rank runs on its (N/p, N) block, without the
+    exchange.  Subtracting two of these from the end-to-end time is what
+    turns a distributed measurement into a *comm* sample."""
+    from repro_torch.core.pfft_dist import _local_fft  # lazy: core imports plan
+
+    x = _mesh_signal((max(n // p, 1), n), dtype, mesh)
+    pairs = _warmed([(cfg, lambda b: _local_fft(
+        b, n, padded=cfg.dist_padded, pad_len=pad_len, config=cfg,
+        backend=None))], x)
+    return min(_agreed_times(pairs, x, rounds, mesh, axis_name).values())
+
+
+def _measure_tier_exchange(mesh, axis_name: str, n: int, hosts: int,
+                           local: int, tier: str, dtype,
+                           rounds: int) -> float:
+    """Seconds of ONE grouped exchange over only ``tier``'s groups (the
+    intra-host stage or the inter-host stage of the hierarchical exchange)
+    of the row-spread N x N matrix, so the sample's byte count is the
+    per-exchange tier volume ``dist_comm_bytes(..., hosts=,
+    exchange="hier")`` predicts — what ``plan/calibrate.py`` fits the two
+    comm tiers from."""
+    from repro_torch.core.pfft_dist import _pack, _send_recv  # lazy
+    from repro_torch.launch.mesh import hier_process_groups
+
+    intra, inter = hier_process_groups(mesh, axis_name)
+    group, size = (intra, local) if tier == "intra" else (inter, hosts)
+    x = _mesh_signal((n // (hosts * local), n), dtype, mesh)
+    pairs = _warmed([(tier, lambda b: _send_recv(_pack(b, size), group).wait())],
+                    x)
+    return min(_agreed_times(pairs, x, rounds, mesh, axis_name).values())
+
+
+def measure_dist_configs(configs: Sequence[PlanConfig | SegmentSchedule],
+                         n: int, mesh, axis_name: str = "fft", *,
+                         pad_len: int | None = None, dtype=np.complex64,
+                         rounds: int = 3, events: dict | None = None
+                         ) -> dict[PlanConfig | SegmentSchedule, float]:
+    """End-to-end seconds of ``pfft2_distributed`` per config on ``mesh``.
+
+    Unlike ``measure_configs`` (the single-device limb), this times the
+    full pipeline — both exchanges, pipelined panels, fused local phases
+    — on the caller's mesh, with the shuffled-interleaved per-config-min
+    harness (``_timed_min``) and each time the slowest rank's.  Items may
+    be ``PlanConfig``s or ``SegmentSchedule``s (a schedule runs at its own
+    entry lengths, so ``pad_len`` applies only to bare configs).
+    ``events`` receives the CUDA-event times.
+    """
+    from repro_torch.core.pfft_dist import pfft2_distributed  # lazy
+    from repro_torch.launch.mesh import axis_size
+
+    x = _mesh_signal((n // axis_size(mesh, axis_name), n), dtype, mesh)
+    pairs = []
+    for item in configs:
+        kw = ({"schedule": item} if isinstance(item, SegmentSchedule)
+              else {"config": item, "pad_len": pad_len})
+        pairs.append((item, lambda b, kw=kw: pfft2_distributed(
+            b, mesh, axis_name, **kw)))
+    return _agreed_times(_warmed(pairs, x), x, rounds, mesh, axis_name,
+                         events)
+
+
+def _mesh_params(params: CostParams | None, mesh) -> CostParams:
+    """``params``, or the constants of the mesh's device type."""
+    return params if params is not None else CostParams.for_backend(
+        mesh.device_type)
+
+
+def tune_dist_config(n: int, mesh, axis_name: str = "fft", *,
+                     mode: str = "estimate", pad: str = "none",
+                     pad_len: int | None = None, fpms: FPMSet | None = None,
+                     params: CostParams | None = None, top_k: int = 3,
+                     panels: Sequence[int] | None = None,
+                     dtype=np.complex64, reps: int = 3
+                     ) -> tuple[PlanConfig, dict]:
+    """Pick the best ``PlanConfig`` for ``pfft2_distributed`` on ``mesh``.
+
+    The distributed sibling of ``tune_config``: candidates are ranked with
+    the comm term filled in from the mesh (``dist_comm_bytes``, the
+    two-tier ``dist_comm_time`` on a host-major axis), and
+    ``mode="measure"`` races the ``top_k`` distinct finalists through the
+    *full* pipeline on the mesh (``measure_dist_configs``).  On a 1-rank
+    mesh measure falls back to estimate (there is no interconnect to
+    measure) and ``info["measure_fallback"]`` says so.
+
+    ``info["dist"]`` carries the topology facts and, after a measured run,
+    the comm sample: ``comm_time_meas_s = total − 2·local_phase`` (clamped
+    at 0), the number ``plan/calibrate.py`` fits the interconnect from,
+    and on a host-major axis one sample per tier.
+    """
+    if mode not in ("estimate", "measure"):
+        raise ValueError(f"mode must be 'estimate' or 'measure', got {mode!r}")
+    from repro_torch.launch.mesh import axis_size, mesh_host_shape  # lazy
+
+    p = axis_size(mesh, axis_name)
+    if n % p:
+        raise ValueError(f"N={n} must be divisible by mesh axis "
+                         f"{axis_name}={p}")
+    if panels is None:
+        panels = dist_panel_space(n, p)
+    params = _mesh_params(params, mesh)
+    comm_bytes = dist_comm_bytes(n, p)
+    hosts, local = mesh_host_shape(mesh, axis_name)
+
+    # ``batched`` shapes the segment dispatch plan; the dist pipeline has
+    # one whole-block segment per rank, so the knob would only burn
+    # finalist slots on identical programs.
+    cands = [c for c in candidate_configs(n, pad=pad, d=None, panels=panels)
+             if c.batched]
+    if hosts > 1 and local > 1:
+        # Host-major axis: the hierarchical exchange is a real program
+        # alternative — race it as its own config dimension.
+        cands += [dataclasses.replace(c, exchange="hier")
+                  for c in cands if not c.real]
+    ranked = sorted(
+        ((cfg, estimate_cost(
+            cfg, n=n, fpms=fpms, params=params, comm_bytes=comm_bytes,
+            comm_time_s=dist_comm_time(n, p, params=params, hosts=hosts,
+                                       exchange=cfg.exchange)))
+         for cfg in cands),
+        key=lambda kv: kv[1])
+    info: dict = {
+        "mode": mode,
+        "ranked": [(cfg.to_dict(), float(c)) for cfg, c in ranked],
+        "dist": {
+            "devices": p,
+            "hosts": int(hosts),
+            "axis_name": axis_name,
+            "comm_bytes": float(comm_bytes),
+            # Both phases, like the measured sample it is judged against.
+            "comm_time_est_s": float(2.0 * comm_phase_time(
+                comm_bytes, params.interconnect_bytes_per_s,
+                params.comm_latency_s)),
+        },
+    }
+
+    if mode == "estimate":
+        return ranked[0][0], info
+    if p <= 1:
+        # Nothing distributed to time: the 1-rank exchange is a local copy
+        # and an end-to-end race would just re-measure the limb.
+        info["measure_fallback"] = "1-device mesh: measure == estimate"
+        return ranked[0][0], info
+
+    # One finalist per distinct *distributed* program: the single-device
+    # behavior key plus the panel count.
+    finalists, seen = [], set()
+    for cfg, _ in ranked:
+        key = (_behavior_key(cfg, n, None, None), cfg.pipeline_panels)
+        if key not in seen:
+            seen.add(key)
+            finalists.append(cfg)
+        if len(finalists) >= max(top_k, 1):
+            break
+    events: dict = {}
+    measured = measure_dist_configs(finalists, n, mesh, axis_name,
+                                    pad_len=pad_len, dtype=dtype,
+                                    rounds=reps, events=events)
+    winner = min(measured, key=measured.get)
+    _measured_info(info, measured, events, PlanConfig.to_dict)
+    info["time_s"] = float(measured[winner])
+
+    # Comm sample: end-to-end minus the two measured local phases of the
+    # winning config, clamped at 0 (pipelined panels can hide comm).
+    eff_len = pad_len
+    if eff_len is None:
+        from repro_torch.core.pfft_dist import default_dist_pad_len  # lazy
+        eff_len = default_dist_pad_len(n, winner.dist_padded)
+    local_s = _measure_local_phase(winner, n, p, eff_len, dtype, reps,
+                                   mesh, axis_name)
+    info["dist"]["local_phase_s"] = float(local_s)
+    info["dist"]["comm_time_meas_s"] = float(
+        max(measured[winner] - 2.0 * local_s, 0.0))
+    info["dist"]["exchange"] = winner.exchange
+    if hosts > 1 and local > 1:
+        # Per-tier samples, so calibrate can fit the intra- and inter-host
+        # comm params separately; ``msgs`` is the slow-tier message count
+        # of the timed exchange (the latency multiplier).
+        tiers = dist_comm_bytes(n, p, hosts=hosts, exchange="hier")
+        samples = []
+        for tier, tier_bytes, msgs in (("intra", tiers.intra, 1),
+                                       ("inter", tiers.inter, hosts - 1)):
+            if not tier_bytes:
+                continue
+            t = _measure_tier_exchange(mesh, axis_name, n, hosts, local,
+                                       tier, dtype, reps)
+            samples.append({"tier": tier, "bytes": float(tier_bytes),
+                            "msgs": int(msgs), "time_s": float(t)})
+        if samples:
+            info["dist"]["comm_samples"] = samples
+    return winner, info
+
+
+def measure_rfft_dist_configs(configs: Sequence[PlanConfig], n: int, mesh,
+                              axis_name: str = "fft", *,
+                              pad_len: int | None = None, dtype=np.float32,
+                              rounds: int = 3, events: dict | None = None
+                              ) -> dict[PlanConfig, float]:
+    """End-to-end seconds of the distributed half-spectrum transform per
+    config: ``real`` configs run ``rpfft2_distributed`` (half-width
+    panels), complex fallbacks the upcast ``pfft2_distributed`` cropped to
+    the half spectrum — same deliverable on the same mesh, same harness as
+    ``measure_dist_configs``."""
+    from repro_torch.core.pfft_dist import (pfft2_distributed,  # lazy
+                                            rpfft2_distributed)
+    from repro_torch.launch.mesh import axis_size
+
+    dt = _require_real_dtype(dtype)
+    ctype = torch.complex64 if dt == np.dtype(np.float32) else torch.complex128
+    nh = n // 2 + 1
+    x = _mesh_signal((n // axis_size(mesh, axis_name), n), dt, mesh)
+    pairs = []
+    for cfg in configs:
+        if cfg.real:
+            fn = (lambda b, c=cfg: rpfft2_distributed(
+                b, mesh, axis_name, config=c, pad_len=pad_len))
+        else:
+            fn = (lambda b, c=cfg: pfft2_distributed(
+                b.to(ctype), mesh, axis_name, config=c,
+                pad_len=pad_len)[:, :nh])
+        pairs.append((cfg, fn))
+    return _agreed_times(_warmed(pairs, x), x, rounds, mesh, axis_name,
+                         events)
+
+
+def _measure_local_real_phases(cfg: PlanConfig, n: int, p: int, pad_len: int,
+                               dtype, rounds: int, mesh,
+                               axis_name: str) -> float:
+    """Combined seconds of the real pipeline's two *local* phase programs
+    (rfft on the (N/p, N) row block + complex FFT on the (hc/p, N)
+    spectral block) — the subtraction term that turns an end-to-end real
+    measurement into a comm sample, mirroring ``_measure_local_phase``."""
+    from repro_torch.core.pfft import _group_row_ffts, _group_row_rffts  # lazy
+    from repro_torch.plan.cost import halfspec_cols
+
+    dt = _require_real_dtype(dtype)
+    ctype = np.complex64 if dt == np.dtype(np.float32) else np.complex128
+    hc = halfspec_cols(n, p)
+    x1 = _mesh_signal((max(n // p, 1), n), dt, mesh)
+    x2 = _mesh_signal((max(hc // p, 1), n), ctype, mesh)
+    length = pad_len if cfg.pad == "fpm" else n
+    p1 = _warmed([(cfg, lambda b: _group_row_rffts(b, length, n, cfg, None))],
+                 x1)
+    p2 = _warmed([(cfg, lambda b: _group_row_ffts(b, length, n, cfg, None))],
+                 x2)
+    t1 = min(_agreed_times(p1, x1, rounds, mesh, axis_name).values())
+    t2 = min(_agreed_times(p2, x2, rounds, mesh, axis_name).values())
+    return t1 + t2
+
+
+def tune_rfft_dist(n: int, mesh, axis_name: str = "fft", *,
+                   mode: str = "estimate", pad: str = "none",
+                   pad_len: int | None = None, fpms: FPMSet | None = None,
+                   params: CostParams | None = None, top_k: int = 3,
+                   panels: Sequence[int] | None = None, dtype=np.float32,
+                   reps: int = 3
+                   ) -> tuple[SegmentSchedule, dict]:
+    """Tune the distributed real-input transform on ``mesh``.
+
+    Real candidates are priced with the *half-spectrum* comm term
+    (``dist_comm_bytes(real=True)``) and their complex twins with the
+    full-panel term; measure mode races both families end to end through
+    their distributed programs.  The real program is homogeneous, unfused
+    and monolithic (``rpfft2_distributed``), so real candidates enumerate
+    only the row-FFT backend; complex fallbacks keep the panel/fused
+    space.  ``info["dist"]`` carries both byte counts, their ratio and
+    (measured) the winner's comm sample.
+    """
+    if mode not in ("estimate", "measure"):
+        raise ValueError(f"mode must be 'estimate' or 'measure', got {mode!r}")
+    _require_real_dtype(dtype)
+    if pad == "czt":
+        raise ValueError("the real pipeline has no Bluestein form")
+    from repro_torch.launch.mesh import axis_size  # lazy: launch is thin
+
+    p = axis_size(mesh, axis_name)
+    if n % p:
+        raise ValueError(f"N={n} must be divisible by mesh axis "
+                         f"{axis_name}={p}")
+    if panels is None:
+        panels = dist_panel_space(n, p)
+    params = _mesh_params(params, mesh)
+    comm_complex = dist_comm_bytes(n, p)
+    comm_real = dist_comm_bytes(n, p, real=True)
+
+    complex_cands = [c for c in candidate_configs(n, pad=pad, d=None,
+                                                  panels=panels) if c.batched]
+    real_cands = [c for c in _real_candidates(complex_cands)
+                  if not c.fused and c.pipeline_panels == 1]
+    ranked = sorted(
+        ((cfg, estimate_cost(cfg, n=n, fpms=fpms, params=params,
+                             comm_bytes=comm_real if cfg.real
+                             else comm_complex))
+         for cfg in real_cands + complex_cands),
+        key=lambda kv: kv[1])
+    info: dict = {
+        "mode": mode,
+        "ranked": [(cfg.to_dict(), float(c)) for cfg, c in ranked],
+        "dist": {
+            "devices": p,
+            "axis_name": axis_name,
+            "comm_bytes_complex": float(comm_complex),
+            "comm_bytes_real": float(comm_real),
+            "comm_ratio_real": (float(comm_real / comm_complex)
+                                if comm_complex else 0.0),
+        },
+    }
+
+    def finish(winner: PlanConfig) -> tuple[SegmentSchedule, dict]:
+        info["chosen_path"] = "real" if winner.real else "complex"
+        info["dist"]["comm_bytes"] = float(comm_real if winner.real
+                                           else comm_complex)
+        d = np.full(p, n // p, dtype=np.int64) if p > 0 else None
+        schedule = SegmentSchedule.homogeneous(winner, n, d)
+        info["schedule"] = schedule.to_dict()
+        return schedule, info
+
+    if mode == "estimate":
+        return finish(ranked[0][0])
+    if p <= 1:
+        info["measure_fallback"] = "1-device mesh: measure == estimate"
+        return finish(ranked[0][0])
+
+    finalists = _family_finalists(ranked, n, None, None, top_k)
+    events: dict = {}
+    measured = measure_rfft_dist_configs(finalists, n, mesh, axis_name,
+                                         pad_len=pad_len, dtype=dtype,
+                                         rounds=reps, events=events)
+    winner = min(measured, key=measured.get)
+    _measured_info(info, measured, events, PlanConfig.to_dict)
+    info["time_s"] = float(measured[winner])
+
+    eff_len = pad_len
+    if eff_len is None:
+        from repro_torch.core.pfft_dist import default_dist_pad_len  # lazy
+        eff_len = default_dist_pad_len(n, winner.dist_padded)
+    if winner.real:
+        local_s = _measure_local_real_phases(winner, n, p, eff_len, dtype,
+                                             reps, mesh, axis_name)
+    else:
+        ctype = (np.complex64 if np.dtype(dtype) == np.dtype(np.float32)
+                 else np.complex128)
+        local_s = 2.0 * _measure_local_phase(winner, n, p, eff_len, ctype,
+                                             reps, mesh, axis_name)
+    info["dist"]["local_phase_s"] = float(local_s)
+    info["dist"]["comm_time_meas_s"] = float(
+        max(measured[winner] - local_s, 0.0))
+    return finish(winner)
+
+
+def grouped_dist_schedule(n: int, p: int, *, pad_lengths=None,
+                          fpms: FPMSet | None = None, pad: str = "none",
+                          params: CostParams | None = None
+                          ) -> SegmentSchedule | None:
+    """The model-driven heterogeneous candidate for a p-rank mesh.
+
+    One entry per rank (N/p rows — the SPMD shard), each assigned the
+    ``segment_candidate_configs`` argmin of *its own* predicted time: its
+    FPM's ``time_at`` (or the nominal flop rate) at its own declared
+    effective length, times the candidate's backend multiplier.  Returns
+    ``None`` when the assembly degenerates to a single config or p <= 1;
+    the caller prices the survivor with ``estimate_grouped_cost``.
+    ``params`` defaults to the CUDA constants, as every entry point's.
+    """
+    if p <= 1 or n % p:
+        return None
+    if params is None:
+        params = CostParams.for_backend()
+    if fpms is not None and fpms.p != p:
+        fpms = None  # one abstract processor per rank or no FPM at all
+    n_loc = n // p
+    d = np.full(p, n_loc, dtype=np.int64)
+
+    def seg_time(i: int, cfg: PlanConfig, length: int) -> float:
+        if fpms is not None:
+            t = fpms[i].time_at(n_loc, length)
+        else:
+            t = float(fft_flops(n_loc, length)) / params.nominal_flops
+        return t * _compute_multiplier(cfg, length, params)
+
+    cfgs = []
+    for i in range(p):
+        length = n
+        if pad_lengths is not None and int(pad_lengths[i]) > n:
+            length = int(pad_lengths[i])
+        cands = segment_candidate_configs(length, pad=pad)
+        cfgs.append(min(cands, key=lambda c: seg_time(i, c, length)))
+    schedule = SegmentSchedule.from_parts(n, d, pad_lengths, cfgs)
+    return schedule if len(schedule.configs) > 1 else None
+
+
+def tune_dist_schedule(n: int, mesh, axis_name: str = "fft", *,
+                       pad_lengths=None, mode: str = "estimate",
+                       pad: str = "none", pad_len: int | None = None,
+                       fpms: FPMSet | None = None,
+                       params: CostParams | None = None, top_k: int = 3,
+                       panels: Sequence[int] | None = None,
+                       dtype=np.complex64, reps: int = 3
+                       ) -> tuple[SegmentSchedule, dict]:
+    """Schedule-shaped distributed tuner; returns (schedule, info).
+
+    The homogeneous candidate space is ``tune_dist_config``'s.  On top of
+    it the tuner grows the heterogeneous candidate of
+    ``grouped_dist_schedule`` (a device-group program), priced with
+    ``estimate_grouped_cost`` against the homogeneous winner;
+    ``mode="measure"`` races the two end to end through the actual
+    grouped ``pfft2_distributed`` program on the mesh
+    (``info["grouped_measured"]``).  This is what ``plan_pfft(mesh=...)``
+    resolves through.
+    """
+    from repro_torch.launch.mesh import axis_size  # lazy: launch is thin
+
+    p = axis_size(mesh, axis_name)
+    if pad_len is None and pad_lengths is not None:
+        # The schedule runs at the uniform max effective length, so the
+        # homogeneous finalists are raced (and the comm sample taken) at
+        # that very length.
+        lengths = [int(x) for x in pad_lengths if int(x) > n]
+        if lengths:
+            pad_len = max(lengths)
+    cfg, info = tune_dist_config(n, mesh, axis_name, mode=mode, pad=pad,
+                                 pad_len=pad_len, fpms=fpms, params=params,
+                                 top_k=top_k, panels=panels, dtype=dtype,
+                                 reps=reps)
+    params = _mesh_params(params, mesh)
+    d = np.full(p, n // p, dtype=np.int64) if p > 0 else None
+    homo = SegmentSchedule.homogeneous(cfg, n, d, pad_lengths)
+    hetero = grouped_dist_schedule(n, p, pad_lengths=pad_lengths, fpms=fpms,
+                                   pad=pad, params=params)
+    if hetero is None:
+        info["chosen"] = "homogeneous"
+        info["schedule"] = homo.to_dict()
+        return homo, info
+
+    fpms_dev = fpms if fpms is not None and fpms.p == p else None
+    comm_bytes = dist_comm_bytes(n, p)
+    est_hetero = estimate_grouped_cost(hetero, fpms=fpms_dev, params=params,
+                                       comm_bytes=comm_bytes)
+    est_homo = estimate_grouped_cost(homo, fpms=fpms_dev, params=params,
+                                     comm_bytes=comm_bytes)
+    info["heterogeneous"] = {"schedule": hetero.to_dict(),
+                             "est_s": float(est_hetero)}
+    info["homogeneous"] = {"config": cfg.to_dict(), "est_s": float(est_homo)}
+
+    if mode == "estimate" or "measure_fallback" in info:
+        winner = hetero if est_hetero < est_homo else homo
+    else:
+        events: dict = {}
+        raced = measure_dist_configs([homo, hetero], n, mesh, axis_name,
+                                     dtype=dtype, rounds=reps, events=events)
+        winner = min(raced, key=raced.get)
+        info["grouped_measured"] = [(s.describe(), float(t))
+                                    for s, t in raced.items()]
+        if events:
+            info["grouped_measured_event_s"] = [
+                (s.describe(), float(events[s])) for s in raced]
+        info["time_s"] = float(raced[winner])
+    info["chosen"] = ("heterogeneous" if len(winner.configs) > 1
+                      else "homogeneous")
+    info["schedule"] = winner.to_dict()
     return winner, info

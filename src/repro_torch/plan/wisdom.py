@@ -26,8 +26,8 @@ Schema v3 adds *per-topology* keys for distributed plans: a key may end
 in ``|topo=<topology_digest>`` (device count, mesh axis name, platform,
 candidate pipeline-panel counts), so a plan measured end-to-end on a
 4-device mesh is never served to an 8-device one.  Heterogeneous
-*device-group* picks (the reference's ``plan/groups.py``) need no bump of their own:
-they are ordinary ``SegmentSchedule`` values under the same topo keys —
+*device-group* picks (``plan/groups.py``) need no bump of their own: they
+are ordinary ``SegmentSchedule`` values under the same topo keys —
 the v2 schedule wire format already round-trips them; serving-side
 validation (does the stored schedule still lower to *this* mesh?) lives
 with the lookup callers, never in the store.  v2 files keep being
@@ -109,6 +109,13 @@ def partition_digest(d, pad_lengths=None) -> str:
     return format(zlib.crc32(raw), "08x")
 
 
+def _mesh_hosts(mesh, axis_names) -> int:
+    """Host count a mesh's axes span (1 when the mesh declares no host
+    structure) — the digest's ``h`` component."""
+    from repro_torch.launch.mesh import mesh_host_shape  # lazy: plan is below launch
+    return max(mesh_host_shape(mesh, a)[0] for a in axis_names)
+
+
 def topology_digest(mesh=None, axis_name="fft", *,
                     devices: int | None = None, platform: str | None = None,
                     panels=(1,), hosts: int | None = None) -> str:
@@ -119,42 +126,45 @@ def topology_digest(mesh=None, axis_name="fft", *,
     collective's communicator), the device platform, and the candidate
     pipeline-panel counts the tuner raced (a different panel space is a
     different tuning experiment).  Deliberately human-readable — a store
-    should say *which* pod an entry was measured on, not just hash it.
+    should say *which* cluster an entry was measured on, not just hash it.
 
-    ``axis_name`` may be a *sequence* of axis names (the pencil-parallel
-    3-D pipeline's 2-D mesh): the digest then carries one ``<size>x<name>``
-    term per axis, '+'-joined (e.g. ``4xfft_r+2xfft_c.cpu.k1-2``).  The
-    form is injective against 1-D digests ('+' never appears there) and
-    against the transposed mesh (``4xfft_r+2xfft_c != 2xfft_r+4xfft_c``),
-    so a plan measured on one pencil shape is never served to another.
+    ``axis_name`` may be a *sequence* of axis names (a 2-D mesh): the
+    digest then carries one ``<size>x<name>`` term per axis, '+'-joined
+    (e.g. ``4xfft_r+2xfft_c.cpu.k1-2``), injective against 1-D digests and
+    against the transposed mesh.
 
     A mesh spanning more than one host prefixes a host-count component:
     ``2hx4xfft.cpu.k1-2-4`` is two hosts of two devices — comm times on
     it are two-tier quantities that must not be served to the one-host
-    ``4xfft.cpu.k1-2-4`` (nor to ``4hx4xfft...``).  The prefix's ``<n>h``
-    cannot occur at the head of a single-host digest (those start
-    ``<devices>x``), so multi-host digests are injective against every
-    pre-multi-host form — and single-host digests are *unchanged*, so
-    existing stores keep serving single-host lookups.  ``hosts`` is passed
-    explicitly (default 1).
-
-    Only the ``devices=`` form is ported: a digest read off a mesh raises
-    ``NotImplementedError`` until the distributed slice brings meshes to the
-    port.  ``platform`` defaults to ``cuda``.
+    ``4xfft.cpu.k1-2-4``; single-host digests carry no prefix.  ``hosts``
+    may be passed explicitly (``devices=`` callers); with a mesh it is the
+    mesh's registered host structure (``launch.mesh.mesh_host_shape``).
+    The platform of a mesh is its device type (``cuda`` or ``cpu``, as the
+    reference's device platform names a CPU mesh); ``devices=`` callers
+    default to ``cuda``.  A CPU mesh of p ranks digests as the reference's
+    p-device CPU mesh does.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "topology_digest(mesh=...): meshes are not in repro_torch yet; "
-            "they come with the distributed slice — pass devices= and "
-            "platform=")
     if not isinstance(axis_name, str):
-        raise ValueError("a multi-axis topology_digest needs mesh=")
+        if mesh is None:
+            raise ValueError("a multi-axis topology_digest needs mesh=")
+        from repro_torch.launch.mesh import axis_size  # lazy: plan is below launch
+        if hosts is None:
+            hosts = _mesh_hosts(mesh, axis_name)
+        axes = "+".join(f"{axis_size(mesh, a)}x{a}" for a in axis_name)
+        if platform is None:
+            platform = mesh.device_type
+        ks = "-".join(str(int(k)) for k in sorted(set(panels))) or "1"
+        prefix = f"{int(hosts)}hx" if int(hosts) > 1 else ""
+        return f"{prefix}{axes}.{platform}.k{ks}"
     if devices is None:
-        raise ValueError("topology_digest needs a mesh or devices=")
+        if mesh is None:
+            raise ValueError("topology_digest needs a mesh or devices=")
+        from repro_torch.launch.mesh import axis_size  # lazy: plan is below launch
+        devices = axis_size(mesh, axis_name)
     if hosts is None:
-        hosts = 1
+        hosts = _mesh_hosts(mesh, (axis_name,)) if mesh is not None else 1
     if platform is None:
-        platform = "cuda"
+        platform = mesh.device_type if mesh is not None else "cuda"
     ks = "-".join(str(int(k)) for k in sorted(set(panels))) or "1"
     prefix = f"{int(hosts)}hx" if int(hosts) > 1 else ""
     return f"{prefix}{int(devices)}x{axis_name}.{platform}.k{ks}"

@@ -188,9 +188,10 @@ def test_plan_legacy_flags_warn_and_build_an_explicit_config():
 
 @pytest.mark.parametrize("kwargs,names", [({"mesh": object()}, "distributed")])
 def test_later_slices_raise_not_implemented(kwargs, names):
-    """What is not ported yet is refused by name, never run as tune='off'."""
+    """A mesh that is not a DeviceMesh is refused by name, never run as
+    tune='off' (``mesh=`` itself is ported: tests/test_torch_dist_plan.py)."""
     args = {"p": 2, "method": "lb", "device": "cpu", **kwargs}
-    with pytest.raises(NotImplementedError, match=names):
+    with pytest.raises(TypeError, match=names):
         port_core.plan_pfft(8, **args)
 
 

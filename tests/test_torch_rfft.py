@@ -821,7 +821,8 @@ def test_real_plan_execute_many():
 
 @pytest.mark.parametrize("kwargs,names", [({"mesh": object()}, "distributed")])
 def test_real_methods_keep_later_slices_not_implemented(kwargs, names):
-    with pytest.raises(NotImplementedError, match=names):
+    # mesh= is ported (tests/test_torch_dist_plan.py); a non-mesh is refused.
+    with pytest.raises(TypeError, match=names):
         port_core.plan_pfft(8, p=2, method="rfft-lb", dtype="float32",
                             device="cpu", **kwargs)
 
