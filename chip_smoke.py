@@ -77,16 +77,28 @@ each of which ends the run with a non-zero exit code when it fails:
                  emulated hosts x 2, 2 panels and ``rfft-lb`` at N = 8192,
                  each rank on its (2048, 8192) block, rank 0 gathering the
                  blocks against the library; every rank's launches checked.
+13. ``dist3``    the 3-D mesh pipelines on a world of one NCCL rank:
+                 ``plan_pfft3(512, mesh=make_pfft3_mesh(1, 1))`` under the
+                 library, ``radix=4`` and ``radix=4`` with 2 and 4 panels,
+                 ``pfft3_slab`` on a 1-D mesh of one, ``tune="estimate"`` /
+                 ``"measure"`` plans, each against ``torch.fft.fftn`` and
+                 timed beside the single-device ``plan_pfft3`` with its
+                 copies counted; the pieces of a pencil transform timed.
+14. ``dist3_gloo4`` 4 processes (``--dist-rank ... 3d``) sharing the card
+                 over gloo: pencils of 2x2 (and 2 panels), 1x4, 4x1 and 4x1
+                 over 2 emulated hosts with ``exchange="hier"``, slabs flat
+                 and 2 hosts x 2 with ``hier``, 512^3, rank 0 gathering the
+                 blocks by mesh coordinates against ``torch.fft.fftn``.
 
 Then, outside the counted drives: every checked 2-D execute timed beside the
 library, and a fused batch's two layouts (batched, and the per-signal
 loop) checked against the library and timed at N = 1024 ... 8192 and
-batches of 2 and 8.  Tolerances of the paths 8-10:
+batches of 2 and 8.  Tolerances of the paths 8-10, 13 and 14:
 ``2e-4·sqrt(elements of one signal)`` (the 2-D ``2e-4·N``).
 
-Each path (4-12) is driven once with the launch counts set to 0 just before
+Each path (4-14) is driven once with the launch counts set to 0 just before
 and read just after; each of its kernels must have launched (the counts of
-``dist_gloo4`` are its four ranks' sums).  Every line but
+``dist_gloo4`` and ``dist3_gloo4`` are their four ranks' sums).  Every line but
 the last is a log or a JSON record; the last line is ``{"ok": true,
 "device": {...}}`` and is printed only when every phase passed.
 """
@@ -120,8 +132,9 @@ import torch.distributed as dist  # noqa: E402
 from repro_torch.core import (FPMSet, PlanConfig, SpeedFunction, build_fpm,  # noqa: E402
                               fft_flops, four_step_factors, irfft2,
                               lb_partition, partition_rows,
-                              pfft3_fpm, pfft3_fpm_pad, plan_pfft,
+                              pfft3_fpm, pfft3_fpm_pad, pfft3_slab, plan_pfft,
                               plan_pfft1_large, plan_pfft3, rfft2)
+from repro_torch.core.pfft3d import _ROTATE, _SWAP  # noqa: E402
 from repro_torch.core.pfft_dist import (_pack, _send_recv,  # noqa: E402
                                         irpfft2_distributed)
 from repro_torch.fft import fft_rows  # noqa: E402
@@ -134,7 +147,7 @@ from repro_torch.kernels.fft.real import rfft_rows_plain  # noqa: E402
 from repro_torch.kernels.fused.kernel import fft_rows_transpose_plain  # noqa: E402
 from repro_torch.kernels.fused.real import rfft_rows_transpose_plain  # noqa: E402
 from repro_torch.kernels.transpose.kernel import transpose_plain  # noqa: E402
-from repro_torch.launch.mesh import make_fft_mesh  # noqa: E402
+from repro_torch.launch.mesh import make_fft_mesh, make_pfft3_mesh  # noqa: E402
 from repro_torch.launch.serve_fft import (AdmissionError, DeadlineExceeded,  # noqa: E402
                                           FFTService, _bucket)
 from repro_torch.plan import (CostParams, PlanCache, candidate_configs,  # noqa: E402
@@ -218,6 +231,13 @@ N_DIST_PAD = 4096
 DIST_PANELS = (2, 4, 8)
 GLOO_RANKS = 4
 GLOO_TIMEOUT_S = 600
+# The 3-D mesh pipelines: the 512^3 cube of the pfft3 path on a 1 x 1 pencil
+# mesh of one NCCL rank (and a slab of one), the panel counts raced; then
+# GLOO_RANKS processes sharing the card over gloo on pencil meshes of 2x2,
+# 1x4, 4x1 and 4x1 over 2 emulated hosts, and slabs flat and 2 hosts x 2.
+N_DIST3 = 512
+DIST3_PANELS = (2, 4)
+N_DIST3_GLOO = 512
 SOURCES = "src/repro_torch/kernels/csrc/"
 
 
@@ -526,6 +546,11 @@ def batched_row_shapes() -> dict[str, set[tuple[int, int]]]:
         shapes["fft_rows_transpose"].add((rows, N_DIST))
         shapes["rfft_rows"].add((rows, N_DIST))
     shapes["fft_rows"].add((N_DIST_PAD, 2 * N_DIST_PAD))
+    # The 3-D mesh pipelines: a pass over each rank's pencil (or slab) rows,
+    # N^2/q of them on q ranks, and its panels.
+    for n, q in ((N_DIST3, 1), (N_DIST3_GLOO, GLOO_RANKS)):
+        shapes["fft_rows"].update((n * n // q // k, n)
+                                  for k in (1, *DIST3_PANELS))
     return shapes
 
 
@@ -1691,20 +1716,28 @@ def dist_worker(rank: int, port: int, out: str) -> None:
     dist.destroy_process_group()
 
 
-def phase_dist_gloo4(card: str) -> dict[str, int]:
-    """Drive the distributed path once on GLOO_RANKS processes sharing the
-    card over gloo with CUDA tensors (``dist_worker``): ``radix=4``, fused,
-    the hierarchical exchange on 2 emulated hosts x 2, 2 pipelined panels and
-    ``rfft-lb`` at N = N_DIST, each gathered on rank 0 against the library.
-    Every rank must launch exactly ``dist_expect`` per run; the path's counts
-    are the sums over the ranks."""
+def phase_dist_gloo4(card: str, mode: str = "2d") -> dict[str, int]:
+    """Drive a distributed path once on GLOO_RANKS processes sharing the
+    card over gloo with CUDA tensors: ``mode="2d"`` (phase ``dist_gloo4``,
+    ``dist_worker``) runs ``radix=4``, fused, the hierarchical exchange on 2
+    emulated hosts x 2, 2 pipelined panels and ``rfft-lb`` at N = N_DIST;
+    ``mode="3d"`` (phase ``dist3_gloo4``, ``dist3_worker``) the pencil and
+    slab runs of ``gloo3_runs`` at N_DIST3_GLOO^3; each gathered on rank 0
+    against the library.  Every rank must launch exactly what the mode's
+    expectation says per run; the path's counts are the sums over the
+    ranks."""
+    phase = "dist_gloo4" if mode == "2d" else "dist3_gloo4"
+    n = N_DIST if mode == "2d" else N_DIST3_GLOO
+    # The ranks share the card with this process: hand its cached blocks
+    # back to the device first.
+    torch.cuda.empty_cache()
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "gloo.json")
         procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                   "--dist-rank", str(r), str(port), out],
+                                   "--dist-rank", str(r), str(port), out, mode],
                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                   text=True)
                  for r in range(GLOO_RANKS)]
@@ -1719,26 +1752,225 @@ def phase_dist_gloo4(card: str) -> dict[str, int]:
                 if proc.poll() is None:
                     proc.kill()
         if failed:
-            raise AssertionError("dist_gloo4: " + "\n".join(failed))
+            raise AssertionError(f"{phase}: " + "\n".join(failed))
         with open(out) as fh:
             seen = json.load(fh)
     for rank, part in enumerate(seen):
         for record in part["records"]:
             expect = {k: record["expect"].get(k, 0) for k in record["launches"]}
             if record["launches"] != expect:
-                raise AssertionError(f"dist_gloo4 rank {rank} {record['run']}: "
+                raise AssertionError(f"{phase} rank {rank} {record['run']}: "
                                      f"launches {record['launches']}, expected {expect}")
     for record in seen[0]["records"]:
-        log("dist_gloo4", card=card, ranks=GLOO_RANKS, n=N_DIST, **record)
+        log(phase, card=card, ranks=GLOO_RANKS, n=n, **record)
         if record["max_abs_err"] > record["atol"]:
-            raise AssertionError(f"dist_gloo4 {record['run']}: max error "
+            raise AssertionError(f"{phase} {record['run']}: max error "
                                  f"{record['max_abs_err']} > {record['atol']}")
     counts = {k: sum(part["counts"][k] for part in seen) for k in seen[0]["counts"]}
-    log("dist_gloo4", launches=counts, launches_by_rank=[p["counts"] for p in seen])
-    for name in ("fft_rows", "fft_rows_transpose", "rfft_rows"):
+    log(phase, launches=counts, launches_by_rank=[p["counts"] for p in seen])
+    kernels = (("fft_rows", "fft_rows_transpose", "rfft_rows") if mode == "2d"
+               else ("fft_rows",))
+    for name in kernels:
         if counts[name] < 1:
-            raise AssertionError(f"the dist_gloo4 path never launched {name}")
+            raise AssertionError(f"the {phase} path never launched {name}")
     return counts
+
+
+def dist3_expect(cfg: PlanConfig, slab: bool = False) -> dict[str, int]:
+    """K1 launches of one 3-D mesh transform under ``cfg`` on each rank,
+    radix=4 only: a slab's three passes, or a pencil's two rounds of one
+    launch per panel and its last pass."""
+    if cfg.radix != 4:
+        return {}
+    return {"fft_rows": 3 if slab else 2 * cfg.pipeline_panels + 1}
+
+
+def phase_dist3(gen: torch.Generator, card: str) -> dict[str, int]:
+    """Drive the 3-D mesh pipelines once at world size 1 over NCCL, with the
+    launch counts set to 0 just before and read just after:
+    ``plan_pfft3(N_DIST3, mesh=make_pfft3_mesh(1, 1))`` under the library,
+    ``radix=4`` and ``radix=4`` with DIST3_PANELS pipelined panels;
+    ``pfft3_slab`` under ``radix=4`` on a 1-D mesh of one; ``tune=
+    "estimate"`` and ``tune="measure"`` plans (one rank: measure falls
+    back to the estimate); each against ``torch.fft.fftn`` within
+    ``2e-4·sqrt(N^3)`` and K1 exactly as ``dist3_expect`` says.  Then,
+    outside the drive, each run timed beside the single-device
+    ``plan_pfft3`` of its config, with the copies of one execute counted.
+    The group is destroyed at the end."""
+    mesh = make_pfft3_mesh(1, 1)
+    slab = make_fft_mesh()
+    n = N_DIST3
+    cube = random_signal(gen, n, n, n)
+    oracle = torch.fft.fftn(cube)
+    tol = signal_tol(cube.numel())
+    configs = [PlanConfig(), PlanConfig(radix=4),
+               *(PlanConfig(radix=4, pipeline_panels=k) for k in DIST3_PANELS)]
+    runs = {}
+
+    reset_launch_counts()          # ---- the 3-D mesh path's single drive starts
+
+    for cfg in configs:
+        plan = plan_pfft3(n, mesh=mesh, config=cfg)
+        runs[f"pencil/{cfg.describe()}"] = (plan.execute, cfg)
+        check_run("dist3", f"pencil/{cfg.describe()}", lambda: plan.execute(cube),
+                  oracle, dist3_expect(cfg), tol, n=n, mesh="1x1",
+                  orientation=list(plan.axis_names), device=str(plan.device))
+    kernel = PlanConfig(radix=4)
+    runs["slab/radix=4"] = (lambda m: pfft3_slab(m, slab, config=kernel), kernel)
+    check_run("dist3", "slab/radix=4", lambda: pfft3_slab(cube, slab, config=kernel),
+              oracle, dist3_expect(kernel, slab=True), tol, n=n, p=1)
+    store = os.path.join(tempfile.mkdtemp(), "wisdom.json")
+    for tune in ("estimate", "measure"):
+        plan, seconds, delta = planned(lambda: plan_pfft3(
+            n, mesh=mesh, tune=tune, wisdom=store))
+        if any(delta.values()):
+            raise AssertionError(f"plan_pfft3(mesh=, tune={tune}) launched {delta}")
+        if plan.tuning["source"] != tune:
+            raise AssertionError(f"planned from {plan.tuning['source']}, not {tune}")
+        if tune == "measure" and "measure_fallback" not in plan.tuning:
+            raise AssertionError("measure on one rank did not fall back to "
+                                 "the estimate")
+        check_run("dist3", f"pencil/tune={tune}", lambda: plan.execute(cube),
+                  oracle, dist3_expect(plan.config), tol,
+                  pick=plan.config.describe(), orientation=list(plan.axis_names),
+                  plan_s=seconds, topology=plan.tuning["topology"],
+                  fallback=plan.tuning.get("measure_fallback"))
+
+    # ---- the 3-D mesh path's single drive ends
+    counts = end_drive("dist3", ("fft_rows",))
+    shutil.rmtree(os.path.dirname(store))
+
+    for label, (fn, cfg) in runs.items():
+        single = plan_pfft3(n, config=cfg)
+        log("dist3_time", card=card, run=label, n=n, ranks=1,
+            execute_ms=time_ms(lambda: fn(cube), reps=5, warmup=1),
+            single_device_ms=time_ms(lambda: single.execute(cube), reps=5,
+                                     warmup=1),
+            copies=count_copies(lambda: fn(cube)),
+            single_device_copies=count_copies(lambda: single.execute(cube)))
+    log("dist3_time", card=card, run="library", n=n,
+        torch_fftn_ms=time_ms(lambda: torch.fft.fftn(cube), reps=5, warmup=1))
+    # The pieces of a 1 x 1 pencil transform: a pass of K1 over the N^2
+    # rows, the exchange sending the whole cube to itself (the pack is a
+    # view at one rank), the two placements and the final permute.
+    stack = cube.view(1, n, n, n)
+    group = mesh.get_group("fft_c")
+    recv = _send_recv(stack, group).wait()
+    out = torch.empty_like(cube)
+    log("dist3_time", card=card, run="pieces", n=n, bytes=cube.numel() * 8,
+        fft_pass_ms=time_ms(lambda: fft_rows_op(cube.view(-1, n), radix=4),
+                            reps=5, warmup=1),
+        exchange_ms=time_ms(lambda: _send_recv(stack, group).wait(), reps=5,
+                            warmup=1),
+        swap_place_ms=time_ms(lambda: out.view(n, n, 1, n).copy_(
+            recv.permute(_SWAP)), reps=5, warmup=1),
+        rotate_place_ms=time_ms(lambda: out.view(n, n, 1, n).copy_(
+            recv.permute(_ROTATE)), reps=5, warmup=1),
+        permute_ms=time_ms(lambda: cube.permute(2, 1, 0).contiguous(), reps=5,
+                           warmup=1),
+        clone_ms=time_ms(lambda: cube.clone(), reps=5, warmup=1))
+    del mesh, slab, stack, recv, out
+    dist.destroy_process_group()
+    return counts
+
+
+def gloo3_runs(meshes: dict) -> list[tuple]:
+    """(label, mesh, config, slab) of the shared-card 3-D world's drive."""
+    kernel = PlanConfig(radix=4)
+    return [("pencil/2x2/radix=4", meshes["2x2"], kernel, False),
+            ("pencil/2x2/radix=4,panels=2", meshes["2x2"],
+             PlanConfig(radix=4, pipeline_panels=2), False),
+            ("pencil/1x4/radix=4", meshes["1x4"], kernel, False),
+            ("pencil/4x1/radix=4", meshes["4x1"], kernel, False),
+            ("pencil/4x1h2/hier", meshes["4x1h2"],
+             PlanConfig(radix=4, exchange="hier"), False),
+            ("slab/radix=4", meshes["slab"], kernel, True),
+            ("slab/hier", meshes["slab_h2"],
+             PlanConfig(radix=4, exchange="hier"), True)]
+
+
+def dist3_worker(rank: int, port: int, out: str) -> None:
+    """One rank of phase ``dist3_gloo4``: every rank makes the same seeded
+    cube on the card and transforms its block (a pencil through
+    ``plan_pfft3(mesh=)``, a slab through ``pfft3_slab``) under each of
+    ``gloo3_runs`` (counted); rank 0 gathers the blocks through the host,
+    places each by its rank's mesh coordinates and holds the cube against
+    ``torch.fft.fftn``.  Then each run is timed (host clock between
+    barriers).  Rank 0 writes the JSON record to ``out``."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=GLOO_RANKS, rank=rank)
+    gloo = {"device_type": "cuda", "backend": "gloo"}
+    meshes = {"2x2": make_pfft3_mesh(2, 2, **gloo),
+              "1x4": make_pfft3_mesh(1, 4, **gloo),
+              "4x1": make_pfft3_mesh(4, 1, **gloo),
+              "4x1h2": make_pfft3_mesh(4, 1, hosts=2, **gloo),
+              "slab": make_fft_mesh(**gloo),
+              "slab_h2": make_fft_mesh(hosts=2, local=2, **gloo)}
+    n = N_DIST3_GLOO
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    cube = random_signal(gen, n, n, n)
+    oracle = torch.fft.fftn(cube) if rank == 0 else None
+    runs, records = [], []
+
+    reset_launch_counts()          # ---- this rank's part of the drive starts
+
+    for label, mesh, cfg, is_slab in gloo3_runs(meshes):
+        grid = mesh.mesh.reshape(mesh.mesh.shape[0], -1)   # rank of (i, j)
+        r, c = grid.shape
+        i, j = [int(v) for v in (grid == rank).nonzero()[0]]
+        block = cube[i * n // r:(i + 1) * n // r,
+                     j * n // c:(j + 1) * n // c].contiguous()
+        if is_slab:
+            fn = (lambda m, mesh=mesh, cfg=cfg: pfft3_slab(m, mesh, config=cfg))
+        else:
+            fn = plan_pfft3(n, mesh=mesh, config=cfg).execute
+        runs.append((label, fn, block))
+        before = launch_counts()
+        out_block = fn(block)
+        torch.cuda.synchronize()
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        parts = [torch.empty_like(torch.view_as_real(out_block.cpu()))
+                 for _ in range(GLOO_RANKS)] if rank == 0 else None
+        dist.gather(torch.view_as_real(out_block.cpu()), parts, dst=0)
+        record = {"run": label, "config": cfg.describe(), "mesh": [r, c],
+                  "launches": delta, "expect": dist3_expect(cfg, slab=is_slab)}
+        if rank == 0:
+            full = torch.empty_like(cube)
+            for q, part in enumerate(parts):
+                qi, qj = [int(v) for v in (grid == q).nonzero()[0]]
+                rows = slice(qi * n // r, (qi + 1) * n // r)
+                cols = slice(qj * n // c, (qj + 1) * n // c)
+                part = torch.view_as_complex(part).cuda()
+                if is_slab:
+                    full[rows] = part
+                else:
+                    full[:, rows, cols] = part
+            record.update(max_abs_err=max_abs_err(full, oracle),
+                          atol=signal_tol(cube.numel()))
+            del full
+        records.append(record)
+
+    counts = launch_counts()       # ---- this rank's part of the drive ends
+    for label, fn, block in runs:
+        times = []
+        for _ in range(3):
+            dist.barrier()
+            t0 = time.perf_counter()
+            fn(block)
+            torch.cuda.synchronize()
+            dist.barrier()
+            times.append((time.perf_counter() - t0) * 1e3)
+        for record in records:
+            if record["run"] == label:
+                record["wall_ms"] = statistics.median(times)
+    seen = [None] * GLOO_RANKS
+    dist.all_gather_object(seen, {"counts": counts, "records": records})
+    if rank == 0:
+        with open(out, "w") as fh:
+            json.dump(seen, fh)
+    dist.destroy_process_group()
 
 
 def time_fused_batch(gen: torch.Generator, card: str) -> None:
@@ -1813,7 +2045,9 @@ def main() -> None:
              "pfft1_large": phase_pfft1_large(gen, card),
              "serve": phase_serve(gen, fpms, card),
              "dist": phase_dist(gen, card),
-             "dist_gloo4": phase_dist_gloo4(card)}
+             "dist_gloo4": phase_dist_gloo4(card),
+             "dist3": phase_dist3(gen, card),
+             "dist3_gloo4": phase_dist_gloo4(card, mode="3d")}
     for record in records:
         by_path = {path: counts[record["name"]] for path, counts in paths.items()}
         record["launches"] = sum(by_path.values())
@@ -1831,6 +2065,7 @@ def main() -> None:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-rank"]:
-        dist_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        worker = dist3_worker if sys.argv[5:6] == ["3d"] else dist_worker
+        worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     else:
         main()

@@ -12,7 +12,8 @@ from repro_torch.core.pfft import (pfft_lb, pfft_fpm, pfft_fpm_pad, pfft_fpm_czt
 from repro_torch.core.api import (plan_pfft, PfftPlan, rfft2, irfft2,
                                   plan_pfft3, Pfft3Plan, plan_pfft1_large,
                                   Pfft1LargePlan, pfft1_large)
-from repro_torch.core.pfft3d import pfft3_lb, pfft3_fpm, pfft3_fpm_pad
+from repro_torch.core.pfft3d import (pfft3_lb, pfft3_fpm, pfft3_fpm_pad,
+                                     pfft3_distributed, pfft3_pencil, pfft3_slab)
 from repro_torch.core.pfft_large import four_step_factors, pfft1_large_apply
 from repro_torch.plan.config import PlanConfig
 
@@ -27,5 +28,6 @@ __all__ = [
     "plan_pfft", "PfftPlan", "rfft2", "irfft2", "PlanConfig",
     "plan_pfft3", "Pfft3Plan", "plan_pfft1_large", "Pfft1LargePlan",
     "pfft1_large", "pfft3_lb", "pfft3_fpm", "pfft3_fpm_pad",
+    "pfft3_distributed", "pfft3_pencil", "pfft3_slab",
     "four_step_factors", "pfft1_large_apply",
 ]

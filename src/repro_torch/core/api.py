@@ -47,9 +47,10 @@ unfused paths; ``execute_many`` stacks host signals into one such batch
 ``plan_pfft(mesh=...)`` plans the distributed 2-D transform
 (``core.pfft_dist``) over a ``torch.distributed`` ``DeviceMesh``: every rank
 of the mesh plans alike (the decisions are agreed across ranks) and its
-``execute`` takes and returns this rank's ``(N/p, N)`` row block.  Not in
-this package yet, and refused with ``NotImplementedError`` rather than
-quietly ignored: ``plan_pfft3(mesh=...)`` (the 3-D mesh pipelines).
+``execute`` takes and returns this rank's ``(N/p, N)`` row block.
+``plan_pfft3(mesh=...)`` plans the pencil pipeline (``core.pfft3d.
+pfft3_pencil``) over a 2-D mesh the same way; its ``execute`` takes this
+rank's ``(N/r, N/c, N)`` pencil.
 """
 
 from __future__ import annotations
@@ -96,10 +97,6 @@ _REAL_METHODS = frozenset({"rfft-lb", "rfft-fpm", "rfft-fpm-pad"})
 __all__ = ["PfftPlan", "plan_pfft", "rfft2", "irfft2",
            "Pfft3Plan", "plan_pfft3",
            "Pfft1LargePlan", "plan_pfft1_large", "pfft1_large"]
-
-_NO_MESH = ("plan_pfft3(mesh=): the 3-D mesh pipelines are not in repro_torch "
-            "yet; they come with the next distributed slice")
-
 
 def _base_method(method: str) -> str:
     """The partitioning family a method uses: ``rfft-fpm-pad`` pads and
@@ -670,10 +667,15 @@ def _wisdom_config(wisdom: str | None, key: str, tuning: dict[str, Any]
 @dataclasses.dataclass
 class Pfft3Plan:
     """A planned 3-D transform — same plan/execute/wisdom lifecycle as
-    ``PfftPlan``, for cubic N^3 signals: the single-device axis passes
-    (``core.pfft3d``) over an lb partition of the planes into ``p``
-    segments, with their dispatch groups' plane indices made once on the
-    plan's device."""
+    ``PfftPlan``, for cubic N^3 signals.
+
+    Single-device plans run the axis passes (``core.pfft3d``) over an lb
+    partition of the planes into ``p`` segments, with their dispatch
+    groups' plane indices made once on the plan's device.  Distributed
+    plans run the pencil pipeline (``pfft3_pencil``) on the captured 2-D
+    mesh in the *tuned orientation* ``axis_names`` (which mesh axis plays
+    row is a degree of freedom on rectangular meshes — see
+    ``tune_pfft3``)."""
     n: int
     method: str
     config: PlanConfig
@@ -683,22 +685,47 @@ class Pfft3Plan:
     dtype: str = "complex64"
     _groups: Any = dataclasses.field(default_factory=list, repr=False,
                                      compare=False)
+    mesh: Any = None
+    axis_names: tuple[str, str] | None = None
 
     @property
     def d(self) -> np.ndarray:
         return lb_partition(self.n, self.p).d
 
+    @property
+    def block_shape(self) -> tuple[int, int, int]:
+        """The block ``execute`` takes: the cube, or on a mesh this rank's
+        ``(N/r, N/c, N)`` pencil of the orientation ``axis_names``."""
+        if self.mesh is None:
+            return (self.n,) * 3
+        from repro_torch.launch.mesh import axis_size
+        r, c = (axis_size(self.mesh, a) for a in self.axis_names)
+        return (self.n // r, self.n // c, self.n)
+
     def execute(self, m) -> torch.Tensor:
-        """Run the planned transform; leading batch dims are batched (each
-        dispatch group of each pass runs once over the planes of all the
-        cubes)."""
-        from repro_torch.core.pfft3d import _pfft3
+        """Run the planned transform.
+
+        Single-device: leading batch dims are batched (each dispatch group
+        of each pass runs once over the planes of all the cubes).  On a
+        mesh: rank ``(i, j)`` — its coordinates along ``axis_names`` —
+        passes ``cube[i·N/r:(i+1)·N/r, j·N/c:(j+1)·N/c, :]`` and gets its
+        ``(N, N/r, N/c)`` block of ``fftn`` back (``pfft3_pencil``); every
+        rank calls it alike, one cube per call."""
+        from repro_torch.core.pfft3d import _pfft3, pfft3_pencil
         m = _on_plan_device(m, self.device)
-        if m.ndim < 3 or tuple(m.shape[-3:]) != (self.n,) * 3:
+        shape = self.block_shape
+        if m.ndim < 3 or tuple(m.shape[-3:]) != shape:
             raise ValueError(
-                f"plan is for ({self.n}, {self.n}, {self.n}) signals "
+                f"plan is for {shape} "
+                f"{'pencils' if self.mesh is not None else 'signals'} "
                 f"(optionally with leading batch dims), got {tuple(m.shape)}")
-        return _pfft3(m, self.d, config=self.config, groups=self._groups)
+        if self.mesh is None:
+            return _pfft3(m, self.d, config=self.config, groups=self._groups)
+        if m.ndim > 3:
+            raise ValueError(
+                "distributed pfft3 plans transform one cube per call "
+                "(vmapping over shard_map is not supported); loop instead")
+        return pfft3_pencil(m, self.mesh, self.axis_names, config=self.config)
 
     def execute_many(self, ms, *, pad_to: int | None = None,
                      stages: dict | None = None) -> list:
@@ -707,69 +734,139 @@ class Pfft3Plan:
         return _execute_many(self, ms, (self.n,) * 3, pad_to, stages)
 
 
+def _stored_pfft3(hit, axes0: tuple[str, str] | None):
+    """(config, orientation) of a stored 3-D plan, or None: the entry must
+    be a config, and on a mesh a stored orientation that names other axes
+    than the mesh's (drifted) is a miss, not an error."""
+    if hit is None or not isinstance(hit[0], PlanConfig):
+        return None
+    waxes = axes0
+    stored = hit[1].get("pfft3_orientation")
+    if axes0 is not None and stored is not None:
+        waxes = tuple(stored)
+        if sorted(waxes) != sorted(axes0):
+            return None
+    return normalize_pad(hit[0], "none"), waxes
+
+
 def plan_pfft3(n: int, *, p: int | None = None, mesh=None,
+               axis_names: tuple[str, str] = ("fft_r", "fft_c"),
                tune: TuneMode = "off", wisdom: str | None = None,
                config: PlanConfig | None = None, dtype: str = "complex64",
                device: str | torch.device | None = None) -> Pfft3Plan:
     """Plan the 3-D transform; see ``plan_pfft`` for the lifecycle.
 
-    The plan runs the single-device axis passes over an lb partition of
-    ``p`` segments (default 1; 1 <= p <= N).  Resolution order: explicit
-    config > wisdom hit (also at ``tune="off"``) > tuner > default; the
-    wisdom key's backend is the plan's device type, and a measured pick
-    is recorded.  ``mesh=`` (the pencil pipeline) raises
-    ``NotImplementedError`` until the distributed slice, which also brings
-    the reference's ``axis_names=``.
+    Without a mesh the plan runs the single-device axis passes over an lb
+    partition of ``p`` segments (default 1; 1 <= p <= N).  Resolution
+    order: explicit config > wisdom hit (also at ``tune="off"``) > tuner >
+    default; the wisdom key's backend is the plan's device type, and a
+    measured pick is recorded with its comm sample.
+
+    ``mesh=`` plans the pencil-parallel pipeline over a 2-D r x c
+    ``DeviceMesh`` (``launch.mesh.make_pfft3_mesh``; both ``axis_names``
+    must exist on it, N must divide by both sizes, ``p`` must be r*c if
+    given); every rank calls it alike and the plan lives on the rank's
+    device.  The wisdom key gains the mesh's 2-D ``topology_digest``
+    ('+'-joined per-axis terms, so a transposed mesh gets its own key);
+    ``tune="measure"`` races config x panel x *orientation* finalists
+    through the full two-exchange pipeline, each time the slowest rank's;
+    a measured winner persists with its orientation
+    (``extra["pfft3_orientation"]``), so a second plan on the same mesh is
+    served from disk with nothing measured.  The first rank looks the store
+    up and hands the answer to every rank, and alone writes it (the others
+    wait at a barrier).
     """
     if tune not in ("off", "estimate", "measure"):
         raise ValueError(f"tune must be 'off'|'estimate'|'measure', got {tune!r}")
     if np.dtype(dtype).kind != "c":
         raise ValueError(
             f"plan_pfft3 transforms complex input, got dtype={dtype!r}")
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
     from repro_torch.core.pfft3d import plane_groups
-    from repro_torch.plan.tune import tune_pfft3
+    from repro_torch.core.pfft_dist import require_mesh_divisible
+    from repro_torch.plan.tune import pfft3_panel_space, tune_pfft3
 
-    q = int(p) if p is not None else 1
-    if not 1 <= q <= n:
-        raise ValueError(f"need 1 <= p <= N, got p={q} for N={n}")
-    device = resolve_device(device)
     method = "pfft3-lb"
+    axes0 = panels = topo = None
+    if mesh is not None:
+        from repro_torch.launch.mesh import axis_size
+        axes0 = tuple(axis_names)
+        if len(axes0) != 2:
+            raise ValueError(
+                f"plan_pfft3(mesh=...) needs two axis names, got {axes0!r}")
+        r, c = axis_size(mesh, axes0[0]), axis_size(mesh, axes0[1])
+        require_mesh_divisible(n, r, axes0[0])
+        require_mesh_divisible(n, c, axes0[1])
+        q = r * c
+        if p is not None and p != q:
+            raise ValueError(f"p={p} conflicts with mesh {axes0[0]}x"
+                             f"{axes0[1]} = {r}x{c} = {q} devices")
+        device = _mesh_plan_device(mesh, device)
+        panels = pfft3_panel_space(n, r, c)
+        topo = topology_digest(mesh, axes0, panels=panels)
+    else:
+        q = int(p) if p is not None else 1
+        if not 1 <= q <= n:
+            raise ValueError(f"need 1 <= p <= N, got p={q} for N={n}")
+        device = resolve_device(device)
     tuning: dict[str, Any] = {"mode": tune}
 
-    def build(cfg: PlanConfig) -> Pfft3Plan:
+    def build(cfg: PlanConfig, waxes) -> Pfft3Plan:
+        groups = [] if mesh is not None else plane_groups(
+            n, lb_partition(n, q).d, None, cfg, device)
         return Pfft3Plan(n=n, method=method, config=cfg, tuning=tuning,
-                         device=device, p=q, dtype=dtype,
-                         _groups=plane_groups(n, lb_partition(n, q).d, None,
-                                              cfg, device))
+                         device=device, p=q, dtype=dtype, _groups=groups,
+                         mesh=mesh, axis_names=waxes)
+
+    def agreed(fn):
+        """``fn()``, the first rank's answer on a mesh."""
+        return fn() if mesh is None else first_rank_value(mesh, axes0, fn)
 
     if config is not None:
         tuning["source"] = "explicit"
-        return build(normalize_pad(config, "none"))
+        return build(normalize_pad(config, "none"), axes0)
 
+    if topo is not None:
+        tuning["topology"] = topo
     key = wisdom_key(n=n, dtype=dtype, p=q, method=method,
-                     backend=device.type)
+                     backend=device.type, topology=topo)
     tuning["wisdom_key"] = key
-    stored = _wisdom_config(wisdom, key, tuning)
-    if stored is not None:
-        return build(stored)
+    if wisdom is not None:
+        hit = agreed(lambda: lookup_wisdom(wisdom, key))
+        stored = _stored_pfft3(hit, axes0)
+        if stored is not None:
+            tuning["source"] = "wisdom"
+            tuning["wisdom_entry"] = hit[1]
+            return build(*stored)
 
     if tune == "off":
         tuning["source"] = "off"
-        return build(PlanConfig())
+        return build(PlanConfig(), axes0)
 
-    cfg, _, info = tune_pfft3(n, None, mode=tune,
-                              dtype=np.dtype(dtype), device=device)
+    cfg, waxes, info = tune_pfft3(n, mesh, axis_names, mode=tune,
+                                  panels=panels, dtype=np.dtype(dtype),
+                                  device=device)
     tuning.update(info)
     tuning["source"] = tune
     if wisdom is not None and tune == "measure":
         stats = info["pfft3"]
-        record_wisdom(wisdom, key, cfg, mode="measure",
-                      time_s=info.get("time_s"),
-                      extra={"comm_bytes": stats["comm_bytes"],
-                             "comm_time_s": stats["comm_time_meas_s"]})
-    return build(cfg)
+        extra: dict[str, Any] = {}
+        if topo is not None:
+            extra.update(topology=topo, pfft3_orientation=list(waxes))
+        if stats.get("comm_time_meas_s") is not None:
+            extra["comm_bytes"] = stats["comm_bytes"]
+            extra["comm_time_s"] = stats["comm_time_meas_s"]
+        if int(stats.get("hosts", 1)) > 1:
+            extra["hosts"] = int(stats["hosts"])
+
+        def record():
+            record_wisdom(wisdom, key, cfg, mode="measure",
+                          time_s=info.get("time_s"), extra=extra or None)
+
+        if mesh is None:
+            record()
+        else:
+            first_rank_does(mesh, axes0, record)
+    return build(cfg, waxes)
 
 
 # ------------------------------------------------------------------ huge 1-D

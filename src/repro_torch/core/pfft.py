@@ -653,6 +653,8 @@ def czt_dft(x, m_fft: int | None = None) -> torch.Tensor:
     if m_fft < 2 * n - 1:
         raise ValueError(f"m_fft={m_fft} < 2N-1={2 * n - 1}")
     ctype = complex_result_type(x)
+    if not x.numel():
+        return torch.empty(x.shape, dtype=ctype, device=x.device)
     chirp, b_hat = _czt_tables(n, int(m_fft), ctype, x.device)
     a = torch.zeros(x.shape[:-1] + (m_fft,), dtype=ctype, device=x.device)
     a[..., :n] = x * chirp

@@ -50,6 +50,10 @@ def fft_rows(m, *, use_stockham: bool = False, backend: str | None = None,
         return fft_rows_op(m, radix=radix)
     if backend == "stockham" and not (n & (n - 1)):
         return fft1d_stockham(m)
+    if not m.numel():
+        # No rows: the library refuses an empty batch, the result is empty.
+        return torch.empty(m.shape, dtype=complex_result_type(m),
+                           device=m.device)
     return torch.fft.fft(m.to(complex_result_type(m)), dim=-1)
 
 
@@ -117,6 +121,9 @@ def rfft_rows(m, *, backend: str | None = None,
         return rfft_rows_op(m, radix=radix)
     if backend == "stockham" and m.ndim >= 2 and not (n & (n - 1)):
         return _packed_rfft(m, fft1d_stockham)
+    if not m.numel():
+        return torch.empty(m.shape[:-1] + (n // 2 + 1,),
+                           dtype=complex_result_type(m), device=m.device)
     return torch.fft.rfft(m, dim=-1)
 
 
@@ -162,6 +169,11 @@ def irfft2(h, *, n: int | None = None) -> torch.Tensor:
     h = as_tensor(h)
     if n is None:
         n = 2 * (h.shape[-1] - 1)
+    if n < 1:
+        raise ValueError("Shape should be positive.")
+    if not h.numel():
+        real = torch.float64 if h.dtype == torch.complex128 else torch.float32
+        return torch.empty(h.shape[:-1] + (n,), dtype=real, device=h.device)
     return torch.fft.irfft(torch.fft.ifft(h, dim=-2), n=n, dim=-1)
 
 

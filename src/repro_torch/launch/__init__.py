@@ -5,7 +5,9 @@ CUDA state and creates no process group."""
 
 from repro_torch.launch.mesh import (host_major_devices, init_multihost,
                                      init_multihost_from_env, make_fft_mesh,
-                                     mesh_host_shape, register_emulated_hosts)
+                                     make_pfft3_mesh, mesh_host_shape,
+                                     register_emulated_hosts)
 
-__all__ = ["make_fft_mesh", "mesh_host_shape", "register_emulated_hosts",
+__all__ = ["make_fft_mesh", "make_pfft3_mesh", "mesh_host_shape",
+           "register_emulated_hosts",
            "host_major_devices", "init_multihost", "init_multihost_from_env"]

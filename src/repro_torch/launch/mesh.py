@@ -18,10 +18,14 @@ default process group and every rank takes part in every collective.
   groups are built while the first mesh of a host partition is built, on
   every rank in the same order (creating a process group is collective),
   and every later mesh of that partition reuses them.
-* ``mesh_host_shape`` reads ``(hosts, local)`` back: the structure
-  declared by ``hosts=``/``local=`` (emulated, as in the reference's
-  single-process tests) or, without them, the launcher's processes per host
-  (``LOCAL_WORLD_SIZE``).
+* ``make_pfft3_mesh(r, c, hosts=)`` builds the 2-D ``r x c`` mesh of the
+  pencil pipeline over the same host-major ranks, the hosts riding the
+  ``r`` axis: each host owns ``r/hosts`` contiguous mesh rows, so every
+  ``c``-axis communicator stays inside one host.
+* ``mesh_host_shape`` reads ``(hosts, local)`` back along the axis asked
+  for: the structure declared by ``hosts=``/``local=`` (emulated, as in the
+  reference's single-process tests) or, without them, the launcher's
+  processes per host (``LOCAL_WORLD_SIZE``).
 
 The device type decides the backend: ``"cuda"`` (the default, which raises
 without a card) runs NCCL, ``"cpu"`` runs gloo.  ``device_type="cuda",
@@ -31,12 +35,15 @@ host) is taken only when asked for.
 The collectives every rank must agree on while planning (the first rank's
 wisdom lookup, the slowest rank's measured times) are the helpers at the
 end: under SPMD each rank plans for itself, and ranks that chose
-differently would meet at different collectives.
+differently would meet at different collectives.  They agree over one
+axis's group, or over the whole mesh when given a sequence of axis names
+(a pencil plan decides for all ``r*c`` ranks).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import socket
 
@@ -44,9 +51,9 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-__all__ = ["make_fft_mesh", "mesh_host_shape", "register_emulated_hosts",
-           "host_major_devices", "init_multihost", "init_multihost_from_env",
-           "axis_size", "mesh_device"]
+__all__ = ["make_fft_mesh", "make_pfft3_mesh", "mesh_host_shape",
+           "register_emulated_hosts", "host_major_devices", "init_multihost",
+           "init_multihost_from_env", "axis_size", "mesh_device"]
 
 _BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 
@@ -64,7 +71,7 @@ class _HostLayout:
 # The attribute of a DeviceMesh that holds its {axis_name: _HostLayout}.
 _LAYOUT_ATTR = "_fft_host_layouts"
 
-# (default process group, ranks along the axis, hosts) -> this rank's
+# (default process group, the axis's lines of ranks, hosts) -> this rank's
 # (intra, inter) groups.  Filled on every rank alike (the builders are
 # called alike), so either every rank creates a partition's groups or none.
 _HIER_GROUPS: dict[tuple, tuple] = {}
@@ -164,9 +171,21 @@ def mesh_device(mesh: DeviceMesh) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _axis_ranks(mesh: DeviceMesh, axis_name: str) -> tuple[int, ...]:
+def _axis_lines(mesh: DeviceMesh, axis_name: str) -> list[tuple[int, ...]]:
+    """Every line of ranks along ``axis_name`` (one per coordinate of the
+    other axes, in row-major order of those), each in axis order: the
+    ranks of one communicator of the axis.  A 1-D mesh has one line."""
     axis_size(mesh, axis_name)
-    return tuple(int(r) for r in mesh.mesh.flatten().tolist())
+    dim = tuple(mesh.mesh_dim_names).index(axis_name)
+    grid = mesh.mesh.movedim(dim, -1)
+    return [tuple(int(r) for r in line)
+            for line in grid.reshape(-1, grid.shape[-1]).tolist()]
+
+
+def _axis_ranks(mesh: DeviceMesh, axis_name: str) -> tuple[int, ...]:
+    """This rank's line along ``axis_name`` (``_axis_lines``)."""
+    me = dist.get_rank()
+    return next(line for line in _axis_lines(mesh, axis_name) if me in line)
 
 
 def register_emulated_hosts(mesh: DeviceMesh, axis_name: str, hosts: int) -> None:
@@ -175,12 +194,14 @@ def register_emulated_hosts(mesh: DeviceMesh, axis_name: str, hosts: int) -> Non
     over them (built for the first mesh of this partition, then reused).
 
     The declaration lives on ``mesh`` alone: other meshes over the same
-    ranks, whatever their axis name, keep their own.  Collective: every
-    rank of the world calls it, in the same order as every other group
-    creation.  ``hosts=1`` clears a prior declaration on this mesh.
+    ranks, whatever their axis name, keep their own.  On a 2-D mesh each
+    line of ranks along the axis is one host-major axis, and the groups of
+    every line are built.  Collective: every rank of the world calls it, in
+    the same order as every other group creation.  ``hosts=1`` clears a
+    prior declaration on this mesh.
     """
-    ranks = _axis_ranks(mesh, axis_name)
-    p = len(ranks)
+    lines = _axis_lines(mesh, axis_name)
+    p = len(lines[0])
     hosts = int(hosts)
     layouts = getattr(mesh, _LAYOUT_ATTR, None)
     if layouts is None:
@@ -194,24 +215,28 @@ def register_emulated_hosts(mesh: DeviceMesh, axis_name: str, hosts: int) -> Non
                          f"axis {axis_name!r}")
     layout = _HostLayout(hosts)
     if p // hosts > 1:
-        layout = _HostLayout(hosts, *_hier_process_groups(ranks, hosts))
+        layout = _HostLayout(hosts, *_hier_process_groups(lines, hosts))
     layouts[axis_name] = layout
 
 
-def _hier_process_groups(ranks: tuple[int, ...], hosts: int) -> tuple:
+def _hier_process_groups(lines: list[tuple[int, ...]], hosts: int) -> tuple:
     """This rank's (intra-host, inter-host) groups over the host-major
-    ``ranks``: made once per partition (collectively), then reused."""
+    ``lines`` of ranks (each line one axis communicator): made once per
+    partition (collectively, every line's groups on every rank, in the same
+    order), then reused."""
     from repro_torch.core.pfft_dist import _hier_groups  # lazy: core imports launch
-    key = (dist.group.WORLD, ranks, hosts)
+    key = (dist.group.WORLD, tuple(lines), hosts)
     if key not in _HIER_GROUPS:
-        me = ranks.index(dist.get_rank())
+        me = dist.get_rank()
         mine = {}
-        families = _hier_groups(hosts, len(ranks) // hosts)
-        for tier, family in zip(("intra", "inter"), families):
-            for positions in family:
-                group = dist.new_group([ranks[i] for i in positions])
-                if me in positions:
-                    mine[tier] = group
+        families = _hier_groups(hosts, len(lines[0]) // hosts)
+        for ranks in lines:
+            for tier, family in zip(("intra", "inter"), families):
+                for positions in family:
+                    members = [ranks[i] for i in positions]
+                    group = dist.new_group(members)
+                    if me in members:
+                        mine[tier] = group
         _HIER_GROUPS[key] = (mine["intra"], mine["inter"])
     return _HIER_GROUPS[key]
 
@@ -265,17 +290,7 @@ def make_fft_mesh(p: int | None = None, axis_name: str = "fft", *,
     when it divides the world.  ``hosts=1`` is the flat mesh.  Every rank
     must call this alike: it creates process groups.
     """
-    device_type, backend = _backend_for(device_type, backend)
-    if not dist.is_initialized():
-        if not init_multihost_from_env(device_type=device_type, backend=backend):
-            _init_single_process(device_type, backend)
-    elif dist.get_backend() != backend:
-        raise ValueError(
-            f"the process group runs {dist.get_backend()!r}, the mesh asks "
-            f"for {backend!r} (device_type={device_type!r})")
-    if device_type == "cuda":
-        _set_cuda_device(dist.get_rank())
-    world = dist.get_world_size()
+    device_type, world = _join_world(device_type, backend)
     if hosts is None and local is None:
         per_host = int(os.environ.get("LOCAL_WORLD_SIZE", 0))
         if 1 < per_host < world and world % per_host == 0:
@@ -298,16 +313,102 @@ def make_fft_mesh(p: int | None = None, axis_name: str = "fft", *,
     return mesh
 
 
+def _join_world(device_type: str | None, backend: str | None) -> tuple[str, int]:
+    """The process group a mesh builder runs in (made from torchrun's
+    environment, else for this process alone, when none exists), checked
+    against the backend the mesh asks for; this process's card selected.
+    Returns (device type, world size)."""
+    device_type, backend = _backend_for(device_type, backend)
+    if not dist.is_initialized():
+        if not init_multihost_from_env(device_type=device_type, backend=backend):
+            _init_single_process(device_type, backend)
+    elif dist.get_backend() != backend:
+        raise ValueError(
+            f"the process group runs {dist.get_backend()!r}, the mesh asks "
+            f"for {backend!r} (device_type={device_type!r})")
+    if device_type == "cuda":
+        _set_cuda_device(dist.get_rank())
+    return device_type, dist.get_world_size()
+
+
+def make_pfft3_mesh(r: int | None = None, c: int | None = None,
+                    axis_names: tuple[str, str] = ("fft_r", "fft_c"), *,
+                    hosts: int | None = None, device_type: str | None = None,
+                    backend: str | None = None) -> DeviceMesh:
+    """2-D ``r x c`` mesh for the pencil-parallel 3-D PFFT.
+
+    Spans the whole world of ranks (``r*c`` must equal it), laid out from
+    the host-major ranks row by row: rank ``(i, j)`` is the ``i*c + j``-th.
+    Defaults to the most-square factorization of the world (``r <= c``);
+    passing one of ``r``/``c`` derives the other.  Both axis names enter
+    the plan's ``topology_digest``, so a transposed mesh gets distinct
+    wisdom keys.
+
+    ``hosts`` builds the grid host-major with the host dimension riding
+    the ``r`` axis (the default is then ``r = hosts``): each host owns
+    ``r/hosts`` contiguous mesh rows, so every ``c``-axis communicator
+    stays inside one host and only the ``r``-axis exchange crosses the
+    slow tier.  Requires ``hosts | r``.  Without it, the launcher's
+    ``LOCAL_WORLD_SIZE`` gives the hosts when they divide ``r``.  The
+    process group comes up as in ``make_fft_mesh``; every rank must call
+    this alike.
+    """
+    device_type, world = _join_world(device_type, backend)
+    if r is None and c is None:
+        if hosts is not None and int(hosts) > 1:
+            r = int(hosts)
+        else:
+            r = next(f for f in range(math.isqrt(world), 0, -1)
+                     if world % f == 0)
+        c = world // r
+    elif r is None:
+        r = world // int(c)
+    elif c is None:
+        c = world // int(r)
+    r, c = int(r), int(c)
+    if r < 1 or c < 1 or r * c != world:
+        raise ValueError(
+            f"the pencil mesh spans the whole world: {r}x{c}, but {world} "
+            "ranks are in the process group (one rank per pencil)")
+    if hosts is None:
+        per_host = int(os.environ.get("LOCAL_WORLD_SIZE", 0))
+        if 1 < per_host < world and world % per_host == 0 \
+                and r % (world // per_host) == 0:
+            hosts = world // per_host
+    else:
+        hosts = int(hosts)
+        if hosts < 1 or r % hosts:
+            raise ValueError(
+                f"host count must divide the r axis: hosts={hosts}, r={r}")
+    grid = torch.tensor(host_major_devices()).reshape(r, c)
+    mesh = DeviceMesh(device_type, grid, mesh_dim_names=tuple(axis_names))
+    register_emulated_hosts(mesh, axis_names[0], hosts or 1)
+    return mesh
+
+
 # ----------------------------------------------- decisions agreed by ranks
 
-def _axis_group(mesh: DeviceMesh, axis_name: str):
-    axis_size(mesh, axis_name)
-    return mesh.get_group(axis_name)
+def _axis_group(mesh: DeviceMesh, axes):
+    """The group of ranks that agree: the axis's communicator for one axis
+    name; for a sequence of names (each of which the mesh must have), the
+    whole mesh — the default group, which every mesh spans."""
+    if isinstance(axes, str):
+        axis_size(mesh, axes)
+        return mesh.get_group(axes)
+    for name in axes:
+        axis_size(mesh, name)
+    if mesh.mesh.numel() != dist.get_world_size():
+        raise ValueError("a whole-mesh decision needs a mesh over the whole "
+                         f"world, got {mesh.mesh.numel()} of "
+                         f"{dist.get_world_size()} ranks")
+    return dist.group.WORLD
 
 
-def first_rank_value(mesh: DeviceMesh, axis_name: str, fn):
-    """``fn()`` run on the axis's first rank alone and handed to every rank
-    (a wisdom lookup, fitted constants): one answer for the whole mesh."""
+def first_rank_value(mesh: DeviceMesh, axis_name, fn):
+    """``fn()`` run on the first rank alone and handed to every rank (a
+    wisdom lookup, fitted constants): one answer for the whole mesh.
+    ``axis_name``: one axis (its group agrees), or a sequence of names (all
+    the mesh's ranks agree)."""
     group = _axis_group(mesh, axis_name)
     box = [fn() if dist.get_rank(group) == 0 else None]
     dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
@@ -315,9 +416,10 @@ def first_rank_value(mesh: DeviceMesh, axis_name: str, fn):
     return box[0]
 
 
-def first_rank_does(mesh: DeviceMesh, axis_name: str, fn) -> None:
-    """``fn()`` on the axis's first rank alone (a wisdom write, under the
-    store's own lock), then a barrier, so no rank reads before it is done."""
+def first_rank_does(mesh: DeviceMesh, axis_name, fn) -> None:
+    """``fn()`` on the first rank alone (a wisdom write, under the store's
+    own lock), then a barrier, so no rank reads before it is done; over one
+    axis or, for a sequence of names, the whole mesh."""
     group = _axis_group(mesh, axis_name)
     if dist.get_rank(group) == 0:
         fn()
@@ -325,10 +427,10 @@ def first_rank_does(mesh: DeviceMesh, axis_name: str, fn) -> None:
 
 
 def max_over_axis(values: list[float], mesh: DeviceMesh,
-                  axis_name: str) -> list[float]:
-    """Each value's maximum over the ranks of the axis: a measured time of
-    an SPMD program is its slowest rank's, and every rank ranks the same
-    numbers."""
+                  axis_name) -> list[float]:
+    """Each value's maximum over the ranks of the axis (or, for a sequence
+    of names, of the whole mesh): a measured time of an SPMD program is its
+    slowest rank's, and every rank ranks the same numbers."""
     group = _axis_group(mesh, axis_name)
     device = (mesh_device(mesh) if dist.get_backend(group) == "nccl"
               else torch.device("cpu"))

@@ -36,6 +36,7 @@ from repro_torch.plan.wisdom import (WISDOM_VERSION, load_wisdom,
 from repro_torch.plan.tune import (candidate_configs, dist_panel_space,
                                    grouped_dist_schedule, measure_configs,
                                    measure_dist_configs, measure_rfft_configs,
+                                   measure_pfft3_configs,
                                    measure_rfft_dist_configs,
                                    pfft3_panel_space,
                                    segment_candidate_configs, tune_config,
@@ -58,7 +59,8 @@ __all__ = [
     "WISDOM_VERSION", "load_wisdom", "lookup_wisdom", "partition_digest",
     "record_wisdom", "topology_digest", "wisdom_key",
     "candidate_configs", "dist_panel_space", "grouped_dist_schedule",
-    "measure_configs", "measure_dist_configs", "measure_rfft_configs",
+    "measure_configs", "measure_dist_configs", "measure_pfft3_configs",
+    "measure_rfft_configs",
     "measure_rfft_dist_configs", "segment_candidate_configs", "tune_config",
     "tune_dist_config", "tune_dist_schedule", "tune_rfft", "tune_rfft_dist",
     "tune_schedule", "pfft3_panel_space", "tune_pfft3", "tune_pfft1_large",

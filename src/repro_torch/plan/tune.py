@@ -1,9 +1,10 @@
 """Estimate/measure tuner — FFTW's planner loop over ``PlanConfig`` space.
 
 Counterpart of ``repro.plan.tune``: the single-device tuners, the 3-D
-(``tune_pfft3`` without a mesh) and huge-1-D (``tune_pfft1_large``) ones,
-and the 2-D distributed ones (``tune_dist_config``, ``tune_rfft_dist``,
-``tune_dist_schedule``) that plan for ``core.pfft_dist`` on a mesh.
+(``tune_pfft3``, on one device or a pencil mesh) and huge-1-D
+(``tune_pfft1_large``) ones, and the 2-D distributed ones
+(``tune_dist_config``, ``tune_rfft_dist``, ``tune_dist_schedule``) that
+plan for ``core.pfft_dist`` on a mesh.
 ``candidate_configs`` enumerates the valid variant space for a problem
 (radix x fused x batched x pipeline_panels, pruned by structural
 constraints); ``tune_config`` ranks it:
@@ -54,7 +55,7 @@ __all__ = ["candidate_configs", "segment_candidate_configs",
            "grouped_dist_schedule", "dist_panel_space",
            "measure_rfft_configs", "measure_rfft_dist_configs",
            "tune_rfft", "tune_rfft_dist", "pfft3_panel_space",
-           "tune_pfft3", "tune_pfft1_large"]
+           "measure_pfft3_configs", "tune_pfft3", "tune_pfft1_large"]
 
 
 def _is_pow2(n: int) -> bool:
@@ -648,8 +649,9 @@ def pfft3_panel_space(n: int, r: int, c: int, max_panels: int = 8
     mesh: the powers of two up to ``max_panels`` dividing *both* local
     extents (the pencil pipeline splits panels along whichever block axis
     the current exchange leaves alone, so k must divide N/r and N/c
-    alike).  The one home of the rule, for the pencil tuner of the
-    distributed slice: without a mesh ``tune_pfft3`` offers k = 1 alone.
+    alike).  The one home of the rule — the pencil tuner and
+    ``plan_pfft3(mesh=...)`` enumerate (and digest) the same space; without
+    a mesh ``tune_pfft3`` offers k = 1 alone.
     """
     import math
 
@@ -689,37 +691,84 @@ def _measure_pfft3_local_pass(cfg: PlanConfig, n: int, length: int, dtype,
     return _timed_min(pairs, x, rounds)[cfg]
 
 
-def tune_pfft3(n: int, mesh=None, *,
+def measure_pfft3_configs(configs: Sequence[PlanConfig], n: int, mesh,
+                          axis_names: Sequence[str] = ("fft_r", "fft_c"), *,
+                          pad_len: int | None = None, dtype=np.complex64,
+                          rounds: int = 3, events: dict | None = None
+                          ) -> dict[PlanConfig, float]:
+    """End-to-end seconds of ``pfft3_pencil`` per config on ``mesh``.
+
+    The 3-D sibling of ``measure_dist_configs``: times the full pencil
+    pipeline — three local passes, both exchange rounds, pipelined panels,
+    the final local permute — with the shuffled-interleaved per-config-min
+    harness (``_timed_min``), each time the slowest of all ``r*c`` ranks.
+    Every rank holds the same seeded ``(N/r, N/c, N)`` pencil of the
+    orientation ``axis_names``; one call races one orientation (callers —
+    ``tune_pfft3`` — merge per-orientation races themselves).  ``events``
+    receives the CUDA-event times.
+    """
+    from repro_torch.core.pfft3d import pfft3_pencil  # lazy: core imports plan
+    from repro_torch.launch.mesh import axis_size
+
+    axes = tuple(axis_names)
+    r, c = axis_size(mesh, axes[0]), axis_size(mesh, axes[1])
+    x = _mesh_signal((n // r, n // c, n), dtype, mesh)
+    pairs = [(cfg, lambda b, cfg=cfg: pfft3_pencil(
+        b, mesh, axes, config=cfg, pad_len=pad_len)) for cfg in configs]
+    return _agreed_times(_warmed(pairs, x), x, rounds, mesh, axes, events)
+
+
+def tune_pfft3(n: int, mesh=None,
+               axis_names: Sequence[str] = ("fft_r", "fft_c"), *,
                mode: str = "estimate", pad: str = "none",
                pad_len: int | None = None,
                params: CostParams | None = None, top_k: int = 3,
-               dtype=np.complex64,
+               panels: Sequence[int] | None = None, dtype=np.complex64,
                reps: int = 3, measure_retries: int = 0, device=None
                ) -> tuple[PlanConfig, tuple[str, str] | None, dict]:
-    """Pick the best config for the single-device 3-D transform.
+    """Pick the best (config, pencil orientation) for the 3-D transform.
 
-    Returns ``(config, axes, info)`` as the reference does; ``axes`` (the
-    pencil orientation of a mesh) is ``None`` here.  ``mesh=`` is the
-    distributed slice's and raises ``NotImplementedError``; the
-    reference's ``axis_names=`` and ``panels=`` come with it.  Only a mesh
-    reads them: on one device every ``pipeline_panels`` runs the same
-    program, so the pot holds k = 1 alone (``pfft3_panel_space`` gives a
-    mesh's).  The ranking
-    prices each candidate with ``estimate_pfft3_cost`` at r = c = 1;
-    measure mode times the finalists' ``pfft3_lb(m, 1, config=c)`` on
-    ``device`` (wall time between two synchronizations, the CUDA-event
-    time beside it), then one local pass of the winner: ``info["pfft3"]``
-    carries ``local_pass_s`` and ``comm_time_meas_s = total − 3·pass``
-    (clamped at 0), which on one device is the time of the rotations.
-    The candidate pot is ``candidate_configs``' (no ``radix=4`` where N is
-    a power of two above ``MAX_KERNEL_N``), batched and unfused.
+    Returns ``(config, axes, info)`` where ``axes`` is the winning
+    ``(row_axis, col_axis)`` orientation of ``pfft3_pencil`` on a mesh —
+    on a rectangular r x c mesh the first exchange crosses the *column*
+    axis, so swapping which mesh axis plays row changes which round moves
+    which fraction of the cube.  Both orientations enter the estimate
+    ranking (priced via ``estimate_pfft3_cost`` with the hosts of the
+    orientation's row axis), a host-major axis adds the hierarchical
+    exchange as a config dimension, and measure mode races the distinct
+    finalists of each orientation through the full pencil pipeline
+    (``measure_pfft3_configs``), each time the slowest rank's, so every
+    rank picks alike.  A 1-rank mesh falls back to the estimate
+    (``info["measure_fallback"]``).  A mesh measurement takes no retries
+    (a fallback on one rank alone would leave the ranks at different
+    collectives): it raises on failure.  ``panels`` defaults to
+    ``pfft3_panel_space`` of the mesh.
+
+    ``mesh=None`` is the single-device problem (``axes=None``): on one
+    device every ``pipeline_panels`` runs the same program, so the pot
+    holds k = 1 alone.  The ranking prices each candidate with
+    ``estimate_pfft3_cost`` at r = c = 1; measure mode times the
+    finalists' ``pfft3_lb(m, 1, config=c)`` on ``device`` (wall time
+    between two synchronizations, the CUDA-event time beside it).
+
+    After a measured run ``info["pfft3"]`` carries ``local_pass_s`` (one
+    local pass of the winner) and ``comm_time_meas_s = total − 3·pass``
+    (clamped at 0): both exchange rounds on a mesh, the rotations on one
+    device.  The candidate pot is ``candidate_configs``' (no ``radix=4``
+    where N is a power of two above ``MAX_KERNEL_N``), batched and unfused.
     """
     if mode not in ("estimate", "measure"):
         raise ValueError(f"mode must be 'estimate' or 'measure', got {mode!r}")
     if mesh is not None:
-        raise NotImplementedError(
-            "tune_pfft3(mesh=): pencil tuning is not in repro_torch yet; it "
-            "comes with the distributed slice")
+        if measure_retries:
+            raise ValueError(
+                "tune_pfft3(mesh=) takes no measure_retries: a fallback on "
+                "one rank alone would leave the ranks at different "
+                "collectives")
+        return _tune_pfft3_mesh(n, mesh, tuple(axis_names), mode=mode,
+                                pad=pad, pad_len=pad_len, params=params,
+                                top_k=top_k, panels=panels, dtype=dtype,
+                                reps=reps)
     r = c = 1
     params = _params_for(params, device)
     from repro_torch.plan.cost import estimate_pfft3_cost
@@ -780,6 +829,121 @@ def tune_pfft3(n: int, mesh=None, *,
         max(measured[winner] - 3.0 * local_s, 0.0))
     info["pfft3"]["exchange"] = winner.exchange
     return winner, None, info
+
+
+def _tune_pfft3_mesh(n: int, mesh, axes0: tuple[str, str], *, mode: str,
+                     pad: str, pad_len: int | None,
+                     params: CostParams | None, top_k: int,
+                     panels: Sequence[int] | None, dtype, reps: int
+                     ) -> tuple[PlanConfig, tuple[str, str], dict]:
+    """``tune_pfft3`` on a pencil mesh (its docstring)."""
+    from repro_torch.launch.mesh import axis_size, mesh_host_shape  # lazy
+    from repro_torch.plan.cost import estimate_pfft3_cost, pfft3_comm_bytes
+
+    r, c = axis_size(mesh, axes0[0]), axis_size(mesh, axes0[1])
+    if n % r or n % c:
+        raise ValueError(f"N={n} must be divisible by both mesh axes "
+                         f"({axes0[0]}={r}, {axes0[1]}={c})")
+    if panels is None:
+        panels = pfft3_panel_space(n, r, c)
+    params = _mesh_params(params, mesh)
+    comm_bytes = pfft3_comm_bytes(n, c) + pfft3_comm_bytes(n, r)
+    host_shapes = {a: mesh_host_shape(mesh, a) for a in axes0}
+
+    # ``batched`` shapes segment dispatch (one whole-pencil segment here)
+    # and the pencil pipeline is unfused by construction — both knobs
+    # would only burn finalist slots on identical or invalid programs.
+    cands = [cfg for cfg in candidate_configs(n, pad=pad, d=None,
+                                              panels=panels)
+             if cfg.batched and not cfg.fused]
+    if any(h > 1 and l > 1 for h, l in host_shapes.values()):
+        # Some orientation puts a host-major axis under the row exchange:
+        # race the hierarchical form as its own config dimension.
+        cands += [dataclasses.replace(cfg, exchange="hier")
+                  for cfg in cands if not cfg.real]
+    # Which mesh axis plays "row"; on a square mesh the transposed program
+    # is the same.
+    orientations = [axes0, (axes0[1], axes0[0])] if r != c else [axes0]
+
+    def est(cfg: PlanConfig, waxes: tuple[str, str]) -> float:
+        # Hosts ride the orientation's row axis (the only exchange the
+        # hierarchical form applies to); a non-host-major row axis prices
+        # — and runs — as flat.
+        return estimate_pfft3_cost(
+            cfg, n=n, r=axis_size(mesh, waxes[0]), c=axis_size(mesh, waxes[1]),
+            params=params, pad_len=pad_len, hosts=host_shapes[waxes[0]][0])
+
+    ranked = sorted(((cfg, waxes, est(cfg, waxes))
+                     for cfg in cands for waxes in orientations),
+                    key=lambda kv: kv[2])
+    info: dict = {
+        "mode": mode,
+        "ranked": [(cfg.to_dict(), list(waxes), float(t))
+                   for cfg, waxes, t in ranked],
+        "pfft3": {
+            "r": r, "c": c,
+            "hosts": int(host_shapes[axes0[0]][0]),
+            "axis_names": list(axes0),
+            "comm_bytes": float(comm_bytes),
+            "comm_time_est_s": float(
+                sum(comm_phase_time(b, params.interconnect_bytes_per_s,
+                                    params.comm_latency_s)
+                    for b in (pfft3_comm_bytes(n, c),
+                              pfft3_comm_bytes(n, r)))),
+        },
+    }
+    if mode == "measure" and r * c <= 1:
+        info["measure_fallback"] = "1-device mesh: measure == estimate"
+    if mode == "estimate" or r * c <= 1:
+        cfg, waxes, _ = ranked[0]
+        info["orientation"] = list(waxes)
+        return cfg, waxes, info
+
+    # One finalist per distinct *pencil* program: the single-device
+    # behavior key, the panel count and the orientation (which round
+    # crosses which communicator).
+    finalists, seen = [], set()
+    for cfg, waxes, _ in ranked:
+        key = (_behavior_key(cfg, n, None, None), cfg.pipeline_panels, waxes)
+        if key not in seen:
+            seen.add(key)
+            finalists.append((cfg, waxes))
+        if len(finalists) >= max(top_k, 1):
+            break
+    measured, device_s = {}, {}
+    for waxes in orientations:
+        group = [cfg for cfg, wa in finalists if wa == waxes]
+        if not group:
+            continue
+        events: dict = {}
+        times = measure_pfft3_configs(group, n, mesh, waxes, pad_len=pad_len,
+                                      dtype=dtype, rounds=reps, events=events)
+        for cfg, t in times.items():
+            measured[(cfg, waxes)] = t
+            if cfg in events:
+                device_s[(cfg, waxes)] = events[cfg]
+    wcfg, waxes = min(measured, key=measured.get)
+    info["measured"] = [(cfg.to_dict(), list(wa), float(t))
+                        for (cfg, wa), t in measured.items()]
+    if device_s:
+        info["measured_event_s"] = [(cfg.to_dict(), list(wa), float(t))
+                                    for (cfg, wa), t in device_s.items()]
+    info["time_s"] = float(measured[(wcfg, waxes)])
+    info["orientation"] = list(waxes)
+
+    # Comm sample: end-to-end minus the three measured local passes of the
+    # winning program, clamped at 0 (pipelined panels can hide comm).
+    eff_len = pad_len
+    if eff_len is None:
+        from repro_torch.core.pfft_dist import default_dist_pad_len  # lazy
+        eff_len = default_dist_pad_len(n, wcfg.dist_padded)
+    local_s = _measure_local_phase(wcfg, n, (n // r) * (n // c), eff_len,
+                                   dtype, reps, mesh, axes0)
+    info["pfft3"]["local_pass_s"] = float(local_s)
+    info["pfft3"]["comm_time_meas_s"] = float(
+        max(measured[(wcfg, waxes)] - 3.0 * local_s, 0.0))
+    info["pfft3"]["exchange"] = wcfg.exchange
+    return wcfg, waxes, info
 
 
 def tune_pfft1_large(n: int, *, n1: int | None = None, n2: int | None = None,
@@ -876,10 +1040,11 @@ def dist_panel_space(n: int, p: int, max_panels: int = 8) -> tuple[int, ...]:
     return tuple(ks) or (1,)
 
 
-def _agreed_times(pairs, x: torch.Tensor, rounds: int, mesh, axis_name: str,
+def _agreed_times(pairs, x: torch.Tensor, rounds: int, mesh, axis_name,
                   events: dict | None = None) -> dict:
     """``_timed_min`` on this rank, then each item's time the maximum over
-    the ranks of the axis (and so the CUDA-event times in ``events``)."""
+    the ranks of the axis, or of the whole mesh for a sequence of axis
+    names (and so the CUDA-event times in ``events``)."""
     from repro_torch.launch.mesh import max_over_axis  # lazy: launch is thin
     local_events: dict = {}
     times = _timed_min(pairs, x, rounds, local_events)
@@ -899,15 +1064,18 @@ def _mesh_signal(shape: tuple[int, ...], dtype, mesh) -> torch.Tensor:
     return _signal(shape, dtype, mesh_device(mesh))
 
 
-def _measure_local_phase(cfg: PlanConfig, n: int, p: int, pad_len: int,
-                         dtype, rounds: int, mesh, axis_name: str) -> float:
+def _measure_local_phase(cfg: PlanConfig, n: int, rows: int, pad_len: int,
+                         dtype, rounds: int, mesh, axis_name) -> float:
     """Seconds of one *local* phase limb of the distributed pipeline: the
-    row-FFT program one rank runs on its (N/p, N) block, without the
-    exchange.  Subtracting two of these from the end-to-end time is what
-    turns a distributed measurement into a *comm* sample."""
+    row-FFT program one rank runs on its ``rows`` rows — its (N/p, N) block
+    in 2-D, its (N/r · N/c, N) pencil in 3-D — without the exchange, the
+    slowest rank's over ``axis_name`` (the whole mesh for a sequence of
+    names).  Subtracting one per phase (two in 2-D, three passes of the
+    pencil) from the end-to-end time is what turns a distributed
+    measurement into a *comm* sample."""
     from repro_torch.core.pfft_dist import _local_fft  # lazy: core imports plan
 
-    x = _mesh_signal((max(n // p, 1), n), dtype, mesh)
+    x = _mesh_signal((max(rows, 1), n), dtype, mesh)
     pairs = _warmed([(cfg, lambda b: _local_fft(
         b, n, padded=cfg.dist_padded, pad_len=pad_len, config=cfg,
         backend=None))], x)
@@ -1069,7 +1237,7 @@ def tune_dist_config(n: int, mesh, axis_name: str = "fft", *,
     if eff_len is None:
         from repro_torch.core.pfft_dist import default_dist_pad_len  # lazy
         eff_len = default_dist_pad_len(n, winner.dist_padded)
-    local_s = _measure_local_phase(winner, n, p, eff_len, dtype, reps,
+    local_s = _measure_local_phase(winner, n, n // p, eff_len, dtype, reps,
                                    mesh, axis_name)
     info["dist"]["local_phase_s"] = float(local_s)
     info["dist"]["comm_time_meas_s"] = float(
@@ -1243,7 +1411,7 @@ def tune_rfft_dist(n: int, mesh, axis_name: str = "fft", *,
     else:
         ctype = (np.complex64 if np.dtype(dtype) == np.dtype(np.float32)
                  else np.complex128)
-        local_s = 2.0 * _measure_local_phase(winner, n, p, eff_len, ctype,
+        local_s = 2.0 * _measure_local_phase(winner, n, n // p, eff_len, ctype,
                                              reps, mesh, axis_name)
     info["dist"]["local_phase_s"] = float(local_s)
     info["dist"]["comm_time_meas_s"] = float(

@@ -353,8 +353,9 @@ def _gathered(blocks: dict) -> dict:
     return {k: np.concatenate([s[k] for s in seen]) for k in blocks}
 
 
-def port_main() -> None:
-    """One rank of a port world (the environment of ``_start_port_world``)."""
+def port_main(jobs: dict | None = None) -> None:
+    """One rank of a port world (the environment of ``_start_port_world``),
+    running its job from ``jobs`` (default ``PORT_JOBS``)."""
     import torch
     import torch.distributed as dist
 
@@ -364,7 +365,8 @@ def port_main() -> None:
         "gloo", init_method=f"tcp://127.0.0.1:{os.environ['MASTER_PORT']}",
         world_size=p, rank=rank)
     try:
-        result = PORT_JOBS[os.environ["DIST_JOB"]](p, os.environ["DIST_TMP"])
+        jobs = PORT_JOBS if jobs is None else jobs
+        result = jobs[os.environ["DIST_JOB"]](p, os.environ["DIST_TMP"])
         if rank == 0:
             with open(os.environ["DIST_OUT"], "wb") as fh:
                 pickle.dump(result, fh)
@@ -380,45 +382,50 @@ def _env(extra: dict) -> dict:
     return env
 
 
-def _start(program: str, env: dict) -> subprocess.Popen:
+def _start(program: str, env: dict, module: str) -> subprocess.Popen:
     return subprocess.Popen(
-        [sys.executable, "-c", f"import _torch_dist_cases as c; c.{program}()"],
+        [sys.executable, "-c", f"import {module} as c; c.{program}()"],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
-def _start_port_world(p: int, job: str, tmp: str, out: str) -> list:
-    """The ``p`` ranks of a gloo world running ``job`` (``port_main``)."""
+def _start_port_world(p: int, job: str, tmp: str, out: str,
+                      module: str) -> list:
+    """The ``p`` ranks of a gloo world running ``job`` (``module``'s
+    ``port_main``)."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     return [_start("port_main", _env({
         "WORLD_SIZE": str(p), "RANK": str(r), "MASTER_PORT": str(port),
-        "DIST_JOB": job, "DIST_TMP": tmp, "DIST_OUT": out}))
+        "DIST_JOB": job, "DIST_TMP": tmp, "DIST_OUT": out}), module)
         for r in range(p)]
 
 
-def _start_reference(p: int, job: str, tmp: str, out: str) -> list:
+def _start_reference(p: int, job: str, tmp: str, out: str,
+                     module: str) -> list:
     """``job`` through the JAX package on a forced p-device CPU
-    (``reference_main``)."""
+    (``module``'s ``reference_main``)."""
     flags = re.sub(r"--xla_force_host_platform_device_count=\d+", "",
                    os.environ.get("XLA_FLAGS", ""))
     return [_start("reference_main", _env({
         "DIST_JOB": job, "DIST_TMP": tmp, "DIST_OUT": out,
         "DIST_WORLD": str(p), "JAX_PLATFORMS": "cpu",
         "XLA_FLAGS": f"{flags} --xla_force_host_platform_device_count={p}"
-                     .strip()}))]
+                     .strip()}), module)]
 
 
-def run_job(job: str, tmp: str) -> tuple[dict, dict]:
-    """``job`` on a port world and through the reference, for every mesh
-    size of ``WORLDS``, all started at once: ({p: port result}, {p:
-    reference result}).  Raises with the failing processes' errors."""
+def run_job(job: str, tmp: str, worlds=WORLDS,
+            module: str = "_torch_dist_cases") -> tuple[dict, dict]:
+    """``job`` (of ``module``'s job tables) on a port world and through the
+    reference, for every mesh size of ``worlds``, all started at once:
+    ({p: port result}, {p: reference result}).  Raises with the failing
+    processes' errors."""
     started = []
-    for p in WORLDS:
+    for p in worlds:
         for side, start in (("port", _start_port_world),
                             ("reference", _start_reference)):
             out = os.path.join(tmp, f"{side}_{job}_{p}.pkl")
-            started.append((side, p, out, start(p, job, tmp, out)))
+            started.append((side, p, out, start(p, job, tmp, out, module)))
     errors = []
     try:
         for side, p, _, procs in started:
@@ -555,10 +562,12 @@ REFERENCE_JOBS = {"pfft": _reference_pfft, "plan": _reference_plan,
                   "digest": _reference_digest}
 
 
-def reference_main() -> None:
+def reference_main(jobs: dict | None = None) -> None:
     """The reference's side of one mesh size (the environment of
-    ``_start_reference``)."""
+    ``_start_reference``), running its job from ``jobs`` (default
+    ``REFERENCE_JOBS``)."""
     p = int(os.environ["DIST_WORLD"])
-    result = REFERENCE_JOBS[os.environ["DIST_JOB"]](p, os.environ["DIST_TMP"])
+    jobs = REFERENCE_JOBS if jobs is None else jobs
+    result = jobs[os.environ["DIST_JOB"]](p, os.environ["DIST_TMP"])
     with open(os.environ["DIST_OUT"], "wb") as fh:
         pickle.dump(result, fh)

@@ -220,11 +220,76 @@ def test_package_exports_only_what_exists():
         assert ported in ref_core.__all__ and ported in port_core.__all__
 
 
+def test_package_exports_the_reference_3d_mesh_names():
+    """The 3-D mesh pipelines, their measure harness and their mesh builder
+    are exported where the reference exports them."""
+    import repro.launch.mesh as ref_mesh
+    import repro_torch.launch as port_launch
+    import repro_torch.launch.mesh as port_mesh
+    for name in ("pfft3_distributed", "pfft3_pencil", "pfft3_slab"):
+        assert name in ref_core.__all__ and name in port_core.__all__
+    assert "measure_pfft3_configs" in ref_plan.__all__
+    assert "measure_pfft3_configs" in port_plan.__all__
+    assert "make_pfft3_mesh" in ref_mesh.__all__
+    assert "make_pfft3_mesh" in port_mesh.__all__
+    assert "make_pfft3_mesh" in port_launch.__all__
+    for mod in (port_mesh, port_launch):
+        for name in mod.__all__:
+            assert hasattr(mod, name), name
+
+
+# An empty batch through the library configs (the reference's radix=4 and
+# fused configs raise TypeError on it: not compared).
+EMPTY_BATCHES = {
+    "lb": ((0, 16, 16), "complex64"),
+    "rfft-lb": ((0, 16, 16), "float32"),
+    "pfft3": ((0, 8, 8, 8), "complex64"),
+    "pfft1_large": ((0, 64), "complex64"),
+}
+
+
+def _empty_plan(core, case, **kw):
+    if case == "pfft3":
+        return core.plan_pfft3(8, **kw)
+    if case == "pfft1_large":
+        return core.plan_pfft1_large(64, **kw)
+    return core.plan_pfft(16, p=2, method=case, dtype=EMPTY_BATCHES[case][1],
+                          **kw)
+
+
+@pytest.mark.parametrize("case", list(EMPTY_BATCHES))
+def test_empty_batch_matches_reference(case):
+    shape, dtype = EMPTY_BATCHES[case]
+    want = _empty_plan(ref_core, case).execute(jnp.zeros(shape, dtype))
+    got = _empty_plan(port_core, case, device="cpu").execute(
+        torch.zeros(shape, dtype=getattr(torch, dtype)))
+    assert tuple(got.shape) == want.shape
+    assert str(got.dtype).removeprefix("torch.") == str(want.dtype)
+
+
+@pytest.mark.parametrize("shape,n", [((0, 9), None), ((0, 4, 9), None),
+                                     ((0, 9), 17)])
+def test_irfft2_of_an_empty_spectrum_matches_reference(shape, n):
+    want = ref_core.irfft2(jnp.zeros(shape, jnp.complex64), n=n)
+    got = port_core.irfft2(torch.zeros(shape, dtype=torch.complex64), n=n)
+    assert tuple(got.shape) == want.shape
+    assert str(got.dtype).removeprefix("torch.") == str(want.dtype)
+
+
+def test_irfft2_of_a_one_bin_spectrum_raises_as_the_reference():
+    """A (1, 1) half spectrum with no ``n`` means a signal of length 0."""
+    for core, h in ((ref_core, jnp.zeros((1, 1), jnp.complex64)),
+                    (port_core, torch.zeros((1, 1), dtype=torch.complex64))):
+        with pytest.raises(ValueError, match="Shape should be positive."):
+            core.irfft2(h)
+
+
 def port_sources():
     pkg = os.path.dirname(repro_torch.__file__)
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "examples", "quickstart_torch.py"),
-             os.path.join(ROOT, "examples", "kernel_check_torch.py")]
+             os.path.join(ROOT, "examples", "kernel_check_torch.py"),
+             os.path.join(ROOT, "examples", "pfft3_mesh_torch.py")]
     for base, _, names in os.walk(pkg):
         files += [os.path.join(base, f) for f in names if f.endswith(".py")]
     return sorted(files)

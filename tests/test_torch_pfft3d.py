@@ -105,18 +105,45 @@ def test_pfft3_fpm_pad_matches_reference(n, drift):
     np.testing.assert_allclose(to_numpy(got), np.asarray(want), atol=CUBE_ATOL)
 
 
+def described_mesh(shape, names):
+    """A ``DeviceMesh`` that only describes its ranks (no process group, no
+    communicator): enough for the refusals made before any collective."""
+    from torch.distributed.device_mesh import DeviceMesh
+    ranks = torch.arange(int(np.prod(shape))).reshape(shape)
+    return DeviceMesh("cpu", ranks, mesh_dim_names=names, _init_backend=False,
+                      _rank=0)
+
+
 def test_pfft3_rejects_non_cube_and_mesh_paths_raise():
+    """A non-cube is refused on both sides; on a mesh, what is not a
+    ``DeviceMesh`` is refused by type, and an N the mesh axes do not divide
+    with the reference's message, before any collective."""
     for mod, conv in ((ref_pfft3d, jnp.asarray), (port_pfft3d, to_torch)):
         with pytest.raises(ValueError, match="cubic"):
             mod.pfft3_lb(conv(np.zeros((4, 4, 8), np.complex64)), 2)
     for entry in (port_pfft3d.pfft3_pencil, port_pfft3d.pfft3_slab,
                   port_pfft3d.pfft3_distributed):
-        with pytest.raises(NotImplementedError, match="distributed slice"):
-            entry(to_torch(cube(8)), None)
-    with pytest.raises(NotImplementedError, match="distributed slice"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            entry(to_torch(cube(8)), object())
+    with pytest.raises(TypeError, match="DeviceMesh"):
         port_api.plan_pfft3(8, mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="distributed slice"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         port_tune.tune_pfft3(8, object())
+    pencil = described_mesh((2, 3), ("fft_r", "fft_c"))
+    slab = described_mesh((3,), ("fft",))
+    message = "N=8 must be divisible by mesh axis fft_c=3"
+    with pytest.raises(ValueError, match=message):
+        port_pfft3d.pfft3_pencil(to_torch(cube(8)[:4, :2]), pencil)
+    with pytest.raises(ValueError, match=message):
+        port_pfft3d.pfft3_distributed(to_torch(cube(8)[:4, :2]), pencil,
+                                      ("fft_r", "fft_c"))
+    with pytest.raises(ValueError, match=message):
+        port_api.plan_pfft3(8, mesh=pencil)
+    with pytest.raises(ValueError, match="N=8 must be divisible by mesh axis fft=3"):
+        port_pfft3d.pfft3_slab(to_torch(cube(8)[:2]), slab)
+    with pytest.raises(ValueError, match=r"N=8 must be divisible by both mesh "
+                                         r"axes \(fft_r=2, fft_c=3\)"):
+        port_tune.tune_pfft3(8, pencil)
 
 
 # ------------------------------------------------------------ pfft1_large
