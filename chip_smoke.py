@@ -89,6 +89,21 @@ each of which ends the run with a non-zero exit code when it fails:
                  over 2 emulated hosts with ``exchange="hier"``, slabs flat
                  and 2 hosts x 2 with ``hier``, 512^3, rank 0 gathering the
                  blocks by mesh coordinates against ``torch.fft.fftn``.
+15. ``runtime``  the self-healing runtime (``repro_torch.runtime``) on a world
+                 of one NCCL rank, N = 8192: ``repeated(K1, 3)`` bit for bit
+                 one K1 launch, in exactly 3 launches; a ``ResilientPlan``
+                 under ``radix=4`` over 5 calls against ``torch.fft.fft2``,
+                 with the K1 launches of each call with and without its probe
+                 (one group: no drift can fire); a ``CheckpointManager``
+                 round trip of a 512 MiB state on the card.
+16. ``runtime_gloo4`` 4 processes (``--dist-rank ... runtime``) sharing the
+                 card over gloo, N = 8192: position 0 slowed 3x until a
+                 re-plan naming it is hot-swapped (the probes' K1 launches
+                 per rank, the events, detect -> swap on the host clock);
+                 then position 3 lost at a call: the world rebuilt to 2 ranks
+                 (one survivor dropped), the call retried and gathered
+                 against ``torch.fft.fft2``, and a second plan on the reduced
+                 world served from wisdom with no launch while planning.
 
 Then, outside the counted drives: every checked 2-D execute timed beside the
 library, and a fused batch's two layouts (batched, and the per-signal
@@ -96,9 +111,10 @@ loop) checked against the library and timed at N = 1024 ... 8192 and
 batches of 2 and 8.  Tolerances of the paths 8-10, 13 and 14:
 ``2e-4·sqrt(elements of one signal)`` (the 2-D ``2e-4·N``).
 
-Each path (4-14) is driven once with the launch counts set to 0 just before
+Each path (4-16) is driven once with the launch counts set to 0 just before
 and read just after; each of its kernels must have launched (the counts of
-``dist_gloo4`` and ``dist3_gloo4`` are their four ranks' sums).  Every line but
+``dist_gloo4``, ``dist3_gloo4`` and ``runtime_gloo4`` are their four ranks'
+sums).  Every line but
 the last is a log or a JSON record; the last line is ``{"ok": true,
 "device": {...}}`` and is printed only when every phase passed.
 """
@@ -147,9 +163,13 @@ from repro_torch.kernels.fft.real import rfft_rows_plain  # noqa: E402
 from repro_torch.kernels.fused.kernel import fft_rows_transpose_plain  # noqa: E402
 from repro_torch.kernels.fused.real import rfft_rows_transpose_plain  # noqa: E402
 from repro_torch.kernels.transpose.kernel import transpose_plain  # noqa: E402
-from repro_torch.launch.mesh import make_fft_mesh, make_pfft3_mesh  # noqa: E402
+from repro_torch.launch.mesh import (init_multihost, make_fft_mesh,  # noqa: E402
+                                     make_pfft3_mesh)
 from repro_torch.launch.serve_fft import (AdmissionError, DeadlineExceeded,  # noqa: E402
                                           FFTService, _bucket)
+from repro_torch.runtime import (CheckpointManager, DeviceLostError,  # noqa: E402
+                                 inject, repeated)
+from repro_torch.runtime.resilient import ResilientPlan  # noqa: E402
 from repro_torch.plan import (CostParams, PlanCache, candidate_configs,  # noqa: E402
                               estimate_cost, fit_cost_params, halfspec_cols,
                               measure_configs,
@@ -238,6 +258,20 @@ GLOO_TIMEOUT_S = 600
 N_DIST3 = 512
 DIST3_PANELS = (2, 4)
 N_DIST3_GLOO = 512
+# The self-healing runtime: one NCCL rank, then GLOO_RANKS processes sharing
+# the card; position 0 slowed RUNTIME_SLOW times until a re-plan is swapped
+# in within RUNTIME_STRAGGLER_CALLS calls, then RUNTIME_LOST lost (8192 is
+# not divisible by 3, so the rebuilt axis has 2 ranks and drops one).
+N_RUNTIME = 8192
+RUNTIME_CALLS = 5
+RUNTIME_SLOW = 3
+RUNTIME_STRAGGLER_CALLS = 12
+RUNTIME_LOST = (3,)
+CHECKPOINT_SHAPE = (8192, 8192)     # complex64: 512 MiB
+RUNTIME_EVENT_FIELDS = ("kind", "call", "slow_groups", "relative_speeds",
+                        "source", "chosen", "schedule", "swap_call", "lost",
+                        "survivors", "devices", "dropped", "topology",
+                        "plan_source")
 SOURCES = "src/repro_torch/kernels/csrc/"
 
 
@@ -551,6 +585,13 @@ def batched_row_shapes() -> dict[str, set[tuple[int, int]]]:
     for n, q in ((N_DIST3, 1), (N_DIST3_GLOO, GLOO_RANKS)):
         shapes["fft_rows"].update((n * n // q // k, n)
                                   for k in (1, *DIST3_PANELS))
+    # The runtime's paths: each rank's block and panels at 1 and GLOO_RANKS
+    # ranks and at the 2 left after the loss (a re-plan or a measured plan
+    # may take any of them, fused or not); a probe's block is the same.
+    for p in (1, 2, GLOO_RANKS):
+        rows = N_RUNTIME // p
+        for name in ("fft_rows", "fft_rows_transpose"):
+            shapes[name].update((rows // k, N_RUNTIME) for k in (1, *DIST_PANELS))
     return shapes
 
 
@@ -1973,6 +2014,295 @@ def dist3_worker(rank: int, port: int, out: str) -> None:
     dist.destroy_process_group()
 
 
+def phase_runtime(gen: torch.Generator, card: str) -> dict[str, int]:
+    """Drive the self-healing runtime once on a world of one NCCL rank, with
+    the launch counts set to 0 just before and read just after:
+    ``repeated(K1, 3)`` bit for bit one K1 launch and exactly 3 launches;
+    ``ResilientPlan(N_RUNTIME, method="lb", config=PlanConfig(radix=4))``
+    over RUNTIME_CALLS calls within ``2e-4·N`` of ``torch.fft.fft2``, with
+    the K1 launches of each call (its transform and its probe: one group at
+    p = 1, so no drift can fire) and of the plan's own execute; a
+    ``CheckpointManager`` round trip of a 512 MiB state on the card.  Then,
+    outside the drive, ``repeated(K1, 3)`` and one K1 launch timed.  The
+    group is destroyed at the end."""
+    mesh = make_fft_mesh()
+    n = N_RUNTIME
+    signal = random_signal(gen, n, n)
+    oracle = torch.fft.fft2(signal)
+    tol = 2e-4 * n
+
+    def k1(x):
+        return fft_rows_op(x, radix=4)
+
+    slowed = repeated(k1, RUNTIME_SLOW)
+
+    def k1_delta(fn) -> int:
+        before = launch_counts()["fft_rows"]
+        fn()
+        torch.cuda.synchronize()
+        return launch_counts()["fft_rows"] - before
+
+    reset_launch_counts()          # ---- the runtime path's single drive starts
+
+    one = k1(signal)
+    box = {}
+    launches = k1_delta(lambda: box.update(three=slowed(signal)))
+    identical = bool(torch.equal(box["three"], one))
+    log("runtime", run="repeated", rows=n, n=n, repeats=RUNTIME_SLOW,
+        bit_identical=identical, launches=launches)
+    if not identical or launches != RUNTIME_SLOW:
+        raise AssertionError(f"repeated(K1, {RUNTIME_SLOW}): bit identical "
+                             f"{identical}, {launches} launches")
+    del one, box
+
+    rp = ResilientPlan(n, mesh=mesh, method="lb", config=PlanConfig(radix=4))
+    per_call, outs = [], []
+    for _ in range(RUNTIME_CALLS):
+        per_call.append(k1_delta(lambda: outs.append(rp.execute(signal))))
+    errs = [max_abs_err(out, oracle) for out in outs]
+    without_probe = k1_delta(lambda: rp.plan.execute(signal))
+    log("runtime", run="resilient", n=n, p=1, calls=RUNTIME_CALLS,
+        max_abs_err=max(errs), atol=tol, k1_per_call=per_call,
+        k1_per_execute_without_probe=without_probe,
+        step_ms=[t * 1e3 for t in rp.step_times], events=rp.events,
+        drift="p = 1: one group, so no drift can fire")
+    if max(errs) > tol:
+        raise AssertionError(f"ResilientPlan: max error {max(errs)} > {tol}")
+    # A probe is 3 timed K1 launches (one more the first time, to warm up).
+    if per_call[1:] != [without_probe + 3] * (RUNTIME_CALLS - 1) \
+            or per_call[0] != without_probe + 4 or rp.events:
+        raise AssertionError(f"ResilientPlan at p = 1: K1 per call {per_call}, "
+                             f"{without_probe} without the probe, events {rp.events}")
+    del outs
+
+    state = {"field": random_signal(gen, *CHECKPOINT_SHAPE),
+             "step": torch.tensor(RUNTIME_CALLS, device="cuda")}
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp, keep=1)
+        t0 = time.perf_counter()
+        mgr.save(1, state, blocking=False)
+        t1 = time.perf_counter()
+        mgr.wait()
+        t2 = time.perf_counter()
+        restored, _ = mgr.restore(1, state)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    equal = (torch.equal(restored["field"], state["field"])
+             and int(restored["step"]) == RUNTIME_CALLS
+             and restored["field"].device == state["field"].device)
+    log("runtime", run="checkpoint", card=card,
+        bytes=state["field"].numel() * state["field"].element_size(),
+        equal=equal, to_host_s=t1 - t0, write_s=t2 - t1, restore_s=t3 - t2)
+    if not equal:
+        raise AssertionError("checkpoint round trip changed the state")
+    del state, restored
+
+    # ---- the runtime path's single drive ends
+    counts = end_drive("runtime", ("fft_rows",))
+    k1_ms = time_ms(lambda: k1(signal), reps=10)
+    slowed_ms = time_ms(lambda: slowed(signal), reps=10)
+    log("runtime_time", card=card, rows=n, n=n, k1_ms=k1_ms,
+        repeated3_ms=slowed_ms, ratio=slowed_ms / k1_ms,
+        execute_ms=time_ms(lambda: rp.plan.execute(signal), reps=5, warmup=1),
+        resilient_execute_ms=time_ms(lambda: rp.execute(signal), reps=5, warmup=1))
+    dist.destroy_process_group()
+    return counts
+
+
+def runtime_events(rp) -> list[dict]:
+    return [{k: e[k] for k in RUNTIME_EVENT_FIELDS if k in e} for e in rp.events]
+
+
+def runtime_worker(rank: int, port: int, out: str) -> None:
+    """One rank of phase ``runtime_gloo4``: every rank makes the same seeded
+    signal on the card.  Straggler: a ``ResilientPlan`` under ``radix=4``
+    with position 0 slowed RUNTIME_SLOW times (one probe's K1 launches
+    counted), driven until a re-plan naming position 0 is hot-swapped, then
+    one call gathered on rank 0 against the library.  Loss: a measured plan
+    with a wisdom file, position RUNTIME_LOST lost at a call; the ranks
+    that leave the world write what they saw, the survivors retry, rank 0
+    gathers the retried call against the library, and a second plan on the
+    reduced world is made (served from wisdom: no launch while planning).
+    Each rank writes its record to ``out.<rank>``."""
+    init_multihost(f"127.0.0.1:{port}", GLOO_RANKS, rank, device_type="cuda",
+                   backend="gloo")
+    mesh = make_fft_mesh(device_type="cuda", backend="gloo")
+    n = N_RUNTIME
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    signal = random_signal(gen, n, n)
+    store = os.path.join(os.path.dirname(out), "wisdom.json")
+    record: dict = {"rank": rank}
+
+    def gathered(block: torch.Tensor) -> float | None:
+        """Rank 0 of the current world: the max error of the gathered
+        blocks against ``fft2``; None elsewhere."""
+        world, me = dist.get_world_size(), dist.get_rank()
+        host = torch.view_as_real(block.cpu())
+        parts = [torch.empty_like(host) for _ in range(world)] if me == 0 else None
+        dist.gather(host, parts, dst=0)
+        if me != 0:
+            return None
+        full = torch.view_as_complex(torch.cat(parts)).cuda()
+        return max_abs_err(full, torch.fft.fft2(signal))
+
+    def write() -> None:
+        record["counts"] = launch_counts()
+        with open(f"{out}.{rank}", "w") as fh:
+            json.dump(record, fh)
+
+    reset_launch_counts()          # ---- this rank's part of the drive starts
+
+    with inject() as inj:
+        rp = ResilientPlan(n, mesh=mesh, method="lb", config=PlanConfig(radix=4),
+                           alpha=0.6, cooldown=2)
+        rp.execute(signal)
+        inj.slow_group(0, RUNTIME_SLOW)
+        rp._probe_group_times()        # the slowed branch's first probe warms it
+        before = launch_counts()["fft_rows"]
+        rp._probe_group_times()
+        probe_k1 = launch_counts()["fft_rows"] - before
+        swap = None
+        for calls in range(1, RUNTIME_STRAGGLER_CALLS + 1):
+            rp.execute(signal)
+            swap = next((e for e in rp.events if e["kind"] == "replan"
+                         and e["swap_call"] is not None
+                         and 0 in e["slow_groups"]), None)
+            if swap is not None:
+                break
+        record["straggler"] = {
+            "calls": calls, "probe_k1": probe_k1, "events": runtime_events(rp),
+            "detect_to_swap_s": (swap["swap_wall"] - swap["detect_wall"]
+                                 if swap is not None else None),
+            "replan_s": swap["replan_s"] if swap is not None else None,
+            "schedule": rp.schedule.describe(),
+            "step_ms": [t * 1e3 for t in rp.step_times]}
+        record["straggler"]["max_abs_err"] = gathered(rp.execute(signal))
+
+    with inject() as inj:
+        rp, plan_s, _ = planned(lambda: ResilientPlan(
+            n, mesh=mesh, method="lb", tune="measure", wisdom=store))
+        topology = rp.plan.tuning.get("topology")
+        rp.execute(signal)
+        inj.fail_execute(rp.calls, lost=RUNTIME_LOST)
+        try:
+            block = rp.execute(signal)
+        except DeviceLostError as err:
+            record["loss"] = {"departed": True, "lost": list(err.lost),
+                              "left_mesh": rp.mesh is None}
+            write()
+            return
+        record["loss"] = {
+            "departed": False, "plan_s": plan_s, "topology_before": topology,
+            "events": runtime_events(rp),
+            "recover_s": [e["recover_s"] for e in rp.events
+                          if e["kind"] == "device_loss"],
+            "schedule": rp.schedule.describe(), "world": dist.get_world_size(),
+            "max_abs_err": gathered(block)}
+    reduced = make_fft_mesh(device_type="cuda", backend="gloo")
+    rp2, seconds, delta = planned(lambda: ResilientPlan(
+        n, mesh=reduced, method="lb", tune="measure", wisdom=store))
+    record["loss"]["second"] = {"source": rp2.plan.tuning.get("source"),
+                                "plan_s": seconds, "launches": delta,
+                                "topology": rp2.plan.tuning.get("topology")}
+    write()
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_runtime_gloo4(card: str) -> dict[str, int]:
+    """Drive the runtime once on GLOO_RANKS processes sharing the card over
+    gloo (``runtime_worker``) and check what each rank saw: the same
+    events on every rank; a hot-swapped re-plan naming position 0 within
+    RUNTIME_STRAGGLER_CALLS calls; a probe of the slowed rank costing
+    RUNTIME_SLOW times a healthy rank's K1 launches; the retried call and
+    the call after the swap within ``2e-4·N`` of ``fft2``; positions 2 and 3
+    gone (3 lost, 2 dropped: 8192 is not divisible by 3), the device-loss
+    event's fields, a new topology digest, and the second plan served from
+    wisdom with no launch.  The path's counts are the ranks' sums."""
+    phase = "runtime_gloo4"
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "runtime.json")
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--dist-rank", str(r), str(port), out,
+                                   "runtime"],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True)
+                 for r in range(GLOO_RANKS)]
+        failed = []
+        try:
+            for r, proc in enumerate(procs):
+                _, err = proc.communicate(timeout=GLOO_TIMEOUT_S)
+                if proc.returncode:
+                    failed.append(f"rank {r} exited {proc.returncode}: {err[-2000:]}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+        if failed:
+            raise AssertionError(f"{phase}: " + "\n".join(failed))
+        seen = []
+        for r in range(GLOO_RANKS):
+            with open(f"{out}.{r}") as fh:
+                seen.append(json.load(fh))
+    tol = 2e-4 * N_RUNTIME
+    straggler = [part["straggler"] for part in seen]
+    lead = straggler[0]
+    log(phase, card=card, ranks=GLOO_RANKS, n=N_RUNTIME, run="straggler",
+        calls=lead["calls"], events=lead["events"],
+        detect_to_swap_s=lead["detect_to_swap_s"], replan_s=lead["replan_s"],
+        schedule=lead["schedule"], probe_k1_by_rank=[s["probe_k1"] for s in straggler],
+        step_ms=lead["step_ms"], max_abs_err=lead["max_abs_err"], atol=tol)
+    if any(s["events"] != lead["events"] for s in straggler):
+        raise AssertionError(f"{phase}: the ranks saw different events")
+    if lead["detect_to_swap_s"] is None:
+        raise AssertionError(f"{phase}: no re-plan naming position 0 was "
+                             f"swapped in within {RUNTIME_STRAGGLER_CALLS} calls")
+    healthy = straggler[1]["probe_k1"]
+    if [s["probe_k1"] for s in straggler] != [RUNTIME_SLOW * healthy] + [healthy] * 3 \
+            or healthy < 1:
+        raise AssertionError(f"{phase}: probe K1 launches by rank "
+                             f"{[s['probe_k1'] for s in straggler]}")
+    if lead["max_abs_err"] > tol:
+        raise AssertionError(f"{phase}: after the swap, max error "
+                             f"{lead['max_abs_err']} > {tol}")
+    loss = [part["loss"] for part in seen]
+    departed = [r for r, part in enumerate(loss) if part["departed"]]
+    log(phase, card=card, ranks=GLOO_RANKS, n=N_RUNTIME, run="loss",
+        departed=departed, **{k: v for k, v in loss[0].items() if k != "departed"})
+    if departed != [2, 3] or any(not loss[r]["left_mesh"] for r in departed):
+        raise AssertionError(f"{phase}: ranks {departed} left the world, "
+                             "expected [2, 3]")
+    event = [e for e in loss[0]["events"] if e["kind"] == "device_loss"]
+    want = {"lost": list(RUNTIME_LOST), "survivors": 3, "devices": 2, "dropped": 1}
+    if len(event) != 1 or {k: event[0][k] for k in want} != want \
+            or loss[1]["events"] != loss[0]["events"]:
+        raise AssertionError(f"{phase}: device-loss events {loss[0]['events']} "
+                             f"and {loss[1]['events']}, expected one with {want}")
+    if event[0]["topology"] == loss[0]["topology_before"] or loss[0]["world"] != 2:
+        raise AssertionError(f"{phase}: topology {event[0]['topology']} after "
+                             f"the loss, {loss[0]['topology_before']} before")
+    if loss[0]["max_abs_err"] > tol:
+        raise AssertionError(f"{phase}: retried call's max error "
+                             f"{loss[0]['max_abs_err']} > {tol}")
+    for r in (0, 1):
+        second = loss[r]["second"]
+        if second["source"] != "wisdom" or any(second["launches"].values()):
+            raise AssertionError(f"{phase}: rank {r}'s second plan came from "
+                                 f"{second['source']} with launches "
+                                 f"{second['launches']}")
+    counts = {k: sum(part["counts"][k] for part in seen) for k in seen[0]["counts"]}
+    log(phase, launches=counts, launches_by_rank=[p["counts"] for p in seen])
+    for name in ("fft_rows", "fft_rows_transpose"):
+        if counts[name] < 1:
+            raise AssertionError(f"the {phase} path never launched {name}")
+    return counts
+
+
 def time_fused_batch(gen: torch.Generator, card: str) -> None:
     """A fused batch's two layouts, on the same stack, in turns (batched,
     loop, loop, batched): ``plan.execute`` of the stack (K2 — K4 then K2
@@ -2047,7 +2377,9 @@ def main() -> None:
              "dist": phase_dist(gen, card),
              "dist_gloo4": phase_dist_gloo4(card),
              "dist3": phase_dist3(gen, card),
-             "dist3_gloo4": phase_dist_gloo4(card, mode="3d")}
+             "dist3_gloo4": phase_dist_gloo4(card, mode="3d"),
+             "runtime": phase_runtime(gen, card),
+             "runtime_gloo4": phase_runtime_gloo4(card)}
     for record in records:
         by_path = {path: counts[record["name"]] for path, counts in paths.items()}
         record["launches"] = sum(by_path.values())
@@ -2065,7 +2397,8 @@ def main() -> None:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-rank"]:
-        worker = dist3_worker if sys.argv[5:6] == ["3d"] else dist_worker
+        worker = {"3d": dist3_worker, "runtime": runtime_worker}.get(
+            sys.argv[5] if len(sys.argv) > 5 else "2d", dist_worker)
         worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     else:
         main()

@@ -33,12 +33,15 @@ Bluestein at the padded length.  A heterogeneous schedule lowers to a
 device-group program (``repro_torch.plan.groups``): each rank runs its own
 group's config at the uniform length, between the same collectives.
 
-The reference's fault hook (a per-device slowdown from ``repro.runtime``)
-waits for the port's runtime; without an active fault it is the identity.
+The fault hook (``_faulted_fft``) applies ``repro_torch.runtime``'s
+per-rank slowdown to the local FFT of each phase; without an active fault
+it is the identity.  The port runs eagerly, so the hook reads the injector
+at call time, where the reference reads it at trace time.
 """
 
 from __future__ import annotations
 
+import functools
 import warnings
 from typing import Literal
 
@@ -225,6 +228,28 @@ def _local_fft(block: torch.Tensor, n: int, *, padded: str | None,
     return fft_rows(block, **kw)
 
 
+def _faulted_fft(fft, mesh, axis_name: str):
+    """Apply the fault layer's per-rank slowdown to a local row FFT.
+
+    When the process's ``FaultInjector`` has an active slowdown, this
+    rank's FFT is wrapped in ``repeated`` with the repeat count of its
+    position along ``axis_name``: it genuinely runs its FFT ``factor``
+    times (bit-identical output via exact power-of-two rescaling), so an
+    injected straggler costs real time exactly where a throttled device
+    would.  With no active fault the function is returned untouched — zero
+    overhead, and no launch beyond the healthy program's.
+
+    The injector is read when the phase is called (the port is eager): a
+    fault set between two calls applies from the next one, where the
+    reference's traced programs see it only after a re-trace.
+    """
+    from repro_torch.runtime.faults import get_injector, repeated  # lazy: no cycle
+    reps = get_injector().local_repeats(axis_size(mesh, axis_name))
+    if reps is None:
+        return fft
+    return repeated(fft, reps[mesh.get_local_rank(axis_name)])
+
+
 def _local_phase(block: torch.Tensor, mesh, axis_name: str, n: int, *,
                  padded: str | None, pad_len: int, config: PlanConfig,
                  backend: str | None = None, pipeline_panels: int = 1,
@@ -239,7 +264,8 @@ def _local_phase(block: torch.Tensor, mesh, axis_name: str, n: int, *,
     kernel launch (``fft_rows_then_transpose``) whose ``(N, n_loc)`` output
     is already the send stack of the transposed exchange (split rows,
     concatenate columns); unfused configs run FFT -> pack -> exchange, and
-    both place the received panels transposed into the output.  A
+    both place the received panels transposed into the output.  Either
+    local FFT goes through the fault hook (``_faulted_fft``).  A
     ``program`` (device-group program) runs this rank's group's config;
     heterogeneous schedules never take the fused path.  ``host_shape``
     (hosts, local) routes the exchange through the hierarchical stages.
@@ -264,16 +290,20 @@ def _local_phase(block: torch.Tensor, mesh, axis_name: str, n: int, *,
             "instead of the requested pipelined one")
     k = max(k, 1)
     c, w = n_loc // k, n // p
+    if fused:
+        # radix=2 means the pure-tensor Stockham elsewhere, not a kernel
+        # radix: only an explicit radix-4 reaches the kernel.
+        fft = functools.partial(fft_rows_then_transpose, backend=backend,
+                                radix=config.radix if config.radix == 4 else None)
+    else:
+        fft = functools.partial(_local_fft, n=n, padded=padded,
+                                pad_len=pad_len, config=config, backend=backend)
+    fft = _faulted_fft(fft, mesh, axis_name)
 
     def send_stack(rows: torch.Tensor) -> torch.Tensor:
         if fused:
-            # radix=2 means the pure-tensor Stockham elsewhere, not a
-            # kernel radix: only an explicit radix-4 reaches the kernel.
-            radix = config.radix if config.radix == 4 else None
-            return fft_rows_then_transpose(rows, backend=backend,
-                                           radix=radix).view(p, w, c)
-        return _pack(_local_fft(rows, n, padded=padded, pad_len=pad_len,
-                                config=config, backend=backend), p)
+            return fft(rows).view(p, w, c)
+        return _pack(fft(rows), p)
 
     pending = [exchange(send_stack(block[i * c:(i + 1) * c]), async_op=k > 1)
                for i in range(k)]

@@ -26,6 +26,12 @@ default process group and every rank takes part in every collective.
   for: the structure declared by ``hosts=``/``local=`` (emulated, as in the
   reference's single-process tests) or, without them, the launcher's
   processes per host (``LOCAL_WORLD_SIZE``).
+* ``rebuild_world`` re-forms the default group over surviving ranks under a
+  fresh key prefix of the store the world joined on (torch's own
+  rendezvous, torchrun's agent store included), for the elastic rebuild of
+  ``repro_torch.runtime.elastic``; ``world_store`` is the current world's
+  key-value namespace.  A process keeps the card it was given when it
+  first joined a world.
 
 The device type decides the backend: ``"cuda"`` (the default, which raises
 without a card) runs NCCL, ``"cpu"`` runs gloo.  ``device_type="cuda",
@@ -37,7 +43,9 @@ wisdom lookup, the slowest rank's measured times) are the helpers at the
 end: under SPMD each rank plans for itself, and ranks that chose
 differently would meet at different collectives.  They agree over one
 axis's group, or over the whole mesh when given a sequence of axis names
-(a pencil plan decides for all ``r*c`` ranks).
+(a pencil plan decides for all ``r*c`` ranks).  ``agree_on_failure`` tells
+every rank whether any rank's local step failed, so that all retry or give
+way together.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ import dataclasses
 import math
 import os
 import socket
+from typing import Sequence
 
 import torch
 import torch.distributed as dist
@@ -53,9 +62,16 @@ from torch.distributed.device_mesh import DeviceMesh
 
 __all__ = ["make_fft_mesh", "make_pfft3_mesh", "mesh_host_shape",
            "register_emulated_hosts", "host_major_devices", "init_multihost",
-           "init_multihost_from_env", "axis_size", "mesh_device"]
+           "init_multihost_from_env", "axis_size", "mesh_device",
+           "rebuild_world", "world_store", "join_world"]
 
 _BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+
+# This process's side of its world: the store the first default group
+# joined on (kept once a rebuild has taken that group down), the number of
+# rebuilds since (each re-forms the group under its own key prefix), and
+# the card the process was given first.
+_WORLD: dict = {"store": None, "generation": 0, "card": None}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,9 +112,13 @@ def _backend_for(device_type: str | None, backend: str | None) -> tuple[str, str
 
 def _set_cuda_device(rank: int) -> None:
     """This process's card: the launcher's ``LOCAL_RANK``, else the rank
-    modulo the cards visible (several ranks may share one)."""
-    local = int(os.environ.get("LOCAL_RANK", rank))
-    torch.cuda.set_device(local % torch.cuda.device_count())
+    modulo the cards visible (several ranks may share one); chosen when the
+    process first joins a world and kept when a rebuilt world renumbers
+    its rank."""
+    if _WORLD["card"] is None:
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        _WORLD["card"] = local % torch.cuda.device_count()
+    torch.cuda.set_device(_WORLD["card"])
 
 
 def init_multihost(coordinator_address: str, num_processes: int,
@@ -117,6 +137,49 @@ def init_multihost(coordinator_address: str, num_processes: int,
         _set_cuda_device(int(process_id))
     dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
                             world_size=int(num_processes), rank=int(process_id))
+    _WORLD.update(store=None, generation=0)
+
+
+def _base_store():
+    """The store the first default group of this world joined on."""
+    if _WORLD["store"] is None:
+        _WORLD["store"] = dist.distributed_c10d._get_default_store()
+    return _WORLD["store"]
+
+
+def world_store():
+    """The key-value namespace of this process's current world: a prefix of
+    the store the world joined on, one per rebuild, so that keys set in one
+    world are never read in a rebuilt one."""
+    return dist.PrefixStore(f"repro-kv{_WORLD['generation']}", _base_store())
+
+
+def rebuild_world(members: Sequence[int]) -> int | None:
+    """Re-form the default process group over ``members``, ranks of the
+    current world listed in their new rank order; returns this rank's new
+    rank, or None when it is not a member (it has left the world).
+
+    Collective over the whole current world: every rank arrives at a
+    barrier, then takes the old groups down (every mesh and process group
+    made in it is gone), and the members form the new group on the same
+    store under a fresh key prefix.  The store's server lives in
+    torchrun's agent, else in the process that was rank 0 when the world
+    was first joined, which must then outlive the rebuilt world.
+    """
+    store = _base_store()
+    backend = dist.get_backend()
+    me = dist.get_rank()
+    members = [int(r) for r in members]
+    dist.barrier()
+    dist.destroy_process_group()
+    _HIER_GROUPS.clear()
+    _WORLD["generation"] += 1
+    if me not in members:
+        return None
+    dist.init_process_group(
+        backend, store=dist.PrefixStore(f"repro-world{_WORLD['generation']}", store),
+        rank=members.index(me), world_size=len(members))
+    return members.index(me)
 
 
 def init_multihost_from_env(*, device_type: str | None = None,
@@ -290,7 +353,7 @@ def make_fft_mesh(p: int | None = None, axis_name: str = "fft", *,
     when it divides the world.  ``hosts=1`` is the flat mesh.  Every rank
     must call this alike: it creates process groups.
     """
-    device_type, world = _join_world(device_type, backend)
+    device_type, world = join_world(device_type, backend)
     if hosts is None and local is None:
         per_host = int(os.environ.get("LOCAL_WORLD_SIZE", 0))
         if 1 < per_host < world and world % per_host == 0:
@@ -313,7 +376,7 @@ def make_fft_mesh(p: int | None = None, axis_name: str = "fft", *,
     return mesh
 
 
-def _join_world(device_type: str | None, backend: str | None) -> tuple[str, int]:
+def join_world(device_type: str | None, backend: str | None) -> tuple[str, int]:
     """The process group a mesh builder runs in (made from torchrun's
     environment, else for this process alone, when none exists), checked
     against the backend the mesh asks for; this process's card selected.
@@ -353,7 +416,7 @@ def make_pfft3_mesh(r: int | None = None, c: int | None = None,
     process group comes up as in ``make_fft_mesh``; every rank must call
     this alike.
     """
-    device_type, world = _join_world(device_type, backend)
+    device_type, world = join_world(device_type, backend)
     if r is None and c is None:
         if hosts is not None and int(hosts) > 1:
             r = int(hosts)
@@ -426,15 +489,41 @@ def first_rank_does(mesh: DeviceMesh, axis_name, fn) -> None:
     dist.barrier(group=group)
 
 
+def _agreement_device(mesh: DeviceMesh, group) -> torch.device:
+    """Where a small tensor agreed over ``group`` lives: this rank's card
+    under NCCL, the host otherwise."""
+    return (mesh_device(mesh) if dist.get_backend(group) == "nccl"
+            else torch.device("cpu"))
+
+
+def agree_on_failure(failed: BaseException | None, mesh: DeviceMesh,
+                     axis_name) -> str | None:
+    """Whether any rank of the axis (or, for a sequence of names, of the
+    whole mesh) failed its local step: None on every rank when none did,
+    else the ``repr`` of the first failing rank's error, on every rank.
+    One ``all_reduce`` (the lowest failing rank), and a broadcast only
+    after a failure.  Every rank must call it, failed or not."""
+    group = _axis_group(mesh, axis_name)
+    size, me = dist.get_world_size(group), dist.get_rank(group)
+    first = torch.tensor([me if failed is not None else size],
+                         dtype=torch.int64, device=_agreement_device(mesh, group))
+    dist.all_reduce(first, op=dist.ReduceOp.MIN, group=group)
+    src = int(first.item())
+    if src >= size:
+        return None
+    box = [repr(failed) if me == src else None]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, src),
+                               group=group)
+    return box[0]
+
+
 def max_over_axis(values: list[float], mesh: DeviceMesh,
                   axis_name) -> list[float]:
     """Each value's maximum over the ranks of the axis (or, for a sequence
     of names, of the whole mesh): a measured time of an SPMD program is its
     slowest rank's, and every rank ranks the same numbers."""
     group = _axis_group(mesh, axis_name)
-    device = (mesh_device(mesh) if dist.get_backend(group) == "nccl"
-              else torch.device("cpu"))
     t = torch.tensor([float(v) for v in values], dtype=torch.float64,
-                     device=device)
+                     device=_agreement_device(mesh, group))
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return t.tolist()

@@ -78,22 +78,75 @@ def _params_for(params: CostParams | None, device) -> CostParams:
         None if device is None else torch.device(device).type)
 
 
-def _measure_with_retry(thunk, retries: int = 0, base_s: float = 0.05):
-    """Run a measurement thunk, retrying transient failures with
-    exponential backoff; re-raises after the budget is exhausted.
+def _noted(box: dict, key: str, prefix: str = ""):
+    """A ``fallback`` for the measure helpers: writes ``prefix`` and the
+    error's ``repr`` into ``box[key]`` and returns None."""
+    def note(err: BaseException):
+        box[key] = f"{prefix}{err!r}"
+    return note
 
-    ``retries=0`` (the default) raises the first failure: a measurement
-    that fails is never replaced by anything else here.
+
+def _measure_with_retry(thunk, retries: int = 0, base_s: float = 0.05, *,
+                        fallback=None):
+    """Run a measurement thunk, retrying transient failures with
+    exponential backoff.
+
+    ``retries=0`` (the default) raises the first failure.  When a positive
+    budget is spent, ``fallback(err)`` is returned (``_noted`` records why
+    and gives None), or the error re-raised without one.
     """
     delay = float(base_s)
     for attempt in range(int(retries) + 1):
         try:
             return thunk()
-        except Exception:
+        except Exception as err:
             if attempt >= retries:
-                raise
+                if retries <= 0 or fallback is None:
+                    raise
+                return fallback(err)
             time.sleep(delay)
             delay *= 2.0
+
+
+def _agreed_measure(thunk, retries: int, mesh, axis_name,
+                    base_s: float = 0.05, *, fallback=None):
+    """``_measure_with_retry`` for a measurement every rank of a mesh runs
+    alike (over ``axis_name``'s ranks, or the whole mesh for a sequence of
+    names).
+
+    Every rank runs ``thunk`` and catches its own failure; then the ranks
+    agree whether any of them failed (``launch.mesh.agree_on_failure``).
+    If one did, every rank sleeps the same backoff and retries, so all of
+    them meet at the same collectives again.  When a positive budget is
+    spent, every rank returns ``fallback`` of one ``RuntimeError`` carrying
+    the first failing rank's error, so the fallback is the same on every
+    rank (without a fallback, that error is raised).  With ``retries=0`` a
+    rank that failed raises its own error, the others that ``RuntimeError``.
+
+    Only a failure this rank returns from is covered: a rank that fails
+    inside a collective leaves its peers stranded there, which is the loss
+    path's business (``runtime.resilient``), not this helper's.
+    """
+    from repro_torch.launch.mesh import agree_on_failure  # lazy: launch is thin
+    delay = float(base_s)
+    for attempt in range(int(retries) + 1):
+        err = out = None
+        try:
+            out = thunk()
+        except Exception as caught:  # agreed below, then raised or retried
+            err = caught
+        first = agree_on_failure(err, mesh, axis_name)
+        if first is None:
+            return out
+        if attempt >= retries:
+            if err is not None and retries <= 0:
+                raise err
+            agreed = RuntimeError(f"a rank's measurement failed: {first}")
+            if retries <= 0 or fallback is None:
+                raise agreed from err
+            return fallback(agreed)
+        time.sleep(delay)
+        delay *= 2.0
 
 
 def candidate_configs(n: int, *, pad: str = "none", d=None,
@@ -739,10 +792,12 @@ def tune_pfft3(n: int, mesh=None,
     finalists of each orientation through the full pencil pipeline
     (``measure_pfft3_configs``), each time the slowest rank's, so every
     rank picks alike.  A 1-rank mesh falls back to the estimate
-    (``info["measure_fallback"]``).  A mesh measurement takes no retries
-    (a fallback on one rank alone would leave the ranks at different
-    collectives): it raises on failure.  ``panels`` defaults to
-    ``pfft3_panel_space`` of the mesh.
+    (``info["measure_fallback"]``).  ``measure_retries`` retries a failed
+    measurement (on a mesh, agreed over its ranks: ``_agreed_measure``),
+    then falls back to the estimate ranking (``info["measure_fallback"]``)
+    or, for the comm sample alone, records ``comm_sample_error``; 0 raises
+    the first failure.  ``panels`` defaults to ``pfft3_panel_space`` of
+    the mesh.
 
     ``mesh=None`` is the single-device problem (``axes=None``): on one
     device every ``pipeline_panels`` runs the same program, so the pot
@@ -760,15 +815,10 @@ def tune_pfft3(n: int, mesh=None,
     if mode not in ("estimate", "measure"):
         raise ValueError(f"mode must be 'estimate' or 'measure', got {mode!r}")
     if mesh is not None:
-        if measure_retries:
-            raise ValueError(
-                "tune_pfft3(mesh=) takes no measure_retries: a fallback on "
-                "one rank alone would leave the ranks at different "
-                "collectives")
         return _tune_pfft3_mesh(n, mesh, tuple(axis_names), mode=mode,
                                 pad=pad, pad_len=pad_len, params=params,
                                 top_k=top_k, panels=panels, dtype=dtype,
-                                reps=reps)
+                                reps=reps, measure_retries=measure_retries)
     r = c = 1
     params = _params_for(params, device)
     from repro_torch.plan.cost import estimate_pfft3_cost
@@ -811,7 +861,11 @@ def tune_pfft3(n: int, mesh=None,
                          for cfg in finalists], x)
         return _timed_min(pairs, x, reps, events)
 
-    measured = _measure_with_retry(run_races, measure_retries)
+    measured = _measure_with_retry(
+        run_races, measure_retries, fallback=_noted(
+            info, "measure_fallback", f"measurement failed after {measure_retries} retries: "))
+    if measured is None:
+        return ranked[0][0], None, info
     winner = min(measured, key=measured.get)
     info["measured"] = [(cfg.to_dict(), None, float(t))
                         for cfg, t in measured.items()]
@@ -823,7 +877,10 @@ def tune_pfft3(n: int, mesh=None,
         lambda: _measure_pfft3_local_pass(winner, n,
                                           _pass_length(n, winner, pad_len),
                                           dtype, reps, device),
-        measure_retries)
+        measure_retries,
+        fallback=_noted(info["pfft3"], "comm_sample_error"))
+    if local_s is None:
+        return winner, None, info
     info["pfft3"]["local_pass_s"] = float(local_s)
     info["pfft3"]["comm_time_meas_s"] = float(
         max(measured[winner] - 3.0 * local_s, 0.0))
@@ -834,7 +891,8 @@ def tune_pfft3(n: int, mesh=None,
 def _tune_pfft3_mesh(n: int, mesh, axes0: tuple[str, str], *, mode: str,
                      pad: str, pad_len: int | None,
                      params: CostParams | None, top_k: int,
-                     panels: Sequence[int] | None, dtype, reps: int
+                     panels: Sequence[int] | None, dtype, reps: int,
+                     measure_retries: int = 0
                      ) -> tuple[PlanConfig, tuple[str, str], dict]:
     """``tune_pfft3`` on a pencil mesh (its docstring)."""
     from repro_torch.launch.mesh import axis_size, mesh_host_shape  # lazy
@@ -910,18 +968,30 @@ def _tune_pfft3_mesh(n: int, mesh, axes0: tuple[str, str], *, mode: str,
             finalists.append((cfg, waxes))
         if len(finalists) >= max(top_k, 1):
             break
-    measured, device_s = {}, {}
-    for waxes in orientations:
-        group = [cfg for cfg, wa in finalists if wa == waxes]
-        if not group:
-            continue
-        events: dict = {}
-        times = measure_pfft3_configs(group, n, mesh, waxes, pad_len=pad_len,
-                                      dtype=dtype, rounds=reps, events=events)
-        for cfg, t in times.items():
-            measured[(cfg, waxes)] = t
-            if cfg in events:
-                device_s[(cfg, waxes)] = events[cfg]
+    def run_races() -> tuple[dict, dict]:
+        measured, device_s = {}, {}
+        for waxes in orientations:
+            group = [cfg for cfg, wa in finalists if wa == waxes]
+            if not group:
+                continue
+            events: dict = {}
+            times = measure_pfft3_configs(group, n, mesh, waxes,
+                                          pad_len=pad_len, dtype=dtype,
+                                          rounds=reps, events=events)
+            for cfg, t in times.items():
+                measured[(cfg, waxes)] = t
+                if cfg in events:
+                    device_s[(cfg, waxes)] = events[cfg]
+        return measured, device_s
+
+    races = _agreed_measure(
+        run_races, measure_retries, mesh, axes0, fallback=_noted(
+            info, "measure_fallback", f"measurement failed after {measure_retries} retries: "))
+    if races is None:
+        cfg, waxes, _ = ranked[0]
+        info["orientation"] = list(waxes)
+        return cfg, waxes, info
+    measured, device_s = races
     wcfg, waxes = min(measured, key=measured.get)
     info["measured"] = [(cfg.to_dict(), list(wa), float(t))
                         for (cfg, wa), t in measured.items()]
@@ -937,8 +1007,13 @@ def _tune_pfft3_mesh(n: int, mesh, axes0: tuple[str, str], *, mode: str,
     if eff_len is None:
         from repro_torch.core.pfft_dist import default_dist_pad_len  # lazy
         eff_len = default_dist_pad_len(n, wcfg.dist_padded)
-    local_s = _measure_local_phase(wcfg, n, (n // r) * (n // c), eff_len,
-                                   dtype, reps, mesh, axes0)
+    local_s = _agreed_measure(
+        lambda: _measure_local_phase(wcfg, n, (n // r) * (n // c),
+                                     eff_len, dtype, reps, mesh, axes0),
+        measure_retries, mesh, axes0,
+        fallback=_noted(info["pfft3"], "comm_sample_error"))
+    if local_s is None:
+        return wcfg, waxes, info
     info["pfft3"]["local_pass_s"] = float(local_s)
     info["pfft3"]["comm_time_meas_s"] = float(
         max(measured[(wcfg, waxes)] - 3.0 * local_s, 0.0))
@@ -1026,6 +1101,8 @@ def tune_pfft1_large(n: int, *, n1: int | None = None, n2: int | None = None,
 # rank, ``launch.mesh.max_over_axis``), so every rank picks the same
 # program and meets the others at the same collectives.  The shuffled
 # visiting order of ``_timed_min`` is seeded, hence the same on every rank.
+# A failed measurement is retried, or given up for a fallback, on every
+# rank together (``_agreed_measure``).
 
 def dist_panel_space(n: int, p: int, max_panels: int = 8) -> tuple[int, ...]:
     """Candidate ``pipeline_panels`` for an n x n problem on p devices:
@@ -1142,7 +1219,8 @@ def tune_dist_config(n: int, mesh, axis_name: str = "fft", *,
                      pad_len: int | None = None, fpms: FPMSet | None = None,
                      params: CostParams | None = None, top_k: int = 3,
                      panels: Sequence[int] | None = None,
-                     dtype=np.complex64, reps: int = 3
+                     dtype=np.complex64, reps: int = 3,
+                     measure_retries: int = 0
                      ) -> tuple[PlanConfig, dict]:
     """Pick the best ``PlanConfig`` for ``pfft2_distributed`` on ``mesh``.
 
@@ -1158,6 +1236,13 @@ def tune_dist_config(n: int, mesh, axis_name: str = "fft", *,
     the comm sample: ``comm_time_meas_s = total − 2·local_phase`` (clamped
     at 0), the number ``plan/calibrate.py`` fits the interconnect from,
     and on a host-major axis one sample per tier.
+
+    ``measure_retries`` retries a failed measurement, agreed over the
+    axis's ranks (``_agreed_measure``): when the budget is spent, every
+    rank serves the estimate ranking (``info["measure_fallback"]``), or
+    keeps its measured winner and records the lost comm/tier sample
+    (``comm_sample_error``, ``tier_sample_error``).  0 raises the first
+    failure.
     """
     if mode not in ("estimate", "measure"):
         raise ValueError(f"mode must be 'estimate' or 'measure', got {mode!r}")
@@ -1224,9 +1309,16 @@ def tune_dist_config(n: int, mesh, axis_name: str = "fft", *,
         if len(finalists) >= max(top_k, 1):
             break
     events: dict = {}
-    measured = measure_dist_configs(finalists, n, mesh, axis_name,
-                                    pad_len=pad_len, dtype=dtype,
-                                    rounds=reps, events=events)
+    measured = _agreed_measure(
+        lambda: measure_dist_configs(finalists, n, mesh, axis_name,
+                                     pad_len=pad_len, dtype=dtype,
+                                     rounds=reps, events=events),
+        measure_retries, mesh, axis_name, fallback=_noted(
+            info, "measure_fallback", f"measurement failed after {measure_retries} retries: "))
+    if measured is None:
+        # Retries spent on every rank alike: serve the estimate ranking
+        # (the self-healing re-planner must always get a plan).
+        return ranked[0][0], info
     winner = min(measured, key=measured.get)
     _measured_info(info, measured, events, PlanConfig.to_dict)
     info["time_s"] = float(measured[winner])
@@ -1237,8 +1329,14 @@ def tune_dist_config(n: int, mesh, axis_name: str = "fft", *,
     if eff_len is None:
         from repro_torch.core.pfft_dist import default_dist_pad_len  # lazy
         eff_len = default_dist_pad_len(n, winner.dist_padded)
-    local_s = _measure_local_phase(winner, n, n // p, eff_len, dtype, reps,
-                                   mesh, axis_name)
+    local_s = _agreed_measure(
+        lambda: _measure_local_phase(winner, n, n // p, eff_len, dtype,
+                                     reps, mesh, axis_name),
+        measure_retries, mesh, axis_name,
+        fallback=_noted(info["dist"], "comm_sample_error"))
+    if local_s is None:
+        # The winner stands; only the comm sample is lost this round.
+        return winner, info
     info["dist"]["local_phase_s"] = float(local_s)
     info["dist"]["comm_time_meas_s"] = float(
         max(measured[winner] - 2.0 * local_s, 0.0))
@@ -1253,8 +1351,13 @@ def tune_dist_config(n: int, mesh, axis_name: str = "fft", *,
                                        ("inter", tiers.inter, hosts - 1)):
             if not tier_bytes:
                 continue
-            t = _measure_tier_exchange(mesh, axis_name, n, hosts, local,
-                                       tier, dtype, reps)
+            t = _agreed_measure(
+                lambda tier=tier: _measure_tier_exchange(
+                    mesh, axis_name, n, hosts, local, tier, dtype, reps),
+                measure_retries, mesh, axis_name,
+                fallback=_noted(info["dist"], "tier_sample_error"))
+            if t is None:
+                break
             samples.append({"tier": tier, "bytes": float(tier_bytes),
                             "msgs": int(msgs), "time_s": float(t)})
         if samples:
@@ -1324,7 +1427,7 @@ def tune_rfft_dist(n: int, mesh, axis_name: str = "fft", *,
                    pad_len: int | None = None, fpms: FPMSet | None = None,
                    params: CostParams | None = None, top_k: int = 3,
                    panels: Sequence[int] | None = None, dtype=np.float32,
-                   reps: int = 3
+                   reps: int = 3, measure_retries: int = 0
                    ) -> tuple[SegmentSchedule, dict]:
     """Tune the distributed real-input transform on ``mesh``.
 
@@ -1335,7 +1438,8 @@ def tune_rfft_dist(n: int, mesh, axis_name: str = "fft", *,
     and monolithic (``rpfft2_distributed``), so real candidates enumerate
     only the row-FFT backend; complex fallbacks keep the panel/fused
     space.  ``info["dist"]`` carries both byte counts, their ratio and
-    (measured) the winner's comm sample.
+    (measured) the winner's comm sample.  ``measure_retries`` as in
+    ``tune_dist_config``.
     """
     if mode not in ("estimate", "measure"):
         raise ValueError(f"mode must be 'estimate' or 'measure', got {mode!r}")
@@ -1394,9 +1498,14 @@ def tune_rfft_dist(n: int, mesh, axis_name: str = "fft", *,
 
     finalists = _family_finalists(ranked, n, None, None, top_k)
     events: dict = {}
-    measured = measure_rfft_dist_configs(finalists, n, mesh, axis_name,
-                                         pad_len=pad_len, dtype=dtype,
-                                         rounds=reps, events=events)
+    measured = _agreed_measure(
+        lambda: measure_rfft_dist_configs(finalists, n, mesh, axis_name,
+                                          pad_len=pad_len, dtype=dtype,
+                                          rounds=reps, events=events),
+        measure_retries, mesh, axis_name, fallback=_noted(
+            info, "measure_fallback", f"measurement failed after {measure_retries} retries: "))
+    if measured is None:
+        return finish(ranked[0][0])
     winner = min(measured, key=measured.get)
     _measured_info(info, measured, events, PlanConfig.to_dict)
     info["time_s"] = float(measured[winner])
@@ -1405,14 +1514,18 @@ def tune_rfft_dist(n: int, mesh, axis_name: str = "fft", *,
     if eff_len is None:
         from repro_torch.core.pfft_dist import default_dist_pad_len  # lazy
         eff_len = default_dist_pad_len(n, winner.dist_padded)
-    if winner.real:
-        local_s = _measure_local_real_phases(winner, n, p, eff_len, dtype,
-                                             reps, mesh, axis_name)
-    else:
-        ctype = (np.complex64 if np.dtype(dtype) == np.dtype(np.float32)
-                 else np.complex128)
-        local_s = 2.0 * _measure_local_phase(winner, n, n // p, eff_len, ctype,
-                                             reps, mesh, axis_name)
+    ctype = (np.complex64 if np.dtype(dtype) == np.dtype(np.float32)
+             else np.complex128)
+    local_s = _agreed_measure(
+        lambda: (_measure_local_real_phases(winner, n, p, eff_len, dtype,
+                                            reps, mesh, axis_name)
+                 if winner.real else
+                 2.0 * _measure_local_phase(winner, n, n // p, eff_len,
+                                            ctype, reps, mesh, axis_name)),
+        measure_retries, mesh, axis_name,
+        fallback=_noted(info["dist"], "comm_sample_error"))
+    if local_s is None:
+        return finish(winner)
     info["dist"]["local_phase_s"] = float(local_s)
     info["dist"]["comm_time_meas_s"] = float(
         max(measured[winner] - local_s, 0.0))
@@ -1466,7 +1579,8 @@ def tune_dist_schedule(n: int, mesh, axis_name: str = "fft", *,
                        fpms: FPMSet | None = None,
                        params: CostParams | None = None, top_k: int = 3,
                        panels: Sequence[int] | None = None,
-                       dtype=np.complex64, reps: int = 3
+                       dtype=np.complex64, reps: int = 3,
+                       measure_retries: int = 0
                        ) -> tuple[SegmentSchedule, dict]:
     """Schedule-shaped distributed tuner; returns (schedule, info).
 
@@ -1477,7 +1591,9 @@ def tune_dist_schedule(n: int, mesh, axis_name: str = "fft", *,
     ``mode="measure"`` races the two end to end through the actual
     grouped ``pfft2_distributed`` program on the mesh
     (``info["grouped_measured"]``).  This is what ``plan_pfft(mesh=...)``
-    resolves through.
+    resolves through.  ``measure_retries`` as in ``tune_dist_config``; a
+    grouped race whose retries are spent falls back to the estimate's pick
+    on every rank (``info["measure_fallback"]``).
     """
     from repro_torch.launch.mesh import axis_size  # lazy: launch is thin
 
@@ -1492,7 +1608,7 @@ def tune_dist_schedule(n: int, mesh, axis_name: str = "fft", *,
     cfg, info = tune_dist_config(n, mesh, axis_name, mode=mode, pad=pad,
                                  pad_len=pad_len, fpms=fpms, params=params,
                                  top_k=top_k, panels=panels, dtype=dtype,
-                                 reps=reps)
+                                 reps=reps, measure_retries=measure_retries)
     params = _mesh_params(params, mesh)
     d = np.full(p, n // p, dtype=np.int64) if p > 0 else None
     homo = SegmentSchedule.homogeneous(cfg, n, d, pad_lengths)
@@ -1517,15 +1633,23 @@ def tune_dist_schedule(n: int, mesh, axis_name: str = "fft", *,
         winner = hetero if est_hetero < est_homo else homo
     else:
         events: dict = {}
-        raced = measure_dist_configs([homo, hetero], n, mesh, axis_name,
-                                     dtype=dtype, rounds=reps, events=events)
-        winner = min(raced, key=raced.get)
-        info["grouped_measured"] = [(s.describe(), float(t))
-                                    for s, t in raced.items()]
-        if events:
-            info["grouped_measured_event_s"] = [
-                (s.describe(), float(events[s])) for s in raced]
-        info["time_s"] = float(raced[winner])
+        raced = _agreed_measure(
+            lambda: measure_dist_configs([homo, hetero], n, mesh,
+                                         axis_name, dtype=dtype,
+                                         rounds=reps, events=events),
+            measure_retries, mesh, axis_name, fallback=_noted(
+                info, "measure_fallback",
+                f"grouped race failed after {measure_retries} retries: "))
+        if raced is None:
+            winner = hetero if est_hetero < est_homo else homo
+        else:
+            winner = min(raced, key=raced.get)
+            info["grouped_measured"] = [(s.describe(), float(t))
+                                        for s, t in raced.items()]
+            if events:
+                info["grouped_measured_event_s"] = [
+                    (s.describe(), float(events[s])) for s in raced]
+            info["time_s"] = float(raced[winner])
     info["chosen"] = ("heterogeneous" if len(winner.configs) > 1
                       else "homogeneous")
     info["schedule"] = winner.to_dict()

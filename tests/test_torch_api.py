@@ -238,6 +238,22 @@ def test_package_exports_the_reference_3d_mesh_names():
             assert hasattr(mod, name), name
 
 
+def test_package_exports_the_reference_runtime_names():
+    """``repro_torch.runtime`` exports the reference's ``__all__``, name for
+    name, the lazy ``ResilientPlan`` included, and so does each module."""
+    import repro.runtime as ref_runtime
+    import repro_torch.runtime as port_runtime
+    assert port_runtime.__all__ == ref_runtime.__all__
+    for name in port_runtime.__all__:
+        assert getattr(port_runtime, name) is not None, name
+    for module in ("checkpoint", "elastic", "faults", "resilient", "straggler"):
+        ref_mod = __import__(f"repro.runtime.{module}", fromlist=["__all__"])
+        port_mod = __import__(f"repro_torch.runtime.{module}", fromlist=["__all__"])
+        assert port_mod.__all__ == ref_mod.__all__, module
+    with pytest.raises(AttributeError):
+        port_runtime.NotAName
+
+
 # An empty batch through the library configs (the reference's radix=4 and
 # fused configs raise TypeError on it: not compared).
 EMPTY_BATCHES = {
@@ -317,7 +333,8 @@ def test_importing_the_port_loads_no_jax_builds_nothing_and_touches_no_cuda():
     code = (
         "import sys, os\n"
         "import repro_torch, repro_torch.core, repro_torch.fft, repro_torch.plan\n"
-        "import repro_torch.kernels, repro_torch.convert\n"
+        "import repro_torch.kernels, repro_torch.convert, repro_torch.runtime\n"
+        "from repro_torch.runtime import ResilientPlan\n"
         "import torch\n"
         "from repro_torch.kernels import _build\n"
         "assert 'jax' not in sys.modules and 'repro' not in sys.modules\n"
