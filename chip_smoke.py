@@ -104,6 +104,16 @@ each of which ends the run with a non-zero exit code when it fails:
                  (one survivor dropped), the call retried and gathered
                  against ``torch.fft.fft2``, and a second plan on the reduced
                  world served from wisdom with no launch while planning.
+17. ``lm_serve`` the LM serving path (``repro_torch.launch.serve``; plain
+                 PyTorch, none of the FFT kernels): ``serve_batch`` of
+                 qwen2.5-3b FULL in bf16 (weights from a seeded CUDA
+                 generator) at batch 8 x (64 + 32); the prefill and each
+                 decode step timed, one decode step's launches counted by
+                 the profiler, beside their bounds; a float32 copy of the
+                 weights: forward vs prefill vs prefill(S-1) + decode_step,
+                 the bf16 logits against it, greedy tokens compared; one
+                 full-width layer against the host; the SMOKE config of
+                 every other dense, vlm and audio arch against the host.
 
 Then, outside the counted drives: every checked 2-D execute timed beside the
 library, and a fused batch's two layouts (batched, and the per-signal
@@ -111,16 +121,17 @@ loop) checked against the library and timed at N = 1024 ... 8192 and
 batches of 2 and 8.  Tolerances of the paths 8-10, 13 and 14:
 ``2e-4·sqrt(elements of one signal)`` (the 2-D ``2e-4·N``).
 
-Each path (4-16) is driven once with the launch counts set to 0 just before
+Each path (4-17) is driven once with the launch counts set to 0 just before
 and read just after; each of its kernels must have launched (the counts of
 ``dist_gloo4``, ``dist3_gloo4`` and ``runtime_gloo4`` are their four ranks'
-sums).  Every line but
+sums; ``lm_serve`` must launch none of them).  Every line but
 the last is a log or a JSON record; the last line is ``{"ok": true,
 "device": {...}}`` and is printed only when every phase passed.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -167,6 +178,10 @@ from repro_torch.launch.mesh import (init_multihost, make_fft_mesh,  # noqa: E40
                                      make_pfft3_mesh)
 from repro_torch.launch.serve_fft import (AdmissionError, DeadlineExceeded,  # noqa: E402
                                           FFTService, _bucket)
+from repro_torch.launch.serve import serve_batch  # noqa: E402
+from repro_torch.models import transformer as lm  # noqa: E402
+from repro_torch.models.registry import get_config, get_smoke_config  # noqa: E402
+from repro_torch.data.pipeline import make_batch  # noqa: E402
 from repro_torch.runtime import (CheckpointManager, DeviceLostError,  # noqa: E402
                                  inject, repeated)
 from repro_torch.runtime.resilient import ResilientPlan  # noqa: E402
@@ -272,6 +287,16 @@ RUNTIME_EVENT_FIELDS = ("kind", "call", "slow_groups", "relative_speeds",
                         "source", "chosen", "schedule", "swap_call", "lost",
                         "survivors", "devices", "dropped", "topology",
                         "plan_source")
+# The LM serving path: qwen2.5-3b FULL (36 layers, d 2048, bf16) served at
+# the reference's defaults, batch 8, a prompt of 64 and 32 generated tokens;
+# its float32 copy checked against itself and the bf16 run; the SMOKE
+# configs of the other dense, vlm and audio archs held against the host.
+LM_ARCH = "qwen2_5_3b"
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 64, 32
+LM_SMOKE_ARCHS = ("internlm2_1_8b", "chatglm3_6b", "stablelm_3b",
+                  "llava_next_mistral_7b", "hubert_xlarge")
+LM_SMOKE_DECODE = 4
+PEAK_BF16_FLOPS = 989e12       # dense bf16 on the tensor cores
 SOURCES = "src/repro_torch/kernels/csrc/"
 
 
@@ -2303,6 +2328,262 @@ def phase_runtime_gloo4(card: str) -> dict[str, int]:
     return counts
 
 
+def lm_float32(model: torch.nn.Module) -> torch.nn.Module:
+    """A float32 copy of ``model``'s weights (its bf16 values exactly)."""
+    cfg = dataclasses.replace(model.cfg, dtype="float32")
+    twin = lm.TransformerLM(cfg, next(model.parameters()).device)
+    with torch.no_grad():
+        for src, dst in zip(model.parameters(), twin.parameters()):
+            dst.copy_(src.float())
+    return twin
+
+
+def lm_bounds(model: torch.nn.Module, batch: int, prompt: int) -> dict:
+    """The least time of a decode step and of the prefill on the card: the
+    weights each read once (of the embedding table only the rows looked
+    up), the KV cache read and written, over HBM's rate; and their
+    operations (2 per weight per token; the prefill's lm_head on the last
+    position alone; causal attention) over dense bf16's."""
+    cfg = model.cfg
+    elem = next(model.parameters()).element_size()
+    table = model.embed.table.numel()
+    head = model.lm_head.w.numel()
+    layers = sum(p.numel() for p in model.layers.parameters())
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    weights -= (table - batch) * elem
+    kv_row = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * elem   # k and v
+    attn = 4 * batch * cfg.n_heads * cfg.hd                       # QK and PV
+    decode_len = prompt + 1
+    decode = {"bytes": weights + batch * decode_len * kv_row,
+              "flops": 2 * batch * (layers + head)
+              + cfg.n_layers * attn * decode_len}
+    prefill = {"bytes": weights + batch * prompt * kv_row,
+               "flops": 2 * batch * prompt * layers + 2 * batch * head
+               + cfg.n_layers * attn * prompt * (prompt + 1) // 2}
+    out = {}
+    for name, work in (("decode", decode), ("prefill", prefill)):
+        by_bytes = work["bytes"] / PEAK_BYTES_PER_S * 1e3
+        by_ops = work["flops"] / PEAK_BF16_FLOPS * 1e3
+        out[name] = {"bound_ms": max(by_bytes, by_ops),
+                     "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                     **work}
+    return out
+
+
+def launches_of(fn) -> dict[str, int]:
+    """The kernel launches of one call of ``fn``: the runtime's launch calls
+    on the host and the kernels on the card, as ``torch.profiler`` (CUPTI)
+    records them."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    host = sum(1 for e in events if e.name.startswith(("cudaLaunchKernel",
+                                                       "cuLaunchKernel")))
+    device = sum(1 for e in events if e.device_type == DeviceType.CUDA
+                 and not e.name.startswith("Memcpy") and not e.name.startswith("Memset"))
+    return {"host_launch_calls": host, "device_kernels": device}
+
+
+def close_ratio(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max|got - want|, max|want|), both finite."""
+    return (max_abs_err(got.float(), want.float()),
+            float(want.float().abs().max()))
+
+
+def check_close(phase: str, label: str, pairs, rel: float) -> None:
+    """``max|got - want| <= rel·max|want|`` for every (got, want) pair; logs
+    the worst ratio."""
+    ratios = [err / scale for err, scale in (close_ratio(g, w) for g, w in pairs)]
+    log(phase, check=label, pairs=len(ratios), worst_ratio=max(ratios), limit=rel)
+    if not max(ratios) <= rel:
+        raise AssertionError(f"{phase} {label}: error {max(ratios)} x max|want| "
+                             f"> {rel}")
+
+
+def lm_greedy(model, cfg, prompts: dict, gen: int) -> torch.Tensor:
+    """The greedy continuation of ``prompts`` (B, gen), as ``serve_batch``
+    makes it."""
+    cache = lm.init_cache(cfg, LM_BATCH, LM_PROMPT + gen)
+    logits, cache = lm.prefill(model, prompts, cfg, cache)
+    toks = []
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    for i in range(gen):
+        toks.append(tok)
+        logits, cache = lm.decode_step(model, cache, tok, LM_PROMPT + i, cfg)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+    return torch.stack(toks, dim=1)
+
+
+def phase_lm_serve(card: str) -> dict[str, int]:
+    """The LM serving path (``repro_torch.launch.serve``), with the launch
+    counts set to 0 just before and read just after (it runs none of the
+    FFT kernels):
+
+    (a) ``serve_batch`` of qwen2.5-3b FULL in bf16, weights from a seeded
+        CUDA generator, batch 8 x (64 + 32); then the same weights
+        rebuilt from the same seed and the prefill and each decode step
+        timed by CUDA events, one decode step's launches counted by the
+        profiler, beside the bounds (``lm_bounds``);
+    (b) a float32 copy of those weights: forward, prefill and prefill(S-1)
+        + decode_step agree within ``1e-3·max|logits|``; the bf16 prefill
+        logits within ``5e-2·max|logits|`` of the float32 ones; the bf16
+        greedy tokens beside the float32 ones (printed, not gated);
+    (c) one full-width layer (``_apply_tf_layer`` on (8, 64, 2048), float32)
+        on the card against the host within ``1e-4·max|out|``;
+    (d) the SMOKE config of each other dense, vlm and audio arch in float32,
+        card against host: forward, and for the decoders prefill and
+        LM_SMOKE_DECODE decode steps, within ``1e-4·max|out|``.
+    """
+    phase = "lm_serve"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(LM_ARCH)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out, stats = serve_batch(LM_ARCH, smoke=False, batch=LM_BATCH,
+                                 prompt_len=LM_PROMPT, gen=LM_GEN, seed=SEED)
+        counts = launch_counts()
+        if any(counts.values()):
+            raise AssertionError(f"the LM path launched FFT kernels: {counts}")
+        serve_s = time.perf_counter() - t0
+        if out.shape != (LM_BATCH, LM_GEN) or out.min() < 0 or out.max() >= cfg.vocab:
+            raise AssertionError(f"serve_batch gave {out.shape}, tokens "
+                                 f"{out.min()} ... {out.max()}")
+        serve_peak = torch.cuda.max_memory_allocated()
+
+        weights = torch.Generator(device="cuda")
+        weights.manual_seed(SEED)
+        model = lm.init_params(weights, cfg, device="cuda")
+        prompts = make_batch(cfg, LM_BATCH, LM_PROMPT, seed=SEED, step=0,
+                             device="cuda")
+        prompts.pop("targets")
+        n_params = sum(p.numel() for p in model.parameters())
+        bounds = lm_bounds(model, LM_BATCH, LM_PROMPT)
+
+        def prefill():
+            return lm.prefill(model, prompts, cfg,
+                              lm.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN))
+
+        prefill_ms = time_ms(prefill, reps=5, warmup=1)
+        logits16, cache = prefill()
+        tok = torch.argmax(logits16, -1).to(torch.int32)
+        step_ms = []
+        for i in range(LM_GEN):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, cache = lm.decode_step(model, cache, tok, LM_PROMPT + i, cfg)
+            stop.record()
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            torch.cuda.synchronize()
+            step_ms.append(start.elapsed_time(stop))
+        decode_ms = statistics.median(step_ms)
+        cache = lm.init_cache(cfg, LM_BATCH, LM_PROMPT + 1)
+        _, cache = lm.prefill(model, prompts, cfg, cache)
+        launches = launches_of(lambda: lm.decode_step(model, cache, tok,
+                                                      LM_PROMPT, cfg))
+        log(phase, step="serve", card=card, kind=torch.cuda.get_device_name(0),
+            arch=cfg.name, params=n_params, dtype=cfg.dtype, batch=LM_BATCH,
+            prompt_len=LM_PROMPT, gen=LM_GEN, serve_batch_s=serve_s,
+            serve_batch_stats=stats, prefill_ms=prefill_ms,
+            prefill_bound_ms=bounds["prefill"]["bound_ms"],
+            prefill_bound_by=bounds["prefill"]["bound_by"],
+            decode_ms_per_step=decode_ms, decode_ms_min=min(step_ms),
+            decode_ms_max=max(step_ms),
+            decode_bound_ms=bounds["decode"]["bound_ms"],
+            decode_bound_by=bounds["decode"]["bound_by"],
+            decode_tok_s=LM_BATCH / decode_ms * 1e3,
+            prefill_tok_s=LM_BATCH * LM_PROMPT / prefill_ms * 1e3,
+            launches_per_decode_step=launches, bounds=bounds,
+            serve_peak_memory_gib=serve_peak / 2 ** 30)
+        del cache
+
+        # (b) the float32 copy at full width
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        model32 = lm_float32(model)
+        hidden, _ = lm.forward(model32, prompts, cfg32)
+        full = lm.logits_fn(model32, hidden[:, -1:], cfg32)[:, 0]
+        del hidden
+        logits32, _ = lm.prefill(model32, prompts, cfg32,
+                                 lm.init_cache(cfg32, LM_BATCH, LM_PROMPT))
+        short = {"tokens": prompts["tokens"][:, :-1]}
+        cache32 = lm.init_cache(cfg32, LM_BATCH, LM_PROMPT)
+        _, cache32 = lm.prefill(model32, short, cfg32, cache32)
+        stepped, _ = lm.decode_step(model32, cache32, prompts["tokens"][:, -1],
+                                    LM_PROMPT - 1, cfg32)
+        del cache32
+        check_close(phase, "float32 prefill vs forward", [(logits32, full)], 1e-3)
+        check_close(phase, "float32 prefill(S-1) + decode_step vs forward",
+                    [(stepped, full)], 1e-3)
+        check_close(phase, "bf16 prefill vs float32 prefill",
+                    [(logits16, logits32)], 5e-2)
+        greedy32 = lm_greedy(model32, cfg32, prompts, LM_GEN).cpu().numpy()
+        agree = out == greedy32
+        first_miss = [int(np.argmin(row)) if not row.all() else LM_GEN
+                      for row in agree]
+        log(phase, step="greedy bf16 vs float32", equal_tokens=int(agree.sum()),
+            tokens=int(agree.size), equal_prefix_per_row=first_miss)
+
+        # (c) one full-width layer, card against host
+        layer = model32.layers[0]
+        x = torch.randn(LM_BATCH, LM_PROMPT, cfg.d_model, device="cuda",
+                        generator=weights)
+        on_card, _, _ = lm._apply_tf_layer(layer, x, cfg32)
+        layer_host = copy_module(layer, "cpu")
+        on_host, _, _ = lm._apply_tf_layer(layer_host, x.cpu(), cfg32)
+        check_close(phase, "full-width layer card vs host",
+                    [(on_card.cpu(), on_host)], 1e-4)
+        del model, model32, layer_host, x, on_card, on_host, logits16, logits32
+        peak = torch.cuda.max_memory_allocated()
+
+        # (d) the other transformer-layer configs at SMOKE size
+        for arch in LM_SMOKE_ARCHS:
+            smoke = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+            host_gen = torch.Generator().manual_seed(SEED)
+            host = lm.init_params(host_gen, smoke, device="cpu")
+            card_model = copy_module(host, "cuda")
+            seq = 16 + smoke.n_prefix_embeds
+            batch = make_batch(smoke, 2, seq, seed=SEED, step=1, device="cpu")
+            batch.pop("targets")
+            on_batch = {k: v.cuda() for k, v in batch.items()}
+            want, _ = lm.forward(host, batch, smoke)
+            got, _ = lm.forward(card_model, on_batch, smoke)
+            pairs = [(got.cpu(), want)]
+            if smoke.supports_decode():
+                caches = [lm.init_cache(smoke, 2, seq + LM_SMOKE_DECODE, device=d)
+                          for d in ("cpu", "cuda")]
+                want, caches[0] = lm.prefill(host, batch, smoke, caches[0])
+                got, caches[1] = lm.prefill(card_model, on_batch, smoke, caches[1])
+                for i in range(LM_SMOKE_DECODE):
+                    pairs.append((got.cpu(), want))
+                    tok = torch.argmax(want, -1).to(torch.int32)
+                    want, caches[0] = lm.decode_step(host, caches[0], tok,
+                                                     seq + i, smoke)
+                    got, caches[1] = lm.decode_step(card_model, caches[1],
+                                                    tok.cuda(), seq + i, smoke)
+                pairs += [(got.cpu(), want)] + [(caches[1][k].cpu(), caches[0][k])
+                                                for k in ("k", "v")]
+            drive = (f"forward, prefill and {LM_SMOKE_DECODE} decode steps"
+                     if smoke.supports_decode() else "forward")
+            check_close(phase, f"{arch} smoke {drive} card vs host", pairs, 1e-4)
+    counts = launch_counts()
+    log(phase, launches=counts, seconds=time.perf_counter() - t0,
+        peak_memory_gib=peak / 2 ** 30)
+    if any(counts.values()):
+        raise AssertionError(f"the LM path launched FFT kernels: {counts}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def copy_module(module: torch.nn.Module, device: str) -> torch.nn.Module:
+    """A copy of ``module`` with its parameters on ``device``."""
+    return copy.deepcopy(module).to(device)
+
+
 def time_fused_batch(gen: torch.Generator, card: str) -> None:
     """A fused batch's two layouts, on the same stack, in turns (batched,
     loop, loop, batched): ``plan.execute`` of the stack (K2 — K4 then K2
@@ -2380,14 +2661,17 @@ def main() -> None:
              "dist3_gloo4": phase_dist_gloo4(card, mode="3d"),
              "runtime": phase_runtime(gen, card),
              "runtime_gloo4": phase_runtime_gloo4(card)}
+    peak = torch.cuda.max_memory_allocated()     # lm_serve resets the peak
+    paths["lm_serve"] = phase_lm_serve(card)
     for record in records:
         by_path = {path: counts[record["name"]] for path, counts in paths.items()}
         record["launches"] = sum(by_path.values())
         record["launches_by_path"] = by_path
     time_runs(runs + real_runs + planner_runs, card)
     time_fused_batch(gen, card)
+    peak = max(peak, torch.cuda.max_memory_allocated())
     log("done", seconds=round(time.perf_counter() - t0, 1),
-        peak_memory_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2))
+        peak_memory_gib=round(peak / 2 ** 30, 2))
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,12 @@
 """Carry the reference package's state across to this one.
 
-The system has no weights; its state is the model input (FPMs), the plan
-(partition, config, schedule) and the signal.  The reference's objects are
-handed over as numpy arrays and plain dicts — this package never imports the
-reference — and come out as this package's objects, so that both compute from
-the same FPMs, partition and schedule.  FPM files need no converter:
-``load_fpms`` reads what the reference's ``save_fpms`` writes, and the other
-way round.
+The FFT system has no weights; its state is the model input (FPMs), the
+plan (partition, config, schedule) and the signal.  The LM scaffold's state
+is its parameter tree.  The reference's objects are handed over as numpy
+arrays and plain dicts — this package never imports the reference — and come
+out as this package's objects, so that both compute from the same FPMs,
+partition, schedule and weights.  FPM files need no converter: ``load_fpms``
+reads what the reference's ``save_fpms`` writes, and the other way round.
 """
 
 from __future__ import annotations
@@ -16,14 +16,16 @@ from typing import Any, Iterable, Sequence
 import numpy as np
 import torch
 
-from repro_torch._device import as_tensor
+from repro_torch._device import as_tensor, resolve_device
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.fpm import FPMSet, SpeedFunction
 from repro_torch.core.partition import PartitionResult
+from repro_torch.models.transformer import TransformerLM
 from repro_torch.plan.config import PlanConfig
 from repro_torch.plan.schedule import SegmentSchedule
 
 __all__ = ["fpms_from_arrays", "partition_from_arrays", "config_from_dict",
-           "schedule_from_dict", "signal_to_tensor"]
+           "schedule_from_dict", "signal_to_tensor", "lm_params_from_arrays"]
 
 
 def fpms_from_arrays(functions: Iterable[Sequence]) -> FPMSet:
@@ -54,3 +56,61 @@ def signal_to_tensor(signal: np.ndarray,
     """A host array -> a tensor on ``device`` (``None``: the CUDA device,
     raising when there is none), dtype kept."""
     return as_tensor(np.asarray(signal), device)
+
+
+def _leaf_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A host array as a CPU tensor of its own copy; bfloat16 (``ml_dtypes``)
+    crosses bit for bit through its 16-bit integer view."""
+    arr = np.array(arr, order="C")
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def lm_params_from_arrays(tree: dict[str, Any], cfg: ArchConfig,
+                          device: str | torch.device | None = None):
+    """The reference's LM parameter pytree -> this package's model.
+
+    ``tree`` is the reference's ``init_params`` result as nested dicts of
+    numpy arrays, its transformer layers stacked on a leading axis
+    (``tree["layers"]["attn"]["wq"]["w"][i]`` is layer ``i``'s).  Every leaf
+    must fill one parameter of the same shape and dtype, and every parameter
+    must be filled.
+    """
+    model = TransformerLM(cfg, resolve_device(device))
+    leaves = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+        else:
+            leaves[path] = node
+
+    walk(tree, ())
+    used = set()
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            parts = tuple(name.split("."))
+            if parts[0] == "layers":
+                path, index = ("layers",) + parts[2:], int(parts[1])
+            else:
+                path, index = parts, None
+            if path not in leaves:
+                raise KeyError(f"the parameter tree has no leaf {'/'.join(path)}")
+            used.add(path)
+            arr = np.asarray(leaves[path])
+            if index is not None and arr.shape[0] != cfg.n_layers:
+                raise ValueError(f"{'/'.join(path)}: {arr.shape[0]} stacked "
+                                 f"layers for a config of {cfg.n_layers}")
+            value = _leaf_tensor(arr if index is None else arr[index])
+            if tuple(value.shape) != tuple(param.shape) or value.dtype != param.dtype:
+                raise ValueError(
+                    f"{name}: leaf is {tuple(value.shape)} {value.dtype}, the "
+                    f"parameter {tuple(param.shape)} {param.dtype}")
+            param.copy_(value)
+    extra = set(leaves) - used
+    if extra:
+        raise KeyError(f"leaves with no parameter: "
+                       f"{sorted('/'.join(p) for p in extra)}")
+    return model

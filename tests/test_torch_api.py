@@ -254,6 +254,67 @@ def test_package_exports_the_reference_runtime_names():
         port_runtime.NotAName
 
 
+LM_TRAINING_NAMES = {"loss_fn", "param_pspecs", "batch_pspecs", "cache_pspecs"}
+
+
+def test_package_exports_the_reference_lm_names():
+    """The LM serving path exports the reference's names, less those of
+    sharding and training (``models``, ``models.transformer``, ``train``)
+    and of the dry-run (``data.input_specs``)."""
+    import repro.configs as ref_configs
+    import repro.data as ref_data
+    import repro.launch.serve as ref_serve
+    import repro.models as ref_models
+    import repro.models.attention as ref_attn
+    import repro.models.layers as ref_layers
+    import repro.models.registry as ref_registry
+    import repro.models.transformer as ref_transformer
+    import repro.train as ref_train
+    import repro_torch.configs as port_configs
+    import repro_torch.data as port_data
+    import repro_torch.launch.serve as port_serve
+    import repro_torch.models as port_models
+    import repro_torch.models.attention as port_attn
+    import repro_torch.models.layers as port_layers
+    import repro_torch.models.registry as port_registry
+    import repro_torch.models.transformer as port_transformer
+    import repro_torch.train as port_train
+
+    def without(names, dropped):
+        return [n for n in names if n not in dropped]
+
+    assert port_models.__all__ == without(ref_models.__all__, LM_TRAINING_NAMES)
+    assert port_transformer.__all__[:-1] == without(ref_transformer.__all__,
+                                                    LM_TRAINING_NAMES)
+    assert port_data.__all__ == without(ref_data.__all__, {"input_specs"})
+    assert port_train.__all__ == ["make_serve_step"]
+    assert "make_serve_step" in ref_train.__all__
+    for port, ref in ((port_configs, ref_configs), (port_serve, ref_serve),
+                      (port_registry, ref_registry)):
+        assert port.__all__ == ref.__all__
+    assert set(ref_layers.__all__) <= set(port_layers.__all__)
+    assert set(port_attn.__all__) - {"GQA"} == {
+        n for n in ref_attn.__all__ if n.startswith("gqa")}
+    for mod in (port_configs, port_data, port_serve, port_models, port_attn,
+                port_layers, port_registry, port_transformer, port_train):
+        for name in mod.__all__:
+            assert hasattr(mod, name), name
+
+
+def test_lm_serving_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    import repro_torch.launch.serve as port_serve
+    import repro_torch.models as port_models
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = port_models.get_smoke_config("qwen2_5_3b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_serve.serve_batch("qwen2_5_3b", batch=1, prompt_len=4, gen=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_models.init_params(torch.Generator(), cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_models.init_cache(cfg, 1, 4)
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
 # An empty batch through the library configs (the reference's radix=4 and
 # fused configs raise TypeError on it: not compared).
 EMPTY_BATCHES = {
@@ -306,6 +367,9 @@ def port_sources():
              os.path.join(ROOT, "examples", "quickstart_torch.py"),
              os.path.join(ROOT, "examples", "kernel_check_torch.py"),
              os.path.join(ROOT, "examples", "pfft3_mesh_torch.py")]
+    files += [os.path.join(ROOT, "examples", name) for name in (
+        "fft_convolution_torch.py", "pfft1_large_demo_torch.py",
+        "serve_fft_demo_torch.py", "serve_lm_torch.py")]
     for base, _, names in os.walk(pkg):
         files += [os.path.join(base, f) for f in names if f.endswith(".py")]
     return sorted(files)
@@ -335,6 +399,8 @@ def test_importing_the_port_loads_no_jax_builds_nothing_and_touches_no_cuda():
         "import repro_torch, repro_torch.core, repro_torch.fft, repro_torch.plan\n"
         "import repro_torch.kernels, repro_torch.convert, repro_torch.runtime\n"
         "from repro_torch.runtime import ResilientPlan\n"
+        "import repro_torch.configs, repro_torch.models, repro_torch.data\n"
+        "import repro_torch.train, repro_torch.launch.serve\n"
         "import torch\n"
         "from repro_torch.kernels import _build\n"
         "assert 'jax' not in sys.modules and 'repro' not in sys.modules\n"
