@@ -114,6 +114,17 @@ each of which ends the run with a non-zero exit code when it fails:
                  the bf16 logits against it, greedy tokens compared; one
                  full-width layer against the host; the SMOKE config of
                  every other dense, vlm and audio arch against the host.
+18. ``lm_serve_moe`` the MoE + MLA serving path: ``serve_batch`` of
+                 deepseek-v2-lite-16b FULL (27 layers, bf16) at batch 8 x
+                 (64 + 32); the prefill and each decode step timed, one
+                 decode step's launches counted, peak memory, beside bounds
+                 that count the routed experts the step's routing selects;
+                 its first 4 layers in float32 (forward vs prefill,
+                 prefill(S-1) + decode vs prefill(S) at capacity factor 8;
+                 bf16 vs float32 logits printed beside the share of routing
+                 decisions that differ); one full-width layer against the
+                 host, routing first; dbrx-132b at full width with 2 layers
+                 timed; the SMOKE configs of both against the host.
 
 Then, outside the counted drives: every checked 2-D execute timed beside the
 library, and a fused batch's two layouts (batched, and the per-signal
@@ -121,16 +132,17 @@ loop) checked against the library and timed at N = 1024 ... 8192 and
 batches of 2 and 8.  Tolerances of the paths 8-10, 13 and 14:
 ``2e-4·sqrt(elements of one signal)`` (the 2-D ``2e-4·N``).
 
-Each path (4-17) is driven once with the launch counts set to 0 just before
+Each path (4-18) is driven once with the launch counts set to 0 just before
 and read just after; each of its kernels must have launched (the counts of
 ``dist_gloo4``, ``dist3_gloo4`` and ``runtime_gloo4`` are their four ranks'
-sums; ``lm_serve`` must launch none of them).  Every line but
+sums; ``lm_serve`` and ``lm_serve_moe`` must launch none of them).  Every line but
 the last is a log or a JSON record; the last line is ``{"ok": true,
 "device": {...}}`` and is printed only when every phase passed.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -179,6 +191,7 @@ from repro_torch.launch.mesh import (init_multihost, make_fft_mesh,  # noqa: E40
 from repro_torch.launch.serve_fft import (AdmissionError, DeadlineExceeded,  # noqa: E402
                                           FFTService, _bucket)
 from repro_torch.launch.serve import serve_batch  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.models.registry import get_config, get_smoke_config  # noqa: E402
 from repro_torch.data.pipeline import make_batch  # noqa: E402
@@ -296,6 +309,21 @@ LM_BATCH, LM_PROMPT, LM_GEN = 8, 64, 32
 LM_SMOKE_ARCHS = ("internlm2_1_8b", "chatglm3_6b", "stablelm_3b",
                   "llava_next_mistral_7b", "hubert_xlarge")
 LM_SMOKE_DECODE = 4
+# The MoE + MLA serving path: deepseek-v2-lite-16b FULL (27 layers, d 2048,
+# MLA, 64 routed experts top-6 + 2 shared, ~16 B parameters, 32 GB in bf16)
+# served at LM_BATCH x (LM_PROMPT + LM_GEN); its float32 checks on its first
+# MOE_F32_LAYERS layers (a float32 copy of all 27 is ~65 GB and does not fit
+# beside the bf16 model); dbrx-132b at its full width with MOE_DBRX_LAYERS
+# layers (its 40 are ~264 GB); the SMOKE configs of both against the host.
+MOE_ARCH = "deepseek_v2_lite_16b"
+MOE_F32_LAYERS = 4
+MOE_DBRX_ARCH = "dbrx_132b"
+MOE_DBRX_LAYERS = 2
+MOE_DBRX_DECODE = 4
+MOE_SMOKE_ARCHS = ("dbrx_132b", "deepseek_v2_lite_16b")
+# A routing decision of the full-width layer that flips between card and
+# host must be a near-tie: its top-k boundary gap on the host below this.
+MOE_NEAR_TIE = 1e-4
 PEAK_BF16_FLOPS = 989e12       # dense bf16 on the tensor cores
 SOURCES = "src/repro_torch/kernels/csrc/"
 
@@ -2328,40 +2356,98 @@ def phase_runtime_gloo4(card: str) -> dict[str, int]:
     return counts
 
 
-def lm_float32(model: torch.nn.Module) -> torch.nn.Module:
-    """A float32 copy of ``model``'s weights (its bf16 values exactly)."""
-    cfg = dataclasses.replace(model.cfg, dtype="float32")
+def lm_copy(model: torch.nn.Module, dtype: str = "float32",
+            n_layers: int | None = None) -> torch.nn.Module:
+    """A copy of ``model``'s weights in ``dtype`` (a float32 copy holds its
+    bf16 values exactly), of its first ``n_layers`` layers when given."""
+    cfg = dataclasses.replace(model.cfg, dtype=dtype,
+                              n_layers=n_layers or model.cfg.n_layers)
     twin = lm.TransformerLM(cfg, next(model.parameters()).device)
+    src = dict(model.named_parameters())
     with torch.no_grad():
-        for src, dst in zip(model.parameters(), twin.parameters()):
-            dst.copy_(src.float())
+        for name, dst in twin.named_parameters():
+            dst.copy_(src[name])
     return twin
 
 
-def lm_bounds(model: torch.nn.Module, batch: int, prompt: int) -> dict:
+@contextlib.contextmanager
+def moe_routing():
+    """Records the routing of every MoE block run inside, in call order (one
+    entry a layer): float32 ``probs``, ``gate_idx`` and ``keep`` on the
+    host.  Adds a copy to the host a layer: for untimed runs only."""
+    records = []
+    apply = moe_mod.moe_apply
+
+    def recorded(p, x, cfg, **kw):
+        probs, _, gate_idx, _, keep = moe_mod._route(p, x, cfg)
+        records.append({"probs": probs.cpu(), "gate_idx": gate_idx.cpu(),
+                        "keep": keep.cpu()})
+        return apply(p, x, cfg, **kw)
+
+    moe_mod.moe_apply = recorded
+    try:
+        yield records
+    finally:
+        moe_mod.moe_apply = apply
+
+
+def lm_bounds(model: torch.nn.Module, batch: int, prompt: int,
+              routing: dict | None = None) -> dict:
     """The least time of a decode step and of the prefill on the card: the
-    weights each read once (of the embedding table only the rows looked
-    up), the KV cache read and written, over HBM's rate; and their
-    operations (2 per weight per token; the prefill's lm_head on the last
-    position alone; causal attention) over dense bf16's."""
+    bytes each must move over HBM's rate, its operations over dense bf16's.
+    Bytes: every weight read once, but of the embedding table only the rows
+    looked up and of the routed experts only those the routing selects; the
+    cache rows read and written (a layer and token: GQA's k and v, 2·KV·hd;
+    MLA's latent and rope key, kv_lora + rope).  Operations: 2 per weight
+    and token, a routed expert's only for the (token, choice) pairs kept;
+    the prefill's lm_head on the last position alone; causal attention (QK
+    and PV).  ``routing`` maps "decode" and "prefill" to an MoE model's
+    ``moe_routing`` records of one decode step and of the prefill; without
+    them a layer is taken to touch min(E, tokens·k) experts and keep every
+    choice."""
     cfg = model.cfg
-    elem = next(model.parameters()).element_size()
-    table = model.embed.table.numel()
+    elem = model.embed.table.element_size()
+    d = cfg.d_model
     head = model.lm_head.w.numel()
-    layers = sum(p.numel() for p in model.layers.parameters())
-    weights = sum(p.numel() * p.element_size() for p in model.parameters())
-    weights -= (table - batch) * elem
-    kv_row = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * elem   # k and v
-    attn = 4 * batch * cfg.n_heads * cfg.hd                       # QK and PV
-    decode_len = prompt + 1
-    decode = {"bytes": weights + batch * decode_len * kv_row,
-              "flops": 2 * batch * (layers + head)
-              + cfg.n_layers * attn * decode_len}
-    prefill = {"bytes": weights + batch * prompt * kv_row,
-               "flops": 2 * batch * prompt * layers + 2 * batch * head
-               + cfg.n_layers * attn * prompt * (prompt + 1) // 2}
+    all_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    layer_params = sum(p.numel() for p in model.layers.parameters())
+    E = k = expert = 0
+    if cfg.moe is not None:
+        E, k = cfg.moe.n_experts, cfg.moe.top_k
+        expert = 3 * d * cfg.moe.d_expert                 # wg, wu, wd of one
+    routed = cfg.n_layers * E * expert
+    base_bytes = all_bytes - model.embed.table.numel() * elem - routed * elem
+    dense_params = layer_params - routed
+    if cfg.mla is not None:
+        m = cfg.mla
+        row = (m.kv_lora_rank + m.qk_rope_dim) * elem
+        per_pair = 2 * cfg.n_heads * (m.qk_nope_dim + m.qk_rope_dim + m.v_head_dim)
+    else:
+        row = 2 * cfg.n_kv_heads * cfg.hd * elem
+        per_pair = 4 * cfg.n_heads * cfg.hd
     out = {}
-    for name, work in (("decode", decode), ("prefill", prefill)):
+    for name, tokens, cache_rows, pairs in (
+            ("decode", batch, batch * (prompt + 1), batch * (prompt + 1)),
+            ("prefill", batch * prompt, batch * prompt,
+             batch * prompt * (prompt + 1) // 2)):
+        work = {}
+        if E and routing is not None:
+            records = routing[name]
+            per_layer = [len(set(r["gate_idx"][r["keep"]].tolist()))
+                         for r in records]
+            touched = sum(per_layer)
+            kept = sum(int(r["keep"].sum()) for r in records)
+            work["experts_counted"] = "from the routing of this run"
+            work["experts_per_layer"] = per_layer
+        else:
+            touched = cfg.n_layers * min(E, tokens * k)
+            kept = cfg.n_layers * tokens * k
+            if E:
+                work["experts_counted"] = "min(E, tokens * k) a layer"
+        work["bytes"] = (base_bytes + tokens * d * elem + touched * expert * elem
+                         + cache_rows * cfg.n_layers * row)
+        work["flops"] = (2 * tokens * dense_params + 2 * kept * expert
+                         + 2 * batch * head + cfg.n_layers * per_pair * pairs)
         by_bytes = work["bytes"] / PEAK_BYTES_PER_S * 1e3
         by_ops = work["flops"] / PEAK_BF16_FLOPS * 1e3
         out[name] = {"bound_ms": max(by_bytes, by_ops),
@@ -2463,27 +2549,10 @@ def phase_lm_serve(card: str) -> dict[str, int]:
         prompts.pop("targets")
         n_params = sum(p.numel() for p in model.parameters())
         bounds = lm_bounds(model, LM_BATCH, LM_PROMPT)
-
-        def prefill():
-            return lm.prefill(model, prompts, cfg,
-                              lm.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN))
-
-        prefill_ms = time_ms(prefill, reps=5, warmup=1)
-        logits16, cache = prefill()
-        tok = torch.argmax(logits16, -1).to(torch.int32)
-        step_ms = []
-        for i in range(LM_GEN):
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            logits, cache = lm.decode_step(model, cache, tok, LM_PROMPT + i, cfg)
-            stop.record()
-            tok = torch.argmax(logits, -1).to(torch.int32)
-            torch.cuda.synchronize()
-            step_ms.append(start.elapsed_time(stop))
+        prefill_ms, step_ms, logits16, tok = time_serving(model, cfg, prompts,
+                                                          LM_GEN)
         decode_ms = statistics.median(step_ms)
-        cache = lm.init_cache(cfg, LM_BATCH, LM_PROMPT + 1)
-        _, cache = lm.prefill(model, prompts, cfg, cache)
+        cache = prefilled(model, cfg, prompts)
         launches = launches_of(lambda: lm.decode_step(model, cache, tok,
                                                       LM_PROMPT, cfg))
         log(phase, step="serve", card=card, kind=torch.cuda.get_device_name(0),
@@ -2504,7 +2573,7 @@ def phase_lm_serve(card: str) -> dict[str, int]:
 
         # (b) the float32 copy at full width
         cfg32 = dataclasses.replace(cfg, dtype="float32")
-        model32 = lm_float32(model)
+        model32 = lm_copy(model)
         hidden, _ = lm.forward(model32, prompts, cfg32)
         full = lm.logits_fn(model32, hidden[:, -1:], cfg32)[:, 0]
         del hidden
@@ -2541,35 +2610,7 @@ def phase_lm_serve(card: str) -> dict[str, int]:
         peak = torch.cuda.max_memory_allocated()
 
         # (d) the other transformer-layer configs at SMOKE size
-        for arch in LM_SMOKE_ARCHS:
-            smoke = dataclasses.replace(get_smoke_config(arch), dtype="float32")
-            host_gen = torch.Generator().manual_seed(SEED)
-            host = lm.init_params(host_gen, smoke, device="cpu")
-            card_model = copy_module(host, "cuda")
-            seq = 16 + smoke.n_prefix_embeds
-            batch = make_batch(smoke, 2, seq, seed=SEED, step=1, device="cpu")
-            batch.pop("targets")
-            on_batch = {k: v.cuda() for k, v in batch.items()}
-            want, _ = lm.forward(host, batch, smoke)
-            got, _ = lm.forward(card_model, on_batch, smoke)
-            pairs = [(got.cpu(), want)]
-            if smoke.supports_decode():
-                caches = [lm.init_cache(smoke, 2, seq + LM_SMOKE_DECODE, device=d)
-                          for d in ("cpu", "cuda")]
-                want, caches[0] = lm.prefill(host, batch, smoke, caches[0])
-                got, caches[1] = lm.prefill(card_model, on_batch, smoke, caches[1])
-                for i in range(LM_SMOKE_DECODE):
-                    pairs.append((got.cpu(), want))
-                    tok = torch.argmax(want, -1).to(torch.int32)
-                    want, caches[0] = lm.decode_step(host, caches[0], tok,
-                                                     seq + i, smoke)
-                    got, caches[1] = lm.decode_step(card_model, caches[1],
-                                                    tok.cuda(), seq + i, smoke)
-                pairs += [(got.cpu(), want)] + [(caches[1][k].cpu(), caches[0][k])
-                                                for k in ("k", "v")]
-            drive = (f"forward, prefill and {LM_SMOKE_DECODE} decode steps"
-                     if smoke.supports_decode() else "forward")
-            check_close(phase, f"{arch} smoke {drive} card vs host", pairs, 1e-4)
+        check_smoke_archs(phase, LM_SMOKE_ARCHS)
     counts = launch_counts()
     log(phase, launches=counts, seconds=time.perf_counter() - t0,
         peak_memory_gib=peak / 2 ** 30)
@@ -2577,6 +2618,301 @@ def phase_lm_serve(card: str) -> dict[str, int]:
         raise AssertionError(f"the LM path launched FFT kernels: {counts}")
     torch.cuda.empty_cache()
     return counts
+
+
+def routing_diff(a: list[dict], b: list[dict]) -> tuple[float, list]:
+    """(the share of (token, choice) routing decisions that differ between
+    two ``moe_routing`` records of the same run, and the (layer, group,
+    token) of each row that differs)."""
+    differ = total = 0
+    rows = []
+    for layer, (ra, rb) in enumerate(zip(a, b, strict=True)):
+        d = (ra["gate_idx"] != rb["gate_idx"]) | (ra["keep"] != rb["keep"])
+        differ += int(d.sum())
+        total += d.numel()
+        rows += [(layer, int(g), int(t)) for g, t in d.any(-1).nonzero().tolist()]
+    return differ / total, rows
+
+
+def top_k_gap(probs: torch.Tensor, k: int) -> torch.Tensor:
+    """The gap between the k-th and the (k+1)-th largest probability of each
+    row: how near a row's top-k set is to a tie."""
+    top = torch.topk(probs, k + 1, dim=-1).values
+    return top[..., k - 1] - top[..., k]
+
+
+def check_moe_layer(phase: str, layer, x: torch.Tensor, cfg) -> None:
+    """One full-width layer (float32) on the card against the host.  The
+    routing is compared first: a (token, choice) whose expert differs must
+    be a near-tie on the host (top-k gap below MOE_NEAR_TIE) and is reported
+    by position; a token whose kept slots alone differ must share its group
+    with such a flip (its slot shifted behind it).  The tokens whose routing
+    agreed are then held within ``1e-4·max|out|``."""
+    with moe_routing() as on_card_routing:
+        on_card, _, _ = lm._apply_tf_layer(layer, x, cfg)
+    layer_host = copy_module(layer, "cpu")
+    with moe_routing() as host_routing:
+        on_host, _, _ = lm._apply_tf_layer(layer_host, x.cpu(), cfg)
+    (rc,), (rh,) = on_card_routing, host_routing
+    flips = (rc["gate_idx"] != rh["gate_idx"]).any(-1)
+    shifted = (rc["keep"] != rh["keep"]).any(-1) & ~flips
+    gap = top_k_gap(rh["probs"], cfg.moe.top_k)
+    flipped = [{"group": g, "token": t, "card": rc["gate_idx"][g, t].tolist(),
+                "host": rh["gate_idx"][g, t].tolist(), "gap": float(gap[g, t])}
+               for g, t in flips.nonzero().tolist()]
+    agree = ~(flips | shifted)
+    log(phase, check="full-width layer routing card vs host",
+        decisions=int(rc["gate_idx"].numel()),
+        equal_experts=int((rc["gate_idx"] == rh["gate_idx"]).sum()),
+        equal_kept=int((rc["keep"] == rh["keep"]).sum()),
+        dropped=int((~rh["keep"]).sum()), flipped=flipped,
+        slot_shifted=shifted.nonzero().tolist(),
+        smallest_gap=float(gap.min()))
+    if any(f["gap"] >= MOE_NEAR_TIE for f in flipped):
+        raise AssertionError(f"{phase}: routing differs beyond a near-tie: {flipped}")
+    if bool((shifted & ~flips.any(-1, keepdim=True)).any()):
+        raise AssertionError(f"{phase}: kept slots differ in a group without a flip")
+    check_close(phase, "full-width layer card vs host",
+                [(on_card.cpu()[agree], on_host[agree])], 1e-4)
+
+
+def phase_lm_serve_moe(card: str) -> dict[str, int]:
+    """The MoE + MLA serving path, with the launch counts set to 0 just
+    before and read just after (it runs none of the FFT kernels):
+
+    (a) ``serve_batch`` of deepseek-v2-lite-16b FULL (27 layers) in bf16,
+        weights from a seeded CUDA generator, batch 8 x (64 + 32); then the
+        same weights rebuilt and the prefill and each decode step timed by
+        CUDA events, one decode step's launches counted, the peak memory,
+        beside ``lm_bounds`` (the experts counted from the routing of one
+        decode step and of the prefill);
+    (b) its first MOE_F32_LAYERS layers copied in float32: forward vs
+        prefill within ``1e-3·max|logits|``; prefill(S-1) + decode_step vs
+        prefill(S) at capacity_factor 8 (drops depend on T) within the same;
+        the bf16 copy's prefill logits against them, printed beside the
+        share of routing decisions that differ (not gated: top-k routing is
+        discontinuous);
+    (c) one full-width layer (float32, (8, 64, 2048)) on the card against
+        the host, routing first (``check_moe_layer``);
+    (d) dbrx-132b at full width with MOE_DBRX_LAYERS layers in bf16: the
+        prefill and MOE_DBRX_DECODE decode steps timed beside their bounds;
+    (e) the SMOKE configs of both archs in float32, card against host.
+    """
+    phase = "lm_serve_moe"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(MOE_ARCH)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        # (a) deepseek-v2-lite-16b FULL in bf16
+        out, stats = serve_batch(MOE_ARCH, smoke=False, batch=LM_BATCH,
+                                 prompt_len=LM_PROMPT, gen=LM_GEN, seed=SEED)
+        serve_s = time.perf_counter() - t0
+        if out.shape != (LM_BATCH, LM_GEN) or out.min() < 0 or out.max() >= cfg.vocab:
+            raise AssertionError(f"serve_batch gave {out.shape}, tokens "
+                                 f"{out.min()} ... {out.max()}")
+        serve_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        weights = torch.Generator(device="cuda")
+        weights.manual_seed(SEED)
+        model = lm.init_params(weights, cfg, device="cuda")
+        prompts = make_batch(cfg, LM_BATCH, LM_PROMPT, seed=SEED, step=0,
+                             device="cuda")
+        prompts.pop("targets")
+        prefill_ms, step_ms, logits16, tok = time_serving(model, cfg, prompts,
+                                                          LM_GEN)
+        decode_ms = statistics.median(step_ms)
+        cache = prefilled(model, cfg, prompts)
+        launches = launches_of(lambda: lm.decode_step(model, cache, tok,
+                                                      LM_PROMPT, cfg))
+        with moe_routing() as decode_routing:
+            lm.decode_step(model, cache, tok, LM_PROMPT, cfg)
+        with moe_routing() as prefill_routing:
+            prefilled(model, cfg, prompts)
+        del cache
+        bounds = lm_bounds(model, LM_BATCH, LM_PROMPT,
+                           {"decode": decode_routing, "prefill": prefill_routing})
+        log(phase, step="serve", card=card, kind=torch.cuda.get_device_name(0),
+            arch=cfg.name, layers=cfg.n_layers,
+            params=sum(p.numel() for p in model.parameters()), dtype=cfg.dtype,
+            batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN,
+            serve_batch_s=serve_s, serve_batch_stats=stats,
+            prefill_ms=prefill_ms,
+            prefill_bound_ms=bounds["prefill"]["bound_ms"],
+            prefill_bound_by=bounds["prefill"]["bound_by"],
+            decode_ms_per_step=decode_ms, decode_ms_min=min(step_ms),
+            decode_ms_max=max(step_ms),
+            decode_bound_ms=bounds["decode"]["bound_ms"],
+            decode_bound_by=bounds["decode"]["bound_by"],
+            decode_tok_s=LM_BATCH / decode_ms * 1e3,
+            prefill_tok_s=LM_BATCH * LM_PROMPT / prefill_ms * 1e3,
+            launches_per_decode_step=launches, bounds=bounds,
+            bounds_at_min_e_tokens_k=lm_bounds(model, LM_BATCH, LM_PROMPT),
+            prefill_dropped_choices=sum(int((~r["keep"]).sum())
+                                        for r in prefill_routing),
+            serve_peak_memory_gib=serve_peak / 2 ** 30,
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+        # (b) the first MOE_F32_LAYERS layers in float32 (and in bf16)
+        model32 = lm_copy(model, "float32", MOE_F32_LAYERS)
+        model16 = lm_copy(model, "bfloat16", MOE_F32_LAYERS)
+        cfg32, cfg16 = model32.cfg, model16.cfg
+        hidden, aux = lm.forward(model32, prompts, cfg32)
+        full = lm.logits_fn(model32, hidden[:, -1:], cfg32)[:, 0]
+        del hidden
+        with moe_routing() as routing32:
+            logits32, _ = lm.prefill(model32, prompts, cfg32,
+                                     lm.init_cache(cfg32, LM_BATCH, LM_PROMPT))
+        ample = dataclasses.replace(
+            cfg32, moe=dataclasses.replace(cfg32.moe, capacity_factor=8.0))
+        whole, _ = lm.prefill(model32, prompts, ample,
+                              lm.init_cache(ample, LM_BATCH, LM_PROMPT))
+        short = {"tokens": prompts["tokens"][:, :-1]}
+        cache32 = lm.init_cache(ample, LM_BATCH, LM_PROMPT)
+        _, cache32 = lm.prefill(model32, short, ample, cache32)
+        stepped, _ = lm.decode_step(model32, cache32, prompts["tokens"][:, -1],
+                                    LM_PROMPT - 1, ample)
+        del cache32
+        check_close(phase, f"float32 {MOE_F32_LAYERS} layers prefill vs forward",
+                    [(logits32, full)], 1e-3)
+        check_close(phase, f"float32 {MOE_F32_LAYERS} layers prefill(S-1) + "
+                    "decode_step vs prefill(S), capacity_factor 8",
+                    [(stepped, whole)], 1e-3)
+        with moe_routing() as routing16:
+            logits16_cut, _ = lm.prefill(model16, prompts, cfg16,
+                                         lm.init_cache(cfg16, LM_BATCH, LM_PROMPT))
+        share, rows = routing_diff(routing16, routing32)
+        err, scale = close_ratio(logits16_cut, logits32)
+        log(phase, check=f"bf16 vs float32 prefill logits, {MOE_F32_LAYERS} "
+            "layers (printed, not gated)", ratio=err / scale, max_abs_err=err,
+            max_logit=scale, routing_decisions_differing=share,
+            rows_differing=len(rows), aux_float32=float(aux))
+        del model16, logits16_cut
+
+        # (c) one full-width layer, card against host
+        x = torch.randn(LM_BATCH, LM_PROMPT, cfg.d_model, device="cuda",
+                        generator=weights)
+        check_moe_layer(phase, model32.layers[0], x, cfg32)
+        del model, model32, x, logits16, logits32, full, whole, stepped
+        torch.cuda.empty_cache()
+
+        # (d) dbrx-132b at full width, MOE_DBRX_LAYERS layers, bf16
+        dbrx = dataclasses.replace(get_config(MOE_DBRX_ARCH), n_layers=MOE_DBRX_LAYERS)
+        weights.manual_seed(SEED)
+        model = lm.init_params(weights, dbrx, device="cuda")
+        prompts = make_batch(dbrx, LM_BATCH, LM_PROMPT, seed=SEED, step=0,
+                             device="cuda")
+        prompts.pop("targets")
+        prefill_ms, step_ms, first, tok = time_serving(model, dbrx, prompts,
+                                                       MOE_DBRX_DECODE)
+        if not bool(torch.isfinite(first.float()).all()):
+            raise AssertionError(f"{phase}: dbrx prefill logits not finite")
+        cache = prefilled(model, dbrx, prompts)
+        with moe_routing() as decode_routing:
+            lm.decode_step(model, cache, tok, LM_PROMPT, dbrx)
+        with moe_routing() as prefill_routing:
+            prefilled(model, dbrx, prompts)
+        del cache
+        bounds = lm_bounds(model, LM_BATCH, LM_PROMPT,
+                           {"decode": decode_routing, "prefill": prefill_routing})
+        decode_ms = statistics.median(step_ms)
+        log(phase, step="dbrx", card=card, arch=dbrx.name, layers=dbrx.n_layers,
+            reduced=f"depth {get_config(MOE_DBRX_ARCH).n_layers} -> "
+                    f"{MOE_DBRX_LAYERS} layers (one card)",
+            params=sum(p.numel() for p in model.parameters()), dtype=dbrx.dtype,
+            batch=LM_BATCH, prompt_len=LM_PROMPT, decode_steps=MOE_DBRX_DECODE,
+            prefill_ms=prefill_ms,
+            prefill_bound_ms=bounds["prefill"]["bound_ms"],
+            prefill_bound_by=bounds["prefill"]["bound_by"],
+            decode_ms_per_step=decode_ms, decode_ms_all=step_ms,
+            decode_bound_ms=bounds["decode"]["bound_ms"],
+            decode_bound_by=bounds["decode"]["bound_by"],
+            decode_tok_s=LM_BATCH / decode_ms * 1e3, bounds=bounds,
+            prefill_dropped_choices=sum(int((~r["keep"]).sum())
+                                        for r in prefill_routing))
+        del model, first
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+
+        # (e) the SMOKE configs of both archs
+        check_smoke_archs(phase, MOE_SMOKE_ARCHS)
+    counts = launch_counts()
+    log(phase, launches=counts, seconds=time.perf_counter() - t0,
+        peak_memory_gib=peak / 2 ** 30)
+    if any(counts.values()):
+        raise AssertionError(f"the MoE LM path launched FFT kernels: {counts}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def time_serving(model, cfg, prompts: dict, gen: int):
+    """The prefill's median time (5 runs, each making its cache) and the time
+    of each of ``gen`` greedy decode steps after it, by CUDA events.
+    Returns (prefill_ms, step_ms, the prefill's logits, the last token)."""
+    batch, prompt = prompts["tokens"].shape
+
+    def prefill():
+        return lm.prefill(model, prompts, cfg,
+                          lm.init_cache(cfg, batch, prompt + gen))
+
+    prefill_ms = time_ms(prefill, reps=5, warmup=1)
+    logits, cache = prefill()
+    first = logits
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    step_ms = []
+    for i in range(gen):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, cache = lm.decode_step(model, cache, tok, prompt + i, cfg)
+        stop.record()
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(stop))
+    return prefill_ms, step_ms, first, tok
+
+
+def prefilled(model, cfg, prompts: dict):
+    """A cache holding the prompt's prefill, with one free row."""
+    batch, prompt = prompts["tokens"].shape
+    cache = lm.init_cache(cfg, batch, prompt + 1)
+    return lm.prefill(model, prompts, cfg, cache)[1]
+
+
+def check_smoke_archs(phase: str, archs) -> None:
+    """The SMOKE config of each of ``archs`` in float32, card against host:
+    forward, and for a decoder prefill, LM_SMOKE_DECODE decode steps and the
+    cache, within ``1e-4·max|out|``."""
+    for arch in archs:
+        smoke = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        host_gen = torch.Generator().manual_seed(SEED)
+        host = lm.init_params(host_gen, smoke, device="cpu")
+        card_model = copy_module(host, "cuda")
+        seq = 16 + smoke.n_prefix_embeds
+        batch = make_batch(smoke, 2, seq, seed=SEED, step=1, device="cpu")
+        batch.pop("targets")
+        on_batch = {k: v.cuda() for k, v in batch.items()}
+        want, _ = lm.forward(host, batch, smoke)
+        got, _ = lm.forward(card_model, on_batch, smoke)
+        pairs = [(got.cpu(), want)]
+        if smoke.supports_decode():
+            caches = [lm.init_cache(smoke, 2, seq + LM_SMOKE_DECODE, device=d)
+                      for d in ("cpu", "cuda")]
+            want, caches[0] = lm.prefill(host, batch, smoke, caches[0])
+            got, caches[1] = lm.prefill(card_model, on_batch, smoke, caches[1])
+            for i in range(LM_SMOKE_DECODE):
+                pairs.append((got.cpu(), want))
+                tok = torch.argmax(want, -1).to(torch.int32)
+                want, caches[0] = lm.decode_step(host, caches[0], tok,
+                                                 seq + i, smoke)
+                got, caches[1] = lm.decode_step(card_model, caches[1],
+                                                tok.cuda(), seq + i, smoke)
+            pairs += [(got.cpu(), want)] + [(caches[1][k].cpu(), caches[0][k])
+                                            for k in caches[0]]
+        drive = (f"forward, prefill and {LM_SMOKE_DECODE} decode steps"
+                 if smoke.supports_decode() else "forward")
+        check_close(phase, f"{arch} smoke {drive} card vs host", pairs, 1e-4)
 
 
 def copy_module(module: torch.nn.Module, device: str) -> torch.nn.Module:
@@ -2661,8 +2997,10 @@ def main() -> None:
              "dist3_gloo4": phase_dist_gloo4(card, mode="3d"),
              "runtime": phase_runtime(gen, card),
              "runtime_gloo4": phase_runtime_gloo4(card)}
-    peak = torch.cuda.max_memory_allocated()     # lm_serve resets the peak
+    peak = torch.cuda.max_memory_allocated()     # each LM phase resets the peak
     paths["lm_serve"] = phase_lm_serve(card)
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    paths["lm_serve_moe"] = phase_lm_serve_moe(card)
     for record in records:
         by_path = {path: counts[record["name"]] for path, counts in paths.items()}
         record["launches"] = sum(by_path.values())

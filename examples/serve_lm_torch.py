@@ -1,6 +1,6 @@
 """End-to-end LM serving on the PyTorch/CUDA port: batched prefill +
-decode loop with a KV cache, for any decoder arch of the dense and vlm
-families in the registry.
+decode loop with a KV cache, for any decoder arch of the dense, moe
+(dbrx_132b, deepseek_v2_lite_16b) and vlm families in the registry.
 
 Run on the GPU:  PYTHONPATH=src python examples/serve_lm_torch.py [--arch qwen2_5_3b] [--full]
 or on the host:  PYTHONPATH=src python examples/serve_lm_torch.py --device cpu

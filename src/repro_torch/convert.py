@@ -73,9 +73,10 @@ def lm_params_from_arrays(tree: dict[str, Any], cfg: ArchConfig,
 
     ``tree`` is the reference's ``init_params`` result as nested dicts of
     numpy arrays, its transformer layers stacked on a leading axis
-    (``tree["layers"]["attn"]["wq"]["w"][i]`` is layer ``i``'s).  Every leaf
-    must fill one parameter of the same shape and dtype, and every parameter
-    must be filled.
+    (``tree["layers"]["attn"]["wq"]["w"][i]`` is layer ``i``'s; an MoE
+    layer's experts ``tree["layers"]["moe"]["wg"]`` are (L, E, d, f), its
+    router float32).  Every leaf must fill one parameter of the same shape
+    and dtype, and every parameter must be filled.
     """
     model = TransformerLM(cfg, resolve_device(device))
     leaves = {}

@@ -1,5 +1,5 @@
-"""The LM scaffold's models: the transformer-layer families (dense, vlm,
-audio) and the architecture registry.  Counterpart of ``repro.models``
+"""The LM scaffold's models: the transformer-layer families (dense, moe,
+vlm, audio) and the architecture registry.  Counterpart of ``repro.models``
 without its sharding specs and ``loss_fn`` (they come with training)."""
 
 from repro_torch.models.transformer import (init_params, forward, init_cache,

@@ -1,12 +1,14 @@
-"""LM assembly for the transformer-layer families: dense, vlm and audio.
+"""LM assembly for the transformer-layer families: dense, moe, vlm and audio.
 
-Counterpart of ``repro.models.transformer`` for the configs without experts,
-MLA or SSM blocks (``moe``/``mla`` configs come with ROADMAP M11b, the
-``ssm``/``hybrid`` families with M11c; both raise ``NotImplementedError``
-here).  The model is an ``nn.Module`` (``TransformerLM``) whose layers are an
+Counterpart of ``repro.models.transformer`` for the configs of transformer
+layers: GQA or MLA attention, an MLP or an MoE block (the ``ssm``/``hybrid``
+families come with ROADMAP M11c and raise ``NotImplementedError`` here).
+The model is an ``nn.Module`` (``TransformerLM``) whose layers are an
 ``nn.ModuleList``, run one after the other where the reference scans over
-stacked layers.  The KV cache keeps the reference's stacked layout, ``k`` and
-``v`` of (n_layers, B, max_len, KV, hd), and is updated in place.
+stacked layers.  The cache keeps the reference's stacked layout, each of the
+layer cache's tensors with a leading n_layers axis (GQA's ``k`` and ``v`` of
+(n_layers, B, max_len, KV, hd), MLA's ``ckv`` and ``krope`` of (n_layers, B,
+max_len, ·)), and is updated in place.
 
 Entry points, as in the reference, with the parameters being the module:
 
@@ -27,6 +29,7 @@ from torch import nn
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (Dense, Embed, MLP, Norm, _weight,
                                        apply_mlp, apply_norm, dense)
 
@@ -41,12 +44,8 @@ def _dt(cfg: ArchConfig) -> torch.dtype:
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    """Only the transformer-layer families without experts or MLA are here."""
-    if cfg.moe is not None or cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE and MLA layers are not ported yet "
-            "(ROADMAP Queue 1, M11b)")
-    if cfg.family not in ("dense", "vlm", "audio"):
+    """Only the transformer-layer families are here."""
+    if cfg.family not in ("dense", "moe", "vlm", "audio"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family (xLSTM / Zamba2 blocks) is "
             "not ported yet (ROADMAP Queue 1, M11c)")
@@ -57,7 +56,9 @@ def _check_family(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 class TransformerLayer(nn.Module):
-    """Pre-norm attention + MLP: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
+    """Pre-norm attention + feed-forward: ``ln1``, ``attn`` (MLA when the
+    config has ``mla``, else GQA), ``ln2``, and ``moe`` when the config has
+    experts, else ``mlp``."""
 
     def __init__(self, cfg: ArchConfig, device=None,
                  gen: torch.Generator | None = None):
@@ -65,9 +66,21 @@ class TransformerLayer(nn.Module):
         d, dt = cfg.d_model, _dt(cfg)
         self.ln1 = Norm(d, cfg.norm, device=device)
         self.ln2 = Norm(d, cfg.norm, device=device)
-        self.attn = attn.GQA(d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                             bias=cfg.qkv_bias, dtype=dt, device=device, gen=gen)
-        self.mlp = MLP(d, cfg.d_ff, cfg.mlp, dtype=dt, device=device, gen=gen)
+        if cfg.mla is not None:
+            m = cfg.mla
+            self.attn = attn.MLA(d, cfg.n_heads, kv_lora=m.kv_lora_rank,
+                                 nope=m.qk_nope_dim, rope=m.qk_rope_dim,
+                                 v_dim=m.v_head_dim, dtype=dt, device=device,
+                                 gen=gen)
+        else:
+            self.attn = attn.GQA(d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                                 bias=cfg.qkv_bias, dtype=dt, device=device,
+                                 gen=gen)
+        if cfg.moe is not None:
+            self.moe = moe_mod.MoE(d, cfg.moe, mlp_kind=cfg.mlp, dtype=dt,
+                                   device=device, gen=gen)
+        else:
+            self.mlp = MLP(d, cfg.d_ff, cfg.mlp, dtype=dt, device=device, gen=gen)
 
 
 def _init_tf_layer(gen, cfg: ArchConfig, device=None) -> TransformerLayer:
@@ -77,19 +90,35 @@ def _init_tf_layer(gen, cfg: ArchConfig, device=None) -> TransformerLayer:
 def _apply_tf_layer(p: TransformerLayer, x, cfg: ArchConfig, *, cache=None,
                     pos0: int = 0, causal: bool = True,
                     q_chunk: int | None = Q_CHUNK):
+    """Returns (x, cache, aux): aux is the MoE block's load-balancing loss
+    (0.0 without experts)."""
     h = apply_norm(p.ln1, x, cfg.norm)
-    a, new_cache = attn.gqa_apply(p.attn, h, n_heads=cfg.n_heads,
-                                  n_kv=cfg.n_kv_heads, hd=cfg.hd,
-                                  rope_mode=cfg.rope_mode,
-                                  rope_theta=cfg.rope_theta, causal=causal,
-                                  q_chunk=q_chunk, cache=cache, pos0=pos0)
+    if cfg.mla is not None:
+        m = cfg.mla
+        a, new_cache = attn.mla_apply(p.attn, h, n_heads=cfg.n_heads,
+                                      kv_lora=m.kv_lora_rank, nope=m.qk_nope_dim,
+                                      rope=m.qk_rope_dim, v_dim=m.v_head_dim,
+                                      rope_theta=cfg.rope_theta, q_chunk=q_chunk,
+                                      cache=cache, pos0=pos0)
+    else:
+        a, new_cache = attn.gqa_apply(p.attn, h, n_heads=cfg.n_heads,
+                                      n_kv=cfg.n_kv_heads, hd=cfg.hd,
+                                      rope_mode=cfg.rope_mode,
+                                      rope_theta=cfg.rope_theta, causal=causal,
+                                      q_chunk=q_chunk, cache=cache, pos0=pos0)
     x = x + a
     h = apply_norm(p.ln2, x, cfg.norm)
-    f = apply_mlp(p.mlp, h, kind=cfg.mlp)
-    return x + f, new_cache, 0.0   # the aux loss of an MoE layer
+    if cfg.moe is not None:
+        f, aux = moe_mod.moe_apply(p.moe, h, cfg.moe, mlp_kind=cfg.mlp)
+    else:
+        f, aux = apply_mlp(p.mlp, h, kind=cfg.mlp), 0.0
+    return x + f, new_cache, aux
 
 
 def _layer_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
+    if cfg.mla is not None:
+        return attn.mla_init_cache(batch, max_len, cfg.mla.kv_lora_rank,
+                                   cfg.mla.qk_rope_dim, _dt(cfg), device)
     return attn.gqa_init_cache(batch, max_len, cfg.n_kv_heads, cfg.hd, _dt(cfg),
                                device)
 
@@ -153,9 +182,10 @@ def forward(params: TransformerLM, batch, cfg: ArchConfig, *,
     (hidden (B,T,d), aux_loss); non-causal for encoder-only configs."""
     x = _embed_inputs(params, batch, cfg)
     causal = not cfg.encoder_only
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params.layers:
-        x, _, _ = _apply_tf_layer(layer, x, cfg, causal=causal, q_chunk=q_chunk)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)   # no experts
+        x, _, a = _apply_tf_layer(layer, x, cfg, causal=causal, q_chunk=q_chunk)
+        aux = aux + a
     return apply_norm(params.final_norm, x, cfg.norm), aux
 
 
@@ -170,11 +200,10 @@ def logits_fn(params: TransformerLM, hidden, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
-    """``k`` and ``v`` of (n_layers, B, max_len, KV, hd), zeros."""
+    """The layer cache's tensors stacked on a leading n_layers axis, zeros."""
     _check_family(cfg)
-    caches = [_layer_cache(cfg, batch, max_len, device)
-              for _ in range(cfg.n_layers)]
-    return {name: torch.stack([c[name] for c in caches]) for name in ("k", "v")}
+    one = _layer_cache(cfg, batch, max_len, device)
+    return {name: t.new_zeros((cfg.n_layers,) + t.shape) for name, t in one.items()}
 
 
 def _stacked_layer_step(params: TransformerLM, x, cfg: ArchConfig, caches,
@@ -182,7 +211,7 @@ def _stacked_layer_step(params: TransformerLM, x, cfg: ArchConfig, caches,
     """Run the layers in turn, each on its slice of the stacked cache (a view:
     the writes land in ``caches``)."""
     for i, layer in enumerate(params.layers):
-        c = {name: caches[name][i] for name in ("k", "v")}
+        c = {name: t[i] for name, t in caches.items()}
         x, _, _ = _apply_tf_layer(layer, x, cfg, cache=c, pos0=pos0,
                                   q_chunk=q_chunk)
     return x, caches

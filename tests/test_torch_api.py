@@ -260,13 +260,15 @@ LM_TRAINING_NAMES = {"loss_fn", "param_pspecs", "batch_pspecs", "cache_pspecs"}
 def test_package_exports_the_reference_lm_names():
     """The LM serving path exports the reference's names, less those of
     sharding and training (``models``, ``models.transformer``, ``train``)
-    and of the dry-run (``data.input_specs``)."""
+    and of the dry-run (``data.input_specs``); ``models.attention`` and
+    ``models.moe`` add their modules (``GQA``, ``MLA``, ``MoE``)."""
     import repro.configs as ref_configs
     import repro.data as ref_data
     import repro.launch.serve as ref_serve
     import repro.models as ref_models
     import repro.models.attention as ref_attn
     import repro.models.layers as ref_layers
+    import repro.models.moe as ref_moe
     import repro.models.registry as ref_registry
     import repro.models.transformer as ref_transformer
     import repro.train as ref_train
@@ -276,6 +278,7 @@ def test_package_exports_the_reference_lm_names():
     import repro_torch.models as port_models
     import repro_torch.models.attention as port_attn
     import repro_torch.models.layers as port_layers
+    import repro_torch.models.moe as port_moe
     import repro_torch.models.registry as port_registry
     import repro_torch.models.transformer as port_transformer
     import repro_torch.train as port_train
@@ -293,10 +296,12 @@ def test_package_exports_the_reference_lm_names():
                       (port_registry, ref_registry)):
         assert port.__all__ == ref.__all__
     assert set(ref_layers.__all__) <= set(port_layers.__all__)
-    assert set(port_attn.__all__) - {"GQA"} == {
-        n for n in ref_attn.__all__ if n.startswith("gqa")}
+    assert [n for n in port_attn.__all__ if n not in ("GQA", "MLA")] == \
+        ref_attn.__all__
+    assert [n for n in port_moe.__all__ if n != "MoE"] == ref_moe.__all__
     for mod in (port_configs, port_data, port_serve, port_models, port_attn,
-                port_layers, port_registry, port_transformer, port_train):
+                port_moe, port_layers, port_registry, port_transformer,
+                port_train):
         for name in mod.__all__:
             assert hasattr(mod, name), name
 
