@@ -125,6 +125,17 @@ each of which ends the run with a non-zero exit code when it fails:
                  decisions that differ); one full-width layer against the
                  host, routing first; dbrx-132b at full width with 2 layers
                  timed; the SMOKE configs of both against the host.
+19. ``lm_serve_ssm`` the recurrent serving path: ``serve_batch`` of
+                 zamba2-7b FULL (81 Mamba2 blocks and a shared attention
+                 block, bf16) and of xlstm-125m FULL at batch 8 x (64 + 32);
+                 the prefill and each decode step timed, one decode step's
+                 launches counted, peak memory, beside bounds that count the
+                 shared block per application and the recurrent state; a
+                 float32 copy of each at full depth (forward vs prefill vs
+                 prefill(S-1) + decode_step; bf16 logits and greedy tokens
+                 against it, printed); one full-width Mamba2, mLSTM and sLSTM
+                 block against the host in prefill and decode from a carried
+                 state; the SMOKE configs of both against the host.
 
 Then, outside the counted drives: every checked 2-D execute timed beside the
 library, and a fused batch's two layouts (batched, and the per-signal
@@ -132,12 +143,13 @@ loop) checked against the library and timed at N = 1024 ... 8192 and
 batches of 2 and 8.  Tolerances of the paths 8-10, 13 and 14:
 ``2e-4·sqrt(elements of one signal)`` (the 2-D ``2e-4·N``).
 
-Each path (4-18) is driven once with the launch counts set to 0 just before
+Each path (4-19) is driven once with the launch counts set to 0 just before
 and read just after; each of its kernels must have launched (the counts of
 ``dist_gloo4``, ``dist3_gloo4`` and ``runtime_gloo4`` are their four ranks'
-sums; ``lm_serve`` and ``lm_serve_moe`` must launch none of them).  Every line but
-the last is a log or a JSON record; the last line is ``{"ok": true,
-"device": {...}}`` and is printed only when every phase passed.
+sums; ``lm_serve``, ``lm_serve_moe`` and ``lm_serve_ssm`` must launch none
+of them).  Every line but the last is a log or a JSON record; the last line
+is ``{"ok": true, "device": {...}}`` and is printed only when every phase
+passed.
 """
 
 from __future__ import annotations
@@ -192,6 +204,8 @@ from repro_torch.launch.serve_fft import (AdmissionError, DeadlineExceeded,  # n
                                           FFTService, _bucket)
 from repro_torch.launch.serve import serve_batch  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
+from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.models.registry import get_config, get_smoke_config  # noqa: E402
 from repro_torch.data.pipeline import make_batch  # noqa: E402
@@ -324,6 +338,16 @@ MOE_SMOKE_ARCHS = ("dbrx_132b", "deepseek_v2_lite_16b")
 # A routing decision of the full-width layer that flips between card and
 # host must be a near-tie: its top-k boundary gap on the host below this.
 MOE_NEAR_TIE = 1e-4
+# The recurrent serving path: zamba2-7b FULL (81 Mamba2 blocks of d 3584 in
+# 14 groups of 6, the last padded with 3 that are not run, and one shared
+# attention + MLP block applied at the start of each group; ~7.2 B parameters
+# with the padded blocks, 14.4 GB in bf16, its float32 copy ~29 GB) and
+# xlstm-125m FULL (12 blocks, mLSTM and sLSTM in turn), both uncut, at
+# LM_BATCH x (LM_PROMPT + LM_GEN): a prompt of 64 divides both chunks (64,
+# min(256, 64)).  One full-width block of each kind is held against the host
+# at SSM_BLOCK_T tokens from a state carried over SSM_BLOCK_T others.
+SSM_ARCHS = ("zamba2_7b", "xlstm_125m")
+SSM_BLOCK_T = 64
 PEAK_BF16_FLOPS = 989e12       # dense bf16 on the tensor cores
 SOURCES = "src/repro_torch/kernels/csrc/"
 
@@ -2404,8 +2428,10 @@ def lm_bounds(model: torch.nn.Module, batch: int, prompt: int,
     and PV).  ``routing`` maps "decode" and "prefill" to an MoE model's
     ``moe_routing`` records of one decode step and of the prefill; without
     them a layer is taken to touch min(E, tokens·k) experts and keep every
-    choice."""
+    choice.  The recurrent families are counted by ``recurrent_bounds``."""
     cfg = model.cfg
+    if cfg.family in ("ssm", "hybrid"):
+        return recurrent_bounds(model, batch, prompt)
     elem = model.embed.table.element_size()
     d = cfg.d_model
     head = model.lm_head.w.numel()
@@ -2453,6 +2479,86 @@ def lm_bounds(model: torch.nn.Module, batch: int, prompt: int,
         out[name] = {"bound_ms": max(by_bytes, by_ops),
                      "bound_by": "bytes" if by_bytes >= by_ops else "operations",
                      **work}
+    return out
+
+
+def param_bytes(modules) -> tuple[int, int]:
+    """(parameters, bytes) of ``modules``."""
+    params = [p for m in modules for p in m.parameters()]
+    return (sum(p.numel() for p in params),
+            sum(p.numel() * p.element_size() for p in params))
+
+
+def recurrent_bounds(model: torch.nn.Module, batch: int, prompt: int) -> dict:
+    """``lm_bounds`` of an xLSTM or a Zamba2 model.  Bytes: every weight the
+    step runs read once — the Mamba2 blocks a hybrid pads its last group
+    with are not run and not counted — but the hybrid's shared block once
+    per application (its 14 applications are far apart and it is far larger
+    than the 50 MB L2; ``bound_ms_shared_once`` beside it), the embedding
+    rows looked up, the float32 recurrent state read and written each
+    decode step (written once by the prefill; Mamba2: B·H·P·N + B·(d_conv -
+    1)·ch a block, mLSTM: C, n, m, sLSTM: c, n, h, m) and each shared
+    application's KV rows.  Operations: 2 per weight and token (the shared
+    block's per application), the lm_head on the last position, causal
+    attention, and the recurrences: the decode's state update and read-out,
+    the prefill's chunk products (SSD: C·B, the intra-chunk product, the
+    inter-chunk read and the state update; mLSTM: q·k, the weighted v and k
+    sums, the state read and update; sLSTM: h·r each step)."""
+    cfg = model.cfg
+    d, f32 = cfg.d_model, 4
+    elem = model.embed.table.element_size()
+    head_params, head_bytes = param_bytes([model.lm_head, model.final_norm])
+    shared, applications, per_pair, row = [], 0, 0, 0
+    if cfg.family == "hybrid":
+        valid = lm._hybrid_valid(cfg)
+        blocks = [blk for gi, group in enumerate(model.mamba)
+                  for j, blk in enumerate(group) if valid[gi][j]]
+        shared, applications = [model.shared], len(model.mamba)
+        per_pair = 4 * cfg.n_heads * cfg.hd
+        row = 2 * cfg.n_kv_heads * cfg.hd * elem
+        ssm = cfg.ssm
+        d_inner, H = ssm_mod._dims(d, ssm)
+        N, P, L = ssm.d_state, ssm.head_dim, min(ssm.chunk, prompt)
+        state = len(blocks) * batch * (H * P * N + (ssm.d_conv - 1) * (d_inner + 2 * N))
+        step_ops = len(blocks) * batch * 6 * H * P * N
+        chunk_ops = len(blocks) * batch * prompt * (2 * L * N + 2 * L * H * P
+                                                     + 4 * H * P * N)
+    else:
+        blocks = list(model.blocks)
+        H, hd = cfg.n_heads, cfg.hd
+        n_m = sum(blk.kind == "mlstm" for blk in blocks)
+        n_s = len(blocks) - n_m
+        L = min(cfg.xlstm.chunk, prompt)
+        state = batch * H * (n_m * (hd * hd + hd + 1) + n_s * 4 * hd)
+        recurrent = n_s * batch * 8 * H * hd * hd          # h · r, a token
+        step_ops = recurrent + n_m * batch * (6 * H * hd + 4 * H * hd * hd)
+        chunk_ops = prompt * recurrent + n_m * batch * prompt * (
+            6 * L * H * hd + 4 * H * hd * hd)
+    block_params, block_bytes = param_bytes(blocks)
+    shared_params, shared_bytes = param_bytes(shared)
+    out = {}
+    for name, tokens, state_moves, kv_rows, pairs, ops in (
+            ("decode", batch, 2, batch * (prompt + 1), batch * (prompt + 1), step_ops),
+            ("prefill", batch * prompt, 1, batch * prompt,
+             batch * prompt * (prompt + 1) // 2, chunk_ops)):
+        work = {"blocks_run": len(blocks), "shared_applications": applications,
+                "weight_bytes": block_bytes + head_bytes + applications * shared_bytes,
+                "state_bytes": state_moves * state * f32,
+                "kv_bytes": applications * kv_rows * row}
+        work["bytes"] = (work["weight_bytes"] + tokens * d * elem
+                         + work["state_bytes"] + work["kv_bytes"])
+        work["recurrence_flops"] = ops
+        work["flops"] = (2 * tokens * (block_params + applications * shared_params)
+                         + 2 * batch * head_params + applications * per_pair * pairs
+                         + ops)
+        by_bytes = work["bytes"] / PEAK_BYTES_PER_S * 1e3
+        by_ops = work["flops"] / PEAK_BF16_FLOPS * 1e3
+        out[name] = {"bound_ms": max(by_bytes, by_ops),
+                     "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                     **work}
+        if applications:
+            once = (work["bytes"] - (applications - 1) * shared_bytes) / PEAK_BYTES_PER_S
+            out[name]["bound_ms_shared_once"] = max(once * 1e3, by_ops)
     return out
 
 
@@ -2846,6 +2952,209 @@ def phase_lm_serve_moe(card: str) -> dict[str, int]:
     return counts
 
 
+def phase_lm_serve_ssm(card: str) -> tuple[dict[str, int], int]:
+    """The recurrent serving path (xLSTM and Zamba2), with the launch counts
+    set to 0 just before and read just after (it runs none of the FFT
+    kernels):
+
+    (a) ``serve_batch`` of zamba2-7b FULL (all 81 blocks) in bf16, weights
+        from a seeded CUDA generator, batch 8 x (64 + 32); then the same
+        weights rebuilt and the prefill and each decode step timed by CUDA
+        events, one decode step's launches counted, the peak memory, beside
+        ``lm_bounds`` (``recurrent_bounds``);
+    (b) xlstm-125m FULL (12 blocks) the same way;
+    (c) a float32 copy of each at full depth: forward, prefill and
+        prefill(S-1) + decode_step agree within ``1e-3·max|logits|``; the
+        bf16 prefill logits against them (at full depth and cut to 2^k
+        groups or block pairs) and the greedy tokens compared, and the
+        float32 logits after its embedding is nudged at bf16's rounding
+        step, printed (not gated: no bound is given for bf16 through 81
+        recurrent blocks);
+    (d) one full-width block of each kind (Mamba2 of zamba2-7b, mLSTM and
+        sLSTM of xlstm-125m) in float32 on the card against the host within
+        ``1e-4·max|out|``: the chunked prefill of SSM_BLOCK_T tokens and a
+        T = 1 decode step, both from the state after SSM_BLOCK_T others, the
+        new states compared too;
+    (e) the SMOKE configs of both archs in float32, card against host.
+
+    Returns the counts and the phase's peak memory (each arch resets the
+    peak counter).
+    """
+    phase = "lm_serve_ssm"
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    peak = 0
+    with torch.no_grad():
+        for arch in SSM_ARCHS:
+            peak = max(peak, serve_recurrent(phase, arch, card))
+        check_recurrent_blocks(phase)
+        check_smoke_archs(phase, SSM_ARCHS)
+    counts = launch_counts()
+    log(phase, launches=counts, seconds=time.perf_counter() - t0,
+        peak_memory_gib=peak / 2 ** 30)
+    if any(counts.values()):
+        raise AssertionError(f"the recurrent LM path launched FFT kernels: {counts}")
+    torch.cuda.empty_cache()
+    return counts, peak
+
+
+def serve_recurrent(phase: str, arch: str, card: str) -> int:
+    """(a)-(c) of ``phase_lm_serve_ssm`` for ``arch``; returns the peak
+    memory."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    out, stats = serve_batch(arch, smoke=False, batch=LM_BATCH,
+                             prompt_len=LM_PROMPT, gen=LM_GEN, seed=SEED)
+    serve_s = time.perf_counter() - t0
+    if out.shape != (LM_BATCH, LM_GEN) or out.min() < 0 or out.max() >= cfg.vocab:
+        raise AssertionError(f"{arch} serve_batch gave {out.shape}, tokens "
+                             f"{out.min()} ... {out.max()}")
+    serve_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    weights = torch.Generator(device="cuda")
+    weights.manual_seed(SEED)
+    model = lm.init_params(weights, cfg, device="cuda")
+    prompts = make_batch(cfg, LM_BATCH, LM_PROMPT, seed=SEED, step=0,
+                         device="cuda")
+    prompts.pop("targets")
+    prefill_ms, step_ms, logits16, tok = time_serving(model, cfg, prompts, LM_GEN)
+    decode_ms = statistics.median(step_ms)
+    cache = prefilled(model, cfg, prompts)
+    launches = launches_of(lambda: lm.decode_step(model, cache, tok, LM_PROMPT, cfg))
+    del cache
+    bounds = lm_bounds(model, LM_BATCH, LM_PROMPT)
+    log(phase, step="serve", card=card, kind=torch.cuda.get_device_name(0),
+        arch=cfg.name, blocks=cfg.n_layers,
+        params=sum(p.numel() for p in model.parameters()), dtype=cfg.dtype,
+        batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN,
+        serve_batch_s=serve_s, serve_batch_stats=stats, prefill_ms=prefill_ms,
+        prefill_bound_ms=bounds["prefill"]["bound_ms"],
+        prefill_bound_by=bounds["prefill"]["bound_by"],
+        decode_ms_per_step=decode_ms, decode_ms_min=min(step_ms),
+        decode_ms_max=max(step_ms),
+        decode_bound_ms=bounds["decode"]["bound_ms"],
+        decode_bound_by=bounds["decode"]["bound_by"],
+        decode_tok_s=LM_BATCH / decode_ms * 1e3,
+        prefill_tok_s=LM_BATCH * LM_PROMPT / prefill_ms * 1e3,
+        launches_per_decode_step=launches, bounds=bounds,
+        serve_peak_memory_gib=serve_peak / 2 ** 30,
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    # (c) the float32 copy at full depth
+    model32 = lm_copy(model)
+    cfg32 = model32.cfg
+    hidden, _ = lm.forward(model32, prompts, cfg32)
+    full = lm.logits_fn(model32, hidden[:, -1:], cfg32)[:, 0]
+    del hidden
+    logits32, _ = lm.prefill(model32, prompts, cfg32,
+                             lm.init_cache(cfg32, LM_BATCH, LM_PROMPT))
+    cache32 = lm.init_cache(cfg32, LM_BATCH, LM_PROMPT)
+    _, cache32 = lm.prefill(model32, {"tokens": prompts["tokens"][:, :-1]}, cfg32,
+                            cache32)
+    stepped, _ = lm.decode_step(model32, cache32, prompts["tokens"][:, -1],
+                                LM_PROMPT - 1, cfg32)
+    del cache32
+    check_close(phase, f"{arch} float32 prefill vs forward", [(logits32, full)], 1e-3)
+    check_close(phase, f"{arch} float32 prefill(S-1) + decode_step vs forward",
+                [(stepped, full)], 1e-3)
+    err, scale = close_ratio(logits16, logits32)
+    greedy32 = lm_greedy(model32, cfg32, prompts, LM_GEN).cpu().numpy()
+    agree = out == greedy32
+    # the float32 model's own sensitivity: its embedding table scaled by 1 +
+    # uniform(-2^-9, 2^-9), bf16's relative rounding step
+    table = model32.embed.table
+    table.mul_(1 + torch.empty_like(table).uniform_(-2 ** -9, 2 ** -9,
+                                                    generator=weights))
+    nudged, _ = lm.prefill(model32, prompts, cfg32,
+                           lm.init_cache(cfg32, LM_BATCH, LM_PROMPT))
+    nudge_err, _ = close_ratio(nudged, logits32)
+    del model32, full, stepped, nudged
+    torch.cuda.empty_cache()
+    log(phase, check=f"{arch} bf16 vs float32 (printed, not gated)",
+        prefill_logits_ratio=err / scale, max_abs_err=err, max_logit=scale,
+        equal_tokens=int(agree.sum()), tokens=int(agree.size),
+        equal_prefix_per_row=[int(np.argmin(row)) if not row.all() else LM_GEN
+                              for row in agree],
+        ratio_by_depth={**bf16_gap_by_depth(model, prompts),
+                        cfg.n_layers: err / scale},
+        float32_ratio_after_embedding_nudge=nudge_err / scale)
+    peak = torch.cuda.max_memory_allocated()
+    del model, logits16, logits32
+    torch.cuda.empty_cache()
+    return peak
+
+
+def bf16_gap_by_depth(model, prompts: dict) -> dict[int, float]:
+    """max|bf16 - float32| / max|float32| of the prefill logits of ``model``
+    cut to its first 2^k units of blocks (a hybrid's group, an xLSTM's
+    mLSTM + sLSTM pair) below its full depth: how the gap grows with
+    depth."""
+    cfg = model.cfg
+    unit = (cfg.hybrid.shared_attn_every if cfg.family == "hybrid"
+            else cfg.xlstm.slstm_every)
+    gaps = {}
+    depth = unit
+    while depth < cfg.n_layers:
+        logits = []
+        for dtype in ("bfloat16", "float32"):
+            cut = lm_copy(model, dtype, depth)
+            logits.append(lm.prefill(cut, prompts, cut.cfg,
+                                     lm.init_cache(cut.cfg, LM_BATCH, LM_PROMPT))[0])
+            del cut
+        err, scale = close_ratio(*logits)
+        gaps[depth] = err / scale
+        depth *= 2
+    return gaps
+
+
+def recurrent_blocks(gen: torch.Generator):
+    """One full-width float32 block of each kind on the host, drawn from
+    ``gen``: (name, block, apply(block, x, cache), its empty cache on a
+    device, d_model)."""
+    xcfg, zcfg = get_config("xlstm_125m"), get_config("zamba2_7b")
+    H, hd = xcfg.n_heads, xcfg.hd
+    return [
+        ("mamba2", ssm_mod.mamba2_init(gen, zcfg.d_model, zcfg.ssm, torch.float32,
+                                       "cpu"),
+         lambda p, x, cache: ssm_mod.mamba2_apply(p, x, zcfg.ssm, cache=cache),
+         lambda device: ssm_mod.mamba2_init_cache(LM_BATCH, zcfg.d_model, zcfg.ssm,
+                                                  device=device), zcfg.d_model),
+        ("mlstm", xlstm_mod.mlstm_init(gen, xcfg.d_model, H, hd, torch.float32, "cpu"),
+         lambda p, x, cache: xlstm_mod.mlstm_apply(p, x, n_heads=H, hd=hd,
+                                                   chunk=xcfg.xlstm.chunk, cache=cache),
+         lambda device: xlstm_mod.mlstm_init_cache(LM_BATCH, H, hd, device),
+         xcfg.d_model),
+        ("slstm", xlstm_mod.slstm_init(gen, xcfg.d_model, H, hd, torch.float32, "cpu"),
+         lambda p, x, cache: xlstm_mod.slstm_apply(p, x, n_heads=H, hd=hd, cache=cache),
+         lambda device: xlstm_mod.slstm_init_cache(LM_BATCH, H, hd, device),
+         xcfg.d_model),
+    ]
+
+
+def check_recurrent_blocks(phase: str) -> None:
+    """(d) of ``phase_lm_serve_ssm``: each block's chunked prefill and T = 1
+    decode step, card against host, from the state its host copy reaches
+    after SSM_BLOCK_T tokens (not zero); outputs and new states within
+    ``1e-4·max|out|`` (each state leaf against its own scale)."""
+    gen = torch.Generator().manual_seed(SEED)
+    for name, host, apply, empty, d in recurrent_blocks(gen):
+        card_block = copy_module(host, "cuda")
+        state = empty("cpu")
+        apply(host, torch.randn(LM_BATCH, SSM_BLOCK_T, d, generator=gen), state)
+        for mode, T in (("prefill", SSM_BLOCK_T), ("decode", 1)):
+            x = torch.randn(LM_BATCH, T, d, generator=gen)
+            on_host = {k: v.clone() for k, v in state.items()}
+            on_card = {k: v.cuda() for k, v in state.items()}
+            want, on_host = apply(host, x, on_host)
+            got, on_card = apply(card_block, x.cuda(), on_card)
+            check_close(phase, f"full-width {name} {mode} card vs host",
+                        [(got.cpu(), want)] + [(on_card[k].cpu(), on_host[k])
+                                               for k in sorted(on_host)], 1e-4)
+        del card_block
+
+
 def time_serving(model, cfg, prompts: dict, gen: int):
     """The prefill's median time (5 runs, each making its cache) and the time
     of each of ``gen`` greedy decode steps after it, by CUDA events.
@@ -2908,11 +3217,22 @@ def check_smoke_archs(phase: str, archs) -> None:
                                                  seq + i, smoke)
                 got, caches[1] = lm.decode_step(card_model, caches[1],
                                                 tok.cuda(), seq + i, smoke)
-            pairs += [(got.cpu(), want)] + [(caches[1][k].cpu(), caches[0][k])
-                                            for k in caches[0]]
+            pairs += [(got.cpu(), want)] + [
+                (on_card.cpu(), on_host) for on_card, on_host
+                in zip(cache_leaves(caches[1]), cache_leaves(caches[0]), strict=True)]
         drive = (f"forward, prefill and {LM_SMOKE_DECODE} decode steps"
                  if smoke.supports_decode() else "forward")
         check_close(phase, f"{arch} smoke {drive} card vs host", pairs, 1e-4)
+
+
+def cache_leaves(cache) -> list[torch.Tensor]:
+    """The tensors of a cache of any family (a dict of stacked tensors, the
+    hybrid's nested dicts, the xLSTM's list of dicts), in a fixed order."""
+    if isinstance(cache, dict):
+        return [t for k in sorted(cache) for t in cache_leaves(cache[k])]
+    if isinstance(cache, list):
+        return [t for c in cache for t in cache_leaves(c)]
+    return [cache]
 
 
 def copy_module(module: torch.nn.Module, device: str) -> torch.nn.Module:
@@ -3001,6 +3321,9 @@ def main() -> None:
     paths["lm_serve"] = phase_lm_serve(card)
     peak = max(peak, torch.cuda.max_memory_allocated())
     paths["lm_serve_moe"] = phase_lm_serve_moe(card)
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    paths["lm_serve_ssm"], ssm_peak = phase_lm_serve_ssm(card)
+    peak = max(peak, ssm_peak)
     for record in records:
         by_path = {path: counts[record["name"]] for path, counts in paths.items()}
         record["launches"] = sum(by_path.values())

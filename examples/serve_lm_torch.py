@@ -1,6 +1,8 @@
 """End-to-end LM serving on the PyTorch/CUDA port: batched prefill +
-decode loop with a KV cache, for any decoder arch of the dense, moe
-(dbrx_132b, deepseek_v2_lite_16b) and vlm families in the registry.
+decode loop with a KV cache (a recurrent state for xLSTM and Mamba2), for
+any decoder arch in the registry: dense, moe (dbrx_132b,
+deepseek_v2_lite_16b), vlm, ssm (xlstm_125m) and hybrid (zamba2_7b).  The
+prompt length must divide by the recurrent archs' chunk, min(chunk, prompt).
 
 Run on the GPU:  PYTHONPATH=src python examples/serve_lm_torch.py [--arch qwen2_5_3b] [--full]
 or on the host:  PYTHONPATH=src python examples/serve_lm_torch.py --device cpu

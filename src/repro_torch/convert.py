@@ -20,7 +20,7 @@ from repro_torch._device import as_tensor, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.fpm import FPMSet, SpeedFunction
 from repro_torch.core.partition import PartitionResult
-from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.transformer import TransformerLM, _hybrid_layout
 from repro_torch.plan.config import PlanConfig
 from repro_torch.plan.schedule import SegmentSchedule
 
@@ -71,12 +71,14 @@ def lm_params_from_arrays(tree: dict[str, Any], cfg: ArchConfig,
                           device: str | torch.device | None = None):
     """The reference's LM parameter pytree -> this package's model.
 
-    ``tree`` is the reference's ``init_params`` result as nested dicts of
-    numpy arrays, its transformer layers stacked on a leading axis
-    (``tree["layers"]["attn"]["wq"]["w"][i]`` is layer ``i``'s; an MoE
-    layer's experts ``tree["layers"]["moe"]["wg"]`` are (L, E, d, f), its
-    router float32).  Every leaf must fill one parameter of the same shape
-    and dtype, and every parameter must be filled.
+    ``tree`` is the reference's ``init_params`` result as nested dicts (and,
+    for xLSTM's ``blocks``, a list) of numpy arrays.  Transformer layers are
+    stacked on a leading axis (``tree["layers"]["attn"]["wq"]["w"][i]`` is
+    layer ``i``'s; an MoE layer's experts ``tree["layers"]["moe"]["wg"]`` are
+    (L, E, d, f), its router float32); the hybrid's Mamba2 blocks on two,
+    (n_groups, g, ...), its ``shared`` block a plain dict.  Every leaf must
+    fill one parameter of the same shape and dtype, and every parameter must
+    be filled.
     """
     model = TransformerLM(cfg, resolve_device(device))
     leaves = {}
@@ -85,26 +87,33 @@ def lm_params_from_arrays(tree: dict[str, Any], cfg: ArchConfig,
         if isinstance(node, dict):
             for k, v in node.items():
                 walk(v, path + (k,))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, path + (str(i),))
         else:
             leaves[path] = node
 
     walk(tree, ())
+    # the stacked subtrees: their leading axes, which the module indexes
+    stacked = {"layers": (cfg.n_layers,)}
+    if cfg.family == "hybrid":
+        g, n_groups = _hybrid_layout(cfg)
+        stacked["mamba"] = (n_groups, g)
     used = set()
     with torch.no_grad():
         for name, param in model.named_parameters():
             parts = tuple(name.split("."))
-            if parts[0] == "layers":
-                path, index = ("layers",) + parts[2:], int(parts[1])
-            else:
-                path, index = parts, None
+            lead = stacked.get(parts[0], ())
+            path = parts[:1] + parts[1 + len(lead):]
+            index = tuple(int(i) for i in parts[1:1 + len(lead)])
             if path not in leaves:
                 raise KeyError(f"the parameter tree has no leaf {'/'.join(path)}")
             used.add(path)
             arr = np.asarray(leaves[path])
-            if index is not None and arr.shape[0] != cfg.n_layers:
-                raise ValueError(f"{'/'.join(path)}: {arr.shape[0]} stacked "
-                                 f"layers for a config of {cfg.n_layers}")
-            value = _leaf_tensor(arr if index is None else arr[index])
+            if arr.shape[:len(lead)] != lead:
+                raise ValueError(f"{'/'.join(path)}: {arr.shape[:len(lead)]} stacked "
+                                 f"layers for a config of {lead}")
+            value = _leaf_tensor(arr[index])
             if tuple(value.shape) != tuple(param.shape) or value.dtype != param.dtype:
                 raise ValueError(
                     f"{name}: leaf is {tuple(value.shape)} {value.dtype}, the "

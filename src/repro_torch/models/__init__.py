@@ -1,6 +1,7 @@
-"""The LM scaffold's models: the transformer-layer families (dense, moe,
-vlm, audio) and the architecture registry.  Counterpart of ``repro.models``
-without its sharding specs and ``loss_fn`` (they come with training)."""
+"""The LM scaffold's models: every family of the registry (dense, moe, vlm,
+audio; xLSTM in ``models.xlstm``, Mamba2 in ``models.ssm``) and the
+architecture registry.  Counterpart of ``repro.models`` without its sharding
+specs and ``loss_fn`` (they come with training)."""
 
 from repro_torch.models.transformer import (init_params, forward, init_cache,
                                             prefill, decode_step)

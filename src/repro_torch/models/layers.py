@@ -41,6 +41,20 @@ def _weight(shape: tuple[int, ...], scale: float, dtype: torch.dtype,
     return nn.Parameter((w * scale).to(dtype))
 
 
+def _chunk_len(chunk: int, T: int, what: str) -> int:
+    """``min(chunk, T)``, which must divide T (the reference asserts)."""
+    Lc = min(chunk, T)
+    if T % Lc:
+        raise ValueError(f"sequence of {T} must divide by {what} chunk {Lc}")
+    return Lc
+
+
+def _store(cache: dict[str, torch.Tensor], new: dict[str, torch.Tensor]) -> None:
+    """Write each of ``new`` into ``cache`` in place."""
+    for name, value in new.items():
+        cache[name].copy_(value)
+
+
 class Dense(nn.Module):
     """``x @ w (+ b)`` with ``w`` of shape (d_in, d_out), as the reference."""
 

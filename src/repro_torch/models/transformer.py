@@ -1,14 +1,24 @@
-"""LM assembly for the transformer-layer families: dense, moe, vlm and audio.
+"""Generic LM assembly for every architecture family of the registry.
 
-Counterpart of ``repro.models.transformer`` for the configs of transformer
-layers: GQA or MLA attention, an MLP or an MoE block (the ``ssm``/``hybrid``
-families come with ROADMAP M11c and raise ``NotImplementedError`` here).
-The model is an ``nn.Module`` (``TransformerLM``) whose layers are an
-``nn.ModuleList``, run one after the other where the reference scans over
-stacked layers.  The cache keeps the reference's stacked layout, each of the
-layer cache's tensors with a leading n_layers axis (GQA's ``k`` and ``v`` of
-(n_layers, B, max_len, KV, hd), MLA's ``ckv`` and ``krope`` of (n_layers, B,
-max_len, ·)), and is updated in place.
+Counterpart of ``repro.models.transformer``:
+
+* dense / moe / vlm / audio: transformer layers (GQA or MLA attention, an
+  MLP or an MoE block) in an ``nn.ModuleList`` ``layers``, run one after the
+  other where the reference scans over stacked layers.  The cache keeps the
+  reference's stacked layout, each of the layer cache's tensors with a
+  leading n_layers axis (GQA's ``k`` and ``v`` of (n_layers, B, max_len, KV,
+  hd), MLA's ``ckv`` and ``krope`` of (n_layers, B, max_len, ·)).
+* ssm (xLSTM): ``blocks``, pre-norm mLSTM / sLSTM blocks with a residual;
+  the cache is a list of one state dict a block.
+* hybrid (Zamba2): ``mamba``, n_groups x g Mamba2 blocks (the last group
+  padded to g; its padded blocks hold parameters, as the reference's
+  stacked tree does, but are not run), and ``shared``, one attention + MLP
+  block applied at the start of every group with its own KV cache per
+  group.  The cache is ``{"attn": {k, v} (n_groups, B, max_len, KV, hd),
+  "mamba": {conv, ssm} (n_groups, g, B, ...)}``.
+
+Every cache is updated in place.  The model is an ``nn.Module``
+(``TransformerLM``, whatever the family).
 
 Entry points, as in the reference, with the parameters being the module:
 
@@ -30,6 +40,8 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (Dense, Embed, MLP, Norm, _weight,
                                        apply_mlp, apply_norm, dense)
 
@@ -43,12 +55,7 @@ def _dt(cfg: ArchConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _check_family(cfg: ArchConfig) -> None:
-    """Only the transformer-layer families are here."""
-    if cfg.family not in ("dense", "moe", "vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family (xLSTM / Zamba2 blocks) is "
-            "not ported yet (ROADMAP Queue 1, M11c)")
+TF_FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 # ---------------------------------------------------------------------------
@@ -124,18 +131,118 @@ def _layer_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
 
 
 # ---------------------------------------------------------------------------
-# top level
+# xLSTM stack
 # ---------------------------------------------------------------------------
 
-class TransformerLM(nn.Module):
-    """``embed``, ``final_norm``, ``lm_head`` (unless tied), ``layers`` and,
-    for audio, ``mask_embed`` — the reference's parameter tree, with the
-    stacked layers as a ``ModuleList``."""
+def _xlstm_block_kinds(cfg: ArchConfig) -> list[str]:
+    k = cfg.xlstm.slstm_every
+    return ["slstm" if (i % k == k - 1) else "mlstm" for i in range(cfg.n_layers)]
+
+
+class XLSTMBlock(nn.Module):
+    """Pre-norm ``ln`` and the ``core``: an mLSTM or an sLSTM."""
+
+    def __init__(self, kind: str, cfg: ArchConfig, device=None,
+                 gen: torch.Generator | None = None):
+        super().__init__()
+        self.kind = kind
+        self.ln = Norm(cfg.d_model, cfg.norm, device=device)
+        core = xlstm_mod.MLSTM if kind == "mlstm" else xlstm_mod.SLSTM
+        self.core = core(cfg.d_model, cfg.n_heads, cfg.hd, _dt(cfg), device, gen)
+
+
+def _apply_xlstm(params: "TransformerLM", x, cfg: ArchConfig, caches=None):
+    """Each block in turn, on its own state dict of ``caches`` (written in
+    place).  Returns (x, caches)."""
+    for i, blk in enumerate(params.blocks):
+        h = apply_norm(blk.ln, x, cfg.norm)
+        c = caches[i] if caches is not None else None
+        if blk.kind == "mlstm":
+            o, _ = xlstm_mod.mlstm_apply(blk.core, h, n_heads=cfg.n_heads,
+                                         hd=cfg.hd, chunk=cfg.xlstm.chunk, cache=c)
+        else:
+            o, _ = xlstm_mod.slstm_apply(blk.core, h, n_heads=cfg.n_heads,
+                                         hd=cfg.hd, cache=c)
+        x = x + o
+    return x, caches
+
+
+# ---------------------------------------------------------------------------
+# hybrid (Zamba2): Mamba2 groups + a shared attention block
+# ---------------------------------------------------------------------------
+
+def _hybrid_layout(cfg: ArchConfig) -> tuple[int, int]:
+    """(g blocks a group, n_groups), the last group padded to g."""
+    g = cfg.hybrid.shared_attn_every
+    return g, -(-cfg.n_layers // g)
+
+
+def _hybrid_valid(cfg: ArchConfig) -> list[list[bool]]:
+    """valid[group][j]: whether block j of the group is one of the n_layers
+    (the rest pad the last group)."""
+    g, n_groups = _hybrid_layout(cfg)
+    return [[gi * g + j < cfg.n_layers for j in range(g)] for gi in range(n_groups)]
+
+
+class SharedBlock(nn.Module):
+    """The hybrid's one attention + MLP block: ``ln``, ``attn`` (GQA),
+    ``ln2``, ``mlp``."""
 
     def __init__(self, cfg: ArchConfig, device=None,
                  gen: torch.Generator | None = None):
         super().__init__()
-        _check_family(cfg)
+        d, dt = cfg.d_model, _dt(cfg)
+        self.ln = Norm(d, cfg.norm, device=device)
+        self.attn = attn.GQA(d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, dtype=dt,
+                             device=device, gen=gen)
+        self.ln2 = Norm(d, cfg.norm, device=device)
+        self.mlp = MLP(d, cfg.d_ff, cfg.mlp, dtype=dt, device=device, gen=gen)
+
+
+def _apply_hybrid(params: "TransformerLM", x, cfg: ArchConfig, caches=None,
+                  pos0: int = 0, q_chunk: int | None = Q_CHUNK):
+    """Per group: the shared block (pre-norm attention + MLP, on the group's
+    KV cache), then the group's Mamba2 blocks with no pre-norm, each adding
+    its output; a padded block is skipped (x and its cache pass unchanged,
+    where the reference computes it and selects the old values).  Returns
+    (x, caches)."""
+    shared = params.shared
+    valid = _hybrid_valid(cfg)
+    for gi, group in enumerate(params.mamba):
+        h = apply_norm(shared.ln, x, cfg.norm)
+        ac = ({name: t[gi] for name, t in caches["attn"].items()}
+              if caches is not None else None)
+        a, _ = attn.gqa_apply(shared.attn, h, n_heads=cfg.n_heads,
+                              n_kv=cfg.n_kv_heads, hd=cfg.hd,
+                              rope_mode=cfg.rope_mode, rope_theta=cfg.rope_theta,
+                              causal=True, q_chunk=q_chunk, cache=ac, pos0=pos0)
+        x = x + a
+        x = x + apply_mlp(shared.mlp, apply_norm(shared.ln2, x, cfg.norm),
+                          kind=cfg.mlp)
+        for j, block in enumerate(group):
+            if not valid[gi][j]:
+                continue
+            mc = ({name: t[gi, j] for name, t in caches["mamba"].items()}
+                  if caches is not None else None)
+            o, _ = ssm_mod.mamba2_apply(block, x, cfg.ssm, cache=mc)
+            x = x + o
+    return x, caches
+
+
+# ---------------------------------------------------------------------------
+# top level
+# ---------------------------------------------------------------------------
+
+class TransformerLM(nn.Module):
+    """``embed``, ``final_norm``, ``lm_head`` (unless tied), for audio
+    ``mask_embed``, and the family's stack: ``layers`` (a ``ModuleList``
+    where the reference stacks), ``blocks`` (xLSTM), or ``mamba`` (a
+    ``ModuleList`` of n_groups ``ModuleList``s of g) and ``shared``
+    (hybrid) — the reference's parameter tree."""
+
+    def __init__(self, cfg: ArchConfig, device=None,
+                 gen: torch.Generator | None = None):
+        super().__init__()
         device = resolve_device(device)
         dt = _dt(cfg)
         self.cfg = cfg
@@ -144,8 +251,21 @@ class TransformerLM(nn.Module):
         self.lm_head = (None if cfg.tie_embeddings else
                         Dense(cfg.d_model, cfg.vocab, dtype=dt, device=device,
                               gen=gen))
-        self.layers = nn.ModuleList(_init_tf_layer(gen, cfg, device)
-                                    for _ in range(cfg.n_layers))
+        if cfg.family in TF_FAMILIES:
+            self.layers = nn.ModuleList(_init_tf_layer(gen, cfg, device)
+                                        for _ in range(cfg.n_layers))
+        elif cfg.family == "ssm":
+            self.blocks = nn.ModuleList(XLSTMBlock(kind, cfg, device, gen)
+                                        for kind in _xlstm_block_kinds(cfg))
+        elif cfg.family == "hybrid":
+            g, n_groups = _hybrid_layout(cfg)
+            self.mamba = nn.ModuleList(
+                nn.ModuleList(ssm_mod.Mamba2(cfg.d_model, cfg.ssm, dt, device, gen)
+                              for _ in range(g))
+                for _ in range(n_groups))
+            self.shared = SharedBlock(cfg, device, gen)
+        else:
+            raise ValueError(cfg.family)
         self.mask_embed = (_weight((cfg.d_model,), 0.02, dt, device, gen)
                            if cfg.modality == "audio" else None)
 
@@ -183,9 +303,14 @@ def forward(params: TransformerLM, batch, cfg: ArchConfig, *,
     x = _embed_inputs(params, batch, cfg)
     causal = not cfg.encoder_only
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in params.layers:
-        x, _, a = _apply_tf_layer(layer, x, cfg, causal=causal, q_chunk=q_chunk)
-        aux = aux + a
+    if cfg.family in TF_FAMILIES:
+        for layer in params.layers:
+            x, _, a = _apply_tf_layer(layer, x, cfg, causal=causal, q_chunk=q_chunk)
+            aux = aux + a
+    elif cfg.family == "ssm":
+        x, _ = _apply_xlstm(params, x, cfg)
+    else:
+        x, _ = _apply_hybrid(params, x, cfg, q_chunk=q_chunk)
     return apply_norm(params.final_norm, x, cfg.norm), aux
 
 
@@ -199,11 +324,29 @@ def logits_fn(params: TransformerLM, hidden, cfg: ArchConfig):
 # serving: cache init / prefill / decode
 # ---------------------------------------------------------------------------
 
+def _stacked(one: dict[str, torch.Tensor], lead: tuple[int, ...]) -> dict:
+    """Zeros of ``one``'s tensors under the leading axes ``lead``."""
+    return {name: t.new_zeros(lead + t.shape) for name, t in one.items()}
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
-    """The layer cache's tensors stacked on a leading n_layers axis, zeros."""
-    _check_family(cfg)
-    one = _layer_cache(cfg, batch, max_len, device)
-    return {name: t.new_zeros((cfg.n_layers,) + t.shape) for name, t in one.items()}
+    """The empty cache of ``cfg``'s family (module docstring); an xLSTM's
+    state does not grow with ``max_len``."""
+    if cfg.family in TF_FAMILIES:
+        return _stacked(_layer_cache(cfg, batch, max_len, device), (cfg.n_layers,))
+    if cfg.family == "ssm":
+        return [xlstm_mod.mlstm_init_cache(batch, cfg.n_heads, cfg.hd, device)
+                if k == "mlstm" else
+                xlstm_mod.slstm_init_cache(batch, cfg.n_heads, cfg.hd, device)
+                for k in _xlstm_block_kinds(cfg)]
+    if cfg.family == "hybrid":
+        g, n_groups = _hybrid_layout(cfg)
+        kv = attn.gqa_init_cache(batch, max_len, cfg.n_kv_heads, cfg.hd, _dt(cfg),
+                                 device)
+        state = ssm_mod.mamba2_init_cache(batch, cfg.d_model, cfg.ssm, device=device)
+        return {"attn": _stacked(kv, (n_groups,)),
+                "mamba": _stacked(state, (n_groups, g))}
+    raise ValueError(cfg.family)
 
 
 def _stacked_layer_step(params: TransformerLM, x, cfg: ArchConfig, caches,
@@ -217,12 +360,22 @@ def _stacked_layer_step(params: TransformerLM, x, cfg: ArchConfig, caches,
     return x, caches
 
 
+def _cached_step(params: TransformerLM, x, cfg: ArchConfig, cache, pos0: int,
+                 q_chunk: int | None):
+    """The family's stack over ``x`` from position ``pos0``, on ``cache``."""
+    if cfg.family in TF_FAMILIES:
+        return _stacked_layer_step(params, x, cfg, cache, pos0, q_chunk)
+    if cfg.family == "ssm":
+        return _apply_xlstm(params, x, cfg, caches=cache)
+    return _apply_hybrid(params, x, cfg, caches=cache, pos0=pos0, q_chunk=q_chunk)
+
+
 def prefill(params: TransformerLM, batch, cfg: ArchConfig, cache, *,
             q_chunk: int | None = Q_CHUNK):
     """Process the prompt, filling the cache from position 0.  Returns
     (last-position logits, cache)."""
     x = _embed_inputs(params, batch, cfg)
-    x, cache = _stacked_layer_step(params, x, cfg, cache, 0, q_chunk)
+    x, cache = _cached_step(params, x, cfg, cache, 0, q_chunk)
     h = apply_norm(params.final_norm, x[:, -1:], cfg.norm)
     return logits_fn(params, h, cfg)[:, 0], cache
 
@@ -231,6 +384,6 @@ def decode_step(params: TransformerLM, cache, tokens, pos, cfg: ArchConfig):
     """One decode step: tokens (B,) int32, pos the current length (an int).
     Returns (logits (B, V), cache)."""
     x = _embed_inputs(params, {"tokens": tokens[:, None]}, cfg)
-    x, cache = _stacked_layer_step(params, x, cfg, cache, int(pos), None)
+    x, cache = _cached_step(params, x, cfg, cache, int(pos), None)
     h = apply_norm(params.final_norm, x, cfg.norm)
     return logits_fn(params, h, cfg)[:, 0], cache

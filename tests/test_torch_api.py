@@ -260,8 +260,9 @@ LM_TRAINING_NAMES = {"loss_fn", "param_pspecs", "batch_pspecs", "cache_pspecs"}
 def test_package_exports_the_reference_lm_names():
     """The LM serving path exports the reference's names, less those of
     sharding and training (``models``, ``models.transformer``, ``train``)
-    and of the dry-run (``data.input_specs``); ``models.attention`` and
-    ``models.moe`` add their modules (``GQA``, ``MLA``, ``MoE``)."""
+    and of the dry-run (``data.input_specs``); ``models.attention``,
+    ``models.moe``, ``models.xlstm`` and ``models.ssm`` add their modules
+    (``GQA``, ``MLA``, ``MoE``, ``MLSTM``, ``SLSTM``, ``Mamba2``)."""
     import repro.configs as ref_configs
     import repro.data as ref_data
     import repro.launch.serve as ref_serve
@@ -270,7 +271,9 @@ def test_package_exports_the_reference_lm_names():
     import repro.models.layers as ref_layers
     import repro.models.moe as ref_moe
     import repro.models.registry as ref_registry
+    import repro.models.ssm as ref_ssm
     import repro.models.transformer as ref_transformer
+    import repro.models.xlstm as ref_xlstm
     import repro.train as ref_train
     import repro_torch.configs as port_configs
     import repro_torch.data as port_data
@@ -280,7 +283,9 @@ def test_package_exports_the_reference_lm_names():
     import repro_torch.models.layers as port_layers
     import repro_torch.models.moe as port_moe
     import repro_torch.models.registry as port_registry
+    import repro_torch.models.ssm as port_ssm
     import repro_torch.models.transformer as port_transformer
+    import repro_torch.models.xlstm as port_xlstm
     import repro_torch.train as port_train
 
     def without(names, dropped):
@@ -298,10 +303,13 @@ def test_package_exports_the_reference_lm_names():
     assert set(ref_layers.__all__) <= set(port_layers.__all__)
     assert [n for n in port_attn.__all__ if n not in ("GQA", "MLA")] == \
         ref_attn.__all__
+    assert [n for n in port_xlstm.__all__ if n not in ("MLSTM", "SLSTM")] == \
+        ref_xlstm.__all__
+    assert [n for n in port_ssm.__all__ if n != "Mamba2"] == ref_ssm.__all__
     assert [n for n in port_moe.__all__ if n != "MoE"] == ref_moe.__all__
     for mod in (port_configs, port_data, port_serve, port_models, port_attn,
-                port_moe, port_layers, port_registry, port_transformer,
-                port_train):
+                port_moe, port_xlstm, port_ssm, port_layers, port_registry,
+                port_transformer, port_train):
         for name in mod.__all__:
             assert hasattr(mod, name), name
 
@@ -405,6 +413,7 @@ def test_importing_the_port_loads_no_jax_builds_nothing_and_touches_no_cuda():
         "import repro_torch.kernels, repro_torch.convert, repro_torch.runtime\n"
         "from repro_torch.runtime import ResilientPlan\n"
         "import repro_torch.configs, repro_torch.models, repro_torch.data\n"
+        "import repro_torch.models.xlstm, repro_torch.models.ssm\n"
         "import repro_torch.train, repro_torch.launch.serve\n"
         "import torch\n"
         "from repro_torch.kernels import _build\n"

@@ -39,6 +39,16 @@ def test_example_runs_on_the_host(script):
     assert "MISMATCH" not in done.stdout
 
 
+@pytest.mark.parametrize("arch", ["xlstm_125m", "zamba2_7b"])
+def test_serve_lm_example_serves_the_recurrent_archs_on_the_host(arch):
+    """xLSTM and Zamba2 at SMOKE size: a prompt of 12 divides both chunks,
+    min(16, 12)."""
+    args, expect = EXAMPLES["serve_lm_torch.py"]
+    done = run("serve_lm_torch.py", ["--device", "cpu", "--arch", arch, *args])
+    assert done.returncode == 0, done.stderr[-3000:]
+    assert expect in done.stdout, done.stdout[-3000:]
+
+
 @pytest.mark.parametrize("script", sorted(EXAMPLES))
 def test_example_needs_a_card_by_default(script):
     done = run(script, EXAMPLES[script][0], CUDA_VISIBLE_DEVICES="")

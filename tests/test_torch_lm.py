@@ -43,7 +43,6 @@ from repro_torch.train import make_serve_step
 DECODERS = ["internlm2_1_8b", "qwen2_5_3b", "chatglm3_6b", "stablelm_3b",
             "llava_next_mistral_7b"]
 TF_ARCHS = DECODERS + ["hubert_xlarge"]
-NOT_PORTED = {"xlstm_125m": "M11c", "zamba2_7b": "M11c"}
 FP32 = {"rtol": 1e-4, "atol": 1e-5}
 BF16 = {"rtol": 0.05, "atol": 0.15}
 
@@ -71,27 +70,48 @@ def close(got, want, dtype: str = "float32") -> None:
 # ------------------------------------------------------------------ weights
 
 def _leaf(rng, name: str, shape, dtype) -> np.ndarray:
+    """A leaf named ``name`` at a scale that leaves none of its gates, decays
+    or norms a no-op or saturated: a dense's ``w`` (and an MoE's experts)
+    normal / sqrt(d_in); the sLSTM's recurrent ``r`` normal / sqrt(hd), as
+    drawn by the reference; norm ``scale`` 1 + 0.1·normal; biases
+    (``b``, ``bias``, Mamba2's ``conv_b``) 0.1·normal; Mamba2's ``conv_w``
+    0.2·normal; ``A_log`` the log of uniform(0.05, 0.5), ``dt_bias`` -1 +
+    0.5·normal and ``D`` 1 + 0.3·normal, so that a step decays the state by
+    exp(-dt·A) ≈ 0.9 (the reference's A of 1 ... 16 forgets it in a step or
+    two); anything else (embeddings) normal."""
     z = rng.standard_normal(shape).astype(np.float32)
-    if name in ("w", "wg", "wu", "wd"):     # a dense's, or an MoE's experts
+    if name in ("w", "wg", "wu", "wd", "r"):   # a dense's, an MoE's experts, sLSTM's
         z = z / np.sqrt(shape[-2])
     elif name == "scale":
         z = 1.0 + 0.1 * z
-    elif name in ("b", "bias"):
+    elif name in ("b", "bias", "conv_b"):
         z = 0.1 * z
+    elif name == "conv_w":
+        z = 0.2 * z
+    elif name == "A_log":
+        z = np.log(rng.uniform(0.05, 0.5, shape)).astype(np.float32)
+    elif name == "dt_bias":
+        z = -1.0 + 0.5 * z
+    elif name == "D":
+        z = 1.0 + 0.3 * z
     return z.astype(dtype)
 
 
+def fill_tree(shapes, rng, name: str = ""):
+    """Numpy leaves (``_leaf``) for a tree of shapes — nested dicts and
+    lists, as ``jax.eval_shape`` gives them — drawn from ``rng`` in order."""
+    if isinstance(shapes, dict):
+        return {k: fill_tree(v, rng, k) for k, v in shapes.items()}
+    if isinstance(shapes, list):
+        return [fill_tree(v, rng, name) for v in shapes]
+    return _leaf(rng, name, shapes.shape, shapes.dtype)
+
+
 def random_tree(cfg, seed: int = 0) -> dict:
-    """A numpy parameter tree of the reference's structure, shapes and dtypes."""
+    """A numpy parameter tree of the reference's structure (dicts, and the
+    xLSTM's list of blocks), shapes and dtypes."""
     shapes = jax.eval_shape(lambda: ref_T.init_params(jax.random.PRNGKey(0), cfg))
-    rng = np.random.default_rng(seed)
-
-    def fill(node, name):
-        if isinstance(node, dict):
-            return {k: fill(v, k) for k, v in node.items()}
-        return _leaf(rng, name, node.shape, node.dtype)
-
-    return fill(shapes, "")
+    return fill_tree(shapes, np.random.default_rng(seed))
 
 
 def both_params(arch: str, dtype: str, seed: int = 0):
@@ -522,18 +542,6 @@ def test_cache_overflow_raises():
         port_T.prefill(params, {"tokens": toks[:, :6]}, cfg, cache)
         with pytest.raises(ValueError, match="KV cache overflow"):
             port_T.decode_step(params, cache, toks[:, 0], 6, cfg)
-
-
-@pytest.mark.parametrize("arch", sorted(NOT_PORTED))
-def test_families_of_later_slices_raise_not_implemented(arch):
-    cfg = port_registry.get_smoke_config(arch)
-    item = NOT_PORTED[arch]
-    with pytest.raises(NotImplementedError, match=item):
-        port_T.init_params(torch.Generator(), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        port_T.init_cache(cfg, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        convert.lm_params_from_arrays({}, cfg, device="cpu")
 
 
 # ------------------------------------------------------------------ weights
