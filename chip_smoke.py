@@ -87,7 +87,7 @@ each of which ends the run with a non-zero exit code when it fails:
 14. ``dist3_gloo4`` 4 processes (``--dist-rank ... 3d``) sharing the card
                  over gloo: pencils of 2x2 (and 2 panels), 1x4, 4x1 and 4x1
                  over 2 emulated hosts with ``exchange="hier"``, slabs flat
-                 and 2 hosts x 2 with ``hier``, 512^3, rank 0 gathering the
+                 and 2 hosts x 2 with ``hier``, 256^3, rank 0 gathering the
                  blocks by mesh coordinates against ``torch.fft.fftn``.
 15. ``runtime``  the self-healing runtime (``repro_torch.runtime``) on a world
                  of one NCCL rank, N = 8192: ``repeated(K1, 3)`` bit for bit
@@ -136,6 +136,18 @@ each of which ends the run with a non-zero exit code when it fails:
                  against it, printed); one full-width Mamba2, mLSTM and sLSTM
                  block against the host in prefill and decode from a carried
                  state; the SMOKE configs of both against the host.
+20. ``lm_train`` training on one device (``repro_torch.train``,
+                 ``repro_torch.launch.train``; plain PyTorch, none of the FFT
+                 kernels): internlm2-1.8b FULL in bf16 (24 layers, 1.89 B
+                 parameters, float32 moments), batch 8 x 512 in 2
+                 microbatches with remat, TRAIN_STEPS steps timed by CUDA
+                 events beside ``train_bounds``, one step's launches counted,
+                 tokens/s, peak memory, every loss, the first against a
+                 float32 copy's; the step FPM of the paper's technique over
+                 microbatch x sequence and ``choose_schedule``'s pick; the
+                 SMOKE config in float32: 60 steps of ``run_training`` that
+                 must drop the loss by 0.5, 3 steps card against host, and a
+                 kill and restart from ``run_training``'s checkpoint.
 
 Then, outside the counted drives: every checked 2-D execute timed beside the
 library, and a fused batch's two layouts (batched, and the per-signal
@@ -143,13 +155,13 @@ loop) checked against the library and timed at N = 1024 ... 8192 and
 batches of 2 and 8.  Tolerances of the paths 8-10, 13 and 14:
 ``2e-4·sqrt(elements of one signal)`` (the 2-D ``2e-4·N``).
 
-Each path (4-19) is driven once with the launch counts set to 0 just before
+Each path (4-20) is driven once with the launch counts set to 0 just before
 and read just after; each of its kernels must have launched (the counts of
 ``dist_gloo4``, ``dist3_gloo4`` and ``runtime_gloo4`` are their four ranks'
-sums; ``lm_serve``, ``lm_serve_moe`` and ``lm_serve_ssm`` must launch none
-of them).  Every line but the last is a log or a JSON record; the last line
-is ``{"ok": true, "device": {...}}`` and is printed only when every phase
-passed.
+sums; ``lm_serve``, ``lm_serve_moe``, ``lm_serve_ssm`` and ``lm_train``
+must launch none of them).  Every line but the last is a log or a JSON
+record; the last line is ``{"ok": true, "device": {...}}`` and is printed
+only when every phase passed.
 """
 
 from __future__ import annotations
@@ -208,7 +220,12 @@ from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.models.registry import get_config, get_smoke_config  # noqa: E402
-from repro_torch.data.pipeline import make_batch  # noqa: E402
+from repro_torch.data.pipeline import SyntheticTokenPipeline, make_batch  # noqa: E402
+from repro_torch.configs.base import TrainCfg  # noqa: E402
+from repro_torch.launch.train import run_training  # noqa: E402
+from repro_torch.optim import adamw_init, adamw_update  # noqa: E402
+from repro_torch.train import TrainState, init_train_state, make_train_step  # noqa: E402
+from repro_torch.train.fpm_schedule import build_step_fpm, choose_schedule  # noqa: E402
 from repro_torch.runtime import (CheckpointManager, DeviceLostError,  # noqa: E402
                                  inject, repeated)
 from repro_torch.runtime.resilient import ResilientPlan  # noqa: E402
@@ -296,10 +313,12 @@ GLOO_TIMEOUT_S = 600
 # The 3-D mesh pipelines: the 512^3 cube of the pfft3 path on a 1 x 1 pencil
 # mesh of one NCCL rank (and a slab of one), the panel counts raced; then
 # GLOO_RANKS processes sharing the card over gloo on pencil meshes of 2x2,
-# 1x4, 4x1 and 4x1 over 2 emulated hosts, and slabs flat and 2 hosts x 2.
+# 1x4, 4x1 and 4x1 over 2 emulated hosts, and slabs flat and 2 hosts x 2,
+# on a 256^3 cube: the exchange goes through the host, and at 512^3 this
+# was the script's longest path (49 s on the H100).
 N_DIST3 = 512
 DIST3_PANELS = (2, 4)
-N_DIST3_GLOO = 512
+N_DIST3_GLOO = 256
 # The self-healing runtime: one NCCL rank, then GLOO_RANKS processes sharing
 # the card; position 0 slowed RUNTIME_SLOW times until a re-plan is swapped
 # in within RUNTIME_STRAGGLER_CALLS calls, then RUNTIME_LOST lost (8192 is
@@ -348,6 +367,20 @@ MOE_NEAR_TIE = 1e-4
 # at SSM_BLOCK_T tokens from a state carried over SSM_BLOCK_T others.
 SSM_ARCHS = ("zamba2_7b", "xlstm_125m")
 SSM_BLOCK_T = 64
+# Training on one device: internlm2-1.8b FULL (24 layers, d 2048, GQA 16/8,
+# d_ff 8192, vocab 92544; 1.89 B parameters, 1.70 B of them matmul weights)
+# in bf16 with float32 moments and accumulators (~30 GB of state), batch 8 x
+# 512 in 2 microbatches, every layer and CE chunk rematerialised; then the
+# step FPM over microbatch x sequence and the schedule it picks; then its
+# SMOKE config in float32: TRAIN_SMOKE_STEPS steps that must drop the loss
+# by 0.5 (tests/test_train.py), 3 steps card against host, and a kill and
+# restart through run_training's checkpoints.
+TRAIN_ARCH = "internlm2_1_8b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 512, 2, 6
+TRAIN_FPM_MB = (1, 2, 4)
+TRAIN_FPM_SEQ = (256, 512, 1024)
+TRAIN_PICK = dict(tokens_per_device=4096, seq_len=480, pad_candidates=[512, 1024])
+TRAIN_SMOKE_STEPS = 60
 PEAK_BF16_FLOPS = 989e12       # dense bf16 on the tensor cores
 SOURCES = "src/repro_torch/kernels/csrc/"
 
@@ -2562,21 +2595,28 @@ def recurrent_bounds(model: torch.nn.Module, batch: int, prompt: int) -> dict:
     return out
 
 
-def launches_of(fn) -> dict[str, int]:
+def launches_of(fn) -> dict[str, float]:
     """The kernel launches of one call of ``fn``: the runtime's launch calls
     on the host and the kernels on the card, as ``torch.profiler`` (CUPTI)
-    records them."""
+    records them; beside them the kernels' summed time on the card and the
+    call's time on the host clock (its end synchronised), whose difference
+    is the card's idle time."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
     events = prof.events()
     host = sum(1 for e in events if e.name.startswith(("cudaLaunchKernel",
                                                        "cuLaunchKernel")))
-    device = sum(1 for e in events if e.device_type == DeviceType.CUDA
-                 and not e.name.startswith("Memcpy") and not e.name.startswith("Memset"))
-    return {"host_launch_calls": host, "device_kernels": device}
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("Memcpy") and not e.name.startswith("Memset")]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return {"host_launch_calls": host, "device_kernels": len(kernels),
+            "device_kernel_ms": busy_ms, "wall_ms": wall_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms}
 
 
 def close_ratio(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -3240,6 +3280,292 @@ def copy_module(module: torch.nn.Module, device: str) -> torch.nn.Module:
     return copy.deepcopy(module).to(device)
 
 
+# ------------------------------------------------------------------ training
+
+def train_bounds(model: torch.nn.Module, batch: int, seq: int,
+                 microbatches: int, remat: bool = True) -> dict:
+    """The least time of one train step on the card: its operations over
+    dense bf16's rate, its bytes over HBM's, the larger of the two.
+    Operations: 2 per matmul weight and token in each pass that runs the
+    weight — the forward, the rematerialised forward and the backward's two
+    products (8; 6 without remat; the lm_head's CE chunks are always
+    recomputed) — and causal attention (QK and PV over the causal pairs) in
+    the same passes.  Bytes: the weights read by each pass of each
+    microbatch, the gradients written and read by the float32 accumulation
+    (the first microbatch writes the buffer, each later one reads and writes
+    it), and the optimizer pass (the parameter read and written, the
+    accumulated gradient read, m and v read and written)."""
+    cfg = model.cfg
+    elem = model.embed.table.element_size()
+    n_params = sum(p.numel() for p in model.parameters())
+    head = model.embed.table if cfg.tie_embeddings else model.lm_head.w
+    matmul = sum(p.numel() for p in model.layers.parameters() if p.dim() >= 2)
+    tokens = batch * seq
+    passes = 4 if remat else 3
+    layer_ops = 2 * passes * matmul * tokens
+    head_ops = 8 * head.numel() * tokens
+    pairs = batch * seq * (seq + 1) // 2
+    attn_ops = passes * cfg.n_layers * 4 * cfg.n_heads * cfg.hd * pairs
+    flops = layer_ops + head_ops + attn_ops
+    weight_bytes = microbatches * 3 * n_params * elem
+    accumulate_bytes = (microbatches * 2 * n_params * elem
+                        + (2 * microbatches - 1) * n_params * 4)
+    optimizer_bytes = n_params * (2 * elem + 4 + 16)
+    nbytes = weight_bytes + accumulate_bytes + optimizer_bytes
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_BF16_FLOPS * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "ops_ms": by_ops, "bytes_ms": by_bytes, "flops": flops,
+            "matmul_weights": matmul + head.numel(), "params": n_params,
+            "attention_flops": attn_ops, "bytes": nbytes,
+            "state_bytes": accumulate_bytes + optimizer_bytes,
+            "weight_bytes": weight_bytes}
+
+
+def timed_step(step, state, batch):
+    """One train step timed by CUDA events; returns (state, metrics, ms)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, metrics = step(state, batch)
+    stop.record()
+    torch.cuda.synchronize()
+    return state, metrics, start.elapsed_time(stop)
+
+
+def train_breakdown(state, batch: dict, cfg, tcfg) -> dict[str, float]:
+    """The parts of one train step, each timed alone by CUDA events (median
+    of 2): one microbatch's loss and gradients (forward, remat forward,
+    backward), adding one microbatch's bf16 gradients into the float32
+    buffers, and the AdamW update at lr 0 (the parameters stay; the moments
+    move)."""
+    names, params = zip(*state.params.named_parameters())
+    half = {k: v[: len(v) // TRAIN_MICRO] for k, v in batch.items()}
+
+    def grads():
+        loss, _ = lm.loss_fn(state.params, half, cfg, remat=tcfg.remat)
+        return torch.autograd.grad(loss, params, allow_unused=True)
+
+    out = {"loss_and_grads_ms": time_ms(grads, reps=2, warmup=0)}
+    g16 = grads()
+    acc = [g.float() for g in g16]
+
+    def accumulate():
+        for a, g in zip(acc, g16):
+            a.add_(g)
+    out["accumulate_ms"] = time_ms(accumulate, reps=2, warmup=0)
+    del g16
+    g32 = dict(zip(names, acc))
+    out["adamw_update_ms"] = time_ms(
+        lambda: adamw_update(g32, state.opt, state.params, tcfg, 0.0),
+        reps=2, warmup=0)
+    return out
+
+
+def phase_lm_train(card: str) -> tuple[dict[str, int], int]:
+    """Training on one device, with the launch counts set to 0 just before
+    and read just after (it runs none of the FFT kernels):
+
+    (a) internlm2-1.8b FULL in bf16 from a seeded CUDA generator,
+        ``TrainCfg(microbatches=TRAIN_MICRO, remat=True)``, batch
+        TRAIN_BATCH x TRAIN_SEQ from ``SyntheticTokenPipeline``: first a
+        float32 copy's loss on the first batch, which the first step's
+        loss must be within 5e-2 of (relative); then TRAIN_STEPS steps,
+        each timed by CUDA events, every loss finite; the median step beside
+        ``train_bounds``, tokens/s, one more step's launches counted by the
+        profiler, the step's parts timed alone (``train_breakdown``), the
+        peak memory;
+    (b) the step FPM (``build_step_fpm``) of the same model over
+        microbatch TRAIN_FPM_MB x sequence TRAIN_FPM_SEQ, one warm and one
+        timed step each, and ``choose_schedule``'s pick for TRAIN_PICK: a
+        microbatch of the grid at a length >= the sequence;
+    (c) the SMOKE config in float32: TRAIN_SMOKE_STEPS steps of
+        ``run_training`` whose last loss is below the first by 0.5; 3 steps
+        on the card against the same on the host from the same weights
+        (``check_train_card_vs_host``); a kill and restart through
+        ``run_training(ckpt_dir=)`` (``check_train_restart``).
+
+    Returns the counts and the phase's peak memory."""
+    phase = "lm_train"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    tcfg = TrainCfg(lr=3e-4, warmup=2, total_steps=TRAIN_STEPS,
+                    microbatches=TRAIN_MICRO, remat=True)
+    weights = torch.Generator(device="cuda")
+    weights.manual_seed(SEED)
+    state = init_train_state(weights, cfg, tcfg, device="cuda")
+    pipe = SyntheticTokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED,
+                                  device="cuda")
+    first = pipe.next()
+    model32 = lm_copy(state.params)
+    with torch.no_grad():
+        loss32 = float(lm.loss_fn(model32, first, model32.cfg)[0])
+    del model32
+    torch.cuda.empty_cache()
+
+    step = make_train_step(cfg, tcfg)
+    losses, step_ms = [], []
+    batch = first
+    for i in range(TRAIN_STEPS):
+        state, metrics, ms = timed_step(step, state, batch)
+        losses.append(float(metrics["loss"]))
+        step_ms.append(ms)
+        batch = pipe.next()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{phase}: losses {losses}")
+    gap = abs(losses[0] - loss32) / abs(loss32)
+    log(phase, check="bf16 first loss vs float32 copy", bf16_loss=losses[0],
+        float32_loss=loss32, relative_gap=gap, limit=5e-2)
+    if not gap <= 5e-2:
+        raise AssertionError(f"{phase}: bf16 first loss {losses[0]} vs float32 "
+                             f"{loss32}")
+    stepped = {}
+    launches = launches_of(lambda: stepped.update(state=step(state, batch)[0]))
+    state = stepped.pop("state")
+    bounds = train_bounds(state.params, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO)
+    breakdown = train_breakdown(state, batch, cfg, tcfg)
+    median = statistics.median(step_ms[1:])
+    log(phase, step="train", card=card, kind=torch.cuda.get_device_name(0),
+        arch=cfg.name, layers=cfg.n_layers, params=bounds["params"],
+        dtype=cfg.dtype, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        microbatches=TRAIN_MICRO, remat=True, losses=losses, step_ms=step_ms,
+        step_ms_median=median, bound_ms=bounds["bound_ms"],
+        bound_by=bounds["bound_by"], bound_share=bounds["bound_ms"] / median,
+        tok_s=TRAIN_BATCH * TRAIN_SEQ / median * 1e3,
+        launches_per_step=launches, breakdown_ms=breakdown, bounds=bounds,
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    # (b) the step FPM and the schedule it picks
+    fpm_step = make_train_step(cfg, dataclasses.replace(tcfg, microbatches=1))
+    grid = {}
+
+    def timer(mb: int, seq: int) -> float:
+        nonlocal state
+        b = make_batch(cfg, mb, seq, seed=SEED, step=mb * seq, device="cuda")
+        state, _ = fpm_step(state, b)
+        state, _, ms = timed_step(fpm_step, state, b)
+        grid[f"{mb}x{seq}"] = ms
+        return ms / 1e3
+    fpm = build_step_fpm(timer, TRAIN_FPM_MB, TRAIN_FPM_SEQ)
+    pick = choose_schedule(fpm, **TRAIN_PICK)
+    log(phase, step="fpm", card=card, step_ms=grid,
+        speed=fpm.speed.tolist(), pick={"microbatch": pick[0], "padded_seq": pick[1]},
+        **TRAIN_PICK)
+    if pick[0] not in TRAIN_FPM_MB or pick[1] < TRAIN_PICK["seq_len"] or \
+            pick[1] not in [TRAIN_PICK["seq_len"], *TRAIN_PICK["pad_candidates"]]:
+        raise AssertionError(f"{phase}: choose_schedule picked {pick}")
+    peak = torch.cuda.max_memory_allocated()
+    del state, batch, first, fpm_step, step
+    torch.cuda.empty_cache()
+
+    # (c) the SMOKE config in float32
+    smoke = run_training(TRAIN_ARCH, smoke=True, steps=TRAIN_SMOKE_STEPS,
+                         lr=1e-2, batch=16, seq=32, device="cuda",
+                         log_every=TRAIN_SMOKE_STEPS)
+    log(phase, check="smoke run_training", steps=len(smoke),
+        first_loss=smoke[0], last_loss=smoke[-1], need_drop=0.5)
+    if not (all(math.isfinite(x) for x in smoke) and smoke[-1] < smoke[0] - 0.5):
+        raise AssertionError(f"{phase}: smoke losses {smoke}")
+    check_train_card_vs_host(phase)
+    check_train_restart(phase)
+    counts = launch_counts()
+    log(phase, launches=counts, seconds=time.perf_counter() - t0,
+        peak_memory_gib=peak / 2 ** 30)
+    if any(counts.values()):
+        raise AssertionError(f"the training path launched FFT kernels: {counts}")
+    torch.cuda.empty_cache()
+    return counts, peak
+
+
+def check_train_card_vs_host(phase: str) -> None:
+    """3 train steps of the float32 SMOKE model from the same weights on the
+    card and on the host at lr 1e-4: every parameter within
+    ``1e-4·max|p|``, except where Adam's normalised step magnified a
+    near-zero gradient (its second moment below 1e-6 of the parameter's
+    largest: the gradient stayed ~1000x below its leaf's largest in every
+    step), at most 1e-4 of the entries; the losses printed.  Adam moves an
+    entry by ~lr whatever its gradient's size, so a gradient's relative
+    difference shows as lr x that difference: at lr 1e-2 the card's ~1e-5
+    relative differences from the host (the forward's, ``lm_serve``) put
+    every entry whose gradient is below ~1e-2 of its leaf's largest past
+    the limit; at 1e-4 only near-zero ones."""
+    cfg = dataclasses.replace(get_smoke_config(TRAIN_ARCH), dtype="float32")
+    tcfg = TrainCfg(lr=1e-4, warmup=0, total_steps=10, microbatches=2)
+    host = init_train_state(torch.Generator().manual_seed(SEED), cfg, tcfg,
+                            device="cpu")
+    on_card = copy_module(host.params, "cuda")
+    card = TrainState(on_card, adamw_init(on_card), {})
+    step = make_train_step(cfg, tcfg)
+    losses = []
+    for i in range(3):
+        batch = make_batch(cfg, 16, 32, seed=SEED, step=i, device="cpu")
+        host, mh = step(host, batch)
+        card, mc = step(card, {k: v.cuda() for k, v in batch.items()})
+        losses.append((float(mh["loss"]), float(mc["loss"])))
+    worst, outside, total, ties = 0.0, 0, 0, []
+    for name, p in host.params.named_parameters():
+        p = p.detach()
+        q = card.params.get_parameter(name).detach().cpu()
+        err = (q - p).abs()
+        scale = float(p.abs().max())
+        bad = err > 1e-4 * scale
+        worst = max(worst, float(err.max()) / scale)
+        total += p.numel()
+        if bad.any():
+            v = host.opt.v[name]
+            tiny = v <= 1e-6 * float(v.max())
+            if not bool(tiny[bad].all()):
+                raise AssertionError(f"{phase}: {name} card vs host beyond "
+                                     f"1e-4 x {scale} at a gradient that is not "
+                                     f"near zero")
+            outside += int(bad.sum())
+            ties += [(name, idx) for idx in bad.nonzero().tolist()[:4]]
+    log(phase, check="smoke 3 steps card vs host", losses_host_card=losses,
+        worst_ratio=worst, limit=1e-4, near_zero_outside=outside,
+        near_zero_positions=ties, entries=total)
+    if outside > 1e-4 * total:
+        raise AssertionError(f"{phase}: {outside} of {total} entries outside")
+
+
+class TrainKilled(Exception):
+    """The emulated kill of ``check_train_restart``."""
+
+
+def check_train_restart(phase: str) -> None:
+    """``run_training`` on the card: 10 steps unbroken, and 10 steps killed
+    after the checkpoint at step 5 then resumed from it for steps 5 ... 9:
+    the resumed losses within ``1e-4`` (relative) of the unbroken run's."""
+    kw = dict(smoke=True, steps=10, lr=1e-3, batch=4, seq=16, ckpt_every=5,
+              microbatches=1, async_ckpt=False, device="cuda", log_every=100)
+    nxt = SyntheticTokenPipeline.next
+
+    def killed_at_5(self):
+        if self.step == 5:
+            raise TrainKilled("killed after the checkpoint at step 5")
+        return nxt(self)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        unbroken = run_training(TRAIN_ARCH, ckpt_dir=os.path.join(tmp, "a"), **kw)
+        SyntheticTokenPipeline.next = killed_at_5
+        try:
+            run_training(TRAIN_ARCH, ckpt_dir=os.path.join(tmp, "b"), **kw)
+            raise AssertionError(f"{phase}: the run was not killed")
+        except TrainKilled:
+            pass
+        finally:
+            SyntheticTokenPipeline.next = nxt
+        resumed = run_training(TRAIN_ARCH, ckpt_dir=os.path.join(tmp, "b"), **kw)
+    err = max(abs(a - b) / abs(b) for a, b in zip(resumed, unbroken[5:], strict=True))
+    log(phase, check="smoke kill and restart", unbroken=unbroken, resumed=resumed,
+        worst_ratio=err, limit=1e-4)
+    if not err <= 1e-4:
+        raise AssertionError(f"{phase}: resumed {resumed} vs {unbroken[5:]}")
+
+
 def time_fused_batch(gen: torch.Generator, card: str) -> None:
     """A fused batch's two layouts, on the same stack, in turns (batched,
     loop, loop, batched): ``plan.execute`` of the stack (K2 — K4 then K2
@@ -3298,40 +3624,51 @@ def main() -> None:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     t0 = time.perf_counter()
-    card = phase_env()
-    phase_build()
-    records = phase_kernels(gen)
-    fpms = phase_fpms()
-    complex_counts, runs = phase_main_path(gen, fpms)
-    real_counts, real_runs = phase_main_path_real(gen, fpms)
-    planner_counts, planner_runs = phase_planner(gen, fpms, records, card)
-    bench_counts = phase_microbench_fused(gen, card)
+    seconds = {}
+
+    def timed(name: str, fn, *args, **kwargs):
+        start = time.perf_counter()
+        out = fn(*args, **kwargs)
+        seconds[name] = round(time.perf_counter() - start, 1)
+        return out
+
+    card = timed("env", phase_env)
+    timed("build", phase_build)
+    records = timed("kernels", phase_kernels, gen)
+    fpms = timed("fpms", phase_fpms)
+    complex_counts, runs = timed("main_path", phase_main_path, gen, fpms)
+    real_counts, real_runs = timed("main_path_real", phase_main_path_real, gen, fpms)
+    planner_counts, planner_runs = timed("planner", phase_planner, gen, fpms,
+                                         records, card)
+    bench_counts = timed("microbench_fused", phase_microbench_fused, gen, card)
     paths = {"main_path": complex_counts, "main_path_real": real_counts,
              "planner": planner_counts, "microbench_fused": bench_counts,
-             "pfft3": phase_pfft3(gen, card),
-             "pfft1_large": phase_pfft1_large(gen, card),
-             "serve": phase_serve(gen, fpms, card),
-             "dist": phase_dist(gen, card),
-             "dist_gloo4": phase_dist_gloo4(card),
-             "dist3": phase_dist3(gen, card),
-             "dist3_gloo4": phase_dist_gloo4(card, mode="3d"),
-             "runtime": phase_runtime(gen, card),
-             "runtime_gloo4": phase_runtime_gloo4(card)}
+             "pfft3": timed("pfft3", phase_pfft3, gen, card),
+             "pfft1_large": timed("pfft1_large", phase_pfft1_large, gen, card),
+             "serve": timed("serve", phase_serve, gen, fpms, card),
+             "dist": timed("dist", phase_dist, gen, card),
+             "dist_gloo4": timed("dist_gloo4", phase_dist_gloo4, card),
+             "dist3": timed("dist3", phase_dist3, gen, card),
+             "dist3_gloo4": timed("dist3_gloo4", phase_dist_gloo4, card, mode="3d"),
+             "runtime": timed("runtime", phase_runtime, gen, card),
+             "runtime_gloo4": timed("runtime_gloo4", phase_runtime_gloo4, card)}
     peak = torch.cuda.max_memory_allocated()     # each LM phase resets the peak
-    paths["lm_serve"] = phase_lm_serve(card)
+    paths["lm_serve"] = timed("lm_serve", phase_lm_serve, card)
     peak = max(peak, torch.cuda.max_memory_allocated())
-    paths["lm_serve_moe"] = phase_lm_serve_moe(card)
+    paths["lm_serve_moe"] = timed("lm_serve_moe", phase_lm_serve_moe, card)
     peak = max(peak, torch.cuda.max_memory_allocated())
-    paths["lm_serve_ssm"], ssm_peak = phase_lm_serve_ssm(card)
+    paths["lm_serve_ssm"], ssm_peak = timed("lm_serve_ssm", phase_lm_serve_ssm, card)
     peak = max(peak, ssm_peak)
+    paths["lm_train"], train_peak = timed("lm_train", phase_lm_train, card)
+    peak = max(peak, train_peak)
     for record in records:
         by_path = {path: counts[record["name"]] for path, counts in paths.items()}
         record["launches"] = sum(by_path.values())
         record["launches_by_path"] = by_path
-    time_runs(runs + real_runs + planner_runs, card)
-    time_fused_batch(gen, card)
+    timed("time_runs", time_runs, runs + real_runs + planner_runs, card)
+    timed("fused_batch_time", time_fused_batch, gen, card)
     peak = max(peak, torch.cuda.max_memory_allocated())
-    log("done", seconds=round(time.perf_counter() - t0, 1),
+    log("done", seconds=round(time.perf_counter() - t0, 1), phase_seconds=seconds,
         peak_memory_gib=round(peak / 2 ** 30, 2))
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

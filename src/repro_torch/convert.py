@@ -20,12 +20,13 @@ from repro_torch._device import as_tensor, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.fpm import FPMSet, SpeedFunction
 from repro_torch.core.partition import PartitionResult
-from repro_torch.models.transformer import TransformerLM, _hybrid_layout
+from repro_torch.models.transformer import TransformerLM, stacked_leaf
 from repro_torch.plan.config import PlanConfig
 from repro_torch.plan.schedule import SegmentSchedule
 
 __all__ = ["fpms_from_arrays", "partition_from_arrays", "config_from_dict",
-           "schedule_from_dict", "signal_to_tensor", "lm_params_from_arrays"]
+           "schedule_from_dict", "signal_to_tensor", "lm_params_from_arrays",
+           "lm_arrays_from_params"]
 
 
 def fpms_from_arrays(functions: Iterable[Sequence]) -> FPMSet:
@@ -67,6 +68,52 @@ def _leaf_tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A host copy of a tensor (never a view of it); bfloat16 as float32
+    (exactly)."""
+    t = t.detach()
+    return np.array((t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy())
+
+
+def lm_arrays_from_params(model: TransformerLM, cfg: ArchConfig,
+                          tensors: dict[str, torch.Tensor | None] | None = None):
+    """This package's model -> the reference's LM parameter tree, the inverse
+    of ``lm_params_from_arrays``: nested dicts (the xLSTM's ``blocks`` a
+    list) of numpy arrays, transformer layers stacked on a leading axis and
+    the hybrid's Mamba2 blocks on (n_groups, g).
+
+    With ``tensors`` (a dict keyed by parameter name: gradients, moments,
+    residuals), those are laid out instead of the parameters; a ``None``
+    entry (a parameter the loss did not reach) comes out as float32 zeros.
+    bfloat16 comes out as float32, exactly."""
+    pieces: dict[tuple, dict[tuple, np.ndarray]] = {}
+    leads = {}
+    for name, param in model.named_parameters():
+        path, index, lead = stacked_leaf(name, cfg)
+        t = param if tensors is None else tensors[name]
+        arr = (np.zeros(tuple(param.shape), np.float32) if t is None
+               else _host(t))
+        pieces.setdefault(path, {})[index] = arr
+        leads[path] = lead
+    tree: dict[str, Any] = {}
+    for path, parts in pieces.items():
+        lead = leads[path]
+        if lead:
+            first = next(iter(parts.values()))
+            arr = np.empty(lead + first.shape, first.dtype)
+            for index, part in parts.items():
+                arr[index] = part
+        else:
+            arr = parts[()]
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = arr
+    if "blocks" in tree:   # the xLSTM's list of blocks
+        tree["blocks"] = [tree["blocks"][str(i)] for i in range(len(tree["blocks"]))]
+    return tree
+
+
 def lm_params_from_arrays(tree: dict[str, Any], cfg: ArchConfig,
                           device: str | torch.device | None = None):
     """The reference's LM parameter pytree -> this package's model.
@@ -94,18 +141,10 @@ def lm_params_from_arrays(tree: dict[str, Any], cfg: ArchConfig,
             leaves[path] = node
 
     walk(tree, ())
-    # the stacked subtrees: their leading axes, which the module indexes
-    stacked = {"layers": (cfg.n_layers,)}
-    if cfg.family == "hybrid":
-        g, n_groups = _hybrid_layout(cfg)
-        stacked["mamba"] = (n_groups, g)
     used = set()
     with torch.no_grad():
         for name, param in model.named_parameters():
-            parts = tuple(name.split("."))
-            lead = stacked.get(parts[0], ())
-            path = parts[:1] + parts[1 + len(lead):]
-            index = tuple(int(i) for i in parts[1:1 + len(lead)])
+            path, index, lead = stacked_leaf(name, cfg)
             if path not in leaves:
                 raise KeyError(f"the parameter tree has no leaf {'/'.join(path)}")
             used.add(path)

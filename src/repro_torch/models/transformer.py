@@ -23,18 +23,22 @@ Every cache is updated in place.  The model is an ``nn.Module``
 Entry points, as in the reference, with the parameters being the module:
 
     init_params(gen, cfg, device=)               -> TransformerLM
-    forward(params, batch, cfg)                  -> (hidden, aux)
+    forward(params, batch, cfg, remat=)          -> (hidden, aux)
+    loss_fn(params, batch, cfg)                  -> (loss, metrics)
     init_cache(cfg, batch, max_len, device=)
     prefill(params, batch, cfg, cache)           -> (last_logits, cache)
     decode_step(params, cache, tokens, pos, cfg) -> (logits, cache)
 
-Training (``loss_fn``, remat) comes with ROADMAP M11d.
+``remat=True`` recomputes each transformer layer and each hybrid group in
+the backward pass (``torch.utils.checkpoint``), as the reference's
+``jax.checkpoint`` does; so does every vocabulary chunk of ``loss_fn``.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -45,8 +49,8 @@ from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (Dense, Embed, MLP, Norm, _weight,
                                        apply_mlp, apply_norm, dense)
 
-__all__ = ["init_params", "init_cache", "prefill", "decode_step", "forward",
-           "Q_CHUNK", "TransformerLM"]
+__all__ = ["init_params", "loss_fn", "init_cache", "prefill", "decode_step",
+           "forward", "Q_CHUNK", "TransformerLM"]
 
 Q_CHUNK = 512  # query-chunk for causal attention (memory bound at 32k)
 
@@ -56,6 +60,14 @@ def _dt(cfg: ArchConfig) -> torch.dtype:
 
 
 TF_FAMILIES = ("dense", "moe", "vlm", "audio")
+
+
+def _maybe_remat(fn, remat: bool):
+    """``fn``, recomputed in the backward pass instead of saving its
+    intermediates when ``remat`` and autograd is recording."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------
@@ -200,33 +212,45 @@ class SharedBlock(nn.Module):
 
 
 def _apply_hybrid(params: "TransformerLM", x, cfg: ArchConfig, caches=None,
-                  pos0: int = 0, q_chunk: int | None = Q_CHUNK):
+                  pos0: int = 0, q_chunk: int | None = Q_CHUNK,
+                  remat: bool = False):
     """Per group: the shared block (pre-norm attention + MLP, on the group's
     KV cache), then the group's Mamba2 blocks with no pre-norm, each adding
     its output; a padded block is skipped (x and its cache pass unchanged,
-    where the reference computes it and selects the old values).  Returns
-    (x, caches)."""
-    shared = params.shared
+    where the reference computes it and selects the old values; its
+    parameters get no gradient, the reference's zeros).  ``remat``
+    recomputes each group in the backward pass (without a cache only).
+    Returns (x, caches)."""
     valid = _hybrid_valid(cfg)
-    for gi, group in enumerate(params.mamba):
-        h = apply_norm(shared.ln, x, cfg.norm)
-        ac = ({name: t[gi] for name, t in caches["attn"].items()}
-              if caches is not None else None)
-        a, _ = attn.gqa_apply(shared.attn, h, n_heads=cfg.n_heads,
-                              n_kv=cfg.n_kv_heads, hd=cfg.hd,
-                              rope_mode=cfg.rope_mode, rope_theta=cfg.rope_theta,
-                              causal=True, q_chunk=q_chunk, cache=ac, pos0=pos0)
-        x = x + a
-        x = x + apply_mlp(shared.mlp, apply_norm(shared.ln2, x, cfg.norm),
-                          kind=cfg.mlp)
-        for j, block in enumerate(group):
-            if not valid[gi][j]:
-                continue
-            mc = ({name: t[gi, j] for name, t in caches["mamba"].items()}
-                  if caches is not None else None)
-            o, _ = ssm_mod.mamba2_apply(block, x, cfg.ssm, cache=mc)
-            x = x + o
+    group = _maybe_remat(_hybrid_group, remat and caches is None)
+    for gi in range(len(params.mamba)):
+        x = group(params, x, cfg, caches, gi, valid[gi], pos0, q_chunk)
     return x, caches
+
+
+def _hybrid_group(params: "TransformerLM", x, cfg: ArchConfig, caches,
+                  gi: int, valid: list[bool], pos0: int,
+                  q_chunk: int | None):
+    """Group ``gi`` of ``_apply_hybrid``: returns x."""
+    shared, group = params.shared, params.mamba[gi]
+    h = apply_norm(shared.ln, x, cfg.norm)
+    ac = ({name: t[gi] for name, t in caches["attn"].items()}
+          if caches is not None else None)
+    a, _ = attn.gqa_apply(shared.attn, h, n_heads=cfg.n_heads,
+                          n_kv=cfg.n_kv_heads, hd=cfg.hd,
+                          rope_mode=cfg.rope_mode, rope_theta=cfg.rope_theta,
+                          causal=True, q_chunk=q_chunk, cache=ac, pos0=pos0)
+    x = x + a
+    x = x + apply_mlp(shared.mlp, apply_norm(shared.ln2, x, cfg.norm),
+                      kind=cfg.mlp)
+    for j, block in enumerate(group):
+        if not valid[j]:
+            continue
+        mc = ({name: t[gi, j] for name, t in caches["mamba"].items()}
+              if caches is not None else None)
+        o, _ = ssm_mod.mamba2_apply(block, x, cfg.ssm, cache=mc)
+        x = x + o
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +297,22 @@ class TransformerLM(nn.Module):
         return forward(self, batch, self.cfg)
 
 
+def stacked_leaf(name: str, cfg: ArchConfig):
+    """Where parameter ``name`` lives in the reference's parameter tree: (the
+    leaf's path of keys, the index into its stacked leading axes, those
+    axes).  Transformer layers are stacked on one axis, the hybrid's Mamba2
+    blocks on (n_groups, g); the xLSTM's ``blocks`` are a list (their index
+    stays in the path)."""
+    stacked = {"layers": (cfg.n_layers,)}
+    if cfg.family == "hybrid":
+        g, n_groups = _hybrid_layout(cfg)
+        stacked["mamba"] = (n_groups, g)
+    parts = tuple(name.split("."))
+    lead = stacked.get(parts[0], ())
+    return (parts[:1] + parts[1 + len(lead):],
+            tuple(int(i) for i in parts[1:1 + len(lead)]), lead)
+
+
 def init_params(gen: torch.Generator, cfg: ArchConfig,
                 device=None) -> TransformerLM:
     """The model with weights drawn from ``gen`` (a generator on ``device``)
@@ -297,20 +337,27 @@ def _embed_inputs(params: TransformerLM, batch, cfg: ArchConfig):
 
 
 def forward(params: TransformerLM, batch, cfg: ArchConfig, *,
-            q_chunk: int | None = Q_CHUNK):
-    """Full-sequence forward (encoder / prefill-style).  Returns
-    (hidden (B,T,d), aux_loss); non-causal for encoder-only configs."""
+            remat: bool = False, q_chunk: int | None = Q_CHUNK):
+    """Full-sequence forward (train / encoder / prefill-style).  Returns
+    (hidden (B,T,d), aux_loss); non-causal for encoder-only configs.
+    ``remat`` recomputes each transformer layer and each hybrid group in the
+    backward pass (the xLSTM stack is not rematerialised, as in the
+    reference)."""
     x = _embed_inputs(params, batch, cfg)
     causal = not cfg.encoder_only
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in TF_FAMILIES:
-        for layer in params.layers:
+        def body(layer, x):
             x, _, a = _apply_tf_layer(layer, x, cfg, causal=causal, q_chunk=q_chunk)
+            return x, a
+        body = _maybe_remat(body, remat)
+        for layer in params.layers:
+            x, a = body(layer, x)
             aux = aux + a
     elif cfg.family == "ssm":
         x, _ = _apply_xlstm(params, x, cfg)
     else:
-        x, _ = _apply_hybrid(params, x, cfg, q_chunk=q_chunk)
+        x, _ = _apply_hybrid(params, x, cfg, q_chunk=q_chunk, remat=remat)
     return apply_norm(params.final_norm, x, cfg.norm), aux
 
 
@@ -318,6 +365,48 @@ def logits_fn(params: TransformerLM, hidden, cfg: ArchConfig):
     if cfg.tie_embeddings:
         return hidden @ params.embed.table.T
     return dense(params.lm_head, hidden)
+
+
+def _chunk_ce(h: torch.Tensor, t: torch.Tensor, head: torch.Tensor):
+    """(the summed cross-entropy of rows ``h`` against targets ``t`` over
+    the float32 logits ``h @ head``, the number of valid targets ``t >=
+    0``); a target of -1 adds nothing."""
+    lg = (h @ head).to(torch.float32)
+    lse = torch.logsumexp(lg, dim=-1)
+    tgt = torch.gather(lg, -1, torch.clamp(t, min=0)[:, None].long())[:, 0]
+    valid = t >= 0
+    return torch.where(valid, lse - tgt, 0.0).sum(), valid.sum()
+
+
+def loss_fn(params: TransformerLM, batch, cfg: ArchConfig, *,
+            remat: bool = True, vocab_chunk: int | None = 512,
+            q_chunk: int | None = Q_CHUNK):
+    """Causal-LM CE (decoder) or masked-prediction CE (encoder), averaged
+    over the valid targets (``t >= 0``, at least 1), plus ``0.01·aux``.
+    Returns (loss, {"ce", "aux", "tokens"}).
+
+    The vocabulary projection and the CE run over chunks of ``vocab_chunk``
+    rows of the flattened (B·T) positions (``None``: one chunk), each
+    recomputed in the backward pass, so the (chunk, V) float32 logits are
+    never all held at once.  The last chunk is short where the reference
+    pads it with rows of target -1, which add nothing.  For vision the
+    patch positions get target -1."""
+    hidden, aux = forward(params, batch, cfg, remat=remat, q_chunk=q_chunk)
+    targets = batch["targets"]
+    if cfg.modality == "vision":
+        pad = targets.new_full(tuple(batch["patches"].shape[:2]), -1)
+        targets = torch.cat([pad, targets], dim=1)
+    B, T, d = hidden.shape
+    head = params.embed.table.T if cfg.tie_embeddings else params.lm_head.w
+    hidden2 = hidden.reshape(B * T, d)
+    tflat = targets.reshape(B * T)
+    chunk = B * T if vocab_chunk is None else vocab_chunk
+    ce = _maybe_remat(_chunk_ce, True)
+    sums, counts = zip(*(ce(hidden2[i:i + chunk], tflat[i:i + chunk], head)
+                         for i in range(0, B * T, chunk)))
+    count = torch.stack(counts).sum()
+    loss = torch.stack(sums).sum() / torch.clamp(count, min=1)
+    return loss + 0.01 * aux, {"ce": loss, "aux": aux, "tokens": count}
 
 
 # ---------------------------------------------------------------------------

@@ -11,10 +11,16 @@ leaf is stored bit-exact as its uint16 view under the key suffix
 background thread (the tensors are first copied to the host
 synchronously, which is the only device-blocking part).
 
-State is nested dicts, lists and tuples of tensors, numpy arrays and
-scalars; ``restore`` fills the structure of ``like`` (tensor leaves come
-back as tensors of their dtype on their device, a meta tensor's on the
-host; array leaves as arrays).
+State is nested dicts, lists and tuples (named tuples kept) of tensors,
+numpy arrays and scalars, and modules, stored as their
+``named_parameters()``; ``restore`` fills the structure of ``like`` (tensor
+leaves come back as tensors of their dtype on their device, a meta tensor's
+on the host; array leaves as arrays; a module's parameters are written in
+place and the module itself comes back).  So a training state
+(``train.TrainState``: the model, its moments, its residuals) saves and
+restores whole; such a file restores in the reference only where its keys
+and structure match the reference's tree, which a module's parameter names
+do not.
 """
 
 from __future__ import annotations
@@ -58,10 +64,15 @@ def _flatten(tree: Any) -> dict[str, np.ndarray]:
 
 
 def _restored(arr: np.ndarray, bf16: bool, like: Any) -> Any:
-    """A stored array in the form of ``like``'s leaf."""
+    """A stored array in the form of ``like``'s leaf; a module's parameter
+    is written in place and given back."""
     if isinstance(like, torch.Tensor):
         t = (torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
              .view(torch.bfloat16) if bf16 else torch.from_numpy(arr.copy()))
+        if isinstance(like, torch.nn.Parameter):
+            with torch.no_grad():
+                like.copy_(t)
+            return like
         device = torch.device("cpu") if like.device.type == "meta" else like.device
         return t.to(dtype=like.dtype, device=device)
     if bf16:

@@ -138,7 +138,29 @@ def _tuned(schedule_or_config, info: dict) -> dict:
             "grouped": info.get("heterogeneous", {}).get("schedule")}
 
 
+def psum_grads(p: int) -> list[dict]:
+    """Each rank's gradients for ``compressed_psum``: leaves of several
+    shapes at a scale that grows with the rank, so the ranks' own int8
+    scales differ and the shared (maxed) one decides."""
+    out = []
+    for r in range(p):
+        rng = np.random.default_rng(100 + r)
+        out.append({"w": (rng.standard_normal((37, 5)) * (1 + r)).astype(np.float32),
+                    "b": (rng.standard_normal(11) * 0.01 * (r + 1)).astype(np.float32),
+                    "s": np.linspace(-1, 1, 128, dtype=np.float32) * (r + 1)})
+    return out
+
+
 # ------------------------------------------------------------------ port
+
+def _port_psum(p: int, tmp: str) -> dict:
+    import torch
+    from repro_torch.optim import compressed_psum
+
+    mine = psum_grads(p)[_rank()]
+    out = compressed_psum({k: torch.from_numpy(v) for k, v in mine.items()})
+    return {k: v.numpy() for k, v in out.items()}
+
 
 def _port_pfft(p: int, tmp: str) -> dict:
     import torch
@@ -337,7 +359,8 @@ def _port_digest(p: int, tmp: str) -> dict:
     return out
 
 
-PORT_JOBS = {"pfft": _port_pfft, "plan": _port_plan, "digest": _port_digest}
+PORT_JOBS = {"pfft": _port_pfft, "plan": _port_plan, "digest": _port_digest,
+             "psum": _port_psum}
 
 
 def _rank() -> int:
@@ -558,8 +581,23 @@ def _reference_digest(p: int, tmp: str) -> dict:
     return out
 
 
+def _reference_psum(p: int, tmp: str) -> dict:
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental.shard_map import shard_map
+    from jax.sharding import Mesh, PartitionSpec as P
+    from repro.optim.grad_compress import compressed_psum
+
+    grads = psum_grads(p)
+    stacked = {k: jnp.stack([g[k] for g in grads]) for k in grads[0]}
+    mesh = Mesh(np.array(jax.devices()[:p]), ("pods",))
+    f = shard_map(lambda x: compressed_psum(x, "pods"), mesh=mesh,
+                  in_specs=P("pods"), out_specs=P("pods"))
+    return {k: np.asarray(v[0]) for k, v in jax.jit(f)(stacked).items()}
+
+
 REFERENCE_JOBS = {"pfft": _reference_pfft, "plan": _reference_plan,
-                  "digest": _reference_digest}
+                  "digest": _reference_digest, "psum": _reference_psum}
 
 
 def reference_main(jobs: dict | None = None) -> None:

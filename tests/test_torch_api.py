@@ -254,13 +254,14 @@ def test_package_exports_the_reference_runtime_names():
         port_runtime.NotAName
 
 
-LM_TRAINING_NAMES = {"loss_fn", "param_pspecs", "batch_pspecs", "cache_pspecs"}
+LM_SHARDING_NAMES = {"param_pspecs", "batch_pspecs", "cache_pspecs"}
 
 
 def test_package_exports_the_reference_lm_names():
-    """The LM serving path exports the reference's names, less those of
-    sharding and training (``models``, ``models.transformer``, ``train``)
-    and of the dry-run (``data.input_specs``); ``models.attention``,
+    """The LM path exports the reference's names, less those of sharding
+    (``models``; they come with the trainer on a mesh) and of the dry-run
+    (``data.input_specs``): ``train``, ``optim`` and ``launch.train`` all of
+    theirs, ``models.transformer`` ``loss_fn`` too; ``models.attention``,
     ``models.moe``, ``models.xlstm`` and ``models.ssm`` add their modules
     (``GQA``, ``MLA``, ``MoE``, ``MLSTM``, ``SLSTM``, ``Mamba2``)."""
     import repro.configs as ref_configs
@@ -287,18 +288,23 @@ def test_package_exports_the_reference_lm_names():
     import repro_torch.models.transformer as port_transformer
     import repro_torch.models.xlstm as port_xlstm
     import repro_torch.train as port_train
+    import repro.launch.train as ref_launch_train
+    import repro.optim as ref_optim
+    import repro_torch.launch.train as port_launch_train
+    import repro_torch.optim as port_optim
 
     def without(names, dropped):
         return [n for n in names if n not in dropped]
 
-    assert port_models.__all__ == without(ref_models.__all__, LM_TRAINING_NAMES)
-    assert port_transformer.__all__[:-1] == without(ref_transformer.__all__,
-                                                    LM_TRAINING_NAMES)
+    assert port_models.__all__ == without(ref_models.__all__, LM_SHARDING_NAMES)
+    assert port_transformer.__all__[:-1] == ref_transformer.__all__
+    assert "loss_fn" in port_transformer.__all__
     assert port_data.__all__ == without(ref_data.__all__, {"input_specs"})
-    assert port_train.__all__ == ["make_serve_step"]
-    assert "make_serve_step" in ref_train.__all__
+    assert port_launch_train.__all__ == ["run_training", "main"]
     for port, ref in ((port_configs, ref_configs), (port_serve, ref_serve),
-                      (port_registry, ref_registry)):
+                      (port_registry, ref_registry), (port_train, ref_train),
+                      (port_optim, ref_optim),
+                      (port_launch_train, ref_launch_train)):
         assert port.__all__ == ref.__all__
     assert set(ref_layers.__all__) <= set(port_layers.__all__)
     assert [n for n in port_attn.__all__ if n not in ("GQA", "MLA")] == \
@@ -309,7 +315,7 @@ def test_package_exports_the_reference_lm_names():
     assert [n for n in port_moe.__all__ if n != "MoE"] == ref_moe.__all__
     for mod in (port_configs, port_data, port_serve, port_models, port_attn,
                 port_moe, port_xlstm, port_ssm, port_layers, port_registry,
-                port_transformer, port_train):
+                port_transformer, port_train, port_optim, port_launch_train):
         for name in mod.__all__:
             assert hasattr(mod, name), name
 
@@ -382,7 +388,7 @@ def port_sources():
              os.path.join(ROOT, "examples", "pfft3_mesh_torch.py")]
     files += [os.path.join(ROOT, "examples", name) for name in (
         "fft_convolution_torch.py", "pfft1_large_demo_torch.py",
-        "serve_fft_demo_torch.py", "serve_lm_torch.py")]
+        "serve_fft_demo_torch.py", "serve_lm_torch.py", "train_lm_torch.py")]
     for base, _, names in os.walk(pkg):
         files += [os.path.join(base, f) for f in names if f.endswith(".py")]
     return sorted(files)
@@ -415,6 +421,7 @@ def test_importing_the_port_loads_no_jax_builds_nothing_and_touches_no_cuda():
         "import repro_torch.configs, repro_torch.models, repro_torch.data\n"
         "import repro_torch.models.xlstm, repro_torch.models.ssm\n"
         "import repro_torch.train, repro_torch.launch.serve\n"
+        "import repro_torch.optim, repro_torch.launch.train\n"
         "import torch\n"
         "from repro_torch.kernels import _build\n"
         "assert 'jax' not in sys.modules and 'repro' not in sys.modules\n"

@@ -19,6 +19,8 @@ EXAMPLES = {
     "serve_fft_demo_torch.py": ([], "served 8 requests"),
     "serve_lm_torch.py": (["--batch", "2", "--prompt-len", "12", "--gen", "4"],
                           "generated 4 tokens/seq"),
+    "train_lm_torch.py": (["--steps", "12", "--batch", "4", "--seq", "32"],
+                          "loss: "),
 }
 
 
