@@ -97,7 +97,7 @@ each of which ends the run with a non-zero exit code when it fails:
                  (one group: no drift can fire); a ``CheckpointManager``
                  round trip of a 512 MiB state on the card.
 16. ``runtime_gloo4`` 4 processes (``--dist-rank ... runtime``) sharing the
-                 card over gloo, N = 8192: position 0 slowed 3x until a
+                 card over gloo, N = 4096: position 0 slowed 3x until a
                  re-plan naming it is hot-swapped (the probes' K1 launches
                  per rank, the events, detect -> swap on the host clock);
                  then position 3 lost at a call: the world rebuilt to 2 ranks
@@ -148,6 +148,16 @@ each of which ends the run with a non-zero exit code when it fails:
                  SMOKE config in float32: 60 steps of ``run_training`` that
                  must drop the loss by 0.5, 3 steps card against host, and a
                  kill and restart from ``run_training``'s checkpoint.
+21. ``lm_train_mesh`` the trainer on a mesh (``models.sharding``,
+                 ``launch.mesh.make_local_mesh``, ``launch.train``; no FFT
+                 kernel): a world of one NCCL rank, internlm2-1.8b FULL in
+                 bf16 from ``lm_train``'s seed and batches, its state laid
+                 out on the 1 x 1 ``("data", "model")`` mesh as DTensors by
+                 the reference's sharding rules; the first loss within 1e-3
+                 of ``lm_train``'s, TRAIN_MESH_STEPS steps timed beside
+                 ``train_bounds``, one step's launches and idle share, peak
+                 memory; the SMOKE kill and restart through ``run_training``
+                 on that mesh.
 
 Then, outside the counted drives: every checked 2-D execute timed beside the
 library, and a fused batch's two layouts (batched, and the per-signal
@@ -155,11 +165,11 @@ loop) checked against the library and timed at N = 1024 ... 8192 and
 batches of 2 and 8.  Tolerances of the paths 8-10, 13 and 14:
 ``2e-4·sqrt(elements of one signal)`` (the 2-D ``2e-4·N``).
 
-Each path (4-20) is driven once with the launch counts set to 0 just before
+Each path (4-21) is driven once with the launch counts set to 0 just before
 and read just after; each of its kernels must have launched (the counts of
 ``dist_gloo4``, ``dist3_gloo4`` and ``runtime_gloo4`` are their four ranks'
-sums; ``lm_serve``, ``lm_serve_moe``, ``lm_serve_ssm`` and ``lm_train``
-must launch none of them).  Every line but the last is a log or a JSON
+sums; ``lm_serve``, ``lm_serve_moe``, ``lm_serve_ssm``, ``lm_train`` and
+``lm_train_mesh`` must launch none of them).  Every line but the last is a log or a JSON
 record; the last line is ``{"ok": true, "device": {...}}`` and is printed
 only when every phase passed.
 """
@@ -210,7 +220,7 @@ from repro_torch.kernels.fft.real import rfft_rows_plain  # noqa: E402
 from repro_torch.kernels.fused.kernel import fft_rows_transpose_plain  # noqa: E402
 from repro_torch.kernels.fused.real import rfft_rows_transpose_plain  # noqa: E402
 from repro_torch.kernels.transpose.kernel import transpose_plain  # noqa: E402
-from repro_torch.launch.mesh import (init_multihost, make_fft_mesh,  # noqa: E402
+from repro_torch.launch.mesh import (init_multihost, make_fft_mesh, make_local_mesh,  # noqa: E402
                                      make_pfft3_mesh)
 from repro_torch.launch.serve_fft import (AdmissionError, DeadlineExceeded,  # noqa: E402
                                           FFTService, _bucket)
@@ -222,7 +232,11 @@ from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.models.registry import get_config, get_smoke_config  # noqa: E402
 from repro_torch.data.pipeline import SyntheticTokenPipeline, make_batch  # noqa: E402
 from repro_torch.configs.base import TrainCfg  # noqa: E402
+from repro_torch.launch.train import state_pspecs  # noqa: E402
 from repro_torch.launch.train import run_training  # noqa: E402
+from repro_torch.models.sharding import batch_pspecs, sanitize_pspecs  # noqa: E402
+from repro_torch.runtime.elastic import reshard  # noqa: E402
+from torch.distributed.tensor import DTensor  # noqa: E402
 from repro_torch.optim import adamw_init, adamw_update  # noqa: E402
 from repro_torch.train import TrainState, init_train_state, make_train_step  # noqa: E402
 from repro_torch.train.fpm_schedule import build_step_fpm, choose_schedule  # noqa: E402
@@ -321,9 +335,10 @@ DIST3_PANELS = (2, 4)
 N_DIST3_GLOO = 256
 # The self-healing runtime: one NCCL rank, then GLOO_RANKS processes sharing
 # the card; position 0 slowed RUNTIME_SLOW times until a re-plan is swapped
-# in within RUNTIME_STRAGGLER_CALLS calls, then RUNTIME_LOST lost (8192 is
+# in within RUNTIME_STRAGGLER_CALLS calls, then RUNTIME_LOST lost (4096 is
 # not divisible by 3, so the rebuilt axis has 2 ranks and drops one).
 N_RUNTIME = 8192
+N_RUNTIME_GLOO = 4096     # runtime_gloo4's N: its host exchange dominated the phase
 RUNTIME_CALLS = 5
 RUNTIME_SLOW = 3
 RUNTIME_STRAGGLER_CALLS = 12
@@ -381,6 +396,7 @@ TRAIN_FPM_MB = (1, 2, 4)
 TRAIN_FPM_SEQ = (256, 512, 1024)
 TRAIN_PICK = dict(tokens_per_device=4096, seq_len=480, pad_candidates=[512, 1024])
 TRAIN_SMOKE_STEPS = 60
+TRAIN_MESH_STEPS = 3      # timed steps on the 1 x 1 mesh after the first
 PEAK_BF16_FLOPS = 989e12       # dense bf16 on the tensor cores
 SOURCES = "src/repro_torch/kernels/csrc/"
 
@@ -2237,7 +2253,7 @@ def runtime_worker(rank: int, port: int, out: str) -> None:
     init_multihost(f"127.0.0.1:{port}", GLOO_RANKS, rank, device_type="cuda",
                    backend="gloo")
     mesh = make_fft_mesh(device_type="cuda", backend="gloo")
-    n = N_RUNTIME
+    n = N_RUNTIME_GLOO
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     signal = random_signal(gen, n, n)
@@ -2359,10 +2375,10 @@ def phase_runtime_gloo4(card: str) -> dict[str, int]:
         for r in range(GLOO_RANKS):
             with open(f"{out}.{r}") as fh:
                 seen.append(json.load(fh))
-    tol = 2e-4 * N_RUNTIME
+    tol = 2e-4 * N_RUNTIME_GLOO
     straggler = [part["straggler"] for part in seen]
     lead = straggler[0]
-    log(phase, card=card, ranks=GLOO_RANKS, n=N_RUNTIME, run="straggler",
+    log(phase, card=card, ranks=GLOO_RANKS, n=N_RUNTIME_GLOO, run="straggler",
         calls=lead["calls"], events=lead["events"],
         detect_to_swap_s=lead["detect_to_swap_s"], replan_s=lead["replan_s"],
         schedule=lead["schedule"], probe_k1_by_rank=[s["probe_k1"] for s in straggler],
@@ -2382,7 +2398,7 @@ def phase_runtime_gloo4(card: str) -> dict[str, int]:
                              f"{lead['max_abs_err']} > {tol}")
     loss = [part["loss"] for part in seen]
     departed = [r for r, part in enumerate(loss) if part["departed"]]
-    log(phase, card=card, ranks=GLOO_RANKS, n=N_RUNTIME, run="loss",
+    log(phase, card=card, ranks=GLOO_RANKS, n=N_RUNTIME_GLOO, run="loss",
         departed=departed, **{k: v for k, v in loss[0].items() if k != "departed"})
     if departed != [2, 3] or any(not loss[r]["left_mesh"] for r in departed):
         raise AssertionError(f"{phase}: ranks {departed} left the world, "
@@ -3386,7 +3402,7 @@ def phase_lm_train(card: str) -> tuple[dict[str, int], int]:
         (``check_train_card_vs_host``); a kill and restart through
         ``run_training(ckpt_dir=)`` (``check_train_restart``).
 
-    Returns the counts and the phase's peak memory."""
+    Returns the counts, the phase's peak memory and the first step's loss."""
     phase = "lm_train"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3478,7 +3494,7 @@ def phase_lm_train(card: str) -> tuple[dict[str, int], int]:
     if any(counts.values()):
         raise AssertionError(f"the training path launched FFT kernels: {counts}")
     torch.cuda.empty_cache()
-    return counts, peak
+    return counts, peak, losses[0]
 
 
 def check_train_card_vs_host(phase: str) -> None:
@@ -3564,6 +3580,95 @@ def check_train_restart(phase: str) -> None:
         worst_ratio=err, limit=1e-4)
     if not err <= 1e-4:
         raise AssertionError(f"{phase}: resumed {resumed} vs {unbroken[5:]}")
+
+
+def mesh_state(state, mesh):
+    """``state`` resharded onto ``mesh`` as ``run_training`` lays it out."""
+    return reshard(state, mesh, state_pspecs(state, mesh), dtensor=True)
+
+
+def mesh_batch(batch: dict, mesh) -> dict:
+    """The batch laid out by the reference's batch specs (rows over
+    "data")."""
+    return reshard(batch, mesh, sanitize_pspecs(batch_pspecs(batch), batch, mesh),
+                   dtensor=True)
+
+
+def phase_lm_train_mesh(card: str, first_loss: float) -> tuple[dict[str, int], int]:
+    """The trainer on a mesh, with the launch counts set to 0 just before and
+    read just after (none of the FFT kernels):
+
+    (a) a world of one NCCL rank, ``make_local_mesh(1, 1)``: internlm2-1.8b
+        FULL in bf16 from ``lm_train``'s seed and first batch, its state
+        resharded as ``run_training`` does (every parameter, moment and
+        accumulator a DTensor of its sanitized reference placements, the
+        batch's rows over "data"), ``lm_train``'s ``TrainCfg``: the first
+        step's loss within 1e-3 (relative) of ``lm_train``'s first loss on
+        the same weights, then TRAIN_MESH_STEPS steps timed by CUDA events
+        beside ``train_bounds``, one step profiled (launches, the card's idle
+        share), the peak memory;
+    (b) on the same world, the SMOKE config through ``run_training``, which
+        now runs on the 1 x 1 mesh: the kill after the checkpoint at step 5
+        and the resumed run within 1e-4 of an unbroken one
+        (``check_train_restart``).
+
+    Returns the counts and the phase's peak memory."""
+    phase = "lm_train_mesh"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    mesh = make_local_mesh(1, 1)
+    cfg = get_config(TRAIN_ARCH)
+    tcfg = TrainCfg(lr=3e-4, warmup=2, total_steps=TRAIN_STEPS,
+                    microbatches=TRAIN_MICRO, remat=True)
+    weights = torch.Generator(device="cuda")
+    weights.manual_seed(SEED)
+    state = mesh_state(init_train_state(weights, cfg, tcfg, device="cuda"), mesh)
+    pipe = SyntheticTokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED,
+                                  device="cuda")
+    placed = all(isinstance(t, DTensor) for t in
+                 [*state.params.parameters(), *state.opt.m.values(),
+                  *state.opt.v.values()])
+    step = make_train_step(cfg, tcfg)
+    losses, step_ms = [], []
+    batch = mesh_batch(pipe.next(), mesh)
+    for i in range(1 + TRAIN_MESH_STEPS):
+        state, metrics, ms = timed_step(step, state, batch)
+        losses.append(float(metrics["loss"]))
+        step_ms.append(ms)
+        batch = mesh_batch(pipe.next(), mesh)
+    gap = abs(losses[0] - first_loss) / abs(first_loss)
+    log(phase, check="first loss vs lm_train's", mesh_loss=losses[0],
+        lm_train_loss=first_loss, relative_gap=gap, limit=1e-3,
+        dtensor_state=placed)
+    if not (placed and gap <= 1e-3 and all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"{phase}: losses {losses} vs lm_train's first "
+                             f"{first_loss}; state on the mesh: {placed}")
+    stepped = {}
+    launches = launches_of(lambda: stepped.update(state=step(state, batch)[0]))
+    state = stepped.pop("state")
+    bounds = train_bounds(state.params, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO)
+    median = statistics.median(step_ms[1:])
+    peak = torch.cuda.max_memory_allocated()
+    log(phase, step="train", card=card, kind=torch.cuda.get_device_name(0),
+        arch=cfg.name, layers=cfg.n_layers, params=bounds["params"],
+        dtype=cfg.dtype, mesh=[1, 1], batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        microbatches=TRAIN_MICRO, remat=True, losses=losses, step_ms=step_ms,
+        step_ms_median=median, bound_ms=bounds["bound_ms"],
+        bound_by=bounds["bound_by"], bound_share=bounds["bound_ms"] / median,
+        tok_s=TRAIN_BATCH * TRAIN_SEQ / median * 1e3,
+        launches_per_step=launches, peak_memory_gib=peak / 2 ** 30)
+    del state, batch, step, stepped
+    torch.cuda.empty_cache()
+    check_train_restart(phase)
+    dist.destroy_process_group()
+    counts = launch_counts()
+    log(phase, launches=counts, seconds=time.perf_counter() - t0,
+        peak_memory_gib=peak / 2 ** 30)
+    if any(counts.values()):
+        raise AssertionError(f"the mesh training path launched FFT kernels: {counts}")
+    return counts, peak
 
 
 def time_fused_batch(gen: torch.Generator, card: str) -> None:
@@ -3659,8 +3764,12 @@ def main() -> None:
     peak = max(peak, torch.cuda.max_memory_allocated())
     paths["lm_serve_ssm"], ssm_peak = timed("lm_serve_ssm", phase_lm_serve_ssm, card)
     peak = max(peak, ssm_peak)
-    paths["lm_train"], train_peak = timed("lm_train", phase_lm_train, card)
+    paths["lm_train"], train_peak, first_loss = timed("lm_train", phase_lm_train,
+                                                      card)
     peak = max(peak, train_peak)
+    paths["lm_train_mesh"], mesh_peak = timed("lm_train_mesh", phase_lm_train_mesh,
+                                              card, first_loss)
+    peak = max(peak, mesh_peak)
     for record in records:
         by_path = {path: counts[record["name"]] for path, counts in paths.items()}
         record["launches"] = sum(by_path.values())

@@ -1,12 +1,17 @@
 """End-to-end example on the PyTorch/CUDA port: train a small LM with the
 whole stack — microbatched train_step, AdamW, checkpoints, restart,
-straggler monitor — on one device.
+straggler monitor — on one device, or on a ("data", "model") mesh of
+processes.
 
 The default model is internlm2-1.8b's SMOKE config; pass --full for the
 1.9 B-parameter config (it needs a card with room for ~30 GB of state).
 
 Run on the GPU:  PYTHONPATH=src python examples/train_lm_torch.py [--steps 40]
 or on the host:  PYTHONPATH=src python examples/train_lm_torch.py --device cpu
+on a 2 x 2 mesh of gloo host ranks (one per process; the world comes from
+torchrun's environment):
+    PYTHONPATH=src torchrun --nproc-per-node 4 examples/train_lm_torch.py \
+        --device cpu --data-axis 2 --model-axis 2
 """
 
 import argparse
@@ -23,6 +28,8 @@ def main():
     ap.add_argument("--lr", type=float, default=1e-2)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--data-axis", type=int, default=1)
+    ap.add_argument("--model-axis", type=int, default=1)
     ap.add_argument("--device", default=None,
                     help="torch device; default: the CUDA device")
     args = ap.parse_args()
@@ -32,7 +39,9 @@ def main():
                               steps=args.steps, batch=args.batch,
                               seq=args.seq, ckpt_dir=ckpt_dir,
                               ckpt_every=max(10, args.steps // 3),
-                              microbatches=2, log_every=5, device=args.device)
+                              microbatches=2, log_every=5,
+                              data_axis=args.data_axis, model_axis=args.model_axis,
+                              device=args.device)
     first, last = losses[0], sum(losses[-5:]) / len(losses[-5:])
     print(f"loss: {first:.3f} -> {last:.3f} "
           f"({'LEARNED' if last < first - 0.3 else 'no clear drop'})")

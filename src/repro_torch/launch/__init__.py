@@ -1,13 +1,13 @@
 """Entry points above the plan API: ``serve_fft`` (the transform-serving
 layer) and ``mesh`` (device meshes and multi-process launch for the
-distributed pipeline).  Importing this package builds no kernel, touches no
-CUDA state and creates no process group."""
+distributed pipeline and the trainer).  Importing this package builds no
+kernel, touches no CUDA state and creates no process group."""
 
 from repro_torch.launch.mesh import (host_major_devices, init_multihost,
                                      init_multihost_from_env, make_fft_mesh,
-                                     make_pfft3_mesh, mesh_host_shape,
-                                     register_emulated_hosts)
+                                     make_local_mesh, make_pfft3_mesh,
+                                     mesh_host_shape, register_emulated_hosts)
 
-__all__ = ["make_fft_mesh", "make_pfft3_mesh", "mesh_host_shape",
-           "register_emulated_hosts",
+__all__ = ["make_local_mesh", "make_fft_mesh", "make_pfft3_mesh",
+           "mesh_host_shape", "register_emulated_hosts",
            "host_major_devices", "init_multihost", "init_multihost_from_env"]

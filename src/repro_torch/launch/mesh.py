@@ -18,6 +18,8 @@ default process group and every rank takes part in every collective.
   groups are built while the first mesh of a host partition is built, on
   every rank in the same order (creating a process group is collective),
   and every later mesh of that partition reuses them.
+* ``make_local_mesh(data, model)`` builds the trainer's 2-D ``("data",
+  "model")`` mesh over the world, row by row in host-major order.
 * ``make_pfft3_mesh(r, c, hosts=)`` builds the 2-D ``r x c`` mesh of the
   pencil pipeline over the same host-major ranks, the hosts riding the
   ``r`` axis: each host owns ``r/hosts`` contiguous mesh rows, so every
@@ -60,8 +62,9 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-__all__ = ["make_fft_mesh", "make_pfft3_mesh", "mesh_host_shape",
-           "register_emulated_hosts", "host_major_devices", "init_multihost",
+__all__ = ["make_local_mesh", "make_fft_mesh", "make_pfft3_mesh",
+           "mesh_host_shape", "register_emulated_hosts", "host_major_devices",
+           "init_multihost",
            "init_multihost_from_env", "axis_size", "mesh_device",
            "rebuild_world", "world_store", "join_world"]
 
@@ -333,6 +336,25 @@ def hier_process_groups(mesh: DeviceMesh, axis_name: str):
         raise ValueError(f"axis {axis_name!r} has no registered host "
                          "hierarchy; build the mesh with make_fft_mesh(hosts=)")
     return layout.intra, layout.inter
+
+
+def make_local_mesh(data: int = 1, model: int = 1, *,
+                    device_type: str | None = None,
+                    backend: str | None = None) -> DeviceMesh:
+    """The trainer's ``data x model`` mesh, axes named ``("data", "model")``,
+    over the whole world: rank ``(i, j)`` is the ``i*model + j``-th of the
+    host-major ranks, so a ``"model"`` line stays on one host.  The process
+    group comes up as in ``make_fft_mesh`` (a world of this process alone
+    when there is none); ``ValueError`` when ``data * model`` is not the
+    world size.  Every rank must call this alike."""
+    device_type, world = join_world(device_type, backend)
+    data, model = int(data), int(model)
+    if data < 1 or model < 1 or data * model != world:
+        raise ValueError(
+            f"the training mesh spans the whole world: {data}x{model}, but "
+            f"{world} ranks are in the process group")
+    grid = torch.tensor(host_major_devices()).reshape(data, model)
+    return DeviceMesh(device_type, grid, mesh_dim_names=("data", "model"))
 
 
 def make_fft_mesh(p: int | None = None, axis_name: str = "fft", *,

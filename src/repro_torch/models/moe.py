@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import MoECfg
+from repro_torch.models import sharding
 from repro_torch.models.layers import MLP, Dense, _weight, apply_mlp
 
 __all__ = ["moe_init", "moe_apply", "moe_capacity", "MoE"]
@@ -82,7 +83,8 @@ def _route(p: MoE, x: torch.Tensor, cfg: MoECfg):
 def moe_apply(p: MoE, x: torch.Tensor, cfg: MoECfg, *,
               mlp_kind: str = "swiglu"):
     """x: (G, T, d) -> (G, T, d) plus the aux load-balancing loss (a float32
-    scalar).  G (batch rows) are the routing groups."""
+    scalar; on a mesh, this rank's share of it).  G (batch rows) are the
+    routing groups."""
     G, T, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = moe_capacity(T, cfg)
@@ -112,8 +114,13 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: MoECfg, *,
         y = y + apply_mlp(p.shared, x, kind=mlp_kind)
 
     # aux load-balance loss (Switch-style): E * sum_e f_e * P_e, f_e over the
-    # first choice only
-    frac_tokens = F.one_hot(gate_idx[..., 0], E).float().mean((0, 1))
+    # first choice only.  On a mesh whose data ranks each hold their own
+    # rows, f_e is the mean over all of them and P_e this rank's share of
+    # it (aux is linear in P_e): the shares sum to the whole batch's aux.
+    frac_tokens = sharding.data_mean(
+        F.one_hot(gate_idx[..., 0], E).float().mean((0, 1)))
     frac_probs = probs.mean((0, 1))
+    if sharding.data_ranks() > 1:
+        frac_probs = frac_probs / sharding.data_ranks()
     aux = E * torch.sum(frac_tokens * frac_probs)
     return y, aux

@@ -48,6 +48,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (Dense, Embed, MLP, Norm, _weight,
                                        apply_mlp, apply_norm, dense)
+from repro_torch.models.sharding import constrain_batch
 
 __all__ = ["init_params", "loss_fn", "init_cache", "prefill", "decode_step",
            "forward", "Q_CHUNK", "TransformerLM"]
@@ -131,7 +132,7 @@ def _apply_tf_layer(p: TransformerLayer, x, cfg: ArchConfig, *, cache=None,
         f, aux = moe_mod.moe_apply(p.moe, h, cfg.moe, mlp_kind=cfg.mlp)
     else:
         f, aux = apply_mlp(p.mlp, h, kind=cfg.mlp), 0.0
-    return x + f, new_cache, aux
+    return constrain_batch(x + f), new_cache, aux
 
 
 def _layer_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
@@ -175,7 +176,7 @@ def _apply_xlstm(params: "TransformerLM", x, cfg: ArchConfig, caches=None):
         else:
             o, _ = xlstm_mod.slstm_apply(blk.core, h, n_heads=cfg.n_heads,
                                          hd=cfg.hd, cache=c)
-        x = x + o
+        x = constrain_batch(x + o)
     return x, caches
 
 
@@ -241,15 +242,16 @@ def _hybrid_group(params: "TransformerLM", x, cfg: ArchConfig, caches,
                           rope_mode=cfg.rope_mode, rope_theta=cfg.rope_theta,
                           causal=True, q_chunk=q_chunk, cache=ac, pos0=pos0)
     x = x + a
-    x = x + apply_mlp(shared.mlp, apply_norm(shared.ln2, x, cfg.norm),
-                      kind=cfg.mlp)
+    x = constrain_batch(
+        x + apply_mlp(shared.mlp, apply_norm(shared.ln2, x, cfg.norm),
+                      kind=cfg.mlp))
     for j, block in enumerate(group):
         if not valid[j]:
             continue
         mc = ({name: t[gi, j] for name, t in caches["mamba"].items()}
               if caches is not None else None)
         o, _ = ssm_mod.mamba2_apply(block, x, cfg.ssm, cache=mc)
-        x = x + o
+        x = constrain_batch(x + o)
     return x
 
 
@@ -343,7 +345,7 @@ def forward(params: TransformerLM, batch, cfg: ArchConfig, *,
     ``remat`` recomputes each transformer layer and each hybrid group in the
     backward pass (the xLSTM stack is not rematerialised, as in the
     reference)."""
-    x = _embed_inputs(params, batch, cfg)
+    x = constrain_batch(_embed_inputs(params, batch, cfg))
     causal = not cfg.encoder_only
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in TF_FAMILIES:
@@ -398,7 +400,7 @@ def loss_fn(params: TransformerLM, batch, cfg: ArchConfig, *,
         targets = torch.cat([pad, targets], dim=1)
     B, T, d = hidden.shape
     head = params.embed.table.T if cfg.tie_embeddings else params.lm_head.w
-    hidden2 = hidden.reshape(B * T, d)
+    hidden2 = constrain_batch(hidden.reshape(B * T, d))
     tflat = targets.reshape(B * T)
     chunk = B * T if vocab_chunk is None else vocab_chunk
     ce = _maybe_remat(_chunk_ce, True)

@@ -21,6 +21,9 @@ from typing import Any
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.models.sharding import distribute_whole
 
 __all__ = ["int8_compress", "int8_decompress", "topk_compress",
            "topk_decompress", "error_feedback_update", "compressed_psum"]
@@ -64,7 +67,17 @@ def topk_decompress(vals, idx, shape) -> torch.Tensor:
 
 def error_feedback_update(g: torch.Tensor, residual: torch.Tensor,
                           codec: str = "int8", **kw):
-    """Compress (g + residual); return (decompressed, new_residual)."""
+    """Compress (g + residual); return (decompressed, new_residual).
+
+    DTensors (of one layout) are compressed whole: the int8 scale is the
+    largest magnitude of the whole tensor, the top-k support its k largest,
+    not a block's.  Both are gathered, compressed on every rank alike, and
+    each rank keeps its blocks of the results."""
+    if isinstance(g, DTensor):
+        dec, new_r = error_feedback_update(g.full_tensor(),
+                                           residual.full_tensor(), codec, **kw)
+        return (distribute_whole(dec, g.device_mesh, g.placements),
+                distribute_whole(new_r, residual.device_mesh, residual.placements))
     total = g.to(torch.float32) + residual
     if codec == "int8":
         dec = int8_decompress(*int8_compress(total))

@@ -16,7 +16,9 @@ numpy arrays and scalars, and modules, stored as their
 ``named_parameters()``; ``restore`` fills the structure of ``like`` (tensor
 leaves come back as tensors of their dtype on their device, a meta tensor's
 on the host; array leaves as arrays; a module's parameters are written in
-place and the module itself comes back).  So a training state
+place and the module itself comes back; a DTensor leaf is stored whole,
+gathered by every rank and written by the first, and restored as this
+rank's block in the layout of ``like``'s).  So a training state
 (``train.TrainState``: the model, its moments, its residuals) saves and
 restores whole; such a file restores in the reference only where its keys
 and structure match the reference's tree, which a module's parameter names
@@ -34,7 +36,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.models.sharding import local_block, distribute_whole
 from repro_torch.runtime._tree import tree_leaves_with_keys, tree_map_with_keys
 
 __all__ = ["CheckpointManager"]
@@ -46,29 +51,43 @@ _STEP_DIR = re.compile(r"^step_(\d+)$")
 
 def _host_array(leaf: Any) -> tuple[np.ndarray, bool]:
     """(the leaf on the host as a numpy array, whether it is bf16 — then
-    as its uint16 view)."""
+    as its uint16 view); a DTensor whole (a collective)."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = leaf.detach()
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
+        t = t.cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), True
         return t.numpy(), False
     return np.asarray(leaf), False
 
 
-def _flatten(tree: Any) -> dict[str, np.ndarray]:
-    flat = {}
+def _flatten(tree: Any) -> tuple[dict[str, np.ndarray], bool]:
+    """(the leaves on the host by key, whether any was a DTensor)."""
+    flat, shared = {}, False
     for key, leaf in tree_leaves_with_keys(tree):
+        shared = shared or isinstance(leaf, DTensor)
         arr, bf16 = _host_array(leaf)
         flat[key + _BF16_SUFFIX if bf16 else key] = arr
-    return flat
+    return flat, shared
 
 
 def _restored(arr: np.ndarray, bf16: bool, like: Any) -> Any:
     """A stored array in the form of ``like``'s leaf; a module's parameter
-    is written in place and given back."""
+    is written in place and given back.  A DTensor leaf gets this rank's
+    block of the whole stored tensor, laid out as ``like``."""
     if isinstance(like, torch.Tensor):
         t = (torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
              .view(torch.bfloat16) if bf16 else torch.from_numpy(arr.copy()))
+        if isinstance(like, DTensor):
+            t = t.to(dtype=like.dtype, device=like.device)
+            if isinstance(like, torch.nn.Parameter):
+                with torch.no_grad():
+                    like.to_local().copy_(
+                        local_block(t, like.device_mesh, like.placements))
+                return like
+            return distribute_whole(t, like.device_mesh, like.placements)
         if isinstance(like, torch.nn.Parameter):
             with torch.no_grad():
                 like.copy_(t)
@@ -99,21 +118,34 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._barrier = False     # a mesh save whose barrier is still owed
 
     # -- write --
 
     def save(self, step: int, state: Any, extra: dict | None = None,
              blocking: bool = True) -> None:
-        flat = _flatten(state)           # device->host copy happens here
+        """Write ``state`` as checkpoint ``step``.  A state that holds
+        DTensors is saved by every rank of its world alike: each gathers
+        the whole tensors here, on the calling thread (a collective in the
+        writer thread could deadlock against the caller's), the first rank
+        alone writes, and a barrier follows the write (in ``wait`` for a
+        background one)."""
+        flat, shared = _flatten(state)   # device->host copy happens here
         meta = {"step": step, "extra": extra or {}}
+        writes = not shared or dist.get_rank() == 0
         if blocking:
-            self._write(step, flat, meta)
+            if writes:
+                self._write(step, flat, meta)
+            if shared:
+                dist.barrier()
         else:
             self.wait()                  # at most one in-flight write
-            self._thread = threading.Thread(
-                target=self._write_guarded, args=(step, flat, meta),
-                daemon=True)
-            self._thread.start()
+            if writes:
+                self._thread = threading.Thread(
+                    target=self._write_guarded, args=(step, flat, meta),
+                    daemon=True)
+                self._thread.start()
+            self._barrier = shared
 
     def wait(self) -> None:
         """Join any in-flight background write; re-raise its failure.
@@ -121,10 +153,15 @@ class CheckpointManager:
         The error of a background write that died (disk full,
         permissions) is captured in the thread wrapper and re-raised here
         (and by the next ``save(blocking=False)``, which waits first), so
-        a lost checkpoint is loud exactly once."""
+        a lost checkpoint is loud exactly once.  After a save of DTensors
+        every rank meets at a barrier here, so that none reads the
+        directory before the write is done."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

@@ -14,7 +14,9 @@ survivors on a model_axis-4 grid, 3 survivors for an N no 3 divides)
 leaves ranks idle, and the result carries the dropped count so the caller
 can log capacity it is leaving on the floor.
 
-State: ``reshard`` cuts this rank's share of whole tensors for a mesh.  The
+State: ``reshard`` cuts this rank's share of whole tensors for a mesh: a
+plain row block for the FFT runtime, a DTensor for any other layout (a
+trainer's state on its ``("data", "model")`` mesh).  The
 runtime gathers the whole tensors over the old world before it goes away
 (``gather_whole``); an emulated loss leaves the old world intact for that.
 A rank that truly died takes its block with it, and only a checkpoint
@@ -28,12 +30,15 @@ from typing import Any, Sequence
 
 import torch
 import torch.distributed as dist
+from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Placement
 
 from repro_torch.launch.mesh import (axis_size, host_major_devices,
-                                     join_world, make_fft_mesh, mesh_device,
+                                     join_world, make_fft_mesh,
+                                     make_local_mesh, mesh_device,
                                      rebuild_world)
-from repro_torch.runtime._tree import tree_map
+from repro_torch.models.sharding import distribute_whole, placements
 
 __all__ = ["RebuildResult", "rebuild_mesh", "rebuild_fft_mesh", "reshard",
            "largest_grid", "largest_fft_axis"]
@@ -68,20 +73,35 @@ def largest_grid(n_devices: int, model_axis: int) -> tuple[int, int]:
 
 def rebuild_mesh(ranks: Sequence[int] | None = None, *, model_axis: int = 16,
                  device_type: str | None = None,
-                 backend: str | None = None) -> RebuildResult:
+                 backend: str | None = None,
+                 reform_world: bool = False) -> RebuildResult:
     """The (data, model) grid of a trainer as a 2-D ``DeviceMesh`` over
     ``ranks`` of the current world (default: all of them, host-major);
     ranks past the grid are dropped.  Every rank of the world calls it
-    (it creates process groups)."""
-    device_type, _ = join_world(device_type, backend)
+    (it creates process groups).
+
+    ``reform_world=True`` (the trainer's restart): when the grid is not the
+    whole world, the world is first rebuilt over the grid's ranks
+    (``launch.mesh.rebuild_world``) and every other rank leaves it; the
+    mesh is then ``launch.mesh.make_local_mesh`` of the new world."""
+    device_type, world = join_world(device_type, backend)
     ranks = host_major_devices(ranks)
     data, model = largest_grid(len(ranks), model_axis)
     used = data * model
+    dropped = len(ranks) - used
+    if reform_world:
+        members = ranks[:used]
+        if members != list(range(world)) and rebuild_world(members) is None:
+            return RebuildResult(mesh=None, used=used, dropped=dropped)
+        return RebuildResult(mesh=make_local_mesh(data, model,
+                                                  device_type=device_type,
+                                                  backend=dist.get_backend()),
+                             used=used, dropped=dropped)
     grid = torch.tensor(ranks[:used]).reshape(data, model)
     mesh = DeviceMesh(device_type, grid,
                       mesh_dim_names=("data", "model"))
     return RebuildResult(mesh=mesh if dist.get_rank() in ranks[:used] else None,
-                         used=used, dropped=len(ranks) - used)
+                         used=used, dropped=dropped)
 
 
 def largest_fft_axis(n_devices: int, n: int) -> int:
@@ -145,16 +165,68 @@ def _row_axis(spec) -> str | None:
     return spec[0] if spec else None
 
 
-def reshard(tree: Any, mesh: DeviceMesh, pspecs: Any) -> Any:
-    """This rank's share of whole tensors on ``mesh``: a leaf whose spec
-    names an axis (``("fft", None)``, the reference's ``P("fft", None)``)
-    becomes this rank's contiguous block of its leading dimension; a leaf
-    whose spec is None is replicated, whole.  Leaves (tensors or host
-    arrays) land on this rank's device."""
+def _splits_rows_only(spec) -> bool:
+    """Whether a spec is a plain row block's (``_row_axis``): None, an axis
+    name, or one axis on the leading dimension alone."""
+    if spec is None or isinstance(spec, str):
+        return True
+    spec = tuple(spec)
+    return (all(s is None for s in spec[1:])
+            and not (spec and isinstance(spec[0], tuple)))
+
+
+def _is_placements(spec) -> bool:
+    return (isinstance(spec, (tuple, list)) and len(spec) > 0
+            and all(isinstance(p, Placement) for p in spec))
+
+
+def _as_dtensor(x: torch.Tensor, mesh: DeviceMesh, spec) -> DTensor:
+    """Whole ``x`` laid out on ``mesh`` by a spec or by placements."""
+    places = tuple(spec) if _is_placements(spec) else placements(spec or (), mesh)
+    return distribute_whole(x, mesh, places)
+
+
+def _walk(tree: Any, specs: Any, leaf, module) -> Any:
+    """``leaf(x, spec)`` of each leaf of nested dicts / lists / tuples (named
+    tuples kept), ``module(m, specs)`` of each module (its specs a dict by
+    parameter name), with the specs at the same place."""
+    if isinstance(tree, nn.Module):
+        return module(tree, specs)
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return type(tree)((k, _walk(v, specs[k], leaf, module))
+                          for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        out = [_walk(v, specs[i], leaf, module) for i, v in enumerate(tree)]
+        return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(out)
+    return leaf(tree, specs)
+
+
+def reshard(tree: Any, mesh: DeviceMesh, pspecs: Any, *,
+            dtensor: bool = False) -> Any:
+    """This rank's share of whole tensors on ``mesh``.
+
+    A leaf whose spec splits its leading dimension over one axis (``("fft",
+    None)``, the reference's ``P("fft", None)``) becomes this rank's
+    contiguous block of rows; a leaf whose spec is None is replicated,
+    whole: the FFT runtime's plain blocks.  A leaf whose spec splits a later
+    dimension, or one dimension over two axes (``(None, "model")``,
+    ``(("data", "model"), None)``), or that is given as DTensor placements,
+    becomes a ``DTensor`` (``models.sharding.distribute_whole``); so does
+    every leaf with a spec under ``dtensor=True`` (a trainer's state, whose
+    replicated moments live on the mesh too; a leaf whose spec is None, a
+    step counter, stays whole and plain).  A module's parameters always become
+    DTensor parameters, written into the module, its specs a dict by
+    parameter name.  Leaves (tensors or host arrays) land on this rank's
+    device."""
     device = mesh_device(mesh)
 
     def put(x, spec):
         x = torch.as_tensor(x)
+        if (dtensor and spec is not None) or _is_placements(spec) \
+                or not _splits_rows_only(spec):
+            return _as_dtensor(x.detach().to(device), mesh, spec)
         axis = _row_axis(spec)
         if axis is not None:
             p = axis_size(mesh, axis)
@@ -166,15 +238,27 @@ def reshard(tree: Any, mesh: DeviceMesh, pspecs: Any) -> Any:
             x = x[pos * rows:(pos + 1) * rows]
         return x.to(device).contiguous()
 
-    return tree_map(put, tree, pspecs)
+    def module(node, specs):
+        for name, p in list(node.named_parameters()):
+            owner_name, _, attr = name.rpartition(".")
+            owner = node.get_submodule(owner_name)
+            owner._parameters[attr] = nn.Parameter(
+                _as_dtensor(p.detach().to(device), mesh, specs[name]),
+                requires_grad=p.requires_grad)
+        return node
+
+    return _walk(tree, pspecs, put, module)
 
 
 def gather_whole(tree: Any, mesh: DeviceMesh, pspecs: Any) -> Any:
-    """The inverse of ``reshard``: every rank's blocks of each split leaf
-    gathered, in mesh order, into the whole tensor on every rank of the
-    axis; replicated leaves as they are.  Collective over the axes the
-    specs name."""
+    """The inverse of ``reshard``: a DTensor leaf gathered whole
+    (``full_tensor``), every rank's blocks of each row-split leaf gathered,
+    in mesh order, into the whole tensor on every rank of the axis;
+    replicated leaves as they are; a module as the dict of its parameters
+    by name.  Collective over the axes the specs name."""
     def whole(x, spec):
+        if isinstance(x, DTensor):
+            return x.full_tensor()
         axis = _row_axis(spec)
         if axis is None:
             return x
@@ -187,4 +271,8 @@ def gather_whole(tree: Any, mesh: DeviceMesh, pspecs: Any) -> Any:
         out = torch.cat(blocks).to(x.device)
         return torch.view_as_complex(out) if x.is_complex() else out
 
-    return tree_map(whole, tree, pspecs)
+    def module(node, specs):
+        return {name: whole(p.detach(), specs[name])
+                for name, p in node.named_parameters()}
+
+    return _walk(tree, pspecs, whole, module)

@@ -254,16 +254,15 @@ def test_package_exports_the_reference_runtime_names():
         port_runtime.NotAName
 
 
-LM_SHARDING_NAMES = {"param_pspecs", "batch_pspecs", "cache_pspecs"}
-
-
 def test_package_exports_the_reference_lm_names():
-    """The LM path exports the reference's names, less those of sharding
-    (``models``; they come with the trainer on a mesh) and of the dry-run
-    (``data.input_specs``): ``train``, ``optim`` and ``launch.train`` all of
-    theirs, ``models.transformer`` ``loss_fn`` too; ``models.attention``,
-    ``models.moe``, ``models.xlstm`` and ``models.ssm`` add their modules
-    (``GQA``, ``MLA``, ``MoE``, ``MLSTM``, ``SLSTM``, ``Mamba2``)."""
+    """The LM path exports the reference's names, less those of the dry-run
+    (``data.input_specs``): ``models`` all of them, the sharding specs
+    included, ``models.sharding`` the reference's and the port's layer on a
+    mesh, ``launch.mesh`` ``make_local_mesh``; ``train``, ``optim`` and
+    ``launch.train`` all of theirs, ``models.transformer`` ``loss_fn`` too;
+    ``models.attention``, ``models.moe``, ``models.xlstm`` and
+    ``models.ssm`` add their modules (``GQA``, ``MLA``, ``MoE``,
+    ``MLSTM``, ``SLSTM``, ``Mamba2``)."""
     import repro.configs as ref_configs
     import repro.data as ref_data
     import repro.launch.serve as ref_serve
@@ -296,7 +295,14 @@ def test_package_exports_the_reference_lm_names():
     def without(names, dropped):
         return [n for n in names if n not in dropped]
 
-    assert port_models.__all__ == without(ref_models.__all__, LM_SHARDING_NAMES)
+    import repro.launch.mesh as ref_mesh
+    import repro.models.sharding as ref_sharding
+    import repro_torch.launch.mesh as port_mesh
+    import repro_torch.models.sharding as port_sharding
+
+    assert port_models.__all__ == ref_models.__all__
+    assert port_sharding.__all__[:len(ref_sharding.__all__)] == ref_sharding.__all__
+    assert "make_local_mesh" in ref_mesh.__all__ and "make_local_mesh" in port_mesh.__all__
     assert port_transformer.__all__[:-1] == ref_transformer.__all__
     assert "loss_fn" in port_transformer.__all__
     assert port_data.__all__ == without(ref_data.__all__, {"input_specs"})
@@ -315,7 +321,8 @@ def test_package_exports_the_reference_lm_names():
     assert [n for n in port_moe.__all__ if n != "MoE"] == ref_moe.__all__
     for mod in (port_configs, port_data, port_serve, port_models, port_attn,
                 port_moe, port_xlstm, port_ssm, port_layers, port_registry,
-                port_transformer, port_train, port_optim, port_launch_train):
+                port_transformer, port_train, port_optim, port_launch_train,
+                port_sharding, port_mesh):
         for name in mod.__all__:
             assert hasattr(mod, name), name
 
@@ -385,7 +392,9 @@ def port_sources():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "examples", "quickstart_torch.py"),
              os.path.join(ROOT, "examples", "kernel_check_torch.py"),
-             os.path.join(ROOT, "examples", "pfft3_mesh_torch.py")]
+             os.path.join(ROOT, "examples", "pfft3_mesh_torch.py"),
+             os.path.join(ROOT, "examples", "fft2d_pipeline_torch.py"),
+             os.path.join(ROOT, "scripts", "gloo_cuda_collectives_probe.py")]
     files += [os.path.join(ROOT, "examples", name) for name in (
         "fft_convolution_torch.py", "pfft1_large_demo_torch.py",
         "serve_fft_demo_torch.py", "serve_lm_torch.py", "train_lm_torch.py")]
@@ -422,6 +431,7 @@ def test_importing_the_port_loads_no_jax_builds_nothing_and_touches_no_cuda():
         "import repro_torch.models.xlstm, repro_torch.models.ssm\n"
         "import repro_torch.train, repro_torch.launch.serve\n"
         "import repro_torch.optim, repro_torch.launch.train\n"
+        "import repro_torch.models.sharding, repro_torch.launch.mesh\n"
         "import torch\n"
         "from repro_torch.kernels import _build\n"
         "assert 'jax' not in sys.modules and 'repro' not in sys.modules\n"

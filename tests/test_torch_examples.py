@@ -51,6 +51,27 @@ def test_serve_lm_example_serves_the_recurrent_archs_on_the_host(arch):
     assert expect in done.stdout, done.stdout[-3000:]
 
 
+def test_fft2d_pipeline_example_runs_on_gloo_host_ranks():
+    """``fft2d_pipeline_torch.py``, the sibling of ``fft2d_pipeline.py``: the
+    five variants of ``make_pfft2_fn`` (the last picked by
+    ``tune_config(mode="estimate", panels=)``) on 4 gloo ranks of the host,
+    each gathered within ``2e-4·N`` of ``numpy.fft.fft2``."""
+    n = 128
+    done = run("fft2d_pipeline_torch.py", ["--n", str(n), "--ranks", "4"])
+    assert done.returncode == 0, done.stderr[-3000:]
+    lines = [ln for ln in done.stdout.splitlines() if ln.startswith("distributed pfft2")]
+    assert len(lines) == 5 and "estimate-planned" in lines[-1], done.stdout
+    for ln in lines:
+        assert "shards=4" in ln
+        assert float(ln.split("max_err=")[1].split()[0]) <= 2e-4 * n, ln
+    assert "collective transpose pattern" in done.stdout
+    path = os.path.join(ROOT, "examples", "fft2d_pipeline_torch.py")
+    roots = {(node.module or "").split(".")[0]
+             for node in ast.walk(ast.parse(open(path).read()))
+             if isinstance(node, ast.ImportFrom) and node.level == 0}
+    assert "repro_torch" in roots and not {"jax", "repro"} & roots
+
+
 @pytest.mark.parametrize("script", sorted(EXAMPLES))
 def test_example_needs_a_card_by_default(script):
     done = run(script, EXAMPLES[script][0], CUDA_VISIBLE_DEVICES="")

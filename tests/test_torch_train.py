@@ -719,12 +719,47 @@ def test_run_training_learns_on_the_host():
 
 
 def test_one_device_refuses_what_needs_a_mesh():
-    for axes in ({"data_axis": 2}, {"model_axis": 4}):
-        with pytest.raises(NotImplementedError, match="M11d-b"):
-            port_launch.run_training("internlm2_1_8b", device="cpu", **axes)
-    _, pc = configs("internlm2_1_8b", "float32")
-    with pytest.raises(NotImplementedError, match="M11d-b"):
-        port_step.make_train_step(pc, port_base.TrainCfg(), grad_shardings={})
+    """One process: a 2 x 1 or 1 x 4 mesh needs 2 or 4 ranks, and a world of
+    one refuses it (``make_local_mesh``: the mesh spans the world); the same
+    calls at 1 x 1 train on the mesh of that world, the state DTensors, the
+    losses those of the run without a process group; ``make_train_step(
+    grad_shardings={})`` (every accumulator laid out as its parameter)
+    steps such a state."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import init_multihost, make_local_mesh
+
+    kw = dict(steps=3, batch=4, seq=16, device="cpu", log_every=100)
+    assert not dist.is_initialized()
+    alone = port_launch.run_training("internlm2_1_8b", **kw)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    init_multihost(f"127.0.0.1:{port}", 1, 0, device_type="cpu")
+    try:
+        for axes in ({"data_axis": 2}, {"model_axis": 4}):
+            with pytest.raises(ValueError, match="spans the whole world"):
+                port_launch.run_training("internlm2_1_8b", **kw, **axes)
+        on_mesh = port_launch.run_training("internlm2_1_8b", data_axis=1,
+                                           model_axis=1, **kw)
+        np.testing.assert_allclose(on_mesh, alone, rtol=1e-6)
+        _, pc = configs("internlm2_1_8b", "float32")
+        tcfg = port_base.TrainCfg(microbatches=2)
+        mesh = make_local_mesh(device_type="cpu")
+        state = port_step.init_train_state(torch.Generator().manual_seed(0), pc,
+                                           tcfg, device="cpu")
+        state = port_launch.reshard(state, mesh, port_launch.state_pspecs(state, mesh),
+                                    dtensor=True)
+        step = port_step.make_train_step(pc, tcfg, grad_shardings={})
+        state, m = step(state, port_data.make_batch(pc, 4, 16, seed=0, step=0,
+                                                    device="cpu"))
+        assert np.isfinite(float(m["loss"])) and int(state.opt.step) == 1
+        assert all(isinstance(p, DTensor) for p in state.params.parameters())
+        assert all(isinstance(t, DTensor) for t in state.opt.m.values())
+    finally:
+        dist.destroy_process_group()
 
 
 def test_training_defaults_to_the_card_and_raises_without_one(monkeypatch):
