@@ -74,8 +74,8 @@ each of which ends the run with a non-zero exit code when it fails:
 12. ``dist_gloo4`` 4 processes (this script with ``--dist-rank``) sharing
                  the card over gloo with CUDA tensors, the exchange through
                  the host: ``radix=4``, fused, the hierarchical exchange on 2
-                 emulated hosts x 2, 2 panels and ``rfft-lb`` at N = 8192,
-                 each rank on its (2048, 8192) block, rank 0 gathering the
+                 emulated hosts x 2, 2 panels and ``rfft-lb`` at N = 4096,
+                 each rank on its (1024, 4096) block, rank 0 gathering the
                  blocks against the library; every rank's launches checked.
 13. ``dist3``    the 3-D mesh pipelines on a world of one NCCL rank:
                  ``plan_pfft3(512, mesh=make_pfft3_mesh(1, 1))`` under the
@@ -87,7 +87,7 @@ each of which ends the run with a non-zero exit code when it fails:
 14. ``dist3_gloo4`` 4 processes (``--dist-rank ... 3d``) sharing the card
                  over gloo: pencils of 2x2 (and 2 panels), 1x4, 4x1 and 4x1
                  over 2 emulated hosts with ``exchange="hier"``, slabs flat
-                 and 2 hosts x 2 with ``hier``, 256^3, rank 0 gathering the
+                 and 2 hosts x 2 with ``hier``, 128^3, rank 0 gathering the
                  blocks by mesh coordinates against ``torch.fft.fftn``.
 15. ``runtime``  the self-healing runtime (``repro_torch.runtime``) on a world
                  of one NCCL rank, N = 8192: ``repeated(K1, 3)`` bit for bit
@@ -158,6 +158,21 @@ each of which ends the run with a non-zero exit code when it fails:
                  ``train_bounds``, one step's launches and idle share, peak
                  memory; the SMOKE kill and restart through ``run_training``
                  on that mesh.
+22. ``dryrun``   the dry-run (``repro_torch.launch.dryrun``, ``roofline``;
+                 no FFT kernel, nothing allocated) in a process of its own,
+                 so its fake world never meets an NCCL one, started before
+                 ``build`` and awaited before ``kernels`` (it needs the
+                 host, not the card, and overlaps only the compile, which
+                 is not timed), its launch counts set to 0 and read around
+                 each of its two traces there, and read here:
+                 (a) the ``lm_train`` step (internlm2-1.8b FULL, the same
+                 batch, microbatches and remat) counted on fake CUDA
+                 tensors over a fake 1 x 1 mesh, its operations within
+                 [0.85, 1.15] of ``train_bounds``' and its roofline bound beside
+                 ``lm_train``'s measured median step; (b) one production
+                 cell at full width, internlm2-1.8b x decode_32k on the
+                 fake 16x16 mesh through ``run_cell``, its roofline and
+                 memory printed.
 
 Then, outside the counted drives: every checked 2-D execute timed beside the
 library, and a fused batch's two layouts (batched, and the per-signal
@@ -165,17 +180,18 @@ loop) checked against the library and timed at N = 1024 ... 8192 and
 batches of 2 and 8.  Tolerances of the paths 8-10, 13 and 14:
 ``2e-4·sqrt(elements of one signal)`` (the 2-D ``2e-4·N``).
 
-Each path (4-21) is driven once with the launch counts set to 0 just before
+Each path (4-22) is driven once with the launch counts set to 0 just before
 and read just after; each of its kernels must have launched (the counts of
 ``dist_gloo4``, ``dist3_gloo4`` and ``runtime_gloo4`` are their four ranks'
-sums; ``lm_serve``, ``lm_serve_moe``, ``lm_serve_ssm``, ``lm_train`` and
-``lm_train_mesh`` must launch none of them).  Every line but the last is a log or a JSON
-record; the last line is ``{"ok": true, "device": {...}}`` and is printed
-only when every phase passed.
+sums; ``lm_serve``, ``lm_serve_moe``, ``lm_serve_ssm``, ``lm_train``,
+``lm_train_mesh`` and ``dryrun`` must launch none of them).  Every line but
+the last is a log or a JSON record; the last line is ``{"ok": true,
+"device": {...}}`` and is printed only when every phase passed.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import copy
 import dataclasses
@@ -231,7 +247,7 @@ from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.models.registry import get_config, get_smoke_config  # noqa: E402
 from repro_torch.data.pipeline import SyntheticTokenPipeline, make_batch  # noqa: E402
-from repro_torch.configs.base import TrainCfg  # noqa: E402
+from repro_torch.configs.base import ShapeCfg, TrainCfg  # noqa: E402
 from repro_torch.launch.train import state_pspecs  # noqa: E402
 from repro_torch.launch.train import run_training  # noqa: E402
 from repro_torch.models.sharding import batch_pspecs, sanitize_pspecs  # noqa: E402
@@ -318,8 +334,9 @@ FUSED_BATCH_SHAPES = [(1024, 2), (1024, 8), (4096, 2), (4096, 8), (8192, 2),
 # NCCL (the exchange sends to itself), its fpm-pad run at 4096 (padded to
 # 2N = 8192), the panel counts raced; then a world of GLOO_RANKS processes
 # sharing the card over gloo (the exchange through the host), 2 emulated
-# hosts x 2 for the hierarchical exchange.
+# hosts x 2 for the hierarchical exchange, at N = 4096 (34.6 s at 8192).
 N_DIST = 8192
+N_DIST_GLOO = 4096
 N_DIST_PAD = 4096
 DIST_PANELS = (2, 4, 8)
 GLOO_RANKS = 4
@@ -328,11 +345,11 @@ GLOO_TIMEOUT_S = 600
 # mesh of one NCCL rank (and a slab of one), the panel counts raced; then
 # GLOO_RANKS processes sharing the card over gloo on pencil meshes of 2x2,
 # 1x4, 4x1 and 4x1 over 2 emulated hosts, and slabs flat and 2 hosts x 2,
-# on a 256^3 cube: the exchange goes through the host, and at 512^3 this
-# was the script's longest path (49 s on the H100).
+# on a 128^3 cube: the exchange goes through the host (49 s at 512^3 on the
+# H100, 27.2 s at 256^3).
 N_DIST3 = 512
 DIST3_PANELS = (2, 4)
-N_DIST3_GLOO = 256
+N_DIST3_GLOO = 128
 # The self-healing runtime: one NCCL rank, then GLOO_RANKS processes sharing
 # the card; position 0 slowed RUNTIME_SLOW times until a re-plan is swapped
 # in within RUNTIME_STRAGGLER_CALLS calls, then RUNTIME_LOST lost (4096 is
@@ -397,6 +414,9 @@ TRAIN_FPM_SEQ = (256, 512, 1024)
 TRAIN_PICK = dict(tokens_per_device=4096, seq_len=480, pad_candidates=[512, 1024])
 TRAIN_SMOKE_STEPS = 60
 TRAIN_MESH_STEPS = 3      # timed steps on the 1 x 1 mesh after the first
+DRYRUN_CELL = ("internlm2_1_8b", "decode_32k")
+DRYRUN_OPS_RATIO = (0.85, 1.15)   # counted / train_bounds' operations
+DRYRUN_TIMEOUT_S = 300
 PEAK_BF16_FLOPS = 989e12       # dense bf16 on the tensor cores
 SOURCES = "src/repro_torch/kernels/csrc/"
 
@@ -699,12 +719,12 @@ def batched_row_shapes() -> dict[str, set[tuple[int, int]]]:
     # The distributed paths: each rank's (N/p, N) block, its panels, the
     # (hc/p, N) spectral rows of the real path's phase 2, and the fpm-pad
     # run's rows at their padded length.
-    for p in (1, GLOO_RANKS):
-        rows = N_DIST // p
-        shapes["fft_rows"].update((rows // k, N_DIST) for k in (1, *DIST_PANELS))
-        shapes["fft_rows"].add((halfspec_cols(N_DIST, p) // p, N_DIST))
-        shapes["fft_rows_transpose"].add((rows, N_DIST))
-        shapes["rfft_rows"].add((rows, N_DIST))
+    for n, p in ((N_DIST, 1), (N_DIST_GLOO, GLOO_RANKS)):
+        rows = n // p
+        shapes["fft_rows"].update((rows // k, n) for k in (1, *DIST_PANELS))
+        shapes["fft_rows"].add((halfspec_cols(n, p) // p, n))
+        shapes["fft_rows_transpose"].add((rows, n))
+        shapes["rfft_rows"].add((rows, n))
     shapes["fft_rows"].add((N_DIST_PAD, 2 * N_DIST_PAD))
     # The 3-D mesh pipelines: a pass over each rank's pencil (or slab) rows,
     # N^2/q of them on q ranks, and its panels.
@@ -1830,7 +1850,7 @@ def dist_worker(rank: int, port: int, out: str) -> None:
                             world_size=GLOO_RANKS, rank=rank)
     flat = make_fft_mesh(device_type="cuda", backend="gloo")
     hier = make_fft_mesh(hosts=2, local=2, device_type="cuda", backend="gloo")
-    n, w = N_DIST, N_DIST // GLOO_RANKS
+    n, w = N_DIST_GLOO, N_DIST_GLOO // GLOO_RANKS
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     signal = random_signal(gen, n, n)
@@ -1887,14 +1907,14 @@ def phase_dist_gloo4(card: str, mode: str = "2d") -> dict[str, int]:
     """Drive a distributed path once on GLOO_RANKS processes sharing the
     card over gloo with CUDA tensors: ``mode="2d"`` (phase ``dist_gloo4``,
     ``dist_worker``) runs ``radix=4``, fused, the hierarchical exchange on 2
-    emulated hosts x 2, 2 pipelined panels and ``rfft-lb`` at N = N_DIST;
+    emulated hosts x 2, 2 pipelined panels and ``rfft-lb`` at N = N_DIST_GLOO;
     ``mode="3d"`` (phase ``dist3_gloo4``, ``dist3_worker``) the pencil and
     slab runs of ``gloo3_runs`` at N_DIST3_GLOO^3; each gathered on rank 0
     against the library.  Every rank must launch exactly what the mode's
     expectation says per run; the path's counts are the sums over the
     ranks."""
     phase = "dist_gloo4" if mode == "2d" else "dist3_gloo4"
-    n = N_DIST if mode == "2d" else N_DIST3_GLOO
+    n = N_DIST_GLOO if mode == "2d" else N_DIST3_GLOO
     # The ranks share the card with this process: hand its cached blocks
     # back to the device first.
     torch.cuda.empty_cache()
@@ -3379,7 +3399,7 @@ def train_breakdown(state, batch: dict, cfg, tcfg) -> dict[str, float]:
     return out
 
 
-def phase_lm_train(card: str) -> tuple[dict[str, int], int]:
+def phase_lm_train(card: str) -> tuple[dict[str, int], int, float, float]:
     """Training on one device, with the launch counts set to 0 just before
     and read just after (it runs none of the FFT kernels):
 
@@ -3402,7 +3422,8 @@ def phase_lm_train(card: str) -> tuple[dict[str, int], int]:
         (``check_train_card_vs_host``); a kill and restart through
         ``run_training(ckpt_dir=)`` (``check_train_restart``).
 
-    Returns the counts, the phase's peak memory and the first step's loss."""
+    Returns the counts, the phase's peak memory, the first step's loss and
+    the median step's ms."""
     phase = "lm_train"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3494,7 +3515,7 @@ def phase_lm_train(card: str) -> tuple[dict[str, int], int]:
     if any(counts.values()):
         raise AssertionError(f"the training path launched FFT kernels: {counts}")
     torch.cuda.empty_cache()
-    return counts, peak, losses[0]
+    return counts, peak, losses[0], median
 
 
 def check_train_card_vs_host(phase: str) -> None:
@@ -3671,6 +3692,130 @@ def phase_lm_train_mesh(card: str, first_loss: float) -> tuple[dict[str, int], i
     return counts, peak
 
 
+def dryrun_worker(out: str) -> None:
+    """Phase ``dryrun``'s counting, in a process of its own (``--dryrun
+    out``): (a) ``lm_train``'s step on a fake 1 x 1 mesh, (b) the
+    DRYRUN_CELL on the fake 16x16 production mesh; both on fake CUDA
+    tensors, written to ``out`` as JSON."""
+    started = time.perf_counter()
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import roofline_terms
+
+    t0 = time.perf_counter()
+    shape = ShapeCfg("lm_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tcfg = TrainCfg(microbatches=TRAIN_MICRO, remat=True)
+    launches = {}
+    reset_launch_counts()          # ---- (a)'s single drive starts
+    with dryrun.fake_world((1, 1)) as mesh:
+        parts, meta = dryrun.lower_cell(TRAIN_ARCH, shape.name, mesh=mesh,
+                                        shape=shape, tcfg=tcfg)
+        cost, coll, mems = dryrun.trace_parts(parts, meta)
+        bounds = train_bounds(parts[0][1].args[0].params, TRAIN_BATCH, TRAIN_SEQ,
+                              TRAIN_MICRO)
+        del parts
+    launches["lm_train"] = launch_counts()   # ---- and ends
+    terms = roofline_terms(cost, "", 1, meta["model_flops"], coll_bytes=coll)
+    train = {"flops": cost["flops"], "bytes_accessed": cost["bytes accessed"],
+             "coll_bytes": coll, "memory": mems[0][1], "bound_s": terms.bound_s,
+             "dominant": terms.dominant, "roofline": terms.to_dict(),
+             "train_bounds_flops": bounds["flops"],
+             "train_bounds_ms": bounds["bound_ms"],
+             "seconds": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launch_counts()      # ---- (b)'s single drive starts
+        cell = dryrun.run_cell(*DRYRUN_CELL, out_dir=tmp)
+        launches["cell"] = launch_counts()   # ---- and ends
+    cell["seconds"] = time.perf_counter() - t0
+    with open(out, "w") as fh:
+        json.dump({"train": train, "cell": cell, "launches": launches,
+                   "seconds": time.perf_counter() - started}, fh)
+
+
+def start_dryrun() -> tuple[subprocess.Popen, str, float]:
+    """Start ``dryrun_worker`` in the background, before ``build``: its fake
+    trace runs on the host beside the kernels' compile, which is not timed,
+    and ``wait_dryrun`` awaits it before the first timed phase; it is ended
+    at exit if it still runs.  Returns (the process, its output directory,
+    its start)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    with open(os.path.join(tmp, "worker.log"), "w") as log:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--dryrun", os.path.join(tmp, "dryrun.json")],
+                                stdout=log, stderr=subprocess.STDOUT)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    atexit.register(stop)
+    return proc, tmp, time.perf_counter()
+
+
+def wait_dryrun(worker) -> dict:
+    """Await ``start_dryrun``'s worker and read what it wrote, with its wall
+    seconds from start to exit (``wall_s``) and those this process waited
+    for it (``waited_s``); raises when it failed or ran past
+    DRYRUN_TIMEOUT_S."""
+    proc, tmp, started = worker
+    t0 = time.perf_counter()
+    try:
+        proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S - (t0 - started)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise AssertionError(f"dryrun: the worker ran past {DRYRUN_TIMEOUT_S} s")
+    if proc.returncode:
+        with open(os.path.join(tmp, "worker.log")) as fh:
+            raise AssertionError(f"dryrun: the worker exited {proc.returncode}: "
+                                 f"{fh.read()[-3000:]}")
+    with open(os.path.join(tmp, "dryrun.json")) as fh:
+        got = json.load(fh)
+    got["wall_s"] = time.perf_counter() - started
+    got["waited_s"] = time.perf_counter() - t0
+    return got
+
+
+def phase_dryrun(card: str, lm_train_ms: float, got: dict) -> dict[str, int]:
+    """The dry-run's results, read from its worker (``wait_dryrun``), which
+    set the launch counts to 0 just before each of its two traces and read
+    them just after (a fake trace launches nothing): (a)'s counted
+    operations must lie within DRYRUN_OPS_RATIO of ``train_bounds``' for the
+    same step, printed beside its roofline bound and ``lm_train``'s measured
+    median step; (b)'s record printed on a ``step: dryrun`` line.  Returns
+    the worker's counts, summed over its two traces."""
+    phase = "dryrun"
+    train, cell = got["train"], got["cell"]
+    ratio = train["flops"] / train["train_bounds_flops"]
+    log(phase, step="lm_train", card=card, arch=TRAIN_ARCH, mesh=[1, 1],
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, microbatches=TRAIN_MICRO, remat=True,
+        counted_flops=train["flops"], train_bounds_flops=train["train_bounds_flops"],
+        ratio=ratio, limits=list(DRYRUN_OPS_RATIO),
+        bytes_accessed=train["bytes_accessed"], coll_bytes=train["coll_bytes"],
+        memory=train["memory"], roofline_bound_ms=train["bound_s"] * 1e3,
+        dominant=train["dominant"], train_bounds_ms=train["train_bounds_ms"],
+        lm_train_step_ms=lm_train_ms, seconds=train["seconds"])
+    if not DRYRUN_OPS_RATIO[0] <= ratio <= DRYRUN_OPS_RATIO[1]:
+        raise AssertionError(f"{phase}: counted {train['flops']:.4e} operations, "
+                             f"train_bounds {train['train_bounds_flops']:.4e}")
+    log(phase, step="dryrun", card=card, arch=cell["arch"], shape=cell["shape"],
+        mesh="16x16", chips=cell["chips"], parts=cell["parts"],
+        n_params=cell["n_params"], roofline=cell["roofline"],
+        memory=cell["memory"],
+        argument_and_temp_gib=(cell["memory"]["argument_bytes"]
+                               + cell["memory"]["temp_bytes"]) / 2 ** 30,
+        trace_s=cell["compile_s"], seconds=cell["seconds"])
+    if cell["chips"] != 256 or not cell["roofline"]["flops"] > 0:
+        raise AssertionError(f"{phase}: record {cell}")
+    counts = {k: sum(c[k] for c in got["launches"].values())
+              for k in got["launches"]["lm_train"]}
+    log(phase, launches=counts, launches_by_step=got["launches"],
+        worker_s=got["seconds"], wall_s=got["wall_s"], waited_s=got["waited_s"])
+    if any(counts.values()):
+        raise AssertionError(f"the dry-run launched FFT kernels: {counts}")
+    return counts
+
+
 def time_fused_batch(gen: torch.Generator, card: str) -> None:
     """A fused batch's two layouts, on the same stack, in turns (batched,
     loop, loop, batched): ``plan.execute`` of the stack (K2 — K4 then K2
@@ -3738,7 +3883,12 @@ def main() -> None:
         return out
 
     card = timed("env", phase_env)
+    dryrun_job = start_dryrun()
     timed("build", phase_build)
+    dryrun_got = wait_dryrun(dryrun_job)
+    # the worker's own wall time (beside build), then what of it came after
+    seconds["dryrun"] = round(dryrun_got["wall_s"], 1)
+    seconds["dryrun_wait"] = round(dryrun_got["waited_s"], 1)
     records = timed("kernels", phase_kernels, gen)
     fpms = timed("fpms", phase_fpms)
     complex_counts, runs = timed("main_path", phase_main_path, gen, fpms)
@@ -3764,12 +3914,13 @@ def main() -> None:
     peak = max(peak, torch.cuda.max_memory_allocated())
     paths["lm_serve_ssm"], ssm_peak = timed("lm_serve_ssm", phase_lm_serve_ssm, card)
     peak = max(peak, ssm_peak)
-    paths["lm_train"], train_peak, first_loss = timed("lm_train", phase_lm_train,
-                                                      card)
+    paths["lm_train"], train_peak, first_loss, train_ms = timed(
+        "lm_train", phase_lm_train, card)
     peak = max(peak, train_peak)
     paths["lm_train_mesh"], mesh_peak = timed("lm_train_mesh", phase_lm_train_mesh,
                                               card, first_loss)
     peak = max(peak, mesh_peak)
+    paths["dryrun"] = phase_dryrun(card, train_ms, dryrun_got)
     for record in records:
         by_path = {path: counts[record["name"]] for path, counts in paths.items()}
         record["launches"] = sum(by_path.values())
@@ -3787,7 +3938,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--dist-rank"]:
+    if sys.argv[1:2] == ["--dryrun"]:
+        dryrun_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--dist-rank"]:
         worker = {"3d": dist3_worker, "runtime": runtime_worker}.get(
             sys.argv[5] if len(sys.argv) > 5 else "2d", dist_worker)
         worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

@@ -19,7 +19,9 @@ default process group and every rank takes part in every collective.
   every rank in the same order (creating a process group is collective),
   and every later mesh of that partition reuses them.
 * ``make_local_mesh(data, model)`` builds the trainer's 2-D ``("data",
-  "model")`` mesh over the world, row by row in host-major order.
+  "model")`` mesh over the world, row by row in host-major order;
+  ``make_production_mesh`` the 16 x 16 (or 2 x 16 x 16, with ``"pod"``)
+  mesh of 256 (512) ranks the dry-run traces a rank of.
 * ``make_pfft3_mesh(r, c, hosts=)`` builds the 2-D ``r x c`` mesh of the
   pencil pipeline over the same host-major ranks, the hosts riding the
   ``r`` axis: each host owns ``r/hosts`` contiguous mesh rows, so every
@@ -62,7 +64,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-__all__ = ["make_local_mesh", "make_fft_mesh", "make_pfft3_mesh",
+__all__ = ["make_production_mesh", "make_local_mesh", "make_fft_mesh",
+           "make_pfft3_mesh",
            "mesh_host_shape", "register_emulated_hosts", "host_major_devices",
            "init_multihost",
            "init_multihost_from_env", "axis_size", "mesh_device",
@@ -357,6 +360,26 @@ def make_local_mesh(data: int = 1, model: int = 1, *,
     return DeviceMesh(device_type, grid, mesh_dim_names=("data", "model"))
 
 
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str | None = None) -> DeviceMesh:
+    """Single pod: 16x16 = 256 ranks ('data', 'model').  Multi-pod: 2 pods
+    = 512 ranks ('pod', 'data', 'model'); the pod axis carries pure DP so
+    only gradient all-reduces cross the (slow) pod interconnect.  Over the
+    whole world, host-major as ``make_local_mesh``: a ``"model"`` line stays
+    on one host.  ``ValueError`` when the world is not the mesh's 256 (512)
+    ranks; the dry-run builds it over a ``"fake"`` process group of that
+    size.  Every rank must call this alike."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    device_type, world = join_world(device_type, None)
+    if world != math.prod(shape):
+        raise ValueError(
+            f"the production mesh {'x'.join(map(str, shape))} spans "
+            f"{math.prod(shape)} ranks, but {world} are in the process group")
+    grid = torch.tensor(host_major_devices()).reshape(shape)
+    return DeviceMesh(device_type, grid, mesh_dim_names=axes)
+
+
 def make_fft_mesh(p: int | None = None, axis_name: str = "fft", *,
                   hosts: int | None = None, local: int | None = None,
                   device_type: str | None = None,
@@ -401,13 +424,14 @@ def make_fft_mesh(p: int | None = None, axis_name: str = "fft", *,
 def join_world(device_type: str | None, backend: str | None) -> tuple[str, int]:
     """The process group a mesh builder runs in (made from torchrun's
     environment, else for this process alone, when none exists), checked
-    against the backend the mesh asks for; this process's card selected.
+    against the backend the mesh asks for (the dry-run's ``"fake"`` group
+    stands in for any); this process's card selected.
     Returns (device type, world size)."""
     device_type, backend = _backend_for(device_type, backend)
     if not dist.is_initialized():
         if not init_multihost_from_env(device_type=device_type, backend=backend):
             _init_single_process(device_type, backend)
-    elif dist.get_backend() != backend:
+    elif dist.get_backend() not in (backend, "fake"):
         raise ValueError(
             f"the process group runs {dist.get_backend()!r}, the mesh asks "
             f"for {backend!r} (device_type={device_type!r})")

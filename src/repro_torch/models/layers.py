@@ -19,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 
 from repro_torch._device import resolve_device
 
@@ -138,8 +139,11 @@ def rope_freqs(hd: int, mode: str, theta: float = 10000.0) -> tuple[int, np.ndar
 
 @functools.lru_cache(maxsize=32)
 def _inv_freq(hd: int, mode: str, theta: float, device: torch.device) -> torch.Tensor:
-    """``rope_freqs``' float32 table on ``device``, copied there once."""
-    return torch.from_numpy(rope_freqs(hd, mode, theta)[1]).to(device)
+    """``rope_freqs``' float32 table on ``device``, copied there once: a
+    real tensor even under a ``FakeTensorMode`` (the dry-run), so that the
+    cache never hands one mode's fake tensor to a later step."""
+    with unset_fake_temporarily():
+        return torch.from_numpy(rope_freqs(hd, mode, theta)[1]).to(device)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, mode: str,

@@ -61,6 +61,13 @@ def moe_capacity(tokens_per_group: int, cfg: MoECfg) -> int:
     return max(8, (c + 7) // 8 * 8)  # a multiple of 8, as the reference pads
 
 
+def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` in ``dtype``, by the same ops on every tensor:
+    ``F.one_hot`` scatters into zeros on real tensors but compares against
+    an ``arange`` on fake ones, which the dry-run would count apart."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
 def _route(p: MoE, x: torch.Tensor, cfg: MoECfg):
     """The routing of x (G, T, d): float32 ``probs`` (G, T, E), renormalised
     ``gate_vals`` and ``gate_idx`` (G, T, k), each (token, choice)'s slot
@@ -74,7 +81,7 @@ def _route(p: MoE, x: torch.Tensor, cfg: MoECfg):
     # slot = how many earlier (choice-major, token) entries of the group
     # chose the same expert
     idx_f = gate_idx.transpose(1, 2).reshape(G, k * T)               # choice-major
-    oh = F.one_hot(idx_f, E)                                         # (G, kT, E)
+    oh = _one_hot(idx_f, E, torch.int64)                             # (G, kT, E)
     before = (torch.cumsum(oh, dim=1) - oh).gather(2, idx_f[..., None])[..., 0]
     pos = before.reshape(G, k, T).transpose(1, 2)                    # (G, T, k)
     return probs, gate_vals, gate_idx, pos, pos < moe_capacity(T, cfg)
@@ -118,7 +125,7 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: MoECfg, *,
     # rows, f_e is the mean over all of them and P_e this rank's share of
     # it (aux is linear in P_e): the shares sum to the whole batch's aux.
     frac_tokens = sharding.data_mean(
-        F.one_hot(gate_idx[..., 0], E).float().mean((0, 1)))
+        _one_hot(gate_idx[..., 0], E, torch.float32).mean((0, 1)))
     frac_probs = probs.mean((0, 1))
     if sharding.data_ranks() > 1:
         frac_probs = frac_probs / sharding.data_ranks()

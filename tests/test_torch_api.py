@@ -255,10 +255,13 @@ def test_package_exports_the_reference_runtime_names():
 
 
 def test_package_exports_the_reference_lm_names():
-    """The LM path exports the reference's names, less those of the dry-run
-    (``data.input_specs``): ``models`` all of them, the sharding specs
-    included, ``models.sharding`` the reference's and the port's layer on a
-    mesh, ``launch.mesh`` ``make_local_mesh``; ``train``, ``optim`` and
+    """The LM path exports the reference's names: ``models`` and ``data``
+    all of them, the sharding specs and ``input_specs`` included,
+    ``models.sharding`` the reference's and the port's layer on a mesh,
+    ``launch.mesh`` ``make_local_mesh`` and ``make_production_mesh``,
+    ``launch.roofline`` and ``launch.dryrun`` the reference's ``__all__``
+    first (the dry-run's read off its source: importing it sets the
+    reference's device count); ``train``, ``optim`` and
     ``launch.train`` all of theirs, ``models.transformer`` ``loss_fn`` too;
     ``models.attention``, ``models.moe``, ``models.xlstm`` and
     ``models.ssm`` add their modules (``GQA``, ``MLA``, ``MoE``,
@@ -292,9 +295,6 @@ def test_package_exports_the_reference_lm_names():
     import repro_torch.launch.train as port_launch_train
     import repro_torch.optim as port_optim
 
-    def without(names, dropped):
-        return [n for n in names if n not in dropped]
-
     import repro.launch.mesh as ref_mesh
     import repro.models.sharding as ref_sharding
     import repro_torch.launch.mesh as port_mesh
@@ -305,7 +305,18 @@ def test_package_exports_the_reference_lm_names():
     assert "make_local_mesh" in ref_mesh.__all__ and "make_local_mesh" in port_mesh.__all__
     assert port_transformer.__all__[:-1] == ref_transformer.__all__
     assert "loss_fn" in port_transformer.__all__
-    assert port_data.__all__ == without(ref_data.__all__, {"input_specs"})
+    assert port_data.__all__ == ref_data.__all__
+    assert "make_production_mesh" in ref_mesh.__all__
+    assert "make_production_mesh" in port_mesh.__all__
+    import repro.launch.roofline as ref_roofline
+    import repro_torch.launch.dryrun as port_dryrun
+    import repro_torch.launch.roofline as port_roofline
+    assert port_roofline.__all__[:len(ref_roofline.__all__)] == ref_roofline.__all__
+    source = open(os.path.join(ROOT, "src/repro/launch/dryrun.py")).read()
+    ref_dryrun_all = next(
+        ast.literal_eval(node.value) for node in ast.parse(source).body
+        if isinstance(node, ast.Assign) and getattr(node.targets[0], "id", "") == "__all__")
+    assert port_dryrun.__all__ == ref_dryrun_all
     assert port_launch_train.__all__ == ["run_training", "main"]
     for port, ref in ((port_configs, ref_configs), (port_serve, ref_serve),
                       (port_registry, ref_registry), (port_train, ref_train),
@@ -322,7 +333,7 @@ def test_package_exports_the_reference_lm_names():
     for mod in (port_configs, port_data, port_serve, port_models, port_attn,
                 port_moe, port_xlstm, port_ssm, port_layers, port_registry,
                 port_transformer, port_train, port_optim, port_launch_train,
-                port_sharding, port_mesh):
+                port_sharding, port_mesh, port_roofline, port_dryrun):
         for name in mod.__all__:
             assert hasattr(mod, name), name
 
@@ -432,6 +443,8 @@ def test_importing_the_port_loads_no_jax_builds_nothing_and_touches_no_cuda():
         "import repro_torch.train, repro_torch.launch.serve\n"
         "import repro_torch.optim, repro_torch.launch.train\n"
         "import repro_torch.models.sharding, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.roofline, repro_torch.launch.dryrun\n"
+        "import repro_torch.data.specs\n"
         "import torch\n"
         "from repro_torch.kernels import _build\n"
         "assert 'jax' not in sys.modules and 'repro' not in sys.modules\n"
