@@ -11,21 +11,27 @@ each of which ends the run with a non-zero exit code when it fails:
 2. ``build``     compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``.
 3. ``kernels``   every kernel against its plain PyTorch version and the
                  library on the card (ragged and odd row counts, every length
-                 the row kernels K1-K4 are built for, both directions of K1
-                 and K2, ragged clusters of K2 and K4, the full width, the
-                 row blocks of the batched paths 8-10 and of the fused
-                 batch; the transpose bit for bit), then its
-                 time beside the plain version's, the library's and the card's
-                 bound at the main path's shape.
+                 the row kernels K1-K4 are built for, n = 2 ... 16384, both
+                 directions of K1 and K2, ragged clusters of K2 and K4, the
+                 full width, the row blocks of the batched paths 8-10 and of
+                 the fused batch; the four-step K1b at 2048 x 32768, 512 x
+                 131072 and 1 x 2^24 both ways; the transpose bit for bit),
+                 then its time beside the plain version's, the library's and
+                 the card's bound at the main path's shape (K1-K4 also at
+                 4096 x 16384, K1b at 2048 x 32768).
 4. ``main_path`` FPMs timed on the card, then ``plan_pfft(...).execute`` for
                  PFFT-LB / PFFT-FPM at N = 8192 and PFFT-FPM-PAD / PFFT-FPM-CZT
-                 at N = 4096 under the library, kernel and fused configs, each
-                 checked against its oracle, with the kernels' launch counts
-                 showing which path ran.
+                 at N = 8192 (the pow2 pad of 16384 runs K1 at Plan<14>)
+                 under the library, kernel and fused configs, PFFT-LB /
+                 PFFT-FPM at N = 16384 under the kernel and fused configs, and
+                 PFFT-LB at N = 32768 under the kernel config (K1b, an 8 GiB
+                 signal), each checked against its oracle, with the kernels'
+                 launch counts showing which path ran.
 5. ``main_path_real`` the same for the real-input methods: ``rfft-lb`` /
-                 ``rfft-fpm`` at N = 8192 and ``rfft-fpm-pad`` at N = 4096
-                 (float32 signals, half-spectrum output), a batch,
-                 ``execute_many`` and ``irfft2(rfft2(x))``.
+                 ``rfft-fpm`` at N = 8192 and ``rfft-fpm-pad`` at N = 8192
+                 (K3 at 16384 under ``radix=4``; float32 signals,
+                 half-spectrum output), a batch, ``execute_many`` and
+                 ``irfft2(rfft2(x))``.
 6. ``planner``   the single-device planner: ``plan_pfft(tune="estimate")``
                  for ``fpm`` / ``rfft-fpm`` / ``fpm-pad`` at N = 8192,
                  ``tune="measure"`` into a fresh wisdom file for ``lb`` and
@@ -48,8 +54,10 @@ each of which ends the run with a non-zero exit code when it fails:
                  rotations timed.
 9. ``pfft1_large`` ``plan_pfft1_large(2**26)`` (8192 x 8192 four-step) under the
                  library and ``radix=4`` (2 K1 launches) against
-                 ``torch.fft.fft``; a composite and a prime N (0 launches);
-                 the ``tune="measure"`` lifecycle at 2^24.
+                 ``torch.fft.fft``; ``plan_pfft1_large(2**28)`` (16384 x
+                 16384, K1 at Plan<14>) under ``radix=4``; a composite and a
+                 prime N (0 launches); the ``tune="measure"`` lifecycle at
+                 2^24.
 10. ``serve``    one ``FFTService`` answers a mixed stream of 24 requests
                  (``rfft-lb``, ``lb``, ``fpm``, ``pfft3-lb``, ``pfft1-large``),
                  every result against its ``torch.fft`` oracle, with the
@@ -232,6 +240,8 @@ from repro_torch.kernels import (_build, fft_rows_op, fft_rows_transpose_op,  # 
                                  rfft_rows_op, rfft_rows_transpose_op,
                                  transpose_op)
 from repro_torch.kernels.fft.kernel import fft_rows_plain  # noqa: E402
+from repro_torch.kernels.fft.large import (fft_rows_large_plain, large_split,  # noqa: E402
+                                           scratch_rows)
 from repro_torch.kernels.fft.real import rfft_rows_plain  # noqa: E402
 from repro_torch.kernels.fused.kernel import fft_rows_transpose_plain  # noqa: E402
 from repro_torch.kernels.fused.real import rfft_rows_transpose_plain  # noqa: E402
@@ -267,7 +277,9 @@ from repro_torch.plan import (CostParams, PlanCache, candidate_configs,  # noqa:
 SEED = 0
 P = 4
 N_UNPADDED = 8192     # lb, fpm
-N_PADDED = 4096       # fpm-pad, fpm-czt: a pow2 pad of 8192 still fits the kernel
+N_PADDED = 8192       # fpm-pad, fpm-czt: the pow2 pad of 16384 runs K1 at Plan<14>
+N_WIDE = 16384        # lb, fpm at K1's and K2's longest row (a 2 GiB signal)
+N_K1B = 32768         # lb through the four-step K1b (an 8 GiB signal)
 N_BATCH = 1024        # batched execute, execute_many
 # Published peaks of one H100 SXM: HBM3 bandwidth and float32 rate outside
 # the tensor cores.  The bound of a kernel is the larger of its bytes over the
@@ -278,22 +290,30 @@ KERNEL_SHAPES = [(64, 8), (37, 1024), (100, 2048), (256, 4096), (1024, 1024),
                  (4096, 4096), (8192, 8192)]
 MAIN_SHAPE = (8192, 8192)
 # Every length the complex row kernels K1 and K2 are instantiated for (n = 2
-# ... 8192), at two odd row counts: 37 (few rows, a ragged last CTA wherever
+# ... 16384), at two odd row counts: 37 (few rows, a ragged last CTA wherever
 # a CTA holds several rows) and 2^20 elements plus 5 rows (a full grid with a
-# ragged last CTA up to n = 1024, a ragged last cluster of K2 from 2048 on).
-COMPLEX_KERNEL_SHAPES = [(rows, 1 << e) for e in range(1, 14)
-                         for rows in (37, ((1 << 20) >> e) + 5)]
-# Where K2 runs in clusters of 4 one-row CTAs: 8k + 1, 8k + 7 and 4097 rows
-# (phase 2 of a fused rfft-* plan at N = 8192) leave the last one ragged.
-K2_RAGGED_SHAPES = [(rows, n) for n in (4096, 8192) for rows in (257, 263, 4097)]
-# Every length the packed real kernels are instantiated for (n = 2 ... 8192),
+# ragged last CTA up to n = 1024, a ragged last cluster of K2 from 2048 on);
+# and WIDE_SHAPE, where K1-K4 are timed at their longest row.
+WIDE_SHAPE = (4096, 16384)
+COMPLEX_KERNEL_SHAPES = [(rows, 1 << e) for e in range(1, 15)
+                         for rows in (37, ((1 << 20) >> e) + 5)] + [WIDE_SHAPE]
+# Where K2 runs in clusters of 4 one-row CTAs: 8k + 1, 8k + 7, 4097 rows
+# (phase 2 of a fused rfft-* plan at N = 8192) and 8193 (at N = 16384) leave
+# the last one ragged.
+K2_RAGGED_SHAPES = ([(rows, n) for n in (4096, 8192, 16384) for rows in (257, 263, 4097)]
+                    + [(8193, 16384)])
+# Every length the packed real kernels are instantiated for (n = 2 ... 16384),
 # at an odd row count (an unpaired last row, few pairs per CTA) and an even
-# one (2^20 elements), the main path's shape, and at n = 4096 and 8192, where
+# one (2^20 elements), the main path's shape, and at n = 4096 ... 16384, where
 # a CTA holds one pair, 2*(4k+1) and 2*(4k+1)+1 rows: 1 and 2 pairs in the
 # last cluster of 4 CTAs, with even and odd rows.
-REAL_KERNEL_SHAPES = ([(rows, 1 << e) for e in range(1, 14)
-                       for rows in (37, max(2, (1 << 20) >> e))] + [MAIN_SHAPE]
-                      + [(rows, n) for n in (4096, 8192) for rows in (258, 259)])
+REAL_KERNEL_SHAPES = ([(rows, 1 << e) for e in range(1, 15)
+                       for rows in (37, max(2, (1 << 20) >> e))] + [MAIN_SHAPE, WIDE_SHAPE]
+                      + [(rows, n) for n in (4096, 8192, 16384) for rows in (258, 259)])
+# The four-step K1b: phase 1 of lb at N = 32768 in its first chunk of
+# scratch (2048 rows), 512 rows of 2^17 and one line of 2^24; the first is
+# the record's shape.
+K1B_SHAPES = [(2048, 1 << 15), (512, 1 << 17), (1, 1 << 24)]
 TRANSPOSE_SHAPES = [(1, 1), (37, 129), (1000, 3), (4096, 8192), (8192, 8192)]
 # Every other element size the transpose kernel is built for, at small shapes.
 TRANSPOSE_OTHER_DTYPES = [torch.uint8, torch.float16, torch.float64, torch.complex128]
@@ -305,12 +325,14 @@ MICROBENCH_N = (1024, 8192)
 PLANNER_N = (1024, 2048, 4096, 8192)
 # The 3-D path: a 512^3 complex64 cube (1 GiB) for plan_pfft3 and the
 # estimate plan; 256^3 for the FPM methods (pads up to 512) and the measure
-# plan.  The huge-1-D path: 2^26 (an 8192 x 8192 four-step, 512 MiB); a
-# composite length whose factors are not powers of two (1000 x 1000) and a
-# prime (one library FFT); the measure lifecycle at 2^24.
+# plan.  The huge-1-D path: 2^26 (an 8192 x 8192 four-step, 512 MiB) and
+# 2^28 (16384 x 16384, 2 GiB); a composite length whose factors are not
+# powers of two (1000 x 1000) and a prime (one library FFT); the measure
+# lifecycle at 2^24.
 N_PFFT3 = 512
 N_PFFT3_PAD = 256
 N_LARGE = 1 << 26
+N_LARGE_TOP = 1 << 28     # 16384 x 16384: K1 at its longest row, a 2 GiB line
 N_LARGE_LIBRARY = (1_000_000, 1_000_003)
 N_LARGE_MEASURE = 1 << 24
 # The served stream: (method, count, shape, real input, library oracle).
@@ -562,6 +584,8 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
     check_real_kernels(gen, worst)
     check_batched_shapes(gen)
     check_transpose(gen, worst)
+    check_large_kernel(gen, worst)
+    wide = wide_records(gen)
 
     rows, n = MAIN_SHAPE
     nh = n // 2 + 1
@@ -575,7 +599,12 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
                         5.0 * (rows / 2) * n * math.log2(n) + 8.0 * (rows / 2) * nh)
     # Transpose of complex64: rows*n*8 read and written, no arithmetic.
     transpose_limits = bound(2 * rows * n * 8, 0.0)
-    return [
+    # K1b: the function's bytes once each way (its two passes move twice
+    # that) and the complex FFT's operations.
+    lrows, ln = K1B_SHAPES[0]
+    xl = random_signal(gen, lrows, ln)
+    large_limits = bound(2 * lrows * ln * 8, 5.0 * lrows * ln * math.log2(ln))
+    records = [
         kernel_record("fft_rows", "src/repro/kernels/fft/kernel.py:209", MAIN_SHAPE,
                       worst["fft_rows"], complex_limits,
                       lambda: fft_rows_op(x, radix=4),
@@ -601,7 +630,81 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
                       lambda: transpose_op(x),
                       lambda: transpose_plain(x),
                       lambda: x.T.contiguous()),
+        kernel_record("fft_rows_large", "src/repro/kernels/fft/kernel.py:209",
+                      K1B_SHAPES[0], worst["fft_rows_large"], large_limits,
+                      lambda: fft_rows_op(xl),
+                      lambda: fft_rows_large_plain(xl),
+                      lambda: torch.fft.fft(xl)),
     ]
+    for record in records:
+        if record["name"] in wide:
+            record["at_16384"] = wide[record["name"]]
+    return records
+
+
+def check_large_kernel(gen: torch.Generator, worst: dict) -> None:
+    """K1b (``fft_rows_op`` above 16384) at ``K1B_SHAPES`` in both
+    directions against ``fft_rows_large_plain`` and ``torch.fft.fft`` /
+    ``ifft``, ``atol = row_fft_tol(n, inverse)``; ``worst`` gets the forward
+    error against the plain version at the record's shape."""
+    for rows, n in K1B_SHAPES:
+        x = random_signal(gen, rows, n)
+        for inverse in (False, True):
+            tol = row_fft_tol(n, inverse)
+            got = fft_rows_op(x, inverse=inverse)
+            torch.cuda.synchronize()
+            lib = torch.fft.ifft(x) if inverse else torch.fft.fft(x)
+            errs = {"fft_rows_large_err": max_abs_err(
+                        got, fft_rows_large_plain(x, inverse=inverse)),
+                    "fft_rows_large_vs_library_err": max_abs_err(got, lib)}
+            log("kernels", rows=rows, n=n, split=list(large_split(n)),
+                inverse=inverse, atol=tol, **errs)
+            if max(errs.values()) > tol:
+                raise AssertionError(f"K1b disagrees at rows={rows} n={n} "
+                                     f"inverse={inverse}: {errs} > {tol}")
+            if (rows, n) == K1B_SHAPES[0] and not inverse:
+                worst["fft_rows_large"] = errs["fft_rows_large_err"]
+            del got, lib
+        del x
+
+
+def wide_records(gen: torch.Generator) -> dict[str, dict]:
+    """K1-K4 at ``WIDE_SHAPE`` (n = 16384, Plan<14>), forward under
+    ``radix=4``: each against its plain version (``row_fft_tol``), then
+    timed beside it, the library and the card's bound, as the records'
+    ``at_16384``."""
+    rows, n = WIDE_SHAPE
+    nh = n // 2 + 1
+    x = random_signal(gen, rows, n)
+    xr = random_real(gen, rows, n)
+    complex_limits = bound(2 * rows * n * 8, 5.0 * rows * n * math.log2(n))
+    real_limits = bound(rows * n * 4 + rows * nh * 8,
+                        5.0 * (rows / 2) * n * math.log2(n) + 8.0 * (rows / 2) * nh)
+    cases = {
+        "fft_rows": (complex_limits, lambda: fft_rows_op(x, radix=4),
+                     lambda: fft_rows_plain(x, radix=4), lambda: torch.fft.fft(x)),
+        "fft_rows_transpose": (complex_limits, lambda: fft_rows_transpose_op(x, radix=4),
+                               lambda: fft_rows_transpose_plain(x, radix=4),
+                               lambda: torch.fft.fft(x).T.contiguous()),
+        "rfft_rows": (real_limits, lambda: rfft_rows_op(xr),
+                      lambda: rfft_rows_plain(xr, radix=4), lambda: torch.fft.rfft(xr)),
+        "rfft_rows_transpose": (real_limits, lambda: rfft_rows_transpose_op(xr),
+                                lambda: rfft_rows_transpose_plain(xr, radix=4),
+                                lambda: torch.fft.rfft(xr).T.contiguous())}
+    out = {}
+    tol = row_fft_tol(n, False)
+    for name, (limits, kernel, plain, library) in cases.items():
+        got = kernel()
+        torch.cuda.synchronize()
+        err = max_abs_err(got, plain())
+        del got
+        if err > tol:
+            raise AssertionError(f"{name} disagrees at {WIDE_SHAPE}: {err} > {tol}")
+        record = kernel_record(name, "", WIDE_SHAPE, err, limits, kernel, plain, library)
+        out[name] = {key: record[key] for key in ("shape", "max_abs_err", "ms", "plain_ms",
+                                                  "bound_ms", "bound_by", "library_ms")}
+        log("kernels", at_16384=name, **out[name])
+    return out
 
 
 def check_complex_kernel(gen: torch.Generator) -> None:
@@ -914,7 +1017,7 @@ def check_execute(plan, signal, oracle, label: str, expect: dict[str, int],
 def phase_fpms() -> dict[int, tuple[FPMSet, FPMSet]]:
     """The FPMs of both paths, timed on the card before any counted drive."""
     fpms = {}
-    for n in (N_UNPADDED, N_PADDED):
+    for n in sorted({N_UNPADDED, N_PADDED, N_WIDE}):
         t0 = time.perf_counter()
         fpms[n] = measured_fpms(n)
         homo = fpms[n][0]
@@ -935,10 +1038,12 @@ def end_drive(path: str, kernels: tuple[str, ...]) -> dict[str, int]:
     return counts
 
 
-def phase_main_path(gen: torch.Generator, fpms) -> tuple[dict[str, int], list[tuple]]:
+def phase_main_path(gen: torch.Generator, fpms,
+                    card: str) -> tuple[dict[str, int], list[tuple]]:
     """Drive the complex main path once, with the launch counts set to 0 just
     before and read just after.  Returns the counts and the checked runs (for
-    the timing pass, which is not part of the counted drive)."""
+    the timing pass, which is not part of the counted drive); the N = 32768
+    run, too large to keep, is timed here after the drive."""
     library = PlanConfig()
     kernel = PlanConfig(radix=4)
     fused = PlanConfig(fused=True)
@@ -1018,9 +1123,42 @@ def phase_main_path(gen: torch.Generator, fpms) -> tuple[dict[str, int], list[tu
         atol=2e-4 * n)
     if len(outs) != 3 or err > 2e-4 * n:
         raise AssertionError(f"execute_many: {len(outs)} results, error {err}")
+    del batch, oracle, hosts, outs
+
+    # PFFT-LB and PFFT-FPM at K1's and K2's longest row, N = 16384 (a 2 GiB
+    # signal), under the kernel and fused configs, against torch.fft.fft2.
+    n = N_WIDE
+    signal = random_signal(gen, n, n)
+    oracle = torch.fft.fft2(signal)
+    for method, kwargs in (("lb", {"p": P}), ("fpm", {"fpms": fpms[n][0]})):
+        for cfg, expect in ((kernel, {"fft_rows": 2}), (fused, {"fft_rows_transpose": 2})):
+            plan = plan_pfft(n, method=method, config=cfg, **kwargs)
+            check_execute(plan, signal, oracle, f"{method}-{n}/{cfg.describe()}",
+                          expect, runs)
+    del oracle
+    torch.cuda.empty_cache()
+
+    # PFFT-LB at N = 32768 through K1b (an 8 GiB signal): each dispatch group
+    # of each phase is one call, two launches per chunk of scratch rows.
+    n = N_K1B
+    big = random_signal(gen, n, n)
+    oracle = torch.fft.fft2(big)
+    big_plan = plan_pfft(n, p=P, method="lb", config=kernel)
+    calls = sum(2 * -(-len(rows) // scratch_rows(length))
+                for length, _, rows in big_plan.schedule.batch_groups())
+    check_execute(big_plan, big, oracle, f"lb-{n}/{kernel.describe()}",
+                  {"fft_rows_large": 2 * calls}, [])
+    del oracle
 
     # ---- the main path's single drive ends
-    return end_drive("main_path", ("fft_rows", "fft_rows_transpose")), runs
+    counts = end_drive("main_path", ("fft_rows", "fft_rows_transpose", "fft_rows_large"))
+    log("main_path_time", card=card, run=f"lb-{n}/{kernel.describe()}", method="lb", n=n,
+        batch=[], config=kernel.describe(), launches={"fft_rows_large": 2 * calls},
+        execute_ms=time_ms(lambda: big_plan.execute(big), reps=3, warmup=1),
+        torch_fft2_ms=time_ms(lambda: torch.fft.fft2(big), reps=3, warmup=1))
+    del big, big_plan
+    torch.cuda.empty_cache()
+    return counts, runs
 
 
 def phase_main_path_real(gen: torch.Generator, fpms) -> tuple[dict[str, int], list[tuple]]:
@@ -1493,7 +1631,8 @@ def phase_pfft1_large(gen: torch.Generator, card: str) -> dict[str, int]:
     """Drive the huge-1-D path once, with the launch counts set to 0 just
     before and read just after: ``plan_pfft1_large(2**26)`` (8192 x 8192
     four-step) under the library and ``radix=4`` (2 K1 launches) against
-    ``torch.fft.fft``; a composite non-power-of-two and a prime N under
+    ``torch.fft.fft``; ``plan_pfft1_large(2**28)`` (16384 x 16384) under
+    ``radix=4`` (2 K1 launches at Plan<14>); a composite non-power-of-two and a prime N under
     ``radix=4`` (their phase lengths fall to the library: 0 launches); the
     ``tune="measure"`` lifecycle at 2^24 into a temporary wisdom file, and
     a warm second plan that launches nothing while planning."""
@@ -1510,6 +1649,13 @@ def phase_pfft1_large(gen: torch.Generator, card: str) -> dict[str, int]:
         check_run("pfft1_large", f"plan_pfft1_large/{cfg.describe()}",
                   lambda: plan.execute(x), oracle, expect, signal_tol(N_LARGE),
                   n=N_LARGE, n1=plan.n1, n2=plan.n2, plan_s=seconds)
+    # 2^28 (16384 x 16384): both phases run K1 at its longest row.
+    top = random_signal(gen, N_LARGE_TOP)
+    top_plan, seconds, _ = planned(lambda: plan_pfft1_large(N_LARGE_TOP, config=kernel))
+    check_run("pfft1_large", f"plan_pfft1_large/{N_LARGE_TOP}/{kernel.describe()}",
+              lambda: top_plan.execute(top), torch.fft.fft(top), {"fft_rows": 2},
+              signal_tol(N_LARGE_TOP), n=N_LARGE_TOP, n1=top_plan.n1,
+              n2=top_plan.n2, plan_s=seconds)
     for n in N_LARGE_LIBRARY:
         v = random_signal(gen, n)
         plan = plan_pfft1_large(n, config=kernel)
@@ -1547,6 +1693,12 @@ def phase_pfft1_large(gen: torch.Generator, card: str) -> dict[str, int]:
         transpose_ms=time_ms(lambda: square.T.contiguous(), reps=5, warmup=1),
         twiddle_ms=time_ms(lambda: square * plans[library.describe()]._twiddle,
                            reps=5, warmup=1))
+    log("pfft1_large_time", card=card, n=N_LARGE_TOP, n1=top_plan.n1, n2=top_plan.n2,
+        torch_fft_ms=time_ms(lambda: torch.fft.fft(top), reps=5, warmup=1),
+        **{f"execute_ms/{kernel.describe()}": time_ms(lambda: top_plan.execute(top),
+                                                      reps=5, warmup=1)})
+    del top, top_plan
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -3891,7 +4043,7 @@ def main() -> None:
     seconds["dryrun_wait"] = round(dryrun_got["waited_s"], 1)
     records = timed("kernels", phase_kernels, gen)
     fpms = timed("fpms", phase_fpms)
-    complex_counts, runs = timed("main_path", phase_main_path, gen, fpms)
+    complex_counts, runs = timed("main_path", phase_main_path, gen, fpms, card)
     real_counts, real_runs = timed("main_path_real", phase_main_path_real, gen, fpms)
     planner_counts, planner_runs = timed("planner", phase_planner, gen, fpms,
                                          records, card)

@@ -16,6 +16,7 @@ source and before the full ``chip_smoke.py``.  Needs one CUDA device and
     python3 examples/kernel_check_torch.py --fft-rows-only
     python3 examples/kernel_check_torch.py --rfft-rows-transpose-only
     python3 examples/kernel_check_torch.py --fft-rows-transpose-only
+    python3 examples/kernel_check_torch.py --fft-rows-large-only
 
 check and time the packed real row kernel alone (every shape of
 ``REAL_SHAPES``, its column of the sweep), the complex row kernel alone
@@ -26,11 +27,15 @@ of ``REAL_SHAPES``, its sweep beside ``rfft(x).T.contiguous()`` and
 ``COMPLEX_SHAPES`` and ``K2_RAGGED_SHAPES`` in both directions, its sweep
 forward and inverse beside ``fft(x).T.contiguous()``, the complex row kernel
 and ``x.clone()``, then its time at n = 8192 over ``K2_ROW_COUNTS``, where
-the output rows are and are not whole 32-byte sectors apart): the run to
+the output rows are and are not whole 32-byte sectors apart), or the
+four-step row kernel of long rows alone (every shape of ``LARGE_SHAPES`` in
+both directions against its plain version and ``torch.fft``, then its time
+over ``LARGE_SWEEP`` and at the splits of ``LARGE_SPLITS``): the run to
 repeat, in turns, on copies of the tree that
 differ in one change to that kernel.  Every run prints the registers and
-spills per length (and direction) of the complex row kernels and of the
-fused real row kernel, where it compiles them.
+spills per length (and direction) of the complex row kernels, of the
+fused real row kernel and of the four-step kernel's two passes, where it
+compiles them.
 """
 
 from __future__ import annotations
@@ -58,17 +63,20 @@ from repro_torch.kernels import (_build, fft_rows_op,  # noqa: E402
                                  fft_rows_transpose_op, rfft_rows_op,
                                  rfft_rows_transpose_op, transpose_op)
 from repro_torch.kernels.fft.kernel import fft_rows_plain  # noqa: E402
+from repro_torch.kernels.fft.large import (fft_rows_large_cuda,  # noqa: E402
+                                           fft_rows_large_plain, large_split)
 from repro_torch.kernels.fft.real import rfft_rows_plain  # noqa: E402
 from repro_torch.kernels.transpose.kernel import transpose_plain  # noqa: E402
 
 # Every length the complex row kernels are instantiated for, at an odd row
 # count and at 2^20 elements plus 5 rows (a ragged last CTA where a CTA holds
 # several rows).
-COMPLEX_SHAPES = [(rows, 1 << e) for e in range(1, 14)
+COMPLEX_SHAPES = [(rows, 1 << e) for e in range(1, 15)
                   for rows in (37, ((1 << 20) >> e) + 5)]
 # Where the fused complex row kernel runs in clusters of one-row CTAs,
 # 8k + 1, 8k + 7 and 4097 rows: a ragged last cluster.
-K2_RAGGED_SHAPES = [(rows, n) for n in (4096, 8192) for rows in (257, 263, 4097)]
+K2_RAGGED_SHAPES = [(rows, n) for n in (4096, 8192, 16384)
+                    for rows in (257, 263, 4097)]
 # Row counts of the fused complex row kernel at n = 8192: a multiple of 4
 # puts each output row a whole number of 32-byte sectors after the last;
 # 4097 is phase 2 of a fused rfft-* plan at N = 8192.
@@ -76,14 +84,24 @@ K2_ROW_COUNTS = [4096, 4097, 4098, 4100, 8192, 8193, 8194, 8196]
 # Every length the packed real kernels are instantiated for, at an odd and an
 # even row count; at n = 4096 and 8192 also 2*(4k+1) rows: one pair in the
 # last cluster of 4 CTAs.
-REAL_SHAPES = ([(rows, 1 << e) for e in range(1, 14)
+REAL_SHAPES = ([(rows, 1 << e) for e in range(1, 15)
                 for rows in (37, max(2, (1 << 20) >> e))]
-               + [(1, 2), (1023, 8192), (258, 4096), (258, 8192)])
+               + [(1, 2), (1023, 8192), (258, 4096), (258, 8192), (259, 16384)])
+# The four-step kernel of long rows: every length from 2^15 to its top 2^28,
+# at row counts that give one and several chunks of scratch (2^27 elements).
+LARGE_SHAPES = [(3, 1 << 15), (2048, 1 << 15), (5000, 1 << 15), (512, 1 << 17),
+                (7, 1 << 18), (3, 1 << 19), (2, 1 << 20), (129, 1 << 20),
+                (2, 1 << 21), (1, 1 << 22), (1, 1 << 23), (1, 1 << 24), (3, 1 << 25),
+                (1, 1 << 26), (1, 1 << 27), (1, 1 << 28)]
+LARGE_SWEEP = [1 << 15, 1 << 17, 1 << 20, 1 << 24]
+# (n, n1) pairs timed against the default split of n.
+LARGE_SPLITS = [(1 << 15, 256), (1 << 17, 512), (1 << 20, 512), (1 << 20, 2048),
+                (1 << 24, 2048), (1 << 24, 8192), (1 << 24, 16384)]
 TRANSPOSE_SHAPES = [(1, 1), (37, 129), (1000, 3), (257, 4099)]
 TRANSPOSE_DTYPES = [torch.uint8, torch.float16, torch.float32, torch.complex64,
                     torch.complex128]
 SWEEP_ELEMENTS = 1 << 26
-SWEEP_LENGTHS = [64, 256, 1024, 2048, 4096, 8192]
+SWEEP_LENGTHS = [64, 256, 1024, 2048, 4096, 8192, 16384]
 
 
 def time_ms(fn, reps: int = 10) -> float:
@@ -138,16 +156,23 @@ def main() -> None:
                       help="check and time the fused real row kernel alone")
     only.add_argument("--fft-rows-transpose-only", action="store_true",
                       help="check and time the fused complex row kernel alone")
+    only.add_argument("--fft-rows-large-only", action="store_true",
+                      help="check and time the four-step row kernel of long rows alone")
     args = parser.parse_args()
     only_k3, only_k1 = args.rfft_rows_only, args.fft_rows_only
     only_k4, only_k2 = args.rfft_rows_transpose_only, args.fft_rows_transpose_only
-    run_k1 = not (only_k3 or only_k4 or only_k2)
-    run_k2 = not (only_k3 or only_k4 or only_k1)
+    only_k1b = args.fft_rows_large_only
+    run_k1 = not (only_k3 or only_k4 or only_k2 or only_k1b)
+    run_k2 = not (only_k3 or only_k4 or only_k1 or only_k1b)
+    run_k1b = not (only_k3 or only_k4 or only_k1 or only_k2)
     # The one source a kernel-alone mode compiles (the others: every source).
     needed = ("fft_rows.cu" if only_k1 else "rfft_rows_transpose.cu" if only_k4
-              else "fft_rows_transpose.cu" if only_k2 else None)
-    registers = {"fft_rows.cu": "fft_rows", "rfft_rows_transpose.cu": "rfft_rows_transpose",
-                 "fft_rows_transpose.cu": "fft_rows_transpose"}
+              else "fft_rows_transpose.cu" if only_k2
+              else "fft_rows_large.cu" if only_k1b else None)
+    registers = {"fft_rows.cu": ("fft_rows",),
+                 "rfft_rows_transpose.cu": ("rfft_rows_transpose",),
+                 "fft_rows_transpose.cu": ("fft_rows_transpose",),
+                 "fft_rows_large.cu": ("columns", "rows_transpose")}
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -167,10 +192,9 @@ def main() -> None:
                       flush=True)
             if done.returncode != 0:
                 sys.exit(1)
-            if src.name in registers:
-                for record in kernel_registers(done.stderr, registers[src.name]):
-                    print(json.dumps({"ptxas": registers[src.name] + "_kernel", **record}),
-                          flush=True)
+            for name in registers.get(src.name, ()):
+                for record in kernel_registers(done.stderr, name):
+                    print(json.dumps({"ptxas": name + "_kernel", **record}), flush=True)
     t0 = time.perf_counter()
     _build.load_library()
     print(f"build + load: {time.perf_counter() - t0:.2f} s", flush=True)
@@ -205,6 +229,49 @@ def main() -> None:
                       flush=True)
                 if max(errs.values()) > tol:
                     sys.exit(f"complex row kernel disagrees: {errs} > {tol}")
+
+    for rows, n in LARGE_SHAPES if run_k1b else []:
+        x = torch.complex(torch.randn(rows, n, generator=gen, device="cuda"),
+                          torch.randn(rows, n, generator=gen, device="cuda"))
+        for inverse in (False, True):
+            tol = 1e-3 * n ** 0.5 / (n if inverse else 1)
+            got = fft_rows_op(x, inverse=inverse)
+            torch.cuda.synchronize()
+            errs = {"k1b_vs_plain": float((got - fft_rows_large_plain(
+                        x, inverse=inverse)).abs().max())}
+            lib = torch.fft.ifft(x) if inverse else torch.fft.fft(x)
+            errs["k1b_vs_library"] = float((got - lib).abs().max())
+            del got, lib
+            print(json.dumps({"rows": rows, "n": n, "split": large_split(n),
+                              "inverse": inverse, "atol": tol, **errs}), flush=True)
+            if max(errs.values()) > tol:
+                sys.exit(f"four-step row kernel disagrees: {errs} > {tol}")
+        del x
+    if only_k1b:
+        for n in LARGE_SWEEP:
+            x = torch.randn(SWEEP_ELEMENTS // n, n, dtype=torch.complex64, device="cuda")
+            print(json.dumps({
+                "card": card, "rows": x.shape[0], "n": n, "split": large_split(n),
+                "fft_rows_large_ms": time_ms(lambda: fft_rows_op(x)),
+                "fft_rows_large_inverse_ms": time_ms(lambda: fft_rows_op(x, inverse=True)),
+                "torch_fft_ms": time_ms(lambda: torch.fft.fft(x)),
+                "clone_ms": time_ms(lambda: x.clone())}), flush=True)
+            del x
+        for n, n1 in LARGE_SPLITS:
+            x = torch.randn(SWEEP_ELEMENTS // n, n, dtype=torch.complex64, device="cuda")
+            want = torch.fft.fft(x)
+            err = float((fft_rows_large_cuda(x, n1=n1) - want).abs().max())
+            if err > 1e-3 * n ** 0.5:
+                sys.exit(f"four-step row kernel disagrees at n1={n1}: {err}")
+            del want
+            print(json.dumps({
+                "card": card, "rows": x.shape[0], "n": n, "split": large_split(n, n1=n1),
+                "split_ms": time_ms(lambda: fft_rows_large_cuda(x, n1=n1)),
+                "default": large_split(n), "default_ms": time_ms(lambda: fft_rows_op(x)),
+                "max_abs_err": err}), flush=True)
+            del x
+        print("OK")
+        return
 
     for rows, n in [] if only_k1 or only_k2 else REAL_SHAPES:
         x = torch.randn(rows, n, generator=gen, device="cuda")

@@ -918,8 +918,8 @@ def plan_pfft1_large(n: int, *, tune: TuneMode = "off",
     ``four_step_factors``); a non-default split enters the wisdom key as
     a ``part=`` detail, since the best row-FFT variant depends on which
     lengths the two phases actually run at.  A config that sends a phase
-    of a power-of-two length above ``MAX_KERNEL_N`` to the kernel raises
-    ``KernelLengthError`` here, before the twiddle table is made.
+    of a power-of-two length above ``MAX_LARGE_N`` to the complex row FFT
+    raises ``KernelLengthError`` here, before the twiddle table is made.
     """
     if tune not in ("off", "estimate", "measure"):
         raise ValueError(f"tune must be 'off'|'estimate'|'measure', got {tune!r}")
@@ -927,7 +927,7 @@ def plan_pfft1_large(n: int, *, tune: TuneMode = "off",
         raise ValueError(
             f"plan_pfft1_large transforms complex input, got dtype={dtype!r}")
     from repro_torch.core.pfft_large import four_step_factors, twiddle_table
-    from repro_torch.kernels.fft.kernel import MAX_KERNEL_N, KernelLengthError
+    from repro_torch.kernels.fft.kernel import MAX_LARGE_N, KernelLengthError
     from repro_torch.plan.tune import tune_pfft1_large
 
     method = "pfft1-large"
@@ -940,8 +940,8 @@ def plan_pfft1_large(n: int, *, tune: TuneMode = "off",
     def build(cfg: PlanConfig) -> Pfft1LargePlan:
         if cfg.row_fft_kwargs()["backend"] == "cuda":
             for length in (f2, f1):
-                if length > MAX_KERNEL_N and not length & (length - 1):
-                    raise KernelLengthError("plan_pfft1_large", length)
+                if length > MAX_LARGE_N and not length & (length - 1):
+                    raise KernelLengthError("plan_pfft1_large", length, MAX_LARGE_N)
         return Pfft1LargePlan(n=n, n1=f1, n2=f2, method=method, config=cfg,
                               tuning=tuning, device=device, dtype=dtype,
                               _twiddle=twiddle_table(f1, f2, device))

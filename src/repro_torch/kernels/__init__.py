@@ -1,10 +1,12 @@
 """CUDA kernels for the paper's compute hot spots (the row FFT, the fused
-row FFT -> transposed write, their packed-real siblings and the blocked
-transpose), each with an op wrapper, a plain PyTorch version and a launch
-count.  The kernels are compiled at their first launch on a CUDA tensor
-(``_build``); importing this package builds and probes nothing."""
+row FFT -> transposed write, their packed-real siblings, the four-step row
+FFT of rows too long for one CTA and the blocked transpose), each with an op
+wrapper, a plain PyTorch version and a launch count.  The kernels are
+compiled at their first launch on a CUDA tensor (``_build``); importing this
+package builds and probes nothing."""
 
 from repro_torch.kernels.fft import kernel as _fft_kernel
+from repro_torch.kernels.fft import large as _large_kernel
 from repro_torch.kernels.fft import real as _real_kernel
 from repro_torch.kernels.fft.ops import fft_rows_op
 from repro_torch.kernels.fft.real import rfft_rows_op
@@ -19,7 +21,8 @@ __all__ = ["fft_rows_op", "fft_rows_transpose_op", "launch_counts",
            "reset_launch_counts", "rfft_rows_op", "rfft_rows_transpose_op",
            "transpose_op"]
 
-_COUNTED = {"fft_rows": _fft_kernel, "fft_rows_transpose": _fused_kernel,
+_COUNTED = {"fft_rows": _fft_kernel, "fft_rows_large": _large_kernel,
+            "fft_rows_transpose": _fused_kernel,
             "rfft_rows": _real_kernel, "rfft_rows_transpose": _fused_real_kernel,
             "transpose": _transpose_kernel}
 

@@ -40,6 +40,10 @@ _FUNCTIONS = {"repro_fft_rows": _COMPLEX_ROWS,
               "repro_fft_rows_transpose": _COMPLEX_ROWS,
               "repro_rfft_rows": _REAL_ROWS,
               "repro_rfft_rows_transpose": _REAL_ROWS,
+              # (in, out, scratch, rows, n1, n2, inverse, rows_per_cta,
+              # threads, stream): K1b, two launches
+              "repro_fft_rows_large": (_INT, [_PTR, _PTR, _PTR, _LL, _INT, _INT, _INT,
+                                              _INT, _INT, _PTR]),
               # (in, out, r, c, elem_bytes, stream)
               "repro_transpose": (_INT, [_PTR, _PTR, _LL, _LL, _INT, _PTR])}
 

@@ -1,6 +1,7 @@
 // Batched row FFT for Hopper (sm_90a): out[r, :] = DFT_n(in[r, :]) for every
 // row r of a (rows, n) matrix of interleaved complex64, forward or inverse
-// (inverse scaled by 1/n), n a power of two, 2 <= n <= 8192.
+// (inverse scaled by 1/n), n a power of two, 2 <= n <= 16384 (longer rows go
+// to the two-pass fft_rows_large.cu).
 //
 // Replaces the TPU kernel `fft_rows_pallas` (body `_fft_kernel`) of
 // src/repro/kernels/fft/kernel.py.  That kernel carries two float planes
@@ -25,7 +26,9 @@
 // - at n = 8192 a CTA is 512 threads with 68 KiB of shared memory and at
 //   most 64 registers a thread, so two CTAs share an SM and one's loads
 //   overlap the other's passes; shorter rows put several rows in a CTA of
-//   up to 256 threads.
+//   up to 256 threads.  At n = 16384 (Plan<14>) a CTA is 1024 threads with
+//   136 KiB and the same 64 registers, one row and one CTA an SM: no second
+//   CTA hides its loads.
 // The last CTA may be ragged: its threads without a row load zeros, take part
 // in the exchanges and store nothing, so the caller pads nothing.  `radix` is
 // validated (2 or 4, as in the reference) but the passes depend on n only.
@@ -117,6 +120,7 @@ extern "C" int repro_fft_rows(const void* in, void* out, long long rows, int n,
         case 1 << 11: return launch_dir<11>(in, out, rows, inverse, r, th, s);
         case 1 << 12: return launch_dir<12>(in, out, rows, inverse, r, th, s);
         case 1 << 13: return launch_dir<13>(in, out, rows, inverse, r, th, s);
+        case 1 << 14: return launch_dir<14>(in, out, rows, inverse, r, th, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

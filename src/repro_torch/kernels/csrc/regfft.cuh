@@ -13,7 +13,8 @@
 // Pass plan: log2 n = 4q + r gives q radix-16 passes and, when r > 0, one
 // radix-2^r pass in which each thread runs 16 / 2^r butterflies (below
 // n = 16, one radix-n pass).  At n = 8192: 512 threads, radices 16.16.16.2,
-// three exchanges.  The last pass has ncur = r, so j = 0 and no twiddle, and
+// three exchanges; at n = 16384 (Plan<14>, the largest instantiated):
+// 1024 threads, radices 16.16.16.4, three exchanges.  The last pass has ncur = r, so j = 0 and no twiddle, and
 // its outputs y[t + k*GROUP] are in natural order: no bit reversal.
 //
 // The radix-16 butterfly is two in-register radix-4 stages with the

@@ -1,7 +1,7 @@
 // Fused real row FFT -> transposed store for Hopper (sm_90a):
 // out[k, r] = DFT_n(in[r, :])[k] for k < n/2 + 1 and every row r of a
 // (rows, n) float32 matrix; out is (n/2 + 1, rows) interleaved complex64, n a
-// power of two, 2 <= n <= 8192, forward only.
+// power of two, 2 <= n <= 16384, forward only.
 //
 // Replaces the TPU kernel `rfft_rows_transpose_pallas` (body `_rfused_kernel`)
 // of src/repro/kernels/fused/real.py: phase 1 of the fused real 2-D DFT, with
@@ -16,7 +16,8 @@
 // (regfft.cuh, launch shape kernels/fft/kernel.py::complex_rows_plan with a
 // pair in the place of a row), each thread issues its 32 float loads before
 // the first butterfly, and at n = 8192 a CTA of 512 threads and 68 KiB lets
-// two CTAs share an SM.  The store is the hard part: bin k of row r goes to
+// two CTAs share an SM (at 16384 one CTA of 1024 threads and 136 KiB takes
+// it alone).  The store is the hard part: bin k of row r goes to
 // out[k*rows + r], so a pair gives two neighbouring elements, 16 contiguous
 // bytes, of each output row.  After the last pass Z goes once to the
 // exchange buffer, and the store runs idx over (k, p) with the pair p
@@ -210,6 +211,7 @@ extern "C" int repro_rfft_rows_transpose(const void* in, void* out, long long ro
         case 1 << 11: return launch<11>(in, out, rows, rows_per_cta, threads, s);
         case 1 << 12: return launch<12>(in, out, rows, rows_per_cta, threads, s);
         case 1 << 13: return launch<13>(in, out, rows, rows_per_cta, threads, s);
+        case 1 << 14: return launch<14>(in, out, rows, rows_per_cta, threads, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

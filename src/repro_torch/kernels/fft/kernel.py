@@ -19,9 +19,11 @@ The CUDA row kernels (this one, the fused ``fft_rows_transpose.cu`` and the
 packed real ones) hold each row's points in registers (``csrc/regfft.cuh``):
 their passes (radix 16, then one radix-2^r pass, on the same ``(ncur, s)``
 view) and launch shape depend only on ``n`` and the row count, and
-``complex_rows_plan`` mirrors their instantiation table.  ``radix`` is
-validated, as in the reference, and chooses the plain version's stage loop
-only.
+``complex_rows_plan`` mirrors their instantiation table, n = 2 ... 16384.
+Longer complex rows, up to ``MAX_LARGE_N``, go to the two-pass four-step
+kernel K1b (``kernels.fft.large``, ``csrc/fft_rows_large.cu``).  ``radix``
+is validated, as in the reference, and chooses the plain version's stage
+loop only.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from repro_torch.kernels import _build
 
 __all__ = [
     "MAX_KERNEL_N",
+    "MAX_LARGE_N",
     "SMEM_BUDGET",
     "KernelLaunchError",
     "KernelLengthError",
@@ -50,9 +53,14 @@ __all__ = [
 
 # Dynamic shared memory a CTA may opt in to on an H100 (227 KB).
 SMEM_BUDGET = 232448
-# The row kernels are instantiated for power-of-two n up to this length
-# (``regfft::Plan<13>``) and no further.
-MAX_KERNEL_N = 8192
+# The register-resident row kernels K1-K4 are instantiated for power-of-two n
+# up to this length (``regfft::Plan<14>``: one row of 1024 threads a CTA) and
+# no further.
+MAX_KERNEL_N = 16384
+# The complex row FFT takes power-of-two rows up to this length: above
+# MAX_KERNEL_N through the four-step K1b, whose two factors are at most
+# MAX_KERNEL_N each.
+MAX_LARGE_N = 1 << 28
 # Points of a row one thread of a register-resident kernel holds (at most),
 # and the threads a CTA aims at when a row needs fewer (``csrc/regfft.cuh``).
 _POINTS = 16
@@ -69,19 +77,19 @@ class KernelLaunchError(RuntimeError):
 
 
 class KernelLengthError(ValueError):
-    """A power-of-two row length above ``MAX_KERNEL_N``: the kernels are
-    instantiated up to ``Plan<13>``, and nothing switches to the library in
-    their place."""
+    """A power-of-two row length above a kernel's top (``top``:
+    ``MAX_KERNEL_N`` for the fused and real kernels, ``MAX_LARGE_N`` for the
+    complex row FFT); nothing switches to the library in their place."""
 
-    def __init__(self, name: str, n: int) -> None:
+    def __init__(self, name: str, n: int, top: int = MAX_KERNEL_N) -> None:
         super().__init__(
-            f"{name}: power-of-two length {n} exceeds the kernel limit "
-            f"{MAX_KERNEL_N} (the kernels are instantiated up to Plan<13>); "
+            f"{name}: power-of-two length {n} exceeds the kernel limit {top}; "
             "use the library backend (radix=None) for this length")
 
 
 def launch_count() -> int:
-    """How many times ``fft_rows_cuda`` has launched its kernel."""
+    """How many times ``fft_rows_cuda`` has launched K1 (K1b's launches are
+    ``kernels.fft.large.launch_count``)."""
     return _launches
 
 
@@ -226,9 +234,11 @@ def fft_rows_plain(x: torch.Tensor, *, inverse: bool = False,
 
 
 def check_kernel_input(x: torch.Tensor, name: str,
-                       dtype: torch.dtype = torch.complex64) -> tuple[int, int]:
+                       dtype: torch.dtype = torch.complex64,
+                       top: int = MAX_KERNEL_N) -> tuple[int, int]:
     """What the row-FFT launchers require of their input (``dtype``:
-    complex64, or float32 for the real kernels); returns (rows, n)."""
+    complex64, or float32 for the real kernels; a power-of-two length up to
+    ``top``); returns (rows, n)."""
     if not x.is_cuda:
         raise ValueError(f"{name}: input must be a CUDA tensor, got {x.device}")
     if x.dtype != dtype:
@@ -241,8 +251,8 @@ def check_kernel_input(x: torch.Tensor, name: str,
     rows, n = x.shape
     if n < 2 or n & (n - 1):
         raise ValueError(f"{name}: length {n} must be a power of two >= 2")
-    if n > MAX_KERNEL_N:
-        raise KernelLengthError(name, n)
+    if n > top:
+        raise KernelLengthError(name, n, top)
     return rows, n
 
 
@@ -262,7 +272,7 @@ def launch(fn_name: str, x: torch.Tensor, out: torch.Tensor, **args) -> None:
 
 def complex_rows_plan(n: int, rows: int) -> tuple[int, int, int, list[int], int]:
     """The launch shape of a register-resident row kernel for ``rows`` rows
-    of length ``n`` (a power of two, 2 <= n <= 8192), as ``csrc/fft_rows.cu``
+    of length ``n`` (a power of two, 2 <= n <= 16384), as ``csrc/fft_rows.cu``
     and ``csrc/rfft_rows.cu`` (a packed pair of real rows in the place of a
     row) instantiate it: ``(rows_per_cta, threads, points_per_thread,
     radices, smem_bytes)``.
@@ -273,7 +283,8 @@ def complex_rows_plan(n: int, rows: int) -> tuple[int, int, int, list[int], int]
     one radix-n pass).  A CTA takes as many rows as make 256 threads, fewer
     (down to one row or one warp) while the grid would not fill the card.
     The exchange buffer holds the CTA's rows with one float2 of padding per
-    16: 69632 bytes at n = 8192, so two CTAs share an SM.
+    16: 69632 bytes at n = 8192, so two CTAs share an SM; 139264 at 16384,
+    one row of 1024 threads, one CTA an SM.
     """
     if n < 2 or n & (n - 1):
         raise ValueError(f"complex_rows_plan: length {n} must be a power of two >= 2")
@@ -292,12 +303,17 @@ def complex_rows_plan(n: int, rows: int) -> tuple[int, int, int, list[int], int]
 def fft_rows_cuda(x: torch.Tensor, *, inverse: bool = False,
                   radix: int = 4) -> torch.Tensor:
     """Launch ``csrc/fft_rows.cu``: (rows, n) complex64 CUDA tensor -> its
-    row-wise DFT, in the launch shape of ``complex_rows_plan``.  Does not
-    synchronise."""
+    row-wise DFT, in the launch shape of ``complex_rows_plan``; rows longer
+    than ``MAX_KERNEL_N`` (up to ``MAX_LARGE_N``) go to K1b
+    (``kernels.fft.large.fft_rows_large_cuda``).  Does not synchronise."""
     global _launches
-    rows, n = check_kernel_input(x, "fft_rows_cuda")
+    rows, n = check_kernel_input(x, "fft_rows_cuda", top=MAX_LARGE_N)
     if radix not in (2, 4):
         raise ValueError(f"unsupported radix {radix}")
+    if n > MAX_KERNEL_N:
+        # Imported here: kernels.fft.large imports this module.
+        from repro_torch.kernels.fft.large import fft_rows_large_cuda
+        return fft_rows_large_cuda(x, inverse=inverse)
     out = torch.empty_like(x)
     if rows == 0:
         return out

@@ -1,0 +1,161 @@
+"""The complex row FFT of long rows, K1b: the plain PyTorch version, the
+launch plan and the launcher of the CUDA kernel ``csrc/fft_rows_large.cu``.
+
+Counterpart of ``repro.kernels.fft.kernel.fft_rows_pallas`` at the lengths
+the register-resident K1 (``kernels.fft.kernel``, n <= ``MAX_KERNEL_N``)
+cannot hold: power-of-two n from 2 * ``MAX_KERNEL_N`` up to ``MAX_LARGE_N``.
+The four-step: with n = n1 * n2 (``large_split``) and row r viewed as
+``A[j1][j2] = x[j1*n2 + j2]``,
+
+    X[k1 + n1*k2] = sum_j2 w_n2^(j2*k2) * w_n^(k1*j2) * sum_j1 w_n1^(j1*k1) * A[j1][j2]
+
+pass A runs the length-n1 DFTs down the columns of A and multiplies by the
+twiddle ``w_n^(k1*j2)`` (``large_twiddle``), writing B in A's layout to a
+scratch buffer; pass B runs the length-n2 DFTs along the rows of B and
+stores them transposed, ``out[k1 + n1*k2]`` (K2's function on each row's
+(n1, n2) matrix).  The inverse conjugates the twiddles, and its 1/n1 and 1/n2
+scales make 1/n.
+
+Scratch: a call allocates ``torch.empty`` of at most ``SCRATCH_ELEMS``
+complex64 elements (1 GiB), or of one row where a row alone is larger (2 GiB
+at n = 2^28), and walks the rows in chunks of that many.  ``launch_count``
+counts every CUDA launch: two per chunk, pass A and pass B.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.fft.kernel import (_CTA_THREADS, _POINTS, MAX_KERNEL_N,
+                                            MAX_LARGE_N, check_kernel_input,
+                                            complex_rows_plan, launch,
+                                            stockham_planes_radix4)
+
+__all__ = ["MIN_FACTOR", "SCRATCH_ELEMS", "columns_plan", "fft_rows_large_cuda",
+           "fft_rows_large_plain", "large_split", "large_twiddle",
+           "launch_count", "reset_launch_count", "scratch_rows"]
+
+# The kernel's factors n1 and n2 lie in [MIN_FACTOR, MAX_KERNEL_N]
+# (``kMinLog2`` and ``kMaxLog2`` of ``csrc/fft_rows_large.cu``).
+MIN_FACTOR = 128
+# Complex64 elements of scratch a call allocates at most (1 GiB), unless one
+# row alone is longer.
+SCRATCH_ELEMS = 1 << 27
+
+_launches = 0
+
+
+def launch_count() -> int:
+    """CUDA launches of K1b since the last reset: two per chunk of rows."""
+    return _launches
+
+
+def reset_launch_count() -> None:
+    global _launches
+    _launches = 0
+
+
+def large_split(n: int, *, n1: int | None = None,
+                n2: int | None = None) -> tuple[int, int]:
+    """The four-step factors ``(n1, n2)`` of a power-of-two ``n``: by default
+    the near-square ``n1 = 2^floor(log2(n) / 2)``, ``n2 = n / n1 >= n1``
+    (pass A, the column pass, gets the shorter columns and so more of them a
+    CTA); ``n1`` or ``n2`` pins the split.  Both are powers of two >= 2."""
+    if n < 4 or n & (n - 1):
+        raise ValueError(f"large_split: length {n} must be a power of two >= 4")
+    if n1 is None and n2 is None:
+        n1 = 1 << ((n.bit_length() - 1) // 2)
+    n1 = n // n2 if n1 is None else int(n1)
+    n2 = n // n1 if n2 is None else int(n2)
+    if n1 < 2 or n2 < 2 or n1 & (n1 - 1) or n2 & (n2 - 1) or n1 * n2 != n:
+        raise ValueError(f"large_split: ({n1}, {n2}) is not a split of {n} into "
+                         "powers of two >= 2")
+    return n1, n2
+
+
+def columns_plan(n1: int) -> tuple[int, int, int]:
+    """Pass A's launch shape for columns of length ``n1`` (``ColPlan`` of
+    ``csrc/fft_rows_large.cu``): ``(cols, threads, smem_bytes)``.  A CTA
+    takes ``cols`` adjacent columns of one row, n1/16 threads a column with
+    16 points each, as many columns as make 256 threads and at least 4 (32
+    bytes of each row of the view), but no more than 1024 threads hold."""
+    group = n1 // _POINTS
+    cols = max(4, _CTA_THREADS // group)
+    if cols * group > 1024:
+        cols = 1024 // group
+    elements = cols * n1
+    return cols, cols * group, 8 * (elements + -(-elements // 16))
+
+
+def scratch_rows(n: int) -> int:
+    """Rows of length ``n`` a call transforms per chunk (and holds in
+    scratch): ``SCRATCH_ELEMS // n``, at least one."""
+    return max(1, SCRATCH_ELEMS // n)
+
+
+def large_twiddle(m: torch.Tensor, n: int, *, inverse: bool = False) -> torch.Tensor:
+    """``w_n^m = exp(sign*2*pi*i*m/n)`` for int64 ``m`` in [0, n), as pass A
+    makes it: ``m = mh*2^14 + ml`` and ``w^m = w^(mh*2^14) * w^ml``, the
+    cosine and sine of the exact float32 arguments ``mh*2^15/n`` and
+    ``2*ml/n`` (times pi) each rounded to float32, as ``sincospif`` gives
+    them to about an ulp, and their complex64 product.  One argument
+    ``2m/n`` would not be exact in float32 above n = 2^24."""
+    sign = 1.0 if inverse else -1.0
+    log2n = n.bit_length() - 1
+
+    def unit(a: torch.Tensor) -> torch.Tensor:
+        angle = a.double() * math.pi
+        return torch.complex(torch.cos(angle).float(), sign * torch.sin(angle).float())
+
+    high = unit((m >> 14).float() * 2.0 ** (15 - log2n))
+    low = unit((m & 16383).float() * 2.0 ** (1 - log2n))
+    return high * low
+
+
+def fft_rows_large_plain(x: torch.Tensor, *, inverse: bool = False,
+                         n1: int | None = None, n2: int | None = None) -> torch.Tensor:
+    """K1b's plain version: (rows, n) complex64 -> its row-wise DFT by the
+    same two passes, on whatever device ``x`` lies on: the length-n1 DFTs
+    of the columns (``stockham_planes_radix4``), the twiddle of
+    ``large_twiddle``, the length-n2 DFTs of B's rows and the transposed
+    store, each written out.  ``n1`` / ``n2`` pin the split."""
+    rows, n = x.shape
+    n1, n2 = large_split(n, n1=n1, n2=n2)
+    cols = torch.view_as_real(x.reshape(rows, n1, n2).transpose(1, 2).contiguous())
+    re, im = stockham_planes_radix4(cols[..., 0], cols[..., 1], inverse=inverse)
+    j2 = torch.arange(n2, device=x.device)[:, None]
+    k1 = torch.arange(n1, device=x.device)[None, :]
+    b = torch.complex(re, im) * large_twiddle(j2 * k1, n, inverse=inverse)
+    b = torch.view_as_real(b.transpose(1, 2).contiguous())    # B[k1][j2], pass A's store
+    re, im = stockham_planes_radix4(b[..., 0], b[..., 1], inverse=inverse)
+    return torch.complex(re, im).transpose(1, 2).reshape(rows, n)
+
+
+def fft_rows_large_cuda(x: torch.Tensor, *, inverse: bool = False,
+                        n1: int | None = None) -> torch.Tensor:
+    """Launch ``csrc/fft_rows_large.cu``: (rows, n) complex64 CUDA tensor ->
+    its row-wise DFT, both factors of the split (``large_split``, ``n1``
+    pins it) in [``MIN_FACTOR``, ``MAX_KERNEL_N``]; pass A's shape is
+    ``columns_plan(n1)``, pass B's ``complex_rows_plan(n2, chunk_rows*n1)``.
+    Does not synchronise."""
+    global _launches
+    rows, n = check_kernel_input(x, "fft_rows_large_cuda", top=MAX_LARGE_N)
+    n1, n2 = large_split(n, n1=n1)
+    if not (MIN_FACTOR <= n1 <= MAX_KERNEL_N and MIN_FACTOR <= n2 <= MAX_KERNEL_N):
+        raise ValueError(f"fft_rows_large_cuda: the split ({n1}, {n2}) of {n} has a "
+                         f"factor outside [{MIN_FACTOR}, {MAX_KERNEL_N}]")
+    out = torch.empty_like(x)
+    if rows == 0:
+        return out
+    chunk = scratch_rows(n)
+    scratch = torch.empty((min(rows, chunk), n), dtype=x.dtype, device=x.device)
+    for r0 in range(0, rows, chunk):
+        r1 = min(rows, r0 + chunk)
+        rows_per_cta, threads, *_ = complex_rows_plan(n2, (r1 - r0) * n1)
+        launch("repro_fft_rows_large", x[r0:r1], out[r0:r1],
+               scratch=scratch.data_ptr(), rows=r1 - r0, n1=n1, n2=n2,
+               inverse=int(inverse), rows_per_cta=rows_per_cta, threads=threads)
+        _launches += 2
+    return out

@@ -14,8 +14,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch._device import as_tensor, complex_result_type
-from repro_torch.kernels.fft.kernel import (MAX_KERNEL_N, KernelLengthError,
-                                            fft_rows_cuda, fft_rows_plain)
+from repro_torch.kernels.fft.kernel import (MAX_KERNEL_N, MAX_LARGE_N,
+                                            KernelLengthError, fft_rows_cuda,
+                                            fft_rows_plain)
+from repro_torch.kernels.fft.large import fft_rows_large_plain
 
 __all__ = ["fft_rows_op", "pick_radix", "prepare_rows", "resolve_radix"]
 
@@ -26,13 +28,15 @@ def pick_radix(n: int) -> int:
     return 4 if n >= 4 else 2
 
 
-def resolve_radix(n: int, radix: int | None, name: str) -> int:
-    """Shared prologue of the row-FFT op wrappers: validate the length and
-    fill in the radix default.  ``name`` is the op named in errors."""
+def resolve_radix(n: int, radix: int | None, name: str,
+                  top: int = MAX_KERNEL_N) -> int:
+    """Shared prologue of the row-FFT op wrappers: validate the length (a
+    power of two up to the kernel's ``top``) and fill in the radix default.
+    ``name`` is the op named in errors."""
     if n & (n - 1) or n < 1:
         raise ValueError(f"cuda fft kernel requires power-of-two length, got {n}")
-    if n > MAX_KERNEL_N:
-        raise KernelLengthError(name, n)
+    if n > top:
+        raise KernelLengthError(name, n, top)
     if radix is None:
         radix = pick_radix(n)
     if radix not in (2, 4):
@@ -53,24 +57,29 @@ def prepare_rows(x: torch.Tensor, name: str) -> torch.Tensor:
 
 def fft_rows_op(x, *, inverse: bool = False,
                 radix: int | None = None) -> torch.Tensor:
-    """Complex row FFT via the CUDA kernel. x: (..., rows, n) complex.
+    """Complex row FFT via the CUDA kernel. x: (..., rows, n) complex, n a
+    power of two up to ``MAX_LARGE_N``: K1 up to ``MAX_KERNEL_N``, the
+    four-step K1b above (on the CPU, ``fft_rows_large_plain``).
 
     ``radix=None`` auto-selects (radix 4 with radix-2 tail for n >= 4); it
-    chooses the plain version's stage loop, while the CUDA kernel's passes
-    and launch shape depend on ``n`` only (``complex_rows_plan``).
-    Computes in float32 and returns ``promote(x.dtype, complex64)``.
+    chooses the plain version's stage loop up to ``MAX_KERNEL_N``, while the
+    CUDA kernels' passes and launch shape depend on ``n`` only
+    (``complex_rows_plan``).  Computes in float32 and returns
+    ``promote(x.dtype, complex64)``.
     """
     x = as_tensor(x)
     if x.ndim < 2:
         raise ValueError(f"fft_rows_op takes (..., rows, n) input, got shape {tuple(x.shape)}")
     n = x.shape[-1]
     x2 = prepare_rows(x, "fft_rows_op").reshape(-1, n)
-    radix = resolve_radix(n, radix, "fft_rows_op")
+    radix = resolve_radix(n, radix, "fft_rows_op", MAX_LARGE_N)
     out_dtype = complex_result_type(x)
     if n == 1:  # the length-1 DFT is the identity: no pass to run
         return x2.to(out_dtype).reshape(x.shape).clone()
     if x2.is_cuda:
         out = fft_rows_cuda(x2, inverse=inverse, radix=radix)
+    elif n > MAX_KERNEL_N:
+        out = fft_rows_large_plain(x2, inverse=inverse)
     else:
         out = fft_rows_plain(x2, inverse=inverse, radix=radix)
     return out.to(out_dtype).reshape(x.shape)

@@ -19,11 +19,14 @@ constraints); ``tune_config`` ranks it:
 Every ``measure_*`` and ``tune_*`` takes ``device=``: ``None`` is the CUDA
 device (raising without one), ``"cpu"`` runs the kernels' plain versions.
 
-The candidate pot never holds a configuration that cannot run: the CUDA
-kernels take power-of-two rows up to ``MAX_KERNEL_N``, so ``radix=4`` is
-offered only where every power-of-two effective length fits, and ``fused``
-only where ``n`` does.  Up to that length the pot is the reference's,
-config for config, on every device.
+The candidate pot never holds a configuration that cannot run: the complex
+row FFT (K1, and the four-step K1b above ``MAX_KERNEL_N``) takes
+power-of-two rows up to ``MAX_LARGE_N``, the fused (K2, K4) and real (K3,
+K4) kernels up to ``MAX_KERNEL_N``.  So ``radix=4`` is offered only where
+every power-of-two effective length fits the kernels it runs, and
+``fused`` only where ``n`` fits K2.  Up to ``MAX_KERNEL_N`` the pot is the
+reference's, config for config, on every device; above it the complex
+unfused configs still are.
 
 The caller (``plan_pfft``) persists the result via ``plan.wisdom`` so
 measurement happens once per (n, dtype, p, method, backend) per machine.
@@ -40,7 +43,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.fpm import FPMSet, fft_flops
-from repro_torch.kernels.fft.kernel import MAX_KERNEL_N
+from repro_torch.kernels.fft.kernel import MAX_KERNEL_N, MAX_LARGE_N
 from repro_torch.plan.config import PlanConfig
 from repro_torch.plan.cost import (CostParams, _compute_multiplier,
                                    _segment_work, comm_phase_time,
@@ -62,12 +65,14 @@ def _is_pow2(n: int) -> bool:
     return n > 0 and not (n & (n - 1))
 
 
-def _kernel_takes(length: int) -> bool:
-    """Whether the CUDA row kernels run a row of ``length``: any length
-    that is not a power of two goes to the library (``fft_rows``' rule),
-    a power of two up to ``MAX_KERNEL_N`` to the kernel; a longer power
-    of two would raise ``KernelLengthError``."""
-    return not _is_pow2(length) or length <= MAX_KERNEL_N
+def _kernel_takes(length: int, top: int = MAX_LARGE_N) -> bool:
+    """Whether a CUDA row kernel whose longest row is ``top`` runs a row of
+    ``length``: any length that is not a power of two goes to the library
+    (``fft_rows``' rule), a power of two up to ``top`` to the kernel; a
+    longer power of two would raise ``KernelLengthError``.  ``top`` is
+    ``MAX_LARGE_N`` for the unfused complex rows (K1, K1b) and
+    ``MAX_KERNEL_N`` for the fused and real kernels (K2, K3, K4)."""
+    return not _is_pow2(length) or length <= top
 
 
 def _params_for(params: CostParams | None, device) -> CostParams:
@@ -159,9 +164,10 @@ def candidate_configs(n: int, *, pad: str = "none", d=None,
     per-segment padding; the kernel radices require a power-of-two N (and
     the czt path runs library FFTs inside ``czt_dft`` whatever the radix
     says, so czt enumerates only the dispatch structure); ``radix=4`` also
-    requires that the kernel takes every effective length (``n`` and each
-    busy segment's ``pad_lengths`` entry); ``batched`` only matters when
-    the partition has more than one non-empty segment.
+    requires that the complex row FFT takes every effective length (``n``
+    and each busy segment's ``pad_lengths`` entry), and ``fused`` that K2
+    takes ``n``; ``batched`` only matters when the partition has more than
+    one non-empty segment.
     """
     radices: list[int | None] = [None]
     if pad != "czt" and _is_pow2(n):
@@ -178,7 +184,7 @@ def candidate_configs(n: int, *, pad: str = "none", d=None,
             for batched in batch_opts:
                 out.append(PlanConfig(radix=radix, batched=batched, pad=pad,
                                       pipeline_panels=k))
-        if pad == "none" and _is_pow2(n) and _kernel_takes(n):
+        if pad == "none" and _is_pow2(n) and _kernel_takes(n, MAX_KERNEL_N):
             # Fused collapses each phase to one dispatch; segmentation (and
             # therefore batched) is moot, and the kernel is radix-4.
             out.append(PlanConfig(radix=4, fused=True, pipeline_panels=k))
@@ -196,7 +202,7 @@ def segment_candidate_configs(length: int, *, pad: str = "none"
     the homogeneous envelope ``tune_schedule`` compares against.  The czt
     path has a single per-segment shape (``czt_dft`` at the entry's
     length), so it contributes exactly one candidate.  ``radix=4`` needs
-    a power-of-two length the kernel takes.
+    a power-of-two length the complex row FFT takes.
     """
     if pad == "czt":
         return [PlanConfig(pad="czt")]
@@ -576,11 +582,14 @@ def _require_real_dtype(dtype) -> np.dtype:
     return dt
 
 
-def _real_candidates(cands: Sequence[PlanConfig]) -> list[PlanConfig]:
+def _real_candidates(cands: Sequence[PlanConfig],
+                     lengths: Sequence[int] = ()) -> list[PlanConfig]:
     """The real-flagged twins of a complex candidate list (czt dropped —
-    the real pipeline has no Bluestein form)."""
+    the real pipeline has no Bluestein form; ``radix=4`` dropped unless the
+    real kernels take every effective length in ``lengths``)."""
+    real4 = all(_kernel_takes(length, MAX_KERNEL_N) for length in lengths)
     return [dataclasses.replace(c, real=True) for c in cands
-            if c.pad != "czt"]
+            if c.pad != "czt" and (real4 or c.radix != 4)]
 
 
 def _family_finalists(ranked, n: int, d, pad_lengths, top_k: int
@@ -665,7 +674,8 @@ def tune_rfft(n: int, *, d=None, pad_lengths=None, fpms: FPMSet | None = None,
     params = _params_for(params, device)
 
     complex_cands = candidate_configs(n, pad=pad, d=d, pad_lengths=pad_lengths)
-    cands = _real_candidates(complex_cands) + complex_cands
+    lengths = [n] + [length for _, length in _segment_work(n, d, pad_lengths)]
+    cands = _real_candidates(complex_cands, lengths) + complex_cands
     ranked = sorted(
         ((cfg, estimate_cost(cfg, n=n, d=d, pad_lengths=pad_lengths,
                              fpms=fpms, params=params))
@@ -810,7 +820,7 @@ def tune_pfft3(n: int, mesh=None,
     local pass of the winner) and ``comm_time_meas_s = total − 3·pass``
     (clamped at 0): both exchange rounds on a mesh, the rotations on one
     device.  The candidate pot is ``candidate_configs``' (no ``radix=4``
-    where N is a power of two above ``MAX_KERNEL_N``), batched and unfused.
+    where N is a power of two above ``MAX_LARGE_N``), batched and unfused.
     """
     if mode not in ("estimate", "measure"):
         raise ValueError(f"mode must be 'estimate' or 'measure', got {mode!r}")
@@ -1032,8 +1042,9 @@ def tune_pfft1_large(n: int, *, n1: int | None = None, n2: int | None = None,
     n1 (``core.pfft_large``), so the estimate prices each phase at its
     own length with the config's backend multiplier — a radix kernel that
     helps the pow2 side may be a library no-op on the other.  ``radix=4``
-    is offered only where the kernel takes both phase lengths (a power of
-    two above ``MAX_KERNEL_N`` would raise ``KernelLengthError``).  Measure
+    is offered only where the complex row FFT takes both phase lengths (a
+    power of two above ``MAX_LARGE_N`` would raise ``KernelLengthError``);
+    each factor of a power-of-two n up to 2^56 does.  Measure
     mode times the production ``pfft1_large_apply`` end to end on
     ``device``, with each candidate's twiddle table made once, outside the
     timed runs, as a plan makes it.
@@ -1460,7 +1471,7 @@ def tune_rfft_dist(n: int, mesh, axis_name: str = "fft", *,
 
     complex_cands = [c for c in candidate_configs(n, pad=pad, d=None,
                                                   panels=panels) if c.batched]
-    real_cands = [c for c in _real_candidates(complex_cands)
+    real_cands = [c for c in _real_candidates(complex_cands, [n, pad_len or n])
                   if not c.fused and c.pipeline_panels == 1]
     ranked = sorted(
         ((cfg, estimate_cost(cfg, n=n, fpms=fpms, params=params,

@@ -358,3 +358,71 @@ def k2_store_model(z, rows: int, plan, *, cluster: int = 1):
         runs[2].append((firsts.reshape(-1) + wide <= rows)[keys[starts] // span])
     runs = tuple(np.concatenate(part) for part in runs)
     return (None if out is None else out[:, :rows]), writes, worst, runs
+
+
+def k1b_model(x, n1: int, n2: int, cols: int, plan_b, cluster: int, *,
+              rows: int | None = None, inverse: bool = False):
+    """K1b, the four-step row kernel of long rows (``csrc/fft_rows_large.cu``),
+    in float64, thread by thread, in its launch shape: ``x`` the (rows,
+    n1*n2) complex rows, or None for the pattern alone (then ``rows``).
+
+    Pass A: CTA b = s*(n2/cols) + g takes columns g*cols ... g*cols + cols -
+    1 of row s; thread c*G + t (G = n1/16) loads A[t + k*G][j2] =
+    x[s*n + (t + k*G)*n2 + j2] for k < 16, and after the column DFT (here
+    ``np.fft``: the passes are ``kernel_pass_model``'s) stores
+    Y[k1][j2] * w_n^(k1*j2) at the same address of the scratch, k1 = t + k*G.
+    Pass B: K2's store (``k2_store_model`` in ``plan_b`` =
+    ``complex_rows_plan(n2, rows*n1)`` and ``cluster``) over the rows*n1
+    rows of the scratch, each (k2, row R = s*n1 + k1) sent to
+    out[s*n + k2*n1 + k1].
+
+    Returns ``(out, reads_a, writes_a, sectors_a, writes_b, runs_b)``: the
+    (rows, n) result (None without ``x``); how often pass A read and wrote
+    each scratch element; whether every step k of every pass-A CTA touches
+    whole 32-byte sectors (4 complex64) only; how often pass B wrote each
+    output element; and ``k2_store_model``'s runs (bytes, contiguous, full)
+    of pass B's warps."""
+    n = n1 * n2
+    rows = x.shape[0] if x is not None else rows
+    group = n1 // 16
+    threads, groups = cols * group, n2 // cols
+    tid = np.arange(threads)
+    c, t = tid // group, tid % group
+    k = np.arange(16)[:, None]
+    block = np.arange(rows * groups)
+    s, g = block // groups, block % groups
+    j2 = g[:, None, None] * cols + c                                   # (B, 1, T)
+    j1 = t + k * group                                                 # (16, T)
+    addr = s[:, None, None] * n + j1[None] * n2 + j2                   # (B, 16, T)
+    reads_a = np.bincount(addr.ravel(), minlength=rows * n)
+    writes_a = reads_a.copy()                  # pass A stores where it loaded
+    steps = np.sort(addr.reshape(-1, threads), axis=1).reshape(-1, threads // 4, 4)
+    sectors_a = bool((steps[..., 0] % 4 == 0).all()
+                     and (np.diff(steps, axis=-1) == 1).all())
+    z = None
+    if x is not None:
+        xx = np.asarray(x, np.complex128).reshape(-1)
+        col = np.zeros((rows * groups, cols, n1), np.complex128)
+        col[:, c[None, :].repeat(16, 0), j1] = xx[addr]
+        y = np.fft.ifft(col, axis=-1) if inverse else np.fft.fft(col, axis=-1)
+        sign = 1.0 if inverse else -1.0
+        k1 = np.arange(n1)
+        jj = g[:, None] * cols + np.arange(cols)                       # (B, cols)
+        y = y * np.exp(sign * 2j * np.pi * ((jj[:, :, None] * k1) % n) / n)
+        scratch = np.zeros(rows * n, np.complex128)
+        scratch[addr] = y[np.arange(rows * groups)[:, None, None],
+                          c[None, None, :], j1[None]]
+        b = scratch.reshape(rows * n1, n2)
+        z = torch.from_numpy(np.fft.ifft(b, axis=-1) if inverse else np.fft.fft(b, axis=-1))
+    out_t, writes_t, _, runs_b = k2_store_model(z, rows * n1, plan_b, cluster=cluster)
+    big_r = np.arange(rows * n1)
+    dest = (big_r // n1) * n + np.arange(n2)[:, None] * n1 + big_r % n1   # (n2, R)
+    writes_b = np.zeros(rows * n, np.int64)
+    np.add.at(writes_b, dest[writes_t[:, :rows * n1] > 0],
+              writes_t[:, :rows * n1][writes_t[:, :rows * n1] > 0])
+    out = None
+    if out_t is not None:
+        out = np.zeros(rows * n, np.complex128)
+        out[dest] = out_t
+        out = out.reshape(rows, n)
+    return out, reads_a, writes_a, sectors_a, writes_b, runs_b

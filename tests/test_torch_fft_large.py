@@ -1,0 +1,257 @@
+"""K1b, the four-step complex row FFT of rows longer than K1 holds
+(``csrc/fft_rows_large.cu``, ``kernels/fft/large.py``), on the CPU: its plain
+version against the reference's ``fft_rows_op`` (Pallas in interpret mode)
+and ``numpy.fft``, its twiddle split against float64, a float64 model of its
+pass A column tiling and pass B store, its launch plans against the CUDA
+source, and the huge-1-D path through it.
+
+The CUDA kernel runs only on the card (``chip_smoke.py``,
+``examples/kernel_check_torch.py --fft-rows-large-only``).  Run these alone
+with ``PYTHONPATH=src JAX_PLATFORMS=cpu python -m pytest -q
+tests/test_torch_fft_large.py``.
+"""
+
+import re
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from _torch_parity import complex_signal, k1b_model, to_numpy, to_torch
+
+import repro.core.pfft_large as ref_large
+import repro.plan as ref_plan
+from repro.kernels.fft.ops import fft_rows_op as ref_fft_rows_op
+
+import repro_torch.core.pfft_large as port_large
+import repro_torch.plan as port_plan
+from repro_torch import kernels as port_kernels
+from repro_torch.kernels import _build
+from repro_torch.kernels.fft import kernel as port_kernel
+from repro_torch.kernels.fft import large as port_large_kernel
+from repro_torch.kernels.fft.ops import fft_rows_op
+from repro_torch.kernels.fused import kernel as port_fused_kernel
+
+SOURCE = "fft_rows_large.cu"
+
+
+def tol(n, inverse):
+    """``1e-3·sqrt(n)`` on the unscaled transform, over n for the inverse
+    (its 1/n shrinks the values by n: at the forward's tolerance an inverse
+    that wrote zeros would pass)."""
+    return 1e-3 * np.sqrt(n) / (n if inverse else 1)
+
+
+# ------------------------------------------------------- the plain version
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [32768, 65536])
+def test_plain_version_matches_reference_and_numpy(n, inverse):
+    """``fft_rows_large_plain`` at the default split, and the port's op on
+    the CPU (which takes it above ``MAX_KERNEL_N``), against the
+    reference's Pallas kernel and ``numpy.fft`` in float64."""
+    x = complex_signal(n + inverse, 3, n)
+    want = np.asarray(ref_fft_rows_op(jnp.asarray(x), inverse=inverse))
+    exact = (np.fft.ifft if inverse else np.fft.fft)(x.astype(np.complex128))
+    got = to_numpy(port_large_kernel.fft_rows_large_plain(to_torch(x), inverse=inverse))
+    op = to_numpy(fft_rows_op(to_torch(x), inverse=inverse))
+    for a, b in ((got, want), (got, exact), (op, got)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=tol(n, inverse))
+    np.testing.assert_array_equal(op, got)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("split", [(4, 16), (64, 8), (2, 16384)])
+def test_plain_version_at_forced_splits(split, inverse):
+    """Any split into powers of two, columns shorter or longer than rows,
+    gives the DFT: the index arithmetic of both passes and the transposed
+    store do not lean on the near-square default."""
+    n1, n2 = split
+    n = n1 * n2
+    x = complex_signal(n1 + 7 * inverse, 5, n)
+    got = port_large_kernel.fft_rows_large_plain(to_torch(x), inverse=inverse, n1=n1)
+    exact = (np.fft.ifft if inverse else np.fft.fft)(x.astype(np.complex128))
+    np.testing.assert_allclose(to_numpy(got), exact, rtol=0, atol=tol(n, inverse))
+    got2 = port_large_kernel.fft_rows_large_plain(to_torch(x), inverse=inverse, n2=n2)
+    np.testing.assert_array_equal(to_numpy(got2), to_numpy(got))
+
+
+def test_large_split_default_and_refusals():
+    """The default split is near-square with n1 <= n2, and at every length
+    from 2^15 to ``MAX_LARGE_N`` both factors lie in the kernel's range;
+    anything that is not a split into powers of two is refused."""
+    for e in range(15, 29):
+        n1, n2 = port_large_kernel.large_split(1 << e)
+        assert n1 * n2 == 1 << e and n1 == 1 << (e // 2) and n1 <= n2 <= 2 * n1
+        assert port_large_kernel.MIN_FACTOR <= n1 and n2 <= port_kernel.MAX_KERNEL_N
+    assert port_large_kernel.large_split(1 << 15, n1=256) == (256, 128)
+    assert port_large_kernel.large_split(1 << 15, n2=2) == (16384, 2)
+    for kwargs in ({"n1": 3}, {"n1": 1 << 16}, {"n1": 4, "n2": 4}):
+        with pytest.raises(ValueError, match="split"):
+            port_large_kernel.large_split(1 << 15, **kwargs)
+    with pytest.raises(ValueError, match="power of two"):
+        port_large_kernel.large_split(3 * 1024)
+
+
+# ---------------------------------------------------------------- twiddle
+
+@pytest.mark.parametrize("n", [1 << 26, 1 << 28])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_twiddle_split_matches_float64(n, inverse):
+    """``large_twiddle`` (pass A's split w^(mh·2^14)·w^ml of two exact
+    sincospif arguments) against float64 ``exp(±2πi·m/n)`` over sampled m,
+    the ends and both sides of the split included: within 4 float32 ulps
+    of 1.  One float argument 2m/n is not exact at these n, which is why
+    the split is there."""
+    rng = np.random.default_rng(n.bit_length() + inverse)
+    m = np.concatenate([rng.integers(0, n, 4096),
+                        [0, 1, 16383, 16384, 16385, n // 4, n // 2, n - 1]])
+    got = port_large_kernel.large_twiddle(torch.from_numpy(m), n, inverse=inverse)
+    sign = 1.0 if inverse else -1.0
+    want = np.exp(sign * 2j * np.pi * m.astype(np.float64) / n)
+    assert got.dtype == torch.complex64
+    np.testing.assert_allclose(to_numpy(got), want, rtol=0, atol=4 * 2.0 ** -24)
+    single = (2.0 * m.astype(np.float32)) / np.float32(n)
+    assert (single.astype(np.float64) != 2.0 * m / n).any()
+
+
+# ------------------------------------------------------ the kernel's model
+
+def plans(n, rows, n1=None):
+    """K1b's launch shapes for ``rows`` rows of ``n``: the split, pass A's
+    columns a CTA, pass B's plan (K1's, over rows*n1 rows of n2) and its
+    cluster (K2's rule)."""
+    n1, n2 = port_large_kernel.large_split(n, n1=n1)
+    cols = port_large_kernel.columns_plan(n1)[0]
+    plan_b = port_kernel.complex_rows_plan(n2, rows * n1)
+    cluster = port_fused_kernel.fft_rows_transpose_plan(n2, rows * n1)[2]
+    return n1, n2, cols, plan_b, cluster
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n, rows, n1", [(1 << 15, 2, None), (1 << 15, 1, 256),
+                                         (1 << 16, 2, None), (1 << 17, 1, None)])
+def test_k1b_model_is_the_dft_and_writes_each_element_once(n, rows, n1, inverse):
+    """The model of K1b's two passes in their launch shapes: the DFT
+    (``numpy.fft``, float64, ``1e-9·n``, over n for the inverse); pass A
+    reads and writes each scratch element once, in bounds, and each step of
+    a CTA in whole 32-byte sectors (its columns, at least 4, side by side);
+    pass B writes each output element once, in bounds, and each warp's
+    stores to one output row one contiguous run of 8·min(P·C, 32) bytes,
+    K2's rule (P rows a CTA, fewer while the grid is small, C CTAs a
+    cluster)."""
+    x = complex_signal(n + rows + inverse, rows, n)
+    n1, n2, cols, plan_b, cluster = plans(n, rows, n1)
+    assert cols >= 4 and (n1 % (plan_b[0] * cluster)) == 0
+    out, reads_a, writes_a, sectors_a, writes_b, (nbytes, contiguous, full) = k1b_model(
+        x, n1, n2, cols, plan_b, cluster, inverse=inverse)
+    exact = (np.fft.ifft if inverse else np.fft.fft)(x.astype(np.complex128))
+    np.testing.assert_allclose(out, exact, rtol=0, atol=1e-9 * (1 if inverse else n))
+    assert (reads_a == 1).all() and (writes_a == 1).all() and sectors_a
+    assert writes_b.shape == (rows * n,) and (writes_b == 1).all()
+    assert contiguous.all() and full.any()
+    assert nbytes[full].min() >= 8 * min(plan_b[0] * cluster, 32)
+
+
+@pytest.mark.parametrize("e", range(15, 29))
+def test_k1b_store_pattern_at_every_length(e):
+    """The pattern alone (no data) at every length K1b takes, one row:
+    whole sectors in pass A wherever a CTA holds at least 4 columns (n1 <=
+    4096: up to n = 2^25; at 8192 and 16384 it holds 2 and 1, what 1024
+    threads hold), each element written once by both passes, and pass B's
+    runs contiguous, of K2's width.  The model's arrays are n long, so
+    this stops at what the host holds quickly: 2^22.  Over a whole chunk of
+    rows (``scratch_rows``) pass B's CTAs hold all the rows they can, and
+    its runs are a sector or more at every length."""
+    if e <= 22:
+        n1, n2, cols, plan_b, cluster = plans(1 << e, 1)
+        _, reads_a, writes_a, sectors_a, writes_b, (nbytes, contiguous, full) = k1b_model(
+            None, n1, n2, cols, plan_b, cluster, rows=1)
+        assert (reads_a == 1).all() and (writes_a == 1).all() and (writes_b == 1).all()
+        assert sectors_a and contiguous.all()
+        assert nbytes[full].min() >= 8 * min(plan_b[0] * cluster, 32)
+    n1, n2, _, plan_b, cluster = plans(1 << e, port_large_kernel.scratch_rows(1 << e))
+    assert plan_b[0] == max(1, 256 * 16 // n2) and 8 * min(plan_b[0] * cluster, 32) >= 32
+    cols, threads, smem = port_large_kernel.columns_plan(n1)
+    assert threads <= 1024 and smem <= port_kernel.SMEM_BUDGET
+    assert cols == (4 if n1 == 4096 else 2 if n1 == 8192 else 1 if n1 == 16384
+                    else max(4, 256 // (n1 // 16)))
+
+
+def test_columns_plan_mirrors_the_cuda_source():
+    """Pass A's plan is the source's ``ColPlan`` and pass B's the register
+    kernels' ``Plan``; the factors the source instantiates are
+    [``MIN_FACTOR``, ``MAX_KERNEL_N``], both directions."""
+    text = (_build.csrc_dir() / SOURCE).read_text()
+    lo = int(re.search(r"kMinLog2 = (\d+);", text).group(1))
+    hi = int(re.search(r"kMaxLog2 = (\d+);", text).group(1))
+    assert 1 << lo == port_large_kernel.MIN_FACTOR and 1 << hi == port_kernel.MAX_KERNEL_N
+    assert "repro::regfft::kCtaThreads / G > 4" in text
+    assert "COLS = WANT * G > 1024 ? 1024 / G : WANT;" in text
+    assert "MIN_BLOCKS = 65536 / (THREADS * 64);" in text
+    assert "exchange_elems(CP::COLS, 1 << LOG2N1)" in text
+    for e in range(lo, hi + 1):
+        n1 = 1 << e
+        cols, threads, smem = port_large_kernel.columns_plan(n1)
+        group = n1 // 16
+        assert threads == cols * group <= 1024 and cols & (cols - 1) == 0
+        assert smem == 8 * (cols * n1 + -(-cols * n1 // 16)) <= port_kernel.SMEM_BUDGET
+        assert 65536 // (threads * 64) * (smem + 1024) <= 233472
+    # Pass A's loads and stores, the twiddle split, pass B's batched store.
+    assert "fft_row<LOG2N1, INV>(v, smem, c * N1, t)" in text
+    assert "twiddle<INV>(k1 * j2, log2n)" in text
+    assert "(float)mh * exp2i(15 - log2n)" in text and "(float)ml * exp2i(1 - log2n)" in text
+    assert "fft_row<LOG2N2, INV>(v, smem, local * N, t)" in text
+    assert ("out[((r >> log2n1) << (log2n1 + LOG2N2)) + (k << log2n1) + (r & n1mask)]"
+            in text)
+    assert "repro::tstore::store_cluster<LOG2N2, 8>(4)" in text
+    assert "__sincosf" not in text.replace("No __sincosf", "")
+    assert "Replaces the TPU kernel `fft_rows_pallas`" in text
+    assert "Bound on this card: bytes" in text
+
+
+def test_launcher_and_binding():
+    """The C entry point is bound with its ten arguments (three pointers, a
+    64-bit row count, the stream last); the launcher refuses a CPU tensor
+    and a split outside the kernel's factors; the scratch of a call is at
+    most 1 GiB, or one row where a row is longer."""
+    restype, argtypes = _build._FUNCTIONS["repro_fft_rows_large"]
+    assert len(argtypes) == 10 and argtypes[3] is _build._LL
+    assert argtypes[:3] == [_build._PTR] * 3 and argtypes[-1] is _build._PTR
+    assert "extern \"C\" int repro_fft_rows_large(" in (_build.csrc_dir() / SOURCE).read_text()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        port_large_kernel.fft_rows_large_cuda(torch.ones((1, 1 << 15), dtype=torch.complex64))
+    for n in (1 << 15, 1 << 20, 1 << 27, 1 << 28):
+        rows = port_large_kernel.scratch_rows(n)
+        assert rows * n * 8 <= max(1 << 30, n * 8) and rows >= 1
+    assert port_large_kernel.scratch_rows(1 << 28) == 1
+    assert port_large_kernel.scratch_rows(1 << 15) == 4096
+
+
+def test_cpu_op_launches_nothing():
+    port_kernels.reset_launch_counts()
+    fft_rows_op(to_torch(complex_signal(1, 2, 1 << 15)))
+    counts = port_kernels.launch_counts()
+    assert counts["fft_rows_large"] == 0 and set(counts.values()) == {0}
+    assert _build._library is None
+
+
+# ---------------------------------------------------- the path through K1b
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_pfft1_large_phase_through_k1b_matches_reference(inverse):
+    """The huge-1-D four-step at N = 2^16 split (2, 32768) under
+    ``radix=4``: its phase of 32768 goes through K1b (its plain version
+    here), the reference's through its Pallas kernel; within the line
+    tolerance of ``test_torch_pfft3d.py`` scaled by sqrt(N / 360)."""
+    n = 1 << 16
+    x = complex_signal(11 + inverse, n)
+    if inverse:
+        x = np.conj(x)
+    cfg_r, cfg_p = ref_plan.PlanConfig(radix=4), port_plan.PlanConfig(radix=4)
+    want = np.asarray(ref_large.pfft1_large_apply(jnp.asarray(x), config=cfg_r, n1=2))
+    got = to_numpy(port_large.pfft1_large_apply(to_torch(x), config=cfg_p, n1=2))
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-3 * np.sqrt(n / 360))
+    np.testing.assert_allclose(got, np.fft.fft(x.astype(np.complex128)), rtol=0,
+                               atol=1e-3 * np.sqrt(n))

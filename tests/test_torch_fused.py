@@ -23,7 +23,7 @@ from repro_torch.kernels.fft import kernel as port_kernel
 from repro_torch.kernels.fused import kernel as port_fused_kernel
 from repro_torch.kernels.fused.ops import fft_rows_transpose_op
 
-LENGTHS = [1 << e for e in range(1, 14)]
+LENGTHS = [1 << e for e in range(1, 15)]
 # Row counts of the model: even with whole clusters of 4 (or 2) rows, and
 # 8k + 1 and 8k + 7, which leave a ragged last CTA or cluster.
 ROWS = [40, 41, 47]
@@ -146,7 +146,7 @@ def test_k2_store_is_conflict_free_and_wide_at_every_plan(n):
 
 
 @pytest.mark.parametrize("rows", [4097, 8 * 64 + 1, 8 * 64 + 7])
-@pytest.mark.parametrize("n", [2048, 4096, 8192])
+@pytest.mark.parametrize("n", [2048, 4096, 8192, 16384])
 def test_k2_store_writes_each_element_once_at_ragged_clusters(n, rows):
     """Where K2 runs in clusters (n >= 2048), at the row counts that leave
     the last cluster ragged — phase 2 of a fused ``rfft-*`` plan at N = 8192

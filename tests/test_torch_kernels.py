@@ -202,12 +202,50 @@ def test_fused_op_rejects_non_2d_like_reference(shape):
 
 @pytest.mark.parametrize("op", [fft_rows_op, fft_rows_transpose_op])
 def test_ops_raise_named_error_above_length_limit(op):
-    """A power-of-two length the kernels cannot hold raises; nothing
-    switches to the library in their place."""
-    n = 2 * port_kernel.MAX_KERNEL_N
-    with pytest.raises(port_kernel.KernelLengthError, match=str(n)):
-        op(torch.ones((2, n), dtype=torch.complex64))
+    """A power-of-two length above an op's kernels raises, naming the
+    length and the top; nothing switches to the library in their place.
+    The fused op's top is ``MAX_KERNEL_N``; the complex row op's is
+    ``MAX_LARGE_N`` (K1b), tried on a ``meta`` tensor, which holds no
+    data: the length is refused before anything is computed."""
+    if op is fft_rows_transpose_op:
+        top = port_kernel.MAX_KERNEL_N
+        x = torch.ones((2, 2 * top), dtype=torch.complex64)
+    else:
+        top = port_kernel.MAX_LARGE_N
+        x = torch.empty((1, 2 * top), dtype=torch.complex64, device="meta")
+    with pytest.raises(port_kernel.KernelLengthError,
+                       match=f"{2 * top} exceeds the kernel limit {top}"):
+        op(x)
     assert issubclass(port_kernel.KernelLengthError, ValueError)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("op", ["fft_rows_op", "fft_rows_transpose_op"])
+def test_plain_versions_at_the_longest_row_match_reference(op, inverse):
+    """K1 and K2 at n = ``MAX_KERNEL_N`` (``Plan<14>``): the port's ops on
+    the CPU (the plain versions) against the reference's (Pallas, interpret
+    mode), a few odd rows, ``1e-3·sqrt(n)`` forward, over n inverse."""
+    n = port_kernel.MAX_KERNEL_N
+    x = complex_signal(5 + inverse, 3, n)
+    ref, port = {"fft_rows_op": (ref_fft_rows_op, fft_rows_op),
+                 "fft_rows_transpose_op": (ref_fused_op, fft_rows_transpose_op)}[op]
+    want = np.asarray(ref(jnp.asarray(x), inverse=inverse))
+    got = to_numpy(port(to_torch(x), inverse=inverse))
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-3 * np.sqrt(n) / (n if inverse else 1))
+
+
+def test_fft_rows_op_takes_rows_longer_than_k1():
+    """Above ``MAX_KERNEL_N`` the complex row op goes to K1b: on the CPU its
+    plain version, against the reference's op (Pallas, interpret mode) at
+    ``1e-3·sqrt(n)``; only the fused op still refuses the length."""
+    n = 2 * port_kernel.MAX_KERNEL_N
+    x = complex_signal(3, 2, n)
+    got = to_numpy(fft_rows_op(to_torch(x)))
+    want = np.asarray(ref_fft_rows_op(jnp.asarray(x)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3 * np.sqrt(n))
+    with pytest.raises(port_kernel.KernelLengthError, match=str(port_kernel.MAX_KERNEL_N)):
+        fft_rows_transpose_op(to_torch(x))
 
 
 @pytest.mark.parametrize("op", [fft_rows_op, fft_rows_transpose_op])
@@ -244,7 +282,7 @@ def test_host_arrays_default_to_the_card_and_raise_without_one(op, monkeypatch):
 
 # ------------------------------------------------ launch shape, build, counts
 
-@pytest.mark.parametrize("n", [2, 8, 64, 256, 1024, 2048, 4096, 8192])
+@pytest.mark.parametrize("n", [2, 8, 64, 256, 1024, 2048, 4096, 8192, 16384])
 @pytest.mark.parametrize("rows", [1, 37, 256, 8192, 100000])
 def test_launch_shape_fits_the_card(n, rows):
     """K2's launch shape (``fft_rows_transpose_plan``): K1's rows per CTA
@@ -252,7 +290,8 @@ def test_launch_shape_fits_the_card(n, rows):
     whole clusters padded by less than one, a cluster where the rows of a
     whole CTA give less than a 32-byte sector per output row (n >= 2048)
     and of as many CTAs as ``STORE_CLUSTER`` rows' worth there, and at
-    n >= 4096 one row a CTA in half an SM's shared memory."""
+    n >= 4096 one row a CTA in half an SM's shared memory (at 16384 in
+    the whole of it)."""
     per_cta, threads, cluster, blocks = port_fused_kernel.fft_rows_transpose_plan(n, rows)
     k1_per_cta, k1_threads, points, _, smem = port_kernel.complex_rows_plan(n, rows)
     assert (per_cta, threads) == (k1_per_cta, k1_threads)
@@ -265,22 +304,26 @@ def test_launch_shape_fits_the_card(n, rows):
     else:
         assert 8 * max_rows >= 32 and cluster == 1
     if n >= 4096:
-        assert per_cta == 1 and smem <= port_kernel.SMEM_BUDGET // 2
+        assert per_cta == 1
+        assert smem <= port_kernel.SMEM_BUDGET // (2 if n <= 8192 else 1)
 
 
 def test_whole_row_limit_is_what_shared_memory_holds():
-    """``MAX_KERNEL_N`` is the top of K2's instantiation table: every power
-    of two up to it in both directions, nothing above; and a row of that
-    length (one a CTA) fits twice in an SM's shared memory."""
+    """``MAX_KERNEL_N`` is the top of K2's instantiation table, ``1 << 14``:
+    every power of two up to it in both directions, nothing above; and a
+    row of that length (one a CTA of 1024 threads) fits an SM's shared
+    memory once, not twice."""
     n = port_kernel.MAX_KERNEL_N
+    assert n == 1 << 14
     source = (_build.csrc_dir() / "fft_rows_transpose.cu").read_text()
     top = n.bit_length() - 1
     for e in range(1, top + 1):
         assert f"case 1 << {e}: return launch_dir<{e}>(" in source
     assert f"case 1 << {top + 1}" not in source
     assert "launch<LOG2N, true>" in source and "launch<LOG2N, false>" in source
-    per_cta, _, _, _, smem = port_kernel.complex_rows_plan(n, 1 << 20)
-    assert per_cta == 1 and 2 * smem <= port_kernel.SMEM_BUDGET
+    per_cta, threads, _, _, smem = port_kernel.complex_rows_plan(n, 1 << 20)
+    assert per_cta == 1 and threads == 1024
+    assert smem <= port_kernel.SMEM_BUDGET < 2 * smem
 
 
 def test_cpu_ops_launch_nothing_and_build_nothing():
@@ -289,15 +332,16 @@ def test_cpu_ops_launch_nothing_and_build_nothing():
     fft_rows_op(x)
     fft_rows_transpose_op(x)
     assert port_kernels.launch_counts() == {
-        "fft_rows": 0, "fft_rows_transpose": 0, "rfft_rows": 0,
+        "fft_rows": 0, "fft_rows_large": 0, "fft_rows_transpose": 0, "rfft_rows": 0,
         "rfft_rows_transpose": 0, "transpose": 0}
     assert _build._library is None  # nothing compiled or loaded by CPU work
 
 
 def test_kernel_sources_are_plain_cuda_built_for_sm_90a():
     names = [p.name for p in _build.source_files()]
-    assert names == ["fft_rows.cu", "fft_rows_transpose.cu", "regfft.cuh", "rfft_rows.cu",
-                     "rfft_rows_transpose.cu", "transpose.cu", "tstore.cuh"]
+    assert names == ["fft_rows.cu", "fft_rows_large.cu", "fft_rows_transpose.cu",
+                     "regfft.cuh", "rfft_rows.cu", "rfft_rows_transpose.cu",
+                     "transpose.cu", "tstore.cuh"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "-use_fast_math" not in _build.NVCC_FLAGS
     for path in _build.source_files():

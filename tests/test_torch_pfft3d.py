@@ -37,7 +37,8 @@ import repro_torch.core.pfft_large as port_large
 import repro_torch.fft.fft2d as port_fft2d
 import repro_torch.plan as port_plan
 import repro_torch.plan.tune as port_tune
-from repro_torch.kernels.fft.kernel import MAX_KERNEL_N, KernelLengthError
+from repro_torch.kernels.fft.kernel import MAX_LARGE_N, KernelLengthError
+from repro_torch.kernels.fft.ops import resolve_radix
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = "cpu"
@@ -308,32 +309,48 @@ def test_pfft1_large_one_shot_matches_reference():
 
 
 def test_tune_pfft1_large_drops_radix4_above_the_kernel_limit():
-    """At N = 2^27 the default split is (8192, 16384): the reference offers
-    ``radix=4``, the port does not (phase 1 would raise); the rest of the
-    ranking is the reference's.  Estimate only — nothing is allocated."""
-    n = 1 << 27
+    """At N = 2^26, 2^27 (phases 8192 x 16384) and 2^29 (16384 x 32768, the
+    second through K1b) the port ranks the reference's configs, ``radix=4``
+    included, at the same estimates.  Only where a phase passes the complex
+    row FFT's top ``MAX_LARGE_N`` (2^58: two phases of 2^29) does the port
+    drop ``radix=4``; the rest of that ranking is the reference's.  Estimate
+    only — nothing is allocated."""
     params = {"params": ref_plan.CostParams.for_backend("cpu")}
-    _, a = ref_tune.tune_pfft1_large(n, **params)
-    _, b = port_tune.tune_pfft1_large(
-        n, params=port_plan.CostParams.for_backend("cpu"))
-    assert b["four_step"] == a["four_step"] == {"n1": 8192, "n2": 16384}
-    radices = [cfg["radix"] for cfg, _ in b["ranked"]]
-    assert 4 not in radices and sorted(radices, key=str) == [2, None]
-    kept = [(cfg, t) for cfg, t in a["ranked"] if cfg["radix"] != 4]
-    assert [cfg for cfg, _ in b["ranked"]] == [cfg for cfg, _ in kept]
-    assert [t for _, t in b["ranked"]] == pytest.approx([t for _, t in kept],
-                                                        rel=1e-12)
-    # Up to the limit the pot is the reference's, radix=4 included.
-    _, a = ref_tune.tune_pfft1_large(1 << 26, **params)
-    _, b = port_tune.tune_pfft1_large(
-        1 << 26, params=port_plan.CostParams.for_backend("cpu"))
-    assert [cfg for cfg, _ in b["ranked"]] == [cfg for cfg, _ in a["ranked"]]
+    splits = {1 << 26: (8192, 8192), 1 << 27: (8192, 16384),
+              1 << 29: (16384, 32768), 1 << 58: (1 << 29, 1 << 29)}
+    for n, (n1, n2) in splits.items():
+        _, a = ref_tune.tune_pfft1_large(n, **params)
+        _, b = port_tune.tune_pfft1_large(
+            n, params=port_plan.CostParams.for_backend("cpu"))
+        assert b["four_step"] == a["four_step"] == {"n1": n1, "n2": n2}
+        kept = [(cfg, t) for cfg, t in a["ranked"]
+                if cfg["radix"] != 4 or max(n1, n2) <= MAX_LARGE_N]
+        assert [cfg for cfg, _ in b["ranked"]] == [cfg for cfg, _ in kept]
+        assert [t for _, t in b["ranked"]] == pytest.approx([t for _, t in kept],
+                                                            rel=1e-12)
+        radices = sorted((cfg["radix"] for cfg, _ in b["ranked"]), key=str)
+        assert radices == ([2, 4, None] if max(n1, n2) <= MAX_LARGE_N else [2, None])
 
 
-def test_plan_pfft1_large_radix4_above_the_limit_raises_before_allocating():
-    with pytest.raises(KernelLengthError, match=str(2 * MAX_KERNEL_N)):
-        port_api.plan_pfft1_large(1 << 27, config=port_plan.PlanConfig(radix=4),
-                                  device=CPU)
+def test_plan_pfft1_large_radix4_above_the_limit_raises_before_allocating(monkeypatch):
+    """``radix=4`` at 2^27 (phases 8192 x 16384, both K1) and 2^29 (16384 x
+    32768, K1 and K1b) resolves to the kernel backend for both phases; only
+    a phase above ``MAX_LARGE_N`` (2^58) raises, naming that top, before the
+    twiddle table is made.  No table is built here (1 GiB at 2^27):
+    ``twiddle_table`` is replaced by a recorder."""
+    made = []
+    monkeypatch.setattr(port_large, "twiddle_table",
+                        lambda n1, n2, device: made.append((n1, n2)))
+    config = port_plan.PlanConfig(radix=4)
+    for n, split in ((1 << 27, (8192, 16384)), (1 << 29, (16384, 32768))):
+        plan = port_api.plan_pfft1_large(n, config=config, device=CPU)
+        assert (plan.n1, plan.n2) == split and made[-1] == split
+        assert plan.config.row_fft_kwargs() == {"backend": "cuda", "radix": 4}
+        for length in split:
+            assert resolve_radix(length, None, "fft_rows_op", MAX_LARGE_N) == 4
+    with pytest.raises(KernelLengthError, match=f"exceeds the kernel limit {MAX_LARGE_N}"):
+        port_api.plan_pfft1_large(1 << 58, config=config, device=CPU)
+    assert len(made) == 2
 
 
 def test_tune_pfft3_estimate_equals_reference():

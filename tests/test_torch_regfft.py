@@ -24,7 +24,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.fft import kernel as port_kernel
 from repro_torch.kernels.fft.ops import fft_rows_op
 
-LENGTHS = [1 << e for e in range(1, 14)]
+LENGTHS = [1 << e for e in range(1, 15)]
 # Row counts of K1, and pair counts of K3, which launches the same plan with
 # a packed pair of real rows in the place of a row.
 ROW_COUNTS = [1, 4, 19, 37, 256, 4096, 8192, 100000]
@@ -60,9 +60,13 @@ def test_complex_rows_plan_fits_the_card(n, rows):
     if per_cta < max(1, 256 // group):
         assert -(-rows // (2 * per_cta)) < port_kernel._MIN_CTAS
         assert per_cta == 1 or threads <= 32 or -(-rows // per_cta) >= port_kernel._MIN_CTAS
-    if n == port_kernel.MAX_KERNEL_N:  # two CTAs of 512 threads share an SM
+    if n == 8192:  # two CTAs of 512 threads share an SM
         assert (per_cta, threads, radices) == (1, 512, [16, 16, 16, 2])
         assert smem == 69632 <= port_kernel.SMEM_BUDGET // 2
+    if n == port_kernel.MAX_KERNEL_N:  # Plan<14>: one CTA of 1024 threads an SM
+        assert (per_cta, threads, points, radices, smem) == (
+            1, 1024, 16, [16, 16, 16, 4], 139264)
+        assert smem <= port_kernel.SMEM_BUDGET < 2 * smem
 
 
 def test_complex_rows_plan_refuses_other_lengths():
@@ -103,9 +107,9 @@ def test_fft_rows_source_instantiates_every_length_in_both_directions():
     assert '#include "regfft.cuh"' in text and "stockham" not in text
     assert "fft_row<LOG2N, INV>" in text
     assert "launch<LOG2N, true>" in text and "launch<LOG2N, false>" in text
-    for e in range(1, 14):
+    for e in range(1, 15):
         assert f"case 1 << {e}: return launch_dir<{e}>(" in text
-    assert "case 1 << 14" not in text
+    assert "case 1 << 15" not in text
     assert "cudaErrorInvalidValue" in text  # any other shape is refused
 
 

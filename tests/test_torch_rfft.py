@@ -151,6 +151,20 @@ def test_real_fused_op_rejects_non_2d_like_reference(shape):
         port_fused_real.rfft_rows_transpose_op(torch.ones(shape))
 
 
+@pytest.mark.parametrize("fused", [False, True])
+def test_real_plain_versions_at_the_longest_row_match_reference(fused):
+    """K3 and K4 at n = ``MAX_KERNEL_N`` (``Plan<14>``): the port's ops on
+    the CPU (the plain versions) against the reference's (Pallas, interpret
+    mode), 3 rows (an unpaired last one), ``1e-3·sqrt(n)``."""
+    n = MAX_KERNEL_N
+    x = real_signal(17 + fused, 3, n)
+    ref = ref_rfused_op if fused else ref_rfft_rows_op
+    port = port_fused_real.rfft_rows_transpose_op if fused else port_real.rfft_rows_op
+    want = np.asarray(ref(jnp.asarray(x)))
+    np.testing.assert_allclose(to_numpy(port(to_torch(x))), want, rtol=0,
+                               atol=1e-3 * np.sqrt(n))
+
+
 @pytest.mark.parametrize("op", [port_real.rfft_rows_op,
                                 port_fused_real.rfft_rows_transpose_op])
 def test_real_ops_raise_named_error_above_length_limit(op):
@@ -169,14 +183,14 @@ def test_real_ops_refuse_complex_non_contiguous_and_bad_radix(op):
         op(torch.ones((2, 8)), radix=8)
 
 
-@pytest.mark.parametrize("n", [2, 64, 256, 1024, 4096, 8192])
+@pytest.mark.parametrize("n", [2, 64, 256, 1024, 4096, 8192, 16384])
 @pytest.mark.parametrize("rows", [1, 37, 8192])
 def test_real_launch_shape_fits_the_card(n, rows):
     """K3 and K4 launch K1's plan with a packed pair in the place of a row
     (tested at these pair counts in ``test_torch_regfft.py``).  K4 keeps
     the CTA's Z, P pairs of n float2, in the exchange buffer; where a CTA
-    holds one pair (n >= 4096, two CTAs an SM) it runs in clusters of four,
-    over a grid padded to a multiple of four."""
+    holds one pair (n >= 4096, two CTAs an SM up to 8192, one at 16384) it
+    runs in clusters of four, over a grid padded to a multiple of four."""
     pairs = (rows + 1) // 2
     per_cta, threads, points, _, smem = port_fft_kernel.complex_rows_plan(n, pairs)
     assert 1 <= per_cta <= max(1, 256 * points // n) and per_cta & (per_cta - 1) == 0
@@ -187,7 +201,7 @@ def test_real_launch_shape_fits_the_card(n, rows):
     assert (k4_per_cta, k4_threads) == (per_cta, threads)
     assert blocks % cluster == 0 and 0 <= blocks * per_cta - pairs < cluster * per_cta
     if n >= 4096:   # one pair a CTA: a cluster of 4 (at most 8 is portable)
-        assert per_cta == 1 and smem <= SMEM_BUDGET // 2
+        assert per_cta == 1 and smem <= SMEM_BUDGET // (2 if n <= 8192 else 1)
         assert cluster == port_fused_real.STORE_CLUSTER == 4
     else:
         assert cluster == 1
@@ -195,7 +209,7 @@ def test_real_launch_shape_fits_the_card(n, rows):
 
 # ---------------------------------------- K3's CUDA pass plan, on the CPU
 
-LENGTHS = [1 << e for e in range(1, 14)]
+LENGTHS = [1 << e for e in range(1, 15)]
 
 
 def test_real_rows_plan_mirrors_the_cuda_header():
@@ -206,7 +220,7 @@ def test_real_rows_plan_mirrors_the_cuda_header():
     assert f"kCtaThreads = {port_fft_kernel._CTA_THREADS};" in text
     source = (_build.csrc_dir() / "rfft_rows.cu").read_text()
     assert "fft_row<LOG2N, false>" in source and "cudaErrorInvalidValue" in source
-    for e in range(1, 14):
+    for e in range(1, 15):
         assert f"case 1 << {e}: return launch<{e}>(" in source
 
 
@@ -226,9 +240,9 @@ def test_k4_source_runs_the_register_passes_in_k1s_plan():
     assert "threads != pairs_per_cta * P::GROUP" in source
     assert "pairs_per_cta > P::MAX_ROWS" in source
     assert "exchange_elems(pairs_per_cta, P::N)" in source
-    for e in range(1, 14):
+    for e in range(1, 15):
         assert f"case 1 << {e}: return launch<{e}>(" in source
-    assert "case 1 << 14" not in source
+    assert "case 1 << 15" not in source
     # The swizzle: the model's k4_swizzle, written as the kernel writes it.
     assert "using repro::tstore::Swizzle;" in source
     for line in ("LG = LOG2N < 4 ? 0 : LOG2N - 4;", "LANES_K = LG < 4 ? LG : 4;",
