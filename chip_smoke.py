@@ -9,29 +9,35 @@ each of which ends the run with a non-zero exit code when it fails:
 
 1. ``env``       versions, ``nvcc``, the card's name and power limit, SM count.
 2. ``build``     compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``.
-3. ``kernels``   every kernel against its plain PyTorch version and the
+3. ``kernel_checks`` every kernel against its plain PyTorch version and the
                  library on the card (ragged and odd row counts, every length
                  the row kernels K1-K4 are built for, n = 2 ... 16384, both
                  directions of K1 and K2, ragged clusters of K2 and K4, the
                  full width, the row blocks of the batched paths 8-10 and of
                  the fused batch; the four-step K1b at 2048 x 32768, 512 x
-                 131072 and 1 x 2^24 both ways; the transpose bit for bit),
-                 then its time beside the plain version's, the library's and
-                 the card's bound at the main path's shape (K1-K4 also at
-                 4096 x 16384, K1b at 2048 x 32768).
+                 131072 and 1 x 2^24 both ways, and K2b (both ways), K3b and
+                 K4b there and at 2049 x 32768; the transpose bit for bit);
+                 untimed, beside the dry-run worker.
+   ``kernels``   each kernel's time beside the plain version's, the library's
+                 and the card's bound at the main path's shape (K1-K4 also at
+                 4096 x 16384, K1b-K4b at 2048 x 32768).
 4. ``main_path`` FPMs timed on the card, then ``plan_pfft(...).execute`` for
                  PFFT-LB / PFFT-FPM at N = 8192 and PFFT-FPM-PAD / PFFT-FPM-CZT
                  at N = 8192 (the pow2 pad of 16384 runs K1 at Plan<14>)
                  under the library, kernel and fused configs, PFFT-LB /
                  PFFT-FPM at N = 16384 under the kernel and fused configs, and
                  PFFT-LB at N = 32768 under the kernel config (K1b, an 8 GiB
-                 signal), each checked against its oracle, with the kernels'
-                 launch counts showing which path ran.
+                 signal) and fused (K2b), each checked against its oracle,
+                 with the kernels' launch counts showing which path ran.
 5. ``main_path_real`` the same for the real-input methods: ``rfft-lb`` /
                  ``rfft-fpm`` at N = 8192 and ``rfft-fpm-pad`` at N = 8192
                  (K3 at 16384 under ``radix=4``; float32 signals,
                  half-spectrum output), a batch, ``execute_many`` and
-                 ``irfft2(rfft2(x))``.
+                 ``irfft2(rfft2(x))``; ``rfft-lb`` at N = 32768 under
+                 ``radix=4`` (K3b, then K1b over 16385 rows) and fused (K4b,
+                 K2b), a 4 GiB signal; ``rfft-fpm-pad`` at N = 16384 with a
+                 segment padded to 32768 under ``radix=4`` (K3 and K3b, then
+                 K1 and K1b).
 6. ``planner``   the single-device planner: ``plan_pfft(tune="estimate")``
                  for ``fpm`` / ``rfft-fpm`` / ``fpm-pad`` at N = 8192,
                  ``tune="measure"`` into a fresh wisdom file for ``lb`` and
@@ -79,7 +85,8 @@ each of which ends the run with a non-zero exit code when it fails:
                  ``aten::copy_`` calls of one execute counted by the host
                  profiler; the self exchange and the phase's two copies
                  timed alone.
-12. ``dist_gloo4`` 4 processes (this script with ``--dist-rank``) sharing
+12. ``dist_gloo4`` 4 processes (this script with ``--gloo-rank``, started
+                 once after 15 for 12, 14 and 16, each world in turn) sharing
                  the card over gloo with CUDA tensors, the exchange through
                  the host: ``radix=4``, fused, the hierarchical exchange on 2
                  emulated hosts x 2, 2 panels and ``rfft-lb`` at N = 4096,
@@ -92,7 +99,7 @@ each of which ends the run with a non-zero exit code when it fails:
                  ``"measure"`` plans, each against ``torch.fft.fftn`` and
                  timed beside the single-device ``plan_pfft3`` with its
                  copies counted; the pieces of a pencil transform timed.
-14. ``dist3_gloo4`` 4 processes (``--dist-rank ... 3d``) sharing the card
+14. ``dist3_gloo4`` the same 4 processes, a new world, sharing the card
                  over gloo: pencils of 2x2 (and 2 panels), 1x4, 4x1 and 4x1
                  over 2 emulated hosts with ``exchange="hier"``, slabs flat
                  and 2 hosts x 2 with ``hier``, 128^3, rank 0 gathering the
@@ -104,7 +111,7 @@ each of which ends the run with a non-zero exit code when it fails:
                  with the K1 launches of each call with and without its probe
                  (one group: no drift can fire); a ``CheckpointManager``
                  round trip of a 512 MiB state on the card.
-16. ``runtime_gloo4`` 4 processes (``--dist-rank ... runtime``) sharing the
+16. ``runtime_gloo4`` the same 4 processes, a new world, sharing the
                  card over gloo, N = 4096: position 0 slowed 3x until a
                  re-plan naming it is hot-swapped (the probes' K1 launches
                  per rank, the events, detect -> swap on the host clock);
@@ -170,8 +177,9 @@ each of which ends the run with a non-zero exit code when it fails:
                  no FFT kernel, nothing allocated) in a process of its own,
                  so its fake world never meets an NCCL one, started before
                  ``build`` and awaited before ``kernels`` (it needs the
-                 host, not the card, and overlaps only the compile, which
-                 is not timed), its launch counts set to 0 and read around
+                 host, not the card, and overlaps only the compile and the
+                 kernel checks, neither timed), its launch counts set to 0
+                 and read around
                  each of its two traces there, and read here:
                  (a) the ``lm_train`` step (internlm2-1.8b FULL, the same
                  batch, microbatches and remat) counted on fake CUDA
@@ -240,11 +248,16 @@ from repro_torch.kernels import (_build, fft_rows_op, fft_rows_transpose_op,  # 
                                  rfft_rows_op, rfft_rows_transpose_op,
                                  transpose_op)
 from repro_torch.kernels.fft.kernel import fft_rows_plain  # noqa: E402
+from repro_torch.kernels.fft.kernel import MAX_KERNEL_N  # noqa: E402
 from repro_torch.kernels.fft.large import (fft_rows_large_plain, large_split,  # noqa: E402
                                            scratch_rows)
 from repro_torch.kernels.fft.real import rfft_rows_plain  # noqa: E402
+from repro_torch.kernels.fft.real_large import rfft_rows_large_plain  # noqa: E402
 from repro_torch.kernels.fused.kernel import fft_rows_transpose_plain  # noqa: E402
+from repro_torch.kernels.fused.large import fft_rows_transpose_large_plain  # noqa: E402
 from repro_torch.kernels.fused.real import rfft_rows_transpose_plain  # noqa: E402
+from repro_torch.kernels.fused.real_large import (  # noqa: E402
+    rfft_rows_transpose_large_plain)
 from repro_torch.kernels.transpose.kernel import transpose_plain  # noqa: E402
 from repro_torch.launch.mesh import (init_multihost, make_fft_mesh, make_local_mesh,  # noqa: E402
                                      make_pfft3_mesh)
@@ -279,7 +292,8 @@ P = 4
 N_UNPADDED = 8192     # lb, fpm
 N_PADDED = 8192       # fpm-pad, fpm-czt: the pow2 pad of 16384 runs K1 at Plan<14>
 N_WIDE = 16384        # lb, fpm at K1's and K2's longest row (a 2 GiB signal)
-N_K1B = 32768         # lb through the four-step K1b (an 8 GiB signal)
+N_K1B = 32768         # lb through the four-step K1b and K2b (an 8 GiB signal),
+                      # rfft-lb through K3b, K4b, K1b, K2b (a 4 GiB real one)
 N_BATCH = 1024        # batched execute, execute_many
 # Published peaks of one H100 SXM: HBM3 bandwidth and float32 rate outside
 # the tensor cores.  The bound of a kernel is the larger of its bytes over the
@@ -314,6 +328,13 @@ REAL_KERNEL_SHAPES = ([(rows, 1 << e) for e in range(1, 15)
 # scratch (2048 rows), 512 rows of 2^17 and one line of 2^24; the first is
 # the record's shape.
 K1B_SHAPES = [(2048, 1 << 15), (512, 1 << 17), (1, 1 << 24)]
+# K2b, K3b and K4b (the four-step fused and real kernels): K1b's shapes and
+# two odd row counts: 2049 (K2b keeps 4096 rows of scratch a k1 and masks
+# 2047; its output rows start off 32-byte boundaries; K3b and K4b get an
+# unpaired last row) and 16385, the main path's own (phase 2 of the fused
+# real plan at 32768: K2b in 5 chunks, the last of one row; K3b and K4b over
+# 8193 pairs in 3 chunks); the first is the records' shape.
+SIBLING_SHAPES = K1B_SHAPES + [(2049, 1 << 15), (16385, 1 << 15)]
 TRANSPOSE_SHAPES = [(1, 1), (37, 129), (1000, 3), (4096, 8192), (8192, 8192)]
 # Every other element size the transpose kernel is built for, at small shapes.
 TRANSPOSE_OTHER_DTYPES = [torch.uint8, torch.float16, torch.float64, torch.complex128]
@@ -363,6 +384,9 @@ N_DIST_PAD = 4096
 DIST_PANELS = (2, 4, 8)
 GLOO_RANKS = 4
 GLOO_TIMEOUT_S = 600
+# The gloo worlds (phase, worker mode), run in turn by the same GLOO_RANKS
+# processes; the runtime's lost ranks leave their world, so it comes last.
+GLOO_WORLDS = (("dist_gloo4", "2d"), ("dist3_gloo4", "3d"), ("runtime_gloo4", "runtime"))
 # The 3-D mesh pipelines: the 512^3 cube of the pfft3 path on a 1 x 1 pencil
 # mesh of one NCCL rank (and a slab of one), the panel counts raced; then
 # GLOO_RANKS processes sharing the card over gloo on pencil meshes of 2x2,
@@ -421,6 +445,9 @@ MOE_NEAR_TIE = 1e-4
 # at SSM_BLOCK_T tokens from a state carried over SSM_BLOCK_T others.
 SSM_ARCHS = ("zamba2_7b", "xlstm_125m")
 SSM_BLOCK_T = 64
+# The printed bf16-vs-float32 gap by depth stops at this many blocks below
+# the full depth (zamba2-7b: 6, 12, 24 and its 81; xlstm-125m: 2, 4, 8, 12).
+BF16_GAP_MAX_BLOCKS = 24
 # Training on one device: internlm2-1.8b FULL (24 layers, d 2048, GQA 16/8,
 # d_ff 8192, vocab 92544; 1.89 B parameters, 1.70 B of them matmul weights)
 # in bf16 with float32 moments and accumulators (~30 GB of state), batch 8 x
@@ -443,8 +470,13 @@ PEAK_BF16_FLOPS = 989e12       # dense bf16 on the tensor cores
 SOURCES = "src/repro_torch/kernels/csrc/"
 
 
+_T0 = time.perf_counter()
+
+
 def log(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``t`` is the seconds since the script started."""
+    print(json.dumps({"phase": phase, "t": round(time.perf_counter() - _T0, 2), **fields}),
+          flush=True)
 
 
 def run(cmd: list[str]) -> str:
@@ -544,10 +576,10 @@ def phase_build() -> None:
         flags=" ".join(_build.NVCC_FLAGS))
 
 
-def phase_kernels(gen: torch.Generator) -> list[dict]:
-    """Each kernel against its plain version at every shape, then timed at
-    the main path's shape.  Returns the records of the ``kernels`` line
-    (launch counts are filled in after the main path has run)."""
+def check_kernels(gen: torch.Generator) -> dict[str, float]:
+    """Each kernel against its plain version (and the library) at every
+    shape; nothing is timed, so this runs beside the dry-run worker.  Returns
+    each record's error against its plain version at the record's shape."""
     worst = {"fft_rows": 0.0, "fft_rows_transpose": 0.0}
     for rows, n in KERNEL_SHAPES:
         x = random_signal(gen, rows, n)
@@ -585,6 +617,15 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
     check_batched_shapes(gen)
     check_transpose(gen, worst)
     check_large_kernel(gen, worst)
+    check_large_siblings(gen, worst)
+    return worst
+
+
+def phase_kernels(gen: torch.Generator, worst: dict[str, float]) -> list[dict]:
+    """Each kernel timed at the main path's shape (and K1-K4 at n = 16384)
+    beside its plain version, the library and its bound, with ``worst``
+    from ``check_kernels``.  Returns the records of the ``kernels`` line
+    (launch counts are filled in after the main path has run)."""
     wide = wide_records(gen)
 
     rows, n = MAIN_SHAPE
@@ -603,7 +644,13 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
     # that) and the complex FFT's operations.
     lrows, ln = K1B_SHAPES[0]
     xl = random_signal(gen, lrows, ln)
+    xrl = random_real(gen, lrows, ln)
     large_limits = bound(2 * lrows * ln * 8, 5.0 * lrows * ln * math.log2(ln))
+    # K3b, K4b: K3's and K4's function at K1b's shape.
+    lnh = ln // 2 + 1
+    real_large_limits = bound(lrows * ln * 4 + lrows * lnh * 8,
+                              5.0 * (lrows / 2) * ln * math.log2(ln)
+                              + 8.0 * (lrows / 2) * lnh)
     records = [
         kernel_record("fft_rows", "src/repro/kernels/fft/kernel.py:209", MAIN_SHAPE,
                       worst["fft_rows"], complex_limits,
@@ -635,6 +682,21 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
                       lambda: fft_rows_op(xl),
                       lambda: fft_rows_large_plain(xl),
                       lambda: torch.fft.fft(xl)),
+        kernel_record("fft_rows_transpose_large", "src/repro/kernels/fused/kernel.py:64",
+                      K1B_SHAPES[0], worst["fft_rows_transpose_large"], large_limits,
+                      lambda: fft_rows_transpose_op(xl),
+                      lambda: fft_rows_transpose_large_plain(xl),
+                      lambda: torch.fft.fft(xl).T.contiguous()),
+        kernel_record("rfft_rows_large", "src/repro/kernels/fft/real.py:91",
+                      K1B_SHAPES[0], worst["rfft_rows_large"], real_large_limits,
+                      lambda: rfft_rows_op(xrl),
+                      lambda: rfft_rows_large_plain(xrl),
+                      lambda: torch.fft.rfft(xrl)),
+        kernel_record("rfft_rows_transpose_large", "src/repro/kernels/fused/real.py:58",
+                      K1B_SHAPES[0], worst["rfft_rows_transpose_large"], real_large_limits,
+                      lambda: rfft_rows_transpose_op(xrl),
+                      lambda: rfft_rows_transpose_large_plain(xrl),
+                      lambda: torch.fft.rfft(xrl).T.contiguous()),
     ]
     for record in records:
         if record["name"] in wide:
@@ -666,6 +728,50 @@ def check_large_kernel(gen: torch.Generator, worst: dict) -> None:
                 worst["fft_rows_large"] = errs["fft_rows_large_err"]
             del got, lib
         del x
+
+
+def check_large_siblings(gen: torch.Generator, worst: dict) -> None:
+    """K2b, K3b and K4b (``fft_rows_transpose_op``, ``rfft_rows_op`` and
+    ``rfft_rows_transpose_op`` above 16384) at ``SIBLING_SHAPES`` against
+    their plain versions and ``torch.fft`` (K2b in both directions, the
+    library transposed), ``atol = row_fft_tol(n, inverse)``; ``worst`` gets
+    the forward errors against the plain versions at the records' shape."""
+    for rows, n in SIBLING_SHAPES:
+        x = random_signal(gen, rows, n)
+        for inverse in (False, True):
+            tol = row_fft_tol(n, inverse)
+            got = fft_rows_transpose_op(x, inverse=inverse)
+            torch.cuda.synchronize()
+            lib = torch.fft.ifft(x) if inverse else torch.fft.fft(x)
+            errs = {"fft_rows_transpose_large_err": max_abs_err(
+                        got, fft_rows_transpose_large_plain(x, inverse=inverse)),
+                    "fft_rows_transpose_large_vs_library_err": max_abs_err(got, lib.T)}
+            log("kernels", rows=rows, n=n, split=list(large_split(n)),
+                inverse=inverse, atol=tol, **errs)
+            if max(errs.values()) > tol:
+                raise AssertionError(f"K2b disagrees at rows={rows} n={n} "
+                                     f"inverse={inverse}: {errs} > {tol}")
+            if (rows, n) == SIBLING_SHAPES[0] and not inverse:
+                worst["fft_rows_transpose_large"] = errs["fft_rows_transpose_large_err"]
+            del got, lib
+        del x
+        xr = random_real(gen, rows, n)
+        tol = row_fft_tol(n, False)
+        lib = torch.fft.rfft(xr)
+        got, got_t = rfft_rows_op(xr), rfft_rows_transpose_op(xr)
+        torch.cuda.synchronize()
+        errs = {"rfft_rows_large_err": max_abs_err(got, rfft_rows_large_plain(xr)),
+                "rfft_rows_transpose_large_err": max_abs_err(
+                    got_t, rfft_rows_transpose_large_plain(xr)),
+                "rfft_rows_large_vs_library_err": max_abs_err(got, lib),
+                "rfft_rows_transpose_large_vs_library_err": max_abs_err(got_t, lib.T)}
+        log("kernels", rows=rows, n=n, split=list(large_split(n)), atol=tol, **errs)
+        if max(errs.values()) > tol:
+            raise AssertionError(f"K3b/K4b disagree at rows={rows} n={n}: {errs} > {tol}")
+        if (rows, n) == SIBLING_SHAPES[0]:
+            worst["rfft_rows_large"] = errs["rfft_rows_large_err"]
+            worst["rfft_rows_transpose_large"] = errs["rfft_rows_transpose_large_err"]
+        del xr, lib, got, got_t
 
 
 def wide_records(gen: torch.Generator) -> dict[str, dict]:
@@ -1027,6 +1133,26 @@ def phase_fpms() -> dict[int, tuple[FPMSet, FPMSet]]:
     return fpms
 
 
+def call_launches(calls) -> dict[str, int]:
+    """The launches of row-kernel calls ``(kernel, rows, n)``: one a call of a
+    register-resident kernel (n <= 16384), and above it the four-step's own
+    (``<kernel>_large``) per chunk of ``scratch_rows(n)`` rows (row pairs
+    for the real kernels): two (passes A, B) for the complex ones, three
+    (and pass C) for the real ones.  Calls with no rows launch nothing."""
+    out: dict[str, int] = {}
+    for name, rows, n in calls:
+        if rows == 0:
+            continue
+        if n <= MAX_KERNEL_N:
+            out[name] = out.get(name, 0) + 1
+            continue
+        real = name.startswith("rfft")
+        units = (rows + 1) // 2 if real else rows
+        out[name + "_large"] = (out.get(name + "_large", 0)
+                                + (3 if real else 2) * -(-units // scratch_rows(n)))
+    return out
+
+
 def end_drive(path: str, kernels: tuple[str, ...]) -> dict[str, int]:
     """Read the counts just after a path's drive; each of its kernels must
     have launched."""
@@ -1043,7 +1169,7 @@ def phase_main_path(gen: torch.Generator, fpms,
     """Drive the complex main path once, with the launch counts set to 0 just
     before and read just after.  Returns the counts and the checked runs (for
     the timing pass, which is not part of the counted drive); the N = 32768
-    run, too large to keep, is timed here after the drive."""
+    runs, too large to keep, are timed here after the drive."""
     library = PlanConfig()
     kernel = PlanConfig(radix=4)
     fused = PlanConfig(fused=True)
@@ -1138,33 +1264,36 @@ def phase_main_path(gen: torch.Generator, fpms,
     del oracle
     torch.cuda.empty_cache()
 
-    # PFFT-LB at N = 32768 through K1b (an 8 GiB signal): each dispatch group
-    # of each phase is one call, two launches per chunk of scratch rows.
+    # PFFT-LB at N = 32768 (an 8 GiB signal) through K1b, each dispatch group
+    # of each phase one call, and fused through K2b, each phase one call.
     n = N_K1B
     big = random_signal(gen, n, n)
     oracle = torch.fft.fft2(big)
+    big_runs: list[tuple] = []
     big_plan = plan_pfft(n, p=P, method="lb", config=kernel)
-    calls = sum(2 * -(-len(rows) // scratch_rows(length))
-                for length, _, rows in big_plan.schedule.batch_groups())
-    check_execute(big_plan, big, oracle, f"lb-{n}/{kernel.describe()}",
-                  {"fft_rows_large": 2 * calls}, [])
-    del oracle
+    expect = call_launches([("fft_rows", len(rows), length)
+                            for length, _, rows in big_plan.schedule.batch_groups()] * 2)
+    check_execute(big_plan, big, oracle, f"lb-{n}/{kernel.describe()}", expect, big_runs)
+    big_plan = plan_pfft(n, p=P, method="lb", config=fused)
+    check_execute(big_plan, big, oracle, f"lb-{n}/{fused.describe()}",
+                  call_launches([("fft_rows_transpose", n, n)] * 2), big_runs)
+    del oracle, big_plan
 
     # ---- the main path's single drive ends
-    counts = end_drive("main_path", ("fft_rows", "fft_rows_transpose", "fft_rows_large"))
-    log("main_path_time", card=card, run=f"lb-{n}/{kernel.describe()}", method="lb", n=n,
-        batch=[], config=kernel.describe(), launches={"fft_rows_large": 2 * calls},
-        execute_ms=time_ms(lambda: big_plan.execute(big), reps=3, warmup=1),
-        torch_fft2_ms=time_ms(lambda: torch.fft.fft2(big), reps=3, warmup=1))
-    del big, big_plan
+    counts = end_drive("main_path", ("fft_rows", "fft_rows_transpose", "fft_rows_large",
+                                     "fft_rows_transpose_large"))
+    time_runs(big_runs, card, reps=3)
+    del big, big_runs
     torch.cuda.empty_cache()
     return counts, runs
 
 
-def phase_main_path_real(gen: torch.Generator, fpms) -> tuple[dict[str, int], list[tuple]]:
+def phase_main_path_real(gen: torch.Generator, fpms,
+                         card: str) -> tuple[dict[str, int], list[tuple]]:
     """Drive the real-input path once (``rfft-*`` plans, ``rfft2`` /
     ``irfft2``), with the launch counts set to 0 just before and read just
-    after.  Returns the counts and the checked runs."""
+    after.  Returns the counts and the checked runs; the runs above 16384,
+    too large to keep, are timed here after the drive."""
     library = PlanConfig()
     kernel = PlanConfig(radix=4)
     fused = PlanConfig(fused=True)
@@ -1256,9 +1385,60 @@ def phase_main_path_real(gen: torch.Generator, fpms) -> tuple[dict[str, int], li
         raise AssertionError(f"irfft2(rfft2(x)): error {err}, dtype {back.dtype}")
     del x, back
 
+    # rfft-lb at N = 32768 (a 4 GiB real signal) against torch.fft.rfft2:
+    # under radix=4 phase 1 is one call of K3b over the N rows and phase 2
+    # one of K1b over the N//2+1 spectral rows; fused, K4b then K2b.
+    n = N_K1B
+    nh = n // 2 + 1
+    big_runs: list[tuple] = []
+    big = random_real(gen, n, n)
+    oracle = torch.fft.rfft2(big)
+    for cfg, names in ((kernel, ("rfft_rows", "fft_rows")),
+                       (fused, ("rfft_rows_transpose", "fft_rows_transpose"))):
+        plan = plan_pfft(n, p=P, method="rfft-lb", config=cfg, dtype="float32")
+        check_execute(plan, big, oracle, f"rfft-lb-{n}/{cfg.describe()}",
+                      call_launches([(names[0], n, n), (names[1], nh, n)]), big_runs,
+                      "main_path_real")
+    del oracle, plan
+
+    # rfft-fpm-pad at N = 16384 with the heterogeneous FPMs, the processor
+    # that pads to 2N = 32768 (their P2) first: phase 2 runs on the first
+    # N//2+1 rows, so its segment keeps rows there too.  Under radix=4
+    # phase 1 runs K3 on the group of 16384 and K3b on the group of 32768,
+    # phase 2 K1 and K1b; against the complex fpm-pad plan's half spectrum
+    # on the upcast signal.
+    n = N_WIDE
+    nh = n // 2 + 1
+    hetero = FPMSet([fpms[n][1][i] for i in (2, 0, 1, 3)])
+    wide = random_real(gen, n, n)
+    ref_plan = plan_pfft(n, method="fpm-pad", fpms=hetero, config=library)
+    ref = ref_plan.execute(wide.to(torch.complex64))[:, :nh]
+    plan = plan_pfft(n, method="rfft-fpm-pad", fpms=hetero, config=kernel, dtype="float32")
+    busy = plan.d > 0
+    if (not np.array_equal(plan.pad_lengths[busy], ref_plan.pad_lengths[busy])
+            or 2 * n not in plan.pad_lengths[busy].tolist()):
+        raise AssertionError(f"rfft-fpm-pad at {n}: pads {plan.pad_lengths.tolist()}, "
+                             f"complex {ref_plan.pad_lengths.tolist()}, none of {2 * n}")
+    groups1, groups2 = plan._groups
+    calls = [(name, len(idx), length) for name, groups in (("rfft_rows", groups1),
+                                                           ("fft_rows", groups2))
+             for length, _, idx, _ in groups if not length & (length - 1)]
+    expect = call_launches(calls)
+    if not {"rfft_rows", "rfft_rows_large", "fft_rows", "fft_rows_large"} <= set(expect):
+        raise AssertionError(f"rfft-fpm-pad at {n}: groups {calls} miss a kernel")
+    check_execute(plan, wide, ref, f"rfft-fpm-pad-hetero-{n}/{kernel.describe()}",
+                  expect, big_runs, "main_path_real")
+    del ref, ref_plan, plan
+
     # ---- the real path's single drive ends
-    return end_drive("main_path_real", ("rfft_rows", "rfft_rows_transpose",
-                                        "fft_rows", "fft_rows_transpose")), runs
+    counts = end_drive("main_path_real", (
+        "rfft_rows", "rfft_rows_transpose", "fft_rows", "fft_rows_transpose",
+        "rfft_rows_large", "rfft_rows_transpose_large", "fft_rows_large",
+        "fft_rows_transpose_large"))
+    time_runs(big_runs, card, reps=3)
+    del big, wide, big_runs
+    torch.cuda.empty_cache()
+    return counts, runs
 
 
 def planned_oracle(plan, signal: torch.Tensor) -> torch.Tensor:
@@ -2055,45 +2235,19 @@ def dist_worker(rank: int, port: int, out: str) -> None:
     dist.destroy_process_group()
 
 
-def phase_dist_gloo4(card: str, mode: str = "2d") -> dict[str, int]:
-    """Drive a distributed path once on GLOO_RANKS processes sharing the
-    card over gloo with CUDA tensors: ``mode="2d"`` (phase ``dist_gloo4``,
-    ``dist_worker``) runs ``radix=4``, fused, the hierarchical exchange on 2
-    emulated hosts x 2, 2 pipelined panels and ``rfft-lb`` at N = N_DIST_GLOO;
-    ``mode="3d"`` (phase ``dist3_gloo4``, ``dist3_worker``) the pencil and
-    slab runs of ``gloo3_runs`` at N_DIST3_GLOO^3; each gathered on rank 0
-    against the library.  Every rank must launch exactly what the mode's
-    expectation says per run; the path's counts are the sums over the
-    ranks."""
+def check_dist_gloo4(card: str, seen: list, mode: str = "2d") -> dict[str, int]:
+    """Check what the ranks of a distributed path on GLOO_RANKS processes
+    sharing the card over gloo with CUDA tensors saw (``seen``, from
+    ``run_gloo_workers``): ``mode="2d"`` (phase ``dist_gloo4``,
+    ``dist_worker``) ran ``radix=4``, fused, the hierarchical exchange on 2
+    emulated hosts x 2, 2 pipelined panels and ``rfft-lb`` at N =
+    N_DIST_GLOO; ``mode="3d"`` (phase ``dist3_gloo4``, ``dist3_worker``) the
+    pencil and slab runs of ``gloo3_runs`` at N_DIST3_GLOO^3; each gathered
+    on rank 0 against the library.  Every rank must have launched exactly
+    what the mode's expectation says per run; the path's counts are the
+    sums over the ranks."""
     phase = "dist_gloo4" if mode == "2d" else "dist3_gloo4"
     n = N_DIST_GLOO if mode == "2d" else N_DIST3_GLOO
-    # The ranks share the card with this process: hand its cached blocks
-    # back to the device first.
-    torch.cuda.empty_cache()
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "gloo.json")
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                   "--dist-rank", str(r), str(port), out, mode],
-                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                  text=True)
-                 for r in range(GLOO_RANKS)]
-        failed = []
-        try:
-            for r, proc in enumerate(procs):
-                _, err = proc.communicate(timeout=GLOO_TIMEOUT_S)
-                if proc.returncode:
-                    failed.append(f"rank {r} exited {proc.returncode}: {err[-2000:]}")
-        finally:
-            for proc in procs:
-                if proc.poll() is None:
-                    proc.kill()
-        if failed:
-            raise AssertionError(f"{phase}: " + "\n".join(failed))
-        with open(out) as fh:
-            seen = json.load(fh)
     for rank, part in enumerate(seen):
         for record in part["records"]:
             expect = {k: record["expect"].get(k, 0) for k in record["launches"]}
@@ -2508,45 +2662,18 @@ def runtime_worker(rank: int, port: int, out: str) -> None:
     dist.destroy_process_group()
 
 
-def phase_runtime_gloo4(card: str) -> dict[str, int]:
-    """Drive the runtime once on GLOO_RANKS processes sharing the card over
-    gloo (``runtime_worker``) and check what each rank saw: the same
-    events on every rank; a hot-swapped re-plan naming position 0 within
-    RUNTIME_STRAGGLER_CALLS calls; a probe of the slowed rank costing
-    RUNTIME_SLOW times a healthy rank's K1 launches; the retried call and
-    the call after the swap within ``2e-4·N`` of ``fft2``; positions 2 and 3
-    gone (3 lost, 2 dropped: 8192 is not divisible by 3), the device-loss
-    event's fields, a new topology digest, and the second plan served from
-    wisdom with no launch.  The path's counts are the ranks' sums."""
+def check_runtime_gloo4(card: str, seen: list) -> dict[str, int]:
+    """Check what each of the GLOO_RANKS processes sharing the card over
+    gloo saw of the runtime (``runtime_worker``; ``seen``, one record a
+    rank, from ``run_gloo_workers``): the same events on every rank; a
+    hot-swapped re-plan naming position 0 within RUNTIME_STRAGGLER_CALLS
+    calls; a probe of the slowed rank costing RUNTIME_SLOW times a healthy
+    rank's K1 launches; the retried call and the call after the swap within
+    ``2e-4·N`` of ``fft2``; positions 2 and 3 gone (3 lost, 2 dropped: 4096
+    is not divisible by 3), the device-loss event's fields, a new topology
+    digest, and the second plan served from wisdom with no launch.  The
+    path's counts are the ranks' sums."""
     phase = "runtime_gloo4"
-    torch.cuda.empty_cache()
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "runtime.json")
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                   "--dist-rank", str(r), str(port), out,
-                                   "runtime"],
-                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                  text=True)
-                 for r in range(GLOO_RANKS)]
-        failed = []
-        try:
-            for r, proc in enumerate(procs):
-                _, err = proc.communicate(timeout=GLOO_TIMEOUT_S)
-                if proc.returncode:
-                    failed.append(f"rank {r} exited {proc.returncode}: {err[-2000:]}")
-        finally:
-            for proc in procs:
-                if proc.poll() is None:
-                    proc.kill()
-        if failed:
-            raise AssertionError(f"{phase}: " + "\n".join(failed))
-        seen = []
-        for r in range(GLOO_RANKS):
-            with open(f"{out}.{r}") as fh:
-                seen.append(json.load(fh))
     tol = 2e-4 * N_RUNTIME_GLOO
     straggler = [part["straggler"] for part in seen]
     lead = straggler[0]
@@ -2599,6 +2726,75 @@ def phase_runtime_gloo4(card: str) -> dict[str, int]:
         if counts[name] < 1:
             raise AssertionError(f"the {phase} path never launched {name}")
     return counts
+
+
+def gloo_worker(rank: int, tmp: str, ports: list[int]) -> None:
+    """One of the GLOO_RANKS processes of ``run_gloo_workers``: the ranks of
+    ``GLOO_WORLDS`` in turn, each world on its own port, each writing its
+    records under ``tmp``; then the seconds each took to
+    ``tmp/seconds.<rank>``."""
+    workers = {"2d": dist_worker, "3d": dist3_worker, "runtime": runtime_worker}
+    seconds = {}
+    for (phase, mode), port in zip(GLOO_WORLDS, ports):
+        start = time.perf_counter()
+        workers[mode](rank, port, os.path.join(tmp, f"{phase}.json"))
+        seconds[phase] = round(time.perf_counter() - start, 2)
+    with open(os.path.join(tmp, f"seconds.{rank}"), "w") as fh:
+        json.dump(seconds, fh)
+
+
+def run_gloo_workers() -> dict[str, list]:
+    """Start GLOO_RANKS processes sharing the card (this script with
+    ``--gloo-rank``), each the ranks of the three gloo worlds in turn
+    (``gloo_worker``), so the processes reach the card once for the three;
+    wait for them and return what each world's ranks wrote, by phase.  Each
+    world's drive sets its rank's launch counts to 0 just before and reads
+    them just after, as a process of its own would."""
+    # The ranks share the card with this process: hand its cached blocks
+    # back to the device first.
+    torch.cuda.empty_cache()
+    with contextlib.ExitStack() as stack:
+        socks = [stack.enter_context(socket.socket()) for _ in GLOO_WORLDS]
+        for sock in socks:
+            sock.bind(("127.0.0.1", 0))
+        ports = [str(sock.getsockname()[1]) for sock in socks]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--gloo-rank", str(r), tmp, *ports],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True)
+                 for r in range(GLOO_RANKS)]
+        failed = []
+        try:
+            for r, proc in enumerate(procs):
+                _, err = proc.communicate(timeout=GLOO_TIMEOUT_S)
+                if proc.returncode:
+                    failed.append(f"rank {r} exited {proc.returncode}: {err[-2000:]}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+        if failed:
+            raise AssertionError("gloo workers: " + "\n".join(failed))
+        seen = {}
+        for phase, mode in GLOO_WORLDS:
+            out = os.path.join(tmp, f"{phase}.json")
+            if mode == "runtime":      # one record a rank
+                seen[phase] = []
+                for r in range(GLOO_RANKS):
+                    with open(f"{out}.{r}") as fh:
+                        seen[phase].append(json.load(fh))
+            else:                      # rank 0 wrote every rank's part
+                with open(out) as fh:
+                    seen[phase] = json.load(fh)
+        by_rank = []
+        for r in range(GLOO_RANKS):
+            with open(os.path.join(tmp, f"seconds.{r}")) as fh:
+                by_rank.append(json.load(fh))
+    log("gloo4", ranks=GLOO_RANKS, seconds=time.perf_counter() - t0,
+        world_seconds_by_rank=by_rank)
+    return seen
 
 
 def lm_copy(model: torch.nn.Module, dtype: str = "float32",
@@ -3317,14 +3513,14 @@ def serve_recurrent(phase: str, arch: str, card: str) -> int:
 def bf16_gap_by_depth(model, prompts: dict) -> dict[int, float]:
     """max|bf16 - float32| / max|float32| of the prefill logits of ``model``
     cut to its first 2^k units of blocks (a hybrid's group, an xLSTM's
-    mLSTM + sLSTM pair) below its full depth: how the gap grows with
-    depth."""
+    mLSTM + sLSTM pair) below its full depth, up to BF16_GAP_MAX_BLOCKS
+    blocks: how the gap grows with depth."""
     cfg = model.cfg
     unit = (cfg.hybrid.shared_attn_every if cfg.family == "hybrid"
             else cfg.xlstm.slstm_every)
     gaps = {}
     depth = unit
-    while depth < cfg.n_layers:
+    while depth < cfg.n_layers and depth <= BF16_GAP_MAX_BLOCKS:
         logits = []
         for dtype in ("bfloat16", "float32"):
             cut = lm_copy(model, dtype, depth)
@@ -3886,9 +4082,10 @@ def dryrun_worker(out: str) -> None:
 
 def start_dryrun() -> tuple[subprocess.Popen, str, float]:
     """Start ``dryrun_worker`` in the background, before ``build``: its fake
-    trace runs on the host beside the kernels' compile, which is not timed,
-    and ``wait_dryrun`` awaits it before the first timed phase; it is ended
-    at exit if it still runs.  Returns (the process, its output directory,
+    trace runs on the host beside the kernels' compile and their correctness
+    checks (``check_kernels``), neither of which is timed, and
+    ``wait_dryrun`` awaits it before the first timed phase; it is ended at
+    exit if it still runs.  Returns (the process, its output directory,
     its start)."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
     with open(os.path.join(tmp, "worker.log"), "w") as log:
@@ -4003,7 +4200,7 @@ def time_fused_batch(gen: torch.Generator, card: str) -> None:
         del x, xr, plans
 
 
-def time_runs(runs: list[tuple], card: str) -> None:
+def time_runs(runs: list[tuple], card: str, reps: int = 5) -> None:
     """Median time of each checked execute beside the library's 2-D FFT on
     the same signal (``torch.fft.fft2``, or ``torch.fft.rfft2`` for a real
     signal).  Runs after the launch counts were read."""
@@ -4012,12 +4209,12 @@ def time_runs(runs: list[tuple], card: str) -> None:
         real = not signal.is_complex()
         library = torch.fft.rfft2 if real else torch.fft.fft2
         if id(signal) not in library_ms:
-            library_ms[id(signal)] = time_ms(lambda: library(signal), reps=5, warmup=1)
+            library_ms[id(signal)] = time_ms(lambda: library(signal), reps=reps, warmup=1)
         key = "torch_rfft2_ms" if real else "torch_fft2_ms"
         log("main_path_time", card=card, run=label, method=plan.method,
             n=plan.n, batch=list(signal.shape[:-2]),
             config=plan.config.describe(), launches=delta,
-            execute_ms=time_ms(lambda: plan.execute(signal), reps=5, warmup=1),
+            execute_ms=time_ms(lambda: plan.execute(signal), reps=reps, warmup=1),
             **{key: library_ms[id(signal)]})
 
 
@@ -4037,14 +4234,17 @@ def main() -> None:
     card = timed("env", phase_env)
     dryrun_job = start_dryrun()
     timed("build", phase_build)
+    worst = timed("kernel_checks", check_kernels, gen)
     dryrun_got = wait_dryrun(dryrun_job)
-    # the worker's own wall time (beside build), then what of it came after
+    # the worker's own wall time (beside build and the kernel checks), then
+    # what of it came after
     seconds["dryrun"] = round(dryrun_got["wall_s"], 1)
     seconds["dryrun_wait"] = round(dryrun_got["waited_s"], 1)
-    records = timed("kernels", phase_kernels, gen)
+    records = timed("kernels", phase_kernels, gen, worst)
     fpms = timed("fpms", phase_fpms)
     complex_counts, runs = timed("main_path", phase_main_path, gen, fpms, card)
-    real_counts, real_runs = timed("main_path_real", phase_main_path_real, gen, fpms)
+    real_counts, real_runs = timed("main_path_real", phase_main_path_real, gen, fpms,
+                                   card)
     planner_counts, planner_runs = timed("planner", phase_planner, gen, fpms,
                                          records, card)
     bench_counts = timed("microbench_fused", phase_microbench_fused, gen, card)
@@ -4054,11 +4254,12 @@ def main() -> None:
              "pfft1_large": timed("pfft1_large", phase_pfft1_large, gen, card),
              "serve": timed("serve", phase_serve, gen, fpms, card),
              "dist": timed("dist", phase_dist, gen, card),
-             "dist_gloo4": timed("dist_gloo4", phase_dist_gloo4, card),
              "dist3": timed("dist3", phase_dist3, gen, card),
-             "dist3_gloo4": timed("dist3_gloo4", phase_dist_gloo4, card, mode="3d"),
-             "runtime": timed("runtime", phase_runtime, gen, card),
-             "runtime_gloo4": timed("runtime_gloo4", phase_runtime_gloo4, card)}
+             "runtime": timed("runtime", phase_runtime, gen, card)}
+    gloo = timed("gloo4", run_gloo_workers)
+    paths["dist_gloo4"] = check_dist_gloo4(card, gloo["dist_gloo4"])
+    paths["dist3_gloo4"] = check_dist_gloo4(card, gloo["dist3_gloo4"], mode="3d")
+    paths["runtime_gloo4"] = check_runtime_gloo4(card, gloo["runtime_gloo4"])
     peak = torch.cuda.max_memory_allocated()     # each LM phase resets the peak
     paths["lm_serve"] = timed("lm_serve", phase_lm_serve, card)
     peak = max(peak, torch.cuda.max_memory_allocated())
@@ -4092,9 +4293,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dryrun"]:
         dryrun_worker(sys.argv[2])
-    elif sys.argv[1:2] == ["--dist-rank"]:
-        worker = {"3d": dist3_worker, "runtime": runtime_worker}.get(
-            sys.argv[5] if len(sys.argv) > 5 else "2d", dist_worker)
-        worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--gloo-rank"]:
+        gloo_worker(int(sys.argv[2]), sys.argv[3], [int(p) for p in sys.argv[4:]])
     else:
         main()

@@ -17,6 +17,7 @@ source and before the full ``chip_smoke.py``.  Needs one CUDA device and
     python3 examples/kernel_check_torch.py --rfft-rows-transpose-only
     python3 examples/kernel_check_torch.py --fft-rows-transpose-only
     python3 examples/kernel_check_torch.py --fft-rows-large-only
+    python3 examples/kernel_check_torch.py --large-fused-and-real-only
 
 check and time the packed real row kernel alone (every shape of
 ``REAL_SHAPES``, its column of the sweep), the complex row kernel alone
@@ -30,12 +31,16 @@ and ``x.clone()``, then its time at n = 8192 over ``K2_ROW_COUNTS``, where
 the output rows are and are not whole 32-byte sectors apart), or the
 four-step row kernel of long rows alone (every shape of ``LARGE_SHAPES`` in
 both directions against its plain version and ``torch.fft``, then its time
-over ``LARGE_SWEEP`` and at the splits of ``LARGE_SPLITS``): the run to
-repeat, in turns, on copies of the tree that
+over ``LARGE_SWEEP`` and at the splits of ``LARGE_SPLITS``), or its fused
+and real siblings alone (K2b, K3b and K4b: every shape of
+``SIBLING_SHAPES`` against their plain versions and ``torch.fft``, K2b in
+both directions, then their times over ``LARGE_SWEEP`` beside the library
+and ``x.clone()``, and K2b's over ``K2B_ROW_COUNTS``): the run to repeat, in turns, on copies of the tree that
 differ in one change to that kernel.  Every run prints the registers and
-spills per length (and direction) of the complex row kernels, of the
-fused real row kernel and of the four-step kernel's two passes, where it
-compiles them.
+spills per length (and direction, and variant: pass A's packed load, pass
+B's transposed store, pass C's transposed store) of the complex row
+kernels, of the fused real row kernel and of the four-step kernels'
+passes, where it compiles them.
 """
 
 from __future__ import annotations
@@ -66,6 +71,10 @@ from repro_torch.kernels.fft.kernel import fft_rows_plain  # noqa: E402
 from repro_torch.kernels.fft.large import (fft_rows_large_cuda,  # noqa: E402
                                            fft_rows_large_plain, large_split)
 from repro_torch.kernels.fft.real import rfft_rows_plain  # noqa: E402
+from repro_torch.kernels.fft.real_large import rfft_rows_large_plain  # noqa: E402
+from repro_torch.kernels.fused.large import fft_rows_transpose_large_plain  # noqa: E402
+from repro_torch.kernels.fused.real_large import (  # noqa: E402
+    rfft_rows_transpose_large_plain)
 from repro_torch.kernels.transpose.kernel import transpose_plain  # noqa: E402
 
 # Every length the complex row kernels are instantiated for, at an odd row
@@ -94,6 +103,19 @@ LARGE_SHAPES = [(3, 1 << 15), (2048, 1 << 15), (5000, 1 << 15), (512, 1 << 17),
                 (2, 1 << 21), (1, 1 << 22), (1, 1 << 23), (1, 1 << 24), (3, 1 << 25),
                 (1, 1 << 26), (1, 1 << 27), (1, 1 << 28)]
 LARGE_SWEEP = [1 << 15, 1 << 17, 1 << 20, 1 << 24]
+# K2b, K3b and K4b: every length from 2^15 to 2^28; at 2^15 an odd row count,
+# one chunk of scratch with a ragged last one beside it (2049: K2b's odd
+# output rows) and three chunks of K2b's with an odd last (8193).
+SIBLING_SHAPES = [(3, 1 << 15), (2049, 1 << 15), (8193, 1 << 15), (512, 1 << 17),
+                  (7, 1 << 18), (3, 1 << 19), (129, 1 << 20), (2, 1 << 21),
+                  (1, 1 << 22), (1, 1 << 23), (1, 1 << 24), (3, 1 << 25),
+                  (1, 1 << 26), (1, 1 << 27), (1, 1 << 28)]
+SIBLING_SOURCES = ("fft_rows_transpose_large.cu", "rfft_rows_large.cu",
+                   "rfft_rows_transpose_large.cu")
+# Row counts of K2b at n = 32768 (4 chunks of scratch and a ragged fifth):
+# a multiple of 4 puts each output row a whole number of 32-byte sectors
+# after the last; 16385 is phase 2 of a fused rfft-* plan at N = 32768.
+K2B_ROW_COUNTS = [16384, 16385, 16386, 16388]
 # (n, n1) pairs timed against the default split of n.
 LARGE_SPLITS = [(1 << 15, 256), (1 << 17, 512), (1 << 20, 512), (1 << 20, 2048),
                 (1 << 24, 2048), (1 << 24, 8192), (1 << 24, 16384)]
@@ -121,16 +143,22 @@ def time_ms(fn, reps: int = 10) -> float:
 
 def kernel_registers(ptxas: str, kernel: str) -> list[dict]:
     """Registers and spill bytes of each instantiation of ``kernel`` (a
-    kernel templated on log2 n, and on the direction when it has one), from
-    ``nvcc -Xptxas -v`` output."""
+    kernel templated on log2 n, then on the direction when it has one, then
+    on further flags or modes, ``flags``; or on flags alone), from ``nvcc
+    -Xptxas -v`` output."""
     out, current = [], None
     for line in ptxas.splitlines():
-        m = re.search(r"Compiling entry function '\S*?\d%s_kernelILi(\d+)E(Lb([01])E)?"
+        m = re.search(r"Compiling entry function '\S*?\d%s_kernelI(?:Li(\d+)E)?((?:L[bi]\d+E)*)"
                       % kernel, line)
         if m:
-            current = {"n": 1 << int(m.group(1))}
-            if m.group(2):
-                current["direction"] = "inverse" if m.group(3) == "1" else "forward"
+            flags = [int(f) for f in re.findall(r"L[bi](\d+)E", m.group(2))]
+            current = {}
+            if m.group(1):
+                current["n"] = 1 << int(m.group(1))
+                if flags:
+                    current["direction"] = "inverse" if flags.pop(0) else "forward"
+            if flags:
+                current["flags"] = flags
             out.append(current)
             continue
         if current is None:
@@ -142,7 +170,121 @@ def kernel_registers(ptxas: str, kernel: str) -> list[dict]:
         if m:
             current["registers"] = int(m.group(1))
             current = None
-    return sorted(out, key=lambda r: (r.get("direction", ""), r["n"]))
+    return sorted(out, key=lambda r: (r.get("direction", ""), r.get("flags", []),
+                                      r.get("n", 0)))
+
+
+# The kernels whose registers and spills a run prints, by source.
+REGISTERS = {"fft_rows.cu": ("fft_rows",),
+             "rfft_rows_transpose.cu": ("rfft_rows_transpose",),
+             "fft_rows_transpose.cu": ("fft_rows_transpose",),
+             "fft_rows_large.cu": ("columns", "rows_transpose"),
+             "fft_rows_transpose_large.cu": ("columns", "rows_transpose"),
+             "rfft_rows_large.cu": ("columns", "rows_transpose", "split"),
+             "rfft_rows_transpose_large.cu": ("columns", "rows_transpose", "split")}
+
+
+def compile_sources(needed: tuple[str, ...] | None) -> str:
+    """Print the card, compile each ``.cu`` of ``needed`` (None: every one,
+    printing ptxas' whole output) with ``-Xptxas -v`` and print the
+    registers and spills of its kernels, then build and load the library.
+    Returns the card's name and power limit."""
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card, "| torch", torch.__version__, "| cuda", torch.version.cuda, flush=True)
+    nvcc = _build._find_nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in _build.source_files():
+            if src.suffix != ".cu" or (needed is not None and src.name not in needed):
+                continue
+            done = subprocess.run(
+                [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src),
+                 "-o", os.path.join(tmp, src.stem + ".o")],
+                capture_output=True, text=True)
+            if done.returncode != 0 or needed is None:
+                print(f"--- {src.name} (exit {done.returncode})\n{done.stderr.strip()}",
+                      flush=True)
+            if done.returncode != 0:
+                sys.exit(1)
+            for name in REGISTERS.get(src.name, ()):
+                for record in kernel_registers(done.stderr, name):
+                    print(json.dumps({"ptxas": name + "_kernel", "source": src.name,
+                                      **record}), flush=True)
+    t0 = time.perf_counter()
+    _build.load_library()
+    print(f"build + load: {time.perf_counter() - t0:.2f} s", flush=True)
+    return card
+
+
+def check_siblings(card: str) -> None:
+    """K2b, K3b and K4b (``fft_rows_transpose_op``, ``rfft_rows_op`` and
+    ``rfft_rows_transpose_op`` above 16384) at ``SIBLING_SHAPES`` against
+    their plain versions and the library, ``1e-3·sqrt(n)`` (K2b's inverse
+    over n), then timed over ``LARGE_SWEEP`` at 2^26 elements, and K2b
+    beside K1b and the library at n = 32768 over ``K2B_ROW_COUNTS``."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    for rows, n in SIBLING_SHAPES:
+        x = torch.complex(torch.randn(rows, n, generator=gen, device="cuda"),
+                          torch.randn(rows, n, generator=gen, device="cuda"))
+        for inverse in (False, True):
+            tol = 1e-3 * n ** 0.5 / (n if inverse else 1)
+            got = fft_rows_transpose_op(x, inverse=inverse)
+            torch.cuda.synchronize()
+            errs = {"k2b_vs_plain": float((got - fft_rows_transpose_large_plain(
+                        x, inverse=inverse)).abs().max())}
+            lib = torch.fft.ifft(x) if inverse else torch.fft.fft(x)
+            errs["k2b_vs_library"] = float((got - lib.T).abs().max())
+            del got, lib
+            print(json.dumps({"rows": rows, "n": n, "split": large_split(n),
+                              "inverse": inverse, "atol": tol, **errs}), flush=True)
+            if max(errs.values()) > tol:
+                sys.exit(f"K2b disagrees: {errs} > {tol}")
+        del x
+        xr = torch.randn(rows, n, generator=gen, device="cuda")
+        tol = 1e-3 * n ** 0.5
+        lib = torch.fft.rfft(xr)
+        got3 = rfft_rows_op(xr)
+        got4 = rfft_rows_transpose_op(xr)
+        torch.cuda.synchronize()
+        errs = {"k3b_vs_plain": float((got3 - rfft_rows_large_plain(xr)).abs().max()),
+                "k3b_vs_library": float((got3 - lib).abs().max()),
+                "k4b_vs_plain": float((got4 - rfft_rows_transpose_large_plain(xr))
+                                      .abs().max()),
+                "k4b_vs_library": float((got4 - lib.T).abs().max())}
+        print(json.dumps({"rows": rows, "n": n, "atol": tol, **errs}), flush=True)
+        if max(errs.values()) > tol:
+            sys.exit(f"K3b/K4b disagree: {errs} > {tol}")
+        del xr, lib, got3, got4
+    for n in LARGE_SWEEP:
+        x = torch.randn(SWEEP_ELEMENTS // n, n, dtype=torch.complex64, device="cuda")
+        xr = torch.randn(SWEEP_ELEMENTS // n, n, device="cuda")
+        print(json.dumps({
+            "card": card, "rows": x.shape[0], "n": n, "split": large_split(n),
+            "fft_rows_transpose_large_ms": time_ms(lambda: fft_rows_transpose_op(x)),
+            "fft_rows_transpose_large_inverse_ms": time_ms(
+                lambda: fft_rows_transpose_op(x, inverse=True)),
+            "fft_rows_large_ms": time_ms(lambda: fft_rows_op(x)),
+            "torch_fft_T_contiguous_ms": time_ms(lambda: torch.fft.fft(x).T.contiguous()),
+            "clone_ms": time_ms(lambda: x.clone()),
+            "rfft_rows_large_ms": time_ms(lambda: rfft_rows_op(xr)),
+            "rfft_rows_transpose_large_ms": time_ms(lambda: rfft_rows_transpose_op(xr)),
+            "torch_rfft_ms": time_ms(lambda: torch.fft.rfft(xr)),
+            "torch_rfft_T_contiguous_ms": time_ms(
+                lambda: torch.fft.rfft(xr).T.contiguous()),
+            "real_clone_ms": time_ms(lambda: xr.clone())}), flush=True)
+        del x, xr
+    for rows in K2B_ROW_COUNTS:
+        x = torch.randn(rows, 1 << 15, dtype=torch.complex64, device="cuda")
+        print(json.dumps({
+            "card": card, "rows": rows, "n": 1 << 15,
+            "fft_rows_transpose_large_ms": time_ms(lambda: fft_rows_transpose_op(x)),
+            "fft_rows_large_ms": time_ms(lambda: fft_rows_op(x)),
+            "torch_fft_T_contiguous_ms": time_ms(lambda: torch.fft.fft(x).T.contiguous())}),
+            flush=True)
+        del x
+    print("OK")
 
 
 def main() -> None:
@@ -158,10 +300,15 @@ def main() -> None:
                       help="check and time the fused complex row kernel alone")
     only.add_argument("--fft-rows-large-only", action="store_true",
                       help="check and time the four-step row kernel of long rows alone")
+    only.add_argument("--large-fused-and-real-only", action="store_true",
+                      help="check and time the four-step fused and real kernels alone")
     args = parser.parse_args()
     only_k3, only_k1 = args.rfft_rows_only, args.fft_rows_only
     only_k4, only_k2 = args.rfft_rows_transpose_only, args.fft_rows_transpose_only
-    only_k1b = args.fft_rows_large_only
+    only_k1b, only_siblings = args.fft_rows_large_only, args.large_fused_and_real_only
+    if only_siblings:
+        check_siblings(compile_sources(SIBLING_SOURCES))
+        return
     run_k1 = not (only_k3 or only_k4 or only_k2 or only_k1b)
     run_k2 = not (only_k3 or only_k4 or only_k1 or only_k1b)
     run_k1b = not (only_k3 or only_k4 or only_k1 or only_k2)
@@ -169,35 +316,7 @@ def main() -> None:
     needed = ("fft_rows.cu" if only_k1 else "rfft_rows_transpose.cu" if only_k4
               else "fft_rows_transpose.cu" if only_k2
               else "fft_rows_large.cu" if only_k1b else None)
-    registers = {"fft_rows.cu": ("fft_rows",),
-                 "rfft_rows_transpose.cu": ("rfft_rows_transpose",),
-                 "fft_rows_transpose.cu": ("fft_rows_transpose",),
-                 "fft_rows_large.cu": ("columns", "rows_transpose")}
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(card, "| torch", torch.__version__, "| cuda", torch.version.cuda, flush=True)
-
-    nvcc = _build._find_nvcc()
-    with tempfile.TemporaryDirectory() as tmp:
-        for src in _build.source_files():
-            if src.suffix != ".cu" or needed not in (None, src.name):
-                continue
-            done = subprocess.run(
-                [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src),
-                 "-o", os.path.join(tmp, src.stem + ".o")],
-                capture_output=True, text=True)
-            if done.returncode != 0 or needed is None:
-                print(f"--- {src.name} (exit {done.returncode})\n{done.stderr.strip()}",
-                      flush=True)
-            if done.returncode != 0:
-                sys.exit(1)
-            for name in registers.get(src.name, ()):
-                for record in kernel_registers(done.stderr, name):
-                    print(json.dumps({"ptxas": name + "_kernel", **record}), flush=True)
-    t0 = time.perf_counter()
-    _build.load_library()
-    print(f"build + load: {time.perf_counter() - t0:.2f} s", flush=True)
+    card = compile_sources(None if needed is None else (needed,))
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)

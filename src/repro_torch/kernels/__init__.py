@@ -1,17 +1,21 @@
 """CUDA kernels for the paper's compute hot spots (the row FFT, the fused
-row FFT -> transposed write, their packed-real siblings, the four-step row
-FFT of rows too long for one CTA and the blocked transpose), each with an op
-wrapper, a plain PyTorch version and a launch count.  The kernels are
+row FFT -> transposed write, their packed-real siblings, the four-step
+versions of all four for rows too long for one CTA, and the blocked
+transpose), each with an op wrapper, a plain PyTorch version and a launch
+count.  The kernels are
 compiled at their first launch on a CUDA tensor (``_build``); importing this
 package builds and probes nothing."""
 
 from repro_torch.kernels.fft import kernel as _fft_kernel
 from repro_torch.kernels.fft import large as _large_kernel
 from repro_torch.kernels.fft import real as _real_kernel
+from repro_torch.kernels.fft import real_large as _real_large_kernel
 from repro_torch.kernels.fft.ops import fft_rows_op
 from repro_torch.kernels.fft.real import rfft_rows_op
 from repro_torch.kernels.fused import kernel as _fused_kernel
+from repro_torch.kernels.fused import large as _fused_large_kernel
 from repro_torch.kernels.fused import real as _fused_real_kernel
+from repro_torch.kernels.fused import real_large as _fused_real_large_kernel
 from repro_torch.kernels.fused.ops import fft_rows_transpose_op
 from repro_torch.kernels.fused.real import rfft_rows_transpose_op
 from repro_torch.kernels.transpose import kernel as _transpose_kernel
@@ -23,7 +27,10 @@ __all__ = ["fft_rows_op", "fft_rows_transpose_op", "launch_counts",
 
 _COUNTED = {"fft_rows": _fft_kernel, "fft_rows_large": _large_kernel,
             "fft_rows_transpose": _fused_kernel,
-            "rfft_rows": _real_kernel, "rfft_rows_transpose": _fused_real_kernel,
+            "fft_rows_transpose_large": _fused_large_kernel,
+            "rfft_rows": _real_kernel, "rfft_rows_large": _real_large_kernel,
+            "rfft_rows_transpose": _fused_real_kernel,
+            "rfft_rows_transpose_large": _fused_real_large_kernel,
             "transpose": _transpose_kernel}
 
 

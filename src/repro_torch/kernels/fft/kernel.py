@@ -20,8 +20,9 @@ packed real ones) hold each row's points in registers (``csrc/regfft.cuh``):
 their passes (radix 16, then one radix-2^r pass, on the same ``(ncur, s)``
 view) and launch shape depend only on ``n`` and the row count, and
 ``complex_rows_plan`` mirrors their instantiation table, n = 2 ... 16384.
-Longer complex rows, up to ``MAX_LARGE_N``, go to the two-pass four-step
-kernel K1b (``kernels.fft.large``, ``csrc/fft_rows_large.cu``).  ``radix``
+Longer rows, up to ``MAX_LARGE_N``, go to the four-step kernels: K1b
+(``kernels.fft.large``, ``csrc/fft_rows_large.cu``) and its fused and real
+siblings K2b-K4b.  ``radix``
 is validated, as in the reference, and chooses the plain version's stage
 loop only.
 """
@@ -57,9 +58,9 @@ SMEM_BUDGET = 232448
 # up to this length (``regfft::Plan<14>``: one row of 1024 threads a CTA) and
 # no further.
 MAX_KERNEL_N = 16384
-# The complex row FFT takes power-of-two rows up to this length: above
-# MAX_KERNEL_N through the four-step K1b, whose two factors are at most
-# MAX_KERNEL_N each.
+# Every row op takes power-of-two rows up to this length: above
+# MAX_KERNEL_N through the four-step kernels K1b-K4b, whose two factors are
+# at most MAX_KERNEL_N each.
 MAX_LARGE_N = 1 << 28
 # Points of a row one thread of a register-resident kernel holds (at most),
 # and the threads a CTA aims at when a row needs fewer (``csrc/regfft.cuh``).
@@ -77,11 +78,10 @@ class KernelLaunchError(RuntimeError):
 
 
 class KernelLengthError(ValueError):
-    """A power-of-two row length above a kernel's top (``top``:
-    ``MAX_KERNEL_N`` for the fused and real kernels, ``MAX_LARGE_N`` for the
-    complex row FFT); nothing switches to the library in their place."""
+    """A power-of-two row length above the kernels' top (``MAX_LARGE_N``);
+    nothing switches to the library in their place."""
 
-    def __init__(self, name: str, n: int, top: int = MAX_KERNEL_N) -> None:
+    def __init__(self, name: str, n: int, top: int = MAX_LARGE_N) -> None:
         super().__init__(
             f"{name}: power-of-two length {n} exceeds the kernel limit {top}; "
             "use the library backend (radix=None) for this length")
@@ -234,11 +234,10 @@ def fft_rows_plain(x: torch.Tensor, *, inverse: bool = False,
 
 
 def check_kernel_input(x: torch.Tensor, name: str,
-                       dtype: torch.dtype = torch.complex64,
-                       top: int = MAX_KERNEL_N) -> tuple[int, int]:
+                       dtype: torch.dtype = torch.complex64) -> tuple[int, int]:
     """What the row-FFT launchers require of their input (``dtype``:
     complex64, or float32 for the real kernels; a power-of-two length up to
-    ``top``); returns (rows, n)."""
+    ``MAX_LARGE_N``); returns (rows, n)."""
     if not x.is_cuda:
         raise ValueError(f"{name}: input must be a CUDA tensor, got {x.device}")
     if x.dtype != dtype:
@@ -251,8 +250,8 @@ def check_kernel_input(x: torch.Tensor, name: str,
     rows, n = x.shape
     if n < 2 or n & (n - 1):
         raise ValueError(f"{name}: length {n} must be a power of two >= 2")
-    if n > top:
-        raise KernelLengthError(name, n, top)
+    if n > MAX_LARGE_N:
+        raise KernelLengthError(name, n)
     return rows, n
 
 
@@ -307,7 +306,7 @@ def fft_rows_cuda(x: torch.Tensor, *, inverse: bool = False,
     than ``MAX_KERNEL_N`` (up to ``MAX_LARGE_N``) go to K1b
     (``kernels.fft.large.fft_rows_large_cuda``).  Does not synchronise."""
     global _launches
-    rows, n = check_kernel_input(x, "fft_rows_cuda", top=MAX_LARGE_N)
+    rows, n = check_kernel_input(x, "fft_rows_cuda")
     if radix not in (2, 4):
         raise ValueError(f"unsupported radix {radix}")
     if n > MAX_KERNEL_N:

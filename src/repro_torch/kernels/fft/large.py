@@ -16,6 +16,11 @@ stores them transposed, ``out[k1 + n1*k2]`` (K2's function on each row's
 (n1, n2) matrix).  The inverse conjugates the twiddles, and its 1/n1 and 1/n2
 scales make 1/n.
 
+Its fused and real siblings K2b, K3b, K4b (``kernels.fused.large``,
+``kernels.fft.real_large``, ``kernels.fused.real_large``) run the same
+passes (``csrc/fourstep.cuh``) and reuse ``_columns_pass``, ``_rows_pass``
+and the chunking here.
+
 Scratch: a call allocates ``torch.empty`` of at most ``SCRATCH_ELEMS``
 complex64 elements (1 GiB), or of one row where a row alone is larger (2 GiB
 at n = 2^28), and walks the rows in chunks of that many.  ``launch_count``
@@ -29,13 +34,12 @@ import math
 import torch
 
 from repro_torch.kernels.fft.kernel import (_CTA_THREADS, _POINTS, MAX_KERNEL_N,
-                                            MAX_LARGE_N, check_kernel_input,
-                                            complex_rows_plan, launch,
-                                            stockham_planes_radix4)
+                                            check_kernel_input, complex_rows_plan,
+                                            launch, stockham_planes_radix4)
 
 __all__ = ["MIN_FACTOR", "SCRATCH_ELEMS", "columns_plan", "fft_rows_large_cuda",
-           "fft_rows_large_plain", "large_split", "large_twiddle",
-           "launch_count", "reset_launch_count", "scratch_rows"]
+           "fft_rows_large_plain", "kernel_split", "large_split", "large_twiddle",
+           "launch_count", "reset_launch_count", "scratch_capacity", "scratch_rows"]
 
 # The kernel's factors n1 and n2 lie in [MIN_FACTOR, MAX_KERNEL_N]
 # (``kMinLog2`` and ``kMaxLog2`` of ``csrc/fft_rows_large.cu``).
@@ -95,6 +99,12 @@ def scratch_rows(n: int) -> int:
     return max(1, SCRATCH_ELEMS // n)
 
 
+def scratch_capacity(rows: int) -> int:
+    """Rows of scratch a transposed call (K2b) keeps per k1: the least power
+    of two >= ``rows``, at most ``scratch_rows(n)`` for a chunk."""
+    return 1 << max(0, rows - 1).bit_length()
+
+
 def large_twiddle(m: torch.Tensor, n: int, *, inverse: bool = False) -> torch.Tensor:
     """``w_n^m = exp(sign*2*pi*i*m/n)`` for int64 ``m`` in [0, n), as pass A
     makes it: ``m = mh*2^14 + ml`` and ``w^m = w^(mh*2^14) * w^ml``, the
@@ -114,23 +124,51 @@ def large_twiddle(m: torch.Tensor, n: int, *, inverse: bool = False) -> torch.Te
     return high * low
 
 
-def fft_rows_large_plain(x: torch.Tensor, *, inverse: bool = False,
-                         n1: int | None = None, n2: int | None = None) -> torch.Tensor:
-    """K1b's plain version: (rows, n) complex64 -> its row-wise DFT by the
-    same two passes, on whatever device ``x`` lies on: the length-n1 DFTs
-    of the columns (``stockham_planes_radix4``), the twiddle of
-    ``large_twiddle``, the length-n2 DFTs of B's rows and the transposed
-    store, each written out.  ``n1`` / ``n2`` pin the split."""
+def _columns_pass(x: torch.Tensor, n1: int, n2: int, inverse: bool) -> torch.Tensor:
+    """Pass A, written out: the length-n1 DFTs down the columns of each
+    row's (n1, n2) view (``stockham_planes_radix4``) times the twiddle of
+    ``large_twiddle``.  (rows, n) complex64 -> B as a (rows, n1, n2) view,
+    ``B[s][k1][j2]``."""
     rows, n = x.shape
-    n1, n2 = large_split(n, n1=n1, n2=n2)
     cols = torch.view_as_real(x.reshape(rows, n1, n2).transpose(1, 2).contiguous())
     re, im = stockham_planes_radix4(cols[..., 0], cols[..., 1], inverse=inverse)
     j2 = torch.arange(n2, device=x.device)[:, None]
     k1 = torch.arange(n1, device=x.device)[None, :]
     b = torch.complex(re, im) * large_twiddle(j2 * k1, n, inverse=inverse)
-    b = torch.view_as_real(b.transpose(1, 2).contiguous())    # B[k1][j2], pass A's store
-    re, im = stockham_planes_radix4(b[..., 0], b[..., 1], inverse=inverse)
-    return torch.complex(re, im).transpose(1, 2).reshape(rows, n)
+    return b.transpose(1, 2)
+
+
+def _rows_pass(b: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """Pass B's transforms: the length-n2 DFTs along the last axis of B as
+    pass A stored it (a contiguous copy of the view ``b``)."""
+    planes = torch.view_as_real(b.contiguous())
+    re, im = stockham_planes_radix4(planes[..., 0], planes[..., 1], inverse=inverse)
+    return torch.complex(re, im)
+
+
+def fft_rows_large_plain(x: torch.Tensor, *, inverse: bool = False,
+                         n1: int | None = None, n2: int | None = None) -> torch.Tensor:
+    """K1b's plain version: (rows, n) complex64 -> its row-wise DFT by the
+    same two passes, on whatever device ``x`` lies on: the length-n1 DFTs
+    of the columns (``stockham_planes_radix4``), the twiddle of
+    ``large_twiddle``, B stored as ``[s][k1][j2]``, the length-n2 DFTs of
+    B's rows and the transposed store ``out[s, k1 + n1*k2]``, each written
+    out.  ``n1`` / ``n2`` pin the split."""
+    rows, n = x.shape
+    n1, n2 = large_split(n, n1=n1, n2=n2)
+    c = _rows_pass(_columns_pass(x, n1, n2, inverse), inverse)    # C[s][k1][k2]
+    return c.transpose(1, 2).reshape(rows, n)
+
+
+def kernel_split(n: int, n1: int | None, name: str) -> tuple[int, int]:
+    """``large_split(n, n1=n1)`` where both factors lie in the kernels'
+    range [``MIN_FACTOR``, ``MAX_KERNEL_N``]; ``name`` is the launcher named
+    in the error."""
+    n1, n2 = large_split(n, n1=n1)
+    if not (MIN_FACTOR <= n1 <= MAX_KERNEL_N and MIN_FACTOR <= n2 <= MAX_KERNEL_N):
+        raise ValueError(f"{name}: the split ({n1}, {n2}) of {n} has a "
+                         f"factor outside [{MIN_FACTOR}, {MAX_KERNEL_N}]")
+    return n1, n2
 
 
 def fft_rows_large_cuda(x: torch.Tensor, *, inverse: bool = False,
@@ -141,11 +179,8 @@ def fft_rows_large_cuda(x: torch.Tensor, *, inverse: bool = False,
     ``columns_plan(n1)``, pass B's ``complex_rows_plan(n2, chunk_rows*n1)``.
     Does not synchronise."""
     global _launches
-    rows, n = check_kernel_input(x, "fft_rows_large_cuda", top=MAX_LARGE_N)
-    n1, n2 = large_split(n, n1=n1)
-    if not (MIN_FACTOR <= n1 <= MAX_KERNEL_N and MIN_FACTOR <= n2 <= MAX_KERNEL_N):
-        raise ValueError(f"fft_rows_large_cuda: the split ({n1}, {n2}) of {n} has a "
-                         f"factor outside [{MIN_FACTOR}, {MAX_KERNEL_N}]")
+    rows, n = check_kernel_input(x, "fft_rows_large_cuda")
+    n1, n2 = kernel_split(n, n1, "fft_rows_large_cuda")
     out = torch.empty_like(x)
     if rows == 0:
         return out

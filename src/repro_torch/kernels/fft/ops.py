@@ -28,15 +28,15 @@ def pick_radix(n: int) -> int:
     return 4 if n >= 4 else 2
 
 
-def resolve_radix(n: int, radix: int | None, name: str,
-                  top: int = MAX_KERNEL_N) -> int:
+def resolve_radix(n: int, radix: int | None, name: str) -> int:
     """Shared prologue of the row-FFT op wrappers: validate the length (a
-    power of two up to the kernel's ``top``) and fill in the radix default.
-    ``name`` is the op named in errors."""
+    power of two up to ``MAX_LARGE_N``: every row op runs its four-step
+    kernel above ``MAX_KERNEL_N``) and fill in the radix default.  ``name``
+    is the op named in errors."""
     if n & (n - 1) or n < 1:
         raise ValueError(f"cuda fft kernel requires power-of-two length, got {n}")
-    if n > top:
-        raise KernelLengthError(name, n, top)
+    if n > MAX_LARGE_N:
+        raise KernelLengthError(name, n, MAX_LARGE_N)
     if radix is None:
         radix = pick_radix(n)
     if radix not in (2, 4):
@@ -72,7 +72,7 @@ def fft_rows_op(x, *, inverse: bool = False,
         raise ValueError(f"fft_rows_op takes (..., rows, n) input, got shape {tuple(x.shape)}")
     n = x.shape[-1]
     x2 = prepare_rows(x, "fft_rows_op").reshape(-1, n)
-    radix = resolve_radix(n, radix, "fft_rows_op", MAX_LARGE_N)
+    radix = resolve_radix(n, radix, "fft_rows_op")
     out_dtype = complex_result_type(x)
     if n == 1:  # the length-1 DFT is the identity: no pass to run
         return x2.to(out_dtype).reshape(x.shape).clone()

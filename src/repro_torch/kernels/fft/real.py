@@ -27,9 +27,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch._device import as_tensor, complex_result_type
-from repro_torch.kernels.fft.kernel import (apply_stockham, check_kernel_input,
-                                            complex_rows_plan, launch)
+from repro_torch.kernels.fft.kernel import (MAX_KERNEL_N, apply_stockham,
+                                            check_kernel_input, complex_rows_plan,
+                                            launch)
 from repro_torch.kernels.fft.ops import resolve_radix
+from repro_torch.kernels.fft.real_large import rfft_rows_large_cuda, rfft_rows_large_plain
 
 __all__ = ["launch_count", "prepare_real_rows", "reset_launch_count", "rfft_rows_cuda", "rfft_rows_op",
            "rfft_rows_plain", "unpack_packed_fft"]
@@ -81,11 +83,15 @@ def rfft_rows_plain(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
 def rfft_rows_cuda(x: torch.Tensor, *, radix: int = 4) -> torch.Tensor:
     """Launch ``csrc/rfft_rows.cu``: (rows, n) float32 CUDA tensor -> its
     (rows, n//2+1) complex64 half spectrum per row, in the launch shape
-    ``complex_rows_plan`` gives for its row pairs.  Does not synchronise."""
+    ``complex_rows_plan`` gives for its row pairs; rows longer than
+    ``MAX_KERNEL_N`` (up to ``MAX_LARGE_N``) go to K3b
+    (``kernels.fft.real_large``).  Does not synchronise."""
     global _launches
     rows, n = check_kernel_input(x, "rfft_rows_cuda", torch.float32)
     if radix not in (2, 4):
         raise ValueError(f"unsupported radix {radix}")
+    if n > MAX_KERNEL_N:
+        return rfft_rows_large_cuda(x)
     out = torch.empty((rows, n // 2 + 1), dtype=torch.complex64, device=x.device)
     if rows == 0:
         return out
@@ -113,7 +119,9 @@ def rfft_rows_op(x, *, radix: int | None = None) -> torch.Tensor:
     """Real row FFT via the packed CUDA kernel.
 
     x: (..., rows, n) real -> (..., rows, n//2+1) complex half spectrum,
-    matching ``torch.fft.rfft(x, dim=-1)``.  ``radix=None`` auto-selects.
+    matching ``torch.fft.rfft(x, dim=-1)``; n a power of two up to
+    ``MAX_LARGE_N``: K3 up to ``MAX_KERNEL_N``, the four-step K3b above (on
+    the CPU, ``rfft_rows_large_plain``).  ``radix=None`` auto-selects.
     Computes in float32 and returns ``promote(x.dtype, complex64)``.
     """
     x = as_tensor(x)
@@ -129,6 +137,8 @@ def rfft_rows_op(x, *, radix: int | None = None) -> torch.Tensor:
         return x2.to(out_dtype).reshape(out_shape)
     if x2.is_cuda:
         out = rfft_rows_cuda(x2, radix=radix)
+    elif n > MAX_KERNEL_N:
+        out = rfft_rows_large_plain(x2)
     else:
         out = rfft_rows_plain(x2, radix=radix)
     return out.to(out_dtype).reshape(out_shape)

@@ -19,9 +19,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.fft.kernel import (_CTA_THREADS, check_kernel_input,
-                                            complex_rows_plan, fft_rows_plain,
-                                            launch)
+from repro_torch.kernels.fft.kernel import (_CTA_THREADS, MAX_KERNEL_N, check_kernel_input,
+                                            complex_rows_plan, fft_rows_plain, launch)
+from repro_torch.kernels.fused.large import fft_rows_transpose_large_cuda
 
 __all__ = ["STORE_CLUSTER", "fft_rows_transpose_cuda", "fft_rows_transpose_plain",
            "fft_rows_transpose_plan", "launch_count", "reset_launch_count"]
@@ -71,12 +71,16 @@ def fft_rows_transpose_cuda(x: torch.Tensor, *, inverse: bool = False,
                             radix: int = 4) -> torch.Tensor:
     """Launch ``csrc/fft_rows_transpose.cu``: (rows, n) complex64 CUDA tensor
     -> ``FFT_rows(x).T`` of shape (n, rows), in the launch shape of
-    ``fft_rows_transpose_plan`` (the C side picks the cluster from n).  Does
-    not synchronise."""
+    ``fft_rows_transpose_plan`` (the C side picks the cluster from n); rows
+    longer than ``MAX_KERNEL_N`` (up to ``MAX_LARGE_N``) go to K2b
+    (``kernels.fused.large.fft_rows_transpose_large_cuda``).  Does not
+    synchronise."""
     global _launches
     rows, n = check_kernel_input(x, "fft_rows_transpose_cuda")
     if radix not in (2, 4):
         raise ValueError(f"unsupported radix {radix}")
+    if n > MAX_KERNEL_N:
+        return fft_rows_transpose_large_cuda(x, inverse=inverse)
     out = torch.empty((n, rows), dtype=x.dtype, device=x.device)
     if rows == 0:
         return out

@@ -13,19 +13,24 @@ from __future__ import annotations
 import torch
 
 from repro_torch._device import as_tensor, complex_result_type
+from repro_torch.kernels.fft.kernel import MAX_KERNEL_N
 from repro_torch.kernels.fft.ops import prepare_rows, resolve_radix
 from repro_torch.kernels.fused.kernel import (fft_rows_transpose_cuda,
                                               fft_rows_transpose_plain)
+from repro_torch.kernels.fused.large import fft_rows_transpose_large_plain
 
 __all__ = ["fft_rows_transpose_op"]
 
 
 def fft_rows_transpose_op(x, *, inverse: bool = False,
                           radix: int | None = None) -> torch.Tensor:
-    """Fused ``FFT_rows(x).T`` in one kernel launch.  x: (rows, n) complex.
+    """Fused ``FFT_rows(x).T``.  x: (rows, n) complex, n a power of two up
+    to ``MAX_LARGE_N``: K2 (one launch) up to ``MAX_KERNEL_N``, the
+    four-step K2b above (on the CPU, ``fft_rows_transpose_large_plain``).
 
-    ``radix=None`` auto-selects; it chooses the plain version's stage loop,
-    while the CUDA kernel's passes depend on ``n`` only."""
+    ``radix=None`` auto-selects; it chooses the plain version's stage loop
+    up to ``MAX_KERNEL_N``, while the CUDA kernels' passes depend on ``n``
+    only."""
     x = as_tensor(x)
     if x.ndim != 2:
         raise ValueError(f"fused op takes a 2-D matrix, got shape {tuple(x.shape)}")
@@ -37,6 +42,8 @@ def fft_rows_transpose_op(x, *, inverse: bool = False,
         return x2.to(out_dtype).T.contiguous()
     if x2.is_cuda:
         out = fft_rows_transpose_cuda(x2, inverse=inverse, radix=radix)
+    elif n > MAX_KERNEL_N:
+        out = fft_rows_transpose_large_plain(x2, inverse=inverse)
     else:
         out = fft_rows_transpose_plain(x2, inverse=inverse, radix=radix)
     return out.to(out_dtype)

@@ -21,10 +21,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch._device import as_tensor, complex_result_type
-from repro_torch.kernels.fft.kernel import (_CTA_THREADS, check_kernel_input,
+from repro_torch.kernels.fft.kernel import (_CTA_THREADS, MAX_KERNEL_N, check_kernel_input,
                                             complex_rows_plan, launch)
 from repro_torch.kernels.fft.ops import resolve_radix
 from repro_torch.kernels.fft.real import prepare_real_rows, rfft_rows_plain
+from repro_torch.kernels.fused.real_large import (rfft_rows_transpose_large_cuda,
+                                                  rfft_rows_transpose_large_plain)
 
 __all__ = ["STORE_CLUSTER", "launch_count", "reset_launch_count",
            "rfft_rows_transpose_cuda", "rfft_rows_transpose_op",
@@ -71,11 +73,14 @@ def rfft_rows_transpose_cuda(x: torch.Tensor, *, radix: int = 4) -> torch.Tensor
     """Launch ``csrc/rfft_rows_transpose.cu``: (rows, n) float32 CUDA tensor
     -> ``rfft_rows(x).T`` of shape (n//2+1, rows), complex64, in the launch
     shape of ``rfft_rows_transpose_plan`` (the C side picks the cluster from
-    n).  Does not synchronise."""
+    n); rows longer than ``MAX_KERNEL_N`` (up to ``MAX_LARGE_N``) go to K4b
+    (``kernels.fused.real_large``).  Does not synchronise."""
     global _launches
     rows, n = check_kernel_input(x, "rfft_rows_transpose_cuda", torch.float32)
     if radix not in (2, 4):
         raise ValueError(f"unsupported radix {radix}")
+    if n > MAX_KERNEL_N:
+        return rfft_rows_transpose_large_cuda(x)
     out = torch.empty((n // 2 + 1, rows), dtype=torch.complex64, device=x.device)
     if rows == 0:
         return out
@@ -87,11 +92,13 @@ def rfft_rows_transpose_cuda(x: torch.Tensor, *, radix: int = 4) -> torch.Tensor
 
 
 def rfft_rows_transpose_op(x, *, radix: int | None = None) -> torch.Tensor:
-    """Fused ``rfft_rows(x).T`` in one kernel launch.
+    """Fused ``rfft_rows(x).T``.
 
     x: (rows, n) real -> (n//2+1, rows) complex, the transposed half
-    spectrum.  ``radix=None`` auto-selects.  Computes in float32 and returns
-    ``promote(x.dtype, complex64)``.
+    spectrum; n a power of two up to ``MAX_LARGE_N``: K4 (one launch) up to
+    ``MAX_KERNEL_N``, the four-step K4b above (on the CPU,
+    ``rfft_rows_transpose_large_plain``).  ``radix=None`` auto-selects.
+    Computes in float32 and returns ``promote(x.dtype, complex64)``.
     """
     x = as_tensor(x)
     if x.ndim != 2:
@@ -104,6 +111,8 @@ def rfft_rows_transpose_op(x, *, radix: int | None = None) -> torch.Tensor:
         return x2.to(out_dtype).T.contiguous()
     if x2.is_cuda:
         out = rfft_rows_transpose_cuda(x2, radix=radix)
+    elif n > MAX_KERNEL_N:
+        out = rfft_rows_transpose_large_plain(x2)
     else:
         out = rfft_rows_transpose_plain(x2, radix=radix)
     return out.to(out_dtype)

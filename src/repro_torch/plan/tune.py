@@ -19,14 +19,12 @@ constraints); ``tune_config`` ranks it:
 Every ``measure_*`` and ``tune_*`` takes ``device=``: ``None`` is the CUDA
 device (raising without one), ``"cpu"`` runs the kernels' plain versions.
 
-The candidate pot never holds a configuration that cannot run: the complex
-row FFT (K1, and the four-step K1b above ``MAX_KERNEL_N``) takes
-power-of-two rows up to ``MAX_LARGE_N``, the fused (K2, K4) and real (K3,
-K4) kernels up to ``MAX_KERNEL_N``.  So ``radix=4`` is offered only where
-every power-of-two effective length fits the kernels it runs, and
-``fused`` only where ``n`` fits K2.  Up to ``MAX_KERNEL_N`` the pot is the
-reference's, config for config, on every device; above it the complex
-unfused configs still are.
+The candidate pot never holds a configuration that cannot run: every row
+kernel (K1-K4, and their four-step versions K1b-K4b above
+``MAX_KERNEL_N``) takes power-of-two rows up to ``MAX_LARGE_N``.  So
+``radix=4`` and ``fused`` are offered only where every power-of-two
+effective length is at most ``MAX_LARGE_N``; up to there the pot is the
+reference's, config for config, on every device.
 
 The caller (``plan_pfft``) persists the result via ``plan.wisdom`` so
 measurement happens once per (n, dtype, p, method, backend) per machine.
@@ -43,7 +41,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.fpm import FPMSet, fft_flops
-from repro_torch.kernels.fft.kernel import MAX_KERNEL_N, MAX_LARGE_N
+from repro_torch.kernels.fft.kernel import MAX_LARGE_N
 from repro_torch.plan.config import PlanConfig
 from repro_torch.plan.cost import (CostParams, _compute_multiplier,
                                    _segment_work, comm_phase_time,
@@ -65,14 +63,12 @@ def _is_pow2(n: int) -> bool:
     return n > 0 and not (n & (n - 1))
 
 
-def _kernel_takes(length: int, top: int = MAX_LARGE_N) -> bool:
-    """Whether a CUDA row kernel whose longest row is ``top`` runs a row of
-    ``length``: any length that is not a power of two goes to the library
-    (``fft_rows``' rule), a power of two up to ``top`` to the kernel; a
-    longer power of two would raise ``KernelLengthError``.  ``top`` is
-    ``MAX_LARGE_N`` for the unfused complex rows (K1, K1b) and
-    ``MAX_KERNEL_N`` for the fused and real kernels (K2, K3, K4)."""
-    return not _is_pow2(length) or length <= top
+def _kernel_takes(length: int) -> bool:
+    """Whether the CUDA row kernels run a row of ``length``: any length that
+    is not a power of two goes to the library (``fft_rows``' rule), a power
+    of two up to ``MAX_LARGE_N`` to the kernels; a longer power of two would
+    raise ``KernelLengthError``."""
+    return not _is_pow2(length) or length <= MAX_LARGE_N
 
 
 def _params_for(params: CostParams | None, device) -> CostParams:
@@ -164,10 +160,10 @@ def candidate_configs(n: int, *, pad: str = "none", d=None,
     per-segment padding; the kernel radices require a power-of-two N (and
     the czt path runs library FFTs inside ``czt_dft`` whatever the radix
     says, so czt enumerates only the dispatch structure); ``radix=4`` also
-    requires that the complex row FFT takes every effective length (``n``
-    and each busy segment's ``pad_lengths`` entry), and ``fused`` that K2
-    takes ``n``; ``batched`` only matters when the partition has more than
-    one non-empty segment.
+    requires that the row kernels take every effective length (``n`` and
+    each busy segment's ``pad_lengths`` entry), and ``fused`` that they
+    take ``n`` (``_kernel_takes``); ``batched`` only matters when the
+    partition has more than one non-empty segment.
     """
     radices: list[int | None] = [None]
     if pad != "czt" and _is_pow2(n):
@@ -184,7 +180,7 @@ def candidate_configs(n: int, *, pad: str = "none", d=None,
             for batched in batch_opts:
                 out.append(PlanConfig(radix=radix, batched=batched, pad=pad,
                                       pipeline_panels=k))
-        if pad == "none" and _is_pow2(n) and _kernel_takes(n, MAX_KERNEL_N):
+        if pad == "none" and _is_pow2(n) and _kernel_takes(n):
             # Fused collapses each phase to one dispatch; segmentation (and
             # therefore batched) is moot, and the kernel is radix-4.
             out.append(PlanConfig(radix=4, fused=True, pipeline_panels=k))
@@ -587,7 +583,7 @@ def _real_candidates(cands: Sequence[PlanConfig],
     """The real-flagged twins of a complex candidate list (czt dropped —
     the real pipeline has no Bluestein form; ``radix=4`` dropped unless the
     real kernels take every effective length in ``lengths``)."""
-    real4 = all(_kernel_takes(length, MAX_KERNEL_N) for length in lengths)
+    real4 = all(_kernel_takes(length) for length in lengths)
     return [dataclasses.replace(c, real=True) for c in cands
             if c.pad != "czt" and (real4 or c.radix != 4)]
 

@@ -426,3 +426,182 @@ def k1b_model(x, n1: int, n2: int, cols: int, plan_b, cluster: int, *,
         out[dest] = out_t
         out = out.reshape(rows, n)
     return out, reads_a, writes_a, sectors_a, writes_b, runs_b
+
+
+def _pass_a_addresses(rows: int, n1: int, n2: int, cols: int):
+    """Pass A's launch (``columns_kernel``): CTA b = s*(n2/cols) + g, thread
+    c*G + t (G = n1/16) of column j2 = g*cols + c holds j1 = t + k*G, k < 16.
+    Returns ``(s, g, c, j1, j2)`` broadcast to (B, 16, T) where it matters:
+    ``s`` (B, 1, 1), ``j1`` (1, 16, T), ``j2`` (B, 1, T)."""
+    group = n1 // 16
+    tid = np.arange(cols * group)
+    c, t = tid // group, tid % group
+    groups = n2 // cols
+    block = np.arange(rows * groups)
+    s, g = block // groups, block % groups
+    j2 = g[:, None, None] * cols + c                                   # (B, 1, T)
+    j1 = (t + np.arange(16)[:, None] * group)[None]                    # (1, 16, T)
+    return s[:, None, None], g, c, j1, j2
+
+
+def _whole_sectors(addr: np.ndarray, threads: int) -> bool:
+    """Whether every step of every CTA (``addr`` (B, 16, T) in complex64
+    elements) touches whole 32-byte sectors (4 elements) only."""
+    steps = np.sort(addr.reshape(-1, threads), axis=1).reshape(-1, threads // 4, 4)
+    return bool((steps[..., 0] % 4 == 0).all() and (np.diff(steps, axis=-1) == 1).all())
+
+
+def k2b_model(x, n1: int, n2: int, cols: int, plan_b, cluster: int, *,
+              rows: int | None = None, out_stride: int | None = None, r0: int = 0,
+              inverse: bool = False):
+    """K2b, the four-step fused row kernel of long rows
+    (``csrc/fft_rows_transpose_large.cu``, ``csrc/fourstep.cuh``), in
+    float64, thread by thread, for one chunk of ``rows`` rows (those of
+    ``x``, or the pattern alone) stored to columns ``r0 ...`` of an
+    (n, ``out_stride``) output.
+
+    Pass A is K1b's (``k1b_model``) but stores B[k1][j2] of row s at
+    (k1*cap + s)*n2 + j2, cap = the least power of two >= rows: the rows of
+    one k1 side by side.  Pass B is K2's store (``k2_store_model`` in
+    ``plan_b`` = ``complex_rows_plan(n2, cap*n1)`` and ``cluster``) over the
+    cap*n1 rows of the scratch, row R = k1*cap + s and bin k2 sent to
+    out[k1 + n1*k2, r0 + s] where s < rows (the others load zeros and store
+    nothing).
+
+    Returns ``(out, reads_a, writes_a, sectors_a, writes_b, runs_b, cap)``:
+    the (n, out_stride) result (None without ``x``); how often pass A read
+    each input element and wrote each of the cap*n scratch elements;
+    whether every step of every pass-A CTA loads and stores whole 32-byte
+    sectors; how often pass B wrote each output element; the runs of
+    ``k2_store_model`` (bytes, contiguous, full) and cap."""
+    n = n1 * n2
+    rows = x.shape[0] if x is not None else rows
+    out_stride = rows if out_stride is None else out_stride
+    cap = 1 << max(0, rows - 1).bit_length()
+    threads = cols * (n1 // 16)
+    s, g, c, j1, j2 = _pass_a_addresses(rows, n1, n2, cols)
+    addr = s * n + j1 * n2 + j2                                        # (B, 16, T)
+    dst = (j1 * cap + s) * n2 + j2
+    reads_a = np.bincount(addr.ravel(), minlength=rows * n)
+    writes_a = np.bincount(dst.ravel(), minlength=cap * n)
+    sectors_a = _whole_sectors(addr, threads) and _whole_sectors(dst, threads)
+    z = None
+    if x is not None:
+        xx = np.asarray(x, np.complex128).reshape(rows, n1, n2)
+        y = np.fft.ifft(xx, axis=1) if inverse else np.fft.fft(xx, axis=1)
+        sign = 1.0 if inverse else -1.0
+        k1 = np.arange(n1)[:, None]
+        y = y * np.exp(sign * 2j * np.pi * ((k1 * np.arange(n2)) % n) / n)
+        scratch = np.zeros(cap * n, np.complex128)
+        scratch[dst] = y[np.broadcast_to(s, dst.shape), np.broadcast_to(j1, dst.shape),
+                         np.broadcast_to(j2, dst.shape)]
+        b = scratch.reshape(cap * n1, n2)
+        b[np.arange(cap * n1) % cap >= rows] = 0      # masked rows load zeros
+        z = torch.from_numpy(np.fft.ifft(b, axis=-1) if inverse else np.fft.fft(b, axis=-1))
+    out_t, writes_t, _, runs_b = k2_store_model(z, cap * n1, plan_b, cluster=cluster)
+    big_r = np.arange(cap * n1)
+    k1_of, s_of = big_r // cap, big_r % cap
+    dest = (k1_of + n1 * np.arange(n2)[:, None]) * out_stride + r0 + s_of   # (n2, R)
+    live = (writes_t[:, :cap * n1] > 0) & (s_of < rows)
+    writes_b = np.zeros(n * out_stride, np.int64)
+    np.add.at(writes_b, dest[live], writes_t[:, :cap * n1][live])
+    out = None
+    if out_t is not None:
+        out = np.zeros(n * out_stride, np.complex128)
+        out[dest[live]] = out_t[live]
+        out = out.reshape(n, out_stride)
+    return out, reads_a, writes_a, sectors_a, writes_b, runs_b, cap
+
+
+# Pass C's launch (``kSplitThreads``, ``kTilePairs``, ``kTileBins`` of
+# ``csrc/fourstep.cuh``).
+SPLIT_THREADS, TILE_PAIRS, TILE_BINS = 256, 16, 32
+
+
+def split_model(z, rows: int, n: int, *, transposed: bool, out_stride: int | None = None,
+                c0: int = 0):
+    """Pass C of K3b and K4b (``split_kernel`` of ``csrc/fourstep.cuh``) in
+    float64, thread by thread: the conjugate split of the (rows + 1) // 2
+    packed pairs of ``z`` (their DFTs Z, or None for the pattern alone).
+
+    Thread k of a row-major CTA reads Z[p, k] and Z[p, (n - k) & (n - 1)] and
+    writes A to out[2p, k] and B to out[2p + 1, k] (unless 2p + 1 = rows);
+    CTA b = p * ceil(nh / 256) + tile.  A transposed CTA b = pt *
+    ceil(nh / 32) + kt splits 16 pairs x 32 bins into a tile, thread i of
+    512 taking pair i // 32 and bin i % 32, and stores tile row i // 32 of
+    1024 to out[k, c0 + c] for its 32 real rows c (rows past ``rows`` and
+    bins past nh are skipped).  Output: (rows, nh) or (nh, out_stride).
+
+    Returns ``(out, writes, partner_ok, runs)``: the result (None without
+    ``z``); how often each output element was written; whether every read
+    partner is (n - k) mod n of the same pair; and, for the transposed
+    store, per warp instruction that stores, the bytes it writes and
+    whether they are one run of one output row (row-major: None)."""
+    nh = n // 2 + 1
+    pairs = (rows + 1) // 2
+    zz = None if z is None else np.asarray(z, np.complex128)
+
+    def split(p, k):
+        zk, zr = zz[p, k], zz[p, (n - k) & (n - 1)]
+        return ((zk + np.conj(zr)) / 2, (zk - np.conj(zr)) / 2j)
+
+    if not transposed:
+        tiles = -(-nh // SPLIT_THREADS)
+        b = np.arange(pairs * tiles)
+        p = np.broadcast_to((b // tiles)[:, None], (b.size, SPLIT_THREADS))
+        k = (b % tiles)[:, None] * SPLIT_THREADS + np.arange(SPLIT_THREADS)
+        live = k < nh
+        p, k = p[live], k[live]
+        partner_ok = bool(((n - k) & (n - 1) == (-k) % n).all())
+        writes = np.zeros((rows, nh), np.int64)
+        np.add.at(writes, (2 * p, k), 1)
+        has_b = 2 * p + 1 < rows
+        np.add.at(writes, (2 * p[has_b] + 1, k[has_b]), 1)
+        out = None
+        if zz is not None:
+            out = np.zeros((rows, nh), np.complex128)
+            a_val, b_val = split(p, k)
+            out[2 * p, k] = a_val
+            out[2 * p[has_b] + 1, k[has_b]] = b_val[has_b]
+        return out, writes, partner_ok, None
+
+    out_stride = rows if out_stride is None else out_stride
+    ktiles = -(-nh // TILE_BINS)
+    b = np.arange(-(-pairs // TILE_PAIRS) * ktiles)
+    p0 = (b // ktiles * TILE_PAIRS)[:, None]
+    k0 = (b % ktiles * TILE_BINS)[:, None]
+    i = np.arange(TILE_PAIRS * TILE_BINS)                     # the split: 2 a thread
+    p, k = p0 + i // TILE_BINS, k0 + i % TILE_BINS
+    loaded = (2 * p < rows) & (k < nh)
+    partner_ok = bool(((n - k[loaded]) & (n - 1) == (-k[loaded]) % n).all())
+    tile = np.zeros((b.size, TILE_BINS, 2 * TILE_PAIRS), np.complex128)
+    filled = np.zeros(tile.shape, bool)
+    bb = np.broadcast_to(b[:, None], p.shape)[loaded]
+    kk, pp = (i % TILE_BINS)[None].repeat(b.size, 0)[loaded], (i // TILE_BINS)[None].repeat(
+        b.size, 0)[loaded]
+    filled[bb, kk, 2 * pp] = filled[bb, kk, 2 * pp + 1] = True
+    if zz is not None:
+        a_val, b_val = split(p[loaded], k[loaded])
+        tile[bb, kk, 2 * pp], tile[bb, kk, 2 * pp + 1] = a_val, b_val
+    i = np.arange(2 * TILE_PAIRS * TILE_BINS)                 # the store: 4 a thread
+    krow, col = i // (2 * TILE_PAIRS), i % (2 * TILE_PAIRS)
+    k, cc = k0 + krow, 2 * p0 + col
+    stored = (k < nh) & (cc < rows)
+    sb = np.broadcast_to(b[:, None], k.shape)[stored]
+    skr, scol = np.broadcast_to(krow, k.shape)[stored], np.broadcast_to(col, k.shape)[stored]
+    assert filled[sb, skr, scol].all()          # every stored element was split
+    writes = np.zeros((nh, out_stride), np.int64)
+    np.add.at(writes, (k[stored], c0 + cc[stored]), 1)
+    out = None
+    if zz is not None:
+        out = np.zeros((nh, out_stride), np.complex128)
+        out[k[stored], c0 + cc[stored]] = tile[sb, skr, scol]
+    # A warp instruction: lanes 32w ... 32w + 31 of one step.
+    top = np.iinfo(np.int64).max
+    st = stored.reshape(b.size, -1, 32)
+    kw, cw = k.reshape(b.size, -1, 32), cc.reshape(b.size, -1, 32)
+    count = st.sum(-1)
+    one_row = np.where(st, kw, -1).max(-1) == np.where(st, kw, top).min(-1)
+    span = np.where(st, cw, -1).max(-1) - np.where(st, cw, top).min(-1) + 1
+    hit = count > 0
+    return out, writes, partner_ok, (8 * count[hit], (one_row & (span == count))[hit])

@@ -34,6 +34,7 @@ from repro_torch.kernels.fft.ops import fft_rows_op
 from repro_torch.kernels.fused import kernel as port_fused_kernel
 
 SOURCE = "fft_rows_large.cu"
+HEADER = "fourstep.cuh"
 
 
 def tol(n, inverse):
@@ -182,8 +183,10 @@ def test_k1b_store_pattern_at_every_length(e):
 def test_columns_plan_mirrors_the_cuda_source():
     """Pass A's plan is the source's ``ColPlan`` and pass B's the register
     kernels' ``Plan``; the factors the source instantiates are
-    [``MIN_FACTOR``, ``MAX_KERNEL_N``], both directions."""
-    text = (_build.csrc_dir() / SOURCE).read_text()
+    [``MIN_FACTOR``, ``MAX_KERNEL_N``], both directions.  The passes live in
+    ``fourstep.cuh``, which the source includes."""
+    text = "".join((_build.csrc_dir() / name).read_text() for name in (SOURCE, HEADER))
+    assert f'#include "{HEADER}"' in text
     lo = int(re.search(r"kMinLog2 = (\d+);", text).group(1))
     hi = int(re.search(r"kMaxLog2 = (\d+);", text).group(1))
     assert 1 << lo == port_large_kernel.MIN_FACTOR and 1 << hi == port_kernel.MAX_KERNEL_N

@@ -204,15 +204,11 @@ def test_fused_op_rejects_non_2d_like_reference(shape):
 def test_ops_raise_named_error_above_length_limit(op):
     """A power-of-two length above an op's kernels raises, naming the
     length and the top; nothing switches to the library in their place.
-    The fused op's top is ``MAX_KERNEL_N``; the complex row op's is
-    ``MAX_LARGE_N`` (K1b), tried on a ``meta`` tensor, which holds no
-    data: the length is refused before anything is computed."""
-    if op is fft_rows_transpose_op:
-        top = port_kernel.MAX_KERNEL_N
-        x = torch.ones((2, 2 * top), dtype=torch.complex64)
-    else:
-        top = port_kernel.MAX_LARGE_N
-        x = torch.empty((1, 2 * top), dtype=torch.complex64, device="meta")
+    Both ops' top is ``MAX_LARGE_N`` (K1b, K2b), tried on a ``meta``
+    tensor, which holds no data: the length is refused before anything is
+    computed."""
+    top = port_kernel.MAX_LARGE_N
+    x = torch.empty((1, 2 * top), dtype=torch.complex64, device="meta")
     with pytest.raises(port_kernel.KernelLengthError,
                        match=f"{2 * top} exceeds the kernel limit {top}"):
         op(x)
@@ -236,16 +232,17 @@ def test_plain_versions_at_the_longest_row_match_reference(op, inverse):
 
 
 def test_fft_rows_op_takes_rows_longer_than_k1():
-    """Above ``MAX_KERNEL_N`` the complex row op goes to K1b: on the CPU its
-    plain version, against the reference's op (Pallas, interpret mode) at
-    ``1e-3·sqrt(n)``; only the fused op still refuses the length."""
+    """Above ``MAX_KERNEL_N`` the complex row op goes to K1b and the fused
+    op to K2b: on the CPU their plain versions, against the reference's ops
+    (Pallas, interpret mode) at ``1e-3·sqrt(n)``."""
     n = 2 * port_kernel.MAX_KERNEL_N
     x = complex_signal(3, 2, n)
     got = to_numpy(fft_rows_op(to_torch(x)))
     want = np.asarray(ref_fft_rows_op(jnp.asarray(x)))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-3 * np.sqrt(n))
-    with pytest.raises(port_kernel.KernelLengthError, match=str(port_kernel.MAX_KERNEL_N)):
-        fft_rows_transpose_op(to_torch(x))
+    got = to_numpy(fft_rows_transpose_op(to_torch(x)))
+    want = np.asarray(ref_fused_op(jnp.asarray(x)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3 * np.sqrt(n))
 
 
 @pytest.mark.parametrize("op", [fft_rows_op, fft_rows_transpose_op])
@@ -332,16 +329,18 @@ def test_cpu_ops_launch_nothing_and_build_nothing():
     fft_rows_op(x)
     fft_rows_transpose_op(x)
     assert port_kernels.launch_counts() == {
-        "fft_rows": 0, "fft_rows_large": 0, "fft_rows_transpose": 0, "rfft_rows": 0,
-        "rfft_rows_transpose": 0, "transpose": 0}
+        "fft_rows": 0, "fft_rows_large": 0, "fft_rows_transpose": 0,
+        "fft_rows_transpose_large": 0, "rfft_rows": 0, "rfft_rows_large": 0,
+        "rfft_rows_transpose": 0, "rfft_rows_transpose_large": 0, "transpose": 0}
     assert _build._library is None  # nothing compiled or loaded by CPU work
 
 
 def test_kernel_sources_are_plain_cuda_built_for_sm_90a():
     names = [p.name for p in _build.source_files()]
     assert names == ["fft_rows.cu", "fft_rows_large.cu", "fft_rows_transpose.cu",
-                     "regfft.cuh", "rfft_rows.cu", "rfft_rows_transpose.cu",
-                     "transpose.cu", "tstore.cuh"]
+                     "fft_rows_transpose_large.cu", "fourstep.cuh", "regfft.cuh",
+                     "rfft_rows.cu", "rfft_rows_large.cu", "rfft_rows_transpose.cu",
+                     "rfft_rows_transpose_large.cu", "transpose.cu", "tstore.cuh"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "-use_fast_math" not in _build.NVCC_FLAGS
     for path in _build.source_files():
@@ -350,16 +349,21 @@ def test_kernel_sources_are_plain_cuda_built_for_sm_90a():
         assert "stockham_rows" not in text and "stockham.cuh" not in text
         if path.suffix == ".cu":
             # Every row FFT runs regfft.cuh's passes (the fused ones through
-            # tstore.cuh, which includes it); the transpose has none.
-            shared = any(f'#include "{h}"' in text for h in ("regfft.cuh", "tstore.cuh"))
+            # tstore.cuh, which includes it, the four-step ones through
+            # fourstep.cuh, which includes tstore.cuh); the transpose has none.
+            shared = any(f'#include "{h}"' in text
+                         for h in ("regfft.cuh", "tstore.cuh", "fourstep.cuh"))
             assert shared == ("fft" in path.stem)
             assert "Replaces the TPU kernel" in text and "Bound on this card" in text
     assert "sincospif" in (_build.csrc_dir() / "regfft.cuh").read_text()
     assert '#include "regfft.cuh"' in (_build.csrc_dir() / "tstore.cuh").read_text()
     for name in ("fft_rows.cu", "rfft_rows.cu"):
         assert '#include "regfft.cuh"' in (_build.csrc_dir() / name).read_text()
-    for name in ("fft_rows_transpose.cu", "rfft_rows_transpose.cu"):
+    for name in ("fft_rows_transpose.cu", "rfft_rows_transpose.cu", "fourstep.cuh"):
         assert '#include "tstore.cuh"' in (_build.csrc_dir() / name).read_text()
+    for name in ("fft_rows_large.cu", "fft_rows_transpose_large.cu", "rfft_rows_large.cu",
+                 "rfft_rows_transpose_large.cu"):
+        assert '#include "fourstep.cuh"' in (_build.csrc_dir() / name).read_text()
 
 
 def test_build_directory_is_keyed_by_the_sources(tmp_path, monkeypatch):

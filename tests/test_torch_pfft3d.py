@@ -347,7 +347,7 @@ def test_plan_pfft1_large_radix4_above_the_limit_raises_before_allocating(monkey
         assert (plan.n1, plan.n2) == split and made[-1] == split
         assert plan.config.row_fft_kwargs() == {"backend": "cuda", "radix": 4}
         for length in split:
-            assert resolve_radix(length, None, "fft_rows_op", MAX_LARGE_N) == 4
+            assert resolve_radix(length, None, "fft_rows_op") == 4
     with pytest.raises(KernelLengthError, match=f"exceeds the kernel limit {MAX_LARGE_N}"):
         port_api.plan_pfft1_large(1 << 58, config=config, device=CPU)
     assert len(made) == 2

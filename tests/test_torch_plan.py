@@ -30,7 +30,7 @@ import repro.plan.calibrate as ref_calibrate
 import repro_torch.core as port_core
 import repro_torch.plan as port_plan
 import repro_torch.plan.calibrate as port_calibrate
-from repro_torch.kernels.fft.kernel import MAX_KERNEL_N
+from repro_torch.kernels.fft.kernel import MAX_KERNEL_N, MAX_LARGE_N
 
 NAMES = {"xla": "torch", "pallas": "cuda", "stockham": "stockham"}
 CPU = "cpu"
@@ -227,47 +227,44 @@ def test_candidate_pot_equals_reference_up_to_the_kernel_limit(n, pad, d):
 
 
 def test_candidate_pot_drops_what_the_kernels_cannot_run():
-    """The deliberate difference: at a power of two above ``MAX_KERNEL_N``
-    (2 x 16384) no ``fused`` config is offered (K2 would raise
-    ``KernelLengthError``) and the real pipeline's ``radix=4`` twins are
-    dropped (K3 would), while the complex unfused pot, ``radix=4`` included
-    (the four-step K1b), is the reference's.  Up to ``MAX_KERNEL_N`` the
-    pot is the reference's, padded segments included."""
+    """Every row kernel takes power-of-two rows up to ``MAX_LARGE_N`` (K1-K4,
+    and the four-step K1b-K4b above ``MAX_KERNEL_N``), so at 2 x 16384 the
+    pot is the reference's, ``fused`` and ``radix=4`` included, and so are
+    the real pipeline's twins, padded segments included.  Only above
+    ``MAX_LARGE_N``, where a kernel would raise ``KernelLengthError``, are
+    ``fused`` and ``radix=4`` dropped."""
     big = 2 * MAX_KERNEL_N
     for d in (None, np.array([big // 2] * 2)):
         ref = ref_plan.candidate_configs(big, d=d)
         port = port_plan.candidate_configs(big, d=d)
-        assert any(c.fused for c in ref) and not any(c.fused for c in port)
-        assert dicts(port) == dicts([c for c in ref if not c.fused])
+        assert any(c.fused for c in port)
+        assert dicts(port) == dicts(ref)
         assert {c.radix for c in port} == {None, 2, 4}
+        real = port_plan.tune._real_candidates(port, [big])
+        assert dicts(real) == dicts(ref_plan.tune._real_candidates(ref))
+        assert {c.radix for c in real} == {None, 2, 4} and any(c.fused for c in real)
     assert (dicts(port_plan.segment_candidate_configs(big))
             == dicts(ref_plan.segment_candidate_configs(big)))
-    real = port_plan.tune._real_candidates(port_plan.candidate_configs(big), [big])
-    assert real and all(c.real and c.radix != 4 and not c.fused for c in real)
-    assert {c.radix for c in real} == {None, 2}
     # N = 8192 with segments padded to 16384 and 10240, and N = 16384 with
-    # one padded to 32768: the complex row FFT takes every length (K1, K1b),
-    # so the pot is the reference's; only the real twins lose radix=4 where
-    # a pad passes MAX_KERNEL_N.
+    # one padded to 32768: the pot and its real twins are the reference's.
     for n in (MAX_KERNEL_N // 2, MAX_KERNEL_N):
         d = np.array([n // 2, n // 4, n // 4])
         pads = np.array([n, 2 * n, n + n // 4])
         cands = port_plan.candidate_configs(n, pad="fpm", d=d, pad_lengths=pads)
         assert dicts(cands) == dicts(ref_plan.candidate_configs(n, pad="fpm", d=d))
         real = port_plan.tune._real_candidates(cands, pads)
-        assert (4 in {c.radix for c in real}) == (2 * n <= MAX_KERNEL_N)
+        assert 4 in {c.radix for c in real}
+        assert dicts(real) == dicts(ref_plan.tune._real_candidates(
+            ref_plan.candidate_configs(n, pad="fpm", d=d)))
     assert [c.radix for c in port_plan.segment_candidate_configs(
         n + n // 4, pad="fpm")] == [None]
-
-
-def _kernel_filtered(ranked, n, lengths):
-    """The reference's ranking without what the port's kernels cannot run:
-    ``fused`` above ``MAX_KERNEL_N``, and the real ``radix=4`` twins where
-    an effective length passes it (the deliberate difference)."""
-    top = max([n] + [int(x) for x in lengths])
-    return [(c, t) for c, t in ranked
-            if not (c["fused"] and n > MAX_KERNEL_N)
-            and not (c["real"] and c["radix"] == 4 and top > MAX_KERNEL_N)]
+    # Above MAX_LARGE_N: no fused and no radix=4, complex or real.
+    huge = 2 * MAX_LARGE_N
+    port = port_plan.candidate_configs(huge)
+    assert dicts(port) == dicts([c for c in ref_plan.candidate_configs(huge)
+                                 if not c.fused and c.radix != 4])
+    assert {c.radix for c in port_plan.tune._real_candidates(
+        port_plan.candidate_configs(MAX_KERNEL_N), [huge])} == {None, 2}
 
 
 @pytest.mark.parametrize("n", [1 << e for e in range(2, 17)])
@@ -276,18 +273,16 @@ def _kernel_filtered(ranked, n, lengths):
 def test_estimate_plans_equal_reference_at_every_power_of_two(n, method):
     """At every power of two from 4 to 65536: the candidate pot and the
     ``tune="estimate"`` ranking and pick (``tune_config``, ``tune_schedule``
-    with its per-length groups, ``tune_rfft``) equal the reference's
-    wherever every effective length is at most ``MAX_KERNEL_N``, and above
-    it equal the reference's without ``fused`` and the real ``radix=4``
-    twins (``_kernel_filtered``), the unfused complex ``radix=4`` (K1, K1b)
-    included."""
+    with its per-length groups, ``tune_rfft``) equal the reference's, with
+    no filter: above ``MAX_KERNEL_N`` too, where ``fused`` and the real
+    ``radix=4`` twins run the four-step kernels K2b-K4b, and the unfused
+    complex ``radix=4`` K1b."""
     pad = {"fpm-pad": "fpm", "fpm-czt": "czt", "rfft-fpm-pad": "fpm"}.get(method, "none")
     kind = {"lb": "none", "rfft-lb": "none", "fpm-pad": "padding",
             "rfft-fpm-pad": "padding"}.get(method, "hetero")
     ref_f, port_f, d, pads = problem(n, kind, pad)
     if method == "rfft-fpm-pad":
         pads = ref_plan.rfft_pad_lengths(ref_f, d, n)
-    lengths = [] if pads is None or pad == "czt" else list(pads[d > 0])
     rp, pp = ref_params(**KERNEL_WINS), port_params(**KERNEL_WINS)
     if method.startswith("rfft"):
         a, ia = ref_plan.tune_rfft(n, d=d, pad_lengths=pads, fpms=ref_f, pad=pad, params=rp)
@@ -303,14 +298,14 @@ def test_estimate_plans_equal_reference_at_every_power_of_two(n, method):
                                         pad=pad, params=pp)
         for length, ranked in ia.get("groups", {}).items():
             assert_ranked_equal(ranked, ib["groups"][length])
-    kept = _kernel_filtered(ia["ranked"], n, lengths)
-    assert_ranked_equal(kept, ib["ranked"])
-    if max([n] + lengths) <= MAX_KERNEL_N:
-        assert kept == ia["ranked"]
-    if a.to_dict() in [c for c, _ in kept] or kept == ia["ranked"]:
-        assert a.to_dict() == b.to_dict()
+    assert_ranked_equal(ia["ranked"], ib["ranked"])
+    assert a.to_dict() == b.to_dict()
     if n > MAX_KERNEL_N and pad != "czt":
         assert any(c["radix"] == 4 and not c["real"] for c, _ in ib["ranked"])
+        if method.startswith("rfft"):
+            assert any(c["radix"] == 4 and c["real"] for c, _ in ib["ranked"])
+        if pad == "none":
+            assert any(c["fused"] for c, _ in ib["ranked"])
 
 
 # ------------------------------------------------------------- estimate

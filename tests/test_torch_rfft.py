@@ -42,7 +42,7 @@ from repro_torch import kernels as port_kernels
 from repro_torch.kernels import _build
 from repro_torch.kernels.fft import kernel as port_fft_kernel
 from repro_torch.kernels.fft import real as port_real
-from repro_torch.kernels.fft.kernel import (MAX_KERNEL_N, SMEM_BUDGET,
+from repro_torch.kernels.fft.kernel import (MAX_KERNEL_N, MAX_LARGE_N, SMEM_BUDGET,
                                             KernelLengthError)
 from repro_torch.kernels.fft.ops import resolve_radix
 from repro_torch.kernels.fused import real as port_fused_real
@@ -168,8 +168,13 @@ def test_real_plain_versions_at_the_longest_row_match_reference(fused):
 @pytest.mark.parametrize("op", [port_real.rfft_rows_op,
                                 port_fused_real.rfft_rows_transpose_op])
 def test_real_ops_raise_named_error_above_length_limit(op):
-    with pytest.raises(KernelLengthError, match=op.__name__):
-        op(torch.ones((2, 2 * MAX_KERNEL_N)))
+    """Above ``MAX_LARGE_N`` (K3b's and K4b's top), on a ``meta`` tensor,
+    which holds no data: the length is refused before anything is
+    computed."""
+    with pytest.raises(KernelLengthError,
+                       match=f"{op.__name__}: .* {2 * MAX_LARGE_N} exceeds the kernel "
+                             f"limit {MAX_LARGE_N}"):
+        op(torch.empty((2, 2 * MAX_LARGE_N), device="meta"))
 
 
 @pytest.mark.parametrize("op", [port_real.rfft_rows_op,
