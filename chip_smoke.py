@@ -1136,9 +1136,9 @@ def phase_fpms() -> dict[int, tuple[FPMSet, FPMSet]]:
 def call_launches(calls) -> dict[str, int]:
     """The launches of row-kernel calls ``(kernel, rows, n)``: one a call of a
     register-resident kernel (n <= 16384), and above it the four-step's own
-    (``<kernel>_large``) per chunk of ``scratch_rows(n)`` rows (row pairs
-    for the real kernels): two (passes A, B) for the complex ones, three
-    (and pass C) for the real ones.  Calls with no rows launch nothing."""
+    (``<kernel>_large``), two (passes A, B) per chunk of ``scratch_rows(n)``
+    rows (row pairs for the real kernels, whose pass B splits).  Calls with
+    no rows launch nothing."""
     out: dict[str, int] = {}
     for name, rows, n in calls:
         if rows == 0:
@@ -1146,10 +1146,8 @@ def call_launches(calls) -> dict[str, int]:
         if n <= MAX_KERNEL_N:
             out[name] = out.get(name, 0) + 1
             continue
-        real = name.startswith("rfft")
-        units = (rows + 1) // 2 if real else rows
-        out[name + "_large"] = (out.get(name + "_large", 0)
-                                + (3 if real else 2) * -(-units // scratch_rows(n)))
+        units = (rows + 1) // 2 if name.startswith("rfft") else rows
+        out[name + "_large"] = out.get(name + "_large", 0) + 2 * -(-units // scratch_rows(n))
     return out
 
 

@@ -37,10 +37,10 @@ and real siblings alone (K2b, K3b and K4b: every shape of
 both directions, then their times over ``LARGE_SWEEP`` beside the library
 and ``x.clone()``, and K2b's over ``K2B_ROW_COUNTS``): the run to repeat, in turns, on copies of the tree that
 differ in one change to that kernel.  Every run prints the registers and
-spills per length (and direction, and variant: pass A's packed load, pass
-B's transposed store, pass C's transposed store) of the complex row
-kernels, of the fused real row kernel and of the four-step kernels'
-passes, where it compiles them.
+spills per length (and direction, and variant: pass A's packed loads,
+pass B's transposed store, the real pass B's transposed split) of the
+complex row kernels, of the fused real row kernel and of the four-step
+kernels' passes, where it compiles them.
 """
 
 from __future__ import annotations
@@ -141,11 +141,16 @@ def time_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+# Kernels templated on log2 n and flags but not on a direction (forward only).
+FORWARD_ONLY = ("rows_split",)
+
+
 def kernel_registers(ptxas: str, kernel: str) -> list[dict]:
     """Registers and spill bytes of each instantiation of ``kernel`` (a
     kernel templated on log2 n, then on the direction when it has one, then
     on further flags or modes, ``flags``; or on flags alone), from ``nvcc
     -Xptxas -v`` output."""
+    directed = kernel not in FORWARD_ONLY
     out, current = [], None
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '\S*?\d%s_kernelI(?:Li(\d+)E)?((?:L[bi]\d+E)*)"
@@ -155,7 +160,7 @@ def kernel_registers(ptxas: str, kernel: str) -> list[dict]:
             current = {}
             if m.group(1):
                 current["n"] = 1 << int(m.group(1))
-                if flags:
+                if flags and directed:
                     current["direction"] = "inverse" if flags.pop(0) else "forward"
             if flags:
                 current["flags"] = flags
@@ -180,8 +185,8 @@ REGISTERS = {"fft_rows.cu": ("fft_rows",),
              "fft_rows_transpose.cu": ("fft_rows_transpose",),
              "fft_rows_large.cu": ("columns", "rows_transpose"),
              "fft_rows_transpose_large.cu": ("columns", "rows_transpose"),
-             "rfft_rows_large.cu": ("columns", "rows_transpose", "split"),
-             "rfft_rows_transpose_large.cu": ("columns", "rows_transpose", "split")}
+             "rfft_rows_large.cu": ("columns", "rows_split"),
+             "rfft_rows_transpose_large.cu": ("columns", "rows_split")}
 
 
 def compile_sources(needed: tuple[str, ...] | None) -> str:

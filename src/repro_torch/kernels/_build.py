@@ -36,7 +36,7 @@ _PTR, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _COMPLEX_ROWS = (_INT, [_PTR, _PTR, _LL, _INT, _INT, _INT, _INT, _INT, _PTR])
 # (in, out, rows, n, radix, rows_per_cta, threads, stream): forward only
 _REAL_ROWS = (_INT, [_PTR, _PTR, _LL, _INT, _INT, _INT, _INT, _PTR])
-_REAL_ROWS_LARGE = (_INT, [_PTR, _PTR, _PTR, _PTR, _LL, _INT, _INT, _LL, _INT, _INT, _PTR])
+_REAL_ROWS_LARGE = (_INT, [_PTR, _PTR, _PTR, _LL, _INT, _INT, _LL, _INT, _INT, _PTR])
 _FUNCTIONS = {"repro_fft_rows": _COMPLEX_ROWS,
               "repro_fft_rows_transpose": _COMPLEX_ROWS,
               "repro_rfft_rows": _REAL_ROWS,
@@ -49,8 +49,8 @@ _FUNCTIONS = {"repro_fft_rows": _COMPLEX_ROWS,
               # rows_per_cta, threads, stream): K2b, two launches
               "repro_fft_rows_transpose_large": (_INT, [_PTR, _PTR, _PTR, _LL, _INT, _INT,
                                                         _INT, _LL, _INT, _INT, _PTR]),
-              # (in, out, scratch, zbuf, rows, n1, n2, out_stride,
-              # rows_per_cta, threads, stream): K3b and K4b, three launches
+              # (in, out, scratch, rows, n1, n2, out_stride, rows_per_cta,
+              # threads, stream): K3b and K4b, two launches
               "repro_rfft_rows_large": _REAL_ROWS_LARGE,
               "repro_rfft_rows_transpose_large": _REAL_ROWS_LARGE,
               # (in, out, r, c, elem_bytes, stream)

@@ -14,28 +14,66 @@
 //   one row (at least 4 where they fit, so the CTA reads whole 32-byte
 //   sectors of every row of the view), column c by the GROUP threads of
 //   regfft.cuh's plan for n1, each holding 16 points in registers.  kPacked
-//   (K3b, K4b) reads two float32 rows 2s and 2s + 1 as z = a + i*b instead
-//   of a complex64 row (b = 0 for an unpaired last row) and stores as
-//   kBatchMajor; its loads of 4 adjacent columns are half sectors.
-// - Pass B (rows_transpose_kernel): the length-n2 DFT of each row of B, K2's
-//   function (fft_rows_transpose.cu) with its launch shape, swizzled buffer
-//   and cluster store (regfft.cuh, tstore.cuh), over every row of the call at
-//   once.  Only the output index differs.  Batch-major (K1b, K3b, K4b): row
-//   R = s*n1 + k1 and bin k2 go to out[s*n + k2*n1 + k1].  TRANSPOSED (K2b):
-//   R = k1*cap + s goes to out[(k1 + n1*k2)*out_stride + s], so the rows
-//   side by side in a store are neighbouring output columns, as in K2; rows
-//   with s >= the call's rows are masked.
-// - Pass C (split_kernel, K3b and K4b): the conjugate split of each packed
-//   pair's Z, A[k] = (Z[k] + conj Z[(n-k) mod n]) / 2 and
-//   B[k] = (Z[k] - conj Z[(n-k) mod n]) / (2i), k <= n/2, read from a second
-//   scratch buffer in which pass B left Z in natural order (Z[k] and
-//   Z[(n-k) mod n] are both contiguous runs, one reversed).  Stored as rows
-//   2p and 2p + 1 of (rows, n/2 + 1), or TRANSPOSED (K4b) as columns of
-//   (n/2 + 1, rows) through a shared-memory tile of kTilePairs pairs x
-//   kTileBins bins, so that each warp writes 256 contiguous bytes of one
-//   output row.
+//   (K3b) and kPackedTransposed (K4b) read two float32 rows 2s and 2s + 1 as
+//   z = a + i*b instead of a complex64 row (b = 0 for an unpaired last row)
+//   and store as kBatchMajor and kTransposedStore; their loads of 4 adjacent
+//   columns are half sectors.
+// - Pass B (rows_transpose_kernel, K1b and K2b): the length-n2 DFT of each
+//   row of B, K2's function (fft_rows_transpose.cu) with its launch shape,
+//   swizzled buffer and cluster store (regfft.cuh, tstore.cuh), over every
+//   row of the call at once.  Only the output index differs.  Batch-major
+//   (K1b): row R = s*n1 + k1 and bin k2 go to out[s*n + k2*n1 + k1].
+//   TRANSPOSED (K2b): R = k1*cap + s goes to out[(k1 + n1*k2)*out_stride + s],
+//   so the rows side by side in a store are neighbouring output columns, as
+//   in K2; rows with s >= the call's rows are masked.
+// - Pass B of the packed real kernels (rows_split_kernel, K3b and K4b): the
+//   same DFTs over the rows of the packed pairs' B, Z[p][k1 + n1*k2] in
+//   row k1, bin k2, and in its epilogue the conjugate split of each pair,
+//   A[k] = (Z[k] + conj Z[(n-k) mod n]) / 2 and B[k] = (Z[k] - conj
+//   Z[(n-k) mod n]) / (2i) for k <= n/2, stored straight to the output.
+//   The index facts it rests on (tests/_torch_parity.py::real_pass_b_model
+//   checks them in float64):
+//   * k1 != 0: (n - k) mod n = (n1 - k1) + n1*(n2 - 1 - k2), row n1 - k1,
+//     bin n2 - 1 - k2.  k1 = 0: row 0 itself, bin (n2 - k2) mod n2.  Row
+//     n1/2 is its own partner too, at bin n2 - 1 - k2.
+//   * The half spectrum k <= n/2 is bins k2 < n2/2 of every row, plus bin
+//     n2/2 of row 0 (k = n/2, its own partner).
+//   * So rows (sigma, n1 - sigma) form slot sigma = 1 ... n1/2 - 1, and rows
+//     0 and n1/2 share slot 0, each split against itself: n1/2 slots of two
+//     rows.  From its two rows a slot writes A and B for the first half of
+//     both rows' bins, each output element once; the second halves are read
+//     only as partners.
+//   A cluster of C CTAs (C = 1: a CTA alone) holds W = rows_per_cta*C rows
+//   (SplitPlan: up to 32 rows a CTA where n2 <= 1024, C = 1; one or two a
+//   CTA in clusters of 4 or 2 above),
+//   W/2 slot units: unit u is (pair p, slot sigma), u = p*(n1/2) + sigma in
+//   K3b (its [p][k1][j2] scratch gives consecutive sigma of one pair) and
+//   u = sigma*cap + p in K4b (its [k1][p][j2] scratch gives consecutive
+//   pairs of one slot).  Cluster row q < W/2 is the left row of unit
+//   u0 + q, q >= W/2 the right row of unit u0 + q - W/2; q's partner row is
+//   q ^ (W/2), or q itself in slot 0.  Where a CTA holds one row (n2 >=
+//   4096, one CTA of 1024 threads at n2 = 16384) the partner sits in another
+//   CTA of the cluster and is read through distributed shared memory
+//   (map_shared_rank).  The store: item (q, k2), k2 < n2/2, q fastest,
+//   writes A to out[2p][k] and B to out[2p + 1][k] (K3b: W/2 neighbouring
+//   k1 of one row side by side, the left ones rising, the right ones
+//   falling), or out[k][2p] and out[k][2p + 1] (K4b: W/2 neighbouring pairs
+//   side by side, a float4 each where the output allows); B is not stored
+//   for an unpaired last row.
 // - The inverse conjugates the twiddles; fft_row<.., true> scales by 1/n1 in
 //   pass A and 1/n2 in pass B, powers of two whose product is 1/n exactly.
+//
+// Bytes.  K1b and K2b move each row twice (in -> scratch -> out).  The
+// packed real kernels read rows*n*4 bytes, write pairs*n*8 of scratch, read
+// them back and write rows*(n/2 + 1)*8: two passes over the data, about
+// twice what the function must move (at 2048 x 32768: 1 GiB against 512
+// MiB).  K3b's output rows are n/2 + 1 complex64 apart, an odd stride in
+// float2, so rows 2p and 2p + 1 never start on the same offset in a 32-byte
+// sector: the runs of W/2 elements of one store cannot all be whole sectors,
+// whatever k1 a run starts at, and only longer runs (more rows a CTA) make
+// the partial sectors at their ends a smaller share (0.84 of the sectors
+// full at W = 32, 0.73 at 16; tests/test_torch_fused_large.py).  K4b's runs
+// are whole sectors where the output's row stride is even.
 //
 // Twiddle: m = k1*j2 < n is an exact integer, but 2m/n is exact in float only
 // while n <= 2^24.  So m = mh*2^14 + ml and w^m = w^(mh*2^14) * w^ml, two
@@ -96,11 +134,19 @@ __device__ __forceinline__ float2 twiddle(long long m, int log2n) {
 constexpr int kBatchMajor = 0;        // complex64 rows; B stored as [s][k1][j2]
 constexpr int kTransposedStore = 1;   // complex64 rows; B stored as [k1][s][j2]
 constexpr int kPacked = 2;            // float32 row pairs; B stored as [s][k1][j2]
+constexpr int kPackedTransposed = 3;  // float32 row pairs; B stored as [k1][s][j2]
+
+__host__ __device__ constexpr bool packed_load(int mode) {
+    return mode == kPacked || mode == kPackedTransposed;
+}
+__host__ __device__ constexpr bool transposed_store(int mode) {
+    return mode == kTransposedStore || mode == kPackedTransposed;
+}
 
 // Pass A.  blockIdx.x = s * (n2 / COLS) + g: columns g*COLS ... g*COLS +
-// COLS - 1 of signal row s (kPacked: real rows 2s and 2s + 1 of
+// COLS - 1 of signal row s (packed: real rows 2s and 2s + 1 of
 // `real_rows`); thread t of column c (threadIdx.x = c*G + t) holds
-// A[t + k*G][j2], k < 16.  kTransposedStore keeps 2^log2cap rows a k1.
+// A[t + k*G][j2], k < 16.  A transposed store keeps 2^log2cap rows a k1.
 template <int LOG2N1, bool INV, int MODE>
 __global__ void __launch_bounds__(ColPlan<LOG2N1>::THREADS, ColPlan<LOG2N1>::MIN_BLOCKS)
 columns_kernel(const void* __restrict__ in, float2* __restrict__ scratch, int log2n2,
@@ -118,7 +164,7 @@ columns_kernel(const void* __restrict__ in, float2* __restrict__ scratch, int lo
     const long long at = ((long long)t << log2n2) + j2;   // A[t][j2] within a row
 
     float2 v[R];
-    if constexpr (MODE == kPacked) {
+    if constexpr (packed_load(MODE)) {
         const float* a = static_cast<const float*>(in) + (2 * s << log2n) + at;
         const float* b = a + (1LL << log2n);
         const bool has_b = 2 * s + 1 < real_rows;
@@ -139,8 +185,9 @@ columns_kernel(const void* __restrict__ in, float2* __restrict__ scratch, int lo
 
     // v[k] = Y[k1][j2], k1 = t + k*G: times w_n^(k1*j2), stored as B[k1][j2]
     // of row s: where A[k1][j2] was, or at (k1*cap + s)*n2 + j2.
-    const int log2k = MODE == kTransposedStore ? log2cap + log2n2 : log2n2;
-    float2* dst = MODE == kTransposedStore
+    constexpr bool TS = transposed_store(MODE);
+    const int log2k = TS ? log2cap + log2n2 : log2n2;
+    float2* dst = TS
         ? scratch + (s << log2n2) + ((long long)t << log2k) + j2
         : scratch + (s << log2n) + at;
 #pragma unroll
@@ -150,7 +197,8 @@ columns_kernel(const void* __restrict__ in, float2* __restrict__ scratch, int lo
     }
 }
 
-// Pass B: K2's kernel (fft_rows_transpose.cu) over the `rows` rows of B,
+// Pass B of K1b and K2b: K2's kernel (fft_rows_transpose.cu) over the
+// `rows` rows of B,
 // each of length n2.  Batch-major (T false): row R = s*n1 + k1 and bin k2
 // go to out[s*n + k2*n1 + k1].  TRANSPOSED: R = k1*cap + s (cap =
 // 2^log2cap) goes to out[(k1 + n1*k2)*out_stride + s] where s < valid, and
@@ -223,11 +271,18 @@ rows_transpose_kernel(const float2* __restrict__ in, float2* __restrict__ out,
     }
 }
 
-// Pass C's CTA, and the tile of its transposed store.
-constexpr int kSplitThreads = 256;
-constexpr int kTilePairs = 16;                 // 32 output columns: 256 bytes a row
-constexpr int kTileBins = 32;
-constexpr int kTileStride = 2 * kTilePairs + 1;  // float2 a tile row, padded
+// Pass B's CTA in the real kernels: twice regfft's rows (at most 32, the
+// lanes of a warp) where a CTA holds 4 rows or more (n2 <= 1024), so that a
+// store writes runs of up to 16 elements; regfft's rows elsewhere, where the
+// cluster gives the width.
+template <int LOG2N2>
+struct SplitPlan {
+    using P = Plan<LOG2N2>;
+    static constexpr int MAX_ROWS =
+        P::MAX_ROWS >= 4 ? (2 * P::MAX_ROWS < 32 ? 2 * P::MAX_ROWS : 32) : P::MAX_ROWS;
+    static constexpr int MAX_THREADS = MAX_ROWS * P::GROUP;
+    static constexpr int MIN_BLOCKS = 65536 / (MAX_THREADS * 64);
+};
 
 // The split of bin k from zk = Z[k] and zr = Z[(n-k) mod n].
 __device__ __forceinline__ float2 split_a(float2 zk, float2 zr) {
@@ -237,53 +292,154 @@ __device__ __forceinline__ float2 split_b(float2 zk, float2 zr) {
     return make_float2(0.5f * (zk.y + zr.y), 0.5f * (zr.x - zk.x));
 }
 
-// Pass C over the (rows + 1) / 2 pairs of Z (pair p at z + p*n).  Row-major
-// (T false): blockIdx.x = p * ceil(nh / 256) + tile, thread k - tile*256
-// stores out[2p*out_stride + k] and out[(2p + 1)*out_stride + k].
-// TRANSPOSED: blockIdx.x = pt * ceil(nh / kTileBins) + kt, the tile of pairs
-// pt*kTilePairs ... and bins kt*kTileBins ...: each thread splits two
-// (pair, bin) points into the tile (a warp reads 32 consecutive bins of one
-// pair, both ways), then stores four of its elements, a warp one tile row:
-// out[k*out_stride + c] for real rows c of the tile.
+// A row of a slot unit u: its pair p, its slot sigma and its row k1 of pass
+// B (left: k1 = sigma; right: the partner row n1 - sigma, or n1/2 in slot
+// 0).  K3b's units (T false) run sigma fastest, u = p*(n1/2) + sigma; K4b's
+// run p fastest, u = sigma*cap + p.
+struct SlotRow {
+    long long p;
+    int sigma;
+    int k1;
+};
+
 template <bool T>
-__global__ void __launch_bounds__(kSplitThreads)
-split_kernel(const float2* __restrict__ z, float2* __restrict__ out, long long rows,
-             int log2n, long long out_stride) {
-    const long long n = 1LL << log2n, nh = n / 2 + 1;
-    if constexpr (!T) {
-        const long long tiles = (nh + kSplitThreads - 1) / kSplitThreads;
-        const long long p = blockIdx.x / tiles;
-        const long long k = (blockIdx.x % tiles) * kSplitThreads + threadIdx.x;
-        if (k >= nh) return;
-        const float2* zp = z + (p << log2n);
-        const float2 zk = zp[k], zr = zp[(n - k) & (n - 1)];
-        out[2 * p * out_stride + k] = split_a(zk, zr);
-        if (2 * p + 1 < rows) out[(2 * p + 1) * out_stride + k] = split_b(zk, zr);
+__device__ __forceinline__ SlotRow slot_row(long long u, bool right, int log2n1,
+                                            int log2cap) {
+    SlotRow r;
+    if constexpr (T) {
+        r.sigma = (int)(u >> log2cap);
+        r.p = u & ((1LL << log2cap) - 1);
     } else {
-        __shared__ float2 tile[kTileBins * kTileStride];
-        const long long tiles = (nh + kTileBins - 1) / kTileBins;
-        const long long p0 = blockIdx.x / tiles * kTilePairs;
-        const long long k0 = blockIdx.x % tiles * kTileBins;
-#pragma unroll
-        for (int j = 0; j < kTilePairs * kTileBins / kSplitThreads; ++j) {
-            const int i = threadIdx.x + j * kSplitThreads;
-            const int pp = i / kTileBins, kk = i % kTileBins;
-            const long long p = p0 + pp, k = k0 + kk;
-            if (2 * p < rows && k < nh) {
-                const float2* zp = z + (p << log2n);
-                const float2 zk = zp[k], zr = zp[(n - k) & (n - 1)];
-                tile[kk * kTileStride + 2 * pp] = split_a(zk, zr);
-                tile[kk * kTileStride + 2 * pp + 1] = split_b(zk, zr);
-            }
+        r.sigma = (int)(u & ((1LL << (log2n1 - 1)) - 1));
+        r.p = u >> (log2n1 - 1);
+    }
+    r.k1 = !right ? r.sigma : r.sigma == 0 ? 1 << (log2n1 - 1) : (1 << log2n1) - r.sigma;
+    return r;
+}
+
+// Stores A and B of output bin k of pair p: K3b to rows 2p and 2p + 1 of a
+// (rows, n/2 + 1) output, K4b to columns 2p and 2p + 1 of an (n/2 + 1,
+// out_stride) one, as one float4 where `vec`; B not where 2p + 1 = rows.
+template <bool T>
+__device__ __forceinline__ void store_split(float2* out, long long p, long long k, float2 a,
+                                            float2 b, long long rows, long long out_stride,
+                                            bool vec) {
+    const bool has_b = 2 * p + 1 < rows;
+    if constexpr (T) {
+        float2* o = out + k * out_stride + 2 * p;
+        if (vec && has_b) {
+            *reinterpret_cast<float4*>(o) = make_float4(a.x, a.y, b.x, b.y);
+        } else {
+            o[0] = a;
+            if (has_b) o[1] = b;
         }
+    } else {
+        out[2 * p * out_stride + k] = a;
+        if (has_b) out[(2 * p + 1) * out_stride + k] = b;
+    }
+}
+
+// Pass B of K3b (T false) and K4b (T true) with the slot split: cluster
+// blockIdx.x >> LOG2C holds units u0 ... u0 + W/2 - 1 (W = 2^log2_rows * C
+// rows); local row `local` of cluster rank r is cluster row q = r*2^log2_rows
+// + local, loaded from scratch row p*n1 + k1 (K3b) or k1*cap + p (K4b), zeros
+// where p >= pairs.  After the DFTs every row is in its CTA's swizzled
+// buffer, bin k2 of row q at slot(k2*2^log2_rows + q % 2^log2_rows); rank r
+// then splits and stores items (q, k2) for k2 in [r*HB, (r + 1)*HB), HB =
+// n2/(2C), idx = (k2 - r*HB)*W + q, reading the partner row from whichever
+// CTA of the cluster holds it.
+template <int LOG2N2, bool T>
+__global__ void __launch_bounds__(SplitPlan<LOG2N2>::MAX_THREADS, SplitPlan<LOG2N2>::MIN_BLOCKS)
+rows_split_kernel(const float2* __restrict__ in, float2* __restrict__ out, long long pairs,
+                  long long rows, int log2_rows, int log2n1, int log2cap,
+                  long long out_stride) {
+    using P = Plan<LOG2N2>;
+    constexpr int N = P::N, R = P::POINTS, G = P::GROUP;
+    constexpr int C = repro::tstore::store_cluster<LOG2N2, 8>(4);
+    constexpr int LOG2C = C == 4 ? 2 : C == 2 ? 1 : 0;
+    static_assert(C == 1 << LOG2C, "a cluster of 1, 2 or 4 CTAs");
+    constexpr int HB = N / 2 / C;
+    constexpr int ITEMS = R / 2;
+    // Items split and stored per batch: all 8, but 4 in K4b's one-row CTAs,
+    // which spill at 8 within their 64 registers.
+    constexpr int BATCH = T && C == 4 ? ITEMS / 2 : ITEMS;
+    extern __shared__ float2 smem[];
+    const int t = threadIdx.x % G;
+    const int local = threadIdx.x / G;
+    int rank = 0;
+    if constexpr (C > 1) rank = (int)cg::this_cluster().block_rank();
+    const int log2w = log2_rows + LOG2C;
+    const int half = 1 << (log2w - 1);
+    const long long u0 = ((long long)blockIdx.x >> LOG2C) << (log2w - 1);
+
+    const int q = (rank << log2_rows) + local;
+    const SlotRow mine = slot_row<T>(u0 + (q & (half - 1)), q >= half, log2n1, log2cap);
+    const bool has_row = mine.p < pairs;
+    const long long row = T ? ((long long)mine.k1 << log2cap) + mine.p
+                            : (mine.p << log2n1) + mine.k1;
+    const float2* x = in + (has_row ? row : 0) * N + t;
+    float2 v[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) v[k] = has_row ? x[k * G] : make_float2(0.0f, 0.0f);
+
+    repro::regfft::fft_row<LOG2N2, false>(v, smem, local * N, t);
+    const Swizzle<LOG2N2> slot(log2_rows);
+    __syncthreads();  // the last exchange's reads are done
+#pragma unroll
+    for (int c = 0; c < R; ++c) smem[slot(((t + c * G) << log2_rows) + local)] = v[c];
+    if constexpr (C == 1) {
         __syncthreads();
+    } else {
+        cg::this_cluster().sync();  // every CTA's rows are in its buffer
+    }
+
+    const int qmask = (1 << log2w) - 1, pmask = (1 << log2_rows) - 1;
+    // Bin k of cluster row qq, from the buffer of the CTA that holds it.
+    auto z_at = [&](int qq, int k) {
+        const float2* buf = smem;
+        if constexpr (C > 1) buf = cg::this_cluster().map_shared_rank(smem, qq >> log2_rows);
+        return buf[slot((k << log2_rows) + (qq & pmask))];
+    };
+    const bool vec = T && (out_stride & 1) == 0 &&
+                     (reinterpret_cast<unsigned long long>(out) & 15) == 0;
 #pragma unroll
-        for (int j = 0; j < 2 * kTilePairs * kTileBins / kSplitThreads; ++j) {
-            const int i = threadIdx.x + j * kSplitThreads;
-            const int kk = i / (2 * kTilePairs), col = i % (2 * kTilePairs);
-            const long long k = k0 + kk, c = 2 * p0 + col;
-            if (k < nh && c < rows) out[k * out_stride + c] = tile[kk * kTileStride + col];
+    for (int first = 0; first < ITEMS; first += BATCH) {
+        float2 zk[BATCH], zr[BATCH];
+#pragma unroll
+        for (int c = 0; c < BATCH; ++c) {
+            const int idx = threadIdx.x + (first + c) * blockDim.x;
+            const int qq = idx & qmask;
+            const int k2 = rank * HB + (idx >> log2w);
+            const bool right = qq >= half;
+            const SlotRow s = slot_row<T>(u0 + (qq & (half - 1)), right, log2n1, log2cap);
+            const int pq = s.sigma == 0 ? qq : qq ^ half;
+            const int pk = s.sigma == 0 && !right ? (N - k2) & (N - 1) : N - 1 - k2;
+            zk[c] = z_at(qq, k2);
+            zr[c] = z_at(pq, pk);
         }
+#pragma unroll
+        for (int c = 0; c < BATCH; ++c) {
+            const int idx = threadIdx.x + (first + c) * blockDim.x;
+            const int qq = idx & qmask;
+            const long long k2 = rank * HB + (idx >> log2w);
+            const SlotRow s = slot_row<T>(u0 + (qq & (half - 1)), qq >= half, log2n1, log2cap);
+            if (s.p < pairs)
+                store_split<T>(out, s.p, s.k1 + (k2 << log2n1), split_a(zk[c], zr[c]),
+                               split_b(zk[c], zr[c]), rows, out_stride, vec);
+        }
+    }
+    // Bin n/2 (row 0's bin n2/2, its own partner), by the thread of item
+    // (row 0, bin 0): idx = threadIdx.x < W on rank 0.
+    if (rank == 0 && threadIdx.x < half) {
+        const SlotRow s = slot_row<T>(u0 + threadIdx.x, false, log2n1, log2cap);
+        if (s.sigma == 0 && s.p < pairs) {
+            const float2 z = z_at(threadIdx.x, N / 2);
+            store_split<T>(out, s.p, (long long)(N / 2) << log2n1, split_a(z, z),
+                           split_b(z, z), rows, out_stride, vec);
+        }
+    }
+    if constexpr (C > 1) {
+        cg::this_cluster().sync();  // no CTA leaves while another still reads its buffer
     }
 }
 
@@ -328,6 +484,31 @@ int launch_rows(const void* scratch, void* out, long long rows, int log2n1, int 
         log2cap, valid, out_stride);
 }
 
+template <int LOG2N2, bool T>
+int launch_split_rows(const void* scratch, void* out, long long pairs, long long rows,
+                      long long units, int log2n1, int log2cap, long long out_stride,
+                      int rows_per_cta, int threads, cudaStream_t stream) {
+    using P = Plan<LOG2N2>;
+    constexpr int C = repro::tstore::store_cluster<LOG2N2, 8>(4);
+    if (rows_per_cta < 1 || rows_per_cta > SplitPlan<LOG2N2>::MAX_ROWS ||
+        (rows_per_cta & (rows_per_cta - 1)) || threads != rows_per_cta * P::GROUP ||
+        rows_per_cta * C < 2 || units % (rows_per_cta * C / 2) != 0)
+        return (int)cudaErrorInvalidValue;
+    static int configured_smem = 48 * 1024;
+    const long long smem = (long long)sizeof(float2) *
+                           repro::regfft::exchange_elems(rows_per_cta, P::N);
+    int err = repro::allow_dynamic_smem(rows_split_kernel<LOG2N2, T>, &configured_smem,
+                                        (int)smem);
+    if (err != 0) return err;
+    int log2_rows = 0;
+    while ((1 << log2_rows) < rows_per_cta) ++log2_rows;
+    static int active_clusters = 0;
+    return repro::tstore::launch<C>(
+        rows_split_kernel<LOG2N2, T>, 2 * units / rows_per_cta, threads, smem, stream,
+        &active_clusters, (const float2*)scratch, (float2*)out, pairs, rows, log2_rows, log2n1,
+        log2cap, out_stride);
+}
+
 // The instantiation for one (log2 n1 | log2 n2): E is the log2 of the factor,
 // dispatched at run time from kMinLog2 to kMaxLog2.
 template <bool INV, int MODE, int E = kMinLog2>
@@ -355,18 +536,17 @@ int rows_for(int log2n2, const void* scratch, void* out, long long rows, int log
     return (int)cudaErrorInvalidValue;
 }
 
-template <bool T>
-int launch_split(const void* z, void* out, long long rows, int log2n, long long out_stride,
-                 cudaStream_t stream) {
-    const long long nh = (1LL << log2n) / 2 + 1;
-    const long long pairs = (rows + 1) / 2;
-    const long long blocks = T ? (pairs + kTilePairs - 1) / kTilePairs *
-                                     ((nh + kTileBins - 1) / kTileBins)
-                               : pairs * ((nh + kSplitThreads - 1) / kSplitThreads);
-    if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-    split_kernel<T><<<(unsigned)blocks, kSplitThreads, 0, stream>>>(
-        (const float2*)z, (float2*)out, rows, log2n, out_stride);
-    return (int)cudaGetLastError();
+template <bool T, int E = kMinLog2>
+int split_rows_for(int log2n2, const void* scratch, void* out, long long pairs, long long rows,
+                   long long units, int log2n1, int log2cap, long long out_stride,
+                   int rows_per_cta, int threads, cudaStream_t stream) {
+    if (log2n2 == E)
+        return launch_split_rows<E, T>(scratch, out, pairs, rows, units, log2n1, log2cap,
+                                       out_stride, rows_per_cta, threads, stream);
+    if constexpr (E < kMaxLog2)
+        return split_rows_for<T, E + 1>(log2n2, scratch, out, pairs, rows, units, log2n1,
+                                        log2cap, out_stride, rows_per_cta, threads, stream);
+    return (int)cudaErrorInvalidValue;
 }
 
 int log2_of(long long n) {
@@ -381,25 +561,36 @@ bool factors_ok(int log2n1, int log2n2) {
            log2n2 <= kMaxLog2;
 }
 
-// Passes A, B and C of the packed real kernels (K3b: T false, K4b: T true)
-// on `stream`: three launches.  `rows` real rows of n1*n2 float32 in `in`;
-// `scratch` and `zbuf` hold (rows + 1) / 2 complex rows each; pass B's
-// shape is kernels/fft/kernel.py::complex_rows_plan(n2, pairs*n1).
+// Passes A and B of the packed real kernels (K3b: T false, K4b: T true) on
+// `stream`: two launches.  `rows` real rows of n1*n2 float32 in `in`; K3b's
+// `scratch` holds (rows + 1) / 2 complex rows, K4b's cap of them (cap the
+// least power of two >= (rows + 1) / 2).  Pass B's shape is
+// kernels/fft/real_large.py::split_rows_plan(n2, units*2): rows_per_cta a
+// CTA, at least 2 rows (a slot) a cluster.
 template <bool T>
-int real_rows_large(const void* in, void* out, void* scratch, void* zbuf, long long rows,
-                    int n1, int n2, long long out_stride, int rows_per_cta, int threads,
-                    void* stream) {
+int real_rows_large(const void* in, void* out, void* scratch, long long rows, int n1, int n2,
+                    long long out_stride, int rows_per_cta, int threads, void* stream) {
     if (rows <= 0) return 0;
     const int log2n1 = log2_of(n1), log2n2 = log2_of(n2);
-    if (!factors_ok(log2n1, log2n2)) return (int)cudaErrorInvalidValue;
+    if (!factors_ok(log2n1, log2n2) || (T && out_stride < rows))
+        return (int)cudaErrorInvalidValue;
     const long long pairs = (rows + 1) / 2;
+    int log2cap = 0;
+    if (T) {
+        while ((1LL << log2cap) < pairs) ++log2cap;
+    }
     cudaStream_t s = (cudaStream_t)stream;
-    int err = columns_for<false, kPacked>(log2n1, in, scratch, pairs, log2n2, 0, rows, s);
+    int err;
+    if constexpr (T) {
+        err = columns_for<false, kPackedTransposed>(log2n1, in, scratch, pairs, log2n2, log2cap,
+                                                    rows, s);
+    } else {
+        err = columns_for<false, kPacked>(log2n1, in, scratch, pairs, log2n2, 0, rows, s);
+    }
     if (err != 0) return err;
-    err = rows_for<false, false>(log2n2, scratch, zbuf, pairs << log2n1, log2n1, 0, 0, 0,
-                                 rows_per_cta, threads, s);
-    if (err != 0) return err;
-    return launch_split<T>(zbuf, out, rows, log2n1 + log2n2, out_stride, s);
+    const long long units = T ? 1LL << (log2n1 - 1 + log2cap) : pairs << (log2n1 - 1);
+    return split_rows_for<T>(log2n2, scratch, out, pairs, rows, units, log2n1, log2cap,
+                             out_stride, rows_per_cta, threads, s);
 }
 
 }  // namespace

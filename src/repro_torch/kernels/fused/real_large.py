@@ -5,10 +5,11 @@ PyTorch version and the launcher of the CUDA kernel
 Counterpart of ``repro.kernels.fused.real.rfft_rows_transpose_pallas`` at the
 lengths the register-resident K4 (``kernels.fused.real``, n <=
 ``MAX_KERNEL_N``) cannot hold: power-of-two n from 2 * ``MAX_KERNEL_N`` up to
-``MAX_LARGE_N``.  K3b (``kernels.fft.real_large``) with pass C storing the
-split transposed, ``out[k, 2p]`` and ``out[k, 2p + 1]``, through a tile of
-16 pairs x 32 bins in shared memory, so that each warp writes 256
-contiguous bytes of one output row.  Three launches a chunk of pairs.
+``MAX_LARGE_N``.  K3b (``kernels.fft.real_large``) with K2b's scratch
+order: pass A stores the packed pairs' B as ``[k1][p][j2]``, so that a CTA
+of pass B holds one slot (k1, n1 - k1) for neighbouring pairs and stores
+its split transposed, ``out[k, 2p]`` and ``out[k, 2p + 1]``, the pairs
+side by side.  Two launches a chunk of pairs.
 """
 
 from __future__ import annotations
@@ -16,9 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.fft.kernel import check_kernel_input
-from repro_torch.kernels.fft.large import fft_rows_large_plain
-from repro_torch.kernels.fft.real_large import (launch_real_large, pack_pairs,
-                                                split_pairs)
+from repro_torch.kernels.fft.real_large import _packed_rows, launch_real_large, slot_split
 
 __all__ = ["launch_count", "reset_launch_count", "rfft_rows_transpose_large_cuda",
            "rfft_rows_transpose_large_plain"]
@@ -27,7 +26,7 @@ _launches = 0
 
 
 def launch_count() -> int:
-    """CUDA launches of K4b since the last reset: three per chunk of pairs."""
+    """CUDA launches of K4b since the last reset: two per chunk of pairs."""
     return _launches
 
 
@@ -42,7 +41,7 @@ def rfft_rows_transpose_large_plain(x: torch.Tensor, *, n1: int | None = None,
     ``rfft_rows(x).T``, by K3b's passes with the split of pair p stored as
     columns 2p and 2p + 1.  ``n1`` / ``n2`` pin the split."""
     rows, n = x.shape
-    a, b = split_pairs(fft_rows_large_plain(pack_pairs(x), n1=n1, n2=n2))
+    a, b = slot_split(_packed_rows(x, n1, n2))
     return torch.stack([a.T, b.T], dim=2).reshape(n // 2 + 1, -1)[:, :rows].contiguous()
 
 

@@ -513,95 +513,190 @@ def k2b_model(x, n1: int, n2: int, cols: int, plan_b, cluster: int, *,
     return out, reads_a, writes_a, sectors_a, writes_b, runs_b, cap
 
 
-# Pass C's launch (``kSplitThreads``, ``kTilePairs``, ``kTileBins`` of
-# ``csrc/fourstep.cuh``).
-SPLIT_THREADS, TILE_PAIRS, TILE_BINS = 256, 16, 32
+def real_pass_b_model(x, n1: int, n2: int, plan, cluster: int, *, transposed: bool,
+                      rows: int | None = None, out_stride: int | None = None, c0: int = 0,
+                      clusters=None):
+    """Pass B of K3b and K4b with the slot split (``rows_split_kernel`` of
+    ``csrc/fourstep.cuh``) in float64, thread by thread, for one chunk of
+    ``rows`` real rows (those of ``x``, or the pattern alone).
 
+    Pass A's packed B (column DFTs and twiddles, as ``k1b_model``) lies in
+    scratch as [p][k1][j2] (K3b) or [k1][p][j2] with cap = the least power of
+    two >= pairs (K4b).  ``plan`` is ``split_rows_plan(n2, units*2)``'s
+    (P rows a CTA, T threads) and ``cluster`` its C: a cluster holds W =
+    P*C rows, W/2 units, unit u = p*(n1/2) + sigma (K3b) or sigma*cap + p
+    (K4b); cluster row q < W/2 is the left row (k1 = sigma) of unit u0 + q,
+    q >= W/2 the right row (n1 - sigma, n1/2 for sigma = 0) of unit u0 + q -
+    W/2.  Rank r of the cluster stores items (q, k2) for k2 in [r*HB, (r +
+    1)*HB), HB = n2/(2C): thread t, step c < 8 takes idx = t + c*T, q = idx
+    % W, k2 = r*HB + idx // W, reads Z(q, k2) and its partner Z(q ^ W/2,
+    n2 - 1 - k2) (slot 0: row q itself, bin (n2 - k2) % n2 on the left,
+    n2 - 1 - k2 on the right) and writes A to out[2p, k] and B to out[2p +
+    1, k], k = k1 + n1*k2 (K3b), or to out[k, c0 + 2p] and out[k, c0 + 2p +
+    1] (K4b; one 16-byte store where ``out_stride`` and ``c0`` are even); B
+    not where 2p + 1 = rows, nothing where p >= pairs.  Thread t < W/2 of
+    rank 0 also writes bin n/2 from row 0's bin n2/2 where its unit is in
+    slot 0.  ``clusters`` (default: all) picks the clusters simulated.
 
-def split_model(z, rows: int, n: int, *, transposed: bool, out_stride: int | None = None,
-                c0: int = 0):
-    """Pass C of K3b and K4b (``split_kernel`` of ``csrc/fourstep.cuh``) in
-    float64, thread by thread: the conjugate split of the (rows + 1) // 2
-    packed pairs of ``z`` (their DFTs Z, or None for the pattern alone).
-
-    Thread k of a row-major CTA reads Z[p, k] and Z[p, (n - k) & (n - 1)] and
-    writes A to out[2p, k] and B to out[2p + 1, k] (unless 2p + 1 = rows);
-    CTA b = p * ceil(nh / 256) + tile.  A transposed CTA b = pt *
-    ceil(nh / 32) + kt splits 16 pairs x 32 bins into a tile, thread i of
-    512 taking pair i // 32 and bin i % 32, and stores tile row i // 32 of
-    1024 to out[k, c0 + c] for its 32 real rows c (rows past ``rows`` and
-    bins past nh are skipped).  Output: (rows, nh) or (nh, out_stride).
-
-    Returns ``(out, writes, partner_ok, runs)``: the result (None without
-    ``z``); how often each output element was written; whether every read
-    partner is (n - k) mod n of the same pair; and, for the transposed
-    store, per warp instruction that stores, the bytes it writes and
-    whether they are one run of one output row (row-major: None)."""
-    nh = n // 2 + 1
+    Returns a dict: ``out`` (the result, None without ``x``), ``reads`` (how
+    often each scratch row was loaded), ``addr`` (the element address of
+    every store, row*out_stride + column, A and B), ``expected`` (the
+    addresses the simulated clusters' rows own: bins k2 < n2/2 of both
+    output rows, and n/2 in slot 0), ``partner_ok`` (every read partner is
+    bin (n - k) mod n of the same pair, in a row of the same cluster),
+    ``self_items`` (items read beside themselves: rows 0 and n1/2),
+    ``runs`` (per warp store instruction: bytes, 32-byte sectors touched,
+    maximal contiguous runs, and the lengths of those runs in bytes), and
+    ``shape`` (W, units, cap)."""
+    n = n1 * n2
+    h = n2 // 2
+    rows = x.shape[0] if x is not None else rows
     pairs = (rows + 1) // 2
-    zz = None if z is None else np.asarray(z, np.complex128)
+    cap = 1 << max(0, pairs - 1).bit_length() if transposed else 0
+    per_cta, threads = plan[:2]
+    group = n2 // 16
+    assert threads == per_cta * group
+    wide = per_cta * cluster
+    half = wide // 2
+    units = (n1 // 2) * cap if transposed else pairs * (n1 // 2)
+    assert wide >= 2 and units % half == 0
+    nh = n // 2 + 1
+    if out_stride is None:
+        out_stride = rows if transposed else nh
+    all_clusters = units // half
+    cl = np.arange(all_clusters) if clusters is None else np.asarray(clusters)
 
-    def split(p, k):
-        zk, zr = zz[p, k], zz[p, (n - k) & (n - 1)]
-        return ((zk + np.conj(zr)) / 2, (zk - np.conj(zr)) / 2j)
+    def slot_row(u, right):
+        if transposed:
+            sigma, p = u // cap, u % cap
+        else:
+            sigma, p = u % (n1 // 2), u // (n1 // 2)
+        k1 = np.where(~right, sigma, np.where(sigma == 0, n1 // 2, n1 - sigma))
+        return p, sigma, k1
 
-    if not transposed:
-        tiles = -(-nh // SPLIT_THREADS)
-        b = np.arange(pairs * tiles)
-        p = np.broadcast_to((b // tiles)[:, None], (b.size, SPLIT_THREADS))
-        k = (b % tiles)[:, None] * SPLIT_THREADS + np.arange(SPLIT_THREADS)
-        live = k < nh
-        p, k = p[live], k[live]
-        partner_ok = bool(((n - k) & (n - 1) == (-k) % n).all())
-        writes = np.zeros((rows, nh), np.int64)
-        np.add.at(writes, (2 * p, k), 1)
-        has_b = 2 * p + 1 < rows
-        np.add.at(writes, (2 * p[has_b] + 1, k[has_b]), 1)
-        out = None
-        if zz is not None:
-            out = np.zeros((rows, nh), np.complex128)
-            a_val, b_val = split(p, k)
-            out[2 * p, k] = a_val
-            out[2 * p[has_b] + 1, k[has_b]] = b_val[has_b]
-        return out, writes, partner_ok, None
+    def scratch_row(p, k1):
+        return k1 * cap + p if transposed else p * n1 + k1
 
-    out_stride = rows if out_stride is None else out_stride
-    ktiles = -(-nh // TILE_BINS)
-    b = np.arange(-(-pairs // TILE_PAIRS) * ktiles)
-    p0 = (b // ktiles * TILE_PAIRS)[:, None]
-    k0 = (b % ktiles * TILE_BINS)[:, None]
-    i = np.arange(TILE_PAIRS * TILE_BINS)                     # the split: 2 a thread
-    p, k = p0 + i // TILE_BINS, k0 + i % TILE_BINS
-    loaded = (2 * p < rows) & (k < nh)
-    partner_ok = bool(((n - k[loaded]) & (n - 1) == (-k[loaded]) % n).all())
-    tile = np.zeros((b.size, TILE_BINS, 2 * TILE_PAIRS), np.complex128)
-    filled = np.zeros(tile.shape, bool)
-    bb = np.broadcast_to(b[:, None], p.shape)[loaded]
-    kk, pp = (i % TILE_BINS)[None].repeat(b.size, 0)[loaded], (i // TILE_BINS)[None].repeat(
-        b.size, 0)[loaded]
-    filled[bb, kk, 2 * pp] = filled[bb, kk, 2 * pp + 1] = True
-    if zz is not None:
-        a_val, b_val = split(p[loaded], k[loaded])
-        tile[bb, kk, 2 * pp], tile[bb, kk, 2 * pp + 1] = a_val, b_val
-    i = np.arange(2 * TILE_PAIRS * TILE_BINS)                 # the store: 4 a thread
-    krow, col = i // (2 * TILE_PAIRS), i % (2 * TILE_PAIRS)
-    k, cc = k0 + krow, 2 * p0 + col
-    stored = (k < nh) & (cc < rows)
-    sb = np.broadcast_to(b[:, None], k.shape)[stored]
-    skr, scol = np.broadcast_to(krow, k.shape)[stored], np.broadcast_to(col, k.shape)[stored]
-    assert filled[sb, skr, scol].all()          # every stored element was split
-    writes = np.zeros((nh, out_stride), np.int64)
-    np.add.at(writes, (k[stored], c0 + cc[stored]), 1)
+    q = np.arange(wide)[None, :]
+    p_q, sig_q, k1_q = slot_row(cl[:, None] * half + (q & (half - 1)), q >= half)
+    live = p_q < pairs
+    reads = np.bincount(scratch_row(p_q, k1_q)[live],
+                        minlength=(cap if transposed else pairs) * n1)
+    zrows = None
     out = None
-    if zz is not None:
-        out = np.zeros((nh, out_stride), np.complex128)
-        out[k[stored], c0 + cc[stored]] = tile[sb, skr, scol]
-    # A warp instruction: lanes 32w ... 32w + 31 of one step.
-    top = np.iinfo(np.int64).max
-    st = stored.reshape(b.size, -1, 32)
-    kw, cw = k.reshape(b.size, -1, 32), cc.reshape(b.size, -1, 32)
-    count = st.sum(-1)
-    one_row = np.where(st, kw, -1).max(-1) == np.where(st, kw, top).min(-1)
-    span = np.where(st, cw, -1).max(-1) - np.where(st, cw, top).min(-1) + 1
-    hit = count > 0
-    return out, writes, partner_ok, (8 * count[hit], (one_row & (span == count))[hit])
+    if x is not None:
+        xx = np.asarray(x, np.float64)
+        if rows % 2:
+            xx = np.vstack([xx, np.zeros((1, n))])
+        a = (xx[0::2] + 1j * xx[1::2]).reshape(pairs, n1, n2)
+        y = np.fft.fft(a, axis=1) * np.exp(
+            -2j * np.pi * ((np.arange(n1)[:, None] * np.arange(n2)) % n) / n)
+        scratch = np.zeros(((cap if transposed else pairs) * n1, n2), np.complex128)
+        if transposed:
+            scratch.reshape(n1, cap, n2)[:, :pairs] = y.transpose(1, 0, 2)
+        else:
+            scratch[:] = y.reshape(pairs * n1, n2)
+        zrows = np.zeros((cl.size, wide, n2), np.complex128)
+        zrows[live] = np.fft.fft(scratch[scratch_row(p_q, k1_q)[live]], axis=-1)
+        out = np.zeros((nh, out_stride) if transposed else (rows, out_stride), np.complex128)
+    # The store: CTA (cluster, rank), step c, thread t.
+    log2w = wide.bit_length() - 1
+    hb = h // cluster
+    rank = np.arange(cluster)[None, :, None, None]
+    idx = np.arange(threads)[None, None, None, :] + np.arange(8)[None, None, :, None] * threads
+    qq = np.broadcast_to(idx & (wide - 1), (cl.size, cluster, 8, threads))
+    k2 = np.broadcast_to(rank * hb + (idx >> log2w), qq.shape)
+    ci = np.broadcast_to(np.arange(cl.size)[:, None, None, None], qq.shape)
+    right = qq >= half
+    p, sigma, k1 = slot_row(cl[ci] * half + (qq & (half - 1)), right)
+    pq = np.where(sigma == 0, qq, qq ^ half)
+    pk = np.where((sigma == 0) & ~right, (n2 - k2) % n2, n2 - 1 - k2)
+    pp, _, pk1 = slot_row(cl[ci] * half + (pq & (half - 1)), pq >= half)
+    k = k1 + n1 * k2
+    partner_ok = bool(((pp == p) & ((pk1 + n1 * pk) % n == (n - k) % n)
+                       & (pq >= 0) & (pq < wide)).all())
+    stored = p < pairs
+    self_items = int((stored & (pq == qq)).sum())
+    # Bin n/2 from row 0's bin n2/2: thread t < W/2 of rank 0, slot 0.
+    t0 = np.arange(half)[None, :]
+    p0, s0, _ = slot_row(cl[:, None] * half + t0, np.zeros(t0.shape, bool))
+    extra = (s0 == 0) & (p0 < pairs)
+    self_items += int(extra.sum())
+    vec = transposed and out_stride % 2 == 0 and c0 % 2 == 0
+    has_b = 2 * p + 1 < rows
+
+    def where_to(pr, kk, second):
+        return (kk * out_stride + c0 + 2 * pr + second if transposed
+                else (2 * pr + second) * out_stride + kk)
+
+    a_addr, b_addr = where_to(p, k, 0), where_to(p, k, 1)
+    ea, eb = where_to(p0, n // 2, 0), where_to(p0, n // 2, 1)
+    e_has_b = 2 * p0 + 1 < rows
+    addr = np.concatenate([a_addr[stored], b_addr[stored & has_b], ea[extra],
+                           eb[extra & e_has_b]])
+    # The addresses the clusters' rows own: the first half of both rows of
+    # every live unit, and bin n/2 of slot 0's left row.
+    ob = np.arange(h)
+    own = (p_q < pairs)[..., None]
+    ok = np.broadcast_to(k1_q[..., None] + n1 * ob, own.shape[:2] + (h,))
+    opr = np.broadcast_to(p_q[..., None], ok.shape)
+    own = np.broadcast_to(own, ok.shape)
+    expected = np.concatenate([where_to(opr[own], ok[own], 0),
+                               where_to(opr[own & (2 * opr + 1 < rows)],
+                                        ok[own & (2 * opr + 1 < rows)], 1),
+                               ea[extra], eb[extra & e_has_b]])
+    if zrows is not None:
+        zk = zrows[ci, qq, k2]
+        zr = zrows[ci, pq, pk]
+        av, bv = (zk + np.conj(zr)) / 2, (zk - np.conj(zr)) / 2j
+        out.reshape(-1)[a_addr[stored]] = av[stored]
+        out.reshape(-1)[b_addr[stored & has_b]] = bv[stored & has_b]
+        z0 = zrows[np.arange(cl.size)[:, None].repeat(half, 1), t0.repeat(cl.size, 0), h]
+        out.reshape(-1)[ea[extra]] = z0[extra].real
+        out.reshape(-1)[eb[extra & e_has_b]] = z0[extra & e_has_b].imag
+    # Warp instructions: (cluster, rank, c, warp) x {A, B}, or one 16-byte
+    # store of both where vec; each lane writes 8 (or 16) bytes at 8*addr.
+    lanes = (cl.size, cluster, 8, threads // 32, 32)
+
+    def instr(addr_, mask, nbytes):
+        return addr_.reshape(lanes), mask.reshape(lanes), nbytes
+
+    if vec:
+        groups = [instr(a_addr, stored & has_b, 16), instr(a_addr, stored & ~has_b, 8)]
+    else:
+        groups = [instr(a_addr, stored, 8), instr(b_addr, stored & has_b, 8)]
+    run_bytes, run_sectors, run_count, run_lengths = [], [], [], []
+    for ad, m, nbytes in groups:
+        ad = ad.reshape(-1, 32)
+        m = m.reshape(-1, 32)
+        hit = m.any(1)
+        ad, m = ad[hit], m[hit]
+        lo = np.where(m, ad * 8, np.iinfo(np.int64).max)
+        order = np.sort(lo, axis=1)
+        valid = order < np.iinfo(np.int64).max
+        count = valid.sum(1)
+        run_bytes.append(count * nbytes)
+        first = order // 32
+        last = (order + nbytes - 1) // 32
+        sectors = np.zeros(order.shape[0], np.int64)
+        prev = np.full(order.shape[0], -1)
+        breaks = np.zeros(order.shape, bool)
+        for j in range(32):
+            v = valid[:, j]
+            sectors += np.where(v, last[:, j] - np.maximum(first[:, j], prev + 1) + 1, 0)
+            prev = np.where(v, np.maximum(prev, last[:, j]), prev)
+            if j:
+                breaks[:, j] = v & (order[:, j] != order[:, j - 1] + nbytes)
+            else:
+                breaks[:, j] = v
+        run_sectors.append(sectors)
+        run_count.append(breaks.sum(1))
+        starts = np.flatnonzero(breaks.reshape(-1))
+        flat_valid = valid.reshape(-1)
+        run_lengths.append(np.add.reduceat(flat_valid.astype(np.int64), starts) * nbytes
+                           if starts.size else np.zeros(0, np.int64))
+    runs = tuple(np.concatenate(part) for part in (run_bytes, run_sectors, run_count,
+                                                   run_lengths))
+    return {"out": out, "reads": reads, "addr": addr, "expected": expected,
+            "partner_ok": partner_ok, "self_items": self_items, "runs": runs,
+            "shape": (wide, units, cap)}

@@ -4,8 +4,9 @@ than K2-K4 hold (``csrc/fft_rows_transpose_large.cu``,
 ``csrc/fourstep.cuh``), on the CPU: their plain versions against the
 reference's ops (Pallas in interpret mode) and ``numpy.fft``, at forced
 splits, float64 models of K2b's ``[k1][s][j2]`` scratch and transposed store
-and of pass C's split in both stores, their launch plans and bindings
-against the CUDA sources, and the ``fft2d`` paths through them.
+and of K3b's and K4b's pass B with the slot split in both stores, their
+launch plans and bindings against the CUDA sources, and the ``fft2d`` paths
+through them.
 
 The CUDA kernels run only on the card (``chip_smoke.py``,
 ``examples/kernel_check_torch.py --large-fused-and-real-only``).  Run these
@@ -20,8 +21,8 @@ import pytest
 import torch
 import jax.numpy as jnp
 
-from _torch_parity import (SPLIT_THREADS, TILE_BINS, TILE_PAIRS, complex_signal,
-                           k2b_model, split_model, to_numpy, to_torch)
+from _torch_parity import (complex_signal, k2b_model, real_pass_b_model, to_numpy,
+                           to_torch)
 
 import repro.fft.fft2d as ref_fft2d
 from repro.kernels.fft.real import rfft_rows_op as ref_rfft_rows_op
@@ -205,69 +206,221 @@ def test_k2b_store_pattern_at_every_length(e):
         assert sectors_a == (cols >= 4) and runs[1].all()
 
 
+def real_plans(n, rows, transposed):
+    """K3b's or K4b's pass-B shape for one chunk of ``rows`` real rows: the
+    split, ``split_rows_plan`` over the units' rows and its cluster."""
+    n1, n2 = port_large.large_split(n)
+    pairs = (rows + 1) // 2
+    units = port_large.scratch_capacity(pairs) if transposed else pairs
+    plan = port_real_large.split_rows_plan(n2, units * n1)
+    return n1, n2, plan[:2], plan[2]
+
+
+def check_pass_b(m, n1, n2, rows, transposed, stride, c0):
+    """What every run of ``real_pass_b_model`` must show: each scratch row
+    of a live unit loaded once; every store inside the output and its column
+    slice, each element once, exactly the clusters' own; every partner bin
+    (n - k) mod n of its pair in the cluster; rows 0 and n1/2 split against
+    themselves (n2 + 1 items a pair where every cluster is simulated); each
+    warp store's runs W/2 elements of one output row (K3b) or W/2 pairs side
+    by side (K4b, where W/2 units share a row and the output takes 16-byte
+    stores)."""
+    wide, units, cap = m["shape"]
+    n = n1 * n2
+    nh = n // 2 + 1
+    pairs = (rows + 1) // 2
+    addr = m["addr"]
+    assert np.unique(addr).size == addr.size
+    assert np.array_equal(np.sort(addr), np.sort(m["expected"]))
+    if transposed:
+        assert ((addr % stride >= c0) & (addr % stride < c0 + rows)).all()
+        assert addr.max() < nh * stride
+    else:
+        assert addr.max() < rows * stride and (addr % stride < nh).all()
+    assert m["partner_ok"]
+    assert set(np.unique(m["reads"])) <= {0, 1}
+    _, _, _, lengths = m["runs"]
+    assert lengths.min() >= 8
+    if not transposed:
+        # W/2 neighbouring k1 a run; slot 0's right run is n1/2 alone and
+        # n1 - W/2 + 1 ... n1 - 1, which runs on into the left run 0 ...
+        # W/2 - 1 of the next bin where one warp stores both.
+        assert set(np.unique(lengths)) <= {4 * wide, 4 * wide - 8, 8, 8 * wide - 8}
+    elif cap >= wide // 2 and stride % 2 == 0 and c0 % 2 == 0:
+        # The last cluster of a slot holds rows // 2 mod W/2 whole pairs; an
+        # unpaired last row stores its A alone.
+        allowed = {8 * wide, 16 * (rows // 2 % (wide // 2))} | ({8} if rows % 2 else set())
+        assert set(np.unique(lengths)) <= allowed - {0}
+
+
 @pytest.mark.parametrize("transposed", [False, True])
 @pytest.mark.parametrize("rows, n", [(1, 1 << 15), (3, 1 << 15), (4, 1 << 15),
                                      (33, 1 << 15), (2, 1 << 16), (5, 1 << 17)])
 def test_split_model_is_the_half_spectrum_and_writes_each_element_once(
         rows, n, transposed):
-    """Pass C of K3b (row-major) and K4b (transposed, through the tile of 16
-    pairs x 32 bins) on the packed pairs' DFTs: ``numpy.fft.rfft`` of the
-    real rows (float64, ``1e-9·n``); each output element written once
-    (K4b: to columns 2 ... of a wider output, nothing around them); every
-    bin k read beside bin (n - k) mod n of its pair; each warp of K4b's
-    store writes one contiguous run of one output row, 256 bytes wherever
-    its tile holds 32 real rows."""
+    """The split, now pass B's epilogue: pass B of K3b (row-major) and K4b
+    (transposed, to columns 2 ... of a wider output) with the slot split
+    (``real_pass_b_model``), thread by thread in its launch shape
+    over K3b's ``[p][k1][j2]`` or K4b's ``[k1][p][j2]`` scratch:
+    ``numpy.fft.rfft`` of the real rows (float64, ``1e-9·n``); each output
+    element written once and nothing around the column slice; every scratch
+    row of a live unit loaded once and no spare one; every bin read beside
+    its partner (n - k) mod n in its cluster; rows 0 and n1/2 against
+    themselves, n2 + 1 items a pair; an unpaired last row's B not stored;
+    each warp's store in whole runs (``check_pass_b``)."""
     x = np.random.default_rng(rows + n).standard_normal((rows, n))
-    packed = np.vstack([x, np.zeros((1, n))]) if rows % 2 else x
-    z = np.fft.fft(packed[0::2] + 1j * packed[1::2], axis=-1)
+    n1, n2, plan, cluster = real_plans(n, rows, transposed)
+    c0, stride = (2, rows + 5) if transposed else (0, n // 2 + 1)
+    m = real_pass_b_model(x, n1, n2, plan, cluster, transposed=transposed,
+                          out_stride=stride, c0=c0)
+    check_pass_b(m, n1, n2, rows, transposed, stride, c0)
+    pairs = (rows + 1) // 2
     exact = np.fft.rfft(x, axis=-1)
-    c0, stride = (2, rows + 5) if transposed else (0, None)
-    out, writes, partner_ok, runs = split_model(z, rows, n, transposed=transposed,
-                                                out_stride=stride, c0=c0)
-    assert partner_ok
+    out = m["out"]
     if transposed:
         np.testing.assert_allclose(out[:, c0:c0 + rows], exact.T, rtol=0, atol=1e-9 * n)
-        assert (writes[:, c0:c0 + rows] == 1).all() and writes.sum() == exact.size
-        nbytes, one_run = runs
-        assert one_run.all() and nbytes.max() <= 8 * 2 * TILE_PAIRS
-        if rows >= 2 * TILE_PAIRS:
-            assert nbytes.max() == 256
+        assert not out[:, :c0].any() and not out[:, c0 + rows:].any()
     else:
         np.testing.assert_allclose(out, exact, rtol=0, atol=1e-9 * n)
-        assert (writes == 1).all() and runs is None
+    written = np.zeros(out.size, np.int64)
+    np.add.at(written, m["addr"], 1)
+    assert written.sum() == exact.size
+    assert m["self_items"] == pairs * (n2 + 1)
+    reads = m["reads"].reshape(n1, -1)[:, :pairs] if transposed else m["reads"]
+    assert (reads == 1).all() and m["reads"].sum() == pairs * n1
+
+
+@pytest.mark.parametrize("e", range(15, 29))
+def test_real_pass_b_pattern_at_every_length(e):
+    """K3b's and K4b's pass B at every length they take, on 3 rows (an
+    unpaired last one) and on a whole chunk of pairs: ``split_rows_plan``
+    gives at least one slot (2 rows) a cluster, whole clusters of units and,
+    on a full grid, ``SplitPlan``'s rows a CTA; the one-row CTAs of n2 >=
+    4096 pair in clusters of 4.  The model runs on
+    the first two, a middle and the last two clusters of the 3-row call (all
+    of them to 2^20): each of their elements written once, exactly their
+    own, partners in the cluster, runs whole (``check_pass_b``)."""
+    n = 1 << e
+    for transposed in (False, True):
+        n1, n2, plan, cluster = real_plans(n, 3, transposed)
+        wide = plan[0] * cluster
+        assert wide >= 2 and cluster == (4 if n2 >= 4096 else 2 if n2 == 2048 else 1)
+        chunk = port_large.scratch_rows(n)
+        cn1, cn2, cplan, ccluster = real_plans(n, 2 * chunk, transposed)
+        cunits = (cn1 // 2) * (port_large.scratch_capacity(chunk) if transposed else chunk)
+        assert cunits % (cplan[0] * ccluster // 2) == 0
+        if cunits * 2 >= 264 * 32:
+            # A full grid: SplitPlan's rows, twice regfft's up to 32 where a
+            # CTA holds 4 or more (a warp's store spans 16 k1 or pairs).
+            regfft_rows = max(1, 256 * 16 // cn2)
+            assert cplan[0] == (min(32, 2 * regfft_rows) if regfft_rows >= 4
+                                else regfft_rows)
+        units = n1          # n1/2 slots of 2 pairs (K3b) or of a cap of 2 (K4b)
+        total = units // (wide // 2)
+        picks = None if e <= 20 else sorted({0, 1, total // 2, total - 2, total - 1})
+        stride = 3 if transposed else n // 2 + 1
+        m = real_pass_b_model(None, n1, n2, plan, cluster, transposed=transposed, rows=3,
+                              out_stride=stride, clusters=picks)
+        check_pass_b(m, n1, n2, 3, transposed, stride, 0)
+        if picks is None:
+            assert m["addr"].size == 3 * (n // 2 + 1)
+            assert m["self_items"] == 2 * (n2 + 1)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_real_pass_b_store_sectors_on_the_main_path(transposed):
+    """The 32768 chunks of the real plans (n1 = 128, n2 = 256, 32 rows a CTA:
+    ``split_rows_plan`` of a full chunk), 64 rows: K4b's warps write 2 runs of
+    256 bytes, whole sectors (an even row stride); K3b's write 2 or 3 runs of
+    up to 128 bytes on rows n/2 + 1 float2 apart, so rows 2p and 2p + 1 start
+    one float2 apart within a sector: 313344 sectors for 8 MiB, 0.837 of
+    them full (at 16 rows a CTA, 64-byte runs: 359424, 0.729)."""
+    n1, n2 = 128, 256
+    plan = port_real_large.split_rows_plan(n2, port_large.scratch_rows(n1 * n2) * n1)
+    assert plan == (32, 512, 1)
+    for per_cta, want in ((32, 313344), (16, 359424)):
+        m = real_pass_b_model(None, n1, n2, (per_cta, per_cta * 16), 1,
+                              transposed=transposed, rows=64,
+                              out_stride=64 if transposed else None)
+        nbytes, sectors, count, lengths = m["runs"]
+        assert nbytes.sum() == 64 * (n1 * n2 // 2) * 8
+        if transposed:
+            assert sectors.sum() * 32 == nbytes.sum() and set(count) == {32 // per_cta * 2}
+            assert set(lengths) == {8 * per_cta}
+        else:
+            assert sectors.sum() == want
+            assert set(lengths) <= {8 * per_cta // 2, 8 * per_cta // 2 - 8, 8,
+                                    8 * per_cta - 8}
 
 
 # -------------------------------------------------- plans against the sources
 
 def test_pass_c_and_the_store_orders_mirror_the_cuda_source():
-    """Pass C's launch (threads, tile) and the index arithmetic the models
-    above follow are the shared header's: K2b's pass-A store at (k1*cap +
-    s)*n2 + j2 and pass-B store at (k1 + n1*k2)*out_stride + s, the split's
-    partner (n - k) & (n - 1); K1b's orders unchanged."""
+    """Pass C is gone, and the index arithmetic the models above follow is
+    the shared header's: K2b's pass-A store at (k1*cap + s)*n2 + j2 and
+    pass-B store at (k1 + n1*k2)*out_stride + s; the real kernels' pass B
+    with the slot split:
+    units p*(n1/2) + sigma (K3b) or sigma*cap + p (K4b), the right row n1 -
+    sigma (n1/2 in slot 0), the partner row q ^ W/2 at bin n2 - 1 - k2 (row
+    0: (n2 - k2) mod n2), the stores to rows 2p, 2p + 1 or columns 2p, 2p +
+    1, bin n/2 from row 0; two launches, no pass C and no second scratch
+    buffer; K1b's orders unchanged."""
     text = source("fourstep.cuh")
-    assert f"kSplitThreads = {SPLIT_THREADS};" in text
-    assert f"kTilePairs = {TILE_PAIRS};" in text and f"kTileBins = {TILE_BINS};" in text
-    assert "kTileStride = 2 * kTilePairs + 1;" in text
     assert "? scratch + (s << log2n2) + ((long long)t << log2k) + j2" in text
-    assert "const int log2k = MODE == kTransposedStore ? log2cap + log2n2 : log2n2;" in text
+    assert "const int log2k = TS ? log2cap + log2n2 : log2n2;" in text
+    assert "return mode == kTransposedStore || mode == kPackedTransposed;" in text
     assert ("out[((r >> log2cap) + (k << log2n1)) * out_stride + (r & capmask)] = z[c];"
             in text)
     assert "if (r < rows && (r & capmask) < valid)" in text
     assert "row < rows && (!T || (row & capmask) < valid)" in text
-    assert text.count("zp[(n - k) & (n - 1)]") == 2
     assert ("out[((r >> log2n1) << (log2n1 + LOG2N2)) + (k << log2n1) + (r & n1mask)]"
             in text)
-    assert "columns_for<false, kPacked>(log2n1, in, scratch, pairs, log2n2, 0, rows, s)" in text
-    assert "const bool has_b = 2 * s + 1 < real_rows;" in text
+    assert ("P::MAX_ROWS >= 4 ? (2 * P::MAX_ROWS < 32 ? 2 * P::MAX_ROWS : 32) : P::MAX_ROWS;"
+            in text)
+    assert "rows_per_cta > SplitPlan<LOG2N2>::MAX_ROWS" in text
+    for expr in ("r.sigma = (int)(u >> log2cap);", "r.p = u & ((1LL << log2cap) - 1);",
+                 "r.sigma = (int)(u & ((1LL << (log2n1 - 1)) - 1));",
+                 "r.p = u >> (log2n1 - 1);",
+                 "r.k1 = !right ? r.sigma : r.sigma == 0 ? 1 << (log2n1 - 1) : "
+                 "(1 << log2n1) - r.sigma;",
+                 "const int pq = s.sigma == 0 ? qq : qq ^ half;",
+                 "const int pk = s.sigma == 0 && !right ? (N - k2) & (N - 1) : N - 1 - k2;",
+                 "const int k2 = rank * HB + (idx >> log2w);",
+                 "const int qq = idx & qmask;",
+                 "constexpr int HB = N / 2 / C;",
+                 "const long long u0 = ((long long)blockIdx.x >> LOG2C) << (log2w - 1);",
+                 "const int q = (rank << log2_rows) + local;",
+                 "? ((long long)mine.k1 << log2cap) + mine.p",
+                 ": (mine.p << log2n1) + mine.k1;",
+                 "float2* o = out + k * out_stride + 2 * p;",
+                 "out[2 * p * out_stride + k] = a;",
+                 "if (has_b) out[(2 * p + 1) * out_stride + k] = b;",
+                 "const bool has_b = 2 * p + 1 < rows;",
+                 "const float2 z = z_at(threadIdx.x, N / 2);",
+                 "const bool vec = T && (out_stride & 1) == 0 &&",
+                 "rows_per_cta * C < 2 || units % (rows_per_cta * C / 2) != 0",
+                 "const long long units = T ? 1LL << (log2n1 - 1 + log2cap) : "
+                 "pairs << (log2n1 - 1);",
+                 "columns_for<false, kPacked>(log2n1, in, scratch, pairs, log2n2, 0, rows, s)",
+                 "columns_for<false, kPackedTransposed>(log2n1, in, scratch, pairs, log2n2, "
+                 "log2cap,",
+                 "const bool has_b = 2 * s + 1 < real_rows;"):
+        assert expr in text, expr
+    assert not re.search(r"\bsplit_kernel\b|\blaunch_split\b|zbuf|kSplitThreads", text)
     for name, file in SOURCES.items():
         body = source(file)
         assert '#include "fourstep.cuh"' in body
         assert f'extern "C" int repro_{name}(' in body
         assert "Replaces the TPU kernel" in body and "Bound on this card: bytes" in body
+        assert "zbuf" not in body
     assert "while ((1LL << log2cap) < rows) ++log2cap;" in source(SOURCES[
         "fft_rows_transpose_large"])
     assert "real_rows_large<false>" in source(SOURCES["rfft_rows_large"])
     assert "real_rows_large<true>" in source(SOURCES["rfft_rows_transpose_large"])
+    for module in (port_real_large, port_fused_real_large):
+        text = open(module.__file__).read()
+        assert "zbuf" not in text and "launches += 3" not in text
+    assert "launches += 2" in open(port_real_large.__file__).read()
 
 
 @pytest.mark.parametrize("rows", [1, 2, 3, 4095, 4096, 4097, 16385])
@@ -296,8 +449,8 @@ def test_launchers_and_bindings():
     assert _build._FUNCTIONS["repro_fft_rows_transpose_large"][1] == [
         ptr, ptr, ptr, ll, int_, int_, int_, ll, int_, int_, ptr]
     for name in ("repro_rfft_rows_large", "repro_rfft_rows_transpose_large"):
-        assert _build._FUNCTIONS[name][1] == [ptr, ptr, ptr, ptr, ll, int_, int_, ll,
-                                              int_, int_, ptr]
+        assert _build._FUNCTIONS[name][1] == [ptr, ptr, ptr, ll, int_, int_, ll, int_,
+                                              int_, ptr]
     xc = torch.ones((1, 1 << 15), dtype=torch.complex64)
     xr = torch.ones((2, 1 << 15))
     for launcher, x in ((port_fused_large.fft_rows_transpose_large_cuda, xc),
