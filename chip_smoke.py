@@ -249,7 +249,8 @@ from repro_torch.kernels import (_build, fft_rows_op, fft_rows_transpose_op,  # 
                                  transpose_op)
 from repro_torch.kernels.fft.kernel import fft_rows_plain  # noqa: E402
 from repro_torch.kernels.fft.kernel import MAX_KERNEL_N  # noqa: E402
-from repro_torch.kernels.fft.large import (fft_rows_large_plain, large_split,  # noqa: E402
+from repro_torch.kernels.fft.large import (CLUSTER_MAX_N, cluster_plan,  # noqa: E402
+                                           fft_rows_large_plain, large_split,
                                            scratch_rows)
 from repro_torch.kernels.fft.real import rfft_rows_plain  # noqa: E402
 from repro_torch.kernels.fft.real_large import rfft_rows_large_plain  # noqa: E402
@@ -324,17 +325,18 @@ K2_RAGGED_SHAPES = ([(rows, n) for n in (4096, 8192, 16384) for rows in (257, 26
 REAL_KERNEL_SHAPES = ([(rows, 1 << e) for e in range(1, 15)
                        for rows in (37, max(2, (1 << 20) >> e))] + [MAIN_SHAPE, WIDE_SHAPE]
                       + [(rows, n) for n in (4096, 8192, 16384) for rows in (258, 259)])
-# The four-step K1b: phase 1 of lb at N = 32768 in its first chunk of
-# scratch (2048 rows), 512 rows of 2^17 and one line of 2^24; the first is
-# the record's shape.
-K1B_SHAPES = [(2048, 1 << 15), (512, 1 << 17), (1, 1 << 24)]
-# K2b, K3b and K4b (the four-step fused and real kernels): K1b's shapes and
-# two odd row counts: 2049 (K2b keeps 4096 rows of scratch a k1 and masks
-# 2047; its output rows start off 32-byte boundaries; K3b and K4b get an
-# unpaired last row) and 16385, the main path's own (phase 2 of the fused
-# real plan at 32768: K2b in 5 chunks, the last of one row; K3b and K4b over
-# 8193 pairs in 3 chunks); the first is the records' shape.
-SIBLING_SHAPES = K1B_SHAPES + [(2049, 1 << 15), (16385, 1 << 15)]
+# K1b: 2048 rows of 32768 (the one-pass record's shape), 512 rows of 2^17
+# (the two passes' record) and one line of 2^24 (two passes), and in the
+# cluster kernel 1023 rows of 65536 and 3 of 32768.
+K1B_SHAPES = [(2048, 1 << 15), (512, 1 << 17), (1, 1 << 24), (1023, 1 << 16), (3, 1 << 15)]
+K1B_TWO_PASS_SHAPE = K1B_SHAPES[1]
+# K2b, K3b and K4b (the four-step fused and real kernels): K1b's first three
+# shapes and two odd row counts: 2049 (K2b keeps 4096 rows of scratch a k1
+# and masks 2047; its output rows start off 32-byte boundaries; K3b and K4b
+# get an unpaired last row) and 16385, the main path's own (phase 2 of the
+# fused real plan at 32768: K2b in 5 chunks, the last of one row; K3b and
+# K4b over 8193 pairs in 3 chunks); the first is the records' shape.
+SIBLING_SHAPES = K1B_SHAPES[:3] + [(2049, 1 << 15), (16385, 1 << 15)]
 TRANSPOSE_SHAPES = [(1, 1), (37, 129), (1000, 3), (4096, 8192), (8192, 8192)]
 # Every other element size the transpose kernel is built for, at small shapes.
 TRANSPOSE_OTHER_DTYPES = [torch.uint8, torch.float16, torch.float64, torch.complex128]
@@ -541,11 +543,12 @@ def bound(nbytes: float, flops: float) -> dict:
 
 
 def kernel_record(name: str, replaces: str, shape, err: float, limits: dict,
-                  kernel, plain, library) -> dict:
+                  kernel, plain, library, source: str | None = None) -> dict:
     """One record of the ``kernels`` line, timed here (launch counts are
-    filled in after the paths have run)."""
+    filled in after the paths have run); ``source`` defaults to the
+    ``.cu`` named after the kernel."""
     ms = time_ms(kernel, reps=20)
-    return {"name": name, "route": "cuda", "source": SOURCES + name + ".cu",
+    return {"name": name, "route": "cuda", "source": SOURCES + (source or name + ".cu"),
             "replaces": replaces, "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": time_ms(plain, reps=3, warmup=1), **limits,
             "library_ms": time_ms(library, reps=20), "shape": list(shape),
@@ -640,12 +643,15 @@ def phase_kernels(gen: torch.Generator, worst: dict[str, float]) -> list[dict]:
                         5.0 * (rows / 2) * n * math.log2(n) + 8.0 * (rows / 2) * nh)
     # Transpose of complex64: rows*n*8 read and written, no arithmetic.
     transpose_limits = bound(2 * rows * n * 8, 0.0)
-    # K1b: the function's bytes once each way (its two passes move twice
-    # that) and the complex FFT's operations.
+    # K1b: the function's bytes once each way (the cluster kernel moves just
+    # that, the two passes twice that) and the complex FFT's operations.
     lrows, ln = K1B_SHAPES[0]
     xl = random_signal(gen, lrows, ln)
     xrl = random_real(gen, lrows, ln)
     large_limits = bound(2 * lrows * ln * 8, 5.0 * lrows * ln * math.log2(ln))
+    trows, tn = K1B_TWO_PASS_SHAPE
+    xt = random_signal(gen, trows, tn)
+    two_pass_limits = bound(2 * trows * tn * 8, 5.0 * trows * tn * math.log2(tn))
     # K3b, K4b: K3's and K4's function at K1b's shape.
     lnh = ln // 2 + 1
     real_large_limits = bound(lrows * ln * 4 + lrows * lnh * 8,
@@ -681,7 +687,13 @@ def phase_kernels(gen: torch.Generator, worst: dict[str, float]) -> list[dict]:
                       K1B_SHAPES[0], worst["fft_rows_large"], large_limits,
                       lambda: fft_rows_op(xl),
                       lambda: fft_rows_large_plain(xl),
-                      lambda: torch.fft.fft(xl)),
+                      lambda: torch.fft.fft(xl), source="fft_rows_cluster.cu"),
+        kernel_record("fft_rows_large_two_pass", "src/repro/kernels/fft/kernel.py:209",
+                      K1B_TWO_PASS_SHAPE, worst["fft_rows_large_two_pass"],
+                      two_pass_limits,
+                      lambda: fft_rows_op(xt),
+                      lambda: fft_rows_large_plain(xt),
+                      lambda: torch.fft.fft(xt), source="fft_rows_large.cu"),
         kernel_record("fft_rows_transpose_large", "src/repro/kernels/fused/kernel.py:64",
                       K1B_SHAPES[0], worst["fft_rows_transpose_large"], large_limits,
                       lambda: fft_rows_transpose_op(xl),
@@ -705,27 +717,39 @@ def phase_kernels(gen: torch.Generator, worst: dict[str, float]) -> list[dict]:
 
 
 def check_large_kernel(gen: torch.Generator, worst: dict) -> None:
-    """K1b (``fft_rows_op`` above 16384) at ``K1B_SHAPES`` in both
-    directions against ``fft_rows_large_plain`` and ``torch.fft.fft`` /
-    ``ifft``, ``atol = row_fft_tol(n, inverse)``; ``worst`` gets the forward
-    error against the plain version at the record's shape."""
+    """K1b (``fft_rows_op`` above 16384: the cluster kernel up to 65536, the
+    two passes above) at ``K1B_SHAPES`` in both directions against
+    ``fft_rows_large_plain`` and ``torch.fft.fft`` / ``ifft``, ``atol =
+    row_fft_tol(n, inverse)``, one launch a call of the cluster kernel;
+    ``worst`` gets the forward errors against the plain version at the
+    records' shapes."""
     for rows, n in K1B_SHAPES:
         x = random_signal(gen, rows, n)
+        design = ({"design": "cluster", "plan": list(cluster_plan(n))} if n <= CLUSTER_MAX_N
+                  else {"design": "two_pass", "split": list(large_split(n))})
         for inverse in (False, True):
             tol = row_fft_tol(n, inverse)
+            before = launch_counts()
             got = fft_rows_op(x, inverse=inverse)
             torch.cuda.synchronize()
+            after = launch_counts()
+            if n <= CLUSTER_MAX_N and (
+                    after["fft_rows_large"] - before["fft_rows_large"] != 1
+                    or after["fft_rows_large_two_pass"] != before["fft_rows_large_two_pass"]):
+                raise AssertionError(f"K1b at n={n} did not take one cluster launch: "
+                                     f"{before} -> {after}")
             lib = torch.fft.ifft(x) if inverse else torch.fft.fft(x)
             errs = {"fft_rows_large_err": max_abs_err(
                         got, fft_rows_large_plain(x, inverse=inverse)),
                     "fft_rows_large_vs_library_err": max_abs_err(got, lib)}
-            log("kernels", rows=rows, n=n, split=list(large_split(n)),
-                inverse=inverse, atol=tol, **errs)
+            log("kernels", rows=rows, n=n, **design, inverse=inverse, atol=tol, **errs)
             if max(errs.values()) > tol:
                 raise AssertionError(f"K1b disagrees at rows={rows} n={n} "
                                      f"inverse={inverse}: {errs} > {tol}")
             if (rows, n) == K1B_SHAPES[0] and not inverse:
                 worst["fft_rows_large"] = errs["fft_rows_large_err"]
+            if (rows, n) == K1B_TWO_PASS_SHAPE and not inverse:
+                worst["fft_rows_large_two_pass"] = errs["fft_rows_large_err"]
             del got, lib
         del x
 
@@ -1133,12 +1157,24 @@ def phase_fpms() -> dict[int, tuple[FPMSet, FPMSet]]:
     return fpms
 
 
+def record_launches(name: str, counts: dict[str, int]) -> int:
+    """The launches of the kernel of record ``name`` among ``counts``: the
+    cluster kernel's record (``fft_rows_large``, K1b at n <= 65536) takes
+    K1b's launches less the two passes' (``fft_rows_large_two_pass``), so
+    that each record counts its own source's."""
+    if name == "fft_rows_large":
+        return counts["fft_rows_large"] - counts["fft_rows_large_two_pass"]
+    return counts[name]
+
+
 def call_launches(calls) -> dict[str, int]:
     """The launches of row-kernel calls ``(kernel, rows, n)``: one a call of a
     register-resident kernel (n <= 16384), and above it the four-step's own
-    (``<kernel>_large``), two (passes A, B) per chunk of ``scratch_rows(n)``
-    rows (row pairs for the real kernels, whose pass B splits).  Calls with
-    no rows launch nothing."""
+    (``<kernel>_large``): K1b's cluster kernel once a call up to
+    ``CLUSTER_MAX_N``; else two (passes A, B) per chunk of
+    ``scratch_rows(n)`` rows (row pairs for the real kernels, whose pass B
+    splits), K1b's also under ``fft_rows_large_two_pass``.  Calls with no
+    rows launch nothing."""
     out: dict[str, int] = {}
     for name, rows, n in calls:
         if rows == 0:
@@ -1146,8 +1182,14 @@ def call_launches(calls) -> dict[str, int]:
         if n <= MAX_KERNEL_N:
             out[name] = out.get(name, 0) + 1
             continue
+        if name == "fft_rows" and n <= CLUSTER_MAX_N:
+            out["fft_rows_large"] = out.get("fft_rows_large", 0) + 1
+            continue
         units = (rows + 1) // 2 if name.startswith("rfft") else rows
-        out[name + "_large"] = out.get(name + "_large", 0) + 2 * -(-units // scratch_rows(n))
+        launches = 2 * -(-units // scratch_rows(n))
+        out[name + "_large"] = out.get(name + "_large", 0) + launches
+        if name == "fft_rows":
+            out["fft_rows_large_two_pass"] = out.get("fft_rows_large_two_pass", 0) + launches
     return out
 
 
@@ -4273,7 +4315,8 @@ def main() -> None:
     peak = max(peak, mesh_peak)
     paths["dryrun"] = phase_dryrun(card, train_ms, dryrun_got)
     for record in records:
-        by_path = {path: counts[record["name"]] for path, counts in paths.items()}
+        by_path = {path: record_launches(record["name"], counts)
+                   for path, counts in paths.items()}
         record["launches"] = sum(by_path.values())
         record["launches_by_path"] = by_path
     timed("time_runs", time_runs, runs + real_runs + planner_runs, card)

@@ -31,7 +31,9 @@ and ``x.clone()``, then its time at n = 8192 over ``K2_ROW_COUNTS``, where
 the output rows are and are not whole 32-byte sectors apart), or the
 four-step row kernel of long rows alone (every shape of ``LARGE_SHAPES`` in
 both directions against its plain version and ``torch.fft``, then its time
-over ``LARGE_SWEEP`` and at the splits of ``LARGE_SPLITS``), or its fused
+over ``K1B_SWEEP``, the one-pass cluster kernel beside ``CLUSTER_VARIANTS``
+at each of its lengths, each with ``cudaOccupancyMaxActiveClusters``, and
+the two passes at the splits of ``LARGE_SPLITS``), or its fused
 and real siblings alone (K2b, K3b and K4b: every shape of
 ``SIBLING_SHAPES`` against their plain versions and ``torch.fft``, K2b in
 both directions, then their times over ``LARGE_SWEEP`` beside the library
@@ -39,16 +41,18 @@ and ``x.clone()``, and K2b's over ``K2B_ROW_COUNTS``): the run to repeat, in tur
 differ in one change to that kernel.  Every run prints the registers and
 spills per length (and direction, and variant: pass A's packed loads,
 pass B's transposed store, the real pass B's transposed split) of the
-complex row kernels, of the fused real row kernel and of the four-step
-kernels' passes, where it compiles them.
+complex row kernels, of the fused real row kernel, of the four-step
+kernels' passes and of the cluster kernel, where it compiles them.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -68,7 +72,8 @@ from repro_torch.kernels import (_build, fft_rows_op,  # noqa: E402
                                  fft_rows_transpose_op, rfft_rows_op,
                                  rfft_rows_transpose_op, transpose_op)
 from repro_torch.kernels.fft.kernel import fft_rows_plain  # noqa: E402
-from repro_torch.kernels.fft.large import (fft_rows_large_cuda,  # noqa: E402
+from repro_torch.kernels.fft.large import (CLUSTER_LENGTHS,  # noqa: E402
+                                           cluster_plan, fft_rows_large_cuda,
                                            fft_rows_large_plain, large_split)
 from repro_torch.kernels.fft.real import rfft_rows_plain  # noqa: E402
 from repro_torch.kernels.fft.real_large import rfft_rows_large_plain  # noqa: E402
@@ -96,13 +101,16 @@ K2_ROW_COUNTS = [4096, 4097, 4098, 4100, 8192, 8193, 8194, 8196]
 REAL_SHAPES = ([(rows, 1 << e) for e in range(1, 15)
                 for rows in (37, max(2, (1 << 20) >> e))]
                + [(1, 2), (1023, 8192), (258, 4096), (258, 8192), (259, 16384)])
-# The four-step kernel of long rows: every length from 2^15 to its top 2^28,
-# at row counts that give one and several chunks of scratch (2^27 elements).
-LARGE_SHAPES = [(3, 1 << 15), (2048, 1 << 15), (5000, 1 << 15), (512, 1 << 17),
+# K1b: every length from 2^15 to its top 2^28; the cluster kernel's two
+# lengths at odd and even row counts, the two passes' at row counts that give
+# one and several chunks of scratch (2^27 elements).
+LARGE_SHAPES = [(3, 1 << 15), (2048, 1 << 15), (5000, 1 << 15), (3, 1 << 16),
+                (1023, 1 << 16), (512, 1 << 17),
                 (7, 1 << 18), (3, 1 << 19), (2, 1 << 20), (129, 1 << 20),
                 (2, 1 << 21), (1, 1 << 22), (1, 1 << 23), (1, 1 << 24), (3, 1 << 25),
                 (1, 1 << 26), (1, 1 << 27), (1, 1 << 28)]
 LARGE_SWEEP = [1 << 15, 1 << 17, 1 << 20, 1 << 24]
+K1B_SWEEP = [1 << 15, 1 << 16, 1 << 17, 1 << 20, 1 << 24]
 # K2b, K3b and K4b: every length from 2^15 to 2^28; at 2^15 an odd row count,
 # one chunk of scratch with a ragged last one beside it (2049: K2b's odd
 # output rows) and three chunks of K2b's with an odd last (8193).
@@ -116,9 +124,44 @@ SIBLING_SOURCES = ("fft_rows_transpose_large.cu", "rfft_rows_large.cu",
 # a multiple of 4 puts each output row a whole number of 32-byte sectors
 # after the last; 16385 is phase 2 of a fused rfft-* plan at N = 32768.
 K2B_ROW_COUNTS = [16384, 16385, 16386, 16388]
-# (n, n1) pairs timed against the default split of n.
-LARGE_SPLITS = [(1 << 15, 256), (1 << 17, 512), (1 << 20, 512), (1 << 20, 2048),
+# (n, n1) pairs of the two passes timed against the default split of n.
+LARGE_SPLITS = [(1 << 17, 512), (1 << 20, 512), (1 << 20, 2048),
                 (1 << 24, 2048), (1 << 24, 8192), (1 << 24, 16384)]
+# Variants of the cluster kernel (``csrc/fourstep_cluster.cuh``), built out
+# of the library from a copy of its headers: name -> (n, n1, CTAs a cluster,
+# edits of the header).  ``rule`` is the library's shape, unedited, called
+# as the others are (``fft_rows_op`` adds its host-side checks); the other
+# cluster sizes and splits are the sweep that chose
+# ``csrc/fft_rows_cluster.cu``'s shape; the rule with its remote stores made
+# local, its twiddles left out or taken two sincospif a point
+# (``fourstep.cuh``'s ``twiddle``) says where its time goes (those three
+# compute a wrong result on purpose).
+_TWIDDLES = "column_twiddles<INV>(v, t, G1, j2, LOG2N);"
+_VARIANT_EDITS = {
+    "rule": [],
+    "local_stores": [("cluster.map_shared_rank(smem, o)", "smem")],
+    "no_twiddle": [(_TWIDDLES, "")],
+    "twiddle_per_point": [(_TWIDDLES, "for (int k = 0; k < 16; ++k) v[k] = cmul(v[k], "
+                                      "twiddle<INV>((long long)(t + k * G1) * j2, LOG2N));")],
+}
+CLUSTER_VARIANTS = {
+    **{f"{n}:{n1}x{ctas}": (n, n1, ctas, []) for n, n1, ctas in (
+        (1 << 15, 128, 4), (1 << 15, 128, 2), (1 << 15, 64, 8),
+        (1 << 16, 256, 4), (1 << 16, 128, 8))},
+    **{f"{n}:{name}": (n, cluster_plan(n)[0], cluster_plan(n)[2], edits)
+       for n in CLUSTER_LENGTHS for name, edits in _VARIANT_EDITS.items()},
+}
+_VARIANT_ENTRIES = """#include "fourstep_cluster.cuh"
+extern "C" int variant_launch(const void* in, void* out, long long rows, int inverse,
+                              void* stream) {{
+    return inverse ? launch_cluster<{0}, {1}, {2}, true>(in, out, rows, (cudaStream_t)stream)
+                   : launch_cluster<{0}, {1}, {2}, false>(in, out, rows, (cudaStream_t)stream);
+}}
+extern "C" int variant_occupancy(int inverse) {{
+    return inverse ? cluster_occupancy<{0}, {1}, {2}, true>()
+                   : cluster_occupancy<{0}, {1}, {2}, false>();
+}}
+"""
 TRANSPOSE_SHAPES = [(1, 1), (37, 129), (1000, 3), (257, 4099)]
 TRANSPOSE_DTYPES = [torch.uint8, torch.float16, torch.float32, torch.complex64,
                     torch.complex128]
@@ -155,6 +198,13 @@ def kernel_registers(ptxas: str, kernel: str) -> list[dict]:
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '\S*?\d%s_kernelI(?:Li(\d+)E)?((?:L[bi]\d+E)*)"
                       % kernel, line)
+        if m and kernel == "cluster":   # <log2 n1, log2 n2, log2 C, inverse>
+            e1, e2, ec, inv = [int(m.group(1))] + [
+                int(f) for f in re.findall(r"L[bi](\d+)E", m.group(2))]
+            current = {"n": 1 << (e1 + e2), "n1": 1 << e1, "ctas": 1 << ec,
+                       "direction": "inverse" if inv else "forward"}
+            out.append(current)
+            continue
         if m:
             flags = [int(f) for f in re.findall(r"L[bi](\d+)E", m.group(2))]
             current = {}
@@ -176,17 +226,116 @@ def kernel_registers(ptxas: str, kernel: str) -> list[dict]:
             current["registers"] = int(m.group(1))
             current = None
     return sorted(out, key=lambda r: (r.get("direction", ""), r.get("flags", []),
-                                      r.get("n", 0)))
+                                      r.get("n", 0), r.get("n1", 0), r.get("ctas", 0)))
 
 
 # The kernels whose registers and spills a run prints, by source.
 REGISTERS = {"fft_rows.cu": ("fft_rows",),
              "rfft_rows_transpose.cu": ("rfft_rows_transpose",),
              "fft_rows_transpose.cu": ("fft_rows_transpose",),
+             "fft_rows_cluster.cu": ("cluster",),
              "fft_rows_large.cu": ("columns", "rows_transpose"),
              "fft_rows_transpose_large.cu": ("columns", "rows_transpose"),
              "rfft_rows_large.cu": ("columns", "rows_split"),
              "rfft_rows_transpose_large.cu": ("columns", "rows_split")}
+
+
+def start_cluster_variants() -> dict:
+    """Start one ``nvcc`` a ``CLUSTER_VARIANTS`` entry, each on a copy of the
+    headers under ``build/cluster_variants/<name>`` with its edits and a
+    source of two entries (``variant_launch``, ``variant_occupancy``) at its
+    shape; returns name -> (library path, process)."""
+    root = _build.build_root() / "cluster_variants"
+    shutil.rmtree(root, ignore_errors=True)
+    nvcc = _build._find_nvcc()
+    started = {}
+    for name, (n, n1, ctas, edits) in CLUSTER_VARIANTS.items():
+        src = root / name.replace(":", "_")
+        src.mkdir(parents=True)
+        for header in _build.source_files():
+            if header.suffix == ".cuh":
+                shutil.copy(header, src / header.name)
+        text = (src / "fourstep_cluster.cuh").read_text()
+        for old, new in edits:
+            if old not in text:
+                sys.exit(f"cluster variant {name}: {old!r} not in fourstep_cluster.cuh")
+            text = text.replace(old, new)
+        (src / "fourstep_cluster.cuh").write_text(text)
+        log2n1 = n1.bit_length() - 1
+        (src / "variant.cu").write_text(_VARIANT_ENTRIES.format(
+            log2n1, n.bit_length() - 1 - log2n1, ctas.bit_length() - 1))
+        lib = src / "variant.so"
+        started[name] = (lib, subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-shared", str(src / "variant.cu"), "-o", str(lib)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return started
+
+
+def load_cluster_variants(started: dict) -> dict:
+    """Wait for ``start_cluster_variants``' builds and bind each library:
+    name -> (launch, occupancy)."""
+    bound = {}
+    for name, (lib, proc) in started.items():
+        output, _ = proc.communicate()
+        if proc.returncode != 0:
+            sys.exit(f"cluster variant {name}: nvcc failed\n{output}")
+        dll = ctypes.CDLL(str(lib))
+        dll.variant_launch.restype = dll.variant_occupancy.restype = ctypes.c_int
+        dll.variant_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                                       ctypes.c_int, ctypes.c_void_p]
+        dll.variant_occupancy.argtypes = [ctypes.c_int]
+        bound[name] = (dll.variant_launch, dll.variant_occupancy)
+    return bound
+
+
+def time_cluster_variants(card: str, variants: dict, gen: torch.Generator) -> None:
+    """At each length of the cluster kernel, 2^26 elements: the kernel
+    (``fft_rows_op``) and every variant of that length timed forward in
+    turns, twice (the second round in reverse order), median of 20 each,
+    beside ``torch.fft.fft``; each with its active clusters and its error
+    against the library, the sweep's shapes checked both ways."""
+    stream = torch.cuda.current_stream().cuda_stream
+    for n in CLUSTER_LENGTHS:
+        rows = SWEEP_ELEMENTS // n
+        x = torch.complex(torch.randn(rows, n, generator=gen, device="cuda"),
+                          torch.randn(rows, n, generator=gen, device="cuda"))
+        lib = {inv: torch.fft.ifft(x) if inv else torch.fft.fft(x) for inv in (False, True)}
+        out = torch.empty_like(x)
+        names = ["kernel"] + [name for name in variants if CLUSTER_VARIANTS[name][0] == n]
+
+        def call(name, inverse=False):
+            if name == "kernel":
+                return fft_rows_op(x, inverse=inverse)
+            err = variants[name][0](x.data_ptr(), out.data_ptr(), rows, int(inverse), stream)
+            if err != 0:
+                sys.exit(f"cluster variant {name}: CUDA error {err}")
+            return out
+
+        ms = {name: [] for name in names}
+        for order in (names, names[::-1]):
+            for name in order:
+                ms[name].append(time_ms(lambda: call(name), reps=20))
+        n1, n2, ctas, threads, smem = cluster_plan(n)
+        for name in names:
+            shape = (n1, ctas) if name == "kernel" else CLUSTER_VARIANTS[name][1:3]
+            edited = name != "kernel" and bool(CLUSTER_VARIANTS[name][3])
+            errs = {}
+            for inverse in ((False,) if edited else (False, True)):
+                got = call(name, inverse)
+                torch.cuda.synchronize()
+                key = ("inverse" if inverse else "forward") + "_vs_library"
+                errs[key] = float((got - lib[inverse]).abs().max())
+                if not edited and errs[key] > 1e-3 * n ** 0.5 / (n if inverse else 1):
+                    sys.exit(f"cluster kernel {name} disagrees at n={n}: {errs}")
+            # ``kernel`` runs the rule's shape: its clusters are the rule's.
+            active = variants[f"{n}:rule" if name == "kernel" else name][1](0)
+            print(json.dumps({
+                "card": card, "rows": rows, "n": n, "variant": name, "n1": shape[0],
+                "n2": n // shape[0], "ctas": shape[1], "edited": edited,
+                "active_clusters": active, "ms": ms[name],
+                "torch_fft_ms": time_ms(lambda: torch.fft.fft(x), reps=20), **errs}),
+                flush=True)
+        del x, lib, out
 
 
 def compile_sources(needed: tuple[str, ...] | None) -> str:
@@ -317,11 +466,12 @@ def main() -> None:
     run_k1 = not (only_k3 or only_k4 or only_k2 or only_k1b)
     run_k2 = not (only_k3 or only_k4 or only_k1 or only_k1b)
     run_k1b = not (only_k3 or only_k4 or only_k1 or only_k2)
-    # The one source a kernel-alone mode compiles (the others: every source).
-    needed = ("fft_rows.cu" if only_k1 else "rfft_rows_transpose.cu" if only_k4
-              else "fft_rows_transpose.cu" if only_k2
-              else "fft_rows_large.cu" if only_k1b else None)
-    card = compile_sources(None if needed is None else (needed,))
+    # The sources a kernel-alone mode compiles (the others: every source).
+    needed = (("fft_rows.cu",) if only_k1 else ("rfft_rows_transpose.cu",) if only_k4
+              else ("fft_rows_transpose.cu",) if only_k2
+              else ("fft_rows_cluster.cu", "fft_rows_large.cu") if only_k1b else None)
+    variant_builds = start_cluster_variants() if only_k1b else None
+    card = compile_sources(needed)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -372,15 +522,18 @@ def main() -> None:
                 sys.exit(f"four-step row kernel disagrees: {errs} > {tol}")
         del x
     if only_k1b:
-        for n in LARGE_SWEEP:
+        for n in K1B_SWEEP:
             x = torch.randn(SWEEP_ELEMENTS // n, n, dtype=torch.complex64, device="cuda")
             print(json.dumps({
                 "card": card, "rows": x.shape[0], "n": n, "split": large_split(n),
+                "design": "cluster" if n in CLUSTER_LENGTHS else "two_pass",
                 "fft_rows_large_ms": time_ms(lambda: fft_rows_op(x)),
                 "fft_rows_large_inverse_ms": time_ms(lambda: fft_rows_op(x, inverse=True)),
                 "torch_fft_ms": time_ms(lambda: torch.fft.fft(x)),
-                "clone_ms": time_ms(lambda: x.clone())}), flush=True)
+                "clone_ms": time_ms(lambda: x.clone()),
+                "bound_ms": 2 * SWEEP_ELEMENTS * 8 / 3.35e12 * 1e3}), flush=True)
             del x
+        time_cluster_variants(card, load_cluster_variants(variant_builds), gen)
         for n, n1 in LARGE_SPLITS:
             x = torch.randn(SWEEP_ELEMENTS // n, n, dtype=torch.complex64, device="cuda")
             want = torch.fft.fft(x)

@@ -35,8 +35,12 @@ _COUNTED = {"fft_rows": _fft_kernel, "fft_rows_large": _large_kernel,
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches since the last reset, by kernel name."""
-    return {name: module.launch_count() for name, module in _COUNTED.items()}
+    """Kernel launches since the last reset, by kernel name;
+    ``fft_rows_large_two_pass`` is the share of ``fft_rows_large`` that ran
+    the two passes (n > 65536) instead of the cluster kernel."""
+    counts = {name: module.launch_count() for name, module in _COUNTED.items()}
+    counts["fft_rows_large_two_pass"] = _large_kernel.two_pass_launch_count()
+    return counts
 
 
 def reset_launch_counts() -> None:

@@ -41,8 +41,11 @@ _FUNCTIONS = {"repro_fft_rows": _COMPLEX_ROWS,
               "repro_fft_rows_transpose": _COMPLEX_ROWS,
               "repro_rfft_rows": _REAL_ROWS,
               "repro_rfft_rows_transpose": _REAL_ROWS,
+              # (in, out, rows, n, inverse, stream): K1b at n <= 65536, one
+              # launch over clusters
+              "repro_fft_rows_cluster": (_INT, [_PTR, _PTR, _LL, _INT, _INT, _PTR]),
               # (in, out, scratch, rows, n1, n2, inverse, rows_per_cta,
-              # threads, stream): K1b, two launches
+              # threads, stream): K1b above 65536, two launches
               "repro_fft_rows_large": (_INT, [_PTR, _PTR, _PTR, _LL, _INT, _INT, _INT,
                                               _INT, _INT, _PTR]),
               # (in, out, scratch, rows, n1, n2, inverse, out_stride,

@@ -1,0 +1,234 @@
+// The one-pass four-step row FFT over a thread-block cluster for Hopper
+// (sm_90a): K1b at n = 32768 and 65536 (fft_rows_cluster.cu), where a whole
+// row of n complex64 (256 or 512 KiB) fits in the distributed shared memory
+// of a cluster of C <= 8 CTAs.  It computes the four-step of fourstep.cuh,
+//   X[k1 + n1*k2] = sum_j2 w_n2^(j2*k2) * w_n^(k1*j2) * sum_j1 w_n1^(j1*k1) * A[j1][j2],
+// with A[j1][j2] = x[j1*n2 + j2], in one launch: B never leaves the chip.
+//
+// Cluster s holds signal row s; rank r of it, T = n/(16C) threads:
+// - Column phase: loads columns j2 in [r*COLS, (r + 1)*COLS), COLS = n2/C,
+//   thread t*COLS + c holding A[t + k*G1][j2 = r*COLS + c], k < 16 (G1 =
+//   n1/16 threads a column).  With the columns fastest a warp loads 32
+//   adjacent elements of one row of the view: 256 contiguous bytes (COLS >=
+//   32).  It runs the length-n1 DFT down each column with regfft.cuh's
+//   passes, the columns interleaved in the exchange buffer (element f of
+//   column c at f*COLS + c: a half-warp touches 16 consecutive slots), and
+//   multiplies by the twiddle w_n^(k1*j2) (column_twiddles).
+// - Exchange: B[k1][j2] goes to rank k1 / W (W = n1/C rows of B a rank),
+//   local row rho = k1 % W, slot rho*n2 + j2, by a store through
+//   distributed shared memory (map_shared_rank).  k1 = t + k*G1 and W =
+//   (16/C)*G1 make the owner k / (16/C), the same for every thread at step
+//   k: each thread sends 16/C points to each rank, and a warp's store is 256
+//   contiguous bytes of one row of the owner's slab.
+// - Row phase: after the cluster barrier, rank r loads its W rows of B from
+//   its own slab and runs regfft's length-n2 DFT on each, thread rho*G2 + t2
+//   holding B[rho][t2 + k*G2] (G2 = n2/16 >= 16: a half-warp loads 16
+//   consecutive slots), the exchanges in the same buffer (every load
+//   precedes the passes' first barrier).
+// - Store: bin k2 of local row rho is out[s*n + k2*n1 + r*W + rho], so for
+//   each k2 the rank writes a run of W consecutive elements (whole sectors:
+//   W >= 4).  The results go through the buffer in tstore.cuh's swizzled
+//   layout (slot of k2*W + rho), and the store reads it back with rho
+//   fastest: a warp writes 32/W such runs, or one run of 256 bytes.
+//
+// One buffer a CTA serves the column exchange, the slab, the row exchange
+// and the store's staging: (n/C)*17/16 float2.  Two cluster barriers order
+// it: the first after the column phase (every rank is done with its column
+// exchange, and every CTA of the cluster has started, before any remote
+// store), the second after the exchange (every slab is whole).  After it no
+// CTA touches another's memory, so none waits for the others at the end.
+// tests/_torch_parity.py::k1b_cluster_model checks every index above (each
+// element loaded, sent, read and stored once; whole sectors; no bank
+// conflict) at the shape fft_rows_cluster.cu launches.
+//
+// Bound on this card: bytes, the function's own: each element is read once
+// from device memory and written once.  What the design does about the
+// rest: the column and row exchanges and the staging stay in shared memory,
+// (C - 1)/C of the points cross the SM-to-SM network once, in 256-byte runs
+// (32-byte runs, regfft's own column layout, cost a measurable share of the
+// time), and the twiddles take five sincospif a thread (two a point cost
+// more than a whole regfft pass).
+//
+// Everything here has internal linkage (the library is built without -rdc).
+
+#pragma once
+
+#include "fourstep.cuh"
+
+namespace {
+
+// The launch shape of the one-pass kernel for n = 2^LOG2N1 * 2^LOG2N2 over a
+// cluster of 2^LOG2C CTAs (mirrored by kernels/fft/large.py::cluster_plan).
+template <int LOG2N1, int LOG2N2, int LOG2C>
+struct ClusterPlan {
+    static constexpr int N1 = 1 << LOG2N1, N2 = 1 << LOG2N2, C = 1 << LOG2C;
+    static constexpr int G1 = Plan<LOG2N1>::GROUP;    // threads a column
+    static constexpr int G2 = Plan<LOG2N2>::GROUP;    // threads a row
+    static constexpr int COLS = N2 / C;               // columns a rank loads
+    static constexpr int LOG2W = LOG2N1 - LOG2C;
+    static constexpr int W = 1 << LOG2W;              // rows of B a rank owns
+    static constexpr int PER_RANK = 16 / C;           // points a thread sends a rank
+    static constexpr int THREADS = COLS * G1;
+    static constexpr int MIN_BLOCKS = 65536 / (THREADS * 64);
+    static constexpr long long ELEMS = repro::regfft::exchange_elems(W, N2);
+    static_assert(Plan<LOG2N1>::POINTS == 16 && Plan<LOG2N2>::POINTS == 16,
+                  "16 points a thread in both phases");
+    static_assert(THREADS == W * G2 && THREADS <= 1024, "one thread count for both phases");
+    static_assert(C >= 2 && C <= 8, "a portable cluster");
+    static_assert(COLS >= 32 && W >= 4,
+                  "a warp's loads and remote stores 256 contiguous bytes; its stores whole sectors");
+    static_assert(G2 >= 16, "the row phase's loads: 16 consecutive j2 a half-warp");
+};
+
+// The length-N1 DFT down column c of COLS columns, regfft.cuh's
+// radix16_passes and fft_row with the columns interleaved in the buffer:
+// element f of column c at f*COLS + c, so that a half-warp (16 consecutive
+// c, one t) reads and writes 16 consecutive slots.  (regfft's layout, rows
+// side by side with a float2 of padding per 16, puts those 16 columns
+// n1*17/16 slots apart: on 4, 2 or 1 of the 16 banks at n1 = 64, 128, 256.)
+// In: v[k] = A[t + k*G][c].  Out: v[k] = Y[t + k*G][c], scaled by 1/N1 when
+// INV.
+template <int LOG2N1, int COLS, bool INV>
+__device__ __forceinline__ void column_fft(float2 (&v)[16], float2* buf, int c, int t) {
+    using P = Plan<LOG2N1>;
+    constexpr int G = P::GROUP;
+#pragma unroll
+    for (int pass = 0; pass < P::RADIX16_PASSES; ++pass) {
+        repro::regfft::dft16<INV>(v);
+        if (pass == P::RADIX16_PASSES - 1 && P::TAIL_LOG2 == 0) break;
+        const int log2s = 4 * pass;
+        const int j = t >> log2s;
+        const int q = t & ((1 << log2s) - 1);
+        repro::regfft::twiddle16<INV>(v, j, LOG2N1 - log2s);
+        const int f0 = ((j << 4) << log2s) + q;
+        __syncthreads();  // the previous exchange's reads are done
+#pragma unroll
+        for (int u = 0; u < 16; ++u) buf[(f0 + (u << log2s)) * COLS + c] = v[u];
+        __syncthreads();
+#pragma unroll
+        for (int k = 0; k < 16; ++k) v[k] = buf[(t + k * G) * COLS + c];
+    }
+    if constexpr (P::TAIL_LOG2 > 0) {
+        constexpr int r = 1 << P::TAIL_LOG2;
+        constexpr int B = 16 / r;
+#pragma unroll
+        for (int b = 0; b < B; ++b) {
+            float2 w[r];
+#pragma unroll
+            for (int u = 0; u < r; ++u) w[u] = v[b + u * B];
+            repro::regfft::dft<r, INV>(w);
+#pragma unroll
+            for (int u = 0; u < r; ++u) v[b + u * B] = w[u];
+        }
+    }
+    if constexpr (INV) {
+#pragma unroll
+        for (int k = 0; k < 16; ++k) v[k] = repro::cscale(v[k], 1.0f / (float)P::N);
+    }
+}
+
+// v[k] *= w_n^(k1*j2), k1 = t + k*g, n = 2^log2n <= 2^16.  With k = 4*kh +
+// kl: w^(k1*j2) = h_kh * b^kl, h_kh = w^((t + 4*kh*g)*j2) and b = w^(g*j2),
+// each from sincospif of an exact argument (the exponents are integers below
+// n), b^kl by running products: five sincospif a thread, where
+// twiddle<INV> would take two a point, and good to a few ulps.
+template <bool INV>
+__device__ __forceinline__ void column_twiddles(float2 (&v)[16], int t, int g, int j2,
+                                                int log2n) {
+    const float step = (INV ? 1.0f : -1.0f) * exp2i(1 - log2n);   // sign * 2/n
+    float sn, cs;
+    sincospif((float)(g * j2) * step, &sn, &cs);
+    const float2 b = make_float2(cs, sn);
+#pragma unroll
+    for (int kh = 0; kh < 4; ++kh) {
+        sincospif((float)((t + 4 * kh * g) * j2) * step, &sn, &cs);
+        float2 w = make_float2(cs, sn);
+#pragma unroll
+        for (int kl = 0; kl < 4; ++kl) {
+            v[4 * kh + kl] = cmul(v[4 * kh + kl], w);
+            if (kl < 3) w = cmul(w, b);
+        }
+    }
+}
+
+// blockIdx.x = s*C + r: rank r of the cluster of signal row s.
+template <int LOG2N1, int LOG2N2, int LOG2C, bool INV>
+__global__ void __launch_bounds__(ClusterPlan<LOG2N1, LOG2N2, LOG2C>::THREADS,
+                                  ClusterPlan<LOG2N1, LOG2N2, LOG2C>::MIN_BLOCKS)
+cluster_kernel(const float2* __restrict__ in, float2* __restrict__ out) {
+    using CP = ClusterPlan<LOG2N1, LOG2N2, LOG2C>;
+    constexpr int LOG2N = LOG2N1 + LOG2N2;
+    constexpr int N1 = CP::N1, N2 = CP::N2, G1 = CP::G1, G2 = CP::G2, W = CP::W;
+    constexpr int COLS = CP::COLS;
+    extern __shared__ float2 smem[];
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank();
+    const long long s = (long long)blockIdx.x >> LOG2C;
+
+    // Column phase: thread t*COLS + c holds A[t + k*G1][j2], j2 = rank*COLS + c.
+    const int c = threadIdx.x % COLS, t = threadIdx.x / COLS;
+    const int j2 = rank * COLS + c;
+    const float2* x = in + (s << LOG2N) + t * N2 + j2;
+    float2 v[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) v[k] = x[k * G1 * N2];
+    column_fft<LOG2N1, COLS, INV>(v, smem, c, t);
+    column_twiddles<INV>(v, t, G1, j2, LOG2N);
+    cluster.sync();  // column exchanges done, every CTA of the cluster running
+
+    // Exchange: point k, B[t + k*G1][j2], to rank k / PER_RANK, its row
+    // t + (k % PER_RANK)*G1 at offset row*N2 + j2: a warp stores 32
+    // consecutive j2 of one row.
+#pragma unroll
+    for (int o = 0; o < CP::C; ++o) {
+        float2* slab = cluster.map_shared_rank(smem, o);
+#pragma unroll
+        for (int i = 0; i < CP::PER_RANK; ++i)
+            slab[(t + i * G1) * N2 + j2] = v[o * CP::PER_RANK + i];
+    }
+    cluster.sync();  // every slab whole
+
+    // Row phase: local row rho is k1 = rank*W + rho.
+    const int rho = threadIdx.x / G2, t2 = threadIdx.x % G2;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) v[k] = smem[rho * N2 + t2 + k * G2];
+    repro::regfft::fft_row<LOG2N2, INV>(v, smem, rho * N2, t2);
+
+    // Store: bin k2 of row rho to out[s*n + k2*n1 + rank*W + rho], staged
+    // so that the store runs over rho.
+    const Swizzle<LOG2N2> slot(CP::LOG2W);
+    __syncthreads();  // the last exchange's reads are done
+#pragma unroll
+    for (int k = 0; k < 16; ++k) smem[slot(((t2 + k * G2) << CP::LOG2W) + rho)] = v[k];
+    __syncthreads();
+    float2* o = out + (s << LOG2N) + rank * W;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+        const int idx = threadIdx.x + k * CP::THREADS;
+        const int q = idx & (W - 1), k2 = idx >> CP::LOG2W;
+        o[k2 * N1 + q] = smem[slot(idx)];
+    }
+}
+
+// Clusters of this shape the card can hold at once: set by the first launch
+// (tstore::launch), 0 before.
+template <int LOG2N1, int LOG2N2, int LOG2C, bool INV>
+int& cluster_occupancy() {
+    static int active = 0;
+    return active;
+}
+
+template <int LOG2N1, int LOG2N2, int LOG2C, bool INV>
+int launch_cluster(const void* in, void* out, long long rows, cudaStream_t stream) {
+    using CP = ClusterPlan<LOG2N1, LOG2N2, LOG2C>;
+    auto kernel = cluster_kernel<LOG2N1, LOG2N2, LOG2C, INV>;
+    static int configured_smem = 48 * 1024;
+    const long long smem = (long long)sizeof(float2) * CP::ELEMS;
+    int err = repro::allow_dynamic_smem(kernel, &configured_smem, (int)smem);
+    if (err != 0) return err;
+    return repro::tstore::launch<CP::C>(kernel, rows << LOG2C, CP::THREADS, smem, stream,
+                                        &cluster_occupancy<LOG2N1, LOG2N2, LOG2C, INV>(),
+                                        (const float2*)in, (float2*)out);
+}
+
+}  // namespace

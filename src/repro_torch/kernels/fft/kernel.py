@@ -21,7 +21,8 @@ their passes (radix 16, then one radix-2^r pass, on the same ``(ncur, s)``
 view) and launch shape depend only on ``n`` and the row count, and
 ``complex_rows_plan`` mirrors their instantiation table, n = 2 ... 16384.
 Longer rows, up to ``MAX_LARGE_N``, go to the four-step kernels: K1b
-(``kernels.fft.large``, ``csrc/fft_rows_large.cu``) and its fused and real
+(``kernels.fft.large``: ``csrc/fft_rows_cluster.cu`` at n <= 65536,
+``csrc/fft_rows_large.cu`` above) and its fused and real
 siblings K2b-K4b.  ``radix``
 is validated, as in the reference, and chooses the plain version's stage
 loop only.

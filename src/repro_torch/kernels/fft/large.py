@@ -1,5 +1,6 @@
 """The complex row FFT of long rows, K1b: the plain PyTorch version, the
-launch plan and the launcher of the CUDA kernel ``csrc/fft_rows_large.cu``.
+launch plans and the launcher of the CUDA kernels ``csrc/fft_rows_cluster.cu``
+(n <= ``CLUSTER_MAX_N``) and ``csrc/fft_rows_large.cu`` (above).
 
 Counterpart of ``repro.kernels.fft.kernel.fft_rows_pallas`` at the lengths
 the register-resident K1 (``kernels.fft.kernel``, n <= ``MAX_KERNEL_N``)
@@ -9,22 +10,31 @@ The four-step: with n = n1 * n2 (``large_split``) and row r viewed as
 
     X[k1 + n1*k2] = sum_j2 w_n2^(j2*k2) * w_n^(k1*j2) * sum_j1 w_n1^(j1*k1) * A[j1][j2]
 
-pass A runs the length-n1 DFTs down the columns of A and multiplies by the
-twiddle ``w_n^(k1*j2)`` (``large_twiddle``), writing B in A's layout to a
-scratch buffer; pass B runs the length-n2 DFTs along the rows of B and
-stores them transposed, ``out[k1 + n1*k2]`` (K2's function on each row's
-(n1, n2) matrix).  The inverse conjugates the twiddles, and its 1/n1 and 1/n2
-scales make 1/n.
+At n = 32768 and 65536 (``CLUSTER_LENGTHS``) one kernel,
+``csrc/fft_rows_cluster.cu``, computes it in one launch: a thread-block
+cluster of C = ``CLUSTER_CTAS`` CTAs a row, rank r running the length-n1 DFTs of its n2/C
+columns, multiplying by the twiddle ``w_n^(k1*j2)`` (five sincospif a thread
+and running products, to a few float32 ulps of ``large_twiddle``'s) and
+sending each B[k1][j2] to the shared memory of the rank that owns row k1,
+then the length-n2 DFTs of its n1/C rows of B and the transposed store
+``out[k1 + n1*k2]`` (``cluster_plan`` mirrors its shape).  Above 65536 the
+two passes of ``csrc/fft_rows_large.cu`` do it: pass A runs the column DFTs
+and the twiddle, writing B in A's layout to a scratch buffer in device
+memory; pass B runs the row DFTs and stores them transposed (K2's function
+on each row's (n1, n2) matrix).  The inverse conjugates the twiddles, and
+its 1/n1 and 1/n2 scales make 1/n.
 
 Its fused and real siblings K2b, K3b, K4b (``kernels.fused.large``,
-``kernels.fft.real_large``, ``kernels.fused.real_large``) run the same
-passes (``csrc/fourstep.cuh``) and reuse ``_columns_pass``, ``_rows_pass``
-and the chunking here.
+``kernels.fft.real_large``, ``kernels.fused.real_large``) run the same two
+passes (``csrc/fourstep.cuh``) at every length and reuse ``_columns_pass``,
+``_rows_pass`` and the chunking here.
 
-Scratch: a call allocates ``torch.empty`` of at most ``SCRATCH_ELEMS``
-complex64 elements (1 GiB), or of one row where a row alone is larger (2 GiB
-at n = 2^28), and walks the rows in chunks of that many.  ``launch_count``
-counts every CUDA launch: two per chunk, pass A and pass B.
+Scratch (the two passes only): a call allocates ``torch.empty`` of at most
+``SCRATCH_ELEMS`` complex64 elements (1 GiB), or of one row where a row alone
+is larger (2 GiB at n = 2^28), and walks the rows in chunks of that many.
+``launch_count`` counts every CUDA launch: one a call of the cluster kernel,
+two a chunk of the two passes (pass A and pass B); ``two_pass_launch_count``
+the latter alone.
 """
 
 from __future__ import annotations
@@ -37,9 +47,12 @@ from repro_torch.kernels.fft.kernel import (_CTA_THREADS, _POINTS, MAX_KERNEL_N,
                                             check_kernel_input, complex_rows_plan,
                                             launch, stockham_planes_radix4)
 
-__all__ = ["MIN_FACTOR", "SCRATCH_ELEMS", "columns_plan", "fft_rows_large_cuda",
-           "fft_rows_large_plain", "kernel_split", "large_split", "large_twiddle",
-           "launch_count", "reset_launch_count", "scratch_capacity", "scratch_rows"]
+__all__ = ["CLUSTER_CTAS", "CLUSTER_LENGTHS", "CLUSTER_MAX_N", "MIN_FACTOR",
+           "SCRATCH_ELEMS", "cluster_plan", "columns_plan",
+           "fft_rows_cluster_cuda", "fft_rows_large_cuda", "fft_rows_large_plain",
+           "kernel_split", "large_split", "large_twiddle", "launch_count",
+           "reset_launch_count", "scratch_capacity", "scratch_rows",
+           "two_pass_launch_count"]
 
 # The kernel's factors n1 and n2 lie in [MIN_FACTOR, MAX_KERNEL_N]
 # (``kMinLog2`` and ``kMaxLog2`` of ``csrc/fft_rows_large.cu``).
@@ -47,18 +60,31 @@ MIN_FACTOR = 128
 # Complex64 elements of scratch a call allocates at most (1 GiB), unless one
 # row alone is longer.
 SCRATCH_ELEMS = 1 << 27
+# The lengths of the one-pass cluster kernel (``csrc/fft_rows_cluster.cu``)
+# and its CTAs a cluster (``kLog2Ctas`` there).
+CLUSTER_LENGTHS = (1 << 15, 1 << 16)
+CLUSTER_CTAS = 8
+CLUSTER_MAX_N = max(CLUSTER_LENGTHS)
 
 _launches = 0
+_two_pass_launches = 0
 
 
 def launch_count() -> int:
-    """CUDA launches of K1b since the last reset: two per chunk of rows."""
+    """CUDA launches of K1b since the last reset: one a call of the cluster
+    kernel, two a chunk of rows of the two passes."""
     return _launches
 
 
+def two_pass_launch_count() -> int:
+    """The launches of the two passes (above ``CLUSTER_MAX_N``) among
+    ``launch_count``'s."""
+    return _two_pass_launches
+
+
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    global _launches, _two_pass_launches
+    _launches = _two_pass_launches = 0
 
 
 def large_split(n: int, *, n1: int | None = None,
@@ -91,6 +117,23 @@ def columns_plan(n1: int) -> tuple[int, int, int]:
         cols = 1024 // group
     elements = cols * n1
     return cols, cols * group, 8 * (elements + -(-elements // 16))
+
+
+def cluster_plan(n: int) -> tuple[int, int, int, int, int]:
+    """The one-pass kernel's launch shape at ``n`` (``ClusterPlan`` of
+    ``csrc/fourstep_cluster.cuh`` as ``csrc/fft_rows_cluster.cu``
+    instantiates it): ``(n1, n2, ctas, threads, smem_bytes)``, the split
+    ``large_split(n)``'s over ``CLUSTER_CTAS`` CTAs.  A cluster holds one
+    row; each CTA runs n/(16*ctas) threads (16 points each, n2/ctas columns
+    of n1 and then n1/ctas rows of n2) over one buffer of (n/ctas)*17/16
+    complex64."""
+    if n not in CLUSTER_LENGTHS:
+        raise ValueError(f"cluster_plan: no cluster kernel at length {n}; it takes "
+                         f"{list(CLUSTER_LENGTHS)}")
+    n1, n2 = large_split(n)
+    elements = n // CLUSTER_CTAS
+    return (n1, n2, CLUSTER_CTAS, elements // _POINTS,
+            8 * (elements + -(-elements // 16)))
 
 
 def scratch_rows(n: int) -> int:
@@ -171,15 +214,37 @@ def kernel_split(n: int, n1: int | None, name: str) -> tuple[int, int]:
     return n1, n2
 
 
+def fft_rows_cluster_cuda(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:
+    """Launch ``csrc/fft_rows_cluster.cu`` once: (rows, n) complex64 CUDA
+    tensor, n in ``CLUSTER_LENGTHS``, -> its row-wise DFT in the shape
+    ``cluster_plan(n)``.  No scratch.  Does not synchronise."""
+    global _launches
+    rows, n = check_kernel_input(x, "fft_rows_cluster_cuda")
+    cluster_plan(n)
+    out = torch.empty_like(x)
+    if rows == 0:
+        return out
+    launch("repro_fft_rows_cluster", x, out, rows=rows, n=n, inverse=int(inverse))
+    _launches += 1
+    return out
+
+
 def fft_rows_large_cuda(x: torch.Tensor, *, inverse: bool = False,
                         n1: int | None = None) -> torch.Tensor:
-    """Launch ``csrc/fft_rows_large.cu``: (rows, n) complex64 CUDA tensor ->
-    its row-wise DFT, both factors of the split (``large_split``, ``n1``
-    pins it) in [``MIN_FACTOR``, ``MAX_KERNEL_N``]; pass A's shape is
-    ``columns_plan(n1)``, pass B's ``complex_rows_plan(n2, chunk_rows*n1)``.
-    Does not synchronise."""
-    global _launches
+    """K1b on a (rows, n) complex64 CUDA tensor -> its row-wise DFT.  At n <=
+    ``CLUSTER_MAX_N`` one launch of the cluster kernel in its rule's shape
+    (``fft_rows_cluster_cuda``); above, ``csrc/fft_rows_large.cu``'s two
+    passes by chunk of ``scratch_rows(n)`` rows, both factors of the split
+    (``large_split``, ``n1`` pins it) in [``MIN_FACTOR``, ``MAX_KERNEL_N``];
+    pass A's shape is ``columns_plan(n1)``, pass B's
+    ``complex_rows_plan(n2, chunk_rows*n1)``.  Does not synchronise."""
+    global _launches, _two_pass_launches
     rows, n = check_kernel_input(x, "fft_rows_large_cuda")
+    if n <= CLUSTER_MAX_N:
+        if n1 is not None:
+            raise ValueError(f"fft_rows_large_cuda: at n = {n} the cluster kernel runs "
+                             "in the split of cluster_plan(n)")
+        return fft_rows_cluster_cuda(x, inverse=inverse)
     n1, n2 = kernel_split(n, n1, "fft_rows_large_cuda")
     out = torch.empty_like(x)
     if rows == 0:
@@ -193,4 +258,5 @@ def fft_rows_large_cuda(x: torch.Tensor, *, inverse: bool = False,
                scratch=scratch.data_ptr(), rows=r1 - r0, n1=n1, n2=n2,
                inverse=int(inverse), rows_per_cta=rows_per_cta, threads=threads)
         _launches += 2
+        _two_pass_launches += 2
     return out

@@ -428,6 +428,175 @@ def k1b_model(x, n1: int, n2: int, cols: int, plan_b, cluster: int, *,
     return out, reads_a, writes_a, sectors_a, writes_b, runs_b
 
 
+def _warp_sectors_whole(addr: np.ndarray) -> bool:
+    """Whether every warp instruction of ``addr`` (..., T) in complex64
+    elements, T a multiple of 32, touches whole 32-byte sectors (4
+    elements) only: each sector it touches, it touches whole."""
+    lanes = np.sort(addr.reshape(-1, 32), axis=1)
+    sector = lanes // 4
+    count = np.zeros(lanes.shape, np.int64)
+    for i in range(32):
+        count[:, i] = (sector == sector[:, i:i + 1]).sum(1)
+    distinct = (np.diff(lanes, axis=1) != 0).all()
+    return bool(distinct and (count == 4).all())
+
+
+def _half_warp_banks(slots: np.ndarray) -> int:
+    """Worst number of a half-warp's lanes on one bank over ``slots`` (...,
+    T) of float2 slots (16 a row of 32 banks)."""
+    halves = slots.reshape(-1, 16)
+    return _worst_bank_count(halves, np.ones(halves.shape, bool))
+
+
+def k1b_cluster_model(x, n: int, *, rows: int | None = None, inverse: bool = False):
+    """K1b's one-pass kernel over a thread-block cluster
+    (``csrc/fourstep_cluster.cuh``) in float64, thread by thread, in its
+    launch shape ``cluster_plan(n)``: ``x`` the (rows, n)
+    complex rows, or None for the pattern alone (then ``rows``).
+
+    Cluster s, rank r (C ranks, T = n/(16C) threads each, G1 = n1/16, G2 =
+    n2/16, COLS = n2/C, W = n1/C):
+    - Column phase: thread t*COLS + c loads A[t + k*G1][j2], j2 = r*COLS +
+      c, k < 16, from x[s*n + (t + k*G1)*n2 + j2]; the column DFT's
+      exchanges (regfft's passes) put element f of column c at f*COLS + c;
+      then Y[k1][j2] times the exact twiddle w_n^(k1*j2), k1 = t + k*G1.
+    - Exchange: point k goes to rank k // (16/C), slab slot rho*n2 + j2,
+      rho = t + (k % (16/C))*G1.
+    - Row phase: thread rho*G2 + t2 loads slot rho*n2 + t2 + k*G2 of its own
+      slab, B[r*W + rho][t2 + k*G2], and runs the length-n2 DFT (its
+      exchanges are regfft's, ``kernel_pass_model``).
+    - Store: bin k2 = t2 + k*G2 of row rho to slot ``k4_slot(k2*W + rho)``
+      (tstore.cuh's swizzle for W rows of n2), read back at idx = tid + k*T
+      (q = idx % W, k2 = idx // W) and written to out[s*n + k2*n1 + r*W + q].
+
+    Returns a dict: ``out`` the (rows, n) result (None without ``x``);
+    ``reads`` how often each input element was loaded; ``slab_writes`` how
+    often each (cluster, rank, slot) of the W*n2 slab slots was written,
+    ``owner_ok`` whether every point went to the rank and row that hold its
+    k1, ``slab_reads`` how often the row phase loaded each slot;
+    ``writes`` how often each output element was stored; ``worst_bank``
+    the worst count of a half-warp's lanes on one bank over the column
+    exchanges, the remote stores, the row phase's loads, and the staging's
+    writes and reads; ``loads_whole`` / ``stores_whole`` whether every warp
+    instruction of the loads, of the remote stores and of the output stores
+    touches whole 32-byte sectors; ``store_runs`` the bytes of each run of
+    consecutive output elements a warp instruction writes."""
+    from repro_torch.kernels.fft.large import cluster_plan
+
+    n1, n2, ctas, threads, smem = cluster_plan(n)
+    rows = x.shape[0] if x is not None else rows
+    g1, g2, cols, w, per = n1 // 16, n2 // 16, n2 // ctas, n1 // ctas, 16 // ctas
+    log2w = w.bit_length() - 1
+    assert threads == cols * g1 == w * g2 and smem // 8 >= w * n2
+    tid = np.arange(threads)
+    c, t = tid % cols, tid // cols
+    k = np.arange(16)[:, None]                                      # (16, 1)
+    s = np.arange(rows)[:, None, None, None]                        # (S, 1, 1, 1)
+    r = np.arange(ctas)[None, :, None, None]                        # (1, C, 1, 1)
+    j2 = r * cols + c                                               # (1, C, 1, T)
+    k1 = t + k * g1                                                 # (16, T)
+    load = s * n + k1 * n2 + j2                                     # (S, C, 16, T)
+    reads = np.bincount(load.ravel(), minlength=rows * n)
+    loads_whole = _warp_sectors_whole(load)
+    worst = 1
+    # The column DFT's exchanges, pass by pass (regfft's radix16_passes).
+    log2n1 = n1.bit_length() - 1
+    for p in range(log2n1 // 4 - (log2n1 % 4 == 0)):
+        log2s = 4 * p
+        j, q = t >> log2s, t & ((1 << log2s) - 1)
+        f = (((j << 4) << log2s) + q) + (np.arange(16)[:, None] << log2s)   # (16, T)
+        assert np.unique(f * cols + c).size == 16 * threads
+        worst = max(worst, _half_warp_banks(f * cols + c), _half_warp_banks(k1 * cols + c))
+    # The exchange: owner and slot of every point.
+    owner = np.broadcast_to(k // per, k1.shape)
+    rho = t + (k % per) * g1
+    owner_ok = bool((owner == k1 // w).all() and (rho == k1 % w).all())
+    slot = rho * n2 + j2                                             # (1, C, 16, T)
+    dest = (s * ctas + owner) * (w * n2) + slot                      # (S, C, 16, T)
+    slab_writes = np.bincount(dest.ravel(), minlength=rows * ctas * w * n2)
+    worst = max(worst, _half_warp_banks(np.broadcast_to(slot, (1, ctas, 16, threads))))
+    remote_whole = _warp_sectors_whole(np.broadcast_to(slot, (1, ctas, 16, threads)))
+    # The row phase's loads.
+    rho2, t2 = tid // g2, tid % g2
+    k2 = t2 + k * g2                                                 # (16, T)
+    own = rho2 * n2 + k2                                             # (16, T)
+    src = (s * ctas + r) * (w * n2) + own                            # (S, C, 16, T)
+    slab_reads = np.bincount(src.ravel(), minlength=rows * ctas * w * n2)
+    worst = max(worst, _half_warp_banks(own))
+    # The staging and the store.
+    swz = k4_swizzle(n2, w)
+    put = k4_slot((k2 << log2w) + rho2, swz)
+    assert np.unique(put).size == put.size and put.max() < smem // 8
+    idx = tid + k * threads                                          # (16, T)
+    qq, kk = idx & (w - 1), idx >> log2w
+    get = k4_slot(idx, swz)
+    worst = max(worst, _half_warp_banks(put), _half_warp_banks(get))
+    store = s * n + kk * n1 + r * w + qq                             # (S, C, 16, T)
+    writes = np.bincount(store.ravel(), minlength=rows * n)
+    stores_whole = _warp_sectors_whole(store) and remote_whole
+    lanes = store.reshape(-1, 32)
+    breaks = np.diff(lanes, axis=1) != 1
+    store_runs = []
+    for row_breaks in breaks[: min(len(breaks), 4096)]:
+        edges = np.flatnonzero(np.r_[True, row_breaks, True])
+        store_runs.append(8 * np.diff(edges))
+    store_runs = np.concatenate(store_runs)
+    out = None
+    if x is not None:
+        xx = np.asarray(x, np.complex128).reshape(-1)
+        fwd = np.fft.ifft if inverse else np.fft.fft
+        sign = 1.0 if inverse else -1.0
+        # Column phase: A[c][k1] of each (s, r), its DFT, the twiddle.
+        col = np.zeros((rows, ctas, cols, n1), np.complex128)
+        col[:, :, c, np.broadcast_to(k1, (16, threads))] = xx[load].transpose(0, 1, 2, 3)
+        y = fwd(col, axis=-1)
+        jj = np.arange(ctas)[:, None] * cols + np.arange(cols)        # (C, cols)
+        y = y * np.exp(sign * 2j * np.pi * ((jj[:, :, None] * np.arange(n1)) % n) / n)
+        held = y[:, :, c, np.broadcast_to(k1, (16, threads))]         # (S, C, 16, T)
+        slab = np.zeros(rows * ctas * w * n2, np.complex128)
+        slab[dest] = held
+        rowsd = slab[src].reshape(rows, ctas, 16, threads)           # B[r*W + rho2][k2]
+        b = np.zeros((rows, ctas, w, n2), np.complex128)
+        b[:, :, np.broadcast_to(rho2, (16, threads)), k2] = rowsd
+        z = fwd(b, axis=-1)                                          # Z[rho][k2]
+        staged = np.zeros((rows, ctas, smem // 8), np.complex128)
+        staged[:, :, put] = z[:, :, np.broadcast_to(rho2, (16, threads)), k2]
+        out = np.zeros(rows * n, np.complex128)
+        out[store] = staged[:, :, get]
+        out = out.reshape(rows, n)
+    return {"out": out, "reads": reads, "slab_writes": slab_writes, "owner_ok": owner_ok,
+            "slab_reads": slab_reads, "writes": writes, "worst_bank": worst,
+            "loads_whole": loads_whole, "stores_whole": stores_whole,
+            "store_runs": store_runs}
+
+
+def cluster_twiddle_model(n: int, g: int, t: np.ndarray, j2: np.ndarray, *,
+                          inverse: bool = False) -> np.ndarray:
+    """The one-pass kernel's twiddles (``column_twiddles`` of
+    ``csrc/fourstep_cluster.cuh``) in float32 arithmetic: w_n^(k1*j2) for
+    k1 = t + k*g, k < 16, as h_kh * b^kl (k = 4*kh + kl) with h_kh =
+    w^((t + 4*kh*g)*j2) and b = w^(g*j2) each a correctly rounded float32
+    cosine and sine (as sincospif gives them, to about an ulp), b^kl by
+    running complex64 products.  Returns complex64 of shape (16,) +
+    broadcast(t, j2).shape."""
+    sign = 1.0 if inverse else -1.0
+
+    def unit(m):
+        angle = 2.0 * np.pi * np.asarray(m, np.float64) / n
+        return (np.cos(angle).astype(np.float32)
+                + 1j * (sign * np.sin(angle)).astype(np.float32)).astype(np.complex64)
+
+    t, j2 = np.broadcast_arrays(np.asarray(t), np.asarray(j2))
+    b = unit(g * j2)
+    out = np.empty((16,) + t.shape, np.complex64)
+    for kh in range(4):
+        w = unit((t + 4 * kh * g) * j2)
+        for kl in range(4):
+            out[4 * kh + kl] = w
+            w = (w * b).astype(np.complex64)
+    return out
+
+
 def _pass_a_addresses(rows: int, n1: int, n2: int, cols: int):
     """Pass A's launch (``columns_kernel``): CTA b = s*(n2/cols) + g, thread
     c*G + t (G = n1/16) of column j2 = g*cols + c holds j1 = t + k*G, k < 16.

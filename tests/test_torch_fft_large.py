@@ -1,9 +1,11 @@
 """K1b, the four-step complex row FFT of rows longer than K1 holds
-(``csrc/fft_rows_large.cu``, ``kernels/fft/large.py``), on the CPU: its plain
-version against the reference's ``fft_rows_op`` (Pallas in interpret mode)
-and ``numpy.fft``, its twiddle split against float64, a float64 model of its
-pass A column tiling and pass B store, its launch plans against the CUDA
-source, and the huge-1-D path through it.
+(``csrc/fft_rows_cluster.cu`` at n <= 65536, ``csrc/fft_rows_large.cu``
+above, ``kernels/fft/large.py``), on the CPU: its plain version against the
+reference's ``fft_rows_op`` (Pallas in interpret mode) and ``numpy.fft``,
+its twiddles against float64, float64 models of the one-pass cluster kernel
+(``k1b_cluster_model``) and of the two passes' column tiling and store, its
+launch plans against the CUDA sources, the launcher's choice of kernel, and
+the huge-1-D path through it.
 
 The CUDA kernel runs only on the card (``chip_smoke.py``,
 ``examples/kernel_check_torch.py --fft-rows-large-only``).  Run these alone
@@ -18,7 +20,8 @@ import pytest
 import torch
 import jax.numpy as jnp
 
-from _torch_parity import complex_signal, k1b_model, to_numpy, to_torch
+from _torch_parity import (cluster_twiddle_model, complex_signal, k1b_cluster_model,
+                           k1b_model, kernel_pass_model, to_numpy, to_torch)
 
 import repro.core.pfft_large as ref_large
 import repro.plan as ref_plan
@@ -35,6 +38,9 @@ from repro_torch.kernels.fused import kernel as port_fused_kernel
 
 SOURCE = "fft_rows_large.cu"
 HEADER = "fourstep.cuh"
+CLUSTER_SOURCE = "fft_rows_cluster.cu"
+CLUSTER_HEADER = "fourstep_cluster.cuh"
+CLUSTER_LENGTHS = port_large_kernel.CLUSTER_LENGTHS
 
 
 def tol(n, inverse):
@@ -230,6 +236,171 @@ def test_launcher_and_binding():
         assert rows * n * 8 <= max(1 << 30, n * 8) and rows >= 1
     assert port_large_kernel.scratch_rows(1 << 28) == 1
     assert port_large_kernel.scratch_rows(1 << 15) == 4096
+
+
+# ------------------------------------------- the one-pass cluster kernel
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n, rows", [(1 << 15, 1), (1 << 15, 3), (1 << 16, 2)])
+def test_k1b_cluster_model_is_the_dft(n, rows, inverse):
+    """The model of the one-pass kernel in the rule's launch shape
+    (``cluster_plan(n)``) is the DFT: ``numpy.fft`` in float64 to ``1e-9·n``,
+    the inverse to ``1e-9``; every input element loaded once, every slab
+    slot written once (by the rank and row that the point's k1 gives) and
+    loaded once, every output element stored once."""
+    x = complex_signal(n + 2 * rows + inverse, rows, n)
+    model = k1b_cluster_model(x, n, inverse=inverse)
+    exact = (np.fft.ifft if inverse else np.fft.fft)(x.astype(np.complex128))
+    np.testing.assert_allclose(model["out"], exact, rtol=0, atol=1e-9 * (1 if inverse else n))
+    for key in ("reads", "slab_writes", "slab_reads", "writes"):
+        assert (model[key] == 1).all(), key
+    assert model["owner_ok"]
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", CLUSTER_LENGTHS)
+def test_k1b_cluster_pattern(n, inverse):
+    """The launch shape ``cluster_plan(n)``, the pattern alone over 2 rows
+    (the same in both directions: the direction changes no index): each
+    element loaded, sent, read back and stored once, each point to its
+    owner; the loads, the remote stores and the output stores of every warp
+    instruction whole 32-byte sectors, the output runs W = n1/C elements (at
+    most a warp's 32) long; no bank conflict in the column exchanges, the
+    remote stores, the row phase's loads or the staging; and the row DFT's
+    own exchanges (regfft's, over W rows of n2) conflict-free too."""
+    model = k1b_cluster_model(None, n, rows=2, inverse=inverse)
+    for key in ("reads", "slab_writes", "slab_reads", "writes"):
+        assert (model[key] == 1).all(), key
+    assert model["owner_ok"] and model["loads_whole"] and model["stores_whole"]
+    assert model["worst_bank"] == 1
+    n1, n2, ctas, threads, smem = port_large_kernel.cluster_plan(n)
+    assert set(model["store_runs"].tolist()) == {8 * min(n1 // ctas, 32)}
+    w = n1 // ctas
+    plan = (w, threads, 16, port_kernel.complex_rows_plan(n2, 1)[3], smem)
+    _, worst = kernel_pass_model(torch.zeros((w, n2), dtype=torch.complex64), plan)
+    assert worst == 1
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", CLUSTER_LENGTHS)
+def test_cluster_twiddles_within_a_few_ulps(n, inverse):
+    """The one-pass kernel's twiddles (five sincospif a thread and running
+    products, ``cluster_twiddle_model``) against float64 ``exp(±2πi·k1·j2/n)``
+    over every (k1, j2) of its split: within 6 float32 ulps of 1 (two
+    roundings of about half an ulp each and up to three complex64 products
+    of about an ulp each; 3.4-3.9 measured)."""
+    n1, n2 = port_large_kernel.cluster_plan(n)[:2]
+    g = n1 // 16
+    t, j2 = np.arange(g)[:, None], np.arange(n2)[None, :]
+    got = cluster_twiddle_model(n, g, t, j2, inverse=inverse)
+    k1 = t[None] + np.arange(16)[:, None, None] * g
+    want = np.exp((1 if inverse else -1) * 2j * np.pi * ((k1 * j2) % n) / n)
+    assert got.dtype == np.complex64
+    np.testing.assert_allclose(got, want, rtol=0, atol=6 * 2.0 ** -24)
+
+
+def test_cluster_plan_mirrors_the_cuda_source():
+    """``cluster_plan`` is the source's shape: ``CLUSTER_LENGTHS`` the
+    lengths its entry dispatches, ``CLUSTER_CTAS`` its ``kLog2Ctas``, the
+    split ``large_split(n)``'s (log2 n1 = log2 n / 2, rounded down), and
+    ``ClusterPlan``'s n/(16C) threads and (n/C)*17/16 float2 of shared
+    memory, what the source's static_asserts require, and a CTA count an SM
+    that fits its shared memory."""
+    text = "".join((_build.csrc_dir() / name).read_text()
+                   for name in (CLUSTER_SOURCE, CLUSTER_HEADER))
+    assert f'#include "{CLUSTER_HEADER}"' in text and f'#include "{HEADER}"' in text
+    ctas = port_large_kernel.CLUSTER_CTAS
+    assert f"constexpr int kLog2Ctas = {ctas.bit_length() - 1};" in text
+    assert "launch_cluster<LOG2N / 2, LOG2N - LOG2N / 2, kLog2Ctas, INV>" in text
+    entry = text[text.index('extern "C" int repro_fft_rows_cluster('):]
+    assert [1 << int(e) for e in re.findall(r"case 1 << (\d+):", entry)] == list(
+        CLUSTER_LENGTHS)
+    assert port_large_kernel.CLUSTER_MAX_N == 1 << 16
+    assert "ELEMS = repro::regfft::exchange_elems(W, N2);" in text
+    assert "MIN_BLOCKS = 65536 / (THREADS * 64);" in text
+    assert "COLS >= 32 && W >= 4" in text and "G2 >= 16" in text
+    for n in CLUSTER_LENGTHS:
+        n1, n2, got_ctas, threads, smem = port_large_kernel.cluster_plan(n)
+        log2n = n.bit_length() - 1
+        assert (n1, n2) == port_large_kernel.large_split(n) == (
+            1 << log2n // 2, 1 << (log2n - log2n // 2))
+        assert got_ctas == ctas
+        cols, w = n2 // ctas, n1 // ctas
+        assert threads == cols * (n1 // 16) == w * (n2 // 16) <= 1024
+        assert cols >= 32 and w >= 4 and n2 >= 256 and 2 <= ctas <= 8
+        assert smem == 8 * (w * n2 + -(-w * n2 // 16)) <= port_kernel.SMEM_BUDGET
+        assert 65536 // (threads * 64) * (smem + 1024) <= 233472
+    # The phases as the docstrings and the model describe them.
+    assert "column_fft<LOG2N1, COLS, INV>(v, smem, c, t)" in text
+    assert "buf[(f0 + (u << log2s)) * COLS + c] = v[u]" in text
+    assert "column_twiddles<INV>(v, t, G1, j2, LOG2N)" in text
+    assert "slab[(t + i * G1) * N2 + j2] = v[o * CP::PER_RANK + i]" in text
+    assert "v[k] = smem[rho * N2 + t2 + k * G2]" in text
+    assert "fft_row<LOG2N2, INV>(v, smem, rho * N2, t2)" in text
+    assert "smem[slot(((t2 + k * G2) << CP::LOG2W) + rho)] = v[k]" in text
+    assert "o[k2 * N1 + q] = smem[slot(idx)]" in text
+    assert text.count("cluster.sync()") == 2
+    assert "repro::tstore::launch<CP::C>" in text
+    assert "Replaces the TPU kernel `fft_rows_pallas`" in text
+    assert "Bound on this card: bytes" in text
+
+
+def test_cluster_binding():
+    """The one-pass entry is bound with its six arguments (two pointers, a
+    64-bit row count, n, the direction, the stream last): no launch shape
+    and no scratch."""
+    restype, argtypes = _build._FUNCTIONS["repro_fft_rows_cluster"]
+    assert restype is _build._INT and len(argtypes) == 6
+    assert argtypes[:2] == [_build._PTR] * 2 and argtypes[2] is _build._LL
+    assert argtypes[3:5] == [_build._INT] * 2 and argtypes[-1] is _build._PTR
+    assert [name for name in _build._FUNCTIONS if "cluster" in name] == [
+        "repro_fft_rows_cluster"]
+    text = (_build.csrc_dir() / CLUSTER_SOURCE).read_text()
+    assert ('extern "C" int repro_fft_rows_cluster(const void* in, void* out, long long rows, '
+            'int n,') in text
+    assert text.count('extern "C"') == 1
+
+
+def test_cluster_plan_refusals():
+    for n in (1 << 14, 1 << 17, 3 << 14):
+        with pytest.raises(ValueError, match="no cluster kernel"):
+            port_large_kernel.cluster_plan(n)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_launcher_takes_one_cluster_launch_up_to_65536(monkeypatch, inverse):
+    """What ``fft_rows_large_cuda`` launches, with the launch recorded in
+    place of the library: at 32768 and 65536 one launch of the cluster
+    entry a call, counted once, with no scratch; above, the two passes a
+    chunk (two counts each) with scratch; a pinned two-pass split is
+    refused where the cluster kernel runs."""
+    calls = []
+    monkeypatch.setattr(port_large_kernel, "check_kernel_input",
+                        lambda x, name, *a: tuple(x.shape))
+    monkeypatch.setattr(port_large_kernel, "launch",
+                        lambda fn, x, out, **args: calls.append((fn, x.shape, args)))
+    for n, rows in ((1 << 15, 2049), (1 << 16, 3)):
+        port_large_kernel.reset_launch_count()
+        calls.clear()
+        out = port_large_kernel.fft_rows_large_cuda(
+            torch.zeros((rows, n), dtype=torch.complex64), inverse=inverse)
+        assert out.shape == (rows, n)
+        assert calls == [("repro_fft_rows_cluster", (rows, n),
+                          {"rows": rows, "n": n, "inverse": int(inverse)})]
+        assert port_large_kernel.launch_count() == 1
+        assert port_large_kernel.two_pass_launch_count() == 0
+        with pytest.raises(ValueError, match="cluster kernel runs"):
+            port_large_kernel.fft_rows_large_cuda(
+                torch.zeros((1, n), dtype=torch.complex64), n1=128)
+    port_large_kernel.reset_launch_count()
+    calls.clear()
+    port_large_kernel.fft_rows_large_cuda(torch.zeros((1, 1 << 17), dtype=torch.complex64),
+                                          inverse=inverse)
+    assert [c[0] for c in calls] == ["repro_fft_rows_large"]
+    assert "scratch" in calls[0][2] and port_large_kernel.launch_count() == 2
+    assert port_large_kernel.two_pass_launch_count() == 2
+    port_large_kernel.reset_launch_count()
+    assert port_large_kernel.two_pass_launch_count() == 0
 
 
 def test_cpu_op_launches_nothing():

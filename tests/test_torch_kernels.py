@@ -329,7 +329,8 @@ def test_cpu_ops_launch_nothing_and_build_nothing():
     fft_rows_op(x)
     fft_rows_transpose_op(x)
     assert port_kernels.launch_counts() == {
-        "fft_rows": 0, "fft_rows_large": 0, "fft_rows_transpose": 0,
+        "fft_rows": 0, "fft_rows_large": 0, "fft_rows_large_two_pass": 0,
+        "fft_rows_transpose": 0,
         "fft_rows_transpose_large": 0, "rfft_rows": 0, "rfft_rows_large": 0,
         "rfft_rows_transpose": 0, "rfft_rows_transpose_large": 0, "transpose": 0}
     assert _build._library is None  # nothing compiled or loaded by CPU work
@@ -337,8 +338,9 @@ def test_cpu_ops_launch_nothing_and_build_nothing():
 
 def test_kernel_sources_are_plain_cuda_built_for_sm_90a():
     names = [p.name for p in _build.source_files()]
-    assert names == ["fft_rows.cu", "fft_rows_large.cu", "fft_rows_transpose.cu",
-                     "fft_rows_transpose_large.cu", "fourstep.cuh", "regfft.cuh",
+    assert names == ["fft_rows.cu", "fft_rows_cluster.cu", "fft_rows_large.cu",
+                     "fft_rows_transpose.cu", "fft_rows_transpose_large.cu", "fourstep.cuh",
+                     "fourstep_cluster.cuh", "regfft.cuh",
                      "rfft_rows.cu", "rfft_rows_large.cu", "rfft_rows_transpose.cu",
                      "rfft_rows_transpose_large.cu", "transpose.cu", "tstore.cuh"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
@@ -350,9 +352,11 @@ def test_kernel_sources_are_plain_cuda_built_for_sm_90a():
         if path.suffix == ".cu":
             # Every row FFT runs regfft.cuh's passes (the fused ones through
             # tstore.cuh, which includes it, the four-step ones through
-            # fourstep.cuh, which includes tstore.cuh); the transpose has none.
+            # fourstep.cuh, which includes tstore.cuh, or fourstep_cluster.cuh,
+            # which includes fourstep.cuh); the transpose has none.
             shared = any(f'#include "{h}"' in text
-                         for h in ("regfft.cuh", "tstore.cuh", "fourstep.cuh"))
+                         for h in ("regfft.cuh", "tstore.cuh", "fourstep.cuh",
+                                   "fourstep_cluster.cuh"))
             assert shared == ("fft" in path.stem)
             assert "Replaces the TPU kernel" in text and "Bound on this card" in text
     assert "sincospif" in (_build.csrc_dir() / "regfft.cuh").read_text()
