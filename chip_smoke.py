@@ -255,7 +255,8 @@ from repro_torch.kernels.fft.large import (CLUSTER_MAX_N, cluster_plan,  # noqa:
 from repro_torch.kernels.fft.real import rfft_rows_plain  # noqa: E402
 from repro_torch.kernels.fft.real_large import rfft_rows_large_plain  # noqa: E402
 from repro_torch.kernels.fused.kernel import fft_rows_transpose_plain  # noqa: E402
-from repro_torch.kernels.fused.large import fft_rows_transpose_large_plain  # noqa: E402
+from repro_torch.kernels.fused.large import (  # noqa: E402
+    TRANSPOSE_CLUSTER_LENGTHS, fft_rows_transpose_large_plain, transpose_cluster_plan)
 from repro_torch.kernels.fused.real import rfft_rows_transpose_plain  # noqa: E402
 from repro_torch.kernels.fused.real_large import (  # noqa: E402
     rfft_rows_transpose_large_plain)
@@ -331,12 +332,15 @@ REAL_KERNEL_SHAPES = ([(rows, 1 << e) for e in range(1, 15)
 K1B_SHAPES = [(2048, 1 << 15), (512, 1 << 17), (1, 1 << 24), (1023, 1 << 16), (3, 1 << 15)]
 K1B_TWO_PASS_SHAPE = K1B_SHAPES[1]
 # K2b, K3b and K4b (the four-step fused and real kernels): K1b's first three
-# shapes and two odd row counts: 2049 (K2b keeps 4096 rows of scratch a k1
-# and masks 2047; its output rows start off 32-byte boundaries; K3b and K4b
-# get an unpaired last row) and 16385, the main path's own (phase 2 of the
-# fused real plan at 32768: K2b in 5 chunks, the last of one row; K3b and
-# K4b over 8193 pairs in 3 chunks); the first is the records' shape.
-SIBLING_SHAPES = K1B_SHAPES[:3] + [(2049, 1 << 15), (16385, 1 << 15)]
+# shapes (the first the records' shape, the second the two passes' record)
+# and odd row counts: 2049 (K2b's cluster kernel masks the last 3 rows of its
+# last cluster; its output rows start off 32-byte boundaries; K3b and K4b get
+# an unpaired last row), 16385, the main path's own (phase 2 of the fused
+# real plan at 32768; K3b and K4b over 8193 pairs in 3 chunks), 3 (one
+# cluster of K2b) and 1023 x 65536 (K2b's cluster kernel at its other
+# length).
+SIBLING_SHAPES = K1B_SHAPES[:3] + [(2049, 1 << 15), (16385, 1 << 15), (3, 1 << 15),
+                                   (1023, 1 << 16)]
 TRANSPOSE_SHAPES = [(1, 1), (37, 129), (1000, 3), (4096, 8192), (8192, 8192)]
 # Every other element size the transpose kernel is built for, at small shapes.
 TRANSPOSE_OTHER_DTYPES = [torch.uint8, torch.float16, torch.float64, torch.complex128]
@@ -698,7 +702,15 @@ def phase_kernels(gen: torch.Generator, worst: dict[str, float]) -> list[dict]:
                       K1B_SHAPES[0], worst["fft_rows_transpose_large"], large_limits,
                       lambda: fft_rows_transpose_op(xl),
                       lambda: fft_rows_transpose_large_plain(xl),
-                      lambda: torch.fft.fft(xl).T.contiguous()),
+                      lambda: torch.fft.fft(xl).T.contiguous(),
+                      source="fft_rows_transpose_cluster.cu"),
+        kernel_record("fft_rows_transpose_large_two_pass",
+                      "src/repro/kernels/fused/kernel.py:64", K1B_TWO_PASS_SHAPE,
+                      worst["fft_rows_transpose_large_two_pass"], two_pass_limits,
+                      lambda: fft_rows_transpose_op(xt),
+                      lambda: fft_rows_transpose_large_plain(xt),
+                      lambda: torch.fft.fft(xt).T.contiguous(),
+                      source="fft_rows_transpose_large.cu"),
         kernel_record("rfft_rows_large", "src/repro/kernels/fft/real.py:91",
                       K1B_SHAPES[0], worst["rfft_rows_large"], real_large_limits,
                       lambda: rfft_rows_op(xrl),
@@ -758,25 +770,39 @@ def check_large_siblings(gen: torch.Generator, worst: dict) -> None:
     """K2b, K3b and K4b (``fft_rows_transpose_op``, ``rfft_rows_op`` and
     ``rfft_rows_transpose_op`` above 16384) at ``SIBLING_SHAPES`` against
     their plain versions and ``torch.fft`` (K2b in both directions, the
-    library transposed), ``atol = row_fft_tol(n, inverse)``; ``worst`` gets
-    the forward errors against the plain versions at the records' shape."""
+    library transposed, one launch a call of its cluster kernel), ``atol =
+    row_fft_tol(n, inverse)``; ``worst`` gets the forward errors against
+    the plain versions at the records' shapes."""
     for rows, n in SIBLING_SHAPES:
         x = random_signal(gen, rows, n)
+        cluster = n in TRANSPOSE_CLUSTER_LENGTHS
+        design = ({"design": "cluster", "plan": list(transpose_cluster_plan(n))} if cluster
+                  else {"design": "two_pass", "split": list(large_split(n))})
         for inverse in (False, True):
             tol = row_fft_tol(n, inverse)
+            before = launch_counts()
             got = fft_rows_transpose_op(x, inverse=inverse)
             torch.cuda.synchronize()
+            after = launch_counts()
+            if cluster and (after["fft_rows_transpose_large"]
+                            - before["fft_rows_transpose_large"] != 1
+                            or after["fft_rows_transpose_large_two_pass"]
+                            != before["fft_rows_transpose_large_two_pass"]):
+                raise AssertionError(f"K2b at n={n} did not take one cluster launch: "
+                                     f"{before} -> {after}")
             lib = torch.fft.ifft(x) if inverse else torch.fft.fft(x)
             errs = {"fft_rows_transpose_large_err": max_abs_err(
                         got, fft_rows_transpose_large_plain(x, inverse=inverse)),
                     "fft_rows_transpose_large_vs_library_err": max_abs_err(got, lib.T)}
-            log("kernels", rows=rows, n=n, split=list(large_split(n)),
-                inverse=inverse, atol=tol, **errs)
+            log("kernels", rows=rows, n=n, **design, inverse=inverse, atol=tol, **errs)
             if max(errs.values()) > tol:
                 raise AssertionError(f"K2b disagrees at rows={rows} n={n} "
                                      f"inverse={inverse}: {errs} > {tol}")
             if (rows, n) == SIBLING_SHAPES[0] and not inverse:
                 worst["fft_rows_transpose_large"] = errs["fft_rows_transpose_large_err"]
+            if (rows, n) == K1B_TWO_PASS_SHAPE and not inverse:
+                worst["fft_rows_transpose_large_two_pass"] = errs[
+                    "fft_rows_transpose_large_err"]
             del got, lib
         del x
         xr = random_real(gen, rows, n)
@@ -1159,11 +1185,12 @@ def phase_fpms() -> dict[int, tuple[FPMSet, FPMSet]]:
 
 def record_launches(name: str, counts: dict[str, int]) -> int:
     """The launches of the kernel of record ``name`` among ``counts``: the
-    cluster kernel's record (``fft_rows_large``, K1b at n <= 65536) takes
-    K1b's launches less the two passes' (``fft_rows_large_two_pass``), so
-    that each record counts its own source's."""
-    if name == "fft_rows_large":
-        return counts["fft_rows_large"] - counts["fft_rows_large_two_pass"]
+    cluster kernels' records (``fft_rows_large``, K1b at n <= 65536;
+    ``fft_rows_transpose_large``, K2b there) take the kernel's launches less
+    its two passes' (``<name>_two_pass``), so that each record counts its
+    own source's."""
+    if name in ("fft_rows_large", "fft_rows_transpose_large"):
+        return counts[name] - counts[name + "_two_pass"]
     return counts[name]
 
 
@@ -1171,10 +1198,10 @@ def call_launches(calls) -> dict[str, int]:
     """The launches of row-kernel calls ``(kernel, rows, n)``: one a call of a
     register-resident kernel (n <= 16384), and above it the four-step's own
     (``<kernel>_large``): K1b's cluster kernel once a call up to
-    ``CLUSTER_MAX_N``; else two (passes A, B) per chunk of
-    ``scratch_rows(n)`` rows (row pairs for the real kernels, whose pass B
-    splits), K1b's also under ``fft_rows_large_two_pass``.  Calls with no
-    rows launch nothing."""
+    ``CLUSTER_MAX_N``, K2b's at ``TRANSPOSE_CLUSTER_LENGTHS``; else two
+    (passes A, B) per chunk of ``scratch_rows(n)`` rows (row pairs for the
+    real kernels, whose pass B splits), K1b's and K2b's also under
+    ``<kernel>_large_two_pass``.  Calls with no rows launch nothing."""
     out: dict[str, int] = {}
     for name, rows, n in calls:
         if rows == 0:
@@ -1182,14 +1209,16 @@ def call_launches(calls) -> dict[str, int]:
         if n <= MAX_KERNEL_N:
             out[name] = out.get(name, 0) + 1
             continue
-        if name == "fft_rows" and n <= CLUSTER_MAX_N:
-            out["fft_rows_large"] = out.get("fft_rows_large", 0) + 1
+        if ((name == "fft_rows" and n <= CLUSTER_MAX_N)
+                or (name == "fft_rows_transpose" and n in TRANSPOSE_CLUSTER_LENGTHS)):
+            out[name + "_large"] = out.get(name + "_large", 0) + 1
             continue
         units = (rows + 1) // 2 if name.startswith("rfft") else rows
         launches = 2 * -(-units // scratch_rows(n))
         out[name + "_large"] = out.get(name + "_large", 0) + launches
-        if name == "fft_rows":
-            out["fft_rows_large_two_pass"] = out.get("fft_rows_large_two_pass", 0) + launches
+        if name in ("fft_rows", "fft_rows_transpose"):
+            key = name + "_large_two_pass"
+            out[key] = out.get(key, 0) + launches
     return out
 
 

@@ -37,8 +37,10 @@ the two passes at the splits of ``LARGE_SPLITS``), or its fused
 and real siblings alone (K2b, K3b and K4b: every shape of
 ``SIBLING_SHAPES`` against their plain versions and ``torch.fft``, K2b in
 both directions, then their times over ``LARGE_SWEEP`` beside the library
-and ``x.clone()``, and K2b's over ``K2B_ROW_COUNTS``): the run to repeat, in turns, on copies of the tree that
-differ in one change to that kernel.  Every run prints the registers and
+and ``x.clone()``, K2b's over ``K2B_ROW_COUNTS``, and K2b's cluster kernel
+beside ``TRANSPOSE_CLUSTER_VARIANTS`` and the two passes): the run to
+repeat, in turns, on copies of the tree that differ in one change to that
+kernel.  Every run prints the registers and
 spills per length (and direction, and variant: pass A's packed loads,
 pass B's transposed store, the real pass B's transposed split) of the
 complex row kernels, of the fused real row kernel, of the four-step
@@ -77,7 +79,8 @@ from repro_torch.kernels.fft.large import (CLUSTER_LENGTHS,  # noqa: E402
                                            fft_rows_large_plain, large_split)
 from repro_torch.kernels.fft.real import rfft_rows_plain  # noqa: E402
 from repro_torch.kernels.fft.real_large import rfft_rows_large_plain  # noqa: E402
-from repro_torch.kernels.fused.large import fft_rows_transpose_large_plain  # noqa: E402
+from repro_torch.kernels.fused.large import (  # noqa: E402
+    TRANSPOSE_CLUSTER_LENGTHS, fft_rows_transpose_large_plain, transpose_cluster_plan)
 from repro_torch.kernels.fused.real_large import (  # noqa: E402
     rfft_rows_transpose_large_plain)
 from repro_torch.kernels.transpose.kernel import transpose_plain  # noqa: E402
@@ -109,20 +112,21 @@ LARGE_SHAPES = [(3, 1 << 15), (2048, 1 << 15), (5000, 1 << 15), (3, 1 << 16),
                 (7, 1 << 18), (3, 1 << 19), (2, 1 << 20), (129, 1 << 20),
                 (2, 1 << 21), (1, 1 << 22), (1, 1 << 23), (1, 1 << 24), (3, 1 << 25),
                 (1, 1 << 26), (1, 1 << 27), (1, 1 << 28)]
-LARGE_SWEEP = [1 << 15, 1 << 17, 1 << 20, 1 << 24]
+LARGE_SWEEP = [1 << 15, 1 << 16, 1 << 17, 1 << 20, 1 << 24]
 K1B_SWEEP = [1 << 15, 1 << 16, 1 << 17, 1 << 20, 1 << 24]
-# K2b, K3b and K4b: every length from 2^15 to 2^28; at 2^15 an odd row count,
-# one chunk of scratch with a ragged last one beside it (2049: K2b's odd
-# output rows) and three chunks of K2b's with an odd last (8193).
-SIBLING_SHAPES = [(3, 1 << 15), (2049, 1 << 15), (8193, 1 << 15), (512, 1 << 17),
+# K2b, K3b and K4b: every length from 2^15 to 2^28; at 2^15 (K2b's cluster
+# kernel) 3 rows, 4 (one whole cluster), 2049 and 8193 (a ragged last
+# cluster, odd output rows); at 2^16 (K2b's two passes) 1023 rows.
+SIBLING_SHAPES = [(3, 1 << 15), (4, 1 << 15), (2049, 1 << 15), (8193, 1 << 15),
+                  (1023, 1 << 16), (512, 1 << 17),
                   (7, 1 << 18), (3, 1 << 19), (129, 1 << 20), (2, 1 << 21),
                   (1, 1 << 22), (1, 1 << 23), (1, 1 << 24), (3, 1 << 25),
                   (1, 1 << 26), (1, 1 << 27), (1, 1 << 28)]
-SIBLING_SOURCES = ("fft_rows_transpose_large.cu", "rfft_rows_large.cu",
-                   "rfft_rows_transpose_large.cu")
-# Row counts of K2b at n = 32768 (4 chunks of scratch and a ragged fifth):
-# a multiple of 4 puts each output row a whole number of 32-byte sectors
-# after the last; 16385 is phase 2 of a fused rfft-* plan at N = 32768.
+SIBLING_SOURCES = ("fft_rows_transpose_cluster.cu", "fft_rows_transpose_large.cu",
+                   "rfft_rows_large.cu", "rfft_rows_transpose_large.cu")
+# Row counts of K2b at n = 32768: a multiple of 4 puts each output row a
+# whole number of 32-byte sectors after the last; 16385 is phase 2 of a
+# fused rfft-* plan at N = 32768.
 K2B_ROW_COUNTS = [16384, 16385, 16386, 16388]
 # (n, n1) pairs of the two passes timed against the default split of n.
 LARGE_SPLITS = [(1 << 17, 512), (1 << 20, 512), (1 << 20, 2048),
@@ -139,7 +143,7 @@ LARGE_SPLITS = [(1 << 17, 512), (1 << 20, 512), (1 << 20, 2048),
 _TWIDDLES = "column_twiddles<INV>(v, t, G1, j2, LOG2N);"
 _VARIANT_EDITS = {
     "rule": [],
-    "local_stores": [("cluster.map_shared_rank(smem, o)", "smem")],
+    "local_stores": [("cluster.map_shared_rank(buf, o)", "buf")],
     "no_twiddle": [(_TWIDDLES, "")],
     "twiddle_per_point": [(_TWIDDLES, "for (int k = 0; k < 16; ++k) v[k] = cmul(v[k], "
                                       "twiddle<INV>((long long)(t + k * G1) * j2, LOG2N));")],
@@ -160,6 +164,39 @@ extern "C" int variant_launch(const void* in, void* out, long long rows, int inv
 extern "C" int variant_occupancy(int inverse) {{
     return inverse ? cluster_occupancy<{0}, {1}, {2}, true>()
                    : cluster_occupancy<{0}, {1}, {2}, false>();
+}}
+"""
+# Shapes of K2b's cluster kernel (the transposed store, ``csrc/
+# fourstep_cluster.cuh``), built out of the library as ``CLUSTER_VARIANTS``
+# are: name -> (n, n1, CTAs a cluster, signal rows a cluster, edits of the
+# header).  ``rule`` is the library's shape (``csrc/
+# fft_rows_transpose_cluster.cu``: 16 CTAs, 4 rows, n2 = 512), called as the
+# others are; beside it the near-square split over 8 CTAs of 4 and 2 rows
+# (the latter 16-byte runs), 16 CTAs of 8 rows (64-byte runs, one CTA an SM),
+# and the rule with its output stores made contiguous, as K1b's are (a wrong
+# result on purpose: what the transposed store's pattern costs).
+_CONTIGUOUS_STORE = [("o[bin * out_stride + s0 + gq]",
+                      "o[(s0 << LOG2N) + ((long long)rank << (LOG2N - LOG2C + LOG2R)) + idx]")]
+TRANSPOSE_CLUSTER_VARIANTS = {
+    **{f"{n}:{name}": (n, *transpose_cluster_plan(n)[:1], *transpose_cluster_plan(n)[2:4],
+                       edits)
+       for n in TRANSPOSE_CLUSTER_LENGTHS
+       for name, edits in (("rule", []), ("contiguous_store", _CONTIGUOUS_STORE))},
+    **{f"{n}:{n1}x{ctas}x{rows}": (n, n1, ctas, rows, []) for n, n1, ctas, rows in (
+        (1 << 15, 128, 8, 4), (1 << 15, 128, 8, 2), (1 << 15, 64, 16, 8),
+        (1 << 16, 256, 8, 2))},
+}
+_TRANSPOSE_VARIANT_ENTRIES = """#include "fourstep_cluster.cuh"
+extern "C" int variant_launch(const void* in, void* out, long long rows, int inverse,
+                              long long out_stride, void* stream) {{
+    return inverse ? launch_cluster<{0}, {1}, {2}, true, {3}, true>(
+                         in, out, rows, (cudaStream_t)stream, out_stride)
+                   : launch_cluster<{0}, {1}, {2}, false, {3}, true>(
+                         in, out, rows, (cudaStream_t)stream, out_stride);
+}}
+extern "C" int variant_occupancy(int inverse) {{
+    return inverse ? cluster_occupancy<{0}, {1}, {2}, true, {3}, true>()
+                   : cluster_occupancy<{0}, {1}, {2}, false, {3}, true>();
 }}
 """
 TRANSPOSE_SHAPES = [(1, 1), (37, 129), (1000, 3), (257, 4099)]
@@ -198,10 +235,12 @@ def kernel_registers(ptxas: str, kernel: str) -> list[dict]:
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '\S*?\d%s_kernelI(?:Li(\d+)E)?((?:L[bi]\d+E)*)"
                       % kernel, line)
-        if m and kernel == "cluster":   # <log2 n1, log2 n2, log2 C, inverse>
-            e1, e2, ec, inv = [int(m.group(1))] + [
+        if m and kernel == "cluster":
+            # <log2 n1, log2 n2, log2 C, inverse, log2 rows a cluster, transposed>
+            e1, e2, ec, inv, er, tr = [int(m.group(1))] + [
                 int(f) for f in re.findall(r"L[bi](\d+)E", m.group(2))]
             current = {"n": 1 << (e1 + e2), "n1": 1 << e1, "ctas": 1 << ec,
+                       "rows": 1 << er, "transposed": bool(tr),
                        "direction": "inverse" if inv else "forward"}
             out.append(current)
             continue
@@ -234,10 +273,33 @@ REGISTERS = {"fft_rows.cu": ("fft_rows",),
              "rfft_rows_transpose.cu": ("rfft_rows_transpose",),
              "fft_rows_transpose.cu": ("fft_rows_transpose",),
              "fft_rows_cluster.cu": ("cluster",),
+             "fft_rows_transpose_cluster.cu": ("cluster",),
              "fft_rows_large.cu": ("columns", "rows_transpose"),
              "fft_rows_transpose_large.cu": ("columns", "rows_transpose"),
              "rfft_rows_large.cu": ("columns", "rows_split"),
              "rfft_rows_transpose_large.cu": ("columns", "rows_split")}
+
+
+def start_variant_build(root, name: str, edits, entries: str):
+    """Start one ``nvcc`` of a variant: a copy of the headers under
+    ``root/<name>`` with ``edits`` made to ``fourstep_cluster.cuh`` and
+    ``entries`` as its source; returns (library path, process)."""
+    src = root / name.replace(":", "_")
+    src.mkdir(parents=True)
+    for header in _build.source_files():
+        if header.suffix == ".cuh":
+            shutil.copy(header, src / header.name)
+    text = (src / "fourstep_cluster.cuh").read_text()
+    for old, new in edits:
+        if old not in text:
+            sys.exit(f"cluster variant {name}: {old!r} not in fourstep_cluster.cuh")
+        text = text.replace(old, new)
+    (src / "fourstep_cluster.cuh").write_text(text)
+    (src / "variant.cu").write_text(entries)
+    lib = src / "variant.so"
+    return lib, subprocess.Popen(
+        [_build._find_nvcc(), *_build.NVCC_FLAGS, "-shared", str(src / "variant.cu"),
+         "-o", str(lib)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
 def start_cluster_variants() -> dict:
@@ -247,33 +309,33 @@ def start_cluster_variants() -> dict:
     shape; returns name -> (library path, process)."""
     root = _build.build_root() / "cluster_variants"
     shutil.rmtree(root, ignore_errors=True)
-    nvcc = _build._find_nvcc()
     started = {}
     for name, (n, n1, ctas, edits) in CLUSTER_VARIANTS.items():
-        src = root / name.replace(":", "_")
-        src.mkdir(parents=True)
-        for header in _build.source_files():
-            if header.suffix == ".cuh":
-                shutil.copy(header, src / header.name)
-        text = (src / "fourstep_cluster.cuh").read_text()
-        for old, new in edits:
-            if old not in text:
-                sys.exit(f"cluster variant {name}: {old!r} not in fourstep_cluster.cuh")
-            text = text.replace(old, new)
-        (src / "fourstep_cluster.cuh").write_text(text)
         log2n1 = n1.bit_length() - 1
-        (src / "variant.cu").write_text(_VARIANT_ENTRIES.format(
+        started[name] = start_variant_build(root, name, edits, _VARIANT_ENTRIES.format(
             log2n1, n.bit_length() - 1 - log2n1, ctas.bit_length() - 1))
-        lib = src / "variant.so"
-        started[name] = (lib, subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-shared", str(src / "variant.cu"), "-o", str(lib)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     return started
 
 
-def load_cluster_variants(started: dict) -> dict:
-    """Wait for ``start_cluster_variants``' builds and bind each library:
-    name -> (launch, occupancy)."""
+def start_transpose_variants() -> dict:
+    """As ``start_cluster_variants``, for ``TRANSPOSE_CLUSTER_VARIANTS``
+    (entries that take the output's row stride) under
+    ``build/transpose_cluster_variants/``."""
+    root = _build.build_root() / "transpose_cluster_variants"
+    shutil.rmtree(root, ignore_errors=True)
+    started = {}
+    for name, (n, n1, ctas, rows, edits) in TRANSPOSE_CLUSTER_VARIANTS.items():
+        log2n1 = n1.bit_length() - 1
+        started[name] = start_variant_build(root, name, edits, _TRANSPOSE_VARIANT_ENTRIES.format(
+            log2n1, n.bit_length() - 1 - log2n1, ctas.bit_length() - 1,
+            rows.bit_length() - 1))
+    return started
+
+
+def load_cluster_variants(started: dict, *, strided: bool = False) -> dict:
+    """Wait for ``start_cluster_variants``' (``strided``:
+    ``start_transpose_variants``') builds and bind each library: name ->
+    (launch, occupancy)."""
     bound = {}
     for name, (lib, proc) in started.items():
         output, _ = proc.communicate()
@@ -281,8 +343,9 @@ def load_cluster_variants(started: dict) -> dict:
             sys.exit(f"cluster variant {name}: nvcc failed\n{output}")
         dll = ctypes.CDLL(str(lib))
         dll.variant_launch.restype = dll.variant_occupancy.restype = ctypes.c_int
-        dll.variant_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                                       ctypes.c_int, ctypes.c_void_p]
+        dll.variant_launch.argtypes = (
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
+            + ([ctypes.c_longlong] if strided else []) + [ctypes.c_void_p])
         dll.variant_occupancy.argtypes = [ctypes.c_int]
         bound[name] = (dll.variant_launch, dll.variant_occupancy)
     return bound
@@ -338,6 +401,63 @@ def time_cluster_variants(card: str, variants: dict, gen: torch.Generator) -> No
         del x, lib, out
 
 
+def time_transpose_variants(card: str, variants: dict, gen: torch.Generator) -> None:
+    """At each length of ``TRANSPOSE_CLUSTER_VARIANTS``, 2^26 elements, and
+    at 16384 and 16385 rows of 32768 (a call of the fused plans at N =
+    32768; 16385 has odd output rows, phase 2 of the fused real plan): K2b
+    as the library runs it (``fft_rows_transpose_op``: the cluster kernel at
+    ``TRANSPOSE_CLUSTER_LENGTHS``, the two passes elsewhere) and every
+    variant of that length timed forward in turns, twice (the second round
+    in reverse order), median of 20 each, beside ``fft(x).T.contiguous()``;
+    each variant with its active clusters and its errors against the
+    library in both directions (the edited ones' forward error only)."""
+    stream = torch.cuda.current_stream().cuda_stream
+    shapes = [(SWEEP_ELEMENTS // n, n)
+              for n in sorted({v[0] for v in TRANSPOSE_CLUSTER_VARIANTS.values()})]
+    for rows, n in shapes + [(16384, 1 << 15), (16385, 1 << 15)]:
+        x = torch.complex(torch.randn(rows, n, generator=gen, device="cuda"),
+                          torch.randn(rows, n, generator=gen, device="cuda"))
+        out = torch.empty((n, rows), dtype=x.dtype, device="cuda")
+        names = ["op"] + [name for name in variants if TRANSPOSE_CLUSTER_VARIANTS[name][0] == n]
+
+        def call(name, inverse=False):
+            if name == "op":
+                return fft_rows_transpose_op(x, inverse=inverse)
+            err = variants[name][0](x.data_ptr(), out.data_ptr(), rows, int(inverse), rows,
+                                    stream)
+            if err != 0:
+                sys.exit(f"transpose cluster variant {name}: CUDA error {err}")
+            return out
+
+        ms = {name: [] for name in names}
+        for order in (names, names[::-1]):
+            for name in order:
+                ms[name].append(time_ms(lambda: call(name), reps=20))
+        library_ms = time_ms(lambda: torch.fft.fft(x).T.contiguous(), reps=20)
+        for name in names:
+            edited = name != "op" and bool(TRANSPOSE_CLUSTER_VARIANTS[name][4])
+            errs = {}
+            for inverse in ((False,) if edited else (False, True)):
+                lib = (torch.fft.ifft(x) if inverse else torch.fft.fft(x)).T
+                got = call(name, inverse)
+                torch.cuda.synchronize()
+                key = ("inverse" if inverse else "forward") + "_vs_library"
+                errs[key] = float((got - lib).abs().max())
+                del lib
+                if not edited and errs[key] > 1e-3 * n ** 0.5 / (n if inverse else 1):
+                    sys.exit(f"K2b {name} disagrees at n={n}: {errs}")
+            shape = ({"design": "cluster" if n in TRANSPOSE_CLUSTER_LENGTHS else "two_pass"}
+                     if name == "op" else dict(zip(("n1", "ctas", "rows_a_cluster"),
+                                                   TRANSPOSE_CLUSTER_VARIANTS[name][1:4])))
+            active = None if name == "op" else variants[name][1](0)
+            print(json.dumps({
+                "card": card, "rows": rows, "n": n, "variant": name, **shape,
+                "edited": edited,
+                "active_clusters": active, "ms": ms[name],
+                "torch_fft_T_contiguous_ms": library_ms, **errs}), flush=True)
+        del x, out
+
+
 def compile_sources(needed: tuple[str, ...] | None) -> str:
     """Print the card, compile each ``.cu`` of ``needed`` (None: every one,
     printing ptxas' whole output) with ``-Xptxas -v`` and print the
@@ -371,12 +491,14 @@ def compile_sources(needed: tuple[str, ...] | None) -> str:
     return card
 
 
-def check_siblings(card: str) -> None:
+def check_siblings(card: str, variants: dict) -> None:
     """K2b, K3b and K4b (``fft_rows_transpose_op``, ``rfft_rows_op`` and
     ``rfft_rows_transpose_op`` above 16384) at ``SIBLING_SHAPES`` against
     their plain versions and the library, ``1e-3·sqrt(n)`` (K2b's inverse
-    over n), then timed over ``LARGE_SWEEP`` at 2^26 elements, and K2b
-    beside K1b and the library at n = 32768 over ``K2B_ROW_COUNTS``."""
+    over n), then timed over ``LARGE_SWEEP`` at 2^26 elements, K2b beside
+    K1b and the library at n = 32768 over ``K2B_ROW_COUNTS``, and K2b
+    beside the ``variants`` of its cluster kernel
+    (``time_transpose_variants``)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     for rows, n in SIBLING_SHAPES:
@@ -438,6 +560,7 @@ def check_siblings(card: str) -> None:
             "torch_fft_T_contiguous_ms": time_ms(lambda: torch.fft.fft(x).T.contiguous())}),
             flush=True)
         del x
+    time_transpose_variants(card, variants, gen)
     print("OK")
 
 
@@ -461,7 +584,9 @@ def main() -> None:
     only_k4, only_k2 = args.rfft_rows_transpose_only, args.fft_rows_transpose_only
     only_k1b, only_siblings = args.fft_rows_large_only, args.large_fused_and_real_only
     if only_siblings:
-        check_siblings(compile_sources(SIBLING_SOURCES))
+        started = start_transpose_variants()
+        card = compile_sources(SIBLING_SOURCES)
+        check_siblings(card, load_cluster_variants(started, strided=True))
         return
     run_k1 = not (only_k3 or only_k4 or only_k2 or only_k1b)
     run_k2 = not (only_k3 or only_k4 or only_k1 or only_k1b)

@@ -37,9 +37,13 @@ _COUNTED = {"fft_rows": _fft_kernel, "fft_rows_large": _large_kernel,
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last reset, by kernel name;
     ``fft_rows_large_two_pass`` is the share of ``fft_rows_large`` that ran
-    the two passes (n > 65536) instead of the cluster kernel."""
+    the two passes (n > 65536) instead of the cluster kernel, and
+    ``fft_rows_transpose_large_two_pass`` that of
+    ``fft_rows_transpose_large`` (n > 65536)."""
     counts = {name: module.launch_count() for name, module in _COUNTED.items()}
     counts["fft_rows_large_two_pass"] = _large_kernel.two_pass_launch_count()
+    counts["fft_rows_transpose_large_two_pass"] = (
+        _fused_large_kernel.two_pass_launch_count())
     return counts
 
 

@@ -3,10 +3,12 @@
 // interleaved complex64, out of shape (n, rows) (a column slice of a wider
 // one: row stride `out_stride`); forward or inverse (scaled by 1/n), n a
 // power of two, 32768 <= n <= 2^28: the rows fft_rows_transpose.cu (K2,
-// n <= 16384) cannot hold in one CTA's registers.
+// n <= 16384) cannot hold in one CTA's registers.  At n = 32768 and 65536
+// the launcher takes the one-pass fft_rows_transpose_cluster.cu instead,
+// and these two passes the longer rows.
 //
 // Replaces the TPU kernel `fft_rows_transpose_pallas` (body `_fused_kernel`)
-// of src/repro/kernels/fused/kernel.py at n > 16384.
+// of src/repro/kernels/fused/kernel.py at n > 65536.
 //
 // Algorithm: K1b's four-step (fft_rows_large.cu, fourstep.cuh) with two
 // changes, so that the transposed result needs no pass of its own:
@@ -19,13 +21,11 @@
 //   writes contiguous runs of an output row, as K2's does.  In K1b's
 //   [s][k1][j2] order they would share s, and their outputs would lie `rows`
 //   elements apart.
-// With an odd out_stride (16385 rows: phase 2 of the fused real plan at
-// N = 32768) output rows start off 32-byte boundaries, so a run covers one
-// more sector than it would aligned.
+// With an odd out_stride output rows start off 32-byte boundaries, so a run
+// covers one more sector than it would aligned.
 //
 // Bound on this card: bytes, as K1b's (rows*n*8 read and written once; the
-// four-step moves twice that: in -> scratch -> out).  A simple first port,
-// like K1b.
+// four-step moves twice that: in -> scratch -> out).
 //
 // `rows_per_cta` and `threads` are pass B's launch shape, kernels/fft/
 // kernel.py::complex_rows_plan(n2, cap*n1); pass A's follows from n1.

@@ -23,7 +23,8 @@ view) and launch shape depend only on ``n`` and the row count, and
 Longer rows, up to ``MAX_LARGE_N``, go to the four-step kernels: K1b
 (``kernels.fft.large``: ``csrc/fft_rows_cluster.cu`` at n <= 65536,
 ``csrc/fft_rows_large.cu`` above) and its fused and real
-siblings K2b-K4b.  ``radix``
+siblings K2b-K4b (K2b: ``csrc/fft_rows_transpose_cluster.cu`` at n <=
+65536).  ``radix``
 is validated, as in the reference, and chooses the plain version's stage
 loop only.
 """

@@ -1,45 +1,95 @@
 """The fused row FFT -> transposed write of long rows, K2b: the plain PyTorch
-version and the launcher of the CUDA kernel
-``csrc/fft_rows_transpose_large.cu``.
+version, the launch plan and the launcher of the CUDA kernels
+``csrc/fft_rows_transpose_cluster.cu`` (n in ``TRANSPOSE_CLUSTER_LENGTHS``)
+and ``csrc/fft_rows_transpose_large.cu`` (the longer rows).
 
 Counterpart of ``repro.kernels.fused.kernel.fft_rows_transpose_pallas`` at
 the lengths the register-resident K2 (``kernels.fused.kernel``, n <=
 ``MAX_KERNEL_N``) cannot hold: power-of-two n from 2 * ``MAX_KERNEL_N`` up to
-``MAX_LARGE_N``.  K1b's four-step (``kernels.fft.large``) with two changes,
-so that ``FFT_rows(x).T`` needs no pass of its own: pass A stores B in
-``[k1][s][j2]`` order, the rows of one k1 side by side (``scratch_capacity``
-of them, a power of two), and pass B sends row ``R = k1*cap + s`` and bin k2
-to ``out[k1 + n1*k2, s]``, so that the rows a CTA stores side by side are
-neighbouring output columns, as in K2.
+``MAX_LARGE_N``.  K1b's four-step (``kernels.fft.large``) with the store
+transposed, ``out[k1 + n1*k2, s]``.
 
-Scratch and chunks are K1b's: at most ``scratch_rows(n)`` rows a chunk, two
-launches a chunk, each chunk writing its columns of the ``(n, rows)``
-output.  ``launch_count`` counts every CUDA launch.
+At n = 32768 and 65536 one kernel, ``csrc/fft_rows_transpose_cluster.cu``,
+computes it in one launch: K1b's cluster kernel
+(``csrc/fourstep_cluster.cuh``) with a cluster of ``TRANSPOSE_CLUSTER_CTAS``
+CTAs holding ``TRANSPOSE_CLUSTER_ROWS`` neighbouring signal rows, so that
+each (k1, k2) of those rows goes out as one 32-byte run of an output row
+(``transpose_cluster_plan`` mirrors its shape).  No scratch.
+
+Above it the two passes of ``csrc/fft_rows_transpose_large.cu`` do it: pass
+A stores B in ``[k1][s][j2]`` order, the rows of one k1 side by side
+(``scratch_capacity`` of them, a power of two), and pass B sends row ``R =
+k1*cap + s`` and bin k2 to ``out[k1 + n1*k2, s]``, so that the rows a CTA
+stores side by side are neighbouring output columns, as in K2.  Scratch and
+chunks are K1b's: at most ``scratch_rows(n)`` rows a chunk, two launches a
+chunk, each chunk writing its columns of the ``(n, rows)`` output.
+
+``launch_count`` counts every CUDA launch: one a call of the cluster kernel,
+two a chunk of the two passes; ``two_pass_launch_count`` the latter alone.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.fft.kernel import check_kernel_input, complex_rows_plan, launch
+from repro_torch.kernels.fft.kernel import (_POINTS, check_kernel_input,
+                                            complex_rows_plan, launch)
 from repro_torch.kernels.fft.large import (_columns_pass, _rows_pass, kernel_split,
                                            large_split, scratch_capacity,
                                            scratch_rows)
 
-__all__ = ["fft_rows_transpose_large_cuda", "fft_rows_transpose_large_plain",
-           "launch_count", "reset_launch_count"]
+__all__ = ["TRANSPOSE_CLUSTER_CTAS", "TRANSPOSE_CLUSTER_LENGTHS",
+           "TRANSPOSE_CLUSTER_ROWS", "fft_rows_transpose_cluster_cuda",
+           "fft_rows_transpose_large_cuda", "fft_rows_transpose_large_plain",
+           "launch_count", "reset_launch_count", "transpose_cluster_plan",
+           "two_pass_launch_count"]
+
+# The lengths of the one-pass cluster kernel
+# (``csrc/fft_rows_transpose_cluster.cu``), its CTAs a cluster (a
+# non-portable size) and signal rows a cluster (``kLog2Ctas`` and
+# ``kLog2Rows`` there).
+TRANSPOSE_CLUSTER_LENGTHS = (1 << 15, 1 << 16)
+TRANSPOSE_CLUSTER_CTAS = 16
+TRANSPOSE_CLUSTER_ROWS = 4
 
 _launches = 0
+_two_pass_launches = 0
 
 
 def launch_count() -> int:
-    """CUDA launches of K2b since the last reset: two per chunk of rows."""
+    """CUDA launches of K2b since the last reset: one a call of the cluster
+    kernel, two a chunk of rows of the two passes."""
     return _launches
 
 
+def two_pass_launch_count() -> int:
+    """The launches of the two passes (n above the cluster lengths) among
+    ``launch_count``'s."""
+    return _two_pass_launches
+
+
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    global _launches, _two_pass_launches
+    _launches = _two_pass_launches = 0
+
+
+def transpose_cluster_plan(n: int) -> tuple[int, int, int, int, int, int]:
+    """The one-pass kernel's launch shape at ``n`` (``ClusterPlan`` of
+    ``csrc/fourstep_cluster.cuh`` as ``csrc/fft_rows_transpose_cluster.cu``
+    instantiates it): ``(n1, n2, ctas, rows_per_cluster, threads,
+    smem_bytes)``, n2 = 32*ctas (each rank loads 32 columns) and n1 = n/n2.
+    A cluster holds ``rows_per_cluster`` signal rows, and each of its CTAs
+    runs n/(16*ctas) threads a row (16 points each, n2/ctas columns of n1
+    and then n1/ctas rows of n2) over a buffer of (n/ctas)*17/16 complex64
+    a row."""
+    if n not in TRANSPOSE_CLUSTER_LENGTHS:
+        raise ValueError(f"transpose_cluster_plan: no cluster kernel at length {n}; it "
+                         f"takes {list(TRANSPOSE_CLUSTER_LENGTHS)}")
+    ctas, rows = TRANSPOSE_CLUSTER_CTAS, TRANSPOSE_CLUSTER_ROWS
+    n1, n2 = large_split(n, n2=32 * ctas)
+    elements = n // ctas
+    return (n1, n2, ctas, rows, rows * elements // _POINTS,
+            8 * rows * (elements + -(-elements // 16)))
 
 
 def fft_rows_transpose_large_plain(x: torch.Tensor, *, inverse: bool = False,
@@ -56,15 +106,37 @@ def fft_rows_transpose_large_plain(x: torch.Tensor, *, inverse: bool = False,
     return c.permute(2, 0, 1).reshape(n, rows)
 
 
+def fft_rows_transpose_cluster_cuda(x: torch.Tensor, *,
+                                    inverse: bool = False) -> torch.Tensor:
+    """Launch ``csrc/fft_rows_transpose_cluster.cu`` once: (rows, n)
+    complex64 CUDA tensor, n in ``TRANSPOSE_CLUSTER_LENGTHS``, ->
+    ``FFT_rows(x).T`` of shape (n, rows) in the shape
+    ``transpose_cluster_plan(n)``.  No scratch.  Does not synchronise."""
+    global _launches
+    rows, n = check_kernel_input(x, "fft_rows_transpose_cluster_cuda")
+    transpose_cluster_plan(n)
+    out = torch.empty((n, rows), dtype=x.dtype, device=x.device)
+    if rows == 0:
+        return out
+    launch("repro_fft_rows_transpose_cluster", x, out, rows=rows, n=n,
+           inverse=int(inverse), out_stride=rows)
+    _launches += 1
+    return out
+
+
 def fft_rows_transpose_large_cuda(x: torch.Tensor, *,
                                   inverse: bool = False) -> torch.Tensor:
-    """Launch ``csrc/fft_rows_transpose_large.cu``: (rows, n) complex64 CUDA
-    tensor -> ``FFT_rows(x).T`` of shape (n, rows), both factors of the split
-    (``kernel_split``) in the kernels' range; per chunk of
-    rows, pass B's shape is ``complex_rows_plan(n2, cap*n1)`` with cap =
-    ``scratch_capacity(chunk rows)``.  Does not synchronise."""
-    global _launches
+    """K2b on a (rows, n) complex64 CUDA tensor -> ``FFT_rows(x).T`` of shape
+    (n, rows).  At n in ``TRANSPOSE_CLUSTER_LENGTHS`` one launch of the
+    cluster kernel (``fft_rows_transpose_cluster_cuda``); above,
+    ``csrc/fft_rows_transpose_large.cu``'s two passes by chunk of
+    ``scratch_rows(n)`` rows, both factors of the split (``kernel_split``)
+    in the kernels' range, pass B's shape ``complex_rows_plan(n2, cap*n1)``
+    with cap = ``scratch_capacity(chunk rows)``.  Does not synchronise."""
+    global _launches, _two_pass_launches
     rows, n = check_kernel_input(x, "fft_rows_transpose_large_cuda")
+    if n in TRANSPOSE_CLUSTER_LENGTHS:
+        return fft_rows_transpose_cluster_cuda(x, inverse=inverse)
     n1, n2 = kernel_split(n, None, "fft_rows_transpose_large_cuda")
     out = torch.empty((n, rows), dtype=x.dtype, device=x.device)
     if rows == 0:
@@ -80,4 +152,5 @@ def fft_rows_transpose_large_cuda(x: torch.Tensor, *,
                inverse=int(inverse), out_stride=rows, rows_per_cta=rows_per_cta,
                threads=threads)
         _launches += 2
+        _two_pass_launches += 2
     return out

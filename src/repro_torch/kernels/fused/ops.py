@@ -26,7 +26,8 @@ def fft_rows_transpose_op(x, *, inverse: bool = False,
                           radix: int | None = None) -> torch.Tensor:
     """Fused ``FFT_rows(x).T``.  x: (rows, n) complex, n a power of two up
     to ``MAX_LARGE_N``: K2 (one launch) up to ``MAX_KERNEL_N``, the
-    four-step K2b above (on the CPU, ``fft_rows_transpose_large_plain``).
+    four-step K2b above (one launch over clusters at n <= 65536, two passes
+    beyond; on the CPU, ``fft_rows_transpose_large_plain``).
 
     ``radix=None`` auto-selects; it chooses the plain version's stage loop
     up to ``MAX_KERNEL_N``, while the CUDA kernels' passes depend on ``n``

@@ -448,92 +448,120 @@ def _half_warp_banks(slots: np.ndarray) -> int:
     return _worst_bank_count(halves, np.ones(halves.shape, bool))
 
 
-def k1b_cluster_model(x, n: int, *, rows: int | None = None, inverse: bool = False):
-    """K1b's one-pass kernel over a thread-block cluster
-    (``csrc/fourstep_cluster.cuh``) in float64, thread by thread, in its
-    launch shape ``cluster_plan(n)``: ``x`` the (rows, n)
-    complex rows, or None for the pattern alone (then ``rows``).
+def _cluster_model(x, n: int, plan, *, rows: int | None, transposed: bool,
+                   out_stride: int | None, inverse: bool):
+    """The one-pass kernel over a thread-block cluster
+    (``csrc/fourstep_cluster.cuh``'s ``cluster_kernel``) in float64, thread
+    by thread, in the launch shape ``plan = (n1, n2, ctas, per, threads,
+    smem)``: ``x`` the (rows, n) complex rows, or None for the pattern alone
+    (then ``rows``).
 
-    Cluster s, rank r (C ranks, T = n/(16C) threads each, G1 = n1/16, G2 =
-    n2/16, COLS = n2/C, W = n1/C):
-    - Column phase: thread t*COLS + c loads A[t + k*G1][j2], j2 = r*COLS +
-      c, k < 16, from x[s*n + (t + k*G1)*n2 + j2]; the column DFT's
-      exchanges (regfft's passes) put element f of column c at f*COLS + c;
-      then Y[k1][j2] times the exact twiddle w_n^(k1*j2), k1 = t + k*G1.
-    - Exchange: point k goes to rank k // (16/C), slab slot rho*n2 + j2,
+    Cluster q holds rows s = q*R + g, g < R = ``per``; rank r runs R*T
+    threads, T = n/(16C), thread g*T + i on row g with its part of the
+    buffer at g*E, E = (n/C)*17/16 (G1 = n1/16, G2 = n2/16, COLS = n2/C, W =
+    n1/C):
+    - Column phase: thread i = t*COLS + c loads A[t + k*G1][j2], j2 = r*COLS
+      + c, k < 16, from x[s*n + (t + k*G1)*n2 + j2] (zeros where s >= rows);
+      the column DFT's exchanges (regfft's passes) put element f of column c
+      at g*E + f*COLS + c; then Y[k1][j2] times the exact twiddle
+      w_n^(k1*j2), k1 = t + k*G1.
+    - Exchange: point k goes to rank k // (16/C), slot g*E + rho*n2 + j2,
       rho = t + (k % (16/C))*G1.
-    - Row phase: thread rho*G2 + t2 loads slot rho*n2 + t2 + k*G2 of its own
-      slab, B[r*W + rho][t2 + k*G2], and runs the length-n2 DFT (its
-      exchanges are regfft's, ``kernel_pass_model``).
-    - Store: bin k2 = t2 + k*G2 of row rho to slot ``k4_slot(k2*W + rho)``
-      (tstore.cuh's swizzle for W rows of n2), read back at idx = tid + k*T
-      (q = idx % W, k2 = idx // W) and written to out[s*n + k2*n1 + r*W + q].
+    - Row phase: thread i = rho*G2 + t2 loads slot g*E + rho*n2 + t2 + k*G2
+      of its own CTA, B[r*W + rho][t2 + k*G2], and runs the length-n2 DFT.
+    - Store: bin k2 = t2 + k*G2 of row rho of row g to slot ``k4_slot((k2*W
+      + rho)*R + g)`` (tstore.cuh's swizzle for P = W*R rows of n2), read
+      back at idx = tid + k*R*T (q = idx % P, gq = q % R, rho = q // R, k2 =
+      idx // P) and written to out[(q*R + gq)*n + k2*n1 + r*W + rho] or,
+      ``transposed``, to out[(r*W + rho + n1*k2)*out_stride + q*R + gq]
+      where that row exists.
 
-    Returns a dict: ``out`` the (rows, n) result (None without ``x``);
-    ``reads`` how often each input element was loaded; ``slab_writes`` how
-    often each (cluster, rank, slot) of the W*n2 slab slots was written,
-    ``owner_ok`` whether every point went to the rank and row that hold its
-    k1, ``slab_reads`` how often the row phase loaded each slot;
-    ``writes`` how often each output element was stored; ``worst_bank``
-    the worst count of a half-warp's lanes on one bank over the column
-    exchanges, the remote stores, the row phase's loads, and the staging's
-    writes and reads; ``loads_whole`` / ``stores_whole`` whether every warp
-    instruction of the loads, of the remote stores and of the output stores
-    touches whole 32-byte sectors; ``store_runs`` the bytes of each run of
-    consecutive output elements a warp instruction writes."""
-    from repro_torch.kernels.fft.large import cluster_plan
-
-    n1, n2, ctas, threads, smem = cluster_plan(n)
+    Returns a dict: ``out`` the result, (rows, n) or (n, out_stride) (None
+    without ``x``); ``reads`` how often each input element was loaded;
+    ``slab_writes`` how often each (cluster, rank, g, slot) of the R*W*n2
+    slab slots was written, ``owner_ok`` whether every point went to the
+    rank and row that hold its k1, ``slab_reads`` how often the row phase
+    loaded each slot; ``writes`` how often each output element was stored;
+    ``worst_bank`` the worst count of a half-warp's lanes on one bank over
+    the column exchanges, the remote stores, the row phase's loads, and the
+    staging's writes and reads; ``loads_whole`` / ``loads_256`` whether
+    every warp instruction of the loads touches whole 32-byte sectors / 32
+    consecutive elements from a 256-byte boundary; ``stores_whole`` whether
+    every warp instruction of the remote stores, and of the output stores
+    of the clusters whose R rows all exist, touches whole 32-byte sectors;
+    ``store_runs`` the bytes of each run of consecutive output elements a
+    warp instruction writes."""
+    n1, n2, ctas, per, threads, smem = plan
     rows = x.shape[0] if x is not None else rows
-    g1, g2, cols, w, per = n1 // 16, n2 // 16, n2 // ctas, n1 // ctas, 16 // ctas
-    log2w = w.bit_length() - 1
-    assert threads == cols * g1 == w * g2 and smem // 8 >= w * n2
+    out_stride = rows if out_stride is None else out_stride
+    g1, g2, cols, w, send = n1 // 16, n2 // 16, n2 // ctas, n1 // ctas, 16 // ctas
+    row_threads = threads // per
+    elems = smem // 8 // per
+    log2w, log2r = w.bit_length() - 1, per.bit_length() - 1
+    log2p = log2w + log2r
+    assert row_threads == cols * g1 == w * g2 and elems >= w * n2 and elems % 16 == 0
+    clusters = -(-rows // per)
     tid = np.arange(threads)
-    c, t = tid % cols, tid // cols
+    g, i = tid // row_threads, tid % row_threads
+    c, t = i % cols, i // cols
     k = np.arange(16)[:, None]                                      # (16, 1)
-    s = np.arange(rows)[:, None, None, None]                        # (S, 1, 1, 1)
+    q = np.arange(clusters)[:, None, None, None]                    # (Q, 1, 1, 1)
     r = np.arange(ctas)[None, :, None, None]                        # (1, C, 1, 1)
     j2 = r * cols + c                                               # (1, C, 1, T)
     k1 = t + k * g1                                                 # (16, T)
-    load = s * n + k1 * n2 + j2                                     # (S, C, 16, T)
-    reads = np.bincount(load.ravel(), minlength=rows * n)
+    s = q * per + g                                                 # (Q, 1, 1, T)
+    live = np.broadcast_to(s < rows, (clusters, ctas, 16, threads))
+    load = np.broadcast_to(s * n + k1 * n2 + j2, live.shape)        # (Q, C, 16, T)
+    reads = np.bincount(load[live], minlength=rows * n)
     loads_whole = _warp_sectors_whole(load)
+    warps = load.reshape(-1, 32)
+    loads_256 = bool((np.diff(warps, axis=1) == 1).all() and (warps[:, 0] % 32 == 0).all())
     worst = 1
     # The column DFT's exchanges, pass by pass (regfft's radix16_passes).
     log2n1 = n1.bit_length() - 1
     for p in range(log2n1 // 4 - (log2n1 % 4 == 0)):
         log2s = 4 * p
-        j, q = t >> log2s, t & ((1 << log2s) - 1)
-        f = (((j << 4) << log2s) + q) + (np.arange(16)[:, None] << log2s)   # (16, T)
-        assert np.unique(f * cols + c).size == 16 * threads
-        worst = max(worst, _half_warp_banks(f * cols + c), _half_warp_banks(k1 * cols + c))
+        jj, qq = t >> log2s, t & ((1 << log2s) - 1)
+        f = (((jj << 4) << log2s) + qq) + (np.arange(16)[:, None] << log2s)   # (16, T)
+        assert np.unique(g * elems + f * cols + c).size == 16 * threads
+        worst = max(worst, _half_warp_banks(g * elems + f * cols + c),
+                    _half_warp_banks(g * elems + k1 * cols + c))
     # The exchange: owner and slot of every point.
-    owner = np.broadcast_to(k // per, k1.shape)
-    rho = t + (k % per) * g1
+    owner = np.broadcast_to(k // send, k1.shape)
+    rho = t + (k % send) * g1
     owner_ok = bool((owner == k1 // w).all() and (rho == k1 % w).all())
     slot = rho * n2 + j2                                             # (1, C, 16, T)
-    dest = (s * ctas + owner) * (w * n2) + slot                      # (S, C, 16, T)
-    slab_writes = np.bincount(dest.ravel(), minlength=rows * ctas * w * n2)
-    worst = max(worst, _half_warp_banks(np.broadcast_to(slot, (1, ctas, 16, threads))))
-    remote_whole = _warp_sectors_whole(np.broadcast_to(slot, (1, ctas, 16, threads)))
+    dest = ((q * ctas + owner) * per + g) * (w * n2) + slot          # (Q, C, 16, T)
+    slab_writes = np.bincount(dest.ravel(), minlength=clusters * ctas * per * w * n2)
+    remote = np.broadcast_to(g * elems + slot, (1, ctas, 16, threads))
+    worst = max(worst, _half_warp_banks(remote))
+    remote_whole = _warp_sectors_whole(remote)
     # The row phase's loads.
-    rho2, t2 = tid // g2, tid % g2
+    rho2, t2 = i // g2, i % g2
     k2 = t2 + k * g2                                                 # (16, T)
     own = rho2 * n2 + k2                                             # (16, T)
-    src = (s * ctas + r) * (w * n2) + own                            # (S, C, 16, T)
-    slab_reads = np.bincount(src.ravel(), minlength=rows * ctas * w * n2)
-    worst = max(worst, _half_warp_banks(own))
+    src = ((q * ctas + r) * per + g) * (w * n2) + own                # (Q, C, 16, T)
+    slab_reads = np.bincount(src.ravel(), minlength=clusters * ctas * per * w * n2)
+    worst = max(worst, _half_warp_banks(g * elems + own))
     # The staging and the store.
-    swz = k4_swizzle(n2, w)
-    put = k4_slot((k2 << log2w) + rho2, swz)
+    swz = k4_swizzle(n2, w * per)
+    put = k4_slot((((k2 << log2w) + rho2) << log2r) + g, swz)
     assert np.unique(put).size == put.size and put.max() < smem // 8
     idx = tid + k * threads                                          # (16, T)
-    qq, kk = idx & (w - 1), idx >> log2w
+    qq, kk = idx & ((1 << log2p) - 1), idx >> log2p
+    gq, rq = qq & (per - 1), qq >> log2r
     get = k4_slot(idx, swz)
     worst = max(worst, _half_warp_banks(put), _half_warp_banks(get))
-    store = s * n + kk * n1 + r * w + qq                             # (S, C, 16, T)
-    writes = np.bincount(store.ravel(), minlength=rows * n)
-    stores_whole = _warp_sectors_whole(store) and remote_whole
+    col = q * per + gq                                               # (Q, 1, 16, T)
+    if transposed:
+        store = (r * w + rq + n1 * kk) * out_stride + col            # (Q, C, 16, T)
+    else:
+        store = col * n + kk * n1 + r * w + rq
+    stored = np.broadcast_to(col < rows, store.shape)
+    writes = np.bincount(store[stored], minlength=(n * out_stride if transposed
+                                                    else rows * n))
+    full = clusters if rows % per == 0 else clusters - 1
+    stores_whole = remote_whole and (full == 0 or _warp_sectors_whole(store[:full]))
     lanes = store.reshape(-1, 32)
     breaks = np.diff(lanes, axis=1) != 1
     store_runs = []
@@ -543,31 +571,60 @@ def k1b_cluster_model(x, n: int, *, rows: int | None = None, inverse: bool = Fal
     store_runs = np.concatenate(store_runs)
     out = None
     if x is not None:
-        xx = np.asarray(x, np.complex128).reshape(-1)
+        xx = np.concatenate([np.asarray(x, np.complex128).reshape(-1),
+                             np.zeros(1, np.complex128)])
         fwd = np.fft.ifft if inverse else np.fft.fft
         sign = 1.0 if inverse else -1.0
-        # Column phase: A[c][k1] of each (s, r), its DFT, the twiddle.
-        col = np.zeros((rows, ctas, cols, n1), np.complex128)
-        col[:, :, c, np.broadcast_to(k1, (16, threads))] = xx[load].transpose(0, 1, 2, 3)
-        y = fwd(col, axis=-1)
+        # Column phase: A[c][k1] of each (q, r, g), its DFT, the twiddle;
+        # rows past the call load zeros (index rows*n of xx).
+        held = xx[np.where(live, load, rows * n)]                    # (Q, C, 16, T)
+        colv = np.zeros((clusters, ctas, per, cols, n1), np.complex128)
+        gg, cc, kk1 = (np.broadcast_to(a, (16, threads)) for a in (g, c, k1))
+        colv[:, :, gg, cc, kk1] = held
+        y = fwd(colv, axis=-1)
         jj = np.arange(ctas)[:, None] * cols + np.arange(cols)        # (C, cols)
-        y = y * np.exp(sign * 2j * np.pi * ((jj[:, :, None] * np.arange(n1)) % n) / n)
-        held = y[:, :, c, np.broadcast_to(k1, (16, threads))]         # (S, C, 16, T)
-        slab = np.zeros(rows * ctas * w * n2, np.complex128)
-        slab[dest] = held
-        rowsd = slab[src].reshape(rows, ctas, 16, threads)           # B[r*W + rho2][k2]
-        b = np.zeros((rows, ctas, w, n2), np.complex128)
-        b[:, :, np.broadcast_to(rho2, (16, threads)), k2] = rowsd
-        z = fwd(b, axis=-1)                                          # Z[rho][k2]
-        staged = np.zeros((rows, ctas, smem // 8), np.complex128)
-        staged[:, :, put] = z[:, :, np.broadcast_to(rho2, (16, threads)), k2]
-        out = np.zeros(rows * n, np.complex128)
-        out[store] = staged[:, :, get]
-        out = out.reshape(rows, n)
+        y = y * np.exp(sign * 2j * np.pi * ((jj[:, None, :, None] * np.arange(n1)) % n)
+                       / n)
+        slab = np.zeros(clusters * ctas * per * w * n2, np.complex128)
+        slab[dest] = y[:, :, gg, cc, kk1]
+        b = np.zeros((clusters, ctas, per, w, n2), np.complex128)
+        rr, kk2 = np.broadcast_to(rho2, (16, threads)), np.broadcast_to(k2, (16, threads))
+        b[:, :, gg, rr, kk2] = slab[src]
+        z = fwd(b, axis=-1)                                          # Z[g][rho][k2]
+        staged = np.zeros((clusters, ctas, smem // 8), np.complex128)
+        staged[:, :, put] = z[:, :, gg, rr, kk2]
+        out = np.zeros(n * out_stride if transposed else rows * n, np.complex128)
+        got = np.broadcast_to(staged[:, :, get], store.shape)
+        out[store[stored]] = got[stored]
+        out = out.reshape((n, out_stride) if transposed else (rows, n))
     return {"out": out, "reads": reads, "slab_writes": slab_writes, "owner_ok": owner_ok,
             "slab_reads": slab_reads, "writes": writes, "worst_bank": worst,
-            "loads_whole": loads_whole, "stores_whole": stores_whole,
-            "store_runs": store_runs}
+            "loads_whole": loads_whole, "loads_256": loads_256,
+            "stores_whole": stores_whole, "store_runs": store_runs}
+
+
+def k1b_cluster_model(x, n: int, *, rows: int | None = None, inverse: bool = False):
+    """K1b's one-pass kernel (``_cluster_model``, one row a cluster, R = 1)
+    in its launch shape ``cluster_plan(n)``: out[s*n + k2*n1 + r*W + rho],
+    for each k2 a run of W consecutive elements."""
+    from repro_torch.kernels.fft.large import cluster_plan
+
+    n1, n2, ctas, threads, smem = cluster_plan(n)
+    return _cluster_model(x, n, (n1, n2, ctas, 1, threads, smem), rows=rows,
+                          transposed=False, out_stride=None, inverse=inverse)
+
+
+def k2b_cluster_model(x, n: int, *, rows: int | None = None,
+                      out_stride: int | None = None, inverse: bool = False):
+    """K2b's one-pass kernel (``_cluster_model`` with the transposed store,
+    as ``csrc/fft_rows_transpose_cluster.cu`` launches it) in its launch
+    shape ``transpose_cluster_plan(n)``, stored to an (n, ``out_stride``)
+    output (default ``rows``): out[(r*W + rho + n1*k2)*out_stride + s], for
+    each (k1, k2) a run of the R rows' s."""
+    from repro_torch.kernels.fused.large import transpose_cluster_plan
+
+    return _cluster_model(x, n, transpose_cluster_plan(n), rows=rows, transposed=True,
+                          out_stride=out_stride, inverse=inverse)
 
 
 def cluster_twiddle_model(n: int, g: int, t: np.ndarray, j2: np.ndarray, *,

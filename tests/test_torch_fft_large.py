@@ -331,13 +331,14 @@ def test_cluster_plan_mirrors_the_cuda_source():
         assert smem == 8 * (w * n2 + -(-w * n2 // 16)) <= port_kernel.SMEM_BUDGET
         assert 65536 // (threads * 64) * (smem + 1024) <= 233472
     # The phases as the docstrings and the model describe them.
-    assert "column_fft<LOG2N1, COLS, INV>(v, smem, c, t)" in text
+    assert "column_fft<LOG2N1, COLS, INV>(v, buf, c, t)" in text
     assert "buf[(f0 + (u << log2s)) * COLS + c] = v[u]" in text
     assert "column_twiddles<INV>(v, t, G1, j2, LOG2N)" in text
     assert "slab[(t + i * G1) * N2 + j2] = v[o * CP::PER_RANK + i]" in text
-    assert "v[k] = smem[rho * N2 + t2 + k * G2]" in text
-    assert "fft_row<LOG2N2, INV>(v, smem, rho * N2, t2)" in text
-    assert "smem[slot(((t2 + k * G2) << CP::LOG2W) + rho)] = v[k]" in text
+    assert "v[k] = buf[rho * N2 + t2 + k * G2]" in text
+    assert "fft_row<LOG2N2, INV>(v, buf, rho * N2, t2)" in text
+    assert "smem[slot(((((t2 + k * G2) << CP::LOG2W) + rho) << LOG2R) + g)] = v[k]" in text
+    assert "float2* o = TRANSPOSED ? out : out + (s << LOG2N) + rank * W;" in text
     assert "o[k2 * N1 + q] = smem[slot(idx)]" in text
     assert text.count("cluster.sync()") == 2
     assert "repro::tstore::launch<CP::C>" in text
@@ -354,7 +355,7 @@ def test_cluster_binding():
     assert argtypes[:2] == [_build._PTR] * 2 and argtypes[2] is _build._LL
     assert argtypes[3:5] == [_build._INT] * 2 and argtypes[-1] is _build._PTR
     assert [name for name in _build._FUNCTIONS if "cluster" in name] == [
-        "repro_fft_rows_cluster"]
+        "repro_fft_rows_cluster", "repro_fft_rows_transpose_cluster"]
     text = (_build.csrc_dir() / CLUSTER_SOURCE).read_text()
     assert ('extern "C" int repro_fft_rows_cluster(const void* in, void* out, long long rows, '
             'int n,') in text

@@ -3,10 +3,12 @@ than K2-K4 hold (``csrc/fft_rows_transpose_large.cu``,
 ``csrc/rfft_rows_large.cu``, ``csrc/rfft_rows_transpose_large.cu`` on
 ``csrc/fourstep.cuh``), on the CPU: their plain versions against the
 reference's ops (Pallas in interpret mode) and ``numpy.fft``, at forced
-splits, float64 models of K2b's ``[k1][s][j2]`` scratch and transposed store
-and of K3b's and K4b's pass B with the slot split in both stores, their
-launch plans and bindings against the CUDA sources, and the ``fft2d`` paths
-through them.
+splits, float64 models of K2b's one-pass cluster kernel at n = 32768
+(``csrc/fft_rows_transpose_cluster.cu`` on ``csrc/fourstep_cluster.cuh``), of
+its two passes' ``[k1][s][j2]`` scratch and transposed store and of K3b's and
+K4b's pass B with the slot split in both stores, their launch plans and
+bindings against the CUDA sources, the launcher's choice of kernel, and the
+``fft2d`` paths through them.
 
 The CUDA kernels run only on the card (``chip_smoke.py``,
 ``examples/kernel_check_torch.py --large-fused-and-real-only``).  Run these
@@ -21,8 +23,8 @@ import pytest
 import torch
 import jax.numpy as jnp
 
-from _torch_parity import (complex_signal, k2b_model, real_pass_b_model, to_numpy,
-                           to_torch)
+from _torch_parity import (complex_signal, k2b_cluster_model, k2b_model,
+                           kernel_pass_model, real_pass_b_model, to_numpy, to_torch)
 
 import repro.fft.fft2d as ref_fft2d
 from repro.kernels.fft.real import rfft_rows_op as ref_rfft_rows_op
@@ -45,6 +47,9 @@ from repro_torch.kernels.fused.real import rfft_rows_transpose_op
 SOURCES = {"fft_rows_transpose_large": "fft_rows_transpose_large.cu",
            "rfft_rows_large": "rfft_rows_large.cu",
            "rfft_rows_transpose_large": "rfft_rows_transpose_large.cu"}
+CLUSTER_SOURCE = "fft_rows_transpose_cluster.cu"
+CLUSTER_HEADER = "fourstep_cluster.cuh"
+CLUSTER_LENGTHS = port_fused_large.TRANSPOSE_CLUSTER_LENGTHS
 
 
 def tol(n, inverse=False):
@@ -204,6 +209,166 @@ def test_k2b_store_pattern_at_every_length(e):
             None, n1, n2, cols, plan_b, cluster, rows=1)
         assert (reads_a == 1).all() and (writes_a == 1).all() and (writes_b == 1).all()
         assert sectors_a == (cols >= 4) and runs[1].all()
+
+
+# ------------------------------------ K2b's one-pass cluster kernel (32768)
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("rows", [3, 4, 9])
+@pytest.mark.parametrize("n", CLUSTER_LENGTHS)
+def test_k2b_cluster_model_is_the_transposed_dft(n, rows, inverse):
+    """The model of K2b's cluster kernel in its launch shape
+    (``transpose_cluster_plan(n)``, 4 rows a cluster of 16 CTAs) at 3 rows (one
+    cluster, its last row masked), 4 (one whole cluster) and 9 (two whole
+    clusters and one of a single row) is ``FFT_rows(x).T``: ``numpy.fft`` in
+    float64 to ``1e-9·n``, the inverse to ``1e-9``; every input element
+    loaded once, every slab slot written once (by the rank and row that the
+    point's k1 gives) and loaded once, every output element stored once."""
+    x = complex_signal(n + 5 * rows + inverse, rows, n)
+    model = k2b_cluster_model(x, n, inverse=inverse)
+    exact = (np.fft.ifft if inverse else np.fft.fft)(x.astype(np.complex128)).T
+    np.testing.assert_allclose(model["out"], exact, rtol=0,
+                               atol=1e-9 * (1 if inverse else n))
+    for key in ("reads", "slab_writes", "slab_reads", "writes"):
+        assert (model[key] == 1).all(), key
+    assert model["owner_ok"]
+
+
+@pytest.mark.parametrize("rows, stride", [(8, 8), (9, 12), (5, 5)])
+@pytest.mark.parametrize("n", CLUSTER_LENGTHS)
+def test_k2b_cluster_pattern(n, rows, stride):
+    """The pattern alone (the direction changes no index), ``rows`` rows
+    stored to an (n, ``stride``) output: each element loaded, sent, read back
+    and stored once, each point to its owner, no store outside the call's
+    columns; each warp's loads 32 consecutive elements from a 256-byte
+    boundary; no bank conflict in the column exchanges, the remote stores,
+    the row phase's loads or the staging, and the row DFT's own exchanges
+    (regfft's, over W rows of n2) conflict-free too; where the stride is a
+    multiple of 4, every output store instruction of a whole cluster writes
+    whole 32-byte sectors, 4 rows a run; at an odd stride (as phase 2 of the
+    fused real plan's 16385 rows at 32768) they are off sectors."""
+    model = k2b_cluster_model(None, n, rows=rows, out_stride=stride)
+    for key in ("reads", "slab_writes", "slab_reads"):
+        assert (model[key] == 1).all(), key
+    writes = model["writes"].reshape(n, stride)
+    assert (writes[:, :rows] == 1).all() and (writes[:, rows:] == 0).all()
+    assert model["owner_ok"] and model["loads_256"] and model["worst_bank"] == 1
+    n1, n2, ctas, per, threads, smem = port_fused_large.transpose_cluster_plan(n)
+    assert model["stores_whole"] == (stride % 4 == 0)
+    if stride % per == 0:
+        assert set(model["store_runs"].tolist()) == {8 * per}
+    w = n1 // ctas
+    plan = (w, threads // per, 16, port_kernel.complex_rows_plan(n2, 1)[3], smem // per)
+    _, worst = kernel_pass_model(torch.zeros((w, n2), dtype=torch.complex64), plan)
+    assert worst == 1
+
+
+def test_transpose_cluster_plan_mirrors_the_cuda_source():
+    """``transpose_cluster_plan`` is the source's shape: the lengths its
+    entry dispatches, its ``kLog2Ctas`` and ``kLog2Rows``, the split with
+    n2 = 32 columns a rank, ``ClusterPlan``'s rows*n/(16C) threads and
+    rows*(n/C)*17/16 float2 of shared memory, as many CTAs an SM as its
+    ``MIN_BLOCKS`` asks for fitting in shared memory, what the header's
+    static_asserts require; the transposed store as the model runs it, and
+    no scratch."""
+    text = "".join(source(name) for name in (CLUSTER_SOURCE, CLUSTER_HEADER))
+    body = source(CLUSTER_SOURCE)
+    assert f'#include "{CLUSTER_HEADER}"' in body and "scratch" not in body
+    ctas = port_fused_large.TRANSPOSE_CLUSTER_CTAS
+    per = port_fused_large.TRANSPOSE_CLUSTER_ROWS
+    assert f"constexpr int kLog2Ctas = {ctas.bit_length() - 1};" in body
+    assert f"constexpr int kLog2Rows = {per.bit_length() - 1};" in body
+    assert "constexpr int kLog2N2 = kLog2Ctas + 5;" in body
+    assert ("launch_cluster<LOG2N - kLog2N2, kLog2N2, kLog2Ctas, INV, kLog2Rows, true>"
+            in body)
+    entry = body[body.index('extern "C" int repro_fft_rows_transpose_cluster('):]
+    assert [1 << int(e) for e in re.findall(r"case 1 << (\d+):", entry)] == list(
+        CLUSTER_LENGTHS)
+    assert "if (out_stride < rows) return (int)cudaErrorInvalidValue;" in entry
+    for n in CLUSTER_LENGTHS:
+        n1, n2, got_ctas, got_per, threads, smem = port_fused_large.transpose_cluster_plan(n)
+        log2n = n.bit_length() - 1
+        assert (n1, n2) == (1 << (log2n - ctas.bit_length() - 4), 32 * ctas)
+        assert (got_ctas, got_per) == (ctas, per)
+        cols, w = n2 // ctas, n1 // ctas
+        assert threads == per * cols * (n1 // 16) == per * w * (n2 // 16) <= 1024
+        assert cols == 32 and w >= 4 and n2 >= 256 and 2 <= ctas <= 16
+        assert smem == 8 * per * (w * n2 + -(-w * n2 // 16)) <= port_kernel.SMEM_BUDGET
+        blocks = 65536 // (threads * 64)
+        assert blocks >= 1 and blocks * (smem + 1024) <= 233472
+    for expr in ("ROW_ELEMS = repro::regfft::exchange_elems(W, N2);",
+                 "ELEMS = ROW_ELEMS * R;", "THREADS = ROW_THREADS * R;",
+                 "float2* buf = smem + g * CP::ROW_ELEMS;",
+                 "const bool live = CP::R == 1 || s < rows;",
+                 "const long long s0 = ((long long)blockIdx.x >> LOG2C) << LOG2R;",
+                 "const Swizzle<LOG2N2> slot(LOG2P);",
+                 "smem[slot(((((t2 + k * G2) << CP::LOG2W) + rho) << LOG2R) + g)] = v[k];",
+                 "const int gq = q & (CP::R - 1);",
+                 "const long long bin = rank * W + (q >> LOG2R) + (long long)N1 * k2;",
+                 "if (s0 + gq < rows) o[bin * out_stride + s0 + gq] = smem[slot(idx)];",
+                 "((rows + CP::R - 1) >> LOG2R) << LOG2C",
+                 "cudaFuncAttributeNonPortableClusterSizeAllowed, 1);",
+                 "static_assert(C >= 2 && C <= 16"):
+        assert expr in text, expr
+    assert "Replaces the TPU kernel `fft_rows_transpose_pallas`" in body
+    assert "Bound on this card: bytes" in body
+
+
+def test_transpose_cluster_binding_and_refusals():
+    """K2b's one-pass entry is bound with its seven arguments (two
+    pointers, a 64-bit row count, n, the direction, the 64-bit output
+    stride, the stream last): no launch shape and no scratch; it is K2b's
+    only cluster entry; the plan refuses every other length."""
+    ptr, ll, int_ = _build._PTR, _build._LL, _build._INT
+    restype, argtypes = _build._FUNCTIONS["repro_fft_rows_transpose_cluster"]
+    assert restype is int_ and argtypes == [ptr, ptr, ll, int_, int_, ll, ptr]
+    assert [name for name in _build._FUNCTIONS if "transpose" in name and "cluster" in name
+            ] == ["repro_fft_rows_transpose_cluster"]
+    body = source(CLUSTER_SOURCE)
+    assert ('extern "C" int repro_fft_rows_transpose_cluster(const void* in, void* out, '
+            'long long rows,') in body
+    assert body.count('extern "C"') == 1
+    for n in (1 << 14, 1 << 17, 3 << 14):
+        with pytest.raises(ValueError, match="no cluster kernel"):
+            port_fused_large.transpose_cluster_plan(n)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_k2b_launcher_takes_one_cluster_launch_up_to_65536(monkeypatch, inverse):
+    """What ``fft_rows_transpose_large_cuda`` launches, with the launch
+    recorded in place of the library: at 32768 and 65536 one launch of the
+    cluster entry a call, over all the rows at once with their own stride,
+    counted once, with no scratch; above, the two passes a chunk (two counts
+    each, also under ``fft_rows_transpose_large_two_pass``) with scratch."""
+    calls = []
+    monkeypatch.setattr(port_fused_large, "check_kernel_input",
+                        lambda x, name, *a: tuple(x.shape))
+    monkeypatch.setattr(port_fused_large, "launch",
+                        lambda fn, x, out, **args: calls.append((fn, x.shape, out.shape, args)))
+    for n, rows in ((1 << 15, 2049), (1 << 15, 16385), (1 << 15, 4), (1 << 16, 1023)):
+        port_kernels.reset_launch_counts()
+        calls.clear()
+        out = port_fused_large.fft_rows_transpose_large_cuda(
+            torch.zeros((rows, n), dtype=torch.complex64), inverse=inverse)
+        assert out.shape == (n, rows)
+        assert calls == [("repro_fft_rows_transpose_cluster", (rows, n), (n, rows),
+                          {"rows": rows, "n": n, "inverse": int(inverse),
+                           "out_stride": rows})]
+        counts = port_kernels.launch_counts()
+        assert counts["fft_rows_transpose_large"] == 1
+        assert counts["fft_rows_transpose_large_two_pass"] == 0
+    for n, rows in ((1 << 17, 3), (1 << 18, 1)):
+        port_kernels.reset_launch_counts()
+        calls.clear()
+        port_fused_large.fft_rows_transpose_large_cuda(
+            torch.zeros((rows, n), dtype=torch.complex64), inverse=inverse)
+        assert [c[0] for c in calls] == ["repro_fft_rows_transpose_large"]
+        assert "scratch" in calls[0][3] and calls[0][3]["out_stride"] == rows
+        counts = port_kernels.launch_counts()
+        assert counts["fft_rows_transpose_large"] == 2
+        assert counts["fft_rows_transpose_large_two_pass"] == 2
+    port_kernels.reset_launch_counts()
+    assert port_fused_large.two_pass_launch_count() == 0
 
 
 def real_plans(n, rows, transposed):
@@ -425,10 +590,11 @@ def test_pass_c_and_the_store_orders_mirror_the_cuda_source():
 
 @pytest.mark.parametrize("rows", [1, 2, 3, 4095, 4096, 4097, 16385])
 def test_scratch_capacity_and_chunks(rows):
-    """K2b's capacity a chunk is the least power of two >= its rows, never
-    above the chunk (a power of two) nor its 1 GiB; a call of 16385 rows at
-    32768 (phase 2 of the fused real plan) is 4 chunks of 4096 and one of 1
-    row (capacity 1): 10 launches."""
+    """The two passes' capacity a chunk is the least power of two >= its
+    rows, never above the chunk (a power of two) nor its 1 GiB; at 32768 a
+    call of 16385 rows (phase 2 of the fused real plan) would be 4 chunks of
+    4096 and one of 1 row (capacity 1), 10 launches of the two passes, where
+    the cluster kernel takes one."""
     n = 1 << 15
     chunk = port_large.scratch_rows(n)
     cap = port_large.scratch_capacity(min(rows, chunk))

@@ -331,7 +331,8 @@ def test_cpu_ops_launch_nothing_and_build_nothing():
     assert port_kernels.launch_counts() == {
         "fft_rows": 0, "fft_rows_large": 0, "fft_rows_large_two_pass": 0,
         "fft_rows_transpose": 0,
-        "fft_rows_transpose_large": 0, "rfft_rows": 0, "rfft_rows_large": 0,
+        "fft_rows_transpose_large": 0, "fft_rows_transpose_large_two_pass": 0,
+        "rfft_rows": 0, "rfft_rows_large": 0,
         "rfft_rows_transpose": 0, "rfft_rows_transpose_large": 0, "transpose": 0}
     assert _build._library is None  # nothing compiled or loaded by CPU work
 
@@ -339,7 +340,8 @@ def test_cpu_ops_launch_nothing_and_build_nothing():
 def test_kernel_sources_are_plain_cuda_built_for_sm_90a():
     names = [p.name for p in _build.source_files()]
     assert names == ["fft_rows.cu", "fft_rows_cluster.cu", "fft_rows_large.cu",
-                     "fft_rows_transpose.cu", "fft_rows_transpose_large.cu", "fourstep.cuh",
+                     "fft_rows_transpose.cu", "fft_rows_transpose_cluster.cu",
+                     "fft_rows_transpose_large.cu", "fourstep.cuh",
                      "fourstep_cluster.cuh", "regfft.cuh",
                      "rfft_rows.cu", "rfft_rows_large.cu", "rfft_rows_transpose.cu",
                      "rfft_rows_transpose_large.cu", "transpose.cu", "tstore.cuh"]
@@ -368,6 +370,8 @@ def test_kernel_sources_are_plain_cuda_built_for_sm_90a():
     for name in ("fft_rows_large.cu", "fft_rows_transpose_large.cu", "rfft_rows_large.cu",
                  "rfft_rows_transpose_large.cu"):
         assert '#include "fourstep.cuh"' in (_build.csrc_dir() / name).read_text()
+    for name in ("fft_rows_cluster.cu", "fft_rows_transpose_cluster.cu"):
+        assert '#include "fourstep_cluster.cuh"' in (_build.csrc_dir() / name).read_text()
 
 
 def test_build_directory_is_keyed_by_the_sources(tmp_path, monkeypatch):
