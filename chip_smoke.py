@@ -12,7 +12,8 @@ each of which ends the run with a non-zero exit code when it fails:
 3. ``kernel_checks`` every kernel against its plain PyTorch version and the
                  library on the card (ragged and odd row counts, every length
                  the row kernels K1-K4 are built for, n = 2 ... 16384, both
-                 directions of K1 and K2, ragged clusters of K2 and K4, the
+                 directions of K1 and K2, ragged clusters of K2 and K4, K2
+                 and K3 at 16384 one launch of their kernels there, the
                  full width, the row blocks of the batched paths 8-10 and of
                  the fused batch; the four-step K1b at 2048 x 32768, 512 x
                  131072 and 1 x 2^24 both ways, and K2b (both ways), K3b and
@@ -20,7 +21,8 @@ each of which ends the run with a non-zero exit code when it fails:
                  untimed, beside the dry-run worker.
    ``kernels``   each kernel's time beside the plain version's, the library's
                  and the card's bound at the main path's shape (K1-K4 also at
-                 4096 x 16384, K1b-K4b at 2048 x 32768).
+                 4096 x 16384, each ``at_16384`` record with its own source,
+                 K2's and K3's with their launches; K1b-K4b at 2048 x 32768).
 4. ``main_path`` FPMs timed on the card, then ``plan_pfft(...).execute`` for
                  PFFT-LB / PFFT-FPM at N = 8192 and PFFT-FPM-PAD / PFFT-FPM-CZT
                  at N = 8192 (the pow2 pad of 16384 runs K1 at Plan<14>)
@@ -311,6 +313,11 @@ MAIN_SHAPE = (8192, 8192)
 # ragged last CTA up to n = 1024, a ragged last cluster of K2 from 2048 on);
 # and WIDE_SHAPE, where K1-K4 are timed at their longest row.
 WIDE_SHAPE = (4096, 16384)
+# K2 and K3 at n = 16384 run other sources than below it, one launch a call
+# (K2 K2b's cluster kernel, K3 persistent CTAs; counted apart as
+# ``<name>_16k``).
+WIDE_SOURCES = {"fft_rows_transpose": "fft_rows_transpose_cluster.cu",
+                "rfft_rows": "rfft_rows_16k.cu"}
 COMPLEX_KERNEL_SHAPES = [(rows, 1 << e) for e in range(1, 15)
                          for rows in (37, ((1 << 20) >> e) + 5)] + [WIDE_SHAPE]
 # Where K2 runs in clusters of 4 one-row CTAs: 8k + 1, 8k + 7, 4097 rows
@@ -849,6 +856,10 @@ def wide_records(gen: torch.Generator) -> dict[str, dict]:
                                 lambda: torch.fft.rfft(xr).T.contiguous())}
     out = {}
     tol = row_fft_tol(n, False)
+    replaces = {"fft_rows": "src/repro/kernels/fft/kernel.py:209",
+                "fft_rows_transpose": "src/repro/kernels/fused/kernel.py:64",
+                "rfft_rows": "src/repro/kernels/fft/real.py:91",
+                "rfft_rows_transpose": "src/repro/kernels/fused/real.py:58"}
     for name, (limits, kernel, plain, library) in cases.items():
         got = kernel()
         torch.cuda.synchronize()
@@ -856,18 +867,36 @@ def wide_records(gen: torch.Generator) -> dict[str, dict]:
         del got
         if err > tol:
             raise AssertionError(f"{name} disagrees at {WIDE_SHAPE}: {err} > {tol}")
-        record = kernel_record(name, "", WIDE_SHAPE, err, limits, kernel, plain, library)
-        out[name] = {key: record[key] for key in ("shape", "max_abs_err", "ms", "plain_ms",
-                                                  "bound_ms", "bound_by", "library_ms")}
+        record = kernel_record(name, replaces[name], WIDE_SHAPE, err, limits, kernel, plain,
+                               library, source=WIDE_SOURCES.get(name))
+        out[name] = {key: record[key] for key in (
+            "name", "route", "source", "replaces", "launches", "shape", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")}
         log("kernels", at_16384=name, **out[name])
     return out
+
+
+def counted_call(name: str, n: int, call):
+    """``call()`` of kernel ``name`` (K2 or K3), synchronised: one launch of
+    it, and of its own source at n = 16384 (``<name>_16k``) exactly there."""
+    before = launch_counts()
+    got = call()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    wide = int(n == MAX_KERNEL_N)
+    if (after[name] - before[name], after[name + "_16k"] - before[name + "_16k"]) != (1, wide):
+        raise AssertionError(f"{name} at n={n} did not take one launch of "
+                             f"{WIDE_SOURCES[name] if wide else name + '.cu'}: "
+                             f"{before} -> {after}")
+    return got
 
 
 def check_complex_kernel(gen: torch.Generator) -> None:
     """K1 and K2 at every length they are instantiated for, K2 also at its
     ragged clusters, both directions, both radices (the plain version's
     stage loop), against ``fft_rows_plain`` (transposed for K2) and
-    ``torch.fft.fft`` / ``ifft``, ``atol = row_fft_tol(n, inverse)``."""
+    ``torch.fft.fft`` / ``ifft``, ``atol = row_fft_tol(n, inverse)``; K2 one
+    launch a call, of its cluster kernel at n = 16384."""
     for rows, n in COMPLEX_KERNEL_SHAPES + K2_RAGGED_SHAPES:
         x = random_signal(gen, rows, n)
         for inverse in (False, True):
@@ -875,8 +904,8 @@ def check_complex_kernel(gen: torch.Generator) -> None:
             lib = torch.fft.ifft(x) if inverse else torch.fft.fft(x)
             for radix in (2, 4):
                 plain = fft_rows_plain(x, inverse=inverse, radix=radix)
-                got_t = fft_rows_transpose_op(x, inverse=inverse, radix=radix)
-                torch.cuda.synchronize()
+                got_t = counted_call("fft_rows_transpose", n, lambda: fft_rows_transpose_op(
+                    x, inverse=inverse, radix=radix))
                 errs = {"fft_rows_transpose_err": max_abs_err(got_t, plain.T),
                         "fft_rows_transpose_vs_library_err": max_abs_err(got_t, lib.T)}
                 if (rows, n) in COMPLEX_KERNEL_SHAPES:
@@ -898,15 +927,16 @@ def check_complex_kernel(gen: torch.Generator) -> None:
 
 def check_real_kernels(gen: torch.Generator, worst: dict) -> None:
     """K3 and K4 against their plain versions and ``torch.fft.rfft`` (and its
-    transposed copy) on unit-variance float32 rows, ``atol = 1e-3·sqrt(n)``;
-    ``worst`` gets the errors against the plain versions at the main shape."""
+    transposed copy) on unit-variance float32 rows, ``atol = 1e-3·sqrt(n)``,
+    K3 one launch a call, of its persistent kernel at n = 16384; ``worst`` gets
+    the errors against the plain versions at the main shape."""
     for rows, n in REAL_KERNEL_SHAPES:
         x = random_real(gen, rows, n)
         tol = 1e-3 * math.sqrt(n)
         lib = torch.fft.rfft(x)
         for radix in (2, 4):
             plain = rfft_rows_plain(x, radix=radix)
-            got = rfft_rows_op(x, radix=radix)
+            got = counted_call("rfft_rows", n, lambda: rfft_rows_op(x, radix=radix))
             got_t = rfft_rows_transpose_op(x, radix=radix)
             torch.cuda.synchronize()
             errs = {"rfft_rows_err": max_abs_err(got, plain),
@@ -1187,16 +1217,21 @@ def record_launches(name: str, counts: dict[str, int]) -> int:
     """The launches of the kernel of record ``name`` among ``counts``: the
     cluster kernels' records (``fft_rows_large``, K1b at n <= 65536;
     ``fft_rows_transpose_large``, K2b there) take the kernel's launches less
-    its two passes' (``<name>_two_pass``), so that each record counts its
-    own source's."""
+    its two passes' (``<name>_two_pass``), and K2's and K3's
+    (``fft_rows_transpose``, ``rfft_rows``) less their own sources' at
+    n = 16384 (``<name>_16k``, their ``at_16384`` records' own), so that
+    each record counts its own source's."""
     if name in ("fft_rows_large", "fft_rows_transpose_large"):
         return counts[name] - counts[name + "_two_pass"]
+    if name in WIDE_SOURCES:
+        return counts[name] - counts.get(name + "_16k", 0)
     return counts[name]
 
 
 def call_launches(calls) -> dict[str, int]:
     """The launches of row-kernel calls ``(kernel, rows, n)``: one a call of a
-    register-resident kernel (n <= 16384), and above it the four-step's own
+    row kernel up to n = 16384 (K2's and K3's at 16384 also under
+    ``<kernel>_16k``, their own sources), and above it the four-step's own
     (``<kernel>_large``): K1b's cluster kernel once a call up to
     ``CLUSTER_MAX_N``, K2b's at ``TRANSPOSE_CLUSTER_LENGTHS``; else two
     (passes A, B) per chunk of ``scratch_rows(n)`` rows (row pairs for the
@@ -1208,6 +1243,8 @@ def call_launches(calls) -> dict[str, int]:
             continue
         if n <= MAX_KERNEL_N:
             out[name] = out.get(name, 0) + 1
+            if n == MAX_KERNEL_N and name in WIDE_SOURCES:
+                out[name + "_16k"] = out.get(name + "_16k", 0) + 1
             continue
         if ((name == "fft_rows" and n <= CLUSTER_MAX_N)
                 or (name == "fft_rows_transpose" and n in TRANSPOSE_CLUSTER_LENGTHS)):
@@ -1326,7 +1363,8 @@ def phase_main_path(gen: torch.Generator, fpms,
     signal = random_signal(gen, n, n)
     oracle = torch.fft.fft2(signal)
     for method, kwargs in (("lb", {"p": P}), ("fpm", {"fpms": fpms[n][0]})):
-        for cfg, expect in ((kernel, {"fft_rows": 2}), (fused, {"fft_rows_transpose": 2})):
+        for cfg, expect in ((kernel, call_launches([("fft_rows", n, n)] * 2)),
+                            (fused, call_launches([("fft_rows_transpose", n, n)] * 2))):
             plan = plan_pfft(n, method=method, config=cfg, **kwargs)
             check_execute(plan, signal, oracle, f"{method}-{n}/{cfg.describe()}",
                           expect, runs)
@@ -1414,11 +1452,11 @@ def phase_main_path_real(gen: torch.Generator, fpms,
         plan = plan_pfft(n, method="rfft-fpm-pad", fpms=model, config=kernel,
                          dtype="float32")
         groups1, groups2 = plan._groups
-        pow2 = [sum(1 for length, *_ in g if not length & (length - 1))
-                for g in (groups1, groups2)]
+        calls = [(name, len(idx), length) for name, groups in (("rfft_rows", groups1),
+                                                               ("fft_rows", groups2))
+                 for length, _, idx, _ in groups if not length & (length - 1)]
         check_execute(plan, signal, ref, f"{tag}/{kernel.describe()}",
-                      {"rfft_rows": pow2[0], "fft_rows": pow2[1]}, runs,
-                      "main_path_real")
+                      call_launches(calls), runs, "main_path_real")
     hetero_pads = plan_pfft(n, method="rfft-fpm-pad", fpms=hetero,
                             dtype="float32").pad_lengths.tolist()
     if not any(length > n for length in hetero_pads):
@@ -4348,6 +4386,13 @@ def main() -> None:
                    for path, counts in paths.items()}
         record["launches"] = sum(by_path.values())
         record["launches_by_path"] = by_path
+        if record["name"] in WIDE_SOURCES:
+            # K2's and K3's own sources at 16384 count apart (K1's and K4's
+            # launches there are their records').
+            by_path = {path: counts.get(record["name"] + "_16k", 0)
+                       for path, counts in paths.items()}
+            record["at_16384"]["launches"] = sum(by_path.values())
+            record["at_16384"]["launches_by_path"] = by_path
     timed("time_runs", time_runs, runs + real_runs + planner_runs, card)
     timed("fused_batch_time", time_fused_batch, gen, card)
     peak = max(peak, torch.cuda.max_memory_allocated())

@@ -28,7 +28,15 @@ of ``REAL_SHAPES``, its sweep beside ``rfft(x).T.contiguous()`` and
 ``COMPLEX_SHAPES`` and ``K2_RAGGED_SHAPES`` in both directions, its sweep
 forward and inverse beside ``fft(x).T.contiguous()``, the complex row kernel
 and ``x.clone()``, then its time at n = 8192 over ``K2_ROW_COUNTS``, where
-the output rows are and are not whole 32-byte sectors apart), or the
+the output rows are and are not whole 32-byte sectors apart, then at n =
+16384 over ``WIDE_ROW_COUNTS`` (``time_16k``): the op (the kernel the
+tree's K2 launches there), ``TRANSPOSE_16K_VARIANTS``, the library call and
+``x.clone()``, one call alone and back to back; the packed real row
+kernel's mode likewise at 16384 with ``RFFT_16K_VARIANTS`` and
+``RFFT_PERSISTENT_VARIANTS``; ``--no-variants`` leaves the variants out,
+for a tree without their sources: copied into an unpacked earlier tree,
+this file times that tree's kernels in the turns of parent against
+change), or the
 four-step row kernel of long rows alone (every shape of ``LARGE_SHAPES`` in
 both directions against its plain version and ``torch.fft``, then its time
 over ``K1B_SWEEP``, the one-pass cluster kernel beside ``CLUSTER_VARIANTS``
@@ -93,7 +101,7 @@ COMPLEX_SHAPES = [(rows, 1 << e) for e in range(1, 15)
 # Where the fused complex row kernel runs in clusters of one-row CTAs,
 # 8k + 1, 8k + 7 and 4097 rows: a ragged last cluster.
 K2_RAGGED_SHAPES = [(rows, n) for n in (4096, 8192, 16384)
-                    for rows in (257, 263, 4097)]
+                    for rows in (257, 263, 4097)] + [(8193, 16384)]
 # Row counts of the fused complex row kernel at n = 8192: a multiple of 4
 # puts each output row a whole number of 32-byte sectors after the last;
 # 4097 is phase 2 of a fused rfft-* plan at N = 8192.
@@ -103,7 +111,8 @@ K2_ROW_COUNTS = [4096, 4097, 4098, 4100, 8192, 8193, 8194, 8196]
 # last cluster of 4 CTAs.
 REAL_SHAPES = ([(rows, 1 << e) for e in range(1, 15)
                 for rows in (37, max(2, (1 << 20) >> e))]
-               + [(1, 2), (1023, 8192), (258, 4096), (258, 8192), (259, 16384)])
+               + [(1, 2), (1023, 8192), (258, 4096), (258, 8192), (258, 16384),
+                  (259, 16384)])
 # K1b: every length from 2^15 to its top 2^28; the cluster kernel's two
 # lengths at odd and even row counts, the two passes' at row counts that give
 # one and several chunks of scratch (2^27 elements).
@@ -199,6 +208,59 @@ extern "C" int variant_occupancy(int inverse) {{
                    : cluster_occupancy<{0}, {1}, {2}, false, {3}, true>();
 }}
 """
+# K2 and K3 at n = 16384 (``csrc/fft_rows_transpose_cluster.cu``,
+# ``csrc/rfft_rows_16k.cu``): the row counts timed, a call of the fused
+# plans at N = 16384 among them (16384; 8193, phase 2 of the fused real
+# plan, has odd output rows).
+WIDE_ROW_COUNTS = {"fft_rows_transpose": [4096, 16384, 8193], "rfft_rows": [4096, 16384]}
+# Shapes of K2 at 16384 (the cluster kernel with the transposed store), built
+# out of the library as ``TRANSPOSE_CLUSTER_VARIANTS`` are: name -> (n1, CTAs
+# a cluster, rows a cluster, edits of the header).  The rule (16 CTAs of 4
+# rows, n2 = 512, 256 threads a CTA), 8 CTAs of 4 rows at n2 = 256 and 512
+# (512 threads), 8 rows a cluster of 8 CTAs (1024 threads, one CTA an SM)
+# and of 16 (512 threads, 64-byte runs).
+TRANSPOSE_16K_VARIANTS = {
+    "32x16x4": (32, 16, 4, []),
+    "64x8x4": (64, 8, 4, []),
+    "32x8x4": (32, 8, 4, []),
+    "64x8x8": (64, 8, 8, []),
+    "32x16x8": (32, 16, 8, []),
+}
+# Shapes of K3 split over a cluster at 16384 (``packed_cluster_kernel`` of
+# ``csrc/rfft_rows_cluster.cuh``, which the library does not build): name ->
+# (n1, CTAs a cluster, pairs a cluster).  Its best (2 CTAs of 1 pair, 32 rows
+# of B a rank: runs of 16 bins), 4 CTAs of 2 pairs (runs of 8), 8 of 4 (runs
+# of 4), the split n2 = 512 over 2 CTAs and 2 pairs a cluster (1024 threads,
+# one CTA an SM).
+RFFT_16K_VARIANTS = {
+    "64x2x1": (64, 2, 1),
+    "64x4x2": (64, 4, 2),
+    "64x8x4": (64, 8, 4),
+    "32x2x1": (32, 2, 1),
+    "64x2x2": (64, 2, 2),
+}
+# K3 at 16384 as one persistent 1024-thread CTA an SM over the pairs
+# (``csrc/rfft_rows_16k.cu``), built from copies of the source with its
+# ``kStaged`` edited: name -> slices of 1024 floats of the next pair's row b
+# staged in shared memory with its row a by bulk copies (the rest of b
+# prefetched into L2).  The library's 6, the most that fits, 4, and none.
+RFFT_PERSISTENT_VARIANTS = {
+    "persistent_stage6": 6,
+    "persistent_stage4": 4,
+    "persistent_stage0": 0,
+}
+_RFFT_PERSISTENT_ENTRIES = """#include "rfft_rows_16k.cu"
+extern "C" int variant_launch(const void* in, void* out, long long rows, void* stream) {
+    return launch_persistent(in, out, rows, (cudaStream_t)stream);
+}
+extern "C" int variant_occupancy(int) { return 0; }
+"""
+_RFFT_16K_VARIANT_ENTRIES = """#include "rfft_rows_cluster.cuh"
+extern "C" int variant_launch(const void* in, void* out, long long rows, void* stream) {{
+    return launch_packed<{0}, {1}, {2}, {3}>(in, out, rows, (cudaStream_t)stream);
+}}
+extern "C" int variant_occupancy(int) {{ return packed_occupancy<{0}, {1}, {2}, {3}>(); }}
+"""
 TRANSPOSE_SHAPES = [(1, 1), (37, 129), (1000, 3), (257, 4099)]
 TRANSPOSE_DTYPES = [torch.uint8, torch.float16, torch.float32, torch.complex64,
                     torch.complex128]
@@ -235,6 +297,19 @@ def kernel_registers(ptxas: str, kernel: str) -> list[dict]:
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '\S*?\d%s_kernelI(?:Li(\d+)E)?((?:L[bi]\d+E)*)"
                       % kernel, line)
+        if kernel == "rfft_persistent" and re.search(
+                r"Compiling entry function '\S*?\drfft_persistent_kernel", line):
+            current = {"n": 1 << 14}   # not a template
+            out.append(current)
+            continue
+        if m and kernel == "packed_cluster":
+            # <log2 n1, log2 n2, log2 C, log2 pairs a cluster>
+            e1, e2, ec, er = [int(m.group(1))] + [
+                int(f) for f in re.findall(r"L[bi](\d+)E", m.group(2))]
+            current = {"n": 1 << (e1 + e2), "n1": 1 << e1, "ctas": 1 << ec,
+                       "pairs": 1 << er}
+            out.append(current)
+            continue
         if m and kernel == "cluster":
             # <log2 n1, log2 n2, log2 C, inverse, log2 rows a cluster, transposed>
             e1, e2, ec, inv, er, tr = [int(m.group(1))] + [
@@ -270,6 +345,8 @@ def kernel_registers(ptxas: str, kernel: str) -> list[dict]:
 
 # The kernels whose registers and spills a run prints, by source.
 REGISTERS = {"fft_rows.cu": ("fft_rows",),
+             "rfft_rows.cu": ("rfft_rows",),
+             "rfft_rows_16k.cu": ("rfft_persistent",),
              "rfft_rows_transpose.cu": ("rfft_rows_transpose",),
              "fft_rows_transpose.cu": ("fft_rows_transpose",),
              "fft_rows_cluster.cu": ("cluster",),
@@ -280,26 +357,28 @@ REGISTERS = {"fft_rows.cu": ("fft_rows",),
              "rfft_rows_transpose_large.cu": ("columns", "rows_split")}
 
 
-def start_variant_build(root, name: str, edits, entries: str):
-    """Start one ``nvcc`` of a variant: a copy of the headers under
-    ``root/<name>`` with ``edits`` made to ``fourstep_cluster.cuh`` and
-    ``entries`` as its source; returns (library path, process)."""
+def start_variant_build(root, name: str, edits, entries: str,
+                        edited: str = "fourstep_cluster.cuh"):
+    """Start one ``nvcc`` of a variant: a copy of the sources under
+    ``root/<name>`` with ``edits`` made to ``edited`` and ``entries`` as its
+    source (which includes a header, or a source for its kernel); returns
+    (library path, process)."""
     src = root / name.replace(":", "_")
     src.mkdir(parents=True)
-    for header in _build.source_files():
-        if header.suffix == ".cuh":
-            shutil.copy(header, src / header.name)
-    text = (src / "fourstep_cluster.cuh").read_text()
+    for path in _build.source_files():
+        shutil.copy(path, src / path.name)
+    text = (src / edited).read_text()
     for old, new in edits:
         if old not in text:
-            sys.exit(f"cluster variant {name}: {old!r} not in fourstep_cluster.cuh")
+            sys.exit(f"cluster variant {name}: {old!r} not in {edited}")
         text = text.replace(old, new)
-    (src / "fourstep_cluster.cuh").write_text(text)
+    (src / edited).write_text(text)
     (src / "variant.cu").write_text(entries)
     lib = src / "variant.so"
     return lib, subprocess.Popen(
-        [_build._find_nvcc(), *_build.NVCC_FLAGS, "-shared", str(src / "variant.cu"),
-         "-o", str(lib)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        [_build._find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
+         str(src / "variant.cu"), "-o", str(lib)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
 def start_cluster_variants() -> dict:
@@ -332,19 +411,147 @@ def start_transpose_variants() -> dict:
     return started
 
 
-def load_cluster_variants(started: dict, *, strided: bool = False) -> dict:
+def start_16k_variants(kernel: str) -> dict:
+    """Start one ``nvcc`` a ``TRANSPOSE_16K_VARIANTS`` (``kernel`` is
+    ``"fft_rows_transpose"``) or ``RFFT_16K_VARIANTS`` entry (``"rfft_rows"``)
+    under ``build/variants_16k/``: name -> (library path, process)."""
+    root = _build.build_root() / "variants_16k" / kernel
+    shutil.rmtree(root, ignore_errors=True)
+    started = {}
+    if kernel == "fft_rows_transpose":
+        for name, (n1, ctas, rows, edits) in TRANSPOSE_16K_VARIANTS.items():
+            log2n1 = n1.bit_length() - 1
+            started[name] = start_variant_build(root, name, edits,
+                                                _TRANSPOSE_VARIANT_ENTRIES.format(
+                log2n1, 14 - log2n1, ctas.bit_length() - 1, rows.bit_length() - 1))
+    else:
+        for name, (n1, ctas, pairs) in RFFT_16K_VARIANTS.items():
+            log2n1 = n1.bit_length() - 1
+            started[name] = start_variant_build(root, name, [],
+                                                _RFFT_16K_VARIANT_ENTRIES.format(
+                log2n1, 14 - log2n1, ctas.bit_length() - 1, pairs.bit_length() - 1))
+        from repro_torch.kernels.fft.real import RFFT_16K_STAGED
+
+        rule = f"constexpr int kStaged = {RFFT_16K_STAGED};"
+        for name, staged in RFFT_PERSISTENT_VARIANTS.items():
+            started[name] = start_variant_build(
+                root, name, [(rule, f"constexpr int kStaged = {staged};")],
+                _RFFT_PERSISTENT_ENTRIES, edited="rfft_rows_16k.cu")
+    return started
+
+
+def time_queued_ms(fn, calls: int = 10, reps: int = 5) -> float:
+    """Median over ``reps`` of the device time of ``calls`` back-to-back
+    calls of ``fn`` between two CUDA events, a call: the kernel's own time
+    where the host enqueues faster than the card runs (``time_ms`` times one
+    call alone, the host's work before its launch included)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / calls)
+    return statistics.median(times)
+
+
+def time_16k(card: str, kernel: str, variants: dict, gen: torch.Generator) -> None:
+    """K2 (``kernel`` ``"fft_rows_transpose"``) or K3 (``"rfft_rows"``) at n
+    = 16384 over ``WIDE_ROW_COUNTS[kernel]``, forward, each way timed in
+    turns, twice (the second round in reverse order): one call alone
+    (``ms``, median of 10) and back to back (``queued_ms``,
+    ``time_queued_ms``).  The ways: the op (one launch of the kernel that
+    the tree launches at 16384: the register-resident one in a tree before
+    the redesign), and the ``variants``, each called directly on one output
+    buffer allocated beforehand.  Beside them the library call,
+    ``x.clone()``, K1 (for K2) and the bound (bytes once each way at 3.35
+    TB/s); each way with its active clusters and its error against the
+    library (K2 both directions, the inverse's tolerance over n)."""
+    n = 1 << 14
+    k2 = kernel == "fft_rows_transpose"
+    shapes = TRANSPOSE_16K_VARIANTS if k2 else RFFT_16K_VARIANTS
+    stream = torch.cuda.current_stream().cuda_stream
+    for rows in WIDE_ROW_COUNTS[kernel]:
+        if k2:
+            x = torch.complex(torch.randn(rows, n, generator=gen, device="cuda"),
+                              torch.randn(rows, n, generator=gen, device="cuda"))
+            out = torch.empty((n, rows), dtype=torch.complex64, device="cuda")
+        else:
+            x = torch.randn(rows, n, generator=gen, device="cuda")
+            out = torch.empty((rows, n // 2 + 1), dtype=torch.complex64, device="cuda")
+
+        def call(way, inverse=False):
+            if way == "op":
+                return fft_rows_transpose_op(x, inverse=inverse) if k2 else rfft_rows_op(x)
+            args = (rows, int(inverse), rows) if k2 else (rows,)
+            err = variants[way][0](x.data_ptr(), out.data_ptr(), *args, stream)
+            if err != 0:
+                sys.exit(f"{kernel} {way}: CUDA error {err}")
+            return out
+
+        ways = ["op"] + list(variants)
+        ms = {way: [] for way in ways}
+        queued = {way: [] for way in ways}
+        for order in (ways, ways[::-1]):
+            for way in order:
+                ms[way].append(time_ms(lambda: call(way), reps=10))
+                queued[way].append(time_queued_ms(lambda: call(way)))
+        nbytes = 2 * rows * n * 8 if k2 else rows * n * 4 + rows * (n // 2 + 1) * 8
+        extra = {"library_ms": time_ms((lambda: torch.fft.fft(x).T.contiguous()) if k2
+                                       else (lambda: torch.fft.rfft(x)), reps=10),
+                 "clone_ms": time_ms(lambda: x.clone(), reps=10),
+                 "bound_ms": nbytes / 3.35e12 * 1e3}
+        if k2:
+            extra["fft_rows_ms"] = time_ms(lambda: fft_rows_op(x), reps=10)
+        for way in ways:
+            errs = {}
+            for inverse in (False, True) if k2 else (False,):
+                lib_out = ((torch.fft.ifft(x) if inverse else torch.fft.fft(x)).T if k2
+                           else torch.fft.rfft(x))
+                got = call(way, inverse)
+                torch.cuda.synchronize()
+                key = ("inverse" if inverse else "forward") + "_vs_library"
+                errs[key] = float((got - lib_out).abs().max())
+                del lib_out, got
+                if errs[key] > 1e-3 * n ** 0.5 / (n if inverse else 1):
+                    sys.exit(f"{kernel} {way} disagrees at {rows} x {n}: {errs}")
+            shape = ({} if way not in shapes else dict(zip(
+                ("n1", "ctas", "rows_a_cluster" if k2 else "pairs_a_cluster"),
+                shapes[way][:3])))
+            if way in RFFT_PERSISTENT_VARIANTS:
+                shape = {"staged": RFFT_PERSISTENT_VARIANTS[way]}
+            active = variants[way][1](0) if way in shapes else None
+            print(json.dumps({"card": card, "kernel": kernel, "rows": rows, "n": n,
+                              "variant": way, **shape, "active_clusters": active,
+                              "ms": ms[way], "queued_ms": queued[way], **extra, **errs}),
+                  flush=True)
+        del x, out
+
+
+def load_cluster_variants(started: dict, *, strided: bool = False,
+                          real: bool = False) -> dict:
     """Wait for ``start_cluster_variants``' (``strided``:
-    ``start_transpose_variants``') builds and bind each library: name ->
-    (launch, occupancy)."""
+    ``start_transpose_variants``'; ``real``: the packed real kernel's, no
+    direction) builds and bind each library: name -> (launch, occupancy)."""
     bound = {}
     for name, (lib, proc) in started.items():
         output, _ = proc.communicate()
         if proc.returncode != 0:
             sys.exit(f"cluster variant {name}: nvcc failed\n{output}")
+        for kernel in ("cluster", "packed_cluster", "rfft_persistent"):
+            for record in kernel_registers(output, kernel):
+                print(json.dumps({"ptxas": kernel + "_kernel", "variant": name, **record}),
+                      flush=True)
         dll = ctypes.CDLL(str(lib))
         dll.variant_launch.restype = dll.variant_occupancy.restype = ctypes.c_int
         dll.variant_launch.argtypes = (
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
+            + ([] if real else [ctypes.c_int])
             + ([ctypes.c_longlong] if strided else []) + [ctypes.c_void_p])
         dll.variant_occupancy.argtypes = [ctypes.c_int]
         bound[name] = (dll.variant_launch, dll.variant_occupancy)
@@ -579,6 +786,8 @@ def main() -> None:
                       help="check and time the four-step row kernel of long rows alone")
     only.add_argument("--large-fused-and-real-only", action="store_true",
                       help="check and time the four-step fused and real kernels alone")
+    parser.add_argument("--no-variants", action="store_true",
+                        help="build and time no variant of the kernels at n = 16384")
     args = parser.parse_args()
     only_k3, only_k1 = args.rfft_rows_only, args.fft_rows_only
     only_k4, only_k2 = args.rfft_rows_transpose_only, args.fft_rows_transpose_only
@@ -593,9 +802,12 @@ def main() -> None:
     run_k1b = not (only_k3 or only_k4 or only_k1 or only_k2)
     # The sources a kernel-alone mode compiles (the others: every source).
     needed = (("fft_rows.cu",) if only_k1 else ("rfft_rows_transpose.cu",) if only_k4
-              else ("fft_rows_transpose.cu",) if only_k2
+              else ("fft_rows_transpose.cu", "fft_rows_transpose_cluster.cu") if only_k2
+              else ("rfft_rows.cu", "rfft_rows_16k.cu") if only_k3
               else ("fft_rows_cluster.cu", "fft_rows_large.cu") if only_k1b else None)
     variant_builds = start_cluster_variants() if only_k1b else None
+    wide = "fft_rows_transpose" if only_k2 else "rfft_rows" if only_k3 else None
+    wide_builds = start_16k_variants(wide) if wide and not args.no_variants else {}
     card = compile_sources(needed)
 
     gen = torch.Generator(device="cuda")
@@ -783,6 +995,9 @@ def main() -> None:
             "torch_fft_T_contiguous_ms": time_ms(
                 lambda: torch.fft.fft(x).T.contiguous())}), flush=True)
         del x
+    if wide:
+        time_16k(card, wide, load_cluster_variants(wide_builds, strided=only_k2,
+                                                   real=only_k3), gen)
     print("OK")
 
 

@@ -48,10 +48,13 @@ _FUNCTIONS = {"repro_fft_rows": _COMPLEX_ROWS,
               # threads, stream): K1b above 65536, two launches
               "repro_fft_rows_large": (_INT, [_PTR, _PTR, _PTR, _LL, _INT, _INT, _INT,
                                               _INT, _INT, _PTR]),
-              # (in, out, rows, n, inverse, out_stride, stream): K2b at n <=
-              # 65536, one launch over clusters
+              # (in, out, rows, n, inverse, out_stride, stream): K2 at n =
+              # 16384 and K2b at 32768 and 65536, one launch over clusters
               "repro_fft_rows_transpose_cluster": (_INT, [_PTR, _PTR, _LL, _INT, _INT,
                                                           _LL, _PTR]),
+              # (in, out, rows, n, stream): K3 at n = 16384, one launch of
+              # min(pairs, SMs) persistent CTAs
+              "repro_rfft_rows_16k": (_INT, [_PTR, _PTR, _LL, _INT, _PTR]),
               # (in, out, scratch, rows, n1, n2, inverse, out_stride,
               # rows_per_cta, threads, stream): K2b above 65536, two launches
               "repro_fft_rows_transpose_large": (_INT, [_PTR, _PTR, _PTR, _LL, _INT, _INT,

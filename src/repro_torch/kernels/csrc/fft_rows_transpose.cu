@@ -1,7 +1,9 @@
 // Fused row FFT -> transposed store for Hopper (sm_90a):
 // out[k, r] = DFT_n(in[r, :])[k] for every row r of a (rows, n) matrix of
 // interleaved complex64, out of shape (n, rows); forward or inverse (scaled
-// by 1/n), n a power of two, 2 <= n <= 16384.
+// by 1/n), n a power of two, 2 <= n <= 8192.  At n = 16384, where a row
+// would take regfft's Plan<14>, 1024 threads and 136 KiB, a CTA an SM, K2
+// runs fft_rows_transpose_cluster.cu's one-pass cluster kernel instead.
 //
 // Replaces the TPU kernel `fft_rows_transpose_pallas` (body `_fused_kernel`)
 // of src/repro/kernels/fused/kernel.py: the row-transformed matrix never goes
@@ -12,8 +14,7 @@
 // read side and the passes are fft_rows.cu's: a row lives in registers
 // (regfft.cuh, launch shape kernels/fft/kernel.py::complex_rows_plan), each
 // thread issues its 16 float2 loads before the first butterfly, and at
-// n = 8192 a CTA of 512 threads and 68 KiB lets two CTAs share an SM (at
-// 16384 one CTA of 1024 threads and 136 KiB takes the SM alone).  The
+// n = 8192 a CTA of 512 threads and 68 KiB lets two CTAs share an SM.  The
 // store is the hard part: bin k of row r goes to out[k*rows + r], so a row
 // alone gives 8 bytes of each output row.  After the last pass the thread
 // writes the bins it holds once to the exchange buffer, bin k of the CTA's
@@ -25,8 +26,7 @@
 // Where a whole CTA's rows make less than a 32-byte sector (n >= 2048: two
 // rows a CTA at 2048, one from 4096 up) the CTAs run in thread-block
 // clusters of C (tstore.cuh, store_cluster: kStoreCluster rows' worth of
-// CTAs, so C = 4 at n >= 4096 and 2 at 2048; at 16384 a cluster of 4 takes
-// 4 SMs).  After a cluster barrier CTA
+// CTAs, so C = 4 at n >= 4096 and 2 at 2048).  After a cluster barrier CTA
 // rank r stores bins r*S ... r*S + S - 1 (S = n / C) of the C*P rows of the
 // cluster, reading row q from the buffer of CTA q / P through
 // map_shared_rank, the row fastest: a whole 32-byte sector per output row.
@@ -188,7 +188,6 @@ extern "C" int repro_fft_rows_transpose(const void* in, void* out, long long row
         case 1 << 11: return launch_dir<11>(in, out, rows, inverse, r, th, s);
         case 1 << 12: return launch_dir<12>(in, out, rows, inverse, r, th, s);
         case 1 << 13: return launch_dir<13>(in, out, rows, inverse, r, th, s);
-        case 1 << 14: return launch_dir<14>(in, out, rows, inverse, r, th, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

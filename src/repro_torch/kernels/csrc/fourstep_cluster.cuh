@@ -33,7 +33,7 @@
 //   n2), read back with f consecutive.  K1b (R = 1) writes it to
 //   out[s*n + k2*n1 + r*W + rho]: for each k2 a run of W consecutive
 //   elements, a warp 32/W such runs or one run of 256 bytes (whole sectors:
-//   W >= 4).  K2b (TRANSPOSED) writes it to out[(k1 + n1*k2)*out_stride +
+//   W >= 4; R*W >= 4 for the transposed store, whose runs are the R rows).  K2b (TRANSPOSED) writes it to out[(k1 + n1*k2)*out_stride +
 //   s], k1 = r*W + rho: for each (k1, k2) a run of the R rows' s, 32 bytes
 //   at R = 4, a whole sector where out_stride is a multiple of 4; rows of a
 //   last group past the call's are loaded as zeros and not stored.
@@ -90,8 +90,9 @@ struct ClusterPlan {
     static_assert(ROW_THREADS == W * G2 && THREADS <= 1024,
                   "one thread count for both phases");
     static_assert(C >= 2 && C <= 16, "a cluster of 2 to 16 CTAs");
-    static_assert(COLS >= 32 && W >= 4,
-                  "a warp's loads and remote stores 256 contiguous bytes; its stores whole sectors");
+    static_assert(COLS >= 32 && W >= 4 / R,
+                  "a warp's loads and remote stores 256 contiguous bytes; its stores whole "
+                  "sectors (runs of W rows of B, or of R signal rows side by side)");
     static_assert(G2 >= 16, "the row phase's loads: 16 consecutive j2 a half-warp");
 };
 

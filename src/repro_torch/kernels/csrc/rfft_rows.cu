@@ -1,7 +1,9 @@
 // Batched real row FFT for Hopper (sm_90a): out[r, k] = DFT_n(in[r, :])[k]
 // for k < n/2 + 1 and every row r of a (rows, n) float32 matrix; out is
-// (rows, n/2 + 1) interleaved complex64, n a power of two, 2 <= n <= 16384,
-// forward only.
+// (rows, n/2 + 1) interleaved complex64, n a power of two, 2 <= n <= 8192,
+// forward only.  At n = 16384, where a pair would take regfft's Plan<14>,
+// 1024 threads and 136 KiB, a CTA an SM, K3 runs rfft_rows_16k.cu's
+// persistent kernel instead.
 //
 // Replaces the TPU kernel `rfft_rows_pallas` (body `_rfft_kernel`) of
 // src/repro/kernels/fft/real.py.  Same algorithm: two real rows a = in[2p],
@@ -24,9 +26,8 @@
 //   straight into registers;
 // - at n = 8192 a CTA is 512 threads with 68 KiB of shared memory and at
 //   most 64 registers a thread, so two CTAs share an SM and one's loads
-//   overlap the other's passes (at n = 16384 one CTA of 1024 threads and
-//   136 KiB takes the SM); shorter rows put several pairs in a CTA of up to
-//   256 threads;
+//   overlap the other's passes; shorter rows put several pairs in a CTA of
+//   up to 256 threads;
 // - after the last pass Z is written once to the exchange buffer in natural
 //   order, and the split reads Z[k] and Z[n-k] from it and stores A and B
 //   with neighbouring threads on neighbouring bins (float2 stores: rows of
@@ -135,7 +136,6 @@ extern "C" int repro_rfft_rows(const void* in, void* out, long long rows, int n,
         case 1 << 11: return launch<11>(in, out, rows, rows_per_cta, threads, s);
         case 1 << 12: return launch<12>(in, out, rows, rows_per_cta, threads, s);
         case 1 << 13: return launch<13>(in, out, rows, rows_per_cta, threads, s);
-        case 1 << 14: return launch<14>(in, out, rows, rows_per_cta, threads, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

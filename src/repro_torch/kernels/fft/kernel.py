@@ -19,7 +19,9 @@ The CUDA row kernels (this one, the fused ``fft_rows_transpose.cu`` and the
 packed real ones) hold each row's points in registers (``csrc/regfft.cuh``):
 their passes (radix 16, then one radix-2^r pass, on the same ``(ncur, s)``
 view) and launch shape depend only on ``n`` and the row count, and
-``complex_rows_plan`` mirrors their instantiation table, n = 2 ... 16384.
+``complex_rows_plan`` mirrors their instantiation table, n = 2 ... 16384
+(the fused and the packed real kernels stop at 8192: at 16384 those ops
+launch ``csrc/fft_rows_transpose_cluster.cu`` and ``csrc/rfft_rows_16k.cu``).
 Longer rows, up to ``MAX_LARGE_N``, go to the four-step kernels: K1b
 (``kernels.fft.large``: ``csrc/fft_rows_cluster.cu`` at n <= 65536,
 ``csrc/fft_rows_large.cu`` above) and its fused and real

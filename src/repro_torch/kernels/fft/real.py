@@ -20,6 +20,14 @@ The CUDA kernel holds a row pair's points in registers (``csrc/regfft.cuh``):
 its passes and launch shape depend only on ``n`` and the pair count: the
 shape is ``complex_rows_plan``'s, with a packed pair in the place of a row.  ``radix`` is validated,
 as in the reference, and chooses the plain version's stage loop only.
+
+That kernel stops at n = 8192.  At 16384, where its pair would take a whole
+SM (1024 threads, 136 KiB) and nothing would hide its loads, the op
+launches ``csrc/rfft_rows_16k.cu``: the same pair, passes and split in one
+persistent CTA an SM that walks over the pairs, the next pair's row a and
+part of its row b copied into shared memory (bulk copies on an mbarrier)
+and the rest prefetched into L2 while the current pair runs
+(``rfft_16k_plan``).  The bulk copies need a 16-byte aligned input there.
 """
 
 from __future__ import annotations
@@ -27,26 +35,39 @@ from __future__ import annotations
 import torch
 
 from repro_torch._device import as_tensor, complex_result_type
-from repro_torch.kernels.fft.kernel import (MAX_KERNEL_N, apply_stockham,
+from repro_torch.kernels.fft.kernel import (_POINTS, MAX_KERNEL_N, apply_stockham,
                                             check_kernel_input, complex_rows_plan,
                                             launch)
 from repro_torch.kernels.fft.ops import resolve_radix
 from repro_torch.kernels.fft.real_large import rfft_rows_large_cuda, rfft_rows_large_plain
 
-__all__ = ["launch_count", "prepare_real_rows", "reset_launch_count", "rfft_rows_cuda", "rfft_rows_op",
+__all__ = ["RFFT_16K_STAGED", "launch_count", "launch_count_16k", "prepare_real_rows",
+           "reset_launch_count", "rfft_16k_plan", "rfft_rows_cuda", "rfft_rows_op",
            "rfft_rows_plain", "unpack_packed_fft"]
 
+# Slices of 1024 floats of row b that ``csrc/rfft_rows_16k.cu`` (K3 at n =
+# MAX_KERNEL_N) stages in shared memory with the next pair's row a
+# (``kStaged`` there).
+RFFT_16K_STAGED = 6
+
 _launches = 0
+_launches_16k = 0
 
 
 def launch_count() -> int:
-    """How many times ``rfft_rows_cuda`` has launched its kernel."""
+    """How many times ``rfft_rows_cuda`` has launched a kernel (either source)."""
     return _launches
 
 
+def launch_count_16k() -> int:
+    """The launches of ``csrc/rfft_rows_16k.cu`` (n = 16384) among
+    ``launch_count``'s."""
+    return _launches_16k
+
+
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    global _launches, _launches_16k
+    _launches = _launches_16k = 0
 
 
 def _reverse_bins(x: torch.Tensor) -> torch.Tensor:
@@ -80,13 +101,32 @@ def rfft_rows_plain(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     return out.reshape(-1, n)[:rows, :n // 2 + 1].contiguous()
 
 
+def rfft_16k_plan(rows: int, sms: int) -> tuple[int, int, int, int]:
+    """The launch of ``csrc/rfft_rows_16k.cu`` for ``rows`` rows on a card
+    of ``sms`` SMs: ``(ctas, threads, staged_bytes, smem_bytes)``.
+    min(pairs, SMs) persistent CTAs of n/16 = 1024 threads, 16 points each
+    (``complex_rows_plan``'s pair); a pair's staging copies its row a and
+    the first ``RFFT_16K_STAGED`` slices of 1024 floats of its row b
+    (``staged_bytes``, where b exists); shared memory holds the exchange
+    buffer (n*17/16 complex64), the staging area and an 8-byte mbarrier
+    padded to 16: one CTA an SM."""
+    n = MAX_KERNEL_N
+    group = n // _POINTS
+    staged = 4 * (n + RFFT_16K_STAGED * group)
+    return (min((rows + 1) // 2, sms), group, staged,
+            8 * (n + -(-n // 16)) + staged + 16)
+
+
 def rfft_rows_cuda(x: torch.Tensor, *, radix: int = 4) -> torch.Tensor:
-    """Launch ``csrc/rfft_rows.cu``: (rows, n) float32 CUDA tensor -> its
-    (rows, n//2+1) complex64 half spectrum per row, in the launch shape
-    ``complex_rows_plan`` gives for its row pairs; rows longer than
-    ``MAX_KERNEL_N`` (up to ``MAX_LARGE_N``) go to K3b
-    (``kernels.fft.real_large``).  Does not synchronise."""
-    global _launches
+    """K3 on a (rows, n) float32 CUDA tensor -> its (rows, n//2+1) complex64
+    half spectrum per row, one launch a call: below ``MAX_KERNEL_N``
+    ``csrc/rfft_rows.cu`` in the launch shape ``complex_rows_plan`` gives for
+    its row pairs, at ``MAX_KERNEL_N`` ``csrc/rfft_rows_16k.cu``, persistent
+    CTAs (``rfft_16k_plan``) on an input 16-byte aligned (else ValueError);
+    rows longer than ``MAX_KERNEL_N`` (up to
+    ``MAX_LARGE_N``) go to K3b (``kernels.fft.real_large``).  Does not
+    synchronise."""
+    global _launches, _launches_16k
     rows, n = check_kernel_input(x, "rfft_rows_cuda", torch.float32)
     if radix not in (2, 4):
         raise ValueError(f"unsupported radix {radix}")
@@ -95,9 +135,17 @@ def rfft_rows_cuda(x: torch.Tensor, *, radix: int = 4) -> torch.Tensor:
     out = torch.empty((rows, n // 2 + 1), dtype=torch.complex64, device=x.device)
     if rows == 0:
         return out
-    pairs_per_cta, threads, *_ = complex_rows_plan(n, (rows + 1) // 2)
-    launch("repro_rfft_rows", x, out, rows=rows, n=n, radix=radix,
-           rows_per_cta=pairs_per_cta, threads=threads)
+    if n == MAX_KERNEL_N:
+        if x.data_ptr() % 16:
+            raise ValueError("rfft_rows_cuda: at n = 16384 the input must start on a "
+                             "16-byte boundary (its rows are moved by bulk copies); "
+                             f"this one starts at {x.data_ptr():#x}")
+        launch("repro_rfft_rows_16k", x, out, rows=rows, n=n)
+        _launches_16k += 1
+    else:
+        pairs_per_cta, threads, *_ = complex_rows_plan(n, (rows + 1) // 2)
+        launch("repro_rfft_rows", x, out, rows=rows, n=n, radix=radix,
+               rows_per_cta=pairs_per_cta, threads=threads)
     _launches += 1
     return out
 

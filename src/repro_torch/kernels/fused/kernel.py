@@ -1,5 +1,6 @@
 """Fused row FFT -> transposed write: the plain PyTorch version, the launch
-plan and the launcher of the CUDA kernel ``csrc/fft_rows_transpose.cu``.
+plan and the launcher of the CUDA kernel ``csrc/fft_rows_transpose.cu``
+(n <= 8192) and, at n = 16384, of ``csrc/fft_rows_transpose_cluster.cu``.
 
 Counterpart of ``repro.kernels.fused.kernel``.  The unfused pipeline writes
 the row-transformed matrix to device memory and reads it back to transpose
@@ -13,6 +14,14 @@ holds fewer rows than make a 32-byte sector (n >= 2048), the CTAs of a
 thread-block cluster store their rows side by side, each a slice of the bins
 (``fft_rows_transpose_plan``).  ``radix`` is validated, as in the reference,
 and chooses the plain version's stage loop only.
+
+At n = 16384, where that kernel's row would take a whole SM (1024 threads,
+136 KiB) and no second CTA would hide its loads, the op launches K2b's
+one-pass four-step cluster kernel (``csrc/fft_rows_transpose_cluster.cu``,
+``kernels.fused.large``) in the shape ``transpose_cluster_plan(16384)``,
+each row split over the CTAs of a cluster, four CTAs an SM.
+``fft_rows_transpose_plan`` still gives the cluster rule at 16384: the
+four-step's pass B (``csrc/fourstep.cuh``) stores rows of n2 = 16384 by it.
 """
 
 from __future__ import annotations
@@ -24,7 +33,7 @@ from repro_torch.kernels.fft.kernel import (_CTA_THREADS, MAX_KERNEL_N, check_ke
 from repro_torch.kernels.fused.large import fft_rows_transpose_large_cuda
 
 __all__ = ["STORE_CLUSTER", "fft_rows_transpose_cuda", "fft_rows_transpose_plain",
-           "fft_rows_transpose_plan", "launch_count", "reset_launch_count"]
+           "fft_rows_transpose_plan", "launch_count", "launch_count_16k", "reset_launch_count"]
 
 # CTAs of a cluster where a CTA holds one row (``kStoreCluster`` of
 # ``csrc/fft_rows_transpose.cu``): 8 bytes of each row per output row, so a
@@ -33,16 +42,23 @@ __all__ = ["STORE_CLUSTER", "fft_rows_transpose_cuda", "fft_rows_transpose_plain
 STORE_CLUSTER = 4
 
 _launches = 0
+_launches_16k = 0
 
 
 def launch_count() -> int:
-    """How many times ``fft_rows_transpose_cuda`` has launched its kernel."""
+    """How many times ``fft_rows_transpose_cuda`` has launched a kernel (either source)."""
     return _launches
 
 
+def launch_count_16k() -> int:
+    """The launches of the cluster kernel at n = 16384 among
+    ``launch_count``'s."""
+    return _launches_16k
+
+
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    global _launches, _launches_16k
+    _launches = _launches_16k = 0
 
 
 def fft_rows_transpose_plain(x: torch.Tensor, *, inverse: bool = False,
@@ -54,7 +70,9 @@ def fft_rows_transpose_plain(x: torch.Tensor, *, inverse: bool = False,
 
 def fft_rows_transpose_plan(n: int, rows: int) -> tuple[int, int, int, int]:
     """The launch shape of ``csrc/fft_rows_transpose.cu`` for ``rows`` rows of
-    length ``n``: ``(rows_per_cta, threads, cluster, blocks)``.  Rows per CTA
+    length ``n`` (n <= 8192; at 16384 the rule by which the four-step's pass
+    B, ``csrc/fourstep.cuh``, stores rows of n2 = 16384):
+    ``(rows_per_cta, threads, cluster, blocks)``.  Rows per CTA
     and threads are ``complex_rows_plan``'s; where the rows a whole CTA of
     256 threads holds (``max_rows``, at least one) give less than a 32-byte
     sector of each output row (n >= 2048), CTAs run in clusters of
@@ -69,13 +87,16 @@ def fft_rows_transpose_plan(n: int, rows: int) -> tuple[int, int, int, int]:
 
 def fft_rows_transpose_cuda(x: torch.Tensor, *, inverse: bool = False,
                             radix: int = 4) -> torch.Tensor:
-    """Launch ``csrc/fft_rows_transpose.cu``: (rows, n) complex64 CUDA tensor
-    -> ``FFT_rows(x).T`` of shape (n, rows), in the launch shape of
-    ``fft_rows_transpose_plan`` (the C side picks the cluster from n); rows
-    longer than ``MAX_KERNEL_N`` (up to ``MAX_LARGE_N``) go to K2b
+    """K2 on a (rows, n) complex64 CUDA tensor -> ``FFT_rows(x).T`` of shape
+    (n, rows), one launch a call: below ``MAX_KERNEL_N``
+    ``csrc/fft_rows_transpose.cu`` in the launch shape of
+    ``fft_rows_transpose_plan`` (the C side picks the cluster from n), at
+    ``MAX_KERNEL_N`` ``csrc/fft_rows_transpose_cluster.cu`` in the shape
+    ``transpose_cluster_plan(n)``; rows longer than ``MAX_KERNEL_N`` (up to
+    ``MAX_LARGE_N``) go to K2b
     (``kernels.fused.large.fft_rows_transpose_large_cuda``).  Does not
     synchronise."""
-    global _launches
+    global _launches, _launches_16k
     rows, n = check_kernel_input(x, "fft_rows_transpose_cuda")
     if radix not in (2, 4):
         raise ValueError(f"unsupported radix {radix}")
@@ -84,8 +105,13 @@ def fft_rows_transpose_cuda(x: torch.Tensor, *, inverse: bool = False,
     out = torch.empty((n, rows), dtype=x.dtype, device=x.device)
     if rows == 0:
         return out
-    rows_per_cta, threads, *_ = fft_rows_transpose_plan(n, rows)
-    launch("repro_fft_rows_transpose", x, out, rows=rows, n=n, radix=radix,
-           inverse=int(inverse), rows_per_cta=rows_per_cta, threads=threads)
+    if n == MAX_KERNEL_N:
+        launch("repro_fft_rows_transpose_cluster", x, out, rows=rows, n=n,
+               inverse=int(inverse), out_stride=rows)
+        _launches_16k += 1
+    else:
+        rows_per_cta, threads, *_ = fft_rows_transpose_plan(n, rows)
+        launch("repro_fft_rows_transpose", x, out, rows=rows, n=n, radix=radix,
+               inverse=int(inverse), rows_per_cta=rows_per_cta, threads=threads)
     _launches += 1
     return out

@@ -1,7 +1,8 @@
 """The fused row FFT -> transposed write of long rows, K2b: the plain PyTorch
 version, the launch plan and the launcher of the CUDA kernels
-``csrc/fft_rows_transpose_cluster.cu`` (n in ``TRANSPOSE_CLUSTER_LENGTHS``)
-and ``csrc/fft_rows_transpose_large.cu`` (the longer rows).
+``csrc/fft_rows_transpose_cluster.cu`` (n in ``TRANSPOSE_CLUSTER_LENGTHS``;
+K2 launches it at 16384, ``kernels.fused.kernel``) and
+``csrc/fft_rows_transpose_large.cu`` (the longer rows).
 
 Counterpart of ``repro.kernels.fused.kernel.fft_rows_transpose_pallas`` at
 the lengths the register-resident K2 (``kernels.fused.kernel``, n <=
@@ -9,8 +10,8 @@ the lengths the register-resident K2 (``kernels.fused.kernel``, n <=
 ``MAX_LARGE_N``.  K1b's four-step (``kernels.fft.large``) with the store
 transposed, ``out[k1 + n1*k2, s]``.
 
-At n = 32768 and 65536 one kernel, ``csrc/fft_rows_transpose_cluster.cu``,
-computes it in one launch: K1b's cluster kernel
+At n = 32768 and 65536 (and for K2 at 16384) one kernel,
+``csrc/fft_rows_transpose_cluster.cu``, computes it in one launch: K1b's cluster kernel
 (``csrc/fourstep_cluster.cuh``) with a cluster of ``TRANSPOSE_CLUSTER_CTAS``
 CTAs holding ``TRANSPOSE_CLUSTER_ROWS`` neighbouring signal rows, so that
 each (k1, k2) of those rows goes out as one 32-byte run of an output row
@@ -45,10 +46,10 @@ __all__ = ["TRANSPOSE_CLUSTER_CTAS", "TRANSPOSE_CLUSTER_LENGTHS",
            "two_pass_launch_count"]
 
 # The lengths of the one-pass cluster kernel
-# (``csrc/fft_rows_transpose_cluster.cu``), its CTAs a cluster (a
-# non-portable size) and signal rows a cluster (``kLog2Ctas`` and
+# (``csrc/fft_rows_transpose_cluster.cu``; 16384 is K2's), its CTAs a
+# cluster (a non-portable size) and signal rows a cluster (``kLog2Ctas`` and
 # ``kLog2Rows`` there).
-TRANSPOSE_CLUSTER_LENGTHS = (1 << 15, 1 << 16)
+TRANSPOSE_CLUSTER_LENGTHS = (1 << 14, 1 << 15, 1 << 16)
 TRANSPOSE_CLUSTER_CTAS = 16
 TRANSPOSE_CLUSTER_ROWS = 4
 
@@ -81,7 +82,8 @@ def transpose_cluster_plan(n: int) -> tuple[int, int, int, int, int, int]:
     A cluster holds ``rows_per_cluster`` signal rows, and each of its CTAs
     runs n/(16*ctas) threads a row (16 points each, n2/ctas columns of n1
     and then n1/ctas rows of n2) over a buffer of (n/ctas)*17/16 complex64
-    a row."""
+    a row: at 16384 (32, 512), 256 threads and 34816 bytes, four CTAs an
+    SM."""
     if n not in TRANSPOSE_CLUSTER_LENGTHS:
         raise ValueError(f"transpose_cluster_plan: no cluster kernel at length {n}; it "
                          f"takes {list(TRANSPOSE_CLUSTER_LENGTHS)}")

@@ -617,14 +617,340 @@ def k1b_cluster_model(x, n: int, *, rows: int | None = None, inverse: bool = Fal
 def k2b_cluster_model(x, n: int, *, rows: int | None = None,
                       out_stride: int | None = None, inverse: bool = False):
     """K2b's one-pass kernel (``_cluster_model`` with the transposed store,
-    as ``csrc/fft_rows_transpose_cluster.cu`` launches it) in its launch
-    shape ``transpose_cluster_plan(n)``, stored to an (n, ``out_stride``)
-    output (default ``rows``): out[(r*W + rho + n1*k2)*out_stride + s], for
-    each (k1, k2) a run of the R rows' s."""
+    as ``csrc/fft_rows_transpose_cluster.cu`` launches it, K2's at n =
+    16384) in its launch shape ``transpose_cluster_plan(n)``, stored to an
+    (n, ``out_stride``) output (default ``rows``): out[(r*W + rho +
+    n1*k2)*out_stride + s], for each (k1, k2) a run of the R rows' s."""
     from repro_torch.kernels.fused.large import transpose_cluster_plan
 
     return _cluster_model(x, n, transpose_cluster_plan(n), rows=rows, transposed=True,
                           out_stride=out_stride, inverse=inverse)
+
+
+def _warp_runs(addr: np.ndarray, live: np.ndarray):
+    """Per warp store instruction (``addr`` (..., T) in complex64 elements,
+    ``live`` the lanes that store): the bytes of each maximal run of
+    consecutive elements, and the instruction's bytes and 32-byte sectors
+    touched."""
+    lanes = np.where(live, addr, -1).reshape(-1, 32)
+    runs, nbytes, sectors = [], [], []
+    for row in lanes:
+        a = np.sort(row[row >= 0])
+        if not a.size:
+            continue
+        edges = np.flatnonzero(np.r_[True, np.diff(a) != 1, True])
+        runs.append(8 * np.diff(edges))
+        nbytes.append(8 * a.size)
+        sectors.append(np.unique(np.r_[a * 8 // 32, (a * 8 + 7) // 32]).size)
+    return (np.concatenate(runs) if runs else np.zeros(0, np.int64), np.asarray(nbytes, np.int64),
+            np.asarray(sectors, np.int64))
+
+
+def k3_cluster_model(x, *, rows: int | None = None, shape=(64, 2, 1)):
+    """K3 at n = 16384 split over a cluster (``packed_cluster_kernel`` of
+    ``csrc/rfft_rows_cluster.cuh``, the design the library does not build)
+    in float64, thread by thread, in the launch shape ``shape = (n1, C, R)``
+    (its best, the default: 2 CTAs of 1 pair, n1 = 64) with n/(16C) threads a
+    pair and (n/C)*17/16 complex64 of shared memory a pair: ``x`` the
+    (rows, n) real rows, or None for the pattern alone (then ``rows``).
+
+    Cluster q holds pairs p = q*R + g, g < R; rank r runs R*T threads, T =
+    n/(16C), thread g*T + i on pair g with its part of the buffer at g*E, E
+    = (n/C)*17/16 (G1 = n1/16, G2 = n2/16, COLS = n2/C, W = n1/C, H = W/2):
+    - Column phase: thread i = t*COLS + c loads z[(t + k*G1)*n2 + j2] =
+      x[2p][.] + i*x[2p + 1][.] (zeros past the call), j2 = r*COLS + c,
+      k < 16; the column DFT (exchanges as in ``_cluster_model``) and the
+      twiddle w_n^(k1*j2), k1 = t + k*G1.
+    - Exchange, mirror slots: slot sigma = k1 (k1 < n1/2), 0 (k1 = n1/2),
+      n1 - k1 (above); owner rank sigma // H, local row sigma % H, plus H
+      for k1 >= n1/2; point k to slot g*E + local*n2 + j2 of its owner.
+    - Row phase: thread i = rho*G2 + t2 loads slot g*E + rho*n2 + t2 + k*G2
+      and runs the length-n2 DFT; local row rho of rank r is row k1 = r*H +
+      rho (rho < H) or n1 - (r*H + rho - H) (n1/2 where that is 0).
+    - Stage: bin k2 = t2 + k*G2 of local row rho at slot ``k4_slot(k2*W +
+      rho)`` (tstore.cuh's swizzle for W rows of n2).
+    - Split: item idx = i + b*T, b < 8, is (q, k2) = (idx % W, idx // W);
+      its partner local row q ^ H at bin n2 - 1 - k2, or, in slot 0 (rank 0,
+      q % H = 0), row q itself at (n2 - k2) % n2 (q = 0) or n2 - 1 - k2; A
+      to out[2p][k], B to out[2p + 1][k] (where that row exists), k = row(q)
+      + n1*k2; thread i = 0 of rank 0 also stores bin n/2 from row 0's bin
+      n2/2.
+
+    Returns a dict: ``out`` the (rows, n/2 + 1) result (None without
+    ``x``); ``reads`` how often each input element was loaded,
+    ``loads_128`` whether every warp's load is 32 consecutive floats from a
+    128-byte boundary; ``slab_writes`` / ``slab_reads`` how often each
+    (cluster, rank, pair, slot) of the slabs was written / loaded;
+    ``owner_ok`` whether every row of B went to the local row that
+    ``row()`` maps back to it and both rows of every slot to one rank;
+    ``partner_ok`` whether every item read bin (n - k) mod n of its pair;
+    ``writes`` how often each output element was stored; ``worst_bank``
+    the worst count of a half-warp's lanes on one bank over the column
+    exchanges, the remote stores, the row phase's loads, the staging's
+    writes and the split's reads; ``remote_whole`` whether every warp's
+    remote store touches whole 32-byte sectors; ``runs``, ``nbytes`` and
+    ``sectors``: per output store instruction (A and B apart), the bytes of
+    each run of consecutive elements, its bytes and the 32-byte sectors it
+    touches."""
+    n = 1 << 14
+    nh = n // 2 + 1
+    n1, ctas, per = shape
+    n2, elements = n // n1, n // ctas
+    threads, smem = per * elements // 16, 8 * per * (elements + elements // 16)
+    rows = x.shape[0] if x is not None else rows
+    pairs = (rows + 1) // 2
+    g1, g2, cols, w = n1 // 16, n2 // 16, n2 // ctas, n1 // ctas
+    h = w // 2
+    row_threads = threads // per
+    elems = smem // 8 // per
+    log2w = w.bit_length() - 1
+    assert row_threads == cols * g1 == w * g2 and elems >= w * n2 and h >= 1
+    clusters = -(-pairs // per)
+    tid = np.arange(threads)
+    g, i = tid // row_threads, tid % row_threads
+    c, t = i % cols, i // cols
+    k = np.arange(16)[:, None]                                      # (16, 1)
+    q = np.arange(clusters)[:, None, None, None]                    # (Q, 1, 1, 1)
+    r = np.arange(ctas)[None, :, None, None]                        # (1, C, 1, 1)
+    j2 = r * cols + c                                               # (1, C, 1, T)
+    k1 = t + k * g1                                                 # (16, T)
+    p = q * per + g                                                 # (Q, 1, 1, T)
+    shape = (clusters, ctas, 16, threads)
+    has_a = np.broadcast_to(2 * p < rows, shape)
+    has_b = np.broadcast_to(2 * p + 1 < rows, shape)
+    load_a = np.broadcast_to(2 * p * n + k1 * n2 + j2, shape)
+    reads = np.bincount(np.concatenate([load_a[has_a], (load_a + n)[has_b]]),
+                        minlength=rows * n)
+    warps = load_a.reshape(-1, 32)
+    loads_128 = bool((np.diff(warps, axis=1) == 1).all() and (warps[:, 0] % 32 == 0).all())
+    worst = 1
+    log2n1 = n1.bit_length() - 1
+    for step in range(log2n1 // 4 - (log2n1 % 4 == 0)):
+        log2s = 4 * step
+        jj, qq = t >> log2s, t & ((1 << log2s) - 1)
+        f = (((jj << 4) << log2s) + qq) + (np.arange(16)[:, None] << log2s)   # (16, T)
+        worst = max(worst, _half_warp_banks(g * elems + f * cols + c),
+                    _half_warp_banks(g * elems + k1 * cols + c))
+
+    def row_of(rank, rho):
+        sig = rank * h + rho % h
+        return np.where(rho < h, sig, np.where(sig == 0, n1 // 2, n1 - sig))
+
+    # The exchange: mirror slots.
+    sigma = np.where(k1 < n1 // 2, k1, np.where(k1 == n1 // 2, 0, n1 - k1))
+    owner = sigma // h
+    local = sigma % h + (k1 >= n1 // 2) * h
+    every = np.arange(n1)
+    s_all = np.where(every < n1 // 2, every, np.where(every == n1 // 2, 0, n1 - every))
+    o_all = s_all // h
+    l_all = s_all % h + (every >= n1 // 2) * h
+    partner = np.where((every == 0) | (every == n1 // 2), every, n1 - every)
+    owner_ok = bool(np.unique(o_all * w + l_all).size == n1
+                    and (row_of(o_all, l_all) == every).all()
+                    and (o_all[partner] == o_all).all())
+    slot = local * n2 + j2                                           # (1, C, 16, T)
+    dest = ((q * ctas + owner) * per + g) * (w * n2) + slot          # (Q, C, 16, T)
+    slab_writes = np.bincount(dest.ravel(), minlength=clusters * ctas * per * w * n2)
+    remote = np.broadcast_to(g * elems + slot, (1, ctas, 16, threads))
+    worst = max(worst, _half_warp_banks(remote))
+    remote_whole = _warp_sectors_whole(remote)
+    # The row phase's loads.
+    rho2, t2 = i // g2, i % g2
+    k2 = t2 + k * g2                                                 # (16, T)
+    own = rho2 * n2 + k2
+    src = ((q * ctas + r) * per + g) * (w * n2) + own                # (Q, C, 16, T)
+    slab_reads = np.bincount(src.ravel(), minlength=clusters * ctas * per * w * n2)
+    worst = max(worst, _half_warp_banks(g * elems + own))
+    # The staging and the split's reads.
+    swz = k4_swizzle(n2, w)
+    put = k4_slot((k2 << log2w) + rho2, swz)                         # (16, T)
+    assert np.unique(g * elems + put).size == put.size
+    worst = max(worst, _half_warp_banks(g * elems + put))
+    idx = i + np.arange(8)[:, None] * row_threads                    # (8, T)
+    qq, kk2 = idx % w, idx // w
+    rr = np.arange(ctas)[:, None, None]                              # (C, 1, 1)
+    self_ = (rr == 0) & (qq % h == 0)                                # (C, 8, T)
+    pq = np.where(self_, qq, qq ^ h)
+    pk = np.where(self_ & (qq == 0), (n2 - kk2) % n2, n2 - 1 - kk2)
+    get_k = np.broadcast_to(k4_slot((kk2 << log2w) + qq, swz), pq.shape)
+    get_r = k4_slot((pk << log2w) + pq, swz)
+    worst = max(worst, _half_warp_banks(g * elems + get_k),
+                _half_warp_banks(g * elems + get_r))
+    kk = row_of(rr, qq) + n1 * kk2                                   # (C, 8, T)
+    pkk = row_of(rr, pq) + n1 * pk
+    partner_ok = bool(((pkk % n) == ((n - kk) % n)).all())
+    pp = np.arange(clusters)[:, None, None, None] * per + g          # (Q, 1, 1, T)
+    bshape = (clusters, ctas, 8, threads)
+    kb = np.broadcast_to(kk, bshape)
+    a_addr = 2 * pp * nh + kb
+    a_live = np.broadcast_to(2 * pp < rows, bshape)
+    b_live = np.broadcast_to(2 * pp + 1 < rows, bshape)
+    # Bin n/2: thread i = 0 of rank 0 of each pair.
+    pe = np.arange(clusters)[:, None] * per + np.arange(per)          # (Q, R)
+    e_a = 2 * pe * nh + nh - 1
+    e_live_a, e_live_b = 2 * pe < rows, 2 * pe + 1 < rows
+    stored = np.concatenate([a_addr[a_live], (a_addr + nh)[b_live], e_a[e_live_a],
+                             (e_a + nh)[e_live_b]])
+    writes = np.bincount(stored, minlength=rows * nh)
+    runs, nbytes, sectors = [], [], []
+    for addr_, live in ((a_addr, a_live), (a_addr + nh, b_live)):
+        got = _warp_runs(addr_, live)
+        runs.append(got[0])
+        nbytes.append(got[1])
+        sectors.append(got[2])
+    out = None
+    if x is not None:
+        xx = np.asarray(x, np.float64)
+        if rows % 2:
+            xx = np.vstack([xx, np.zeros((1, n))])
+        xx = np.vstack([xx, np.zeros((2 * clusters * per - xx.shape[0], n))])
+        z = (xx[0::2] + 1j * xx[1::2]).reshape(-1)                   # pairs * n
+        held = z[np.broadcast_to(p * n + k1 * n2 + j2, shape)]       # (Q, C, 16, T)
+        colv = np.zeros((clusters, ctas, per, cols, n1), np.complex128)
+        gg, cc, kk1 = (np.broadcast_to(a, (16, threads)) for a in (g, c, k1))
+        colv[:, :, gg, cc, kk1] = held
+        y = np.fft.fft(colv, axis=-1)
+        jj = np.arange(ctas)[:, None] * cols + np.arange(cols)        # (C, cols)
+        y = y * np.exp(-2j * np.pi * ((jj[:, None, :, None] * np.arange(n1)) % n) / n)
+        slab = np.zeros(clusters * ctas * per * w * n2, np.complex128)
+        slab[dest] = y[:, :, gg, cc, kk1]
+        b = np.zeros((clusters, ctas, per, w, n2), np.complex128)
+        rr2, kk22 = np.broadcast_to(rho2, (16, threads)), np.broadcast_to(k2, (16, threads))
+        b[:, :, gg, rr2, kk22] = slab[src]
+        zz = np.fft.fft(b, axis=-1)                                  # Z[g][rho][k2]
+        staged = np.zeros((clusters, ctas, per, elems), np.complex128)
+        staged[:, :, gg, put] = zz[:, :, gg, rr2, kk22]
+        g8 = np.broadcast_to(g, (8, threads))
+        ci = np.arange(ctas)[:, None, None]
+        zk = staged[:, ci, g8, get_k]                                # (Q, C, 8, T)
+        zr = staged[:, ci, g8, get_r]
+        av, bv = (zk + np.conj(zr)) / 2, (zk - np.conj(zr)) / 2j
+        out = np.zeros(rows * nh, np.complex128)
+        out[a_addr[a_live]] = av[a_live]
+        out[(a_addr + nh)[b_live]] = bv[b_live]
+        z0 = staged[:, 0, :, k4_slot((n2 // 2) << log2w, swz)]       # (Q, R)
+        out[e_a[e_live_a]] = z0[e_live_a].real
+        out[(e_a + nh)[e_live_b]] = z0[e_live_b].imag
+        out = out.reshape(rows, nh)
+    return {"out": out, "reads": reads, "loads_128": loads_128, "slab_writes": slab_writes,
+            "slab_reads": slab_reads, "owner_ok": owner_ok, "partner_ok": partner_ok,
+            "writes": writes, "worst_bank": worst, "remote_whole": remote_whole,
+            "runs": np.concatenate(runs), "nbytes": np.concatenate(nbytes),
+            "sectors": np.concatenate(sectors)}
+
+
+def k3_16k_model(x, *, rows: int | None = None, sms: int = 132):
+    """K3 at n = 16384 (``csrc/rfft_rows_16k.cu``'s
+    ``rfft_persistent_kernel<2, kStaged>``) in float64, thread by thread, in
+    its launch ``rfft_16k_plan(rows, sms)`` on a card of ``sms`` SMs: ``x``
+    the (rows, n) real rows, or None for the pattern alone (then ``rows``).
+
+    CTA c of C = min(pairs, sms) takes pairs c, c + C, ...; pair p's staging
+    (issued before the loop, or after the previous pair's reads) copies the
+    floats [2p*n, 2p*n + S) to the staging area, S = n + kStaged*1024 where
+    row b exists (n where it does not), in 16 KiB bulk copies, and has the
+    rest of b, [2p*n + S, (2p + 2)*n), prefetched into L2.  Thread t of its
+    1024 loads re[k] = staged float t + k*1024 and im[k] = staged float n +
+    t + k*1024 for k < kStaged, x[2p + 1][t + k*1024] above (zeros without
+    b); the passes are regfft's Plan<14> (``kernel_pass_model``); the split
+    is ``rfft_rows_kernel``'s: item k = t + c*1024 < n/2 + 1 reads Z[k] and
+    Z[(n - k) mod n] and writes A to out[2p][k], B to out[2p + 1][k].
+
+    Returns a dict: ``out`` the (rows, n/2 + 1) result (None without
+    ``x``); ``pairs_of`` the CTA of every pair, ``order_ok`` whether each
+    CTA runs its pairs in rising order, one per iteration; ``copied`` how
+    often each input float was staged or prefetched (and ``overrun``
+    whether a staging or prefetch reached past the input); ``staged_reads``
+    / ``global_reads`` how often each input float was read from the staging
+    area / from memory, ``in_range`` whether every staged read lies in its
+    pair's staged range and every read from memory in its prefetched one;
+    ``reads`` how often each input float was loaded in all; ``writes`` how
+    often each output element was stored; ``worst_bank`` the worst count of
+    a half-warp's lanes on one bank of the staging reads and of the passes'
+    exchanges (``kernel_pass_model``); ``layout`` the exchange buffer's,
+    staging area's and mbarrier's byte offsets and the total; ``chunks``
+    the sizes of the bulk copies of a pair with b; ``runs`` the bytes of
+    each run of consecutive elements a warp's store writes and
+    ``sectors_whole`` whether each warp store (A and B apart) touches
+    whole 32-byte sectors only."""
+    from repro_torch.kernels.fft.kernel import complex_rows_plan
+    from repro_torch.kernels.fft.real import RFFT_16K_STAGED, rfft_16k_plan
+
+    n, g = 1 << 14, 1024
+    nh = n // 2 + 1
+    rows = x.shape[0] if x is not None else rows
+    pairs = (rows + 1) // 2
+    ctas, threads, staged_bytes, smem = rfft_16k_plan(rows, sms)
+    assert threads == g
+    exchange = 8 * (n + n // 16)
+    layout = (0, exchange, exchange + staged_bytes, smem)
+    p = np.arange(pairs)
+    pairs_of = p % ctas
+    order_ok = bool((p // ctas == np.arange(pairs) // ctas).all())
+    has_b = 2 * p + 1 < rows
+    size = np.where(has_b, staged_bytes // 4, n)                  # staged floats
+    lo = 2 * p * n
+    copied = np.zeros(rows * n + 1, np.int64)
+    np.add.at(copied, np.minimum(np.concatenate(
+        [np.arange(a, a + m) for a, m in zip(lo, size)]), rows * n), 1)
+    pre_lo, pre_hi = lo + size, np.where(has_b, lo + 2 * n, lo + size)
+    np.add.at(copied, np.minimum(np.concatenate(
+        [np.arange(a, b) for a, b in zip(pre_lo, pre_hi)]), rows * n), 1)
+    overrun = bool(copied[rows * n] > 0)
+    copied = copied[:rows * n]
+    chunks = [min(16384, staged_bytes - off) for off in range(0, staged_bytes, 16384)]
+    t = np.arange(g)
+    k = np.arange(16)[:, None]
+    slot = t + k * g                                               # (16, T)
+    staged_slots = np.concatenate([slot, n + slot[:RFFT_16K_STAGED]])   # re, then im
+    staged_el = lo[:, None, None] + staged_slots[None]             # (P, 16 + S, T)
+    keep = np.ones(staged_el.shape, bool)
+    keep[:, 16:] = has_b[:, None, None]
+    global_el = (lo + n)[:, None, None] + slot[None, RFFT_16K_STAGED:]
+    gkeep = np.broadcast_to(has_b[:, None, None], global_el.shape)
+    staged_reads = np.bincount(staged_el[keep], minlength=rows * n)
+    global_reads = np.bincount(global_el[gkeep], minlength=rows * n)
+    in_range = bool(((staged_el >= lo[:, None, None])
+                     & (staged_el < (lo + size)[:, None, None]))[keep].all()
+                    and ((global_el >= pre_lo[:, None, None])
+                         & (global_el < pre_hi[:, None, None]))[gkeep].all())
+    # A warp's staging reads: 32 floats, one a 4-byte bank each.
+    worst = max(int(np.bincount(w % 32, minlength=32).max())
+                for w in staged_slots.reshape(-1, 32))
+    # The split's stores.
+    c = np.arange(-(-nh // g))[:, None]
+    item = t + c * g                                               # (9, T)
+    live = item < nh
+    a_addr = 2 * p[:, None, None] * nh + item[None]
+    a_live = np.broadcast_to(live, a_addr.shape)
+    b_live = a_live & has_b[:, None, None]
+    writes = np.bincount(np.concatenate([a_addr[a_live], (a_addr + nh)[b_live]]),
+                         minlength=rows * nh)
+    runs, whole = [], True
+    for addr_, m in ((a_addr, a_live), (a_addr + nh, b_live)):
+        got, nbytes, sectors = _warp_runs(addr_, m)
+        runs.append(got)
+        whole = whole and bool((nbytes == 32 * sectors).all())
+    out = None
+    if x is not None:
+        xx = np.asarray(x, np.float64)
+        if rows % 2:
+            xx = np.vstack([xx, np.zeros((1, n))])
+        z = torch.from_numpy(xx[0::2] + 1j * xx[1::2])
+        zz, pass_worst = kernel_pass_model(z, complex_rows_plan(n, 1))
+        worst = max(worst, pass_worst)
+        zz = zz.numpy()
+        kk = np.arange(nh)
+        zk, zr = zz[:, kk], zz[:, (n - kk) % n]
+        av, bv = (zk + np.conj(zr)) / 2, (zk - np.conj(zr)) / 2j
+        out = np.zeros((rows, nh), np.complex128)
+        out[0::2] = av[:(rows + 1) // 2]
+        out[1::2] = bv[:rows // 2]
+    return {"out": out, "pairs_of": pairs_of, "order_ok": order_ok, "copied": copied,
+            "overrun": overrun, "staged_reads": staged_reads, "global_reads": global_reads,
+            "in_range": in_range, "reads": staged_reads + global_reads, "writes": writes,
+            "worst_bank": worst, "layout": layout, "chunks": chunks,
+            "runs": np.concatenate(runs), "sectors_whole": whole}
 
 
 def cluster_twiddle_model(n: int, g: int, t: np.ndarray, j2: np.ndarray, *,

@@ -292,7 +292,7 @@ def test_transpose_cluster_plan_mirrors_the_cuda_source():
         assert (got_ctas, got_per) == (ctas, per)
         cols, w = n2 // ctas, n1 // ctas
         assert threads == per * cols * (n1 // 16) == per * w * (n2 // 16) <= 1024
-        assert cols == 32 and w >= 4 and n2 >= 256 and 2 <= ctas <= 16
+        assert cols == 32 and w * per >= 4 and n2 >= 256 and 2 <= ctas <= 16
         assert smem == 8 * per * (w * n2 + -(-w * n2 // 16)) <= port_kernel.SMEM_BUDGET
         blocks = 65536 // (threads * 64)
         assert blocks >= 1 and blocks * (smem + 1024) <= 233472
@@ -328,7 +328,7 @@ def test_transpose_cluster_binding_and_refusals():
     assert ('extern "C" int repro_fft_rows_transpose_cluster(const void* in, void* out, '
             'long long rows,') in body
     assert body.count('extern "C"') == 1
-    for n in (1 << 14, 1 << 17, 3 << 14):
+    for n in (1 << 13, 1 << 17, 3 << 14):
         with pytest.raises(ValueError, match="no cluster kernel"):
             port_fused_large.transpose_cluster_plan(n)
 

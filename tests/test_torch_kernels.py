@@ -306,17 +306,22 @@ def test_launch_shape_fits_the_card(n, rows):
 
 
 def test_whole_row_limit_is_what_shared_memory_holds():
-    """``MAX_KERNEL_N`` is the top of K2's instantiation table, ``1 << 14``:
-    every power of two up to it in both directions, nothing above; and a
-    row of that length (one a CTA of 1024 threads) fits an SM's shared
-    memory once, not twice."""
+    """``MAX_KERNEL_N`` is the top of K2's table, ``1 << 14``: every power
+    of two up to it in both directions, the register-resident source up to
+    half of it and the cluster source (``fft_rows_transpose_cluster.cu``,
+    K2b's) at it, nothing above in the register-resident source; and a row
+    of that length (one a CTA of 1024 threads) fits an SM's shared memory
+    once, not twice, which is why K2 leaves that source there."""
     n = port_kernel.MAX_KERNEL_N
     assert n == 1 << 14
     source = (_build.csrc_dir() / "fft_rows_transpose.cu").read_text()
     top = n.bit_length() - 1
-    for e in range(1, top + 1):
+    for e in range(1, top):
         assert f"case 1 << {e}: return launch_dir<{e}>(" in source
-    assert f"case 1 << {top + 1}" not in source
+    assert f"case 1 << {top}" not in source and f"case 1 << {top + 1}" not in source
+    cluster = (_build.csrc_dir() / "fft_rows_transpose_cluster.cu").read_text()
+    assert (f"    case 1 << {top}:\n        return inverse ? launch_length<{top}, true>("
+            in cluster)
     assert "launch<LOG2N, true>" in source and "launch<LOG2N, false>" in source
     per_cta, threads, _, _, smem = port_kernel.complex_rows_plan(n, 1 << 20)
     assert per_cta == 1 and threads == 1024
@@ -330,9 +335,9 @@ def test_cpu_ops_launch_nothing_and_build_nothing():
     fft_rows_transpose_op(x)
     assert port_kernels.launch_counts() == {
         "fft_rows": 0, "fft_rows_large": 0, "fft_rows_large_two_pass": 0,
-        "fft_rows_transpose": 0,
+        "fft_rows_transpose": 0, "fft_rows_transpose_16k": 0,
         "fft_rows_transpose_large": 0, "fft_rows_transpose_large_two_pass": 0,
-        "rfft_rows": 0, "rfft_rows_large": 0,
+        "rfft_rows": 0, "rfft_rows_16k": 0, "rfft_rows_large": 0,
         "rfft_rows_transpose": 0, "rfft_rows_transpose_large": 0, "transpose": 0}
     assert _build._library is None  # nothing compiled or loaded by CPU work
 
@@ -343,7 +348,8 @@ def test_kernel_sources_are_plain_cuda_built_for_sm_90a():
                      "fft_rows_transpose.cu", "fft_rows_transpose_cluster.cu",
                      "fft_rows_transpose_large.cu", "fourstep.cuh",
                      "fourstep_cluster.cuh", "regfft.cuh",
-                     "rfft_rows.cu", "rfft_rows_large.cu", "rfft_rows_transpose.cu",
+                     "rfft_rows.cu", "rfft_rows_16k.cu", "rfft_rows_cluster.cuh",
+                     "rfft_rows_large.cu", "rfft_rows_transpose.cu",
                      "rfft_rows_transpose_large.cu", "transpose.cu", "tstore.cuh"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "-use_fast_math" not in _build.NVCC_FLAGS
@@ -363,14 +369,15 @@ def test_kernel_sources_are_plain_cuda_built_for_sm_90a():
             assert "Replaces the TPU kernel" in text and "Bound on this card" in text
     assert "sincospif" in (_build.csrc_dir() / "regfft.cuh").read_text()
     assert '#include "regfft.cuh"' in (_build.csrc_dir() / "tstore.cuh").read_text()
-    for name in ("fft_rows.cu", "rfft_rows.cu"):
+    for name in ("fft_rows.cu", "rfft_rows.cu", "rfft_rows_16k.cu"):
         assert '#include "regfft.cuh"' in (_build.csrc_dir() / name).read_text()
     for name in ("fft_rows_transpose.cu", "rfft_rows_transpose.cu", "fourstep.cuh"):
         assert '#include "tstore.cuh"' in (_build.csrc_dir() / name).read_text()
     for name in ("fft_rows_large.cu", "fft_rows_transpose_large.cu", "rfft_rows_large.cu",
                  "rfft_rows_transpose_large.cu"):
         assert '#include "fourstep.cuh"' in (_build.csrc_dir() / name).read_text()
-    for name in ("fft_rows_cluster.cu", "fft_rows_transpose_cluster.cu"):
+    for name in ("fft_rows_cluster.cu", "fft_rows_transpose_cluster.cu",
+                 "rfft_rows_cluster.cuh"):
         assert '#include "fourstep_cluster.cuh"' in (_build.csrc_dir() / name).read_text()
 
 

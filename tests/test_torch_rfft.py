@@ -219,14 +219,18 @@ LENGTHS = [1 << e for e in range(1, 15)]
 
 def test_real_rows_plan_mirrors_the_cuda_header():
     """K3 runs the header's plan with a packed pair in the place of a row,
-    at every length, and its launcher refuses any other shape."""
+    at every length up to 8192 (16384 is ``rfft_rows_16k.cu``'s, one
+    persistent CTA an SM, ``tests/test_torch_rows_16k.py``), and its
+    launcher refuses any other shape."""
     text = (_build.csrc_dir() / "regfft.cuh").read_text()
     assert f"kMaxPoints = {port_fft_kernel._POINTS};" in text
     assert f"kCtaThreads = {port_fft_kernel._CTA_THREADS};" in text
     source = (_build.csrc_dir() / "rfft_rows.cu").read_text()
     assert "fft_row<LOG2N, false>" in source and "cudaErrorInvalidValue" in source
-    for e in range(1, 15):
+    for e in range(1, 14):
         assert f"case 1 << {e}: return launch<{e}>(" in source
+    assert "case 1 << 14" not in source
+    assert "if (n != 1 << 14 " in (_build.csrc_dir() / "rfft_rows_16k.cu").read_text()
 
 
 def test_k4_source_runs_the_register_passes_in_k1s_plan():
