@@ -16,13 +16,17 @@ each of which ends the run with a non-zero exit code when it fails:
                  and K3 at 16384 one launch of their kernels there, the
                  full width, the row blocks of the batched paths 8-10 and of
                  the fused batch; the four-step K1b at 2048 x 32768, 512 x
-                 131072 and 1 x 2^24 both ways, and K2b (both ways), K3b and
-                 K4b there and at 2049 x 32768; the transpose bit for bit);
-                 untimed, beside the dry-run worker.
+                 2^17, 256 x 2^18 (its cluster kernel), 128 x 2^19 and 1 x
+                 2^24 (its two passes) both ways, and K2b (both ways), K3b
+                 and K4b at 2048 x 32768, 512 x 2^17, 1 x 2^24 and 2049 x
+                 32768; the transpose bit for bit); untimed, beside the
+                 dry-run worker.
    ``kernels``   each kernel's time beside the plain version's, the library's
                  and the card's bound at the main path's shape (K1-K4 also at
                  4096 x 16384, each ``at_16384`` record with its own source,
-                 K2's and K3's with their launches; K1b-K4b at 2048 x 32768).
+                 K2's and K3's with their launches; K1b-K4b at 2048 x 32768,
+                 K1b also at 512 x 2^17 (16-CTA clusters) and 128 x 2^19
+                 (two passes), K2b's two passes at 512 x 2^17).
 4. ``main_path`` FPMs timed on the card, then ``plan_pfft(...).execute`` for
                  PFFT-LB / PFFT-FPM at N = 8192 and PFFT-FPM-PAD / PFFT-FPM-CZT
                  at N = 8192 (the pow2 pad of 16384 runs K1 at Plan<14>)
@@ -61,7 +65,9 @@ each of which ends the run with a non-zero exit code when it fails:
                  "estimate"`` and a ``tune="measure"`` plan; the axis
                  rotations timed.
 9. ``pfft1_large`` ``plan_pfft1_large(2**26)`` (8192 x 8192 four-step) under the
-                 library and ``radix=4`` (2 K1 launches) against
+                 library and ``radix=4`` (2 K1 launches), and pinned to
+                 ``n2=2**17`` under ``radix=4`` (512 rows of 2^17 through
+                 K1b's cluster kernel, then K1), against
                  ``torch.fft.fft``; ``plan_pfft1_large(2**28)`` (16384 x
                  16384, K1 at Plan<14>) under ``radix=4``; a composite and a
                  prime N (0 launches); the ``tune="measure"`` lifecycle at
@@ -334,20 +340,26 @@ REAL_KERNEL_SHAPES = ([(rows, 1 << e) for e in range(1, 15)
                        for rows in (37, max(2, (1 << 20) >> e))] + [MAIN_SHAPE, WIDE_SHAPE]
                       + [(rows, n) for n in (4096, 8192, 16384) for rows in (258, 259)])
 # K1b: 2048 rows of 32768 (the one-pass record's shape), 512 rows of 2^17
-# (the two passes' record) and one line of 2^24 (two passes), and in the
-# cluster kernel 1023 rows of 65536 and 3 of 32768.
-K1B_SHAPES = [(2048, 1 << 15), (512, 1 << 17), (1, 1 << 24), (1023, 1 << 16), (3, 1 << 15)]
-K1B_TWO_PASS_SHAPE = K1B_SHAPES[1]
-# K2b, K3b and K4b (the four-step fused and real kernels): K1b's first three
-# shapes (the first the records' shape, the second the two passes' record)
+# (the record of the cluster kernel at 16-CTA clusters), 128 rows of 2^19
+# (the two passes' record, also 512 MiB) and one line of 2^24 (two passes),
+# and in the cluster kernel 1023 rows of 65536, 256 and 129 rows of 2^18 and
+# 3 of 2^17.
+K1B_SHAPES = [(2048, 1 << 15), (512, 1 << 17), (128, 1 << 19), (1, 1 << 24),
+              (1023, 1 << 16), (256, 1 << 18), (129, 1 << 18), (3, 1 << 17)]
+K1B_LONG_SHAPE = K1B_SHAPES[1]
+K1B_TWO_PASS_SHAPE = K1B_SHAPES[2]
+# K2b's two passes (above 65536) keep their record at 512 x 2^17.
+K2B_TWO_PASS_SHAPE = (512, 1 << 17)
+# K2b, K3b and K4b (the four-step fused and real kernels): K1b's records'
+# shape, K2b's two passes' and one line of 2^24,
 # and odd row counts: 2049 (K2b's cluster kernel masks the last 3 rows of its
 # last cluster; its output rows start off 32-byte boundaries; K3b and K4b get
 # an unpaired last row), 16385, the main path's own (phase 2 of the fused
 # real plan at 32768; K3b and K4b over 8193 pairs in 3 chunks), 3 (one
 # cluster of K2b) and 1023 x 65536 (K2b's cluster kernel at its other
 # length).
-SIBLING_SHAPES = K1B_SHAPES[:3] + [(2049, 1 << 15), (16385, 1 << 15), (3, 1 << 15),
-                                   (1023, 1 << 16)]
+SIBLING_SHAPES = [K1B_SHAPES[0], K2B_TWO_PASS_SHAPE, (1, 1 << 24),
+                  (2049, 1 << 15), (16385, 1 << 15), (3, 1 << 15), (1023, 1 << 16)]
 TRANSPOSE_SHAPES = [(1, 1), (37, 129), (1000, 3), (4096, 8192), (8192, 8192)]
 # Every other element size the transpose kernel is built for, at small shapes.
 TRANSPOSE_OTHER_DTYPES = [torch.uint8, torch.float16, torch.float64, torch.complex128]
@@ -359,13 +371,16 @@ MICROBENCH_N = (1024, 8192)
 PLANNER_N = (1024, 2048, 4096, 8192)
 # The 3-D path: a 512^3 complex64 cube (1 GiB) for plan_pfft3 and the
 # estimate plan; 256^3 for the FPM methods (pads up to 512) and the measure
-# plan.  The huge-1-D path: 2^26 (an 8192 x 8192 four-step, 512 MiB) and
-# 2^28 (16384 x 16384, 2 GiB); a composite length whose factors are not
+# plan.  The huge-1-D path: 2^26 (an 8192 x 8192 four-step, 512 MiB; and
+# pinned to 512 x 2^17, N_LARGE_LONG_N2, so that its first phase runs K1b's
+# cluster kernel at 2^17) and 2^28 (16384 x 16384, 2 GiB); a composite
+# length whose factors are not
 # powers of two (1000 x 1000) and a prime (one library FFT); the measure
 # lifecycle at 2^24.
 N_PFFT3 = 512
 N_PFFT3_PAD = 256
 N_LARGE = 1 << 26
+N_LARGE_LONG_N2 = 1 << 17
 N_LARGE_TOP = 1 << 28     # 16384 x 16384: K1 at its longest row, a 2 GiB line
 N_LARGE_LIBRARY = (1_000_000, 1_000_003)
 N_LARGE_MEASURE = 1 << 24
@@ -656,13 +671,16 @@ def phase_kernels(gen: torch.Generator, worst: dict[str, float]) -> list[dict]:
     transpose_limits = bound(2 * rows * n * 8, 0.0)
     # K1b: the function's bytes once each way (the cluster kernel moves just
     # that, the two passes twice that) and the complex FFT's operations.
+    def complex_limits_at(rows_: int, n_: int) -> dict:
+        return bound(2 * rows_ * n_ * 8, 5.0 * rows_ * n_ * math.log2(n_))
+
     lrows, ln = K1B_SHAPES[0]
     xl = random_signal(gen, lrows, ln)
     xrl = random_real(gen, lrows, ln)
-    large_limits = bound(2 * lrows * ln * 8, 5.0 * lrows * ln * math.log2(ln))
-    trows, tn = K1B_TWO_PASS_SHAPE
-    xt = random_signal(gen, trows, tn)
-    two_pass_limits = bound(2 * trows * tn * 8, 5.0 * trows * tn * math.log2(tn))
+    large_limits = complex_limits_at(lrows, ln)
+    xlong = random_signal(gen, *K1B_LONG_SHAPE)
+    xt = random_signal(gen, *K1B_TWO_PASS_SHAPE)
+    xt2 = random_signal(gen, *K2B_TWO_PASS_SHAPE)
     # K3b, K4b: K3's and K4's function at K1b's shape.
     lnh = ln // 2 + 1
     real_large_limits = bound(lrows * ln * 4 + lrows * lnh * 8,
@@ -699,9 +717,15 @@ def phase_kernels(gen: torch.Generator, worst: dict[str, float]) -> list[dict]:
                       lambda: fft_rows_op(xl),
                       lambda: fft_rows_large_plain(xl),
                       lambda: torch.fft.fft(xl), source="fft_rows_cluster.cu"),
+        kernel_record("fft_rows_large_long", "src/repro/kernels/fft/kernel.py:209",
+                      K1B_LONG_SHAPE, worst["fft_rows_large_long"],
+                      complex_limits_at(*K1B_LONG_SHAPE),
+                      lambda: fft_rows_op(xlong),
+                      lambda: fft_rows_large_plain(xlong),
+                      lambda: torch.fft.fft(xlong), source="fft_rows_cluster.cu"),
         kernel_record("fft_rows_large_two_pass", "src/repro/kernels/fft/kernel.py:209",
                       K1B_TWO_PASS_SHAPE, worst["fft_rows_large_two_pass"],
-                      two_pass_limits,
+                      complex_limits_at(*K1B_TWO_PASS_SHAPE),
                       lambda: fft_rows_op(xt),
                       lambda: fft_rows_large_plain(xt),
                       lambda: torch.fft.fft(xt), source="fft_rows_large.cu"),
@@ -712,11 +736,12 @@ def phase_kernels(gen: torch.Generator, worst: dict[str, float]) -> list[dict]:
                       lambda: torch.fft.fft(xl).T.contiguous(),
                       source="fft_rows_transpose_cluster.cu"),
         kernel_record("fft_rows_transpose_large_two_pass",
-                      "src/repro/kernels/fused/kernel.py:64", K1B_TWO_PASS_SHAPE,
-                      worst["fft_rows_transpose_large_two_pass"], two_pass_limits,
-                      lambda: fft_rows_transpose_op(xt),
-                      lambda: fft_rows_transpose_large_plain(xt),
-                      lambda: torch.fft.fft(xt).T.contiguous(),
+                      "src/repro/kernels/fused/kernel.py:64", K2B_TWO_PASS_SHAPE,
+                      worst["fft_rows_transpose_large_two_pass"],
+                      complex_limits_at(*K2B_TWO_PASS_SHAPE),
+                      lambda: fft_rows_transpose_op(xt2),
+                      lambda: fft_rows_transpose_large_plain(xt2),
+                      lambda: torch.fft.fft(xt2).T.contiguous(),
                       source="fft_rows_transpose_large.cu"),
         kernel_record("rfft_rows_large", "src/repro/kernels/fft/real.py:91",
                       K1B_SHAPES[0], worst["rfft_rows_large"], real_large_limits,
@@ -736,12 +761,14 @@ def phase_kernels(gen: torch.Generator, worst: dict[str, float]) -> list[dict]:
 
 
 def check_large_kernel(gen: torch.Generator, worst: dict) -> None:
-    """K1b (``fft_rows_op`` above 16384: the cluster kernel up to 65536, the
+    """K1b (``fft_rows_op`` above 16384: the cluster kernel up to 2^18, the
     two passes above) at ``K1B_SHAPES`` in both directions against
     ``fft_rows_large_plain`` and ``torch.fft.fft`` / ``ifft``, ``atol =
-    row_fft_tol(n, inverse)``, one launch a call of the cluster kernel;
-    ``worst`` gets the forward errors against the plain version at the
-    records' shapes."""
+    row_fft_tol(n, inverse)``; a call of the cluster kernel exactly one
+    launch and none of the two passes (at 2^17 and 2^18 also one of
+    ``fft_rows_large_long``), a call of the two passes none of the cluster
+    kernel; ``worst`` gets the forward errors against the plain version at
+    the records' shapes."""
     for rows, n in K1B_SHAPES:
         x = random_signal(gen, rows, n)
         design = ({"design": "cluster", "plan": list(cluster_plan(n))} if n <= CLUSTER_MAX_N
@@ -752,11 +779,15 @@ def check_large_kernel(gen: torch.Generator, worst: dict) -> None:
             got = fft_rows_op(x, inverse=inverse)
             torch.cuda.synchronize()
             after = launch_counts()
-            if n <= CLUSTER_MAX_N and (
-                    after["fft_rows_large"] - before["fft_rows_large"] != 1
-                    or after["fft_rows_large_two_pass"] != before["fft_rows_large_two_pass"]):
-                raise AssertionError(f"K1b at n={n} did not take one cluster launch: "
-                                     f"{before} -> {after}")
+            delta = {k: after[k] - before[k] for k in (
+                "fft_rows_large", "fft_rows_large_two_pass", "fft_rows_large_long")}
+            want = ({"fft_rows_large": 1, "fft_rows_large_two_pass": 0,
+                     "fft_rows_large_long": int(n > 1 << 16)} if n <= CLUSTER_MAX_N
+                    else {"fft_rows_large": delta["fft_rows_large_two_pass"],
+                          "fft_rows_large_two_pass": delta["fft_rows_large_two_pass"],
+                          "fft_rows_large_long": 0})
+            if delta != want or delta["fft_rows_large"] < 1:
+                raise AssertionError(f"K1b at n={n} launched {delta}, expected {want}")
             lib = torch.fft.ifft(x) if inverse else torch.fft.fft(x)
             errs = {"fft_rows_large_err": max_abs_err(
                         got, fft_rows_large_plain(x, inverse=inverse)),
@@ -767,6 +798,8 @@ def check_large_kernel(gen: torch.Generator, worst: dict) -> None:
                                      f"inverse={inverse}: {errs} > {tol}")
             if (rows, n) == K1B_SHAPES[0] and not inverse:
                 worst["fft_rows_large"] = errs["fft_rows_large_err"]
+            if (rows, n) == K1B_LONG_SHAPE and not inverse:
+                worst["fft_rows_large_long"] = errs["fft_rows_large_err"]
             if (rows, n) == K1B_TWO_PASS_SHAPE and not inverse:
                 worst["fft_rows_large_two_pass"] = errs["fft_rows_large_err"]
             del got, lib
@@ -807,7 +840,7 @@ def check_large_siblings(gen: torch.Generator, worst: dict) -> None:
                                      f"inverse={inverse}: {errs} > {tol}")
             if (rows, n) == SIBLING_SHAPES[0] and not inverse:
                 worst["fft_rows_transpose_large"] = errs["fft_rows_transpose_large_err"]
-            if (rows, n) == K1B_TWO_PASS_SHAPE and not inverse:
+            if (rows, n) == K2B_TWO_PASS_SHAPE and not inverse:
                 worst["fft_rows_transpose_large_two_pass"] = errs[
                     "fft_rows_transpose_large_err"]
             del got, lib
@@ -1217,11 +1250,15 @@ def record_launches(name: str, counts: dict[str, int]) -> int:
     """The launches of the kernel of record ``name`` among ``counts``: the
     cluster kernels' records (``fft_rows_large``, K1b at n <= 65536;
     ``fft_rows_transpose_large``, K2b there) take the kernel's launches less
-    its two passes' (``<name>_two_pass``), and K2's and K3's
+    its two passes' (``<name>_two_pass``) and, for K1b, less its cluster
+    kernel's at 2^17 and 2^18 (``fft_rows_large_long``, that record's own),
+    and K2's and K3's
     (``fft_rows_transpose``, ``rfft_rows``) less their own sources' at
     n = 16384 (``<name>_16k``, their ``at_16384`` records' own), so that
     each record counts its own source's."""
-    if name in ("fft_rows_large", "fft_rows_transpose_large"):
+    if name == "fft_rows_large":
+        return counts[name] - counts[name + "_two_pass"] - counts[name + "_long"]
+    if name == "fft_rows_transpose_large":
         return counts[name] - counts[name + "_two_pass"]
     if name in WIDE_SOURCES:
         return counts[name] - counts.get(name + "_16k", 0)
@@ -1233,7 +1270,8 @@ def call_launches(calls) -> dict[str, int]:
     row kernel up to n = 16384 (K2's and K3's at 16384 also under
     ``<kernel>_16k``, their own sources), and above it the four-step's own
     (``<kernel>_large``): K1b's cluster kernel once a call up to
-    ``CLUSTER_MAX_N``, K2b's at ``TRANSPOSE_CLUSTER_LENGTHS``; else two
+    ``CLUSTER_MAX_N`` (above 65536 also under ``fft_rows_large_long``), K2b's
+    at ``TRANSPOSE_CLUSTER_LENGTHS``; else two
     (passes A, B) per chunk of ``scratch_rows(n)`` rows (row pairs for the
     real kernels, whose pass B splits), K1b's and K2b's also under
     ``<kernel>_large_two_pass``.  Calls with no rows launch nothing."""
@@ -1249,6 +1287,8 @@ def call_launches(calls) -> dict[str, int]:
         if ((name == "fft_rows" and n <= CLUSTER_MAX_N)
                 or (name == "fft_rows_transpose" and n in TRANSPOSE_CLUSTER_LENGTHS)):
             out[name + "_large"] = out.get(name + "_large", 0) + 1
+            if name == "fft_rows" and n > 1 << 16:
+                out["fft_rows_large_long"] = out.get("fft_rows_large_long", 0) + 1
             continue
         units = (rows + 1) // 2 if name.startswith("rfft") else rows
         launches = 2 * -(-units // scratch_rows(n))
@@ -1917,7 +1957,9 @@ def phase_pfft3(gen: torch.Generator, card: str) -> dict[str, int]:
 def phase_pfft1_large(gen: torch.Generator, card: str) -> dict[str, int]:
     """Drive the huge-1-D path once, with the launch counts set to 0 just
     before and read just after: ``plan_pfft1_large(2**26)`` (8192 x 8192
-    four-step) under the library and ``radix=4`` (2 K1 launches) against
+    four-step) under the library and ``radix=4`` (2 K1 launches), and pinned
+    to ``n2=2**17`` under ``radix=4`` (512 rows of 2^17: one launch of K1b's
+    cluster kernel, then one of K1 over 2^17 rows of 512), against
     ``torch.fft.fft``; ``plan_pfft1_large(2**28)`` (16384 x 16384) under
     ``radix=4`` (2 K1 launches at Plan<14>); a composite non-power-of-two and a prime N under
     ``radix=4`` (their phase lengths fall to the library: 0 launches); the
@@ -1930,10 +1972,13 @@ def phase_pfft1_large(gen: torch.Generator, card: str) -> dict[str, int]:
 
     reset_launch_counts()          # ---- the huge-1-D path's single drive starts
 
-    for cfg, expect in ((library, {}), (kernel, {"fft_rows": 2})):
-        plan, seconds, _ = planned(lambda: plan_pfft1_large(N_LARGE, config=cfg))
-        plans[cfg.describe()] = plan
-        check_run("pfft1_large", f"plan_pfft1_large/{cfg.describe()}",
+    long_row = {"fft_rows": 1, "fft_rows_large": 1, "fft_rows_large_long": 1}
+    for cfg, n2, expect in ((library, None, {}), (kernel, None, {"fft_rows": 2}),
+                            (kernel, N_LARGE_LONG_N2, long_row)):
+        plan, seconds, _ = planned(lambda: plan_pfft1_large(N_LARGE, config=cfg, n2=n2))
+        label = cfg.describe() + ("" if n2 is None else f"/n2={n2}")
+        plans[label] = plan
+        check_run("pfft1_large", f"plan_pfft1_large/{label}",
                   lambda: plan.execute(x), oracle, expect, signal_tol(N_LARGE),
                   n=N_LARGE, n1=plan.n1, n2=plan.n2, plan_s=seconds)
     # 2^28 (16384 x 16384): both phases run K1 at its longest row.
@@ -1970,7 +2015,8 @@ def phase_pfft1_large(gen: torch.Generator, card: str) -> dict[str, int]:
                                  f"{delta}")
 
     # ---- the huge-1-D path's single drive ends
-    counts = end_drive("pfft1_large", ("fft_rows",))
+    counts = end_drive("pfft1_large", ("fft_rows", "fft_rows_large",
+                                       "fft_rows_large_long"))
     square = x.view(plans[library.describe()].n1, -1)
     log("pfft1_large_time", card=card, n=N_LARGE,
         torch_fft_ms=time_ms(lambda: torch.fft.fft(x), reps=5, warmup=1),

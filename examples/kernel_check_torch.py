@@ -39,9 +39,10 @@ this file times that tree's kernels in the turns of parent against
 change), or the
 four-step row kernel of long rows alone (every shape of ``LARGE_SHAPES`` in
 both directions against its plain version and ``torch.fft``, then its time
-over ``K1B_SWEEP``, the one-pass cluster kernel beside ``CLUSTER_VARIANTS``
-at each of its lengths, each with ``cudaOccupancyMaxActiveClusters``, and
-the two passes at the splits of ``LARGE_SPLITS``), or its fused
+over ``K1B_SWEEP``, one call alone and back to back, the one-pass cluster
+kernel beside ``CLUSTER_VARIANTS`` at each of its lengths, each with
+``cudaOccupancyMaxActiveClusters``, and the two passes at the splits of
+``LARGE_SPLITS``; ``--no-variants`` leaves the variants out), or its fused
 and real siblings alone (K2b, K3b and K4b: every shape of
 ``SIBLING_SHAPES`` against their plain versions and ``torch.fft``, K2b in
 both directions, then their times over ``LARGE_SWEEP`` beside the library
@@ -122,7 +123,7 @@ LARGE_SHAPES = [(3, 1 << 15), (2048, 1 << 15), (5000, 1 << 15), (3, 1 << 16),
                 (2, 1 << 21), (1, 1 << 22), (1, 1 << 23), (1, 1 << 24), (3, 1 << 25),
                 (1, 1 << 26), (1, 1 << 27), (1, 1 << 28)]
 LARGE_SWEEP = [1 << 15, 1 << 16, 1 << 17, 1 << 20, 1 << 24]
-K1B_SWEEP = [1 << 15, 1 << 16, 1 << 17, 1 << 20, 1 << 24]
+K1B_SWEEP = [1 << 15, 1 << 16, 1 << 17, 1 << 18, 1 << 20, 1 << 24]
 # K2b, K3b and K4b: every length from 2^15 to 2^28; at 2^15 (K2b's cluster
 # kernel) 3 rows, 4 (one whole cluster), 2049 and 8193 (a ragged last
 # cluster, odd output rows); at 2^16 (K2b's two passes) 1023 rows.
@@ -138,17 +139,19 @@ SIBLING_SOURCES = ("fft_rows_transpose_cluster.cu", "fft_rows_transpose_large.cu
 # fused rfft-* plan at N = 32768.
 K2B_ROW_COUNTS = [16384, 16385, 16386, 16388]
 # (n, n1) pairs of the two passes timed against the default split of n.
-LARGE_SPLITS = [(1 << 17, 512), (1 << 20, 512), (1 << 20, 2048),
+LARGE_SPLITS = [(1 << 19, 1024), (1 << 20, 512), (1 << 20, 2048),
                 (1 << 24, 2048), (1 << 24, 8192), (1 << 24, 16384)]
 # Variants of the cluster kernel (``csrc/fourstep_cluster.cuh``), built out
 # of the library from a copy of its headers: name -> (n, n1, CTAs a cluster,
 # edits of the header).  ``rule`` is the library's shape, unedited, called
 # as the others are (``fft_rows_op`` adds its host-side checks); the other
 # cluster sizes and splits are the sweep that chose
-# ``csrc/fft_rows_cluster.cu``'s shape; the rule with its remote stores made
-# local, its twiddles left out or taken two sincospif a point
-# (``fourstep.cuh``'s ``twiddle``) says where its time goes (those three
-# compute a wrong result on purpose).
+# ``csrc/fft_rows_cluster.cu``'s shape (at 2^17 the portable 8 CTAs against
+# the rule's 16, at 2^18 n1 = 256 against the near-square split); at 2^17
+# and 2^18 the rule with its remote stores made local, its twiddles left out
+# or taken two sincospif a point (``fourstep.cuh``'s ``twiddle``) says where
+# its time goes (those three compute a wrong result on purpose; at 32768 and
+# 65536 they were timed when those lengths were designed).
 _TWIDDLES = "column_twiddles<INV>(v, t, G1, j2, LOG2N);"
 _VARIANT_EDITS = {
     "rule": [],
@@ -160,9 +163,10 @@ _VARIANT_EDITS = {
 CLUSTER_VARIANTS = {
     **{f"{n}:{n1}x{ctas}": (n, n1, ctas, []) for n, n1, ctas in (
         (1 << 15, 128, 4), (1 << 15, 128, 2), (1 << 15, 64, 8),
-        (1 << 16, 256, 4), (1 << 16, 128, 8))},
+        (1 << 16, 256, 4), (1 << 16, 128, 8), (1 << 17, 256, 8), (1 << 18, 256, 16))},
     **{f"{n}:{name}": (n, cluster_plan(n)[0], cluster_plan(n)[2], edits)
-       for n in CLUSTER_LENGTHS for name, edits in _VARIANT_EDITS.items()},
+       for n in CLUSTER_LENGTHS for name, edits in _VARIANT_EDITS.items()
+       if name == "rule" or n > 1 << 16},
 }
 _VARIANT_ENTRIES = """#include "fourstep_cluster.cuh"
 extern "C" int variant_launch(const void* in, void* out, long long rows, int inverse,
@@ -598,7 +602,8 @@ def time_cluster_variants(card: str, variants: dict, gen: torch.Generator) -> No
                 if not edited and errs[key] > 1e-3 * n ** 0.5 / (n if inverse else 1):
                     sys.exit(f"cluster kernel {name} disagrees at n={n}: {errs}")
             # ``kernel`` runs the rule's shape: its clusters are the rule's.
-            active = variants[f"{n}:rule" if name == "kernel" else name][1](0)
+            rule = variants.get(f"{n}:rule" if name == "kernel" else name)
+            active = rule[1](0) if rule else None
             print(json.dumps({
                 "card": card, "rows": rows, "n": n, "variant": name, "n1": shape[0],
                 "n2": n // shape[0], "ctas": shape[1], "edited": edited,
@@ -787,7 +792,8 @@ def main() -> None:
     only.add_argument("--large-fused-and-real-only", action="store_true",
                       help="check and time the four-step fused and real kernels alone")
     parser.add_argument("--no-variants", action="store_true",
-                        help="build and time no variant of the kernels at n = 16384")
+                        help="build and time no variant of the kernels at n = 16384 or "
+                             "of the cluster kernel of long rows")
     args = parser.parse_args()
     only_k3, only_k1 = args.rfft_rows_only, args.fft_rows_only
     only_k4, only_k2 = args.rfft_rows_transpose_only, args.fft_rows_transpose_only
@@ -805,7 +811,7 @@ def main() -> None:
               else ("fft_rows_transpose.cu", "fft_rows_transpose_cluster.cu") if only_k2
               else ("rfft_rows.cu", "rfft_rows_16k.cu") if only_k3
               else ("fft_rows_cluster.cu", "fft_rows_large.cu") if only_k1b else None)
-    variant_builds = start_cluster_variants() if only_k1b else None
+    variant_builds = start_cluster_variants() if only_k1b and not args.no_variants else {}
     wide = "fft_rows_transpose" if only_k2 else "rfft_rows" if only_k3 else None
     wide_builds = start_16k_variants(wide) if wide and not args.no_variants else {}
     card = compile_sources(needed)
@@ -865,6 +871,7 @@ def main() -> None:
                 "card": card, "rows": x.shape[0], "n": n, "split": large_split(n),
                 "design": "cluster" if n in CLUSTER_LENGTHS else "two_pass",
                 "fft_rows_large_ms": time_ms(lambda: fft_rows_op(x)),
+                "fft_rows_large_queued_ms": time_queued_ms(lambda: fft_rows_op(x)),
                 "fft_rows_large_inverse_ms": time_ms(lambda: fft_rows_op(x, inverse=True)),
                 "torch_fft_ms": time_ms(lambda: torch.fft.fft(x)),
                 "clone_ms": time_ms(lambda: x.clone()),

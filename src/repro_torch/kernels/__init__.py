@@ -37,7 +37,9 @@ _COUNTED = {"fft_rows": _fft_kernel, "fft_rows_large": _large_kernel,
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last reset, by kernel name;
     ``fft_rows_large_two_pass`` is the share of ``fft_rows_large`` that ran
-    the two passes (n > 65536) instead of the cluster kernel, and
+    the two passes (n > 2^18) instead of the cluster kernel,
+    ``fft_rows_large_long`` the share that ran the cluster kernel at n =
+    2^17 or 2^18 (rows of 1 and 2 MiB), and
     ``fft_rows_transpose_large_two_pass`` that of
     ``fft_rows_transpose_large`` (n > 65536); ``fft_rows_transpose_16k`` and
     ``rfft_rows_16k`` the shares of ``fft_rows_transpose`` and ``rfft_rows``
@@ -45,6 +47,7 @@ def launch_counts() -> dict[str, int]:
     persistent one)."""
     counts = {name: module.launch_count() for name, module in _COUNTED.items()}
     counts["fft_rows_large_two_pass"] = _large_kernel.two_pass_launch_count()
+    counts["fft_rows_large_long"] = _large_kernel.long_cluster_launch_count()
     counts["fft_rows_transpose_large_two_pass"] = (
         _fused_large_kernel.two_pass_launch_count())
     counts["fft_rows_transpose_16k"] = _fused_kernel.launch_count_16k()

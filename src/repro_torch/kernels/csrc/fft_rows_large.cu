@@ -1,10 +1,10 @@
 // Batched row FFT of long rows for Hopper (sm_90a), K1b: out[r, :] =
 // DFT_n(in[r, :]) for every row r of a (rows, n) matrix of interleaved
 // complex64, forward or inverse (inverse scaled by 1/n), n a power of two,
-// 2^17 <= n <= 2^28: the rows fft_rows.cu (K1, n <= 16384) cannot hold in
-// one CTA's registers, nor fft_rows_cluster.cu (n = 32768 and 65536) in one
+// 2^19 <= n <= 2^28: the rows fft_rows.cu (K1, n <= 16384) cannot hold in
+// one CTA's registers, nor fft_rows_cluster.cu (n = 32768 ... 2^18) in one
 // cluster's shared memory.  The entry takes n >= 32768 as well; the
-// launcher (kernels/fft/large.py) sends those lengths to the cluster kernel.
+// launcher (kernels/fft/large.py) sends n <= 2^18 to the cluster kernel.
 //
 // Replaces the TPU kernel `fft_rows_pallas` (body `_fft_kernel`) of
 // src/repro/kernels/fft/kernel.py at n > 16384, where that kernel holds a
@@ -38,7 +38,7 @@
 // and pass B stores 32-byte runs of each output row as K2 does.  The scratch
 // (a bounded number of rows, kernels/fft/large.py) stays in the 50 MB L2 only
 // at the smallest calls.  Where a row fits in a cluster's shared memory
-// (n <= 65536) the one-pass kernel of fourstep_cluster.cuh keeps pass A's
+// (n <= 2^18) the one-pass kernel of fourstep_cluster.cuh keeps pass A's
 // output there instead.
 //
 // `rows_per_cta` and `threads` are pass B's launch shape, kernels/fft/

@@ -1,6 +1,7 @@
 // The passes of the four-step row kernels for Hopper (sm_90a), rows of
 // power-of-two length n = n1*n2, 32768 <= n <= 2^28, too long for one CTA's
-// registers: K1b (fft_rows_large.cu), K2b (fft_rows_transpose_large.cu), K3b
+// registers: K1b (fft_rows_large.cu, n >= 2^19: below, fft_rows_cluster.cu
+// runs it in one pass), K2b (fft_rows_transpose_large.cu), K3b
 // (rfft_rows_large.cu) and K4b (rfft_rows_transpose_large.cu).
 //
 // Signal row s viewed as A[j1][j2] = x[j1*n2 + j2] (n1, n2 powers of two in

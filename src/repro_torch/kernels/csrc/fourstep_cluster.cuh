@@ -1,8 +1,8 @@
 // The one-pass four-step row FFT over a thread-block cluster for Hopper
-// (sm_90a): K1b (fft_rows_cluster.cu) and K2b, its transposed sibling
-// (fft_rows_transpose_cluster.cu), at n = 32768 and 65536, where a whole row
-// of n complex64 (256 or 512 KiB) fits in the distributed shared memory of a
-// cluster of C CTAs.  It computes the four-step of fourstep.cuh,
+// (sm_90a): K1b (fft_rows_cluster.cu, n = 32768 ... 2^18) and K2b, its
+// transposed sibling (fft_rows_transpose_cluster.cu, n = 16384 ... 65536),
+// where a whole row of n complex64 (up to 2 MiB) fits in the distributed
+// shared memory of a cluster of C CTAs (8, or 16 where more is needed).  It computes the four-step of fourstep.cuh,
 //   X[k1 + n1*k2] = sum_j2 w_n2^(j2*k2) * w_n^(k1*j2) * sum_j1 w_n1^(j1*k1) * A[j1][j2],
 // with A[j1][j2] = x[j1*n2 + j2], in one launch: B never leaves the chip.
 //
@@ -143,11 +143,13 @@ __device__ __forceinline__ void column_fft(float2 (&v)[16], float2* buf, int c, 
     }
 }
 
-// v[k] *= w_n^(k1*j2), k1 = t + k*g, n = 2^log2n <= 2^16.  With k = 4*kh +
+// v[k] *= w_n^(k1*j2), k1 = t + k*g, n = 2^log2n <= 2^24.  With k = 4*kh +
 // kl: w^(k1*j2) = h_kh * b^kl, h_kh = w^((t + 4*kh*g)*j2) and b = w^(g*j2),
-// each from sincospif of an exact argument (the exponents are integers below
-// n), b^kl by running products: five sincospif a thread, where
-// twiddle<INV> would take two a point, and good to a few ulps.
+// each from sincospif of an exact argument: the exponents are integers below
+// n (t + 4*kh*g < n1, j2 < n2), exact in float while n <= 2^24, and the step
+// 2/n is a power of two, so their product is exact too.  b^kl by running
+// products: five sincospif a thread, where twiddle<INV> would take two a
+// point, and good to a few ulps.
 template <bool INV>
 __device__ __forceinline__ void column_twiddles(float2 (&v)[16], int t, int g, int j2,
                                                 int log2n) {

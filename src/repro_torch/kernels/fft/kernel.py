@@ -23,7 +23,7 @@ view) and launch shape depend only on ``n`` and the row count, and
 (the fused and the packed real kernels stop at 8192: at 16384 those ops
 launch ``csrc/fft_rows_transpose_cluster.cu`` and ``csrc/rfft_rows_16k.cu``).
 Longer rows, up to ``MAX_LARGE_N``, go to the four-step kernels: K1b
-(``kernels.fft.large``: ``csrc/fft_rows_cluster.cu`` at n <= 65536,
+(``kernels.fft.large``: ``csrc/fft_rows_cluster.cu`` at n <= 2^18,
 ``csrc/fft_rows_large.cu`` above) and its fused and real
 siblings K2b-K4b (K2b: ``csrc/fft_rows_transpose_cluster.cu`` at n <=
 65536).  ``radix``

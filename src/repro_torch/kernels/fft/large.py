@@ -10,14 +10,15 @@ The four-step: with n = n1 * n2 (``large_split``) and row r viewed as
 
     X[k1 + n1*k2] = sum_j2 w_n2^(j2*k2) * w_n^(k1*j2) * sum_j1 w_n1^(j1*k1) * A[j1][j2]
 
-At n = 32768 and 65536 (``CLUSTER_LENGTHS``) one kernel,
+At n = 2^15 ... 2^18 (``CLUSTER_LENGTHS``) one kernel,
 ``csrc/fft_rows_cluster.cu``, computes it in one launch: a thread-block
-cluster of C = ``CLUSTER_CTAS`` CTAs a row, rank r running the length-n1 DFTs of its n2/C
+cluster of C = ``CLUSTER_CTAS[n]`` CTAs a row (8 up to 65536, 16 at 2^17 and
+2^18, rows of 1 and 2 MiB), rank r running the length-n1 DFTs of its n2/C
 columns, multiplying by the twiddle ``w_n^(k1*j2)`` (five sincospif a thread
 and running products, to a few float32 ulps of ``large_twiddle``'s) and
 sending each B[k1][j2] to the shared memory of the rank that owns row k1,
 then the length-n2 DFTs of its n1/C rows of B and the transposed store
-``out[k1 + n1*k2]`` (``cluster_plan`` mirrors its shape).  Above 65536 the
+``out[k1 + n1*k2]`` (``cluster_plan`` mirrors its shape).  From 2^19 the
 two passes of ``csrc/fft_rows_large.cu`` do it: pass A runs the column DFTs
 and the twiddle, writing B in A's layout to a scratch buffer in device
 memory; pass B runs the row DFTs and stores them transposed (K2's function
@@ -34,7 +35,8 @@ Scratch (the two passes only): a call allocates ``torch.empty`` of at most
 is larger (2 GiB at n = 2^28), and walks the rows in chunks of that many.
 ``launch_count`` counts every CUDA launch: one a call of the cluster kernel,
 two a chunk of the two passes (pass A and pass B); ``two_pass_launch_count``
-the latter alone.
+the latter alone, and ``long_cluster_launch_count`` the cluster kernel's at
+n > 65536.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ __all__ = ["CLUSTER_CTAS", "CLUSTER_LENGTHS", "CLUSTER_MAX_N", "MIN_FACTOR",
            "SCRATCH_ELEMS", "cluster_plan", "columns_plan",
            "fft_rows_cluster_cuda", "fft_rows_large_cuda", "fft_rows_large_plain",
            "kernel_split", "large_split", "large_twiddle", "launch_count",
-           "reset_launch_count", "scratch_capacity", "scratch_rows",
+           "long_cluster_launch_count", "reset_launch_count", "scratch_capacity", "scratch_rows",
            "two_pass_launch_count"]
 
 # The kernel's factors n1 and n2 lie in [MIN_FACTOR, MAX_KERNEL_N]
@@ -61,13 +63,15 @@ MIN_FACTOR = 128
 # row alone is longer.
 SCRATCH_ELEMS = 1 << 27
 # The lengths of the one-pass cluster kernel (``csrc/fft_rows_cluster.cu``)
-# and its CTAs a cluster (``kLog2Ctas`` there).
-CLUSTER_LENGTHS = (1 << 15, 1 << 16)
-CLUSTER_CTAS = 8
+# and its CTAs a cluster at each (``log2_ctas`` there): a portable 8 up to
+# 65536, a non-portable 16 above.
+CLUSTER_CTAS = {1 << 15: 8, 1 << 16: 8, 1 << 17: 16, 1 << 18: 16}
+CLUSTER_LENGTHS = tuple(CLUSTER_CTAS)
 CLUSTER_MAX_N = max(CLUSTER_LENGTHS)
 
 _launches = 0
 _two_pass_launches = 0
+_long_cluster_launches = 0
 
 
 def launch_count() -> int:
@@ -82,9 +86,15 @@ def two_pass_launch_count() -> int:
     return _two_pass_launches
 
 
+def long_cluster_launch_count() -> int:
+    """The launches of the cluster kernel at n > 65536 (2^17, 2^18) among
+    ``launch_count``'s."""
+    return _long_cluster_launches
+
+
 def reset_launch_count() -> None:
-    global _launches, _two_pass_launches
-    _launches = _two_pass_launches = 0
+    global _launches, _two_pass_launches, _long_cluster_launches
+    _launches = _two_pass_launches = _long_cluster_launches = 0
 
 
 def large_split(n: int, *, n1: int | None = None,
@@ -123,7 +133,7 @@ def cluster_plan(n: int) -> tuple[int, int, int, int, int]:
     """The one-pass kernel's launch shape at ``n`` (``ClusterPlan`` of
     ``csrc/fourstep_cluster.cuh`` as ``csrc/fft_rows_cluster.cu``
     instantiates it): ``(n1, n2, ctas, threads, smem_bytes)``, the split
-    ``large_split(n)``'s over ``CLUSTER_CTAS`` CTAs.  A cluster holds one
+    ``large_split(n)``'s over ``CLUSTER_CTAS[n]`` CTAs.  A cluster holds one
     row; each CTA runs n/(16*ctas) threads (16 points each, n2/ctas columns
     of n1 and then n1/ctas rows of n2) over one buffer of (n/ctas)*17/16
     complex64."""
@@ -131,9 +141,9 @@ def cluster_plan(n: int) -> tuple[int, int, int, int, int]:
         raise ValueError(f"cluster_plan: no cluster kernel at length {n}; it takes "
                          f"{list(CLUSTER_LENGTHS)}")
     n1, n2 = large_split(n)
-    elements = n // CLUSTER_CTAS
-    return (n1, n2, CLUSTER_CTAS, elements // _POINTS,
-            8 * (elements + -(-elements // 16)))
+    ctas = CLUSTER_CTAS[n]
+    elements = n // ctas
+    return n1, n2, ctas, elements // _POINTS, 8 * (elements + -(-elements // 16))
 
 
 def scratch_rows(n: int) -> int:
@@ -218,7 +228,7 @@ def fft_rows_cluster_cuda(x: torch.Tensor, *, inverse: bool = False) -> torch.Te
     """Launch ``csrc/fft_rows_cluster.cu`` once: (rows, n) complex64 CUDA
     tensor, n in ``CLUSTER_LENGTHS``, -> its row-wise DFT in the shape
     ``cluster_plan(n)``.  No scratch.  Does not synchronise."""
-    global _launches
+    global _launches, _long_cluster_launches
     rows, n = check_kernel_input(x, "fft_rows_cluster_cuda")
     cluster_plan(n)
     out = torch.empty_like(x)
@@ -226,6 +236,8 @@ def fft_rows_cluster_cuda(x: torch.Tensor, *, inverse: bool = False) -> torch.Te
         return out
     launch("repro_fft_rows_cluster", x, out, rows=rows, n=n, inverse=int(inverse))
     _launches += 1
+    if n > 1 << 16:
+        _long_cluster_launches += 1
     return out
 
 

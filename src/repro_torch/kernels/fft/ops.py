@@ -59,7 +59,7 @@ def fft_rows_op(x, *, inverse: bool = False,
                 radix: int | None = None) -> torch.Tensor:
     """Complex row FFT via the CUDA kernel. x: (..., rows, n) complex, n a
     power of two up to ``MAX_LARGE_N``: K1 up to ``MAX_KERNEL_N``, the
-    four-step K1b above (one launch over clusters at n <= 65536, two passes
+    four-step K1b above (one launch over clusters at n <= 2^18, two passes
     beyond; on the CPU, ``fft_rows_large_plain``).
 
     ``radix=None`` auto-selects (radix 4 with radix-2 tail for n >= 4); it

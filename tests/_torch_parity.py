@@ -603,14 +603,19 @@ def _cluster_model(x, n: int, plan, *, rows: int | None, transposed: bool,
             "stores_whole": stores_whole, "store_runs": store_runs}
 
 
-def k1b_cluster_model(x, n: int, *, rows: int | None = None, inverse: bool = False):
+def k1b_cluster_model(x, n: int, *, rows: int | None = None, inverse: bool = False,
+                      ctas: int | None = None):
     """K1b's one-pass kernel (``_cluster_model``, one row a cluster, R = 1)
-    in its launch shape ``cluster_plan(n)``: out[s*n + k2*n1 + r*W + rho],
-    for each k2 a run of W consecutive elements."""
+    in its launch shape ``cluster_plan(n)``, or over ``ctas`` CTAs a cluster
+    at the same split (a variant): out[s*n + k2*n1 + r*W + rho], for each k2
+    a run of W consecutive elements."""
     from repro_torch.kernels.fft.large import cluster_plan
 
-    n1, n2, ctas, threads, smem = cluster_plan(n)
-    return _cluster_model(x, n, (n1, n2, ctas, 1, threads, smem), rows=rows,
+    n1, n2, rule, threads, smem = cluster_plan(n)
+    if ctas is not None and ctas != rule:
+        elements = n // ctas
+        threads, smem = elements // 16, 8 * (elements + elements // 16)
+    return _cluster_model(x, n, (n1, n2, ctas or rule, 1, threads, smem), rows=rows,
                           transposed=False, out_stride=None, inverse=inverse)
 
 

@@ -1,5 +1,5 @@
 """K1b, the four-step complex row FFT of rows longer than K1 holds
-(``csrc/fft_rows_cluster.cu`` at n <= 65536, ``csrc/fft_rows_large.cu``
+(``csrc/fft_rows_cluster.cu`` at n <= 2^18, ``csrc/fft_rows_large.cu``
 above, ``kernels/fft/large.py``), on the CPU: its plain version against the
 reference's ``fft_rows_op`` (Pallas in interpret mode) and ``numpy.fft``,
 its twiddles against float64, float64 models of the one-pass cluster kernel
@@ -23,10 +23,12 @@ import jax.numpy as jnp
 from _torch_parity import (cluster_twiddle_model, complex_signal, k1b_cluster_model,
                            k1b_model, kernel_pass_model, to_numpy, to_torch)
 
+import repro.core.api as ref_api
 import repro.core.pfft_large as ref_large
 import repro.plan as ref_plan
 from repro.kernels.fft.ops import fft_rows_op as ref_fft_rows_op
 
+import repro_torch.core.api as port_api
 import repro_torch.core.pfft_large as port_large
 import repro_torch.plan as port_plan
 from repro_torch import kernels as port_kernels
@@ -41,6 +43,9 @@ HEADER = "fourstep.cuh"
 CLUSTER_SOURCE = "fft_rows_cluster.cu"
 CLUSTER_HEADER = "fourstep_cluster.cuh"
 CLUSTER_LENGTHS = port_large_kernel.CLUSTER_LENGTHS
+# The cluster kernel's launch shapes: every length in the rule's CTAs, and
+# 2^17 over the portable 8 CTAs, the variant the rule was timed against.
+CLUSTER_SHAPES = [(n, None) for n in CLUSTER_LENGTHS] + [(1 << 17, 8)]
 
 
 def tol(n, inverse):
@@ -241,15 +246,18 @@ def test_launcher_and_binding():
 # ------------------------------------------- the one-pass cluster kernel
 
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("n, rows", [(1 << 15, 1), (1 << 15, 3), (1 << 16, 2)])
-def test_k1b_cluster_model_is_the_dft(n, rows, inverse):
+@pytest.mark.parametrize("n, rows, ctas", [(1 << 15, 1, None), (1 << 15, 3, None),
+                                           (1 << 16, 2, None), (1 << 17, 1, None),
+                                           (1 << 17, 1, 8), (1 << 18, 1, None)])
+def test_k1b_cluster_model_is_the_dft(n, rows, ctas, inverse):
     """The model of the one-pass kernel in the rule's launch shape
-    (``cluster_plan(n)``) is the DFT: ``numpy.fft`` in float64 to ``1e-9·n``,
-    the inverse to ``1e-9``; every input element loaded once, every slab
-    slot written once (by the rank and row that the point's k1 gives) and
-    loaded once, every output element stored once."""
+    (``cluster_plan(n)``; at 2^17 also over 8 CTAs, the variant) is the
+    DFT: ``numpy.fft`` in float64 to ``1e-9·n``, the inverse to ``1e-9``;
+    every input element loaded once, every slab slot written once (by the
+    rank and row that the point's k1 gives) and loaded once, every output
+    element stored once."""
     x = complex_signal(n + 2 * rows + inverse, rows, n)
-    model = k1b_cluster_model(x, n, inverse=inverse)
+    model = k1b_cluster_model(x, n, inverse=inverse, ctas=ctas)
     exact = (np.fft.ifft if inverse else np.fft.fft)(x.astype(np.complex128))
     np.testing.assert_allclose(model["out"], exact, rtol=0, atol=1e-9 * (1 if inverse else n))
     for key in ("reads", "slab_writes", "slab_reads", "writes"):
@@ -258,22 +266,27 @@ def test_k1b_cluster_model_is_the_dft(n, rows, inverse):
 
 
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("n", CLUSTER_LENGTHS)
-def test_k1b_cluster_pattern(n, inverse):
-    """The launch shape ``cluster_plan(n)``, the pattern alone over 2 rows
-    (the same in both directions: the direction changes no index): each
-    element loaded, sent, read back and stored once, each point to its
-    owner; the loads, the remote stores and the output stores of every warp
-    instruction whole 32-byte sectors, the output runs W = n1/C elements (at
-    most a warp's 32) long; no bank conflict in the column exchanges, the
-    remote stores, the row phase's loads or the staging; and the row DFT's
-    own exchanges (regfft's, over W rows of n2) conflict-free too."""
-    model = k1b_cluster_model(None, n, rows=2, inverse=inverse)
+@pytest.mark.parametrize("n, variant", CLUSTER_SHAPES)
+def test_k1b_cluster_pattern(n, variant, inverse):
+    """The launch shape ``cluster_plan(n)`` (and the 8-CTA variant at
+    2^17), the pattern alone over 2 rows (the same in both directions: the
+    direction changes no index): each element loaded, sent, read back and
+    stored once, each point to its owner; every warp's load 32 consecutive
+    elements from a 256-byte boundary; the remote stores and the output
+    stores of every warp instruction whole 32-byte sectors, the output runs
+    W = n1/C elements (at most a warp's 32) long; no bank conflict in the
+    column exchanges, the remote stores, the row phase's loads or the
+    staging; and the row DFT's own exchanges (regfft's, over W rows of n2)
+    conflict-free too."""
+    model = k1b_cluster_model(None, n, rows=2, inverse=inverse, ctas=variant)
     for key in ("reads", "slab_writes", "slab_reads", "writes"):
         assert (model[key] == 1).all(), key
     assert model["owner_ok"] and model["loads_whole"] and model["stores_whole"]
-    assert model["worst_bank"] == 1
+    assert model["loads_256"] and model["worst_bank"] == 1
     n1, n2, ctas, threads, smem = port_large_kernel.cluster_plan(n)
+    if variant is not None:
+        ctas, threads = variant, n // variant // 16
+        smem = 8 * (n // ctas + n // ctas // 16)
     assert set(model["store_runs"].tolist()) == {8 * min(n1 // ctas, 32)}
     w = n1 // ctas
     plan = (w, threads, 16, port_kernel.complex_rows_plan(n2, 1)[3], smem)
@@ -301,33 +314,39 @@ def test_cluster_twiddles_within_a_few_ulps(n, inverse):
 
 def test_cluster_plan_mirrors_the_cuda_source():
     """``cluster_plan`` is the source's shape: ``CLUSTER_LENGTHS`` the
-    lengths its entry dispatches, ``CLUSTER_CTAS`` its ``kLog2Ctas``, the
-    split ``large_split(n)``'s (log2 n1 = log2 n / 2, rounded down), and
-    ``ClusterPlan``'s n/(16C) threads and (n/C)*17/16 float2 of shared
-    memory, what the source's static_asserts require, and a CTA count an SM
-    that fits its shared memory."""
+    lengths its entry dispatches, ``CLUSTER_CTAS[n]`` its ``log2_ctas`` at
+    each (8 up to 65536, 16 above: non-portable, which ``launch_cluster``
+    allows), the split ``large_split(n)``'s (log2 n1 = log2 n / 2, rounded
+    down), and ``ClusterPlan``'s n/(16C) threads and (n/C)*17/16 float2 of
+    shared memory, what the source's static_asserts require, and a CTA
+    count an SM that fits its shared memory."""
     text = "".join((_build.csrc_dir() / name).read_text()
                    for name in (CLUSTER_SOURCE, CLUSTER_HEADER))
     assert f'#include "{CLUSTER_HEADER}"' in text and f'#include "{HEADER}"' in text
-    ctas = port_large_kernel.CLUSTER_CTAS
-    assert f"constexpr int kLog2Ctas = {ctas.bit_length() - 1};" in text
-    assert "launch_cluster<LOG2N / 2, LOG2N - LOG2N / 2, kLog2Ctas, INV>" in text
+    rule = re.search(r"constexpr int log2_ctas\(int log2n\) \{ return log2n <= (\d+) \? "
+                     r"(\d+) : (\d+); \}", text)
+    top, low, high = map(int, rule.groups())
+    assert "launch_cluster<LOG2N / 2, LOG2N - LOG2N / 2, log2_ctas(LOG2N), INV>" in text
+    assert "cudaFuncAttributeNonPortableClusterSizeAllowed" in text
     entry = text[text.index('extern "C" int repro_fft_rows_cluster('):]
     assert [1 << int(e) for e in re.findall(r"case 1 << (\d+):", entry)] == list(
         CLUSTER_LENGTHS)
-    assert port_large_kernel.CLUSTER_MAX_N == 1 << 16
+    assert port_large_kernel.CLUSTER_MAX_N == 1 << 18
     assert "ELEMS = repro::regfft::exchange_elems(W, N2);" in text
     assert "MIN_BLOCKS = 65536 / (THREADS * 64);" in text
     assert "COLS >= 32 && W >= 4" in text and "G2 >= 16" in text
+    assert "C >= 2 && C <= 16" in text
     for n in CLUSTER_LENGTHS:
-        n1, n2, got_ctas, threads, smem = port_large_kernel.cluster_plan(n)
+        n1, n2, ctas, threads, smem = port_large_kernel.cluster_plan(n)
         log2n = n.bit_length() - 1
         assert (n1, n2) == port_large_kernel.large_split(n) == (
             1 << log2n // 2, 1 << (log2n - log2n // 2))
-        assert got_ctas == ctas
+        assert ctas == port_large_kernel.CLUSTER_CTAS[n] == 1 << (
+            low if log2n <= top else high)
+        assert ctas == (8 if n <= 1 << 16 else 16)
         cols, w = n2 // ctas, n1 // ctas
         assert threads == cols * (n1 // 16) == w * (n2 // 16) <= 1024
-        assert cols >= 32 and w >= 4 and n2 >= 256 and 2 <= ctas <= 8
+        assert cols >= 32 and w >= 4 and n2 >= 256 and 2 <= ctas <= 16
         assert smem == 8 * (w * n2 + -(-w * n2 // 16)) <= port_kernel.SMEM_BUDGET
         assert 65536 // (threads * 64) * (smem + 1024) <= 233472
     # The phases as the docstrings and the model describe them.
@@ -363,7 +382,7 @@ def test_cluster_binding():
 
 
 def test_cluster_plan_refusals():
-    for n in (1 << 14, 1 << 17, 3 << 14):
+    for n in (1 << 14, 1 << 19, 3 << 14):
         with pytest.raises(ValueError, match="no cluster kernel"):
             port_large_kernel.cluster_plan(n)
 
@@ -395,13 +414,45 @@ def test_launcher_takes_one_cluster_launch_up_to_65536(monkeypatch, inverse):
                 torch.zeros((1, n), dtype=torch.complex64), n1=128)
     port_large_kernel.reset_launch_count()
     calls.clear()
-    port_large_kernel.fft_rows_large_cuda(torch.zeros((1, 1 << 17), dtype=torch.complex64),
+    port_large_kernel.fft_rows_large_cuda(torch.zeros((1, 1 << 19), dtype=torch.complex64),
                                           inverse=inverse)
     assert [c[0] for c in calls] == ["repro_fft_rows_large"]
     assert "scratch" in calls[0][2] and port_large_kernel.launch_count() == 2
     assert port_large_kernel.two_pass_launch_count() == 2
     port_large_kernel.reset_launch_count()
     assert port_large_kernel.two_pass_launch_count() == 0
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n, rows", [(1 << 17, 3), (1 << 18, 2)])
+def test_launcher_takes_one_cluster_launch_at_rows_of_1_and_2_mib(monkeypatch, n, rows,
+                                                                  inverse):
+    """At 2^17 and 2^18, with the launch recorded in place of the library:
+    one launch of the cluster entry a call, counted once, also as a long
+    cluster launch, none of the two passes, no scratch allocated beside the
+    output; a pinned split is refused there."""
+    calls, allocated = [], []
+    monkeypatch.setattr(port_large_kernel, "check_kernel_input",
+                        lambda x, name, *a: tuple(x.shape))
+    monkeypatch.setattr(port_large_kernel, "launch",
+                        lambda fn, x, out, **args: calls.append((fn, x.shape, args)))
+    empty = torch.empty
+    monkeypatch.setattr(port_large_kernel.torch, "empty",
+                        lambda *a, **k: allocated.append(a) or empty(*a, **k))
+    port_large_kernel.reset_launch_count()
+    out = port_large_kernel.fft_rows_large_cuda(
+        torch.zeros((rows, n), dtype=torch.complex64), inverse=inverse)
+    assert out.shape == (rows, n) and allocated == []
+    assert calls == [("repro_fft_rows_cluster", (rows, n),
+                      {"rows": rows, "n": n, "inverse": int(inverse)})]
+    assert port_large_kernel.launch_count() == 1
+    assert port_large_kernel.long_cluster_launch_count() == 1
+    assert port_large_kernel.two_pass_launch_count() == 0
+    with pytest.raises(ValueError, match="cluster kernel runs"):
+        port_large_kernel.fft_rows_large_cuda(torch.zeros((1, n), dtype=torch.complex64),
+                                              n1=256)
+    port_large_kernel.reset_launch_count()
+    assert port_large_kernel.long_cluster_launch_count() == 0
 
 
 def test_cpu_op_launches_nothing():
@@ -429,4 +480,27 @@ def test_pfft1_large_phase_through_k1b_matches_reference(inverse):
     got = to_numpy(port_large.pfft1_large_apply(to_torch(x), config=cfg_p, n1=2))
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-3 * np.sqrt(n / 360))
     np.testing.assert_allclose(got, np.fft.fft(x.astype(np.complex128)), rtol=0,
+                               atol=1e-3 * np.sqrt(n))
+
+
+@pytest.mark.parametrize("radix", [None, 4])
+def test_plan_pfft1_large_at_a_pinned_split_matches_reference(radix):
+    """``plan_pfft1_large`` at a pinned, non-square power-of-two split (2^14
+    as 16 x 1024, ``n2=``), the way ``chip_smoke.py`` sends a phase of 2^17
+    through K1b's cluster kernel: the same factors and wisdom key as the
+    reference's plan, the same line (the port's kernels in their plain
+    versions here) within the line tolerance of ``test_torch_pfft3d.py``
+    scaled by sqrt(N / 360), and ``numpy.fft``."""
+    n = 1 << 14
+    ref_cfg = None if radix is None else ref_plan.PlanConfig(radix=radix)
+    port_cfg = None if radix is None else port_plan.PlanConfig(radix=radix)
+    want = ref_api.plan_pfft1_large(n, n2=1 << 10, config=ref_cfg)
+    got = port_api.plan_pfft1_large(n, n2=1 << 10, config=port_cfg, device="cpu")
+    assert (got.n1, got.n2) == (want.n1, want.n2) == (16, 1 << 10)
+    assert got.tuning.get("wisdom_key") == want.tuning.get("wisdom_key")
+    x = complex_signal(17 + (radix or 0), n)
+    out = to_numpy(got.execute(to_torch(x)))
+    np.testing.assert_allclose(out, np.asarray(want.execute(jnp.asarray(x))), rtol=0,
+                               atol=2e-3 * np.sqrt(n / 360))
+    np.testing.assert_allclose(out, np.fft.fft(x.astype(np.complex128)), rtol=0,
                                atol=1e-3 * np.sqrt(n))
