@@ -67,7 +67,8 @@ each of which ends the run with a non-zero exit code when it fails:
 9. ``pfft1_large`` ``plan_pfft1_large(2**26)`` (8192 x 8192 four-step) under the
                  library and ``radix=4`` (2 K1 launches), and pinned to
                  ``n2=2**17`` under ``radix=4`` (512 rows of 2^17 through
-                 K1b's cluster kernel, then K1), against
+                 K1b's cluster kernel, then K1) and to ``n2=2**19`` (128
+                 rows of 2^19 through K1b's two passes, then K1), against
                  ``torch.fft.fft``; ``plan_pfft1_large(2**28)`` (16384 x
                  16384, K1 at Plan<14>) under ``radix=4``; a composite and a
                  prime N (0 launches); the ``tune="measure"`` lifecycle at
@@ -259,7 +260,7 @@ from repro_torch.kernels.fft.kernel import fft_rows_plain  # noqa: E402
 from repro_torch.kernels.fft.kernel import MAX_KERNEL_N  # noqa: E402
 from repro_torch.kernels.fft.large import (CLUSTER_MAX_N, cluster_plan,  # noqa: E402
                                            fft_rows_large_plain, large_split,
-                                           scratch_rows)
+                                           scratch_rows, two_pass_split)
 from repro_torch.kernels.fft.real import rfft_rows_plain  # noqa: E402
 from repro_torch.kernels.fft.real_large import rfft_rows_large_plain  # noqa: E402
 from repro_torch.kernels.fused.kernel import fft_rows_transpose_plain  # noqa: E402
@@ -350,6 +351,11 @@ K1B_LONG_SHAPE = K1B_SHAPES[1]
 K1B_TWO_PASS_SHAPE = K1B_SHAPES[2]
 # K2b's two passes (above 65536) keep their record at 512 x 2^17.
 K2B_TWO_PASS_SHAPE = (512, 1 << 17)
+# The two passes' design, named in their records: pass A with the columns
+# fastest in a warp (256-byte loads and stores where a CTA holds 32
+# columns, n1 <= 512), pass B storing 16 or more rows side by side (runs of
+# 128 bytes or more, through a cluster where a CTA holds fewer).
+TWO_PASS_DESIGN = "columns_fastest+store_runs_16_rows"
 # K2b, K3b and K4b (the four-step fused and real kernels): K1b's records'
 # shape, K2b's two passes' and one line of 2^24,
 # and odd row counts: 2049 (K2b's cluster kernel masks the last 3 rows of its
@@ -373,7 +379,8 @@ PLANNER_N = (1024, 2048, 4096, 8192)
 # estimate plan; 256^3 for the FPM methods (pads up to 512) and the measure
 # plan.  The huge-1-D path: 2^26 (an 8192 x 8192 four-step, 512 MiB; and
 # pinned to 512 x 2^17, N_LARGE_LONG_N2, so that its first phase runs K1b's
-# cluster kernel at 2^17) and 2^28 (16384 x 16384, 2 GiB); a composite
+# cluster kernel at 2^17, and to 128 x 2^19, N_LARGE_TWO_PASS_N2, its two
+# passes at the record's shape) and 2^28 (16384 x 16384, 2 GiB); a composite
 # length whose factors are not
 # powers of two (1000 x 1000) and a prime (one library FFT); the measure
 # lifecycle at 2^24.
@@ -381,6 +388,7 @@ N_PFFT3 = 512
 N_PFFT3_PAD = 256
 N_LARGE = 1 << 26
 N_LARGE_LONG_N2 = 1 << 17
+N_LARGE_TWO_PASS_N2 = 1 << 19
 N_LARGE_TOP = 1 << 28     # 16384 x 16384: K1 at its longest row, a 2 GiB line
 N_LARGE_LIBRARY = (1_000_000, 1_000_003)
 N_LARGE_MEASURE = 1 << 24
@@ -569,16 +577,17 @@ def bound(nbytes: float, flops: float) -> dict:
 
 
 def kernel_record(name: str, replaces: str, shape, err: float, limits: dict,
-                  kernel, plain, library, source: str | None = None) -> dict:
+                  kernel, plain, library, source: str | None = None, **extra) -> dict:
     """One record of the ``kernels`` line, timed here (launch counts are
     filled in after the paths have run); ``source`` defaults to the
-    ``.cu`` named after the kernel."""
+    ``.cu`` named after the kernel; ``extra`` (a design, a split) is added
+    to the record."""
     ms = time_ms(kernel, reps=20)
     return {"name": name, "route": "cuda", "source": SOURCES + (source or name + ".cu"),
             "replaces": replaces, "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": time_ms(plain, reps=3, warmup=1), **limits,
             "library_ms": time_ms(library, reps=20), "shape": list(shape),
-            "max_err": err, "kernel_ms": ms}
+            "max_err": err, "kernel_ms": ms, **extra}
 
 
 # ------------------------------------------------------------------ phases
@@ -728,7 +737,9 @@ def phase_kernels(gen: torch.Generator, worst: dict[str, float]) -> list[dict]:
                       complex_limits_at(*K1B_TWO_PASS_SHAPE),
                       lambda: fft_rows_op(xt),
                       lambda: fft_rows_large_plain(xt),
-                      lambda: torch.fft.fft(xt), source="fft_rows_large.cu"),
+                      lambda: torch.fft.fft(xt), source="fft_rows_large.cu",
+                      design=TWO_PASS_DESIGN,
+                      split=list(two_pass_split(K1B_TWO_PASS_SHAPE[1]))),
         kernel_record("fft_rows_transpose_large", "src/repro/kernels/fused/kernel.py:64",
                       K1B_SHAPES[0], worst["fft_rows_transpose_large"], large_limits,
                       lambda: fft_rows_transpose_op(xl),
@@ -742,7 +753,8 @@ def phase_kernels(gen: torch.Generator, worst: dict[str, float]) -> list[dict]:
                       lambda: fft_rows_transpose_op(xt2),
                       lambda: fft_rows_transpose_large_plain(xt2),
                       lambda: torch.fft.fft(xt2).T.contiguous(),
-                      source="fft_rows_transpose_large.cu"),
+                      source="fft_rows_transpose_large.cu", design=TWO_PASS_DESIGN,
+                      split=list(two_pass_split(K2B_TWO_PASS_SHAPE[1]))),
         kernel_record("rfft_rows_large", "src/repro/kernels/fft/real.py:91",
                       K1B_SHAPES[0], worst["rfft_rows_large"], real_large_limits,
                       lambda: rfft_rows_op(xrl),
@@ -772,7 +784,7 @@ def check_large_kernel(gen: torch.Generator, worst: dict) -> None:
     for rows, n in K1B_SHAPES:
         x = random_signal(gen, rows, n)
         design = ({"design": "cluster", "plan": list(cluster_plan(n))} if n <= CLUSTER_MAX_N
-                  else {"design": "two_pass", "split": list(large_split(n))})
+                  else {"design": "two_pass", "split": list(two_pass_split(n))})
         for inverse in (False, True):
             tol = row_fft_tol(n, inverse)
             before = launch_counts()
@@ -817,7 +829,7 @@ def check_large_siblings(gen: torch.Generator, worst: dict) -> None:
         x = random_signal(gen, rows, n)
         cluster = n in TRANSPOSE_CLUSTER_LENGTHS
         design = ({"design": "cluster", "plan": list(transpose_cluster_plan(n))} if cluster
-                  else {"design": "two_pass", "split": list(large_split(n))})
+                  else {"design": "two_pass", "split": list(two_pass_split(n))})
         for inverse in (False, True):
             tol = row_fft_tol(n, inverse)
             before = launch_counts()
@@ -1959,7 +1971,9 @@ def phase_pfft1_large(gen: torch.Generator, card: str) -> dict[str, int]:
     before and read just after: ``plan_pfft1_large(2**26)`` (8192 x 8192
     four-step) under the library and ``radix=4`` (2 K1 launches), and pinned
     to ``n2=2**17`` under ``radix=4`` (512 rows of 2^17: one launch of K1b's
-    cluster kernel, then one of K1 over 2^17 rows of 512), against
+    cluster kernel, then one of K1 over 2^17 rows of 512) and to ``n2=2**19``
+    (128 rows of 2^19: K1b's two passes, one chunk, then one launch of K1
+    over 2^19 rows of 128), against
     ``torch.fft.fft``; ``plan_pfft1_large(2**28)`` (16384 x 16384) under
     ``radix=4`` (2 K1 launches at Plan<14>); a composite non-power-of-two and a prime N under
     ``radix=4`` (their phase lengths fall to the library: 0 launches); the
@@ -1973,8 +1987,10 @@ def phase_pfft1_large(gen: torch.Generator, card: str) -> dict[str, int]:
     reset_launch_counts()          # ---- the huge-1-D path's single drive starts
 
     long_row = {"fft_rows": 1, "fft_rows_large": 1, "fft_rows_large_long": 1}
+    two_pass = {"fft_rows": 1, "fft_rows_large": 2, "fft_rows_large_two_pass": 2}
     for cfg, n2, expect in ((library, None, {}), (kernel, None, {"fft_rows": 2}),
-                            (kernel, N_LARGE_LONG_N2, long_row)):
+                            (kernel, N_LARGE_LONG_N2, long_row),
+                            (kernel, N_LARGE_TWO_PASS_N2, two_pass)):
         plan, seconds, _ = planned(lambda: plan_pfft1_large(N_LARGE, config=cfg, n2=n2))
         label = cfg.describe() + ("" if n2 is None else f"/n2={n2}")
         plans[label] = plan
@@ -2016,7 +2032,7 @@ def phase_pfft1_large(gen: torch.Generator, card: str) -> dict[str, int]:
 
     # ---- the huge-1-D path's single drive ends
     counts = end_drive("pfft1_large", ("fft_rows", "fft_rows_large",
-                                       "fft_rows_large_long"))
+                                       "fft_rows_large_long", "fft_rows_large_two_pass"))
     square = x.view(plans[library.describe()].n1, -1)
     log("pfft1_large_time", card=card, n=N_LARGE,
         torch_fft_ms=time_ms(lambda: torch.fft.fft(x), reps=5, warmup=1),

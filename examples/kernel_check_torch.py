@@ -18,6 +18,7 @@ source and before the full ``chip_smoke.py``.  Needs one CUDA device and
     python3 examples/kernel_check_torch.py --fft-rows-transpose-only
     python3 examples/kernel_check_torch.py --fft-rows-large-only
     python3 examples/kernel_check_torch.py --large-fused-and-real-only
+    python3 examples/kernel_check_torch.py --four-step-two-pass-only
 
 check and time the packed real row kernel alone (every shape of
 ``REAL_SHAPES``, its column of the sweep), the complex row kernel alone
@@ -47,9 +48,14 @@ and real siblings alone (K2b, K3b and K4b: every shape of
 ``SIBLING_SHAPES`` against their plain versions and ``torch.fft``, K2b in
 both directions, then their times over ``LARGE_SWEEP`` beside the library
 and ``x.clone()``, K2b's over ``K2B_ROW_COUNTS``, and K2b's cluster kernel
-beside ``TRANSPOSE_CLUSTER_VARIANTS`` and the two passes): the run to
-repeat, in turns, on copies of the tree that differ in one change to that
-kernel.  Every run prints the registers and
+beside ``TRANSPOSE_CLUSTER_VARIANTS`` and the two passes), or the two
+passes of K1b and K2b pass by pass (``TWO_PASS_SHAPES``: pass A alone,
+pass B alone and both, back to back, in the tree's build and in the builds
+of ``TWO_PASS_VARIANTS``, each alone from a copy of the headers; the
+``pfft1_large`` plans of ``TWO_PASS_PFFT1_N2`` and the ops of
+``TWO_PASS_NEIGHBOURS``; the splits of ``TWO_PASS_SPLITS``; ``--no-variants``
+builds the tree's passes alone): the run to repeat, in turns, on copies of
+the tree that differ in one change to that kernel.  Every run prints the registers and
 spills per length (and direction, and variant: pass A's packed loads,
 pass B's transposed store, the real pass B's transposed split) of the
 complex row kernels, of the fused real row kernel, of the four-step
@@ -79,10 +85,13 @@ if not torch.cuda.is_available():
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", "src"))
 
+from repro_torch.core import PlanConfig, plan_pfft1_large  # noqa: E402
 from repro_torch.kernels import (_build, fft_rows_op,  # noqa: E402
                                  fft_rows_transpose_op, rfft_rows_op,
                                  rfft_rows_transpose_op, transpose_op)
-from repro_torch.kernels.fft.kernel import fft_rows_plain  # noqa: E402
+from repro_torch.kernels.fft.kernel import (complex_rows_plan,  # noqa: E402
+                                            fft_rows_plain)
+import repro_torch.kernels.fft.large as large_kernel  # noqa: E402
 from repro_torch.kernels.fft.large import (CLUSTER_LENGTHS,  # noqa: E402
                                            cluster_plan, fft_rows_large_cuda,
                                            fft_rows_large_plain, large_split)
@@ -93,6 +102,20 @@ from repro_torch.kernels.fused.large import (  # noqa: E402
 from repro_torch.kernels.fused.real_large import (  # noqa: E402
     rfft_rows_transpose_large_plain)
 from repro_torch.kernels.transpose.kernel import transpose_plain  # noqa: E402
+
+# The split K1b's and K2b's two passes run at by default (``large_split``'s
+# in a tree before ``two_pass_split``), and the split each op runs at.
+two_pass_split = getattr(large_kernel, "two_pass_split", large_split)
+
+
+def run_split(n: int, transposed: bool = False) -> list[int]:
+    """(n1, n2) of K1b (K2b where ``transposed``) at length n: its cluster
+    kernel's plan or its two passes' split."""
+    if transposed:
+        return list(transpose_cluster_plan(n)[:2] if n in TRANSPOSE_CLUSTER_LENGTHS
+                    else two_pass_split(n))
+    return list(cluster_plan(n)[:2] if n in CLUSTER_LENGTHS else two_pass_split(n))
+
 
 # Every length the complex row kernels are instantiated for, at an odd row
 # count and at 2^20 elements plus 5 rows (a ragged last CTA where a CTA holds
@@ -141,6 +164,107 @@ K2B_ROW_COUNTS = [16384, 16385, 16386, 16388]
 # (n, n1) pairs of the two passes timed against the default split of n.
 LARGE_SPLITS = [(1 << 19, 1024), (1 << 20, 512), (1 << 20, 2048),
                 (1 << 24, 2048), (1 << 24, 8192), (1 << 24, 16384)]
+# The two-pass four-step (``csrc/fourstep.cuh``) pass by pass: (kernel, rows,
+# n) for K1b (``fft_rows_large.cu``, batch-major) and K2b
+# (``fft_rows_transpose_large.cu``, transposed), at the records' shapes
+# and at 64 x 2^20; and the splits (kernel, rows, n, n1s) timed pass by pass.
+TWO_PASS_SHAPES = [("k1b", 128, 1 << 19), ("k2b", 512, 1 << 17), ("k1b", 64, 1 << 20)]
+# The kernels that share fourstep.cuh with the two passes, timed beside
+# them (op, rows, n): K1b's and K2b's cluster kernels, K2 at 16384 (K2b's
+# cluster kernel), K3b and K4b, at their records' shapes.
+TWO_PASS_NEIGHBOURS = [("fft_rows", 2048, 1 << 15), ("fft_rows", 512, 1 << 17),
+                       ("fft_rows_transpose", 2048, 1 << 15),
+                       ("fft_rows_transpose", 4096, 1 << 14),
+                       ("rfft_rows", 2048, 1 << 15), ("rfft_rows_transpose", 2048, 1 << 15)]
+# The huge-1-D plans timed beside them: 2^26 under radix=4 at its default
+# split and pinned to n2 = 2^17 (K1b's cluster kernel) and 2^19 (K1b's two
+# passes, 128 x 2^19, as chip_smoke.py's pfft1_large phase drives it).
+TWO_PASS_PFFT1_N2 = (None, 1 << 17, 1 << 19)
+TWO_PASS_SPLITS = [("k1b", 128, 1 << 19, (128, 256, 512, 1024)),
+                   ("k2b", 512, 1 << 17, (128, 256, 512)),
+                   ("k1b", 64, 1 << 20, (256, 512, 1024, 2048, 4096)),
+                   ("k1b", 32, 1 << 21, (512, 1024, 2048)),
+                   ("k1b", 16, 1 << 22, (512, 1024, 2048, 4096, 8192)),
+                   ("k1b", 8, 1 << 23, (1024, 2048, 4096)),
+                   ("k1b", 4, 1 << 24, (1024, 2048, 4096, 8192, 16384)),
+                   ("k1b", 2, 1 << 25, (2048, 4096, 8192)),
+                   ("k1b", 1, 1 << 26, (4096, 8192)),
+                   ("k1b", 1, 1 << 27, (8192, 16384))]
+# Each pass alone, from a copy of the headers with an entry for each
+# (``columns_for`` and ``rows_for`` of ``fourstep.cuh``); ``rule`` is the
+# tree's own code, the others edited copies of the header: name -> (edits,
+# pass B's (kStoreRows, kRowsThreads) where the build changes them).  Pass
+# A with 16 columns a CTA at n1 <= 512 (512 threads), or in persistent CTAs
+# that prefetch their next tile into L2; pass B with K1's CTA and clusters
+# of up to 16 CTAs for its 16 rows (``cluster_store``), K1's CTA and K2's
+# 32-byte runs (``store_rows4``, the parent's pass B), 32 rows a CTA
+# where 1024 threads hold them (``store_rows32``), or 16 rows within 512
+# threads (``rows_threads512``: 8 rows a CTA at n2 = 1024, two CTAs of a
+# cluster).
+_PASS_ENTRIES = """#include "fourstep.cuh"
+extern "C" int pass_a(const void* in, void* scratch, long long rows, int n1, int n2,
+                      int log2cap, int transposed, int inverse, void* stream) {
+    const int l1 = log2_of(n1), l2 = log2_of(n2);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (transposed)
+        return inverse ? columns_for<true, kTransposedStore>(l1, in, scratch, rows, l2, log2cap, 0, s)
+                       : columns_for<false, kTransposedStore>(l1, in, scratch, rows, l2, log2cap, 0, s);
+    return inverse ? columns_for<true, kBatchMajor>(l1, in, scratch, rows, l2, 0, 0, s)
+                   : columns_for<false, kBatchMajor>(l1, in, scratch, rows, l2, 0, 0, s);
+}
+extern "C" int pass_b(const void* scratch, void* out, long long brows, int n1, int n2,
+                      int log2cap, long long valid, long long out_stride, int transposed,
+                      int inverse, int rows_per_cta, int threads, void* stream) {
+    const int l1 = log2_of(n1), l2 = log2_of(n2);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (transposed)
+        return inverse ? rows_for<true, true>(l2, scratch, out, brows, l1, log2cap, valid,
+                                              out_stride, rows_per_cta, threads, s)
+                       : rows_for<false, true>(l2, scratch, out, brows, l1, log2cap, valid,
+                                               out_stride, rows_per_cta, threads, s);
+    return inverse ? rows_for<true, false>(l2, scratch, out, brows, l1, 0, 0, 0, rows_per_cta,
+                                           threads, s)
+                   : rows_for<false, false>(l2, scratch, out, brows, l1, 0, 0, 0, rows_per_cta,
+                                            threads, s);
+}
+"""
+_COLUMNS_16 = ("constexpr int kColumns = 32;", "constexpr int kColumns = 16;")
+_PERSISTENT = ("constexpr bool kPersistentColumns = false;",
+               "constexpr bool kPersistentColumns = true;")
+
+
+def _pass_b(store_rows: int, rows_threads: int) -> list:
+    """The edits that give pass B ``store_rows`` rows side by side within
+    ``rows_threads`` threads a CTA (``kStoreRows``, ``kRowsThreads``)."""
+    return [("constexpr int kStoreRows = 16;", f"constexpr int kStoreRows = {store_rows};"),
+            ("constexpr int kRowsThreads = 1024;",
+             f"constexpr int kRowsThreads = {rows_threads};")]
+
+
+TWO_PASS_VARIANTS = {
+    "rule": ([], None),
+    "columns16": ([_COLUMNS_16], None),
+    "persistent": ([_PERSISTENT], None),
+    "cluster_store": (_pass_b(16, 256), (16, 256)),
+    "store_rows4": (_pass_b(4, 256), (4, 256)),
+    "store_rows32": (_pass_b(32, 1024), (32, 1024)),
+    "rows_threads512": (_pass_b(16, 512), (16, 512)),
+}
+
+
+def variant_rows_plan(n2: int, brows: int, store_rows: int, rows_threads: int):
+    """Pass B's CTA in a build with ``kStoreRows = store_rows`` and
+    ``kRowsThreads = rows_threads`` (``rows_plan`` of
+    ``kernels/fft/large.py`` at other constants): ``(rows_per_cta,
+    threads)``."""
+    group = n2 // 16
+    most = max(max(1, 256 // group), min(store_rows, max(1, rows_threads // group)))
+    per_cta = most
+    while per_cta > 1 and per_cta * group > 32 and -(-brows // per_cta) < 264:
+        per_cta //= 2
+    return per_cta, per_cta * group
+
+
 # Variants of the cluster kernel (``csrc/fourstep_cluster.cuh``), built out
 # of the library from a copy of its headers: name -> (n, n1, CTAs a cluster,
 # edits of the header).  ``rule`` is the library's shape, unedited, called
@@ -355,8 +479,8 @@ REGISTERS = {"fft_rows.cu": ("fft_rows",),
              "fft_rows_transpose.cu": ("fft_rows_transpose",),
              "fft_rows_cluster.cu": ("cluster",),
              "fft_rows_transpose_cluster.cu": ("cluster",),
-             "fft_rows_large.cu": ("columns", "rows_transpose"),
-             "fft_rows_transpose_large.cu": ("columns", "rows_transpose"),
+             "fft_rows_large.cu": ("columns", "complex_columns", "rows_transpose"),
+             "fft_rows_transpose_large.cu": ("columns", "complex_columns", "rows_transpose"),
              "rfft_rows_large.cu": ("columns", "rows_split"),
              "rfft_rows_transpose_large.cu": ("columns", "rows_split")}
 
@@ -442,6 +566,180 @@ def start_16k_variants(kernel: str) -> dict:
                 root, name, [(rule, f"constexpr int kStaged = {staged};")],
                 _RFFT_PERSISTENT_ENTRIES, edited="rfft_rows_16k.cu")
     return started
+
+
+def start_pass_builds(no_variants: bool) -> dict:
+    """Start one ``nvcc`` a ``TWO_PASS_VARIANTS`` entry (``rule`` alone with
+    ``no_variants``) under ``build/two_pass/``: name -> (library path,
+    process)."""
+    root = _build.build_root() / "two_pass"
+    shutil.rmtree(root, ignore_errors=True)
+    return {name: start_variant_build(root, name, edits, _PASS_ENTRIES, edited="fourstep.cuh")
+            for name, (edits, _) in TWO_PASS_VARIANTS.items()
+            if name == "rule" or not no_variants}
+
+
+def load_pass_builds(started: dict) -> dict:
+    """Wait for ``start_pass_builds``' builds, print each one's registers and
+    spills of the two passes, and bind them: name -> (pass_a, pass_b)."""
+    bound = {}
+    for name, (lib, proc) in started.items():
+        output, _ = proc.communicate()
+        if proc.returncode != 0:
+            sys.exit(f"two-pass build {name}: nvcc failed\n{output}")
+        for kernel in ("columns", "complex_columns", "rows_transpose"):
+            for record in kernel_registers(output, kernel):
+                print(json.dumps({"ptxas": kernel + "_kernel", "variant": name, **record}),
+                      flush=True)
+        dll = ctypes.CDLL(str(lib))
+        dll.pass_a.restype = dll.pass_b.restype = ctypes.c_int
+        ptr, ll, int_ = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        dll.pass_a.argtypes = [ptr, ptr, ll, int_, int_, int_, int_, int_, ptr]
+        dll.pass_b.argtypes = [ptr, ptr, ll, int_, int_, int_, ll, ll, int_, int_, int_,
+                               int_, ptr]
+        bound[name] = (dll.pass_a, dll.pass_b)
+    return bound
+
+
+def check_two_pass(card: str, builds: dict) -> None:
+    """The two-pass four-step pass by pass (``TWO_PASS_SHAPES``), forward:
+    for each build of ``builds`` pass A alone, pass B alone and both, each
+    back to back (``time_queued_ms``) in turns, twice (the second round in
+    reverse order), the result of both checked against ``torch.fft`` in
+    both directions (the edited builds' forward only); beside them the op
+    one call alone and back to back, the library call, ``x.clone()`` and
+    a pass's bound (its bytes once each way at 3.35 TB/s).  Then the plans
+    of ``TWO_PASS_PFFT1_N2`` (checked against ``torch.fft.fft`` at
+    ``2e-4·√N``) and the ops of ``TWO_PASS_NEIGHBOURS``, each one call alone
+    and back to back, and the
+    splits of ``TWO_PASS_SPLITS``: both passes of ``rule`` and each alone
+    at each n1, checked against ``torch.fft``."""
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+
+    def passes(name, x, scratch, out, n1, n2, transposed, inverse=False):
+        rows = x.shape[0]
+        cap = 1 << max(0, rows - 1).bit_length() if transposed else 1
+        log2cap = cap.bit_length() - 1
+        brows = (cap if transposed else rows) * n1
+        # Pass B's CTA: the build's, the tree's rows_plan, or K1's in a tree
+        # before it.
+        rows_plan = getattr(large_kernel, "rows_plan", None)
+        pass_b_shape = TWO_PASS_VARIANTS[name][1]
+        rows_per_cta, threads = (variant_rows_plan(n2, brows, *pass_b_shape) if pass_b_shape
+                                 else rows_plan(n2, brows)[:2] if rows_plan
+                                 else complex_rows_plan(n2, brows)[:2])
+        pass_a, pass_b = builds[name]
+
+        def a():
+            err = pass_a(x.data_ptr(), scratch.data_ptr(), rows, n1, n2, log2cap,
+                         int(transposed), int(inverse), stream)
+            if err:
+                sys.exit(f"two-pass {name} pass A: CUDA error {err}")
+
+        def b():
+            err = pass_b(scratch.data_ptr(), out.data_ptr(), brows, n1, n2, log2cap, rows,
+                         rows, int(transposed), int(inverse), rows_per_cta, threads, stream)
+            if err:
+                sys.exit(f"two-pass {name} pass B: CUDA error {err}")
+        return a, b
+
+    for kernel, rows, n in TWO_PASS_SHAPES:
+        transposed = kernel == "k2b"
+        n1, n2 = two_pass_split(n)
+        x = torch.complex(torch.randn(rows, n, generator=gen, device="cuda"),
+                          torch.randn(rows, n, generator=gen, device="cuda"))
+        cap = 1 << max(0, rows - 1).bit_length() if transposed else rows
+        scratch = torch.empty((cap, n), dtype=x.dtype, device="cuda")
+        out = torch.empty((n, rows) if transposed else (rows, n), dtype=x.dtype, device="cuda")
+        op = fft_rows_transpose_op if transposed else fft_rows_op
+        ways = {}
+        for name in builds:
+            a, b = passes(name, x, scratch, out, n1, n2, transposed)
+            ways[name] = {"pass_a": a, "pass_b": b, "both": lambda a=a, b=b: (a(), b())}
+        ms = {(name, part): [] for name in builds for part in ("pass_a", "pass_b", "both")}
+        for order in (list(builds), list(builds)[::-1]):
+            for name in order:
+                for part, fn in ways[name].items():
+                    ms[name, part].append(time_queued_ms(fn))
+        library = ((lambda: torch.fft.fft(x).T.contiguous()) if transposed
+                   else (lambda: torch.fft.fft(x)))
+        for name in builds:
+            edited = bool(TWO_PASS_VARIANTS[name][0])
+            errs = {}
+            for inverse in ((False,) if edited else (False, True)):
+                a, b = passes(name, x, scratch, out, n1, n2, transposed, inverse)
+                a()
+                b()
+                lib = torch.fft.ifft(x) if inverse else torch.fft.fft(x)
+                torch.cuda.synchronize()
+                key = ("inverse" if inverse else "forward") + "_vs_library"
+                errs[key] = float((out - (lib.T if transposed else lib)).abs().max())
+                del lib
+                if errs[key] > 1e-3 * n ** 0.5 / (n if inverse else 1):
+                    sys.exit(f"two-pass {name} disagrees at {kernel} {rows} x {n}: {errs}")
+            print(json.dumps({
+                "card": card, "kernel": kernel, "rows": rows, "n": n, "split": [n1, n2],
+                "variant": name, "edited": edited,
+                **{f"{part}_queued_ms": ms[name, part] for part in ("pass_a", "pass_b",
+                                                                     "both")},
+                **errs}), flush=True)
+        print(json.dumps({
+            "card": card, "kernel": kernel, "rows": rows, "n": n, "split": [n1, n2],
+            "op_ms": time_ms(lambda: op(x)), "op_queued_ms": time_queued_ms(lambda: op(x)),
+            "library_ms": time_ms(library), "library_queued_ms": time_queued_ms(library),
+            "clone_queued_ms": time_queued_ms(lambda: x.clone()),
+            "pass_bound_ms": 2 * rows * n * 8 / 3.35e12 * 1e3}), flush=True)
+        del x, scratch, out
+    x = torch.complex(torch.randn(1 << 26, generator=gen, device="cuda"),
+                      torch.randn(1 << 26, generator=gen, device="cuda"))
+    want = torch.fft.fft(x)
+    for n2 in TWO_PASS_PFFT1_N2:
+        plan = plan_pfft1_large(1 << 26, config=PlanConfig(radix=4), n2=n2)
+        err = float((plan.execute(x) - want).abs().max())
+        if err > 2e-4 * (1 << 13):
+            sys.exit(f"plan_pfft1_large(2**26, n2={n2}) disagrees: {err}")
+        print(json.dumps({"card": card, "pfft1_large": 1 << 26, "n1": plan.n1, "n2": plan.n2,
+                          "execute_ms": time_ms(lambda: plan.execute(x)),
+                          "execute_queued_ms": time_queued_ms(lambda: plan.execute(x)),
+                          "max_abs_err": err}), flush=True)
+        del plan
+    del x, want
+    ops = {"fft_rows": fft_rows_op, "fft_rows_transpose": fft_rows_transpose_op,
+           "rfft_rows": rfft_rows_op, "rfft_rows_transpose": rfft_rows_transpose_op}
+    for name, rows, n in TWO_PASS_NEIGHBOURS:
+        real = name.startswith("rfft")
+        x = (torch.randn(rows, n, generator=gen, device="cuda") if real else
+             torch.complex(torch.randn(rows, n, generator=gen, device="cuda"),
+                           torch.randn(rows, n, generator=gen, device="cuda")))
+        op = ops[name]
+        print(json.dumps({"card": card, "neighbour": name, "rows": rows, "n": n,
+                          "op_ms": time_ms(lambda: op(x)),
+                          "op_queued_ms": time_queued_ms(lambda: op(x))}), flush=True)
+        del x
+    for kernel, rows, n, n1s in TWO_PASS_SPLITS:
+        transposed = kernel == "k2b"
+        x = torch.randn(rows, n, dtype=torch.complex64, device="cuda")
+        scratch = torch.empty_like(x)
+        out = torch.empty((n, rows) if transposed else (rows, n), dtype=x.dtype, device="cuda")
+        want = torch.fft.fft(x)
+        for n1 in n1s:
+            a, b = passes("rule", x, scratch, out, n1, n // n1, transposed)
+            a()
+            b()
+            torch.cuda.synchronize()
+            err = float((out - (want.T if transposed else want)).abs().max())
+            if err > 1e-3 * n ** 0.5:
+                sys.exit(f"two-pass {kernel} disagrees at n1={n1}: {err}")
+            both = time_queued_ms(lambda: (a(), b()))
+            print(json.dumps({
+                "card": card, "kernel": kernel, "rows": rows, "n": n, "split": [n1, n // n1],
+                "default": list(two_pass_split(n)), "both_queued_ms": both,
+                "pass_a_queued_ms": time_queued_ms(a), "pass_b_queued_ms": time_queued_ms(b),
+                "max_abs_err": err}), flush=True)
+        del x, scratch, out, want
+    print("OK")
 
 
 def time_queued_ms(fn, calls: int = 10, reps: int = 5) -> float:
@@ -725,7 +1023,7 @@ def check_siblings(card: str, variants: dict) -> None:
             lib = torch.fft.ifft(x) if inverse else torch.fft.fft(x)
             errs["k2b_vs_library"] = float((got - lib.T).abs().max())
             del got, lib
-            print(json.dumps({"rows": rows, "n": n, "split": large_split(n),
+            print(json.dumps({"rows": rows, "n": n, "split": run_split(n, True),
                               "inverse": inverse, "atol": tol, **errs}), flush=True)
             if max(errs.values()) > tol:
                 sys.exit(f"K2b disagrees: {errs} > {tol}")
@@ -749,7 +1047,8 @@ def check_siblings(card: str, variants: dict) -> None:
         x = torch.randn(SWEEP_ELEMENTS // n, n, dtype=torch.complex64, device="cuda")
         xr = torch.randn(SWEEP_ELEMENTS // n, n, device="cuda")
         print(json.dumps({
-            "card": card, "rows": x.shape[0], "n": n, "split": large_split(n),
+            "card": card, "rows": x.shape[0], "n": n, "split": run_split(n, True),
+            "real_split": large_split(n),
             "fft_rows_transpose_large_ms": time_ms(lambda: fft_rows_transpose_op(x)),
             "fft_rows_transpose_large_inverse_ms": time_ms(
                 lambda: fft_rows_transpose_op(x, inverse=True)),
@@ -791,6 +1090,8 @@ def main() -> None:
                       help="check and time the four-step row kernel of long rows alone")
     only.add_argument("--large-fused-and-real-only", action="store_true",
                       help="check and time the four-step fused and real kernels alone")
+    only.add_argument("--four-step-two-pass-only", action="store_true",
+                      help="time the two passes of K1b and K2b pass by pass, and their splits")
     parser.add_argument("--no-variants", action="store_true",
                         help="build and time no variant of the kernels at n = 16384 or "
                              "of the cluster kernel of long rows")
@@ -798,6 +1099,11 @@ def main() -> None:
     only_k3, only_k1 = args.rfft_rows_only, args.fft_rows_only
     only_k4, only_k2 = args.rfft_rows_transpose_only, args.fft_rows_transpose_only
     only_k1b, only_siblings = args.fft_rows_large_only, args.large_fused_and_real_only
+    if args.four_step_two_pass_only:
+        started = start_pass_builds(args.no_variants)
+        card = compile_sources(("fft_rows_large.cu", "fft_rows_transpose_large.cu"))
+        check_two_pass(card, load_pass_builds(started))
+        return
     if only_siblings:
         started = start_transpose_variants()
         card = compile_sources(SIBLING_SOURCES)
@@ -859,7 +1165,7 @@ def main() -> None:
             lib = torch.fft.ifft(x) if inverse else torch.fft.fft(x)
             errs["k1b_vs_library"] = float((got - lib).abs().max())
             del got, lib
-            print(json.dumps({"rows": rows, "n": n, "split": large_split(n),
+            print(json.dumps({"rows": rows, "n": n, "split": run_split(n),
                               "inverse": inverse, "atol": tol, **errs}), flush=True)
             if max(errs.values()) > tol:
                 sys.exit(f"four-step row kernel disagrees: {errs} > {tol}")
@@ -868,7 +1174,7 @@ def main() -> None:
         for n in K1B_SWEEP:
             x = torch.randn(SWEEP_ELEMENTS // n, n, dtype=torch.complex64, device="cuda")
             print(json.dumps({
-                "card": card, "rows": x.shape[0], "n": n, "split": large_split(n),
+                "card": card, "rows": x.shape[0], "n": n, "split": run_split(n),
                 "design": "cluster" if n in CLUSTER_LENGTHS else "two_pass",
                 "fft_rows_large_ms": time_ms(lambda: fft_rows_op(x)),
                 "fft_rows_large_queued_ms": time_queued_ms(lambda: fft_rows_op(x)),
@@ -888,7 +1194,7 @@ def main() -> None:
             print(json.dumps({
                 "card": card, "rows": x.shape[0], "n": n, "split": large_split(n, n1=n1),
                 "split_ms": time_ms(lambda: fft_rows_large_cuda(x, n1=n1)),
-                "default": large_split(n), "default_ms": time_ms(lambda: fft_rows_op(x)),
+                "default": run_split(n), "default_ms": time_ms(lambda: fft_rows_op(x)),
                 "max_abs_err": err}), flush=True)
             del x
         print("OK")

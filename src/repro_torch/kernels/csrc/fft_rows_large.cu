@@ -14,18 +14,20 @@
 // the split of kernels/fft/large.py::large_split); row r viewed as
 // A[j1][j2] = x[j1*n2 + j2] gives
 //   X[k1 + n1*k2] = sum_j2 w_n2^(j2*k2) * w_n^(k1*j2) * sum_j1 w_n1^(j1*k1) * A[j1][j2].
-// - Pass A (columns_kernel, fourstep.cuh): the length-n1 DFT of each column
-//   j2, times the twiddle w_n^(k1*j2), written as B[k1][j2] in A's layout
-//   ([s][k1][j2]) to a scratch buffer; a CTA takes COLS adjacent columns of
-//   one row (at least 4 where they fit: whole 32-byte sectors), 16 points a
-//   thread, regfft.cuh's passes and exchanges.
+// - Pass A (complex_columns_kernel, fourstep.cuh): the length-n1 DFT of
+//   each column j2, times the twiddle w_n^(k1*j2), written as B[k1][j2] in
+//   A's layout ([s][k1][j2]) to a scratch buffer; a CTA takes COLS adjacent
+//   columns of one row (32 up to n1 = 512), 16 points a thread, the columns
+//   fastest in a warp, regfft.cuh's passes with the columns interleaved in
+//   shared memory, the twiddles from five base values a thread.
 // - Pass B (rows_transpose_kernel, fourstep.cuh): the length-n2 DFT of each
 //   row of B with the transposed store out[k1 + n1*k2]: K2's function
 //   (fft_rows_transpose.cu) on each signal row's (n1, n2) matrix, with a
 //   batch dimension, so one launch covers every signal row of the call.  Its
-//   passes, launch shape, swizzled buffer and cluster store are K2's
-//   (regfft.cuh, tstore.cuh); only the output index carries the batch: row
-//   R = s*n1 + k1 of the launch goes to out[s*n + k2*n1 + k1].
+//   passes, CTA and swizzled buffer are K2's (regfft.cuh, tstore.cuh), its
+//   store clusters wider (16 rows side by side or more); only the output
+//   index carries the batch: row R = s*n1 + k1 of the launch goes to
+//   out[s*n + k2*n1 + k1].
 // - The inverse conjugates the twiddles (w^m split into two exact sincospif
 //   arguments, fourstep.cuh) and scales by 1/n1 and 1/n2.
 //
@@ -34,12 +36,15 @@
 // out), so it moves twice the function's bytes and can reach at best half its
 // bound.  What the design does about it: each pass moves every element once
 // each way (no separate transpose or twiddle pass: the twiddle rides on pass
-// A's store and the transpose on pass B's), pass A's CTAs take whole sectors,
-// and pass B stores 32-byte runs of each output row as K2 does.  The scratch
-// (a bounded number of rows, kernels/fft/large.py) stays in the 50 MB L2 only
-// at the smallest calls.  Where a row fits in a cluster's shared memory
-// (n <= 2^18) the one-pass kernel of fourstep_cluster.cuh keeps pass A's
-// output there instead.
+// A's store and the transpose on pass B's), and both move whole sectors in
+// long runs: pass A's warps load and store 256 contiguous bytes of a row of
+// the view (32 columns side by side, n1 <= 512), where regfft's own column
+// layout gave a warp one column of 32 rows and cost pass A three to four
+// times a copy; pass B stores runs of 16 rows or more (128 bytes).  The
+// scratch (a bounded number of rows, kernels/fft/large.py) stays in the 50
+// MB L2 only at the smallest calls.  Where a row fits in a cluster's shared
+// memory (n <= 2^18) the one-pass kernel of fourstep_cluster.cuh keeps pass
+// A's output there instead.
 //
 // `rows_per_cta` and `threads` are pass B's launch shape, kernels/fft/
 // kernel.py::complex_rows_plan(n2, rows*n1); pass A's follows from n1.

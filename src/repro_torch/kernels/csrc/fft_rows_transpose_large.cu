@@ -25,7 +25,11 @@
 // covers one more sector than it would aligned.
 //
 // Bound on this card: bytes, as K1b's (rows*n*8 read and written once; the
-// four-step moves twice that: in -> scratch -> out).
+// four-step moves twice that: in -> scratch -> out).  What the design does
+// about it is K1b's: pass A's warps move 256 contiguous bytes of a row of
+// the view, its store to [k1][s][j2] as its load; pass B's clusters put 16
+// rows or more side by side, so that a store writes 128-byte runs of an
+// output row wherever the chunk holds 16 rows or more.
 //
 // `rows_per_cta` and `threads` are pass B's launch shape, kernels/fft/
 // kernel.py::complex_rows_plan(n2, cap*n1); pass A's follows from n1.

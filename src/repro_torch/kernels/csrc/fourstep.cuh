@@ -7,26 +7,38 @@
 // Signal row s viewed as A[j1][j2] = x[j1*n2 + j2] (n1, n2 powers of two in
 // [128, 16384], the split of kernels/fft/large.py::large_split) gives
 //   X[k1 + n1*k2] = sum_j2 w_n2^(j2*k2) * w_n^(k1*j2) * sum_j1 w_n1^(j1*k1) * A[j1][j2].
-// - Pass A (columns_kernel): the length-n1 DFT of each column j2, times the
-//   twiddle w_n^(k1*j2), written as B[k1][j2] of row s to a scratch buffer in
+// - Pass A: the length-n1 DFT of each column j2, times the twiddle
+//   w_n^(k1*j2), written as B[k1][j2] of row s to a scratch buffer in
 //   [s][k1][j2] order, where it was loaded (kBatchMajor: K1b), or in
 //   [k1][s][j2] order with cap rows a k1, cap a power of two >= the rows of
-//   the call (kTransposedStore: K2b).  A CTA takes COLS adjacent columns of
-//   one row (at least 4 where they fit, so the CTA reads whole 32-byte
-//   sectors of every row of the view), column c by the GROUP threads of
-//   regfft.cuh's plan for n1, each holding 16 points in registers.  kPacked
-//   (K3b) and kPackedTransposed (K4b) read two float32 rows 2s and 2s + 1 as
-//   z = a + i*b instead of a complex64 row (b = 0 for an unpaired last row)
-//   and store as kBatchMajor and kTransposedStore; their loads of 4 adjacent
+//   the call (kTransposedStore: K2b).  complex_columns_kernel (K1b, K2b): a
+//   CTA takes COLS adjacent columns of one row (ColPlan: 32 up to n1 = 512,
+//   as many as 1024 threads hold above), n1/16 threads a column with 16
+//   points each, the columns fastest (thread t*COLS + c), so a warp loads and
+//   stores COLS adjacent j2 of 32/COLS rows of the view: 256 contiguous
+//   bytes at COLS = 32, whole sectors down to COLS = 4 (n1 <= 4096).  The
+//   column DFTs run regfft's passes with the columns interleaved in the
+//   exchange buffer (column_fft, shared with fourstep_cluster.cuh), the
+//   twiddles come from five base values a thread and running products
+//   (column_twiddles).  columns_kernel (K3b: kPacked, K4b:
+//   kPackedTransposed) reads two float32 rows 2s and 2s + 1 as z = a + i*b
+//   instead of a complex64 row (b = 0 for an unpaired last row), column c
+//   by the n1/16 threads c*G ... (the rows of a column fastest,
+//   PackedColPlan: at least 4 columns a CTA), a twiddle<INV> a point, and
+//   stores as kBatchMajor and kTransposedStore; its loads of 4 adjacent
 //   columns are half sectors.
 // - Pass B (rows_transpose_kernel, K1b and K2b): the length-n2 DFT of each
-//   row of B, K2's function (fft_rows_transpose.cu) with its launch shape,
-//   swizzled buffer and cluster store (regfft.cuh, tstore.cuh), over every
-//   row of the call at once.  Only the output index differs.  Batch-major
-//   (K1b): row R = s*n1 + k1 and bin k2 go to out[s*n + k2*n1 + k1].
-//   TRANSPOSED (K2b): R = k1*cap + s goes to out[(k1 + n1*k2)*out_stride + s],
-//   so the rows side by side in a store are neighbouring output columns, as
-//   in K2; rows with s >= the call's rows are masked.
+//   row of B, K2's function (fft_rows_transpose.cu) with its CTA, swizzled
+//   buffer and cluster store (regfft.cuh, tstore.cuh), over every row of the
+//   call at once, in wider CTAs, so that a store puts at least kStoreRows =
+//   16 rows side by side (RowsPlan: 16 rows a CTA up to n2 = 1024, 32 at
+//   128, and clusters of 2 ... 16 CTAs at n2 = 2048 ... 16384, where 1024
+//   threads hold fewer).  Only the output index differs from K2's.  Batch-major (K1b): row R =
+//   s*n1 + k1 and bin k2 go to out[s*n + k2*n1 + k1], runs of 16 k1 or more
+//   (128 bytes).  TRANSPOSED (K2b): R = k1*cap + s goes to out[(k1 +
+//   n1*k2)*out_stride + s], so the rows side by side in a store are
+//   neighbouring output columns, as in K2; rows with s >= the call's rows
+//   are masked.
 // - Pass B of the packed real kernels (rows_split_kernel, K3b and K4b): the
 //   same DFTs over the rows of the packed pairs' B, Z[p][k1 + n1*k2] in
 //   row k1, bin k2, and in its epilogue the conjugate split of each pair,
@@ -64,7 +76,11 @@
 // - The inverse conjugates the twiddles; fft_row<.., true> scales by 1/n1 in
 //   pass A and 1/n2 in pass B, powers of two whose product is 1/n exactly.
 //
-// Bytes.  K1b and K2b move each row twice (in -> scratch -> out).  The
+// Bytes.  K1b and K2b move each row twice (in -> scratch -> out), each
+// pass near the speed of a copy at n1 <= 1024 and n2 <= 512, the splits
+// kernels/fft/large.py::two_pass_split takes up to 2^20; pass A's column
+// reads were the cost before its columns went fastest (regfft's column
+// layout: a warp one column of 32 rows, 8 bytes of each of 32 sectors).  The
 // packed real kernels read rows*n*4 bytes, write pairs*n*8 of scratch, read
 // them back and write rows*(n/2 + 1)*8: two passes over the data, about
 // twice what the function must move (at 2048 x 32768: 1 GiB against 512
@@ -79,8 +95,11 @@
 // Twiddle: m = k1*j2 < n is an exact integer, but 2m/n is exact in float only
 // while n <= 2^24.  So m = mh*2^14 + ml and w^m = w^(mh*2^14) * w^ml, two
 // sincospif of the exact arguments mh*2^15/n and 2*ml/n (mh, ml < 2^14, n a
-// power of two), each good to about an ulp.  No __sincosf, no table and no
-// -use_fast_math, for regfft.cuh's reasons.
+// power of two), each good to about an ulp (twiddle<INV>).  Pass A of the
+// complex modes takes it for five base values a thread and multiplies the
+// rest out (column_twiddles<INV, true>: 10 sincospif for 16 points, within
+// 10 ulps); the packed pass A takes it for every point.  No __sincosf, no
+// table and no -use_fast_math, for regfft.cuh's reasons.
 //
 // Everything here has internal linkage: each kernel source that includes it
 // gets its own instantiations (the library is built without -rdc).
@@ -101,11 +120,11 @@ using repro::tstore::Swizzle;
 constexpr int kMinLog2 = 7;    // n1, n2 >= 128
 constexpr int kMaxLog2 = 14;   // n1, n2 <= 16384
 
-// Pass A's CTA: COLS adjacent columns of one row, as many as make
-// kCtaThreads threads and at least 4, but no more than 1024 threads hold
-// (2 at n1 = 8192, 1 at 16384).
+// Pass A's CTA in the packed modes (K3b, K4b): COLS adjacent columns of one
+// row, as many as make kCtaThreads threads and at least 4, but no more than
+// 1024 threads hold (2 at n1 = 8192, 1 at 16384).
 template <int LOG2N1>
-struct ColPlan {
+struct PackedColPlan {
     static constexpr int G = Plan<LOG2N1>::GROUP;
     static constexpr int WANT = repro::regfft::kCtaThreads / G > 4
                                     ? repro::regfft::kCtaThreads / G : 4;
@@ -115,6 +134,23 @@ struct ColPlan {
     static constexpr int THREADS = COLS * G;
     static constexpr int MIN_BLOCKS = 65536 / (THREADS * 64);
     static_assert(COLS == 1 << LOG2COLS, "a power-of-two column count");
+};
+
+// Pass A's CTA in the complex modes (K1b, K2b): COLS = kColumns adjacent
+// columns of one row where kColumns * n1/16 threads fit in 1024 (n1 <= 512),
+// else as many as 1024 threads hold (16 at n1 = 1024 ... 1 at 16384).  With
+// the columns fastest in the CTA a warp loads and stores 32 adjacent j2 of
+// one row of the view, 256 contiguous bytes, where COLS = 32.
+constexpr int kColumns = 32;
+template <int LOG2N1>
+struct ColPlan {
+    static constexpr int G = Plan<LOG2N1>::GROUP;
+    static constexpr int COLS = kColumns * G <= 1024 ? kColumns : 1024 / G;
+    static constexpr int LOG2COLS = COLS >= 32 ? 5 : COLS == 16 ? 4 : COLS == 8 ? 3
+                                  : COLS == 4 ? 2 : COLS == 2 ? 1 : 0;
+    static constexpr int THREADS = COLS * G;
+    static constexpr int MIN_BLOCKS = 65536 / (THREADS * 64);
+    static_assert(COLS == 1 << LOG2COLS && COLS <= 32, "a power-of-two column count");
 };
 
 // 2^e as a float, exact for -126 <= e <= 127.
@@ -131,6 +167,110 @@ __device__ __forceinline__ float2 twiddle(long long m, int log2n) {
     return cmul(make_float2(ch, sign * sh), make_float2(cl, sign * sl));
 }
 
+// Slot of element x = f*COLS + c of column_fft's buffer (element f of column
+// c): x itself where a half-warp is 16 columns of one element (COLS >= 16),
+// else x plus COLS slots of padding a block of 16*COLS, so that the 16/COLS
+// elements a half-warp spans, 16*COLS slots apart in the first pass's
+// writes, fall on distinct banks (t*COLS banks apart).  The padding is
+// linear in the block: slot(a + d) = slot(a) + slot(d) where d is a
+// multiple of 16*COLS or a + d stays in a's block, so the exchanges compute
+// one slot a thread and add constants.  The buffer holds
+// exchange_elems(COLS, N1) float2 either way.
+template <int COLS>
+__host__ __device__ constexpr int column_slot(int x) {
+    if constexpr (COLS >= 16) {
+        return x;
+    } else {
+        constexpr int LOG2COLS = COLS == 8 ? 3 : COLS == 4 ? 2 : COLS == 2 ? 1 : 0;
+        return x + ((x >> (4 + LOG2COLS)) << LOG2COLS);
+    }
+}
+
+// The length-N1 DFT down column c of COLS columns, regfft.cuh's
+// radix16_passes and fft_row with the columns interleaved in the buffer:
+// element f of column c at column_slot(f*COLS + c), so that a half-warp (16
+// consecutive c of one t, or 16/COLS t of COLS columns each) reads and
+// writes 16 consecutive slots, or 16 distinct banks.  (regfft's layout, rows
+// side by side with a float2 of padding per 16, puts those 16 columns
+// n1*17/16 slots apart: on 4, 2 or 1 of the 16 banks at n1 = 64, 128, 256.)
+// In: v[k] = A[t + k*G][c].  Out: v[k] = Y[t + k*G][c], scaled by 1/N1 when
+// INV.  The buffer holds exchange_elems(COLS, N1) float2.
+template <int LOG2N1, int COLS, bool INV>
+__device__ __forceinline__ void column_fft(float2 (&v)[16], float2* buf, int c, int t) {
+    using P = Plan<LOG2N1>;
+    constexpr int G = P::GROUP;
+    static_assert(COLS >= 16 || G % 16 == 0, "the padded slots' reads: G*COLS whole blocks");
+#pragma unroll
+    for (int pass = 0; pass < P::RADIX16_PASSES; ++pass) {
+        repro::regfft::dft16<INV>(v);
+        if (pass == P::RADIX16_PASSES - 1 && P::TAIL_LOG2 == 0) break;
+        const int log2s = 4 * pass;
+        const int j = t >> log2s;
+        const int q = t & ((1 << log2s) - 1);
+        repro::regfft::twiddle16<INV>(v, j, LOG2N1 - log2s);
+        // Slot u goes to element f0 + u*s: u*s*COLS stays in f0's block at
+        // s = 1 and is a multiple of 16*COLS at s >= 16.
+        const int p0 = column_slot<COLS>((((j << 4) << log2s) + q) * COLS + c);
+        __syncthreads();  // the previous exchange's reads are done
+#pragma unroll
+        for (int u = 0; u < 16; ++u) buf[p0 + column_slot<COLS>((u << log2s) * COLS)] = v[u];
+        __syncthreads();
+        const int r0 = column_slot<COLS>(t * COLS + c);   // G*COLS: a multiple of 16*COLS
+#pragma unroll
+        for (int k = 0; k < 16; ++k) v[k] = buf[r0 + column_slot<COLS>(k * G * COLS)];
+    }
+    if constexpr (P::TAIL_LOG2 > 0) {
+        constexpr int r = 1 << P::TAIL_LOG2;
+        constexpr int B = 16 / r;
+#pragma unroll
+        for (int b = 0; b < B; ++b) {
+            float2 w[r];
+#pragma unroll
+            for (int u = 0; u < r; ++u) w[u] = v[b + u * B];
+            repro::regfft::dft<r, INV>(w);
+#pragma unroll
+            for (int u = 0; u < r; ++u) v[b + u * B] = w[u];
+        }
+    }
+    if constexpr (INV) {
+#pragma unroll
+        for (int k = 0; k < 16; ++k) v[k] = repro::cscale(v[k], 1.0f / (float)P::N);
+    }
+}
+
+// v[k] *= w_n^(k1*j2), k1 = t + k*g, n = 2^log2n.  With k = 4*kh + kl:
+// w^(k1*j2) = h_kh * b^kl, h_kh = w^((t + 4*kh*g)*j2) and b = w^(g*j2), five
+// base values a thread, b^kl by running products: good to a few ulps, where
+// twiddle<INV> would take two sincospif a point.  The base exponents are
+// integers below n (t + 4*kh*g < n1, j2 < n2).  SPLIT: each base value is
+// twiddle<INV>'s exact split (two sincospif), for n up to 2^28; else one
+// sincospif of the argument 2m/n, exact in float only while n <= 2^24 (the
+// cluster kernel's lengths).
+template <bool INV, bool SPLIT = false>
+__device__ __forceinline__ void column_twiddles(float2 (&v)[16], int t, int g, int j2,
+                                                int log2n) {
+    const float step = (INV ? 1.0f : -1.0f) * exp2i(1 - log2n);   // sign * 2/n
+    auto base = [&](int m) {
+        if constexpr (SPLIT) {
+            return twiddle<INV>(m, log2n);
+        } else {
+            float sn, cs;
+            sincospif((float)m * step, &sn, &cs);
+            return make_float2(cs, sn);
+        }
+    };
+    const float2 b = base(g * j2);
+#pragma unroll
+    for (int kh = 0; kh < 4; ++kh) {
+        float2 w = base((t + 4 * kh * g) * j2);
+#pragma unroll
+        for (int kl = 0; kl < 4; ++kl) {
+            v[4 * kh + kl] = cmul(v[4 * kh + kl], w);
+            if (kl < 3) w = cmul(w, b);
+        }
+    }
+}
+
 // Pass A's load and store (MODE).
 constexpr int kBatchMajor = 0;        // complex64 rows; B stored as [s][k1][j2]
 constexpr int kTransposedStore = 1;   // complex64 rows; B stored as [k1][s][j2]
@@ -144,17 +284,98 @@ __host__ __device__ constexpr bool transposed_store(int mode) {
     return mode == kTransposedStore || mode == kPackedTransposed;
 }
 
-// Pass A.  blockIdx.x = s * (n2 / COLS) + g: columns g*COLS ... g*COLS +
-// COLS - 1 of signal row s (packed: real rows 2s and 2s + 1 of
-// `real_rows`); thread t of column c (threadIdx.x = c*G + t) holds
-// A[t + k*G][j2], k < 16.  A transposed store keeps 2^log2cap rows a k1.
-template <int LOG2N1, bool INV, int MODE>
+// Pass A of K1b (TS false: B stored as [s][k1][j2]) and K2b (TS: as
+// [k1][s][j2], 2^log2cap rows a k1) on one tile b = s * (n2 / COLS) + g:
+// columns j2 = g*COLS + c, c < COLS, of signal row s; thread t*COLS + c
+// holds A[t + k*G][j2], k < 16, so a warp's load of step k is 32/COLS rows
+// of the view, COLS adjacent j2 each (256 contiguous bytes at COLS = 32).
+// The column DFTs in the interleaved buffer (column_fft), the twiddles from
+// five base values a thread (column_twiddles, split), and the store as the
+// load: COLS adjacent j2 of one row of B a warp, j2 fastest.  Offsets
+// within a row of A (or the scratch of a chunk, at most 2^28 elements) are
+// 32-bit; only the row's base is 64-bit.
+template <int LOG2N1, bool INV, bool TS>
+__device__ __forceinline__ void complex_columns_tile(const float2* __restrict__ in,
+                                                     float2* __restrict__ scratch,
+                                                     long long tile, int c, int t, int log2n2,
+                                                     int log2cap, float2* smem) {
+    using CP = ColPlan<LOG2N1>;
+    constexpr int G = CP::G, COLS = CP::COLS;
+    const int log2n = LOG2N1 + log2n2;
+    const int log2groups = log2n2 - CP::LOG2COLS;
+    const long long s = tile >> log2groups;
+    const int j2 = (((int)tile & ((1 << log2groups) - 1)) << CP::LOG2COLS) + c;
+    const float2* x = in + (s << log2n) + (t << log2n2) + j2;
+    const int step = G << log2n2;
+    float2 v[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) v[k] = x[k * step];
+
+    column_fft<LOG2N1, COLS, INV>(v, smem, c, t);
+    column_twiddles<INV, true>(v, t, G, j2, log2n);
+
+    // v[k] = B[k1][j2], k1 = t + k*G: to (s*n1 + k1)*n2 + j2, or to
+    // (k1*cap + s)*n2 + j2.
+    const int log2k = TS ? log2cap + log2n2 : log2n2;
+    float2* dst = (TS ? scratch + (s << log2n2) : scratch + (s << log2n)) + (t << log2k) + j2;
+    const int dstep = G << log2k;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) dst[k * dstep] = v[k];
+}
+
+// Pass A's CTAs in the complex modes: one a tile (the rule), or, with
+// kPersistentColumns, as many as the card holds at once walking the tiles
+// with a stride, each prefetching its next tile into L2
+// (cp.async.bulk.prefetch.L2) before transforming the current one (the
+// Hopper form timed against the rule: examples/kernel_check_torch.py).
+constexpr bool kPersistentColumns = false;
+
+template <int LOG2N1, bool INV, bool TS>
 __global__ void __launch_bounds__(ColPlan<LOG2N1>::THREADS, ColPlan<LOG2N1>::MIN_BLOCKS)
+complex_columns_kernel(const float2* __restrict__ in, float2* __restrict__ scratch,
+                       long long tiles, int log2n2, int log2cap) {
+    using CP = ColPlan<LOG2N1>;
+    constexpr int N1 = 1 << LOG2N1, COLS = CP::COLS;
+    extern __shared__ float2 smem[];
+    const int c = threadIdx.x & (COLS - 1);
+    const int t = threadIdx.x >> CP::LOG2COLS;
+    if constexpr (!kPersistentColumns) {
+        complex_columns_tile<LOG2N1, INV, TS>(in, scratch, blockIdx.x, c, t, log2n2, log2cap,
+                                              smem);
+    } else {
+        const int log2groups = log2n2 - CP::LOG2COLS;
+        const int gmask = (1 << log2groups) - 1;
+        for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+            const long long next = tile + gridDim.x;
+            if (COLS * 8 % 16 == 0 && next < tiles && threadIdx.x < N1) {
+                const float2* row = in + ((next >> log2groups) << (LOG2N1 + log2n2)) +
+                                    ((long long)threadIdx.x << log2n2) +
+                                    (((int)next & gmask) << CP::LOG2COLS);
+                if ((reinterpret_cast<unsigned long long>(row) & 15) == 0)
+                    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n"
+                                 :: "l"(row), "r"(COLS * 8) : "memory");
+            }
+            complex_columns_tile<LOG2N1, INV, TS>(in, scratch, tile, c, t, log2n2, log2cap,
+                                                  smem);
+        }
+    }
+}
+
+// Pass A of the packed real kernels (K3b: MODE kPacked, K4b:
+// kPackedTransposed).  blockIdx.x = s * (n2 / COLS) + g: columns g*COLS ...
+// g*COLS + COLS - 1 of real rows 2s and 2s + 1 of `real_rows`, read as z =
+// a + i*b; thread t of column c (threadIdx.x = c*G + t) holds A[t + k*G][j2],
+// k < 16.  B is stored as K1b's (kPacked) or K2b's (kPackedTransposed,
+// 2^log2cap rows a k1) pass A stores it.
+template <int LOG2N1, bool INV, int MODE>
+__global__ void __launch_bounds__(PackedColPlan<LOG2N1>::THREADS,
+                                  PackedColPlan<LOG2N1>::MIN_BLOCKS)
 columns_kernel(const void* __restrict__ in, float2* __restrict__ scratch, int log2n2,
                int log2cap, long long real_rows) {
     using P = Plan<LOG2N1>;
-    using CP = ColPlan<LOG2N1>;
+    using CP = PackedColPlan<LOG2N1>;
     constexpr int N1 = P::N, R = P::POINTS, G = P::GROUP;
+    static_assert(packed_load(MODE), "the complex modes run complex_columns_kernel");
     extern __shared__ float2 smem[];
     const int t = threadIdx.x % G;
     const int c = threadIdx.x / G;
@@ -165,22 +386,16 @@ columns_kernel(const void* __restrict__ in, float2* __restrict__ scratch, int lo
     const long long at = ((long long)t << log2n2) + j2;   // A[t][j2] within a row
 
     float2 v[R];
-    if constexpr (packed_load(MODE)) {
-        const float* a = static_cast<const float*>(in) + (2 * s << log2n) + at;
-        const float* b = a + (1LL << log2n);
-        const bool has_b = 2 * s + 1 < real_rows;
-        float re[R], im[R];
+    const float* a = static_cast<const float*>(in) + (2 * s << log2n) + at;
+    const float* b = a + (1LL << log2n);
+    const bool has_b = 2 * s + 1 < real_rows;
+    float re[R], im[R];
 #pragma unroll
-        for (int k = 0; k < R; ++k) re[k] = a[(long long)(k * G) << log2n2];
+    for (int k = 0; k < R; ++k) re[k] = a[(long long)(k * G) << log2n2];
 #pragma unroll
-        for (int k = 0; k < R; ++k) im[k] = has_b ? b[(long long)(k * G) << log2n2] : 0.0f;
+    for (int k = 0; k < R; ++k) im[k] = has_b ? b[(long long)(k * G) << log2n2] : 0.0f;
 #pragma unroll
-        for (int k = 0; k < R; ++k) v[k] = make_float2(re[k], im[k]);
-    } else {
-        const float2* x = static_cast<const float2*>(in) + (s << log2n) + at;
-#pragma unroll
-        for (int k = 0; k < R; ++k) v[k] = x[(long long)(k * G) << log2n2];
-    }
+    for (int k = 0; k < R; ++k) v[k] = make_float2(re[k], im[k]);
 
     repro::regfft::fft_row<LOG2N1, INV>(v, smem, c * N1, t);
 
@@ -198,22 +413,45 @@ columns_kernel(const void* __restrict__ in, float2* __restrict__ scratch, int lo
     }
 }
 
+// Pass B's CTA in the complex modes (rows_transpose_kernel): as many rows
+// of B as make kStoreRows (16: runs of 128 bytes) within kRowsThreads
+// threads, and at least K1's CTA (Plan<LOG2N2>::MAX_ROWS: 32 rows at n2 =
+// 128); where fewer than kStoreRows fit (n2 >= 2048), C = kStoreRows /
+// MAX_ROWS CTAs of a cluster (up to 16, non-portable) store their rows side
+// by side, reading each other's buffers (tstore.cuh's cluster store).
+constexpr int kStoreRows = 16;
+constexpr int kRowsThreads = 1024;
+template <int LOG2N2>
+struct RowsPlan {
+    using P = Plan<LOG2N2>;
+    static constexpr int G = P::GROUP;
+    static constexpr int FIT = kRowsThreads / G >= 1 ? kRowsThreads / G : 1;
+    static constexpr int WIDE = kStoreRows < FIT ? kStoreRows : FIT;
+    static constexpr int MAX_ROWS = P::MAX_ROWS > WIDE ? P::MAX_ROWS : WIDE;
+    static constexpr int MAX_THREADS = MAX_ROWS * G;
+    static constexpr int MIN_BLOCKS = 65536 / (MAX_THREADS * 64);
+    static constexpr int C = MAX_ROWS >= kStoreRows ? 1
+                           : kStoreRows / MAX_ROWS > 16 ? 16 : kStoreRows / MAX_ROWS;
+    static constexpr int LOG2C = C == 16 ? 4 : C == 8 ? 3 : C == 4 ? 2 : C == 2 ? 1 : 0;
+    static_assert(C == 1 << LOG2C && MAX_THREADS <= 1024, "a cluster of 1 to 16 CTAs");
+};
+
 // Pass B of K1b and K2b: K2's kernel (fft_rows_transpose.cu) over the
-// `rows` rows of B,
-// each of length n2.  Batch-major (T false): row R = s*n1 + k1 and bin k2
-// go to out[s*n + k2*n1 + k1].  TRANSPOSED: R = k1*cap + s (cap =
-// 2^log2cap) goes to out[(k1 + n1*k2)*out_stride + s] where s < valid, and
-// rows with s >= valid load zeros and store nothing.
+// `rows` rows of B, each of length n2, in RowsPlan's wider CTAs.
+// Batch-major (T false): row R = s*n1 + k1 and bin k2 go to out[s*n + k2*n1
+// + k1].  TRANSPOSED: R = k1*cap + s (cap = 2^log2cap) goes to out[(k1 +
+// n1*k2)*out_stride + s] where s < valid, and rows with s >= valid load
+// zeros and store nothing.  The W = C*rows_per_cta rows of a cluster (a CTA
+// where C = 1) are stored side by side: a warp's store is 32/W runs of W*8
+// bytes, or one of 256.
 template <int LOG2N2, bool INV, bool T>
-__global__ void __launch_bounds__(Plan<LOG2N2>::MAX_THREADS, Plan<LOG2N2>::MIN_BLOCKS)
+__global__ void __launch_bounds__(RowsPlan<LOG2N2>::MAX_THREADS, RowsPlan<LOG2N2>::MIN_BLOCKS)
 rows_transpose_kernel(const float2* __restrict__ in, float2* __restrict__ out,
                       long long rows, int log2_rows, int log2n1, int log2cap,
                       long long valid, long long out_stride) {
     using P = Plan<LOG2N2>;
     constexpr int N = P::N, R = P::POINTS, G = P::GROUP;
-    constexpr int C = repro::tstore::store_cluster<LOG2N2, 8>(4);
-    constexpr int LOG2C = C == 4 ? 2 : C == 2 ? 1 : 0;
-    static_assert(C == 1 << LOG2C, "a cluster of 1, 2 or 4 CTAs");
+    constexpr int C = RowsPlan<LOG2N2>::C, LOG2C = RowsPlan<LOG2N2>::LOG2C;
     constexpr int S = N / C;
     extern __shared__ float2 smem[];
     const long long capmask = (1LL << log2cap) - 1;
@@ -447,17 +685,51 @@ rows_split_kernel(const float2* __restrict__ in, float2* __restrict__ out, long 
 template <int LOG2N1, bool INV, int MODE>
 int launch_columns(const void* in, void* scratch, long long rows, int log2n2, int log2cap,
                    long long real_rows, cudaStream_t stream) {
-    using CP = ColPlan<LOG2N1>;
     static int configured_smem = 48 * 1024;
-    const long long smem = (long long)sizeof(float2) *
-                           repro::regfft::exchange_elems(CP::COLS, 1 << LOG2N1);
-    int err = repro::allow_dynamic_smem(columns_kernel<LOG2N1, INV, MODE>,
-                                        &configured_smem, (int)smem);
-    if (err != 0) return err;
-    const long long blocks = rows << (log2n2 - CP::LOG2COLS);
-    if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-    columns_kernel<LOG2N1, INV, MODE><<<(unsigned)blocks, CP::THREADS, (size_t)smem, stream>>>(
-        in, (float2*)scratch, log2n2, log2cap, real_rows);
+    if constexpr (packed_load(MODE)) {
+        using CP = PackedColPlan<LOG2N1>;
+        const long long smem = (long long)sizeof(float2) *
+                               repro::regfft::exchange_elems(CP::COLS, 1 << LOG2N1);
+        int err = repro::allow_dynamic_smem(columns_kernel<LOG2N1, INV, MODE>,
+                                            &configured_smem, (int)smem);
+        if (err != 0) return err;
+        const long long blocks = rows << (log2n2 - CP::LOG2COLS);
+        if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+        columns_kernel<LOG2N1, INV, MODE><<<(unsigned)blocks, CP::THREADS, (size_t)smem,
+                                            stream>>>(in, (float2*)scratch, log2n2, log2cap,
+                                                      real_rows);
+    } else {
+        using CP = ColPlan<LOG2N1>;
+        constexpr bool TS = transposed_store(MODE);
+        const long long smem = (long long)sizeof(float2) *
+                               repro::regfft::exchange_elems(CP::COLS, 1 << LOG2N1);
+        int err = repro::allow_dynamic_smem(complex_columns_kernel<LOG2N1, INV, TS>,
+                                            &configured_smem, (int)smem);
+        if (err != 0) return err;
+        const long long tiles = rows << (log2n2 - CP::LOG2COLS);
+        long long blocks = tiles;
+        if constexpr (kPersistentColumns) {
+            static int resident = 0;
+            if (resident == 0) {
+                int device = 0, sms = 0, per_sm = 0;
+                cudaError_t e = cudaGetDevice(&device);
+                if (e == cudaSuccess)
+                    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+                if (e == cudaSuccess)
+                    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                        &per_sm, complex_columns_kernel<LOG2N1, INV, TS>, CP::THREADS,
+                        (size_t)smem);
+                if (e != cudaSuccess) return (int)e;
+                resident = sms * per_sm;
+            }
+            if (resident > 0 && blocks > resident) blocks = resident;
+        }
+        if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+        complex_columns_kernel<LOG2N1, INV, TS><<<(unsigned)blocks, CP::THREADS, (size_t)smem,
+                                                  stream>>>((const float2*)in,
+                                                            (float2*)scratch, tiles, log2n2,
+                                                            log2cap);
+    }
     return (int)cudaGetLastError();
 }
 
@@ -466,7 +738,7 @@ int launch_rows(const void* scratch, void* out, long long rows, int log2n1, int 
                 long long valid, long long out_stride, int rows_per_cta, int threads,
                 cudaStream_t stream) {
     using P = Plan<LOG2N2>;
-    if (rows_per_cta < 1 || rows_per_cta > P::MAX_ROWS ||
+    if (rows_per_cta < 1 || rows_per_cta > RowsPlan<LOG2N2>::MAX_ROWS ||
         (rows_per_cta & (rows_per_cta - 1)) || threads != rows_per_cta * P::GROUP)
         return (int)cudaErrorInvalidValue;
     static int configured_smem = 48 * 1024;
@@ -475,11 +747,21 @@ int launch_rows(const void* scratch, void* out, long long rows, int log2n1, int 
     int err = repro::allow_dynamic_smem(rows_transpose_kernel<LOG2N2, INV, T>,
                                         &configured_smem, (int)smem);
     if (err != 0) return err;
+    constexpr int C = RowsPlan<LOG2N2>::C;
+    if constexpr (C > 8) {
+        static bool nonportable = false;
+        if (!nonportable) {
+            err = (int)cudaFuncSetAttribute(rows_transpose_kernel<LOG2N2, INV, T>,
+                                            cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+            if (err != 0) return err;
+            nonportable = true;
+        }
+    }
     int log2_rows = 0;
     while ((1 << log2_rows) < rows_per_cta) ++log2_rows;
     static int active_clusters = 0;
     const long long ctas = (rows + rows_per_cta - 1) / rows_per_cta;
-    return repro::tstore::launch<repro::tstore::store_cluster<LOG2N2, 8>(4)>(
+    return repro::tstore::launch<C>(
         rows_transpose_kernel<LOG2N2, INV, T>, ctas, threads, smem, stream,
         &active_clusters, (const float2*)scratch, (float2*)out, rows, log2_rows, log2n1,
         log2cap, valid, out_stride);

@@ -16,7 +16,8 @@
 //   32).  It runs the length-n1 DFT down each column with regfft.cuh's
 //   passes, the columns interleaved in the exchange buffer (element f of
 //   column c at f*COLS + c: a half-warp touches 16 consecutive slots), and
-//   multiplies by the twiddle w_n^(k1*j2) (column_twiddles).
+//   multiplies by the twiddle w_n^(k1*j2) (column_fft and column_twiddles
+//   of fourstep.cuh, which the two passes' pass A shares).
 // - Exchange: B[k1][j2] goes to rank k1 / W (W = n1/C rows of B a rank),
 //   local row rho = k1 % W, slot rho*n2 + j2 of row g's part, by a store
 //   through distributed shared memory (map_shared_rank).  k1 = t + k*G1 and
@@ -95,79 +96,6 @@ struct ClusterPlan {
                   "sectors (runs of W rows of B, or of R signal rows side by side)");
     static_assert(G2 >= 16, "the row phase's loads: 16 consecutive j2 a half-warp");
 };
-
-// The length-N1 DFT down column c of COLS columns, regfft.cuh's
-// radix16_passes and fft_row with the columns interleaved in the buffer:
-// element f of column c at f*COLS + c, so that a half-warp (16 consecutive
-// c, one t) reads and writes 16 consecutive slots.  (regfft's layout, rows
-// side by side with a float2 of padding per 16, puts those 16 columns
-// n1*17/16 slots apart: on 4, 2 or 1 of the 16 banks at n1 = 64, 128, 256.)
-// In: v[k] = A[t + k*G][c].  Out: v[k] = Y[t + k*G][c], scaled by 1/N1 when
-// INV.
-template <int LOG2N1, int COLS, bool INV>
-__device__ __forceinline__ void column_fft(float2 (&v)[16], float2* buf, int c, int t) {
-    using P = Plan<LOG2N1>;
-    constexpr int G = P::GROUP;
-#pragma unroll
-    for (int pass = 0; pass < P::RADIX16_PASSES; ++pass) {
-        repro::regfft::dft16<INV>(v);
-        if (pass == P::RADIX16_PASSES - 1 && P::TAIL_LOG2 == 0) break;
-        const int log2s = 4 * pass;
-        const int j = t >> log2s;
-        const int q = t & ((1 << log2s) - 1);
-        repro::regfft::twiddle16<INV>(v, j, LOG2N1 - log2s);
-        const int f0 = ((j << 4) << log2s) + q;
-        __syncthreads();  // the previous exchange's reads are done
-#pragma unroll
-        for (int u = 0; u < 16; ++u) buf[(f0 + (u << log2s)) * COLS + c] = v[u];
-        __syncthreads();
-#pragma unroll
-        for (int k = 0; k < 16; ++k) v[k] = buf[(t + k * G) * COLS + c];
-    }
-    if constexpr (P::TAIL_LOG2 > 0) {
-        constexpr int r = 1 << P::TAIL_LOG2;
-        constexpr int B = 16 / r;
-#pragma unroll
-        for (int b = 0; b < B; ++b) {
-            float2 w[r];
-#pragma unroll
-            for (int u = 0; u < r; ++u) w[u] = v[b + u * B];
-            repro::regfft::dft<r, INV>(w);
-#pragma unroll
-            for (int u = 0; u < r; ++u) v[b + u * B] = w[u];
-        }
-    }
-    if constexpr (INV) {
-#pragma unroll
-        for (int k = 0; k < 16; ++k) v[k] = repro::cscale(v[k], 1.0f / (float)P::N);
-    }
-}
-
-// v[k] *= w_n^(k1*j2), k1 = t + k*g, n = 2^log2n <= 2^24.  With k = 4*kh +
-// kl: w^(k1*j2) = h_kh * b^kl, h_kh = w^((t + 4*kh*g)*j2) and b = w^(g*j2),
-// each from sincospif of an exact argument: the exponents are integers below
-// n (t + 4*kh*g < n1, j2 < n2), exact in float while n <= 2^24, and the step
-// 2/n is a power of two, so their product is exact too.  b^kl by running
-// products: five sincospif a thread, where twiddle<INV> would take two a
-// point, and good to a few ulps.
-template <bool INV>
-__device__ __forceinline__ void column_twiddles(float2 (&v)[16], int t, int g, int j2,
-                                                int log2n) {
-    const float step = (INV ? 1.0f : -1.0f) * exp2i(1 - log2n);   // sign * 2/n
-    float sn, cs;
-    sincospif((float)(g * j2) * step, &sn, &cs);
-    const float2 b = make_float2(cs, sn);
-#pragma unroll
-    for (int kh = 0; kh < 4; ++kh) {
-        sincospif((float)((t + 4 * kh * g) * j2) * step, &sn, &cs);
-        float2 w = make_float2(cs, sn);
-#pragma unroll
-        for (int kl = 0; kl < 4; ++kl) {
-            v[4 * kh + kl] = cmul(v[4 * kh + kl], w);
-            if (kl < 3) w = cmul(w, b);
-        }
-    }
-}
 
 // blockIdx.x = q*C + r: rank r of the cluster of signal rows q*R ... q*R +
 // R - 1 (rows past `rows` are masked).  TRANSPOSED stores bin k of row s to

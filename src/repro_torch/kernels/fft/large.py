@@ -21,9 +21,13 @@ then the length-n2 DFTs of its n1/C rows of B and the transposed store
 ``out[k1 + n1*k2]`` (``cluster_plan`` mirrors its shape).  From 2^19 the
 two passes of ``csrc/fft_rows_large.cu`` do it: pass A runs the column DFTs
 and the twiddle, writing B in A's layout to a scratch buffer in device
-memory; pass B runs the row DFTs and stores them transposed (K2's function
-on each row's (n1, n2) matrix).  The inverse conjugates the twiddles, and
-its 1/n1 and 1/n2 scales make 1/n.
+memory, with the columns fastest in a warp (``columns_plan``: 32 columns a
+CTA up to n1 = 512, so a warp moves 256 contiguous bytes of a row of the
+view) and five base twiddles a thread; pass B runs the row DFTs and stores
+them transposed (K2's function on each row's (n1, n2) matrix) in CTAs, or
+clusters of them, that put at least ``STORE_ROWS`` rows side by side
+(``rows_plan``: runs of 128 bytes or more).  The inverse conjugates the twiddles, and its 1/n1 and
+1/n2 scales make 1/n.
 
 Its fused and real siblings K2b, K3b, K4b (``kernels.fused.large``,
 ``kernels.fft.real_large``, ``kernels.fused.real_large``) run the same two
@@ -45,20 +49,28 @@ import math
 
 import torch
 
-from repro_torch.kernels.fft.kernel import (_CTA_THREADS, _POINTS, MAX_KERNEL_N,
-                                            check_kernel_input, complex_rows_plan,
-                                            launch, stockham_planes_radix4)
+from repro_torch.kernels.fft.kernel import (_CTA_THREADS, _MIN_CTAS, _POINTS, MAX_KERNEL_N,
+                                            check_kernel_input, launch,
+                                            stockham_planes_radix4)
 
-__all__ = ["CLUSTER_CTAS", "CLUSTER_LENGTHS", "CLUSTER_MAX_N", "MIN_FACTOR",
-           "SCRATCH_ELEMS", "cluster_plan", "columns_plan",
+__all__ = ["CLUSTER_CTAS", "CLUSTER_LENGTHS", "CLUSTER_MAX_N", "COLUMNS", "MIN_FACTOR",
+           "ROWS_THREADS", "SCRATCH_ELEMS", "STORE_ROWS", "cluster_plan", "columns_plan",
            "fft_rows_cluster_cuda", "fft_rows_large_cuda", "fft_rows_large_plain",
            "kernel_split", "large_split", "large_twiddle", "launch_count",
-           "long_cluster_launch_count", "reset_launch_count", "scratch_capacity", "scratch_rows",
-           "two_pass_launch_count"]
+           "long_cluster_launch_count", "reset_launch_count",
+           "rows_plan", "scratch_capacity", "scratch_rows", "two_pass_launch_count",
+           "two_pass_split"]
 
 # The kernel's factors n1 and n2 lie in [MIN_FACTOR, MAX_KERNEL_N]
 # (``kMinLog2`` and ``kMaxLog2`` of ``csrc/fft_rows_large.cu``).
 MIN_FACTOR = 128
+# Pass A's columns a CTA in the complex modes where they fit (``kColumns`` of
+# ``csrc/fourstep.cuh``), and the rows of B pass B stores side by side at
+# least (``kStoreRows``: 128-byte runs).
+COLUMNS = 32
+STORE_ROWS = 16
+# The threads a pass-B CTA may take to hold them (``kRowsThreads``).
+ROWS_THREADS = 1024
 # Complex64 elements of scratch a call allocates at most (1 GiB), unless one
 # row alone is longer.
 SCRATCH_ELEMS = 1 << 27
@@ -116,17 +128,40 @@ def large_split(n: int, *, n1: int | None = None,
 
 
 def columns_plan(n1: int) -> tuple[int, int, int]:
-    """Pass A's launch shape for columns of length ``n1`` (``ColPlan`` of
-    ``csrc/fft_rows_large.cu``): ``(cols, threads, smem_bytes)``.  A CTA
-    takes ``cols`` adjacent columns of one row, n1/16 threads a column with
-    16 points each, as many columns as make 256 threads and at least 4 (32
-    bytes of each row of the view), but no more than 1024 threads hold."""
+    """Pass A's launch shape in the complex modes (K1b, K2b) for columns of
+    length ``n1`` (``ColPlan`` of ``csrc/fourstep.cuh``): ``(cols, threads,
+    smem_bytes)``.  A CTA takes ``cols`` adjacent columns of one row, n1/16
+    threads a column with 16 points each, thread t*cols + c on column c (the
+    columns fastest): ``COLUMNS`` where they fit in 1024 threads (n1 <=
+    512), so that a warp loads and stores 32 adjacent elements of a row of
+    the view, 256 contiguous bytes; else as many as 1024 threads hold (16 at
+    n1 = 1024 ... 1 at 16384).  The exchange buffer interleaves the columns
+    (below 16 of them padded by ``cols`` slots a block of 16*cols) and
+    takes as many bytes as regfft's for ``cols`` rows of n1."""
     group = n1 // _POINTS
-    cols = max(4, _CTA_THREADS // group)
-    if cols * group > 1024:
-        cols = 1024 // group
+    cols = COLUMNS if COLUMNS * group <= 1024 else 1024 // group
     elements = cols * n1
     return cols, cols * group, 8 * (elements + -(-elements // 16))
+
+
+def rows_plan(n2: int, rows: int) -> tuple[int, int, int]:
+    """Pass B's launch shape in the complex modes (``RowsPlan`` of
+    ``csrc/fourstep.cuh``) for ``rows`` rows of B of length ``n2``:
+    ``(rows_per_cta, threads, ctas)``.  A CTA holds as many rows as make
+    ``STORE_ROWS`` (16: runs of 128 bytes) within ``ROWS_THREADS`` threads,
+    and at least K1's CTA (``complex_rows_plan``: 32 rows at n2 = 128),
+    fewer (down to one row or one warp) while the grid would not fill the
+    card, as K1's; where fewer than ``STORE_ROWS`` fit (n2 >= 2048),
+    ``ctas`` CTAs of a cluster (up to 16) store their rows side by side.  A
+    warp's store then writes runs of 8*min(rows_per_cta*ctas, 32) bytes."""
+    group = n2 // _POINTS
+    wide = min(STORE_ROWS, max(1, ROWS_THREADS // group))
+    most = max(max(1, _CTA_THREADS // group), wide)
+    per_cta = most
+    while per_cta > 1 and per_cta * group > 32 and -(-rows // per_cta) < _MIN_CTAS:
+        per_cta //= 2
+    ctas = 1 if most >= STORE_ROWS else min(16, STORE_ROWS // most)
+    return per_cta, per_cta * group, ctas
 
 
 def cluster_plan(n: int) -> tuple[int, int, int, int, int]:
@@ -213,6 +248,22 @@ def fft_rows_large_plain(x: torch.Tensor, *, inverse: bool = False,
     return c.transpose(1, 2).reshape(rows, n)
 
 
+def two_pass_split(n: int) -> tuple[int, int]:
+    """The two passes' default split ``(n1, n2)`` of a power of two ``n`` in
+    [2^15, 2^28], the one that measured fastest on an H100 over n1 at every
+    length 2^17 ... 2^27 (``examples/kernel_check_torch.py
+    --four-step-two-pass-only``): n2 = 512 up to n = 2^20 (pass B in CTAs
+    of 16 rows of 512 threads), above it the near-square split with n1 >= n2
+    and n1 at most 4096 (pass A's CTA then holds at least 4 columns) while
+    n2 stays at most ``MAX_KERNEL_N``; n1 at least ``MIN_FACTOR``.  The
+    plain versions, the cluster kernels and the packed real kernels' two
+    passes keep ``large_split``'s."""
+    log2n = n.bit_length() - 1
+    n2 = 512 if log2n <= 20 else max(1 << (log2n // 2), n // 4096)
+    n2 = min(n2, MAX_KERNEL_N, n // MIN_FACTOR)
+    return n // n2, n2
+
+
 def kernel_split(n: int, n1: int | None, name: str) -> tuple[int, int]:
     """``large_split(n, n1=n1)`` where both factors lie in the kernels'
     range [``MIN_FACTOR``, ``MAX_KERNEL_N``]; ``name`` is the launcher named
@@ -246,10 +297,10 @@ def fft_rows_large_cuda(x: torch.Tensor, *, inverse: bool = False,
     """K1b on a (rows, n) complex64 CUDA tensor -> its row-wise DFT.  At n <=
     ``CLUSTER_MAX_N`` one launch of the cluster kernel in its rule's shape
     (``fft_rows_cluster_cuda``); above, ``csrc/fft_rows_large.cu``'s two
-    passes by chunk of ``scratch_rows(n)`` rows, both factors of the split
-    (``large_split``, ``n1`` pins it) in [``MIN_FACTOR``, ``MAX_KERNEL_N``];
-    pass A's shape is ``columns_plan(n1)``, pass B's
-    ``complex_rows_plan(n2, chunk_rows*n1)``.  Does not synchronise."""
+    passes by chunk of ``scratch_rows(n)`` rows at the split of
+    ``two_pass_split`` (``n1`` pins it; both factors in [``MIN_FACTOR``,
+    ``MAX_KERNEL_N``]); pass A's shape is ``columns_plan(n1)``, pass B's
+    ``rows_plan(n2, chunk_rows*n1)``.  Does not synchronise."""
     global _launches, _two_pass_launches
     rows, n = check_kernel_input(x, "fft_rows_large_cuda")
     if n <= CLUSTER_MAX_N:
@@ -257,7 +308,8 @@ def fft_rows_large_cuda(x: torch.Tensor, *, inverse: bool = False,
             raise ValueError(f"fft_rows_large_cuda: at n = {n} the cluster kernel runs "
                              "in the split of cluster_plan(n)")
         return fft_rows_cluster_cuda(x, inverse=inverse)
-    n1, n2 = kernel_split(n, n1, "fft_rows_large_cuda")
+    n1, n2 = kernel_split(n, two_pass_split(n)[0] if n1 is None else n1,
+                          "fft_rows_large_cuda")
     out = torch.empty_like(x)
     if rows == 0:
         return out
@@ -265,7 +317,7 @@ def fft_rows_large_cuda(x: torch.Tensor, *, inverse: bool = False,
     scratch = torch.empty((min(rows, chunk), n), dtype=x.dtype, device=x.device)
     for r0 in range(0, rows, chunk):
         r1 = min(rows, r0 + chunk)
-        rows_per_cta, threads, *_ = complex_rows_plan(n2, (r1 - r0) * n1)
+        rows_per_cta, threads, _ = rows_plan(n2, (r1 - r0) * n1)
         launch("repro_fft_rows_large", x[r0:r1], out[r0:r1],
                scratch=scratch.data_ptr(), rows=r1 - r0, n1=n1, n2=n2,
                inverse=int(inverse), rows_per_cta=rows_per_cta, threads=threads)

@@ -33,11 +33,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.fft.kernel import (_POINTS, check_kernel_input,
-                                            complex_rows_plan, launch)
+from repro_torch.kernels.fft.kernel import _POINTS, check_kernel_input, launch
 from repro_torch.kernels.fft.large import (_columns_pass, _rows_pass, kernel_split,
-                                           large_split, scratch_capacity,
-                                           scratch_rows)
+                                           large_split, rows_plan, scratch_capacity,
+                                           scratch_rows, two_pass_split)
 
 __all__ = ["TRANSPOSE_CLUSTER_CTAS", "TRANSPOSE_CLUSTER_LENGTHS",
            "TRANSPOSE_CLUSTER_ROWS", "fft_rows_transpose_cluster_cuda",
@@ -132,14 +131,15 @@ def fft_rows_transpose_large_cuda(x: torch.Tensor, *,
     (n, rows).  At n in ``TRANSPOSE_CLUSTER_LENGTHS`` one launch of the
     cluster kernel (``fft_rows_transpose_cluster_cuda``); above,
     ``csrc/fft_rows_transpose_large.cu``'s two passes by chunk of
-    ``scratch_rows(n)`` rows, both factors of the split (``kernel_split``)
-    in the kernels' range, pass B's shape ``complex_rows_plan(n2, cap*n1)``
-    with cap = ``scratch_capacity(chunk rows)``.  Does not synchronise."""
+    ``scratch_rows(n)`` rows at the split of ``two_pass_split`` (both
+    factors in the kernels' range, ``kernel_split``), pass A's shape
+    ``columns_plan(n1)``, pass B's ``rows_plan(n2, cap*n1)`` with cap =
+    ``scratch_capacity(chunk rows)``.  Does not synchronise."""
     global _launches, _two_pass_launches
     rows, n = check_kernel_input(x, "fft_rows_transpose_large_cuda")
     if n in TRANSPOSE_CLUSTER_LENGTHS:
         return fft_rows_transpose_cluster_cuda(x, inverse=inverse)
-    n1, n2 = kernel_split(n, None, "fft_rows_transpose_large_cuda")
+    n1, n2 = kernel_split(n, two_pass_split(n)[0], "fft_rows_transpose_large_cuda")
     out = torch.empty((n, rows), dtype=x.dtype, device=x.device)
     if rows == 0:
         return out
@@ -148,7 +148,7 @@ def fft_rows_transpose_large_cuda(x: torch.Tensor, *,
                           device=x.device)
     for r0 in range(0, rows, chunk):
         r1 = min(rows, r0 + chunk)
-        rows_per_cta, threads, *_ = complex_rows_plan(n2, scratch_capacity(r1 - r0) * n1)
+        rows_per_cta, threads, _ = rows_plan(n2, scratch_capacity(r1 - r0) * n1)
         launch("repro_fft_rows_transpose_large", x[r0:r1], out[:, r0:],
                scratch=scratch.data_ptr(), rows=r1 - r0, n1=n1, n2=n2,
                inverse=int(inverse), out_stride=rows, rows_per_cta=rows_per_cta,

@@ -360,74 +360,6 @@ def k2_store_model(z, rows: int, plan, *, cluster: int = 1):
     return (None if out is None else out[:, :rows]), writes, worst, runs
 
 
-def k1b_model(x, n1: int, n2: int, cols: int, plan_b, cluster: int, *,
-              rows: int | None = None, inverse: bool = False):
-    """K1b, the four-step row kernel of long rows (``csrc/fft_rows_large.cu``),
-    in float64, thread by thread, in its launch shape: ``x`` the (rows,
-    n1*n2) complex rows, or None for the pattern alone (then ``rows``).
-
-    Pass A: CTA b = s*(n2/cols) + g takes columns g*cols ... g*cols + cols -
-    1 of row s; thread c*G + t (G = n1/16) loads A[t + k*G][j2] =
-    x[s*n + (t + k*G)*n2 + j2] for k < 16, and after the column DFT (here
-    ``np.fft``: the passes are ``kernel_pass_model``'s) stores
-    Y[k1][j2] * w_n^(k1*j2) at the same address of the scratch, k1 = t + k*G.
-    Pass B: K2's store (``k2_store_model`` in ``plan_b`` =
-    ``complex_rows_plan(n2, rows*n1)`` and ``cluster``) over the rows*n1
-    rows of the scratch, each (k2, row R = s*n1 + k1) sent to
-    out[s*n + k2*n1 + k1].
-
-    Returns ``(out, reads_a, writes_a, sectors_a, writes_b, runs_b)``: the
-    (rows, n) result (None without ``x``); how often pass A read and wrote
-    each scratch element; whether every step k of every pass-A CTA touches
-    whole 32-byte sectors (4 complex64) only; how often pass B wrote each
-    output element; and ``k2_store_model``'s runs (bytes, contiguous, full)
-    of pass B's warps."""
-    n = n1 * n2
-    rows = x.shape[0] if x is not None else rows
-    group = n1 // 16
-    threads, groups = cols * group, n2 // cols
-    tid = np.arange(threads)
-    c, t = tid // group, tid % group
-    k = np.arange(16)[:, None]
-    block = np.arange(rows * groups)
-    s, g = block // groups, block % groups
-    j2 = g[:, None, None] * cols + c                                   # (B, 1, T)
-    j1 = t + k * group                                                 # (16, T)
-    addr = s[:, None, None] * n + j1[None] * n2 + j2                   # (B, 16, T)
-    reads_a = np.bincount(addr.ravel(), minlength=rows * n)
-    writes_a = reads_a.copy()                  # pass A stores where it loaded
-    steps = np.sort(addr.reshape(-1, threads), axis=1).reshape(-1, threads // 4, 4)
-    sectors_a = bool((steps[..., 0] % 4 == 0).all()
-                     and (np.diff(steps, axis=-1) == 1).all())
-    z = None
-    if x is not None:
-        xx = np.asarray(x, np.complex128).reshape(-1)
-        col = np.zeros((rows * groups, cols, n1), np.complex128)
-        col[:, c[None, :].repeat(16, 0), j1] = xx[addr]
-        y = np.fft.ifft(col, axis=-1) if inverse else np.fft.fft(col, axis=-1)
-        sign = 1.0 if inverse else -1.0
-        k1 = np.arange(n1)
-        jj = g[:, None] * cols + np.arange(cols)                       # (B, cols)
-        y = y * np.exp(sign * 2j * np.pi * ((jj[:, :, None] * k1) % n) / n)
-        scratch = np.zeros(rows * n, np.complex128)
-        scratch[addr] = y[np.arange(rows * groups)[:, None, None],
-                          c[None, None, :], j1[None]]
-        b = scratch.reshape(rows * n1, n2)
-        z = torch.from_numpy(np.fft.ifft(b, axis=-1) if inverse else np.fft.fft(b, axis=-1))
-    out_t, writes_t, _, runs_b = k2_store_model(z, rows * n1, plan_b, cluster=cluster)
-    big_r = np.arange(rows * n1)
-    dest = (big_r // n1) * n + np.arange(n2)[:, None] * n1 + big_r % n1   # (n2, R)
-    writes_b = np.zeros(rows * n, np.int64)
-    np.add.at(writes_b, dest[writes_t[:, :rows * n1] > 0],
-              writes_t[:, :rows * n1][writes_t[:, :rows * n1] > 0])
-    out = None
-    if out_t is not None:
-        out = np.zeros(rows * n, np.complex128)
-        out[dest] = out_t
-        out = out.reshape(rows, n)
-    return out, reads_a, writes_a, sectors_a, writes_b, runs_b
-
-
 def _warp_sectors_whole(addr: np.ndarray) -> bool:
     """Whether every warp instruction of ``addr`` (..., T) in complex64
     elements, T a multiple of 32, touches whole 32-byte sectors (4
@@ -985,74 +917,195 @@ def cluster_twiddle_model(n: int, g: int, t: np.ndarray, j2: np.ndarray, *,
     return out
 
 
-def _pass_a_addresses(rows: int, n1: int, n2: int, cols: int):
-    """Pass A's launch (``columns_kernel``): CTA b = s*(n2/cols) + g, thread
-    c*G + t (G = n1/16) of column j2 = g*cols + c holds j1 = t + k*G, k < 16.
-    Returns ``(s, g, c, j1, j2)`` broadcast to (B, 16, T) where it matters:
-    ``s`` (B, 1, 1), ``j1`` (1, 16, T), ``j2`` (B, 1, T)."""
+def column_slot(x: np.ndarray, cols: int) -> np.ndarray:
+    """``column_slot<COLS>`` of ``csrc/fourstep.cuh``: element x = f*cols + c
+    of the column exchange at x itself (cols >= 16), else padded by cols
+    slots a block of 16*cols."""
+    return x if cols >= 16 else x + x // (16 * cols) * cols
+
+
+def pass_a_twiddle_model(n: int, g: int, t: np.ndarray, j2: np.ndarray, *,
+                         inverse: bool = False) -> np.ndarray:
+    """Pass A's twiddles in the complex modes (``column_twiddles<INV, true>``
+    of ``csrc/fourstep.cuh``) in float32 arithmetic: w_n^(k1*j2) for k1 = t
+    + k*g, k < 16, as h_kh * b^kl (k = 4*kh + kl) with the five base values
+    h_kh = w^((t + 4*kh*g)*j2) and b = w^(g*j2) each ``large_twiddle``'s
+    split (``twiddle<INV>``), b^kl by running complex64 products.  Returns
+    complex64 of shape (16,) + broadcast(t, j2).shape."""
+    from repro_torch.kernels.fft.large import large_twiddle
+
+    t, j2 = np.broadcast_arrays(np.asarray(t, np.int64), np.asarray(j2, np.int64))
+
+    def base(m):
+        return large_twiddle(torch.from_numpy(np.ascontiguousarray(m)), n,
+                             inverse=inverse).numpy()
+
+    b = base(g * j2)
+    out = np.empty((16,) + t.shape, np.complex64)
+    for kh in range(4):
+        w = base((t + 4 * kh * g) * j2)
+        for kl in range(4):
+            out[4 * kh + kl] = w
+            w = (w * b).astype(np.complex64)
+    return out
+
+
+def pass_a_model(x, n1: int, n2: int, *, rows: int | None = None,
+                 transposed: bool = False, inverse: bool = False, tiles=None):
+    """Pass A of K1b and K2b (``complex_columns_kernel`` of
+    ``csrc/fourstep.cuh``) in float64, thread by thread, in its launch shape
+    ``columns_plan(n1) = (cols, threads, smem)``: ``x`` the (rows, n1*n2)
+    complex rows, or None for the pattern alone (then ``rows``); ``tiles``
+    (default: all) the tiles simulated.
+
+    Tile b = s*(n2/cols) + g holds columns j2 = g*cols + c of row s; thread
+    t*cols + c (G = n1/16 threads a column) loads A[t + k*G][j2] =
+    x[s*n + (t + k*G)*n2 + j2], k < 16; the column DFT's exchanges put
+    element f of column c at ``column_slot(f*cols + c)``; the result Y[k1][j2]
+    times the exact twiddle w_n^(k1*j2), k1 = t + k*G, goes to the scratch
+    at the load's own address ([s][k1][j2]) or, ``transposed``, at (k1*cap +
+    s)*n2 + j2, cap = the least power of two >= rows.
+
+    Returns a dict: ``load`` and ``store`` (tiles, 16, T) element addresses;
+    ``reads``, ``writes`` how often each input and scratch element was
+    loaded and stored (over the simulated tiles); ``loads_whole``,
+    ``stores_whole`` whether every warp instruction touches whole 32-byte
+    sectors only; ``loads_256``, ``stores_256`` whether every warp
+    instruction is 32 consecutive elements from a 256-byte boundary;
+    ``worst_bank`` the worst count of a half-warp's lanes on one bank over
+    the column exchanges' writes and reads; ``scratch`` the (cap or rows)*n
+    scratch (None without ``x``); ``cap`` and ``plan``."""
+    from repro_torch.kernels.fft.large import columns_plan
+
+    n = n1 * n2
+    rows = x.shape[0] if x is not None else rows
+    cap = 1 << max(0, rows - 1).bit_length() if transposed else rows
+    cols, threads, smem = columns_plan(n1)
     group = n1 // 16
-    tid = np.arange(cols * group)
-    c, t = tid // group, tid % group
+    tid = np.arange(threads)
+    c, t = tid % cols, tid // cols
     groups = n2 // cols
-    block = np.arange(rows * groups)
-    s, g = block // groups, block % groups
+    tile = np.arange(rows * groups) if tiles is None else np.asarray(tiles)
+    s, g = tile // groups, tile % groups
     j2 = g[:, None, None] * cols + c                                   # (B, 1, T)
-    j1 = (t + np.arange(16)[:, None] * group)[None]                    # (1, 16, T)
-    return s[:, None, None], g, c, j1, j2
+    k1 = t + np.arange(16)[:, None] * group                            # (16, T)
+    load = s[:, None, None] * n + k1[None] * n2 + j2                   # (B, 16, T)
+    store = (k1[None] * cap + s[:, None, None]) * n2 + j2 if transposed else load
+    reads = np.bincount(load.ravel(), minlength=rows * n)
+    writes = np.bincount(store.ravel(), minlength=cap * n)
+
+    def runs_256(addr):
+        warps = addr.reshape(-1, 32)
+        return bool((np.diff(warps, axis=1) == 1).all() and (warps[:, 0] % 32 == 0).all())
+
+    worst = 1
+    log2n1 = n1.bit_length() - 1
+    elems = smem // 8
+    for p in range(log2n1 // 4 - (log2n1 % 4 == 0)):
+        log2s = 4 * p
+        jj, qq = t >> log2s, t & ((1 << log2s) - 1)
+        f = (((jj << 4) << log2s) + qq) + (np.arange(16)[:, None] << log2s)   # (16, T)
+        put = column_slot(f * cols + c, cols)
+        get = column_slot(k1 * cols + c, cols)
+        # As the kernel adds them: one slot a thread plus constants.
+        base = column_slot((((jj << 4) << log2s) + qq) * cols + c, cols)
+        assert np.array_equal(put, base + column_slot((np.arange(16)[:, None] << log2s) * cols,
+                                                      cols))
+        assert np.array_equal(get, column_slot(t * cols + c, cols)
+                              + column_slot(np.arange(16)[:, None] * group * cols, cols))
+        assert np.unique(put).size == 16 * threads and put.max() < elems
+        assert np.array_equal(np.sort(put.ravel()), np.sort(get.ravel()))
+        worst = max(worst, _half_warp_banks(put), _half_warp_banks(get))
+    scratch = None
+    if x is not None:
+        xx = np.asarray(x, np.complex128).reshape(-1)
+        colv = np.zeros((tile.size, cols, n1), np.complex128)
+        cc, kk1 = np.broadcast_to(c, (16, threads)), np.broadcast_to(k1, (16, threads))
+        colv[:, cc, kk1] = xx[load]
+        y = (np.fft.ifft if inverse else np.fft.fft)(colv, axis=-1)
+        sign = 1.0 if inverse else -1.0
+        jj = g[:, None] * cols + np.arange(cols)                        # (B, cols)
+        y = y * np.exp(sign * 2j * np.pi * ((jj[:, :, None] * np.arange(n1)) % n) / n)
+        scratch = np.zeros(cap * n, np.complex128)
+        scratch[store] = y[:, cc, kk1]
+    return {"load": load, "store": store, "reads": reads, "writes": writes,
+            "loads_whole": _warp_sectors_whole(load), "stores_whole": _warp_sectors_whole(store),
+            "loads_256": runs_256(load), "stores_256": runs_256(store), "worst_bank": worst,
+            "scratch": scratch, "cap": cap, "plan": (cols, threads, smem)}
 
 
-def _whole_sectors(addr: np.ndarray, threads: int) -> bool:
-    """Whether every step of every CTA (``addr`` (B, 16, T) in complex64
-    elements) touches whole 32-byte sectors (4 elements) only."""
-    steps = np.sort(addr.reshape(-1, threads), axis=1).reshape(-1, threads // 4, 4)
-    return bool((steps[..., 0] % 4 == 0).all() and (np.diff(steps, axis=-1) == 1).all())
+def pass_b_plan(n2: int, brows: int):
+    """Pass B's launch shape for ``brows`` rows of B (``rows_plan``) as
+    ``k2_store_model`` takes it: ``((rows_per_cta, threads, 16), ctas)``."""
+    from repro_torch.kernels.fft.large import rows_plan
+
+    rows_per_cta, threads, ctas = rows_plan(n2, brows)
+    return (rows_per_cta, threads, 16), ctas
 
 
-def k2b_model(x, n1: int, n2: int, cols: int, plan_b, cluster: int, *,
-              rows: int | None = None, out_stride: int | None = None, r0: int = 0,
-              inverse: bool = False):
-    """K2b, the four-step fused row kernel of long rows
-    (``csrc/fft_rows_transpose_large.cu``, ``csrc/fourstep.cuh``), in
-    float64, thread by thread, for one chunk of ``rows`` rows (those of
-    ``x``, or the pattern alone) stored to columns ``r0 ...`` of an
-    (n, ``out_stride``) output.
+def k1b_model(x, n1: int, n2: int, *, rows: int | None = None, inverse: bool = False):
+    """K1b's two passes (``csrc/fft_rows_large.cu`` on ``csrc/fourstep.cuh``)
+    in float64, thread by thread, in their launch shapes: ``x`` the (rows,
+    n1*n2) complex rows, or None for the pattern alone (then ``rows``).
 
-    Pass A is K1b's (``k1b_model``) but stores B[k1][j2] of row s at
-    (k1*cap + s)*n2 + j2, cap = the least power of two >= rows: the rows of
-    one k1 side by side.  Pass B is K2's store (``k2_store_model`` in
-    ``plan_b`` = ``complex_rows_plan(n2, cap*n1)`` and ``cluster``) over the
-    cap*n1 rows of the scratch, row R = k1*cap + s and bin k2 sent to
-    out[k1 + n1*k2, r0 + s] where s < rows (the others load zeros and store
-    nothing).
+    Pass A: ``pass_a_model``, B stored as [s][k1][j2].  Pass B: K2's store
+    (``k2_store_model``) in pass B's shape (``pass_b_plan(n2, rows*n1)``:
+    P rows a CTA, clusters of C) over the rows*n1 rows of the scratch, each
+    (k2, row R = s*n1 + k1) sent to out[s*n + k2*n1 + k1].
 
-    Returns ``(out, reads_a, writes_a, sectors_a, writes_b, runs_b, cap)``:
-    the (n, out_stride) result (None without ``x``); how often pass A read
-    each input element and wrote each of the cap*n scratch elements;
-    whether every step of every pass-A CTA loads and stores whole 32-byte
-    sectors; how often pass B wrote each output element; the runs of
-    ``k2_store_model`` (bytes, contiguous, full) and cap."""
+    Returns ``(out, pass_a, writes_b, runs_b, plan_b, cluster)``: the (rows,
+    n) result (None without ``x``); ``pass_a_model``'s dict; how often pass
+    B wrote each output element; ``k2_store_model``'s runs (bytes,
+    contiguous, full) of pass B's warps; its plan and cluster."""
+    n = n1 * n2
+    rows = x.shape[0] if x is not None else rows
+    pass_a = pass_a_model(x, n1, n2, rows=rows, inverse=inverse)
+    plan_b, cluster = pass_b_plan(n2, rows * n1)
+    z = None
+    if x is not None:
+        b = pass_a["scratch"].reshape(rows * n1, n2)
+        z = torch.from_numpy(np.fft.ifft(b, axis=-1) if inverse else np.fft.fft(b, axis=-1))
+    out_t, writes_t, _, runs_b = k2_store_model(z, rows * n1, plan_b, cluster=cluster)
+    big_r = np.arange(rows * n1)
+    dest = (big_r // n1) * n + np.arange(n2)[:, None] * n1 + big_r % n1   # (n2, R)
+    live = writes_t[:, :rows * n1] > 0
+    writes_b = np.zeros(rows * n, np.int64)
+    np.add.at(writes_b, dest[live], writes_t[:, :rows * n1][live])
+    out = None
+    if out_t is not None:
+        out = np.zeros(rows * n, np.complex128)
+        out[dest] = out_t
+        out = out.reshape(rows, n)
+    return out, pass_a, writes_b, runs_b, plan_b, cluster
+
+
+def k2b_model(x, n1: int, n2: int, *, rows: int | None = None,
+              out_stride: int | None = None, r0: int = 0, inverse: bool = False):
+    """K2b's two passes (``csrc/fft_rows_transpose_large.cu`` on
+    ``csrc/fourstep.cuh``) in float64, thread by thread, for one chunk of
+    ``rows`` rows (those of ``x``, or the pattern alone) stored to columns
+    ``r0 ...`` of an (n, ``out_stride``) output.
+
+    Pass A: ``pass_a_model`` with B stored as [k1][s][j2], cap rows a k1 (the
+    least power of two >= rows): the rows of one k1 side by side.  Pass B:
+    K2's store (``k2_store_model``) in pass B's shape (``pass_b_plan(n2,
+    cap*n1)``) over the cap*n1 rows of the scratch, row R = k1*cap + s and
+    bin k2 sent to out[k1 + n1*k2, r0 + s] where s < rows (the others load
+    zeros and store nothing).
+
+    Returns ``(out, pass_a, writes_b, runs_b, plan_b, cluster)``: the (n,
+    out_stride) result (None without ``x``); ``pass_a_model``'s dict; how
+    often pass B wrote each output element; ``k2_store_model``'s runs
+    (bytes, contiguous, full); pass B's plan and cluster."""
     n = n1 * n2
     rows = x.shape[0] if x is not None else rows
     out_stride = rows if out_stride is None else out_stride
-    cap = 1 << max(0, rows - 1).bit_length()
-    threads = cols * (n1 // 16)
-    s, g, c, j1, j2 = _pass_a_addresses(rows, n1, n2, cols)
-    addr = s * n + j1 * n2 + j2                                        # (B, 16, T)
-    dst = (j1 * cap + s) * n2 + j2
-    reads_a = np.bincount(addr.ravel(), minlength=rows * n)
-    writes_a = np.bincount(dst.ravel(), minlength=cap * n)
-    sectors_a = _whole_sectors(addr, threads) and _whole_sectors(dst, threads)
+    pass_a = pass_a_model(x, n1, n2, rows=rows, transposed=True, inverse=inverse)
+    cap = pass_a["cap"]
+    plan_b, cluster = pass_b_plan(n2, cap * n1)
     z = None
     if x is not None:
-        xx = np.asarray(x, np.complex128).reshape(rows, n1, n2)
-        y = np.fft.ifft(xx, axis=1) if inverse else np.fft.fft(xx, axis=1)
-        sign = 1.0 if inverse else -1.0
-        k1 = np.arange(n1)[:, None]
-        y = y * np.exp(sign * 2j * np.pi * ((k1 * np.arange(n2)) % n) / n)
-        scratch = np.zeros(cap * n, np.complex128)
-        scratch[dst] = y[np.broadcast_to(s, dst.shape), np.broadcast_to(j1, dst.shape),
-                         np.broadcast_to(j2, dst.shape)]
-        b = scratch.reshape(cap * n1, n2)
+        b = pass_a["scratch"].reshape(cap * n1, n2)
         b[np.arange(cap * n1) % cap >= rows] = 0      # masked rows load zeros
         z = torch.from_numpy(np.fft.ifft(b, axis=-1) if inverse else np.fft.fft(b, axis=-1))
     out_t, writes_t, _, runs_b = k2_store_model(z, cap * n1, plan_b, cluster=cluster)
@@ -1067,7 +1120,7 @@ def k2b_model(x, n1: int, n2: int, cols: int, plan_b, cluster: int, *,
         out = np.zeros(n * out_stride, np.complex128)
         out[dest[live]] = out_t[live]
         out = out.reshape(n, out_stride)
-    return out, reads_a, writes_a, sectors_a, writes_b, runs_b, cap
+    return out, pass_a, writes_b, runs_b, plan_b, cluster
 
 
 def real_pass_b_model(x, n1: int, n2: int, plan, cluster: int, *, transposed: bool,

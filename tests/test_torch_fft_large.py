@@ -21,7 +21,8 @@ import torch
 import jax.numpy as jnp
 
 from _torch_parity import (cluster_twiddle_model, complex_signal, k1b_cluster_model,
-                           k1b_model, kernel_pass_model, to_numpy, to_torch)
+                           k1b_model, k2_store_model, kernel_pass_model, pass_a_model,
+                           pass_a_twiddle_model, pass_b_plan, to_numpy, to_torch)
 
 import repro.core.api as ref_api
 import repro.core.pfft_large as ref_large
@@ -37,6 +38,7 @@ from repro_torch.kernels.fft import kernel as port_kernel
 from repro_torch.kernels.fft import large as port_large_kernel
 from repro_torch.kernels.fft.ops import fft_rows_op
 from repro_torch.kernels.fused import kernel as port_fused_kernel
+from repro_torch.kernels.fused import large as port_fused_large
 
 SOURCE = "fft_rows_large.cu"
 HEADER = "fourstep.cuh"
@@ -130,96 +132,234 @@ def test_twiddle_split_matches_float64(n, inverse):
 
 # ------------------------------------------------------ the kernel's model
 
+# The two passes' default split by log2 n (``two_pass_split``): n2 = 512 up
+# to 2^20, then the near-square split with n1 >= n2 and n1 <= 4096 while n2
+# <= 16384.
+TWO_PASS_SPLIT = {15: (128, 256), 16: (128, 512), 17: (256, 512), 18: (512, 512),
+                  19: (1024, 512), 20: (2048, 512), 21: (2048, 1024), 22: (2048, 2048),
+                  23: (4096, 2048), 24: (4096, 4096), 25: (4096, 8192),
+                  26: (4096, 16384), 27: (8192, 16384), 28: (16384, 16384)}
+
+
+@pytest.mark.parametrize("e", range(15, 29))
+def test_two_pass_split_at_every_length(e):
+    """The two passes' default split (``two_pass_split``, which K1b's and
+    K2b's launchers take unless ``n1`` pins it) at every
+    length: ``TWO_PASS_SPLIT``, both factors in the kernels' range, n1 at
+    most 4096 where n2 allows it (pass A's CTA holding 4 columns or more);
+    ``large_split``, which the plain versions and the cluster kernels keep,
+    unchanged (the near-square split, n1 <= n2)."""
+    n = 1 << e
+    n1, n2 = port_large_kernel.two_pass_split(n)
+    assert (n1, n2) == TWO_PASS_SPLIT[e] and n1 * n2 == n
+    # The launchers of K1b and K2b take it; K3b and K4b keep large_split's.
+    assert port_large_kernel.kernel_split(n, n1, "k1b") == (n1, n2)
+    assert port_large_kernel.kernel_split(n, None, "k3b") == port_large_kernel.large_split(n)
+    for module in (port_large_kernel, port_fused_large):
+        assert "kernel_split(n, two_pass_split(n)[0]" in open(module.__file__).read()
+    assert port_large_kernel.MIN_FACTOR <= min(n1, n2)
+    assert max(n1, n2) <= port_kernel.MAX_KERNEL_N
+    assert n1 <= 4096 or n2 == port_kernel.MAX_KERNEL_N
+    assert port_large_kernel.kernel_split(n, n2, "k1b") == (n2, n1)   # n1 pins it
+    assert port_large_kernel.large_split(n) == (1 << e // 2, 1 << (e - e // 2))
+
+
 def plans(n, rows, n1=None):
     """K1b's launch shapes for ``rows`` rows of ``n``: the split, pass A's
-    columns a CTA, pass B's plan (K1's, over rows*n1 rows of n2) and its
-    cluster (K2's rule)."""
-    n1, n2 = port_large_kernel.large_split(n, n1=n1)
-    cols = port_large_kernel.columns_plan(n1)[0]
-    plan_b = port_kernel.complex_rows_plan(n2, rows * n1)
-    cluster = port_fused_kernel.fft_rows_transpose_plan(n2, rows * n1)[2]
-    return n1, n2, cols, plan_b, cluster
+    plan (``columns_plan``) and pass B's (K1's CTA over rows*n1 rows of n2,
+    and ``rows_plan``'s cluster)."""
+    n1, n2 = port_large_kernel.kernel_split(
+        n, port_large_kernel.two_pass_split(n)[0] if n1 is None else n1, "plans")
+    plan_b, cluster = pass_b_plan(n2, rows * n1)
+    return n1, n2, port_large_kernel.columns_plan(n1), plan_b, cluster
+
+
+# Pass B's rows a CTA over a whole chunk, by n2 (16, or what 1024 threads
+# hold, at least K1's 32 at 128), and its CTAs a cluster where 16 rows do
+# not fit in one (1 elsewhere).
+PASS_B_ROWS = {128: 32, 256: 16, 512: 16, 1024: 16, 2048: 8, 4096: 4, 8192: 2, 16384: 1}
+PASS_B_CTAS = {2048: 2, 4096: 4, 8192: 8, 16384: 16}
+
+
+def check_pass_a(pass_a, n1, *, whole=True):
+    """Pass A's pattern: each simulated element loaded and stored once (all
+    of them where ``whole``), every warp instruction of both on whole
+    32-byte sectors where a CTA holds at least 4 columns, 256 contiguous
+    bytes where it holds 32, and the column exchanges free of bank
+    conflicts."""
+    cols = pass_a["plan"][0]
+    assert set(np.unique(pass_a["reads"])) <= {0, 1}
+    assert set(np.unique(pass_a["writes"])) <= {0, 1}
+    if whole:
+        assert (pass_a["reads"] == 1).all()
+        assert pass_a["writes"].sum() == pass_a["reads"].sum()
+    assert pass_a["loads_whole"] == pass_a["stores_whole"] == (cols >= 4)
+    assert pass_a["loads_256"] == pass_a["stores_256"] == (cols >= 32)
+    assert pass_a["worst_bank"] == 1
+    assert cols == (32 if n1 <= 512 else 16 * 1024 // n1)
 
 
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("n, rows, n1", [(1 << 15, 2, None), (1 << 15, 1, 256),
-                                         (1 << 16, 2, None), (1 << 17, 1, None)])
+                                         (1 << 15, 3, 128), (1 << 16, 2, None),
+                                         (1 << 17, 1, None), (1 << 18, 1, 2048)])
 def test_k1b_model_is_the_dft_and_writes_each_element_once(n, rows, n1, inverse):
     """The model of K1b's two passes in their launch shapes: the DFT
     (``numpy.fft``, float64, ``1e-9·n``, over n for the inverse); pass A
-    reads and writes each scratch element once, in bounds, and each step of
-    a CTA in whole 32-byte sectors (its columns, at least 4, side by side);
-    pass B writes each output element once, in bounds, and each warp's
-    stores to one output row one contiguous run of 8·min(P·C, 32) bytes,
-    K2's rule (P rows a CTA, fewer while the grid is small, C CTAs a
-    cluster)."""
+    (``check_pass_a``) reads and writes each scratch element once, each warp
+    instruction in whole 32-byte sectors (256 contiguous bytes where a CTA
+    holds 32 columns), its column exchanges free of bank conflicts (padded
+    where a CTA holds fewer than 16 columns, n1 = 2048 here); pass B writes
+    each output element once, in bounds, and each warp's stores to one
+    output row one contiguous run of 8·min(P·C, 32) bytes (P rows a CTA,
+    fewer while the grid is small, C CTAs a cluster), 128 bytes or more
+    where the CTAs hold all the rows they can."""
     x = complex_signal(n + rows + inverse, rows, n)
-    n1, n2, cols, plan_b, cluster = plans(n, rows, n1)
-    assert cols >= 4 and (n1 % (plan_b[0] * cluster)) == 0
-    out, reads_a, writes_a, sectors_a, writes_b, (nbytes, contiguous, full) = k1b_model(
-        x, n1, n2, cols, plan_b, cluster, inverse=inverse)
+    n1, n2, plan_a, plan_b, cluster = plans(n, rows, n1)
+    out, pass_a, writes_b, (nbytes, contiguous, full), _, _ = k1b_model(
+        x, n1, n2, inverse=inverse)
     exact = (np.fft.ifft if inverse else np.fft.fft)(x.astype(np.complex128))
     np.testing.assert_allclose(out, exact, rtol=0, atol=1e-9 * (1 if inverse else n))
-    assert (reads_a == 1).all() and (writes_a == 1).all() and sectors_a
+    check_pass_a(pass_a, n1)
+    assert (pass_a["writes"] == 1).all()
     assert writes_b.shape == (rows * n,) and (writes_b == 1).all()
     assert contiguous.all() and full.any()
-    assert nbytes[full].min() >= 8 * min(plan_b[0] * cluster, 32)
+    wide = plan_b[0] * cluster
+    assert nbytes[full].min() >= 8 * min(wide, 32)
+    assert wide >= 16 or plan_b[0] < PASS_B_ROWS[n2]
 
 
 @pytest.mark.parametrize("e", range(15, 29))
 def test_k1b_store_pattern_at_every_length(e):
-    """The pattern alone (no data) at every length K1b takes, one row:
-    whole sectors in pass A wherever a CTA holds at least 4 columns (n1 <=
-    4096: up to n = 2^25; at 8192 and 16384 it holds 2 and 1, what 1024
-    threads hold), each element written once by both passes, and pass B's
-    runs contiguous, of K2's width.  The model's arrays are n long, so
-    this stops at what the host holds quickly: 2^22.  Over a whole chunk of
-    rows (``scratch_rows``) pass B's CTAs hold all the rows they can, and
-    its runs are a sector or more at every length."""
+    """The pattern alone (no data) at every length K1b's two passes take:
+    pass A over one row up to 2^22 (the model's arrays are n long), on its
+    first, middle and last tiles above, per warp instruction (whole sectors
+    where a CTA holds at least 4 columns, n1 <= 4096; 256 contiguous bytes
+    where it holds 32, n1 <= 512; no bank conflict); pass B over a whole
+    chunk of rows (``scratch_rows``), whose CTAs hold all the rows they can
+    (``PASS_B_ROWS``), simulated on four clusters: each element written
+    once, no bank conflict in its buffer, and every run contiguous and 128
+    bytes (16 rows side by side, through a cluster of ``PASS_B_CTAS`` where
+    a CTA holds fewer)."""
+    n = 1 << e
+    n1, n2 = port_large_kernel.two_pass_split(n)
+    groups = n2 // port_large_kernel.columns_plan(n1)[0]
     if e <= 22:
-        n1, n2, cols, plan_b, cluster = plans(1 << e, 1)
-        _, reads_a, writes_a, sectors_a, writes_b, (nbytes, contiguous, full) = k1b_model(
-            None, n1, n2, cols, plan_b, cluster, rows=1)
-        assert (reads_a == 1).all() and (writes_a == 1).all() and (writes_b == 1).all()
-        assert sectors_a and contiguous.all()
-        assert nbytes[full].min() >= 8 * min(plan_b[0] * cluster, 32)
-    n1, n2, _, plan_b, cluster = plans(1 << e, port_large_kernel.scratch_rows(1 << e))
-    assert plan_b[0] == max(1, 256 * 16 // n2) and 8 * min(plan_b[0] * cluster, 32) >= 32
+        pass_a = pass_a_model(None, n1, n2, rows=1)
+        check_pass_a(pass_a, n1)
+        assert (pass_a["writes"] == 1).all()
+    else:
+        check_pass_a(pass_a_model(None, n1, n2, rows=1, tiles=[0, groups // 2, groups - 1]),
+                     n1, whole=False)
+    chunk = port_large_kernel.scratch_rows(n)
+    plan_b, cluster = pass_b_plan(n2, chunk * n1)
+    wide = plan_b[0] * cluster
+    assert (plan_b[0], cluster) == (PASS_B_ROWS[n2], PASS_B_CTAS.get(n2, 1))
+    assert wide == 16 and plan_b[1] == plan_b[0] * n2 // 16 <= 1024
+    _, writes, worst, (nbytes, contiguous, full) = k2_store_model(None, 4 * wide, plan_b,
+                                                                  cluster=cluster)
+    assert (writes[:, :4 * wide] == 1).all() and contiguous.all() and full.all()
+    assert worst == 1
+    assert nbytes.min() >= 128 and nbytes.min() == 8 * min(wide, 32)
     cols, threads, smem = port_large_kernel.columns_plan(n1)
     assert threads <= 1024 and smem <= port_kernel.SMEM_BUDGET
-    assert cols == (4 if n1 == 4096 else 2 if n1 == 8192 else 1 if n1 == 16384
-                    else max(4, 256 // (n1 // 16)))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("e", range(19, 29))
+def test_pass_a_twiddles_within_a_few_ulps(e, inverse):
+    """Pass A's twiddles in the complex modes (five base values a thread,
+    each ``large_twiddle``'s exact split, and running products:
+    ``pass_a_twiddle_model``) against float64 ``exp(±2πi·k1·j2/n)`` at the
+    two passes' split of every length they take, over sampled
+    threads t and columns j2 (the ends included): the base values within 4
+    float32 ulps of 1 (two roundings and one product), the products within
+    10 (up to three more products of about an ulp each on inputs already
+    off by up to 4; 6.9–7.5 measured)."""
+    n = 1 << e
+    n1, n2 = port_large_kernel.two_pass_split(n)
+    g = n1 // 16
+    rng = np.random.default_rng(e + 100 * inverse)
+    t = np.concatenate([[0, g - 1], rng.integers(0, g, 30)])[:, None]
+    j2 = np.concatenate([[0, 1, n2 - 1], rng.integers(0, n2, 61)])[None, :]
+    got = pass_a_twiddle_model(n, g, t, j2, inverse=inverse)
+    k1 = t[None] + np.arange(16)[:, None, None] * g
+    sign = 1 if inverse else -1
+    want = np.exp(sign * 2j * np.pi * ((k1 * j2) % n) / n)
+    assert got.dtype == np.complex64
+    np.testing.assert_allclose(got[0::4], want[0::4], rtol=0, atol=4 * 2.0 ** -24)
+    np.testing.assert_allclose(got, want, rtol=0, atol=10 * 2.0 ** -24)
 
 
 def test_columns_plan_mirrors_the_cuda_source():
-    """Pass A's plan is the source's ``ColPlan`` and pass B's the register
-    kernels' ``Plan``; the factors the source instantiates are
-    [``MIN_FACTOR``, ``MAX_KERNEL_N``], both directions.  The passes live in
-    ``fourstep.cuh``, which the source includes."""
+    """Pass A's plans are the source's ``ColPlan`` (the complex modes: 32
+    columns a CTA, the columns fastest) and ``PackedColPlan`` (K3b, K4b),
+    pass B's its ``RowsPlan`` (``rows_plan``: 16 rows a CTA where 1024
+    threads hold them, else clusters); the factors the source
+    instantiates are [``MIN_FACTOR``, ``MAX_KERNEL_N``], both directions.
+    The passes live in ``fourstep.cuh``, which the source includes."""
     text = "".join((_build.csrc_dir() / name).read_text() for name in (SOURCE, HEADER))
     assert f'#include "{HEADER}"' in text
     lo = int(re.search(r"kMinLog2 = (\d+);", text).group(1))
     hi = int(re.search(r"kMaxLog2 = (\d+);", text).group(1))
     assert 1 << lo == port_large_kernel.MIN_FACTOR and 1 << hi == port_kernel.MAX_KERNEL_N
+    columns = int(re.search(r"constexpr int kColumns = (\d+);", text).group(1))
+    store_rows = int(re.search(r"constexpr int kStoreRows = (\d+);", text).group(1))
+    assert (columns, store_rows) == (port_large_kernel.COLUMNS, port_large_kernel.STORE_ROWS)
+    assert "COLS = kColumns * G <= 1024 ? kColumns : 1024 / G;" in text
     assert "repro::regfft::kCtaThreads / G > 4" in text
     assert "COLS = WANT * G > 1024 ? 1024 / G : WANT;" in text
-    assert "MIN_BLOCKS = 65536 / (THREADS * 64);" in text
-    assert "exchange_elems(CP::COLS, 1 << LOG2N1)" in text
+    assert text.count("MIN_BLOCKS = 65536 / (THREADS * 64);") == 2
+    assert text.count("exchange_elems(CP::COLS, 1 << LOG2N1)") == 2
+    rows_threads = int(re.search(r"constexpr int kRowsThreads = (\d+);", text).group(1))
+    assert rows_threads == port_large_kernel.ROWS_THREADS
+    assert "FIT = kRowsThreads / G >= 1 ? kRowsThreads / G : 1;" in text
+    assert "WIDE = kStoreRows < FIT ? kStoreRows : FIT;" in text
+    assert "MAX_ROWS = P::MAX_ROWS > WIDE ? P::MAX_ROWS : WIDE;" in text
+    assert ": kStoreRows / MAX_ROWS > 16 ? 16 : kStoreRows / MAX_ROWS;" in text
+    assert "rows_per_cta > RowsPlan<LOG2N2>::MAX_ROWS" in text
+    assert "__launch_bounds__(RowsPlan<LOG2N2>::MAX_THREADS, RowsPlan<LOG2N2>::MIN_BLOCKS)" in text
+    assert "cudaFuncAttributeNonPortableClusterSizeAllowed" in text
+    assert "constexpr bool kPersistentColumns = false;" in text
     for e in range(lo, hi + 1):
         n1 = 1 << e
-        cols, threads, smem = port_large_kernel.columns_plan(n1)
         group = n1 // 16
-        assert threads == cols * group <= 1024 and cols & (cols - 1) == 0
-        assert smem == 8 * (cols * n1 + -(-cols * n1 // 16)) <= port_kernel.SMEM_BUDGET
-        assert 65536 // (threads * 64) * (smem + 1024) <= 233472
-    # Pass A's loads and stores, the twiddle split, pass B's batched store.
-    assert "fft_row<LOG2N1, INV>(v, smem, c * N1, t)" in text
-    assert "twiddle<INV>(k1 * j2, log2n)" in text
+        # PackedColPlan: at least 4 columns, 256 threads, at most 1024.
+        packed = max(4, 256 // group) if n1 <= 4096 else 1024 // group
+        packed = (packed, packed * group, 8 * (packed * n1 + -(-packed * n1 // 16)))
+        for plan in (port_large_kernel.columns_plan(n1), packed):
+            cols, threads, smem = plan
+            assert threads == cols * group <= 1024 and cols & (cols - 1) == 0
+            assert smem == 8 * (cols * n1 + -(-cols * n1 // 16)) <= port_kernel.SMEM_BUDGET
+            assert 65536 // (threads * 64) * (smem + 1024) <= 233472
+        assert port_large_kernel.columns_plan(n1)[0] == (32 if n1 <= 512 else 1024 // group)
+        rows_per_cta, threads, cluster = port_large_kernel.rows_plan(n1, 1 << 20)
+        assert (rows_per_cta, cluster) == (PASS_B_ROWS[n1], PASS_B_CTAS.get(n1, 1))
+        assert threads == rows_per_cta * group <= 1024
+        assert 8 * (rows_per_cta * n1 + rows_per_cta * n1 // 16) <= port_kernel.SMEM_BUDGET
+        # Fewer rows a CTA while the grid would not fill the card, as K1's.
+        assert port_large_kernel.rows_plan(n1, 64)[0] <= rows_per_cta
+    # Pass A's loads, interleaved columns, twiddles and stores; pass B's
+    # batched store.
+    assert "const int c = threadIdx.x & (COLS - 1);" in text
+    assert "const int t = threadIdx.x >> CP::LOG2COLS;" in text
+    assert "column_fft<LOG2N1, COLS, INV>(v, smem, c, t);" in text
+    assert "column_twiddles<INV, true>(v, t, G, j2, log2n);" in text
+    assert "const int p0 = column_slot<COLS>((((j << 4) << log2s) + q) * COLS + c);" in text
+    assert "buf[p0 + column_slot<COLS>((u << log2s) * COLS)] = v[u]" in text
+    assert "const int r0 = column_slot<COLS>(t * COLS + c);" in text
+    assert "v[k] = buf[r0 + column_slot<COLS>(k * G * COLS)]" in text
+    assert "return x + ((x >> (4 + LOG2COLS)) << LOG2COLS);" in text
+    assert "if constexpr (SPLIT) {\n            return twiddle<INV>(m, log2n);" in text
+    assert "float2 w = base((t + 4 * kh * g) * j2);" in text
+    assert "const float2 b = base(g * j2);" in text
     assert "(float)mh * exp2i(15 - log2n)" in text and "(float)ml * exp2i(1 - log2n)" in text
+    assert "+ (t << log2k) + j2;" in text and "dst[k * dstep] = v[k];" in text
+    assert "v[k] = x[k * step];" in text
     assert "fft_row<LOG2N2, INV>(v, smem, local * N, t)" in text
     assert ("out[((r >> log2n1) << (log2n1 + LOG2N2)) + (k << log2n1) + (r & n1mask)]"
             in text)
-    assert "repro::tstore::store_cluster<LOG2N2, 8>(4)" in text
+    assert "static_assert(packed_load(MODE)" in text
     assert "__sincosf" not in text.replace("No __sincosf", "")
     assert "Replaces the TPU kernel `fft_rows_pallas`" in text
     assert "Bound on this card: bytes" in text
@@ -321,7 +461,7 @@ def test_cluster_plan_mirrors_the_cuda_source():
     shared memory, what the source's static_asserts require, and a CTA
     count an SM that fits its shared memory."""
     text = "".join((_build.csrc_dir() / name).read_text()
-                   for name in (CLUSTER_SOURCE, CLUSTER_HEADER))
+                   for name in (CLUSTER_SOURCE, CLUSTER_HEADER, HEADER))
     assert f'#include "{CLUSTER_HEADER}"' in text and f'#include "{HEADER}"' in text
     rule = re.search(r"constexpr int log2_ctas\(int log2n\) \{ return log2n <= (\d+) \? "
                      r"(\d+) : (\d+); \}", text)
@@ -351,7 +491,10 @@ def test_cluster_plan_mirrors_the_cuda_source():
         assert 65536 // (threads * 64) * (smem + 1024) <= 233472
     # The phases as the docstrings and the model describe them.
     assert "column_fft<LOG2N1, COLS, INV>(v, buf, c, t)" in text
-    assert "buf[(f0 + (u << log2s)) * COLS + c] = v[u]" in text
+    # column_fft and column_twiddles live in fourstep.cuh, shared with pass
+    # A of the two passes; at COLS >= 16 the slot is f*COLS + c itself.
+    assert "buf[p0 + column_slot<COLS>((u << log2s) * COLS)] = v[u]" in text
+    assert "if constexpr (COLS >= 16) {\n        return x;" in text
     assert "column_twiddles<INV>(v, t, G1, j2, LOG2N)" in text
     assert "slab[(t + i * G1) * N2 + j2] = v[o * CP::PER_RANK + i]" in text
     assert "v[k] = buf[rho * N2 + t2 + k * G2]" in text

@@ -23,8 +23,9 @@ import pytest
 import torch
 import jax.numpy as jnp
 
-from _torch_parity import (complex_signal, k2b_cluster_model, k2b_model,
-                           kernel_pass_model, real_pass_b_model, to_numpy, to_torch)
+from _torch_parity import (complex_signal, k2_store_model, k2b_cluster_model, k2b_model,
+                           kernel_pass_model, pass_a_model, pass_b_plan, real_pass_b_model,
+                           to_numpy, to_torch)
 
 import repro.fft.fft2d as ref_fft2d
 from repro.kernels.fft.real import rfft_rows_op as ref_rfft_rows_op
@@ -137,43 +138,47 @@ def test_plain_versions_at_forced_splits(split, kind):
 
 # ------------------------------------------------------ the kernels' models
 
-def k2b_plans(n, rows, n1=None):
-    """K2b's launch shapes for one chunk of ``rows`` rows: the split, pass
-    A's columns a CTA, pass B's plan over cap*n1 rows of n2 and its cluster
-    (K2's rule)."""
-    n1, n2 = port_large.large_split(n, n1=n1)
-    cap = port_large.scratch_capacity(rows)
-    cols = port_large.columns_plan(n1)[0]
-    plan_b = port_kernel.complex_rows_plan(n2, cap * n1)
-    cluster = port_fused_kernel.fft_rows_transpose_plan(n2, cap * n1)[2]
-    return n1, n2, cols, plan_b, cluster
+def check_pass_a(pass_a, rows, cap, n1, n2):
+    """K2b's pass A pattern: each input element read once, each scratch
+    element of the chunk's rows written once and none of the capacity's
+    spare rows; every warp instruction on whole 32-byte sectors where a CTA
+    holds at least 4 columns, 256 contiguous bytes where it holds 32; the
+    column exchanges free of bank conflicts."""
+    cols = pass_a["plan"][0]
+    assert (pass_a["reads"] == 1).all()
+    per_row = pass_a["writes"].reshape(n1, cap, n2)
+    assert (per_row[:, :rows] == 1).all() and (per_row[:, rows:] == 0).all()
+    assert pass_a["loads_whole"] == pass_a["stores_whole"] == (cols >= 4)
+    assert pass_a["loads_256"] == pass_a["stores_256"] == (cols >= 32)
+    assert pass_a["worst_bank"] == 1
 
 
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("n, rows, n1, stride, r0", [
     (1 << 15, 3, None, 3, 0), (1 << 15, 1, 256, 4, 2), (1 << 15, 5, None, 16385, 4096),
-    (1 << 16, 2, None, 2, 0), (1 << 17, 1, None, 3, 1)])
+    (1 << 16, 2, None, 2, 0), (1 << 17, 1, None, 3, 1), (1 << 18, 3, 2048, 5, 1)])
 def test_k2b_model_is_the_transposed_dft_and_writes_each_element_once(
         n, rows, n1, stride, r0, inverse):
     """The model of K2b's two passes in their launch shapes, one chunk of
     ``rows`` rows stored to columns ``r0 ...`` of an (n, ``stride``) output:
     ``FFT_rows(x).T`` (``numpy.fft``, float64, ``1e-9·n``, over n for the
-    inverse); pass A reads each input element once and writes each scratch
-    element of the chunk's rows once and none of the capacity's spare rows,
-    every step of a CTA in whole 32-byte sectors both ways; pass B writes
-    each element of the chunk's columns once and no other; each warp's
-    stores to one output row are one contiguous run of K2's width, and a
-    run never crosses a k1 (cap a multiple of the rows side by side)."""
+    inverse); pass A (``check_pass_a``: columns fastest, 256-byte warp
+    instructions at n1 <= 512, the padded exchange at n1 = 2048); pass B
+    writes each element of the chunk's columns once and no other; each
+    warp's stores to one output row are one contiguous run, of
+    8·min(W, 32) bytes where the chunk holds at least the W = P·C rows a
+    store puts side by side (cap a multiple of W, so a run never crosses a
+    k1)."""
     x = complex_signal(n + rows + inverse, rows, n)
-    n1, n2, cols, plan_b, cluster = k2b_plans(n, rows, n1)
-    out, reads_a, writes_a, sectors_a, writes_b, (nbytes, contiguous, full), cap = k2b_model(
-        x, n1, n2, cols, plan_b, cluster, out_stride=stride, r0=r0, inverse=inverse)
+    n1, n2 = port_large.kernel_split(n, port_large.two_pass_split(n)[0] if n1 is None else n1,
+                                     "k2b")
+    out, pass_a, writes_b, (nbytes, contiguous, full), plan_b, cluster = k2b_model(
+        x, n1, n2, out_stride=stride, r0=r0, inverse=inverse)
     exact = (np.fft.ifft if inverse else np.fft.fft)(x.astype(np.complex128)).T
     np.testing.assert_allclose(out[:, r0:r0 + rows], exact, rtol=0,
                                atol=1e-9 * (1 if inverse else n))
-    assert (reads_a == 1).all() and sectors_a
-    per_row = writes_a.reshape(n1, cap, n2)
-    assert (per_row[:, :rows] == 1).all() and (per_row[:, rows:] == 0).all()
+    cap = pass_a["cap"]
+    check_pass_a(pass_a, rows, cap, n1, n2)
     writes_b = writes_b.reshape(n, stride)
     assert (writes_b[:, r0:r0 + rows] == 1).all()
     assert writes_b.sum() == n * rows
@@ -188,27 +193,41 @@ def test_k2b_model_is_the_transposed_dft_and_writes_each_element_once(
 def test_k2b_store_pattern_at_every_length(e):
     """K2b's pattern at every length it takes, over a whole chunk of rows
     (``scratch_rows``, a power of two): the scratch of a chunk is at most 1
-    GiB or one row; where a chunk holds at least the rows a store puts side
-    by side (n <= 2^25), pass B's CTAs hold all the rows they can and a
-    store never crosses a k1, so its runs are K2's, a sector or more; above,
-    a chunk of 2 or 1 rows gives runs of 16 or 8 bytes.  The model's arrays
-    are n * rows long, so it runs on one row up to 2^20."""
+    GiB or one row; pass B's CTAs hold all the rows they can and store W =
+    16 of them side by side (a cluster where a CTA holds fewer), its buffer
+    free of bank conflicts; where
+    a chunk holds at least W rows (n <= 2^23) a store never crosses a k1 and
+    its runs, simulated on four clusters, are all 8·min(W, 32) >= 128 bytes;
+    above, a chunk of 8 ... 1 rows gives runs of its rows.  Pass A's pattern
+    on one row up to 2^20 (the model's arrays are n*cap long), on its first,
+    middle and last tiles above."""
     n = 1 << e
     chunk = port_large.scratch_rows(n)
     assert chunk & (chunk - 1) == 0 and port_large.scratch_capacity(chunk) == chunk
     assert chunk * n * 8 <= max(1 << 30, n * 8)
-    n1, n2, cols, plan_b, cluster = k2b_plans(n, chunk)
+    n1, n2 = port_large.two_pass_split(n)
+    plan_b, cluster = pass_b_plan(n2, chunk * n1)
     wide = plan_b[0] * cluster
-    assert (chunk >= wide) == (e <= 25)
+    assert wide == 16 and plan_b[0] == port_large.rows_plan(n2, 1 << 30)[0]
+    assert (chunk >= wide) == (e <= 23)
     if chunk >= wide:
-        assert chunk % wide == 0 and plan_b[0] == max(1, 256 * 16 // n2)
-        assert 8 * min(wide, 32) >= 32
+        assert chunk % wide == 0
+        _, writes, worst, (nbytes, contiguous, full) = k2_store_model(
+            None, 4 * wide, plan_b, cluster=cluster)
+        assert (writes[:, :4 * wide] == 1).all() and contiguous.all() and full.all()
+        assert worst == 1
+        assert nbytes.min() == 8 * min(wide, 32) >= 128
     if e <= 20:
-        n1, n2, cols, plan_b, cluster = k2b_plans(n, 1)
-        _, reads_a, writes_a, sectors_a, writes_b, runs, _ = k2b_model(
-            None, n1, n2, cols, plan_b, cluster, rows=1)
-        assert (reads_a == 1).all() and (writes_a == 1).all() and (writes_b == 1).all()
-        assert sectors_a == (cols >= 4) and runs[1].all()
+        pass_a = pass_a_model(None, n1, n2, rows=1, transposed=True)
+        check_pass_a(pass_a, 1, 1, n1, n2)
+    else:
+        groups = n2 // port_large.columns_plan(n1)[0]
+        pass_a = pass_a_model(None, n1, n2, rows=chunk, transposed=True,
+                              tiles=[0, groups // 2, chunk * groups - 1])
+        cols = pass_a["plan"][0]
+        assert pass_a["loads_whole"] == pass_a["stores_whole"] == (cols >= 4)
+        assert pass_a["loads_256"] == pass_a["stores_256"] == (cols >= 32)
+        assert pass_a["worst_bank"] == 1
 
 
 # ------------------------------------ K2b's one-pass cluster kernel (32768)
