@@ -12,8 +12,8 @@ each of which ends the run with a non-zero exit code when it fails:
 3. ``kernel_checks`` every kernel against its plain PyTorch version and the
                  library on the card (ragged and odd row counts, every length
                  the row kernels K1-K4 are built for, n = 2 ... 16384, both
-                 directions of K1 and K2, ragged clusters of K2 and K4, K2
-                 and K3 at 16384 one launch of their kernels there, the
+                 directions of K1 and K2, ragged clusters of K2 and K4, K2,
+                 K3 and K4 at 16384 one launch of their kernels there, the
                  full width, the row blocks of the batched paths 8-10 and of
                  the fused batch; the four-step K1b at 2048 x 32768, 512 x
                  2^17, 256 x 2^18 (its cluster kernel), 128 x 2^19 and 1 x
@@ -24,7 +24,7 @@ each of which ends the run with a non-zero exit code when it fails:
    ``kernels``   each kernel's time beside the plain version's, the library's
                  and the card's bound at the main path's shape (K1-K4 also at
                  4096 x 16384, each ``at_16384`` record with its own source,
-                 K2's and K3's with their launches; K1b-K4b at 2048 x 32768,
+                 K2's, K3's and K4's with their launches; K1b-K4b at 2048 x 32768,
                  K1b also at 512 x 2^17 (16-CTA clusters) and 128 x 2^19
                  (two passes), K2b's two passes at 512 x 2^17).
 4. ``main_path`` FPMs timed on the card, then ``plan_pfft(...).execute`` for
@@ -43,7 +43,9 @@ each of which ends the run with a non-zero exit code when it fails:
                  ``radix=4`` (K3b, then K1b over 16385 rows) and fused (K4b,
                  K2b), a 4 GiB signal; ``rfft-fpm-pad`` at N = 16384 with a
                  segment padded to 32768 under ``radix=4`` (K3 and K3b, then
-                 K1 and K1b).
+                 K1 and K1b), and fused ``rfft-lb`` on the same signal (K4,
+                 then K2 over 8193 rows, both their sources at 16384), its
+                 two phases also timed alone.
 6. ``planner``   the single-device planner: ``plan_pfft(tune="estimate")``
                  for ``fpm`` / ``rfft-fpm`` / ``fpm-pad`` at N = 8192,
                  ``tune="measure"`` into a fresh wisdom file for ``lb`` and
@@ -320,11 +322,12 @@ MAIN_SHAPE = (8192, 8192)
 # ragged last CTA up to n = 1024, a ragged last cluster of K2 from 2048 on);
 # and WIDE_SHAPE, where K1-K4 are timed at their longest row.
 WIDE_SHAPE = (4096, 16384)
-# K2 and K3 at n = 16384 run other sources than below it, one launch a call
-# (K2 K2b's cluster kernel, K3 persistent CTAs; counted apart as
-# ``<name>_16k``).
+# K2, K3 and K4 at n = 16384 run other sources than below it, one launch a
+# call (K2 K2b's cluster kernel, K3 persistent CTAs, K4 the packed pair split
+# over a cluster; counted apart as ``<name>_16k``).
 WIDE_SOURCES = {"fft_rows_transpose": "fft_rows_transpose_cluster.cu",
-                "rfft_rows": "rfft_rows_16k.cu"}
+                "rfft_rows": "rfft_rows_16k.cu",
+                "rfft_rows_transpose": "rfft_rows_transpose_16k.cu"}
 COMPLEX_KERNEL_SHAPES = [(rows, 1 << e) for e in range(1, 15)
                          for rows in (37, ((1 << 20) >> e) + 5)] + [WIDE_SHAPE]
 # Where K2 runs in clusters of 4 one-row CTAs: 8k + 1, 8k + 7, 4097 rows
@@ -877,7 +880,8 @@ def check_large_siblings(gen: torch.Generator, worst: dict) -> None:
 
 
 def wide_records(gen: torch.Generator) -> dict[str, dict]:
-    """K1-K4 at ``WIDE_SHAPE`` (n = 16384, Plan<14>), forward under
+    """K1-K4 at ``WIDE_SHAPE`` (n = 16384: K1 at Plan<14>, K2-K4 their own
+    sources there), forward under
     ``radix=4``: each against its plain version (``row_fft_tol``), then
     timed beside it, the library and the card's bound, as the records'
     ``at_16384``."""
@@ -922,8 +926,8 @@ def wide_records(gen: torch.Generator) -> dict[str, dict]:
 
 
 def counted_call(name: str, n: int, call):
-    """``call()`` of kernel ``name`` (K2 or K3), synchronised: one launch of
-    it, and of its own source at n = 16384 (``<name>_16k``) exactly there."""
+    """``call()`` of kernel ``name`` (K2, K3 or K4), synchronised: one launch
+    of it, and of its own source at n = 16384 (``<name>_16k``) exactly there."""
     before = launch_counts()
     got = call()
     torch.cuda.synchronize()
@@ -973,8 +977,10 @@ def check_complex_kernel(gen: torch.Generator) -> None:
 def check_real_kernels(gen: torch.Generator, worst: dict) -> None:
     """K3 and K4 against their plain versions and ``torch.fft.rfft`` (and its
     transposed copy) on unit-variance float32 rows, ``atol = 1e-3·sqrt(n)``,
-    K3 one launch a call, of its persistent kernel at n = 16384; ``worst`` gets
-    the errors against the plain versions at the main shape."""
+    each one launch a call, at n = 16384 of its own source there (K3's
+    persistent kernel, K4's cluster kernel: 258 and 259 rows of 16 CTAs of
+    4 pairs, 4096 of 8 of 2); ``worst`` gets the errors against the plain
+    versions at the main shape."""
     for rows, n in REAL_KERNEL_SHAPES:
         x = random_real(gen, rows, n)
         tol = 1e-3 * math.sqrt(n)
@@ -982,8 +988,8 @@ def check_real_kernels(gen: torch.Generator, worst: dict) -> None:
         for radix in (2, 4):
             plain = rfft_rows_plain(x, radix=radix)
             got = counted_call("rfft_rows", n, lambda: rfft_rows_op(x, radix=radix))
-            got_t = rfft_rows_transpose_op(x, radix=radix)
-            torch.cuda.synchronize()
+            got_t = counted_call("rfft_rows_transpose", n,
+                                 lambda: rfft_rows_transpose_op(x, radix=radix))
             errs = {"rfft_rows_err": max_abs_err(got, plain),
                     "rfft_rows_transpose_err": max_abs_err(got_t, plain.T),
                     "rfft_rows_vs_library_err": max_abs_err(got, lib),
@@ -1264,10 +1270,10 @@ def record_launches(name: str, counts: dict[str, int]) -> int:
     ``fft_rows_transpose_large``, K2b there) take the kernel's launches less
     its two passes' (``<name>_two_pass``) and, for K1b, less its cluster
     kernel's at 2^17 and 2^18 (``fft_rows_large_long``, that record's own),
-    and K2's and K3's
-    (``fft_rows_transpose``, ``rfft_rows``) less their own sources' at
-    n = 16384 (``<name>_16k``, their ``at_16384`` records' own), so that
-    each record counts its own source's."""
+    and K2's, K3's and K4's (``fft_rows_transpose``, ``rfft_rows``,
+    ``rfft_rows_transpose``) less their own sources' at n = 16384
+    (``<name>_16k``, their ``at_16384`` records' own), so that each record
+    counts its own source's."""
     if name == "fft_rows_large":
         return counts[name] - counts[name + "_two_pass"] - counts[name + "_long"]
     if name == "fft_rows_transpose_large":
@@ -1279,7 +1285,7 @@ def record_launches(name: str, counts: dict[str, int]) -> int:
 
 def call_launches(calls) -> dict[str, int]:
     """The launches of row-kernel calls ``(kernel, rows, n)``: one a call of a
-    row kernel up to n = 16384 (K2's and K3's at 16384 also under
+    row kernel up to n = 16384 (K2's, K3's and K4's at 16384 also under
     ``<kernel>_16k``, their own sources), and above it the four-step's own
     (``<kernel>_large``): K1b's cluster kernel once a call up to
     ``CLUSTER_MAX_N`` (above 65536 also under ``fft_rows_large_long``), K2b's
@@ -1589,13 +1595,30 @@ def phase_main_path_real(gen: torch.Generator, fpms,
                   expect, big_runs, "main_path_real")
     del ref, ref_plan, plan
 
+    # Fused rfft-lb at N = 16384 on the same 1 GiB real signal, against
+    # torch.fft.rfft2: phase 1 one call of K4 over the N rows, phase 2 one of
+    # K2 over the N//2+1 spectral rows, each its own source at 16384
+    # (rfft_rows_transpose_16k.cu, fft_rows_transpose_cluster.cu).
+    oracle = torch.fft.rfft2(wide)
+    plan = plan_pfft(n, p=P, method="rfft-lb", config=fused, dtype="float32")
+    check_execute(plan, wide, oracle, f"rfft-lb-{n}/{fused.describe()}",
+                  call_launches([("rfft_rows_transpose", n, n), ("fft_rows_transpose", nh, n)]),
+                  big_runs, "main_path_real")
+    del oracle, plan
+
     # ---- the real path's single drive ends
     counts = end_drive("main_path_real", (
         "rfft_rows", "rfft_rows_transpose", "fft_rows", "fft_rows_transpose",
         "rfft_rows_large", "rfft_rows_transpose_large", "fft_rows_large",
-        "fft_rows_transpose_large"))
+        "fft_rows_transpose_large", "rfft_rows_transpose_16k", "fft_rows_transpose_16k"))
     time_runs(big_runs, card, reps=3)
-    del big, wide, big_runs
+    # The fused rfft-lb plan's two phases at N = 16384 alone: K4 on the N
+    # real rows, K2 on its (N//2+1, N) output.
+    spec = rfft_rows_transpose_op(wide)
+    log("main_path_time", card=card, run=f"rfft-lb-{N_WIDE}/fused phases", n=N_WIDE,
+        phase1_rfft_rows_transpose_ms=time_ms(lambda: rfft_rows_transpose_op(wide), reps=5),
+        phase2_fft_rows_transpose_ms=time_ms(lambda: fft_rows_transpose_op(spec), reps=5))
+    del big, wide, big_runs, spec
     torch.cuda.empty_cache()
     return counts, runs
 
@@ -4449,8 +4472,8 @@ def main() -> None:
         record["launches"] = sum(by_path.values())
         record["launches_by_path"] = by_path
         if record["name"] in WIDE_SOURCES:
-            # K2's and K3's own sources at 16384 count apart (K1's and K4's
-            # launches there are their records').
+            # K2's, K3's and K4's own sources at 16384 count apart (K1's
+            # launches there are its record's).
             by_path = {path: counts.get(record["name"] + "_16k", 0)
                        for path, counts in paths.items()}
             record["at_16384"]["launches"] = sum(by_path.values())

@@ -25,7 +25,9 @@ check and time the packed real row kernel alone (every shape of
 (every shape of ``COMPLEX_SHAPES`` in both directions, its columns of the
 sweep, forward and inverse), the fused real row kernel alone (every shape
 of ``REAL_SHAPES``, its sweep beside ``rfft(x).T.contiguous()`` and
-``x.clone()``), or the fused complex row kernel alone (every shape of
+``x.clone()``, then at n = 16384 over ``WIDE_ROW_COUNTS`` (``time_16k``)
+beside ``RFFT_TRANSPOSE_16K_VARIANTS`` and
+``RFFT_TRANSPOSE_PERSISTENT_VARIANTS``), or the fused complex row kernel alone (every shape of
 ``COMPLEX_SHAPES`` and ``K2_RAGGED_SHAPES`` in both directions, its sweep
 forward and inverse beside ``fft(x).T.contiguous()``, the complex row kernel
 and ``x.clone()``, then its time at n = 8192 over ``K2_ROW_COUNTS``, where
@@ -340,7 +342,8 @@ extern "C" int variant_occupancy(int inverse) {{
 # ``csrc/rfft_rows_16k.cu``): the row counts timed, a call of the fused
 # plans at N = 16384 among them (16384; 8193, phase 2 of the fused real
 # plan, has odd output rows).
-WIDE_ROW_COUNTS = {"fft_rows_transpose": [4096, 16384, 8193], "rfft_rows": [4096, 16384]}
+WIDE_ROW_COUNTS = {"fft_rows_transpose": [4096, 16384, 8193], "rfft_rows": [4096, 16384],
+                   "rfft_rows_transpose": [4096, 16384, 16385, 16386]}
 # Shapes of K2 at 16384 (the cluster kernel with the transposed store), built
 # out of the library as ``TRANSPOSE_CLUSTER_VARIANTS`` are: name -> (n1, CTAs
 # a cluster, rows a cluster, edits of the header).  The rule (16 CTAs of 4
@@ -382,6 +385,39 @@ extern "C" int variant_launch(const void* in, void* out, long long rows, void* s
     return launch_persistent(in, out, rows, (cudaStream_t)stream);
 }
 extern "C" int variant_occupancy(int) { return 0; }
+"""
+# Shapes of K4 at 16384 (``packed_transpose_kernel`` of
+# ``csrc/rfft_rows_cluster.cuh``) built out of the library, each at every row
+# count: name -> (n1, CTAs a cluster, pairs a cluster).  The library's two
+# (8 CTAs of 2 pairs where rows % 4 == 0, 32-byte runs; 16 of 4 elsewhere,
+# 64-byte runs; both 256 threads and 34816 bytes a CTA) and 8 CTAs of 4
+# pairs at n1 = 64 (512 threads and 69632 bytes, two CTAs an SM).
+RFFT_TRANSPOSE_16K_VARIANTS = {
+    "32x8x2": (32, 8, 2),
+    "32x16x4": (32, 16, 4),
+    "64x8x4": (64, 8, 4),
+}
+# The design of K4 at 16384 that lost (``examples/rfft_rows_transpose_persistent.cuh``:
+# persistent 1024-thread CTAs in clusters of 4, the next pair staged by bulk
+# copies while the current one runs, the register kernel's cluster store),
+# built beside a copy of the library's sources with ``kStaged`` of
+# ``rfft_rows_16k.cu`` edited: name -> slices of row b staged with row a.
+RFFT_TRANSPOSE_PERSISTENT_VARIANTS = {
+    "persistent_stage6": 6,
+    "persistent_stage0": 0,
+}
+_PERSISTENT_TRANSPOSE_HEADER = "rfft_rows_transpose_persistent.cuh"
+_RFFT_TRANSPOSE_PERSISTENT_ENTRIES = """#include "rfft_rows_transpose_persistent.cuh"
+extern "C" int variant_launch(const void* in, void* out, long long rows, void* stream) {
+    return launch_persistent_transpose(in, out, rows, (cudaStream_t)stream);
+}
+extern "C" int variant_occupancy(int) { return persistent_transpose_occupancy(); }
+"""
+_RFFT_TRANSPOSE_16K_VARIANT_ENTRIES = """#include "rfft_rows_cluster.cuh"
+extern "C" int variant_launch(const void* in, void* out, long long rows, void* stream) {{
+    return launch_packed<{0}, {1}, {2}, {3}, true>(in, out, rows, (cudaStream_t)stream);
+}}
+extern "C" int variant_occupancy(int) {{ return packed_occupancy<{0}, {1}, {2}, {3}, true>(); }}
 """
 _RFFT_16K_VARIANT_ENTRIES = """#include "rfft_rows_cluster.cuh"
 extern "C" int variant_launch(const void* in, void* out, long long rows, void* stream) {{
@@ -425,12 +461,12 @@ def kernel_registers(ptxas: str, kernel: str) -> list[dict]:
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '\S*?\d%s_kernelI(?:Li(\d+)E)?((?:L[bi]\d+E)*)"
                       % kernel, line)
-        if kernel == "rfft_persistent" and re.search(
-                r"Compiling entry function '\S*?\drfft_persistent_kernel", line):
+        if kernel in ("rfft_persistent", "rfft_transpose_persistent") and re.search(
+                r"Compiling entry function '\S*?\d%s_kernel" % kernel, line):
             current = {"n": 1 << 14}   # not a template
             out.append(current)
             continue
-        if m and kernel == "packed_cluster":
+        if m and kernel in ("packed_cluster", "packed_transpose"):
             # <log2 n1, log2 n2, log2 C, log2 pairs a cluster>
             e1, e2, ec, er = [int(m.group(1))] + [
                 int(f) for f in re.findall(r"L[bi](\d+)E", m.group(2))]
@@ -476,6 +512,7 @@ REGISTERS = {"fft_rows.cu": ("fft_rows",),
              "rfft_rows.cu": ("rfft_rows",),
              "rfft_rows_16k.cu": ("rfft_persistent",),
              "rfft_rows_transpose.cu": ("rfft_rows_transpose",),
+             "rfft_rows_transpose_16k.cu": ("packed_transpose",),
              "fft_rows_transpose.cu": ("fft_rows_transpose",),
              "fft_rows_cluster.cu": ("cluster",),
              "fft_rows_transpose_cluster.cu": ("cluster",),
@@ -486,15 +523,15 @@ REGISTERS = {"fft_rows.cu": ("fft_rows",),
 
 
 def start_variant_build(root, name: str, edits, entries: str,
-                        edited: str = "fourstep_cluster.cuh"):
-    """Start one ``nvcc`` of a variant: a copy of the sources under
-    ``root/<name>`` with ``edits`` made to ``edited`` and ``entries`` as its
-    source (which includes a header, or a source for its kernel); returns
-    (library path, process)."""
+                        edited: str = "fourstep_cluster.cuh", extra=()):
+    """Start one ``nvcc`` of a variant: a copy of the sources (and of the
+    files ``extra``) under ``root/<name>`` with ``edits`` made to ``edited``
+    and ``entries`` as its source (which includes a header, or a source for
+    its kernel); returns (library path, process)."""
     src = root / name.replace(":", "_")
     src.mkdir(parents=True)
-    for path in _build.source_files():
-        shutil.copy(path, src / path.name)
+    for path in [*_build.source_files(), *extra]:
+        shutil.copy(path, src / os.path.basename(path))
     text = (src / edited).read_text()
     for old, new in edits:
         if old not in text:
@@ -541,12 +578,31 @@ def start_transpose_variants() -> dict:
 
 def start_16k_variants(kernel: str) -> dict:
     """Start one ``nvcc`` a ``TRANSPOSE_16K_VARIANTS`` (``kernel`` is
-    ``"fft_rows_transpose"``) or ``RFFT_16K_VARIANTS`` entry (``"rfft_rows"``)
-    under ``build/variants_16k/``: name -> (library path, process)."""
+    ``"fft_rows_transpose"``), ``RFFT_16K_VARIANTS`` and
+    ``RFFT_PERSISTENT_VARIANTS`` (``"rfft_rows"``) or
+    ``RFFT_TRANSPOSE_16K_VARIANTS`` and ``RFFT_TRANSPOSE_PERSISTENT_VARIANTS``
+    entry (``"rfft_rows_transpose"``) under ``build/variants_16k/``: name ->
+    (library path, process)."""
     root = _build.build_root() / "variants_16k" / kernel
     shutil.rmtree(root, ignore_errors=True)
     started = {}
-    if kernel == "fft_rows_transpose":
+    if kernel == "rfft_rows_transpose":
+        for name, (n1, ctas, pairs) in RFFT_TRANSPOSE_16K_VARIANTS.items():
+            log2n1 = n1.bit_length() - 1
+            started[name] = start_variant_build(root, name, [],
+                                                _RFFT_TRANSPOSE_16K_VARIANT_ENTRIES.format(
+                log2n1, 14 - log2n1, ctas.bit_length() - 1, pairs.bit_length() - 1))
+        from repro_torch.kernels.fft.real import RFFT_16K_STAGED
+
+        rule = f"constexpr int kStaged = {RFFT_16K_STAGED};"
+        header = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              _PERSISTENT_TRANSPOSE_HEADER)
+        for name, staged in RFFT_TRANSPOSE_PERSISTENT_VARIANTS.items():
+            started[name] = start_variant_build(
+                root, name, [(rule, f"constexpr int kStaged = {staged};")],
+                _RFFT_TRANSPOSE_PERSISTENT_ENTRIES, edited="rfft_rows_16k.cu",
+                extra=(header,))
+    elif kernel == "fft_rows_transpose":
         for name, (n1, ctas, rows, edits) in TRANSPOSE_16K_VARIANTS.items():
             log2n1 = n1.bit_length() - 1
             started[name] = start_variant_build(root, name, edits,
@@ -763,20 +819,24 @@ def time_queued_ms(fn, calls: int = 10, reps: int = 5) -> float:
 
 
 def time_16k(card: str, kernel: str, variants: dict, gen: torch.Generator) -> None:
-    """K2 (``kernel`` ``"fft_rows_transpose"``) or K3 (``"rfft_rows"``) at n
-    = 16384 over ``WIDE_ROW_COUNTS[kernel]``, forward, each way timed in
-    turns, twice (the second round in reverse order): one call alone
-    (``ms``, median of 10) and back to back (``queued_ms``,
-    ``time_queued_ms``).  The ways: the op (one launch of the kernel that
-    the tree launches at 16384: the register-resident one in a tree before
-    the redesign), and the ``variants``, each called directly on one output
-    buffer allocated beforehand.  Beside them the library call,
+    """K2 (``kernel`` ``"fft_rows_transpose"``), K3 (``"rfft_rows"``) or K4
+    (``"rfft_rows_transpose"``) at n = 16384 over ``WIDE_ROW_COUNTS[kernel]``,
+    forward, each way timed in turns, twice (the second round in reverse
+    order): one call alone (``ms``, median of 10) and back to back
+    (``queued_ms``, ``time_queued_ms``).  The ways: the op (one launch of the
+    kernel that the tree launches at 16384: the register-resident one in a
+    tree before the redesign), and the ``variants``, each called directly on
+    one output buffer allocated beforehand.  Beside them the library call
+    (``fft(x).T.contiguous()``, ``rfft(x)``, ``rfft(x).T.contiguous()``),
     ``x.clone()``, K1 (for K2) and the bound (bytes once each way at 3.35
     TB/s); each way with its active clusters and its error against the
     library (K2 both directions, the inverse's tolerance over n)."""
     n = 1 << 14
-    k2 = kernel == "fft_rows_transpose"
-    shapes = TRANSPOSE_16K_VARIANTS if k2 else RFFT_16K_VARIANTS
+    k2, k4 = kernel == "fft_rows_transpose", kernel == "rfft_rows_transpose"
+    shapes = ({**RFFT_TRANSPOSE_16K_VARIANTS, **RFFT_TRANSPOSE_PERSISTENT_VARIANTS} if k4
+              else TRANSPOSE_16K_VARIANTS if k2
+              else {**RFFT_16K_VARIANTS, **RFFT_PERSISTENT_VARIANTS})
+    staged = {**RFFT_PERSISTENT_VARIANTS, **RFFT_TRANSPOSE_PERSISTENT_VARIANTS}
     stream = torch.cuda.current_stream().cuda_stream
     for rows in WIDE_ROW_COUNTS[kernel]:
         if k2:
@@ -785,11 +845,22 @@ def time_16k(card: str, kernel: str, variants: dict, gen: torch.Generator) -> No
             out = torch.empty((n, rows), dtype=torch.complex64, device="cuda")
         else:
             x = torch.randn(rows, n, generator=gen, device="cuda")
-            out = torch.empty((rows, n // 2 + 1), dtype=torch.complex64, device="cuda")
+            out = torch.empty((n // 2 + 1, rows) if k4 else (rows, n // 2 + 1),
+                              dtype=torch.complex64, device="cuda")
+
+        def op(inverse=False):
+            if k2:
+                return fft_rows_transpose_op(x, inverse=inverse)
+            return rfft_rows_transpose_op(x) if k4 else rfft_rows_op(x)
+
+        def library(inverse=False):
+            if k2:
+                return (torch.fft.ifft(x) if inverse else torch.fft.fft(x)).T.contiguous()
+            return torch.fft.rfft(x).T.contiguous() if k4 else torch.fft.rfft(x)
 
         def call(way, inverse=False):
             if way == "op":
-                return fft_rows_transpose_op(x, inverse=inverse) if k2 else rfft_rows_op(x)
+                return op(inverse)
             args = (rows, int(inverse), rows) if k2 else (rows,)
             err = variants[way][0](x.data_ptr(), out.data_ptr(), *args, stream)
             if err != 0:
@@ -804,17 +875,17 @@ def time_16k(card: str, kernel: str, variants: dict, gen: torch.Generator) -> No
                 ms[way].append(time_ms(lambda: call(way), reps=10))
                 queued[way].append(time_queued_ms(lambda: call(way)))
         nbytes = 2 * rows * n * 8 if k2 else rows * n * 4 + rows * (n // 2 + 1) * 8
-        extra = {"library_ms": time_ms((lambda: torch.fft.fft(x).T.contiguous()) if k2
-                                       else (lambda: torch.fft.rfft(x)), reps=10),
+        extra = {"library_ms": time_ms(library, reps=10),
+                 "library_queued_ms": time_queued_ms(library),
                  "clone_ms": time_ms(lambda: x.clone(), reps=10),
+                 "clone_queued_ms": time_queued_ms(lambda: x.clone()),
                  "bound_ms": nbytes / 3.35e12 * 1e3}
         if k2:
             extra["fft_rows_ms"] = time_ms(lambda: fft_rows_op(x), reps=10)
         for way in ways:
             errs = {}
             for inverse in (False, True) if k2 else (False,):
-                lib_out = ((torch.fft.ifft(x) if inverse else torch.fft.fft(x)).T if k2
-                           else torch.fft.rfft(x))
+                lib_out = library(inverse)
                 got = call(way, inverse)
                 torch.cuda.synchronize()
                 key = ("inverse" if inverse else "forward") + "_vs_library"
@@ -822,11 +893,11 @@ def time_16k(card: str, kernel: str, variants: dict, gen: torch.Generator) -> No
                 del lib_out, got
                 if errs[key] > 1e-3 * n ** 0.5 / (n if inverse else 1):
                     sys.exit(f"{kernel} {way} disagrees at {rows} x {n}: {errs}")
-            shape = ({} if way not in shapes else dict(zip(
+            shape = ({} if way not in shapes or way in staged else dict(zip(
                 ("n1", "ctas", "rows_a_cluster" if k2 else "pairs_a_cluster"),
                 shapes[way][:3])))
-            if way in RFFT_PERSISTENT_VARIANTS:
-                shape = {"staged": RFFT_PERSISTENT_VARIANTS[way]}
+            if way in staged:
+                shape = {"staged": staged[way]}
             active = variants[way][1](0) if way in shapes else None
             print(json.dumps({"card": card, "kernel": kernel, "rows": rows, "n": n,
                               "variant": way, **shape, "active_clusters": active,
@@ -845,7 +916,8 @@ def load_cluster_variants(started: dict, *, strided: bool = False,
         output, _ = proc.communicate()
         if proc.returncode != 0:
             sys.exit(f"cluster variant {name}: nvcc failed\n{output}")
-        for kernel in ("cluster", "packed_cluster", "rfft_persistent"):
+        for kernel in ("cluster", "packed_cluster", "packed_transpose", "rfft_persistent",
+                       "rfft_transpose_persistent"):
             for record in kernel_registers(output, kernel):
                 print(json.dumps({"ptxas": kernel + "_kernel", "variant": name, **record}),
                       flush=True)
@@ -1113,12 +1185,14 @@ def main() -> None:
     run_k2 = not (only_k3 or only_k4 or only_k1 or only_k1b)
     run_k1b = not (only_k3 or only_k4 or only_k1 or only_k2)
     # The sources a kernel-alone mode compiles (the others: every source).
-    needed = (("fft_rows.cu",) if only_k1 else ("rfft_rows_transpose.cu",) if only_k4
+    needed = (("fft_rows.cu",) if only_k1
+              else ("rfft_rows_transpose.cu", "rfft_rows_transpose_16k.cu") if only_k4
               else ("fft_rows_transpose.cu", "fft_rows_transpose_cluster.cu") if only_k2
               else ("rfft_rows.cu", "rfft_rows_16k.cu") if only_k3
               else ("fft_rows_cluster.cu", "fft_rows_large.cu") if only_k1b else None)
     variant_builds = start_cluster_variants() if only_k1b and not args.no_variants else {}
-    wide = "fft_rows_transpose" if only_k2 else "rfft_rows" if only_k3 else None
+    wide = ("fft_rows_transpose" if only_k2 else "rfft_rows" if only_k3
+            else "rfft_rows_transpose" if only_k4 else None)
     wide_builds = start_16k_variants(wide) if wide and not args.no_variants else {}
     card = compile_sources(needed)
 
@@ -1269,6 +1343,8 @@ def main() -> None:
             print(json.dumps({
                 "card": card, "rows": xr.shape[0], "n": n, "dtype": "float32",
                 "rfft_rows_transpose_ms": time_ms(lambda: rfft_rows_transpose_op(xr)),
+                "rfft_rows_transpose_queued_ms": time_queued_ms(
+                    lambda: rfft_rows_transpose_op(xr)),
                 "torch_rfft_T_contiguous_ms": time_ms(
                     lambda: torch.fft.rfft(xr).T.contiguous()),
                 "clone_ms": time_ms(lambda: xr.clone())}), flush=True)
@@ -1310,7 +1386,7 @@ def main() -> None:
         del x
     if wide:
         time_16k(card, wide, load_cluster_variants(wide_builds, strided=only_k2,
-                                                   real=only_k3), gen)
+                                                   real=only_k3 or only_k4), gen)
     print("OK")
 
 

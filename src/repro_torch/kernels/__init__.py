@@ -41,9 +41,10 @@ def launch_counts() -> dict[str, int]:
     ``fft_rows_large_long`` the share that ran the cluster kernel at n =
     2^17 or 2^18 (rows of 1 and 2 MiB), and
     ``fft_rows_transpose_large_two_pass`` that of
-    ``fft_rows_transpose_large`` (n > 65536); ``fft_rows_transpose_16k`` and
-    ``rfft_rows_16k`` the shares of ``fft_rows_transpose`` and ``rfft_rows``
-    that ran their kernels of n = 16384 (K2's cluster kernel, K3's
+    ``fft_rows_transpose_large`` (n > 65536); ``fft_rows_transpose_16k``,
+    ``rfft_rows_16k`` and ``rfft_rows_transpose_16k`` the shares of
+    ``fft_rows_transpose``, ``rfft_rows`` and ``rfft_rows_transpose`` that
+    ran their kernels of n = 16384 (K2's and K4's cluster kernels, K3's
     persistent one)."""
     counts = {name: module.launch_count() for name, module in _COUNTED.items()}
     counts["fft_rows_large_two_pass"] = _large_kernel.two_pass_launch_count()
@@ -52,6 +53,7 @@ def launch_counts() -> dict[str, int]:
         _fused_large_kernel.two_pass_launch_count())
     counts["fft_rows_transpose_16k"] = _fused_kernel.launch_count_16k()
     counts["rfft_rows_16k"] = _real_kernel.launch_count_16k()
+    counts["rfft_rows_transpose_16k"] = _fused_real_kernel.launch_count_16k()
     return counts
 
 

@@ -55,6 +55,9 @@ _FUNCTIONS = {"repro_fft_rows": _COMPLEX_ROWS,
               # (in, out, rows, n, stream): K3 at n = 16384, one launch of
               # min(pairs, SMs) persistent CTAs
               "repro_rfft_rows_16k": (_INT, [_PTR, _PTR, _LL, _INT, _PTR]),
+              # (in, out, rows, n, stream): K4 at n = 16384, one launch over
+              # clusters of 16 CTAs
+              "repro_rfft_rows_transpose_16k": (_INT, [_PTR, _PTR, _LL, _INT, _PTR]),
               # (in, out, scratch, rows, n1, n2, inverse, out_stride,
               # rows_per_cta, threads, stream): K2b above 65536, two launches
               "repro_fft_rows_transpose_large": (_INT, [_PTR, _PTR, _PTR, _LL, _INT, _INT,

@@ -1,18 +1,21 @@
-// K3 at n = 16384 split over a thread-block cluster, for Hopper (sm_90a):
-// the first of the two designs tried for the packed real row FFT at its
-// longest row, out[r, k] = DFT_n(in[r, :])[k] for k < n/2 + 1 and every row
-// r of a (rows, n) float32 matrix, out (rows, n/2 + 1) interleaved
-// complex64, in one launch over clusters.  It lost to the persistent kernel
-// of rfft_rows_16k.cu (PERF.md: 14-17 % slower at 4096 and 16384 rows, 3 %
-// behind rfft_rows.cu), so no source of the library includes this header:
-// examples/kernel_check_torch.py builds it out of the library as a variant
-// (RFFT_16K_VARIANTS) and times it.
+// The packed real row FFT of rows of n = 16384 split over a thread-block
+// cluster, for Hopper (sm_90a): a pair of float32 rows in one launch over
+// clusters, out of which two kernels store:
+// - packed_transpose_kernel, K4 at n = 16384 (rfft_rows_transpose_16k.cu,
+//   the library's): out[k, r] = DFT_n(in[r, :])[k], out (n/2 + 1, rows),
+//   the cluster's pairs side by side in each output row.
+// - packed_cluster_kernel, K3's first design there: out[r, k], out (rows, n/2
+//   + 1).  It lost to the persistent kernel of rfft_rows_16k.cu (PERF.md:
+//   14-17 % slower at 4096 and 16384 rows, 3 % behind rfft_rows.cu), so the
+//   library does not instantiate it: examples/kernel_check_torch.py builds
+//   it out of the library as a variant (RFFT_16K_VARIANTS) and times it.
 //
-// The TPU kernel it would replace: `rfft_rows_pallas` (body `_rfft_kernel`)
-// of src/repro/kernels/fft/real.py, at n = 16384.  Same algorithm: rows a =
-// in[2p], b = in[2p + 1] packed as z = a + i*b, one complex FFT Z, and the
-// conjugate split A[k] = (Z[k] + conj Z[n-k]) / 2, B[k] = (Z[k] - conj
-// Z[n-k]) / (2i).
+// The TPU kernels they replace (K4) or would replace (K3), at n = 16384:
+// `rfft_rows_transpose_pallas` of src/repro/kernels/fused/real.py and
+// `rfft_rows_pallas` (body `_rfft_kernel`) of src/repro/kernels/fft/real.py.
+// Same algorithm: rows a = in[2p], b = in[2p + 1] packed as z = a + i*b, one
+// complex FFT Z, and the conjugate split A[k] = (Z[k] + conj Z[n-k]) / 2,
+// B[k] = (Z[k] - conj Z[n-k]) / (2i).
 //
 // Bound on this card: bytes (rows*n*4 read, rows*(n/2 + 1)*8 written).  The
 // design: where rfft_rows.cu gives a pair regfft's Plan<14>, 1024 threads
@@ -34,8 +37,9 @@
 //   (32 adjacent j2 of one row), as in cluster_kernel.
 // - Row phase: each rank runs regfft's length-n2 DFT on its W rows, so both
 //   rows of each slot it owns are in its own shared memory.
-// - Split and store: Z is staged in tstore.cuh's swizzled layout (bin k2 of
-//   local row rho at slot(k2*W + rho)); item (q, k2), k2 < n2/2, q fastest,
+// - Split and store (K3's; K4's is described above packed_transpose_kernel):
+//   Z is staged in tstore.cuh's swizzled layout (bin k2 of local row rho at
+//   slot(k2*W + rho)); item (q, k2), k2 < n2/2, q fastest,
 //   reads Z(q, k2) and its partner (local row q ^ H, bin n2 - 1 - k2; slot
 //   0's rows themselves) and writes A to out[2p][k] and B to out[2p + 1][k],
 //   k = k1 + n1*k2: each output element once, bin n/2 (row 0's bin n2/2,
@@ -45,10 +49,10 @@
 //   falling), off 32-byte boundaries as the rows of n/2 + 1 bins are.
 // Nothing of a pair leaves the cluster before its output; the second cluster
 // barrier is the last, so no CTA waits for another at the end.
-// tests/_torch_parity.py::k3_cluster_model checks every index above in
-// float64.
+// tests/_torch_parity.py::k3_cluster_model and k4_16k_model check every
+// index in float64.
 //
-// Its best shape (kClusterLog2Ctas, kClusterLog2Pairs, kClusterLog2N2): 2
+// K3's best shape (kClusterLog2Ctas, kClusterLog2Pairs, kClusterLog2N2): 2
 // CTAs of 1 pair, n1 = 64 and n2 = 256, 32 rows of B a rank (runs of 16
 // bins, 128 bytes), half of the points crossing to the other CTA, 512
 // threads and 69632 bytes of shared memory a CTA, two CTAs an SM.  4 CTAs of
@@ -86,27 +90,22 @@ struct Mirror {
     }
 };
 
-// blockIdx.x = q*C + r: rank r of the cluster of pairs q*R ... q*R + R - 1
-// (pairs past the call's load zeros and store nothing).
+// Pair p of the call (rows 2p and 2p + 1, read as 0 where the call has
+// none) through the column phase, the exchange to the mirror slots and the
+// row phase, as pair g of the cluster in part `buf` of its CTA's buffer: on
+// return thread rt = rho*G2 + t2 of the pair holds v[k] = bin t2 + k*G2 of
+// local row rho, row M::row(rank, rho) of B.  The two cluster barriers are
+// inside, so every thread of the cluster calls it.
 template <int LOG2N1, int LOG2N2, int LOG2C, int LOG2R>
-__global__ void __launch_bounds__(ClusterPlan<LOG2N1, LOG2N2, LOG2C, LOG2R>::THREADS,
-                                  ClusterPlan<LOG2N1, LOG2N2, LOG2C, LOG2R>::MIN_BLOCKS)
-packed_cluster_kernel(const float* __restrict__ in, float2* __restrict__ out,
-                      long long rows) {
+__device__ __forceinline__ void packed_cluster_rows(const float* __restrict__ in,
+                                                    long long rows, long long p, float2* buf,
+                                                    int rt, int rank, float2 (&v)[16]) {
     using CP = ClusterPlan<LOG2N1, LOG2N2, LOG2C, LOG2R>;
     using M = Mirror<LOG2N1, CP::LOG2W>;
-    constexpr int LOG2N = LOG2N1 + LOG2N2, LOG2W = CP::LOG2W;
-    constexpr int N2 = CP::N2, G1 = CP::G1, G2 = CP::G2, W = CP::W, H = W / 2;
-    constexpr int COLS = CP::COLS, RT = CP::ROW_THREADS;
-    constexpr long long NH = (1LL << (LOG2N - 1)) + 1;
-    extern __shared__ float2 smem[];
+    constexpr int LOG2N = LOG2N1 + LOG2N2;
+    constexpr int N2 = CP::N2, G1 = CP::G1, G2 = CP::G2, COLS = CP::COLS;
     cg::cluster_group cluster = cg::this_cluster();
-    const int rank = (int)cluster.block_rank();
-    const int g = CP::R == 1 ? 0 : threadIdx.x / RT;
-    const int rt = CP::R == 1 ? threadIdx.x : threadIdx.x % RT;
-    const long long p = (((long long)blockIdx.x >> LOG2C) << LOG2R) + g;
     const bool has_a = 2 * p < rows, has_b = 2 * p + 1 < rows;
-    float2* buf = smem + g * CP::ROW_ELEMS;    // pair g's part
 
     // Column phase: thread t*COLS + c holds z[(t + k*G1)*N2 + j2], j2 =
     // rank*COLS + c, as a + i*b; all 32 loads before the first butterfly.
@@ -119,7 +118,6 @@ packed_cluster_kernel(const float* __restrict__ in, float2* __restrict__ out,
     for (int k = 0; k < 16; ++k) re[k] = has_a ? xa[k * G1 * N2] : 0.0f;
 #pragma unroll
     for (int k = 0; k < 16; ++k) im[k] = has_b ? xb[k * G1 * N2] : 0.0f;
-    float2 v[16];
 #pragma unroll
     for (int k = 0; k < 16; ++k) v[k] = make_float2(re[k], im[k]);
     column_fft<LOG2N1, COLS, false>(v, buf, c, t);
@@ -141,8 +139,33 @@ packed_cluster_kernel(const float* __restrict__ in, float2* __restrict__ out,
 #pragma unroll
     for (int k = 0; k < 16; ++k) v[k] = buf[rho * N2 + t2 + k * G2];
     repro::regfft::fft_row<LOG2N2, false>(v, buf, rho * N2, t2);
+}
+
+// K3's design: blockIdx.x = q*C + r, rank r of the cluster of pairs q*R ...
+// q*R + R - 1 (pairs past the call's load zeros and store nothing).
+template <int LOG2N1, int LOG2N2, int LOG2C, int LOG2R>
+__global__ void __launch_bounds__(ClusterPlan<LOG2N1, LOG2N2, LOG2C, LOG2R>::THREADS,
+                                  ClusterPlan<LOG2N1, LOG2N2, LOG2C, LOG2R>::MIN_BLOCKS)
+packed_cluster_kernel(const float* __restrict__ in, float2* __restrict__ out,
+                      long long rows) {
+    using CP = ClusterPlan<LOG2N1, LOG2N2, LOG2C, LOG2R>;
+    using M = Mirror<LOG2N1, CP::LOG2W>;
+    constexpr int LOG2N = LOG2N1 + LOG2N2, LOG2W = CP::LOG2W;
+    constexpr int N2 = CP::N2, G2 = CP::G2, W = CP::W, H = W / 2;
+    constexpr int RT = CP::ROW_THREADS;
+    constexpr long long NH = (1LL << (LOG2N - 1)) + 1;
+    extern __shared__ float2 smem[];
+    const int rank = (int)cg::this_cluster().block_rank();
+    const int g = CP::R == 1 ? 0 : threadIdx.x / RT;
+    const int rt = CP::R == 1 ? threadIdx.x : threadIdx.x % RT;
+    const long long p = (((long long)blockIdx.x >> LOG2C) << LOG2R) + g;
+    const bool has_a = 2 * p < rows, has_b = 2 * p + 1 < rows;
+    float2* buf = smem + g * CP::ROW_ELEMS;    // pair g's part
+    float2 v[16];
+    packed_cluster_rows<LOG2N1, LOG2N2, LOG2C, LOG2R>(in, rows, p, buf, rt, rank, v);
 
     // Stage Z: bin k2 of local row rho at slot(k2*W + rho) of pair g's part.
+    const int rho = rt / G2, t2 = rt % G2;
     const Swizzle<LOG2N2> slot(LOG2W);
     __syncthreads();  // the last exchange's reads are done
 #pragma unroll
@@ -187,20 +210,124 @@ packed_cluster_kernel(const float* __restrict__ in, float2* __restrict__ out,
     }
 }
 
+// K4's design (rfft_rows_transpose_16k.cu): the pairs and phases of
+// packed_cluster_kernel, blockIdx.x = q*C + r as there, then the split
+// stored transposed with the R pairs side by side.  Z of the R pairs is
+// staged together in the whole buffer, bin k2 of local row rho of pair g at
+// slot(f), f = ((k2*W + rho) << LOG2R) + g (tstore.cuh's swizzle for P =
+// W*R rows of n2, as cluster_kernel stages K2's rows).  Item f = threadIdx.x
+// + i*THREADS, i < 8, is (g, q, k2) = (f % R, (f / R) % W, f / (R*W)), k2 <
+// N2/2, with its partner as in packed_cluster_kernel: A of bin k = M::row(
+// rank, q) + n1*k2 of pair p = q*R + g to out[k][2p] and B to out[k][2p +
+// 1], one float4 where the row count is even (the output's rows start on
+// 16 bytes).  A warp's store is 32/(R*W) bins of each of the W local rows,
+// the R pairs' 2R real rows of a bin side by side: 16*R contiguous bytes
+// of an output row, whole sectors where the row count is a multiple of 4.
+template <int LOG2N1, int LOG2N2, int LOG2C, int LOG2R>
+__global__ void __launch_bounds__(ClusterPlan<LOG2N1, LOG2N2, LOG2C, LOG2R>::THREADS,
+                                  ClusterPlan<LOG2N1, LOG2N2, LOG2C, LOG2R>::MIN_BLOCKS)
+packed_transpose_kernel(const float* __restrict__ in, float2* __restrict__ out,
+                        long long rows) {
+    using CP = ClusterPlan<LOG2N1, LOG2N2, LOG2C, LOG2R>;
+    using M = Mirror<LOG2N1, CP::LOG2W>;
+    constexpr int LOG2W = CP::LOG2W, LOG2P = LOG2W + LOG2R;
+    constexpr int N2 = CP::N2, G2 = CP::G2, W = CP::W, H = W / 2, R = CP::R;
+    constexpr int RT = CP::ROW_THREADS, THREADS = CP::THREADS;
+    constexpr long long HALF = 1LL << (LOG2N1 + LOG2N2 - 1);   // bin n/2
+    extern __shared__ float2 smem[];
+    const int rank = (int)cg::this_cluster().block_rank();
+    const int g = threadIdx.x / RT, rt = threadIdx.x % RT;
+    const long long p0 = ((long long)blockIdx.x >> LOG2C) << LOG2R;
+    const long long pairs = (rows + 1) / 2;
+    float2 v[16];
+    packed_cluster_rows<LOG2N1, LOG2N2, LOG2C, LOG2R>(in, rows, p0 + g,
+                                                      smem + g * CP::ROW_ELEMS, rt, rank, v);
+
+    // Stage Z of the R pairs side by side.
+    const int rho = rt / G2, t2 = rt % G2;
+    const Swizzle<LOG2N2> slot(LOG2P);
+    __syncthreads();  // the last exchange's reads are done
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+        smem[slot(((((t2 + k * G2) << LOG2W) + rho) << LOG2R) + g)] = v[k];
+    __syncthreads();
+
+    // Item f: Z and its partner, read from the buffer, and its bin.
+    auto read = [&](int f, float2& zk, float2& zr) {
+        const int gq = f & (R - 1), q = (f >> LOG2R) & (W - 1), k2 = f >> LOG2P;
+        const bool self = rank == 0 && (q & (H - 1)) == 0;
+        const int pq = self ? q : q ^ H;
+        const int pk = self && q == 0 ? (N2 - k2) & (N2 - 1) : N2 - 1 - k2;
+        zk = smem[slot(f)];
+        zr = smem[slot((((pk << LOG2W) + pq) << LOG2R) + gq)];
+    };
+    auto bin = [&](int f) {
+        return M::row(rank, (f >> LOG2R) & (W - 1)) + ((long long)(f >> LOG2P) << LOG2N1);
+    };
+    // Split and store, four items a batch: their eight reads, then their
+    // stores.  At an odd row count (output rows off 16 bytes) lanes 2f and
+    // 2f + 1 split item f and store A and B, so a warp's store is still 16*R
+    // contiguous bytes of an output row, 8 bytes a lane.
+    const bool vec = (rows & 1) == 0 && (reinterpret_cast<unsigned long long>(out) & 15) == 0;
+    if (vec) {
+#pragma unroll
+        for (int first = 0; first < 8; first += 4) {
+            float2 zk[4], zr[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) read(threadIdx.x + (first + i) * THREADS, zk[i], zr[i]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int f = threadIdx.x + (first + i) * THREADS;
+                const long long p = p0 + (f & (R - 1));
+                if (p < pairs)
+                    store_split<true>(out, p, bin(f), split_a(zk[i], zr[i]),
+                                      split_b(zk[i], zr[i]), rows, rows, true);
+            }
+        }
+    } else {
+        const int half = threadIdx.x & 1;
+#pragma unroll
+        for (int first = 0; first < 16; first += 4) {
+            float2 zk[4], zr[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                read((threadIdx.x >> 1) + (first + i) * (THREADS / 2), zk[i], zr[i]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int f = (threadIdx.x >> 1) + (first + i) * (THREADS / 2);
+                const long long col = 2 * (p0 + (f & (R - 1))) + half;
+                if (col < rows)
+                    out[bin(f) * rows + col] = half ? split_b(zk[i], zr[i])
+                                                    : split_a(zk[i], zr[i]);
+            }
+        }
+    }
+    // Bin n/2: row 0's bin N2/2 of each pair, its own partner, on rank 0.
+    if (rank == 0 && threadIdx.x < R && p0 + threadIdx.x < pairs) {
+        const float2 z = smem[slot(((N2 / 2) << LOG2P) + threadIdx.x)];
+        store_split<true>(out, p0 + threadIdx.x, HALF, split_a(z, z), split_b(z, z), rows,
+                          rows, vec);
+    }
+}
+
 // Clusters of this shape the card can hold at once: set by the first launch
 // (tstore::launch), 0 before.
-template <int LOG2N1, int LOG2N2, int LOG2C, int LOG2R>
+template <int LOG2N1, int LOG2N2, int LOG2C, int LOG2R, bool TRANSPOSED = false>
 int& packed_occupancy() {
     static int active = 0;
     return active;
 }
 
-// One launch over ceil(pairs / R) clusters.  Returns a CUDA error code (0 =
-// launched).
-template <int LOG2N1, int LOG2N2, int LOG2C, int LOG2R>
+// One launch over ceil(pairs / R) clusters of packed_cluster_kernel (K3's
+// row-major split) or, TRANSPOSED, packed_transpose_kernel (K4's).  Returns
+// a CUDA error code (0 = launched).
+template <int LOG2N1, int LOG2N2, int LOG2C, int LOG2R, bool TRANSPOSED = false>
 int launch_packed(const void* in, void* out, long long rows, cudaStream_t stream) {
     using CP = ClusterPlan<LOG2N1, LOG2N2, LOG2C, LOG2R>;
-    auto kernel = packed_cluster_kernel<LOG2N1, LOG2N2, LOG2C, LOG2R>;
+    auto kernel = [] {   // the other kernel is not instantiated
+        if constexpr (TRANSPOSED) return packed_transpose_kernel<LOG2N1, LOG2N2, LOG2C, LOG2R>;
+        else return packed_cluster_kernel<LOG2N1, LOG2N2, LOG2C, LOG2R>;
+    }();
     static int configured_smem = 48 * 1024;
     const long long smem = (long long)sizeof(float2) * CP::ELEMS;
     int err = repro::allow_dynamic_smem(kernel, &configured_smem, (int)smem);
@@ -217,8 +344,8 @@ int launch_packed(const void* in, void* out, long long rows, cudaStream_t stream
     const long long pairs = (rows + 1) / 2;
     return repro::tstore::launch<CP::C>(
         kernel, ((pairs + CP::R - 1) >> LOG2R) << LOG2C, CP::THREADS, smem, stream,
-        &packed_occupancy<LOG2N1, LOG2N2, LOG2C, LOG2R>(), (const float*)in, (float2*)out,
-        rows);
+        &packed_occupancy<LOG2N1, LOG2N2, LOG2C, LOG2R, TRANSPOSED>(), (const float*)in,
+        (float2*)out, rows);
 }
 
 }  // namespace

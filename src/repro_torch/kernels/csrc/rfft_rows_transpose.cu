@@ -1,7 +1,10 @@
 // Fused real row FFT -> transposed store for Hopper (sm_90a):
 // out[k, r] = DFT_n(in[r, :])[k] for k < n/2 + 1 and every row r of a
 // (rows, n) float32 matrix; out is (n/2 + 1, rows) interleaved complex64, n a
-// power of two, 2 <= n <= 16384, forward only.
+// power of two, 2 <= n <= 8192, forward only.  At n = 16384, where a pair
+// would take regfft's Plan<14> (1024 threads and 136 KiB, one CTA an SM, no
+// load in flight through its passes and cluster store), the op launches
+// rfft_rows_transpose_16k.cu instead: the pair split over a cluster.
 //
 // Replaces the TPU kernel `rfft_rows_transpose_pallas` (body `_rfused_kernel`)
 // of src/repro/kernels/fused/real.py: phase 1 of the fused real 2-D DFT, with
@@ -16,8 +19,7 @@
 // (regfft.cuh, launch shape kernels/fft/kernel.py::complex_rows_plan with a
 // pair in the place of a row), each thread issues its 32 float loads before
 // the first butterfly, and at n = 8192 a CTA of 512 threads and 68 KiB lets
-// two CTAs share an SM (at 16384 one CTA of 1024 threads and 136 KiB takes
-// it alone).  The store is the hard part: bin k of row r goes to
+// two CTAs share an SM.  The store is the hard part: bin k of row r goes to
 // out[k*rows + r], so a pair gives two neighbouring elements, 16 contiguous
 // bytes, of each output row.  After the last pass Z goes once to the
 // exchange buffer, and the store runs idx over (k, p) with the pair p
@@ -27,9 +29,9 @@
 // bytes per output row: on a full grid 32 at n = 2048, 64 at 1024, and so on
 // up to a warp's 512 at n <= 128.
 //
-// At n >= 4096 a CTA holds one pair, and 16-byte pieces took 0.77 ms at
-// 8192 x 8192 against 0.30 for the store below (H100 SXM, PERF.md).  There
-// the CTAs run in clusters of kStoreCluster = 4 (distributed shared
+// At n = 4096 and 8192 a CTA holds one pair, and 16-byte pieces took 0.77
+// ms at 8192 x 8192 against 0.30 for the store below (H100 SXM, PERF.md).
+// There the CTAs run in clusters of kStoreCluster = 4 (distributed shared
 // memory): after a cluster barrier, CTA rank r stores its quarter of the
 // bins for the four pairs, reading the others' Z through map_shared_rank,
 // the pair fastest, so 64 contiguous bytes per output row; a second barrier
@@ -211,7 +213,6 @@ extern "C" int repro_rfft_rows_transpose(const void* in, void* out, long long ro
         case 1 << 11: return launch<11>(in, out, rows, rows_per_cta, threads, s);
         case 1 << 12: return launch<12>(in, out, rows, rows_per_cta, threads, s);
         case 1 << 13: return launch<13>(in, out, rows, rows_per_cta, threads, s);
-        case 1 << 14: return launch<14>(in, out, rows, rows_per_cta, threads, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -564,32 +564,50 @@ def k2b_cluster_model(x, n: int, *, rows: int | None = None,
                           out_stride=out_stride, inverse=inverse)
 
 
-def _warp_runs(addr: np.ndarray, live: np.ndarray):
+def _warp_runs(addr: np.ndarray, live: np.ndarray, width: int = 32):
     """Per warp store instruction (``addr`` (..., T) in complex64 elements,
-    ``live`` the lanes that store): the bytes of each maximal run of
+    ``width`` of them an instruction: 32 lanes of one element, or 64 of two;
+    ``live`` the elements stored): the bytes of each maximal run of
     consecutive elements, and the instruction's bytes and 32-byte sectors
-    touched."""
-    lanes = np.where(live, addr, -1).reshape(-1, 32)
-    runs, nbytes, sectors = [], [], []
-    for row in lanes:
-        a = np.sort(row[row >= 0])
-        if not a.size:
-            continue
-        edges = np.flatnonzero(np.r_[True, np.diff(a) != 1, True])
-        runs.append(8 * np.diff(edges))
-        nbytes.append(8 * a.size)
-        sectors.append(np.unique(np.r_[a * 8 // 32, (a * 8 + 7) // 32]).size)
-    return (np.concatenate(runs) if runs else np.zeros(0, np.int64), np.asarray(nbytes, np.int64),
-            np.asarray(sectors, np.int64))
+    touched (instructions that store nothing left out)."""
+    none = np.iinfo(np.int64).max
+    a = np.sort(np.where(live, addr, none).reshape(-1, width), axis=1)
+    valid = a != none
+    a, valid = a[valid.any(1)], valid[valid.any(1)]
+    start = valid.copy()
+    start[:, 1:] &= np.diff(a, axis=1) != 1
+    run_id = np.cumsum(start.ravel())[valid.ravel()] - 1
+    runs = 8 * np.bincount(run_id) if run_id.size else np.zeros(0, np.int64)
+    sector = a // 4
+    new_sector = valid.copy()
+    new_sector[:, 1:] &= sector[:, 1:] != sector[:, :-1]
+    return runs, 8 * valid.sum(1), new_sector.sum(1)
 
 
-def k3_cluster_model(x, *, rows: int | None = None, shape=(64, 2, 1)):
-    """K3 at n = 16384 split over a cluster (``packed_cluster_kernel`` of
-    ``csrc/rfft_rows_cluster.cuh``, the design the library does not build)
-    in float64, thread by thread, in the launch shape ``shape = (n1, C, R)``
-    (its best, the default: 2 CTAs of 1 pair, n1 = 64) with n/(16C) threads a
-    pair and (n/C)*17/16 complex64 of shared memory a pair: ``x`` the
-    (rows, n) real rows, or None for the pattern alone (then ``rows``).
+def _half_warp_distinct_banks(slots: np.ndarray) -> int:
+    """As ``_half_warp_banks``, counting each distinct slot of a half-warp
+    once (lanes that read one slot are served by one broadcast)."""
+    halves = np.sort(slots.reshape(-1, 16), axis=1)
+    first = np.ones(halves.shape, bool)
+    first[:, 1:] = halves[:, 1:] != halves[:, :-1]
+    return _worst_bank_count(halves, first)
+
+
+def _mirror_row(rank, rho, n1: int, h: int):
+    """Row k1 of B that local row ``rho`` of cluster rank ``rank`` holds
+    under the mirror slots (``Mirror::row`` of ``csrc/rfft_rows_cluster.cuh``):
+    r*H + rho on the left (rho < H), its partner n1 - (r*H + rho - H) on the
+    right (n1/2 where that slot is 0)."""
+    sig = rank * h + rho % h
+    return np.where(rho < h, sig, np.where(sig == 0, n1 // 2, n1 - sig))
+
+
+def _packed_cluster_phases(x, rows: int | None, shape):
+    """What the packed cluster kernels share (``packed_cluster_rows`` of
+    ``csrc/rfft_rows_cluster.cuh``), in float64, thread by thread, at n =
+    16384 in the launch shape ``shape = (n1, C, R)``: n/(16C) threads and
+    (n/C)*17/16 complex64 of shared memory a pair; ``x`` the (rows, n) real
+    rows, or None for the pattern alone (then ``rows``).
 
     Cluster q holds pairs p = q*R + g, g < R; rank r runs R*T threads, T =
     n/(16C), thread g*T + i on pair g with its part of the buffer at g*E, E
@@ -602,35 +620,23 @@ def k3_cluster_model(x, *, rows: int | None = None, shape=(64, 2, 1)):
       n1 - k1 (above); owner rank sigma // H, local row sigma % H, plus H
       for k1 >= n1/2; point k to slot g*E + local*n2 + j2 of its owner.
     - Row phase: thread i = rho*G2 + t2 loads slot g*E + rho*n2 + t2 + k*G2
-      and runs the length-n2 DFT; local row rho of rank r is row k1 = r*H +
-      rho (rho < H) or n1 - (r*H + rho - H) (n1/2 where that is 0).
-    - Stage: bin k2 = t2 + k*G2 of local row rho at slot ``k4_slot(k2*W +
-      rho)`` (tstore.cuh's swizzle for W rows of n2).
-    - Split: item idx = i + b*T, b < 8, is (q, k2) = (idx % W, idx // W);
-      its partner local row q ^ H at bin n2 - 1 - k2, or, in slot 0 (rank 0,
-      q % H = 0), row q itself at (n2 - k2) % n2 (q = 0) or n2 - 1 - k2; A
-      to out[2p][k], B to out[2p + 1][k] (where that row exists), k = row(q)
-      + n1*k2; thread i = 0 of rank 0 also stores bin n/2 from row 0's bin
-      n2/2.
+      and runs the length-n2 DFT; local row rho of rank r is row
+      ``_mirror_row(r, rho)`` of B.
 
-    Returns a dict: ``out`` the (rows, n/2 + 1) result (None without
-    ``x``); ``reads`` how often each input element was loaded,
+    Returns a dict: the plan's numbers (``n``, ``n1``, ``n2``, ``ctas``,
+    ``per``, ``threads``, ``smem``, ``rows``, ``pairs``, ``clusters``, ``w``,
+    ``h``, ``elems``) and index arrays (``g``, ``i``, ``rho2``, ``k2``, each
+    (16, T) or (T,)); ``reads`` how often each input element was loaded,
     ``loads_128`` whether every warp's load is 32 consecutive floats from a
     128-byte boundary; ``slab_writes`` / ``slab_reads`` how often each
     (cluster, rank, pair, slot) of the slabs was written / loaded;
     ``owner_ok`` whether every row of B went to the local row that
-    ``row()`` maps back to it and both rows of every slot to one rank;
-    ``partner_ok`` whether every item read bin (n - k) mod n of its pair;
-    ``writes`` how often each output element was stored; ``worst_bank``
-    the worst count of a half-warp's lanes on one bank over the column
-    exchanges, the remote stores, the row phase's loads, the staging's
-    writes and the split's reads; ``remote_whole`` whether every warp's
-    remote store touches whole 32-byte sectors; ``runs``, ``nbytes`` and
-    ``sectors``: per output store instruction (A and B apart), the bytes of
-    each run of consecutive elements, its bytes and the 32-byte sectors it
-    touches."""
+    ``_mirror_row`` maps back to it and both rows of every slot to one rank;
+    ``worst_bank`` the worst count of a half-warp's lanes on one bank over
+    the column exchanges, the remote stores and the row phase's loads;
+    ``remote_whole`` whether every warp's remote store touches whole 32-byte
+    sectors; ``z`` (with ``x``) the row phase's output Z[q][r][g][rho][k2]."""
     n = 1 << 14
-    nh = n // 2 + 1
     n1, ctas, per = shape
     n2, elements = n // n1, n // ctas
     threads, smem = per * elements // 16, 8 * per * (elements + elements // 16)
@@ -640,7 +646,6 @@ def k3_cluster_model(x, *, rows: int | None = None, shape=(64, 2, 1)):
     h = w // 2
     row_threads = threads // per
     elems = smem // 8 // per
-    log2w = w.bit_length() - 1
     assert row_threads == cols * g1 == w * g2 and elems >= w * n2 and h >= 1
     clusters = -(-pairs // per)
     tid = np.arange(threads)
@@ -652,10 +657,10 @@ def k3_cluster_model(x, *, rows: int | None = None, shape=(64, 2, 1)):
     j2 = r * cols + c                                               # (1, C, 1, T)
     k1 = t + k * g1                                                 # (16, T)
     p = q * per + g                                                 # (Q, 1, 1, T)
-    shape = (clusters, ctas, 16, threads)
-    has_a = np.broadcast_to(2 * p < rows, shape)
-    has_b = np.broadcast_to(2 * p + 1 < rows, shape)
-    load_a = np.broadcast_to(2 * p * n + k1 * n2 + j2, shape)
+    full = (clusters, ctas, 16, threads)
+    has_a = np.broadcast_to(2 * p < rows, full)
+    has_b = np.broadcast_to(2 * p + 1 < rows, full)
+    load_a = np.broadcast_to(2 * p * n + k1 * n2 + j2, full)
     reads = np.bincount(np.concatenate([load_a[has_a], (load_a + n)[has_b]]),
                         minlength=rows * n)
     warps = load_a.reshape(-1, 32)
@@ -668,11 +673,6 @@ def k3_cluster_model(x, *, rows: int | None = None, shape=(64, 2, 1)):
         f = (((jj << 4) << log2s) + qq) + (np.arange(16)[:, None] << log2s)   # (16, T)
         worst = max(worst, _half_warp_banks(g * elems + f * cols + c),
                     _half_warp_banks(g * elems + k1 * cols + c))
-
-    def row_of(rank, rho):
-        sig = rank * h + rho % h
-        return np.where(rho < h, sig, np.where(sig == 0, n1 // 2, n1 - sig))
-
     # The exchange: mirror slots.
     sigma = np.where(k1 < n1 // 2, k1, np.where(k1 == n1 // 2, 0, n1 - k1))
     owner = sigma // h
@@ -683,7 +683,7 @@ def k3_cluster_model(x, *, rows: int | None = None, shape=(64, 2, 1)):
     l_all = s_all % h + (every >= n1 // 2) * h
     partner = np.where((every == 0) | (every == n1 // 2), every, n1 - every)
     owner_ok = bool(np.unique(o_all * w + l_all).size == n1
-                    and (row_of(o_all, l_all) == every).all()
+                    and (_mirror_row(o_all, l_all, n1, h) == every).all()
                     and (o_all[partner] == o_all).all())
     slot = local * n2 + j2                                           # (1, C, 16, T)
     dest = ((q * ctas + owner) * per + g) * (w * n2) + slot          # (Q, C, 16, T)
@@ -698,6 +698,67 @@ def k3_cluster_model(x, *, rows: int | None = None, shape=(64, 2, 1)):
     src = ((q * ctas + r) * per + g) * (w * n2) + own                # (Q, C, 16, T)
     slab_reads = np.bincount(src.ravel(), minlength=clusters * ctas * per * w * n2)
     worst = max(worst, _half_warp_banks(g * elems + own))
+    z = None
+    if x is not None:
+        xx = np.asarray(x, np.float64)
+        if rows % 2:
+            xx = np.vstack([xx, np.zeros((1, n))])
+        xx = np.vstack([xx, np.zeros((2 * clusters * per - xx.shape[0], n))])
+        zin = (xx[0::2] + 1j * xx[1::2]).reshape(-1)                 # pairs * n
+        held = zin[np.broadcast_to(p * n + k1 * n2 + j2, full)]      # (Q, C, 16, T)
+        colv = np.zeros((clusters, ctas, per, cols, n1), np.complex128)
+        gg, cc, kk1 = (np.broadcast_to(a, (16, threads)) for a in (g, c, k1))
+        colv[:, :, gg, cc, kk1] = held
+        y = np.fft.fft(colv, axis=-1)
+        jj = np.arange(ctas)[:, None] * cols + np.arange(cols)        # (C, cols)
+        y = y * np.exp(-2j * np.pi * ((jj[:, None, :, None] * np.arange(n1)) % n) / n)
+        slab = np.zeros(clusters * ctas * per * w * n2, np.complex128)
+        slab[dest] = y[:, :, gg, cc, kk1]
+        b = np.zeros((clusters, ctas, per, w, n2), np.complex128)
+        rr2, kk22 = np.broadcast_to(rho2, (16, threads)), np.broadcast_to(k2, (16, threads))
+        b[:, :, gg, rr2, kk22] = slab[src]
+        z = np.fft.fft(b, axis=-1)                                   # Z[q][r][g][rho][k2]
+    return {"n": n, "n1": n1, "n2": n2, "ctas": ctas, "per": per, "threads": threads,
+            "smem": smem, "rows": rows, "pairs": pairs, "clusters": clusters, "w": w,
+            "h": h, "elems": elems, "g": g, "i": i, "rho2": rho2, "k2": k2,
+            "reads": reads, "loads_128": loads_128, "slab_writes": slab_writes,
+            "slab_reads": slab_reads, "owner_ok": owner_ok, "worst_bank": worst,
+            "remote_whole": remote_whole, "z": z}
+
+
+def k3_cluster_model(x, *, rows: int | None = None, shape=(64, 2, 1)):
+    """K3 at n = 16384 split over a cluster (``packed_cluster_kernel`` of
+    ``csrc/rfft_rows_cluster.cuh``, the design the library does not build
+    for K3) in float64, thread by thread, in the launch shape ``shape = (n1,
+    C, R)`` (its best, the default: 2 CTAs of 1 pair, n1 = 64): ``x`` the
+    (rows, n) real rows, or None for the pattern alone (then ``rows``).
+
+    The column phase, the exchange and the row phase are
+    ``_packed_cluster_phases``'; then, in pair g's part of the buffer:
+    - Stage: bin k2 = t2 + k*G2 of local row rho at slot ``k4_slot(k2*W +
+      rho)`` (tstore.cuh's swizzle for W rows of n2).
+    - Split: item idx = i + b*T, b < 8, is (q, k2) = (idx % W, idx // W);
+      its partner local row q ^ H at bin n2 - 1 - k2, or, in slot 0 (rank 0,
+      q % H = 0), row q itself at (n2 - k2) % n2 (q = 0) or n2 - 1 - k2; A
+      to out[2p][k], B to out[2p + 1][k] (where that row exists), k = row(q)
+      + n1*k2; thread i = 0 of rank 0 also stores bin n/2 from row 0's bin
+      n2/2.
+
+    Returns ``_packed_cluster_phases``' dict (its ``worst_bank`` also over
+    the staging's writes and the split's reads) and: ``out`` the (rows, n/2
+    + 1) result (None without ``x``); ``partner_ok`` whether every item read
+    bin (n - k) mod n of its pair; ``writes`` how often each output element
+    was stored; ``runs``, ``nbytes`` and ``sectors``: per output store
+    instruction (A and B apart), the bytes of each run of consecutive
+    elements, its bytes and the 32-byte sectors it touches."""
+    m = _packed_cluster_phases(x, rows, shape)
+    n, n1, n2, ctas, per = m["n"], m["n1"], m["n2"], m["ctas"], m["per"]
+    rows, clusters, w, h, elems = m["rows"], m["clusters"], m["w"], m["h"], m["elems"]
+    g, i, rho2, k2 = m["g"], m["i"], m["rho2"], m["k2"]
+    threads, row_threads = m["threads"], m["threads"] // per
+    nh = n // 2 + 1
+    log2w = w.bit_length() - 1
+    worst = m["worst_bank"]
     # The staging and the split's reads.
     swz = k4_swizzle(n2, w)
     put = k4_slot((k2 << log2w) + rho2, swz)                         # (16, T)
@@ -713,8 +774,8 @@ def k3_cluster_model(x, *, rows: int | None = None, shape=(64, 2, 1)):
     get_r = k4_slot((pk << log2w) + pq, swz)
     worst = max(worst, _half_warp_banks(g * elems + get_k),
                 _half_warp_banks(g * elems + get_r))
-    kk = row_of(rr, qq) + n1 * kk2                                   # (C, 8, T)
-    pkk = row_of(rr, pq) + n1 * pk
+    kk = _mirror_row(rr, qq, n1, h) + n1 * kk2                       # (C, 8, T)
+    pkk = _mirror_row(rr, pq, n1, h) + n1 * pk
     partner_ok = bool(((pkk % n) == ((n - kk) % n)).all())
     pp = np.arange(clusters)[:, None, None, None] * per + g          # (Q, 1, 1, T)
     bshape = (clusters, ctas, 8, threads)
@@ -737,26 +798,10 @@ def k3_cluster_model(x, *, rows: int | None = None, shape=(64, 2, 1)):
         sectors.append(got[2])
     out = None
     if x is not None:
-        xx = np.asarray(x, np.float64)
-        if rows % 2:
-            xx = np.vstack([xx, np.zeros((1, n))])
-        xx = np.vstack([xx, np.zeros((2 * clusters * per - xx.shape[0], n))])
-        z = (xx[0::2] + 1j * xx[1::2]).reshape(-1)                   # pairs * n
-        held = z[np.broadcast_to(p * n + k1 * n2 + j2, shape)]       # (Q, C, 16, T)
-        colv = np.zeros((clusters, ctas, per, cols, n1), np.complex128)
-        gg, cc, kk1 = (np.broadcast_to(a, (16, threads)) for a in (g, c, k1))
-        colv[:, :, gg, cc, kk1] = held
-        y = np.fft.fft(colv, axis=-1)
-        jj = np.arange(ctas)[:, None] * cols + np.arange(cols)        # (C, cols)
-        y = y * np.exp(-2j * np.pi * ((jj[:, None, :, None] * np.arange(n1)) % n) / n)
-        slab = np.zeros(clusters * ctas * per * w * n2, np.complex128)
-        slab[dest] = y[:, :, gg, cc, kk1]
-        b = np.zeros((clusters, ctas, per, w, n2), np.complex128)
         rr2, kk22 = np.broadcast_to(rho2, (16, threads)), np.broadcast_to(k2, (16, threads))
-        b[:, :, gg, rr2, kk22] = slab[src]
-        zz = np.fft.fft(b, axis=-1)                                  # Z[g][rho][k2]
+        gg = np.broadcast_to(g, (16, threads))
         staged = np.zeros((clusters, ctas, per, elems), np.complex128)
-        staged[:, :, gg, put] = zz[:, :, gg, rr2, kk22]
+        staged[:, :, gg, put] = m["z"][:, :, gg, rr2, kk22]
         g8 = np.broadcast_to(g, (8, threads))
         ci = np.arange(ctas)[:, None, None]
         zk = staged[:, ci, g8, get_k]                                # (Q, C, 8, T)
@@ -769,11 +814,140 @@ def k3_cluster_model(x, *, rows: int | None = None, shape=(64, 2, 1)):
         out[e_a[e_live_a]] = z0[e_live_a].real
         out[(e_a + nh)[e_live_b]] = z0[e_live_b].imag
         out = out.reshape(rows, nh)
-    return {"out": out, "reads": reads, "loads_128": loads_128, "slab_writes": slab_writes,
-            "slab_reads": slab_reads, "owner_ok": owner_ok, "partner_ok": partner_ok,
-            "writes": writes, "worst_bank": worst, "remote_whole": remote_whole,
-            "runs": np.concatenate(runs), "nbytes": np.concatenate(nbytes),
-            "sectors": np.concatenate(sectors)}
+    keep = ("reads", "loads_128", "slab_writes", "slab_reads", "owner_ok", "remote_whole")
+    return {**{key: m[key] for key in keep}, "out": out, "partner_ok": partner_ok,
+            "writes": writes, "worst_bank": worst, "runs": np.concatenate(runs),
+            "nbytes": np.concatenate(nbytes), "sectors": np.concatenate(sectors)}
+
+
+def k4_16k_model(x, *, rows: int | None = None, shape=None):
+    """K4 at n = 16384 (``packed_transpose_kernel`` of
+    ``csrc/rfft_rows_cluster.cuh``, launched by
+    ``csrc/rfft_rows_transpose_16k.cu``) in float64, thread by thread, in
+    its launch shape ``rfft_transpose_16k_plan(rows)`` or ``shape = (n1, C,
+    R)``: ``x`` the (rows, n) real rows, or None for the pattern alone (then
+    ``rows``).
+
+    The column phase, the exchange and the row phase are
+    ``_packed_cluster_phases``'; then, over the CTA's whole buffer:
+    - Stage: bin k2 = t2 + k*G2 of local row rho of pair g at slot
+      ``k4_slot(((k2*W + rho) << log2 R) + g)`` (tstore.cuh's swizzle for P =
+      W*R rows of n2).
+    - Split at an even row count: item f = tid + b*(R*T), b < 8, is (g, q,
+      k2) = (f % R, (f // R) % W, f // (R*W)), k2 < n2/2, reading slot(f)
+      and its partner (local row q ^ H at bin n2 - 1 - k2, or in slot 0 its
+      own row as in ``k3_cluster_model``) of pair g; A and B of bin k =
+      row(q) + n1*k2 of pair p = cluster*R + g as one 16-byte store to
+      out[k][2p], out[k][2p + 1].  At an odd row count item f = tid // 2 +
+      b*(R*T/2), b < 16, the lane's half tid % 2 choosing A (column 2p) or B
+      (2p + 1), 8 bytes a lane, where the column exists.  Lanes tid < R of
+      rank 0 store bin n/2 of pair g = tid from row 0's bin n2/2.
+
+    Returns ``_packed_cluster_phases``' dict (its ``worst_bank`` also over
+    the staging's writes and the split's reads but rank 0's partner reads,
+    each distinct slot of a half-warp counted once; ``self_bank`` rank 0's
+    partner reads, where slot 0's two rows are their own partners) and:
+    ``shape``; ``out`` the
+    (n/2 + 1, rows) result (None without ``x``); ``items_once`` whether the
+    split's items cover every (g, q, k2 < n2/2) once on every rank;
+    ``partner_ok`` whether every item read bin (n - k) mod n of its pair;
+    ``writes`` how often each output element was stored (the stores'
+    guards: a column past the last pair's, or an unpaired row's b, is never
+    addressed); ``runs`` the bytes of each run of consecutive elements a
+    warp store writes to one output row; ``stores_whole`` whether every
+    warp store of a cluster whose R pairs all exist with both rows touches
+    whole 32-byte sectors only."""
+    from repro_torch.kernels.fused.real import rfft_transpose_16k_plan
+
+    rows = x.shape[0] if x is not None else rows
+    if shape is None:
+        n1, _, ctas, per, *_ = rfft_transpose_16k_plan(rows)
+        shape = (n1, ctas, per)
+    m = _packed_cluster_phases(x, rows, shape)
+    n, n1, n2, ctas, per = m["n"], m["n1"], m["n2"], m["ctas"], m["per"]
+    clusters, w, h, threads = m["clusters"], m["w"], m["h"], m["threads"]
+    g, rho2, k2 = m["g"], m["rho2"], m["k2"]
+    nh = n // 2 + 1
+    log2w, log2r = w.bit_length() - 1, per.bit_length() - 1
+    log2p = log2w + log2r
+    worst = m["worst_bank"]
+    swz = k4_swizzle(n2, w * per)
+    put = k4_slot((((k2 << log2w) + rho2) << log2r) + g, swz)        # (16, T)
+    assert np.unique(put).size == put.size and put.max() < m["smem"] // 8
+    worst = max(worst, _half_warp_banks(put))
+    odd = rows % 2 == 1
+    tid = np.arange(threads)
+    steps = 16 if odd else 8
+    f = ((tid >> 1) if odd else tid) + np.arange(steps)[:, None] * (threads // (2 if odd else 1))
+    half = np.broadcast_to(tid & 1 if odd else 0, f.shape)          # (S, T)
+    gq, qq, kk2 = f & (per - 1), (f >> log2r) & (w - 1), f >> log2p
+    items = np.bincount(f[half == 0].ravel(), minlength=per * w * n2 // 2)
+    items_once = bool((items == 1).all() and items.size == per * w * n2 // 2)
+    rr = np.arange(ctas)[:, None, None]                              # (C, 1, 1)
+    self_ = (rr == 0) & (qq % h == 0)                                # (C, S, T)
+    pq = np.where(self_, qq, qq ^ h)
+    pk = np.where(self_ & (qq == 0), (n2 - kk2) % n2, n2 - 1 - kk2)
+    get_k = np.broadcast_to(k4_slot(f, swz), pq.shape)
+    get_r = k4_slot((((pk << log2w) + pq) << log2r) + gq, swz)
+    worst = max(worst, _half_warp_distinct_banks(get_k), _half_warp_distinct_banks(get_r[1:]))
+    self_bank = _half_warp_distinct_banks(get_r[0])
+    kk = _mirror_row(rr, qq, n1, h) + n1 * kk2                       # (C, S, T)
+    pkk = _mirror_row(rr, pq, n1, h) + n1 * pk
+    partner_ok = bool(((pkk % n) == ((n - kk) % n)).all())
+    # The stores: per (cluster, rank, step, lane) the output elements
+    # written, column 2p + half (odd) or 2p and 2p + 1 (even).
+    cq = np.arange(clusters)[:, None, None, None]                    # (Q, 1, 1, 1)
+    p = cq * per + gq                                                # (Q, 1, S, T)
+    shp = (clusters, ctas, steps, threads)
+    kb = np.broadcast_to(kk, shp)
+    col0 = np.broadcast_to(2 * p + half, shp)
+    halves = (col0,) if odd else (col0, col0 + 1)
+    addrs = [kb * rows + col for col in halves]
+    lives = [col < rows for col in halves]
+    # Bin n/2: lanes tid < R of rank 0.
+    pe = np.arange(clusters)[:, None] * per + np.arange(per)          # (Q, R)
+    e_cols = [2 * pe, 2 * pe + 1]
+    e_addr = [(nh - 1) * rows + col for col in e_cols]
+    e_live = [col < rows for col in e_cols]
+    writes = np.bincount(np.concatenate([a[l] for a, l in zip(addrs + e_addr,
+                                                             lives + e_live)]),
+                         minlength=nh * rows)
+    # Runs and sectors of each warp store instruction (the even path's
+    # 16-byte stores: both elements of a lane in one instruction).
+    lane_addr = np.stack(addrs, -1).reshape(clusters, ctas, steps, -1)
+    lane_live = np.stack(lives, -1).reshape(lane_addr.shape)
+    width = 32 * len(halves)
+    runs = _warp_runs(lane_addr.reshape(-1, width), lane_live.reshape(-1, width), width)[0]
+    whole_clusters = clusters if rows % (2 * per) == 0 else clusters - 1
+    _, nb, sec = _warp_runs(lane_addr[:whole_clusters].reshape(-1, width),
+                            lane_live[:whole_clusters].reshape(-1, width), width)
+    stores_whole = bool((nb == 32 * sec).all())
+    out = None
+    if x is not None:
+        rr2, kk22 = np.broadcast_to(rho2, (16, threads)), np.broadcast_to(k2, (16, threads))
+        gg = np.broadcast_to(g, (16, threads))
+        staged = np.zeros((clusters, ctas, m["smem"] // 8), np.complex128)
+        staged[:, :, put] = m["z"][:, :, gg, rr2, kk22]
+        ci = np.arange(ctas)[:, None, None]
+        zk = staged[:, ci, get_k]                                    # (Q, C, S, T)
+        zr = staged[:, ci, get_r]
+        spec = ((zk + np.conj(zr)) / 2, (zk - np.conj(zr)) / 2j)
+        out = np.zeros(nh * rows, np.complex128)
+        if odd:
+            value = np.where(half == 1, spec[1], spec[0])
+            out[addrs[0][lives[0]]] = value[lives[0]]
+        else:
+            for a, l, v in zip(addrs, lives, spec):
+                out[a[l]] = v[l]
+        z0 = staged[:, 0, k4_slot(((n2 // 2) << log2p) + np.arange(per), swz)]   # (Q, R)
+        for a, l, v in zip(e_addr, e_live, (z0.real, z0.imag)):
+            out[a[l]] = v[l]
+        out = out.reshape(nh, rows)
+    keep = ("reads", "loads_128", "slab_writes", "slab_reads", "owner_ok", "remote_whole")
+    return {**{key: m[key] for key in keep}, "shape": tuple(shape), "out": out,
+            "items_once": items_once, "partner_ok": partner_ok,
+            "writes": writes.reshape(nh, rows), "worst_bank": worst, "self_bank": self_bank,
+            "runs": runs, "stores_whole": stores_whole}
 
 
 def k3_16k_model(x, *, rows: int | None = None, sms: int = 132):

@@ -339,7 +339,8 @@ def test_cpu_ops_launch_nothing_and_build_nothing():
         "fft_rows_transpose": 0, "fft_rows_transpose_16k": 0,
         "fft_rows_transpose_large": 0, "fft_rows_transpose_large_two_pass": 0,
         "rfft_rows": 0, "rfft_rows_16k": 0, "rfft_rows_large": 0,
-        "rfft_rows_transpose": 0, "rfft_rows_transpose_large": 0, "transpose": 0}
+        "rfft_rows_transpose": 0, "rfft_rows_transpose_16k": 0,
+        "rfft_rows_transpose_large": 0, "transpose": 0}
     assert _build._library is None  # nothing compiled or loaded by CPU work
 
 
@@ -351,7 +352,8 @@ def test_kernel_sources_are_plain_cuda_built_for_sm_90a():
                      "fourstep_cluster.cuh", "regfft.cuh",
                      "rfft_rows.cu", "rfft_rows_16k.cu", "rfft_rows_cluster.cuh",
                      "rfft_rows_large.cu", "rfft_rows_transpose.cu",
-                     "rfft_rows_transpose_large.cu", "transpose.cu", "tstore.cuh"]
+                     "rfft_rows_transpose_16k.cu", "rfft_rows_transpose_large.cu",
+                     "transpose.cu", "tstore.cuh"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "-use_fast_math" not in _build.NVCC_FLAGS
     for path in _build.source_files():
@@ -362,10 +364,11 @@ def test_kernel_sources_are_plain_cuda_built_for_sm_90a():
             # Every row FFT runs regfft.cuh's passes (the fused ones through
             # tstore.cuh, which includes it, the four-step ones through
             # fourstep.cuh, which includes tstore.cuh, or fourstep_cluster.cuh,
-            # which includes fourstep.cuh); the transpose has none.
+            # which includes fourstep.cuh, or rfft_rows_cluster.cuh, which
+            # includes fourstep_cluster.cuh); the transpose has none.
             shared = any(f'#include "{h}"' in text
                          for h in ("regfft.cuh", "tstore.cuh", "fourstep.cuh",
-                                   "fourstep_cluster.cuh"))
+                                   "fourstep_cluster.cuh", "rfft_rows_cluster.cuh"))
             assert shared == ("fft" in path.stem)
             assert "Replaces the TPU kernel" in text and "Bound on this card" in text
     assert "sincospif" in (_build.csrc_dir() / "regfft.cuh").read_text()
@@ -380,6 +383,8 @@ def test_kernel_sources_are_plain_cuda_built_for_sm_90a():
     for name in ("fft_rows_cluster.cu", "fft_rows_transpose_cluster.cu",
                  "rfft_rows_cluster.cuh"):
         assert '#include "fourstep_cluster.cuh"' in (_build.csrc_dir() / name).read_text()
+    assert '#include "rfft_rows_cluster.cuh"' in (
+        _build.csrc_dir() / "rfft_rows_transpose_16k.cu").read_text()
 
 
 def test_build_directory_is_keyed_by_the_sources(tmp_path, monkeypatch):

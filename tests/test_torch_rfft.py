@@ -21,7 +21,7 @@ import torch
 import jax.numpy as jnp
 
 from _hypothesis_compat import given, settings, st
-from _torch_parity import (both_fpms, both_padding_fpms, complex_signal,
+from _torch_parity import (both_fpms, both_padding_fpms, complex_signal, k4_16k_model,
                            k4_store_model, kernel_pass_model, to_numpy, to_torch)
 
 import repro.core as ref_core
@@ -194,19 +194,30 @@ def test_real_launch_shape_fits_the_card(n, rows):
     """K3 and K4 launch K1's plan with a packed pair in the place of a row
     (tested at these pair counts in ``test_torch_regfft.py``).  K4 keeps
     the CTA's Z, P pairs of n float2, in the exchange buffer; where a CTA
-    holds one pair (n >= 4096, two CTAs an SM up to 8192, one at 16384) it
-    runs in clusters of four, over a grid padded to a multiple of four."""
+    holds one pair (n = 4096 and 8192, two CTAs an SM) it runs in clusters
+    of four, over a grid padded to a multiple of four.  At 16384 K4 runs
+    ``rfft_transpose_16k_plan``: the pair split over a cluster (8 CTAs of 2
+    pairs where rows % 4 == 0, else 16 of 4), 256 threads and 34816 bytes a
+    CTA, four CTAs an SM, the grid one cluster a group of pairs."""
     pairs = (rows + 1) // 2
     per_cta, threads, points, _, smem = port_fft_kernel.complex_rows_plan(n, pairs)
     assert 1 <= per_cta <= max(1, 256 * points // n) and per_cta & (per_cta - 1) == 0
     assert 32 <= threads == per_cta * (n // points) <= 1024
     assert 8 * per_cta * n < smem <= SMEM_BUDGET
     assert resolve_radix(n, None, "rfft_rows_transpose_op") == (4 if n >= 4 else 2)
+    if n == MAX_KERNEL_N:
+        n1, n2, ctas, per, k4_threads, k4_smem, blocks = (
+            port_fused_real.rfft_transpose_16k_plan(rows))
+        assert (n1, n2) == (32, 512) and n1 * n2 == n
+        assert (ctas, per) == ((8, 2) if rows % 4 == 0 else (16, 4))
+        assert k4_threads == 256 and 4 * k4_smem <= SMEM_BUDGET
+        assert blocks % ctas == 0 and 0 <= blocks // ctas * per - pairs < per
+        return
     k4_per_cta, k4_threads, cluster, blocks = port_fused_real.rfft_rows_transpose_plan(n, rows)
     assert (k4_per_cta, k4_threads) == (per_cta, threads)
     assert blocks % cluster == 0 and 0 <= blocks * per_cta - pairs < cluster * per_cta
     if n >= 4096:   # one pair a CTA: a cluster of 4 (at most 8 is portable)
-        assert per_cta == 1 and smem <= SMEM_BUDGET // (2 if n <= 8192 else 1)
+        assert per_cta == 1 and smem <= SMEM_BUDGET // 2
         assert cluster == port_fused_real.STORE_CLUSTER == 4
     else:
         assert cluster == 1
@@ -236,10 +247,11 @@ def test_real_rows_plan_mirrors_the_cuda_header():
 def test_k4_source_runs_the_register_passes_in_k1s_plan():
     """K4 (``rfft_rows_transpose.cu``) runs K3's passes on ``regfft.cuh`` in
     the launch shape of ``rfft_rows_transpose_plan`` (checked by its
-    launcher, any other shape refused), at every length; its buffer swizzle
-    and cluster store are the ones ``k4_store_model`` checks (the swizzle,
-    the cluster rule and the launch in clusters in ``tstore.cuh``, which K2
-    shares)."""
+    launcher, any other shape refused), at every length to 8192 (16384 is
+    ``rfft_rows_transpose_16k.cu``'s, ``tests/test_torch_rows_16k.py``); its
+    buffer swizzle and cluster store are the ones ``k4_store_model`` checks
+    (the swizzle, the cluster rule and the launch in clusters in
+    ``tstore.cuh``, which K2 shares)."""
     source = (_build.csrc_dir() / "rfft_rows_transpose.cu").read_text()
     header = (_build.csrc_dir() / "tstore.cuh").read_text()
     assert '#include "tstore.cuh"' in source and "stockham_rows" not in source
@@ -249,9 +261,10 @@ def test_k4_source_runs_the_register_passes_in_k1s_plan():
     assert "threads != pairs_per_cta * P::GROUP" in source
     assert "pairs_per_cta > P::MAX_ROWS" in source
     assert "exchange_elems(pairs_per_cta, P::N)" in source
-    for e in range(1, 15):
+    for e in range(1, 14):
         assert f"case 1 << {e}: return launch<{e}>(" in source
-    assert "case 1 << 15" not in source
+    assert "case 1 << 14" not in source
+    assert "if (n != 1 << 14) " in (_build.csrc_dir() / "rfft_rows_transpose_16k.cu").read_text()
     # The swizzle: the model's k4_swizzle, written as the kernel writes it.
     assert "using repro::tstore::Swizzle;" in source
     for line in ("LG = LOG2N < 4 ? 0 : LOG2N - 4;", "LANES_K = LG < 4 ? LG : 4;",
@@ -306,7 +319,20 @@ def test_k4_store_model_is_the_transposed_half_spectrum(n, rows):
     the store's reads (of each CTA's buffer, in a cluster), and each warp's
     writes to one output row one contiguous run of 16·P bytes (a warp's 32
     lanes: 16·min(P, 32)) wherever the CTA (the cluster of four, at
-    n >= 4096) holds its P pairs."""
+    n = 4096 and 8192) holds its P pairs.  At 16384 the model of K4's own
+    kernel there (``k4_16k_model``: 16 CTAs of 4 pairs at these row counts)
+    holds the same: runs of 16·4 bytes, the last cluster's shorter, and no
+    bank conflict but rank 0's partner reads (at most 2-way)."""
+    if n == MAX_KERNEL_N:
+        x = real_signal(31 * n + rows, rows, n)
+        model = k4_16k_model(x)
+        np.testing.assert_allclose(model["out"], np.fft.rfft(x.astype(np.float64)).T,
+                                   rtol=0, atol=1e-9 * n)
+        assert (model["writes"] == 1).all() and (model["reads"] == 1).all()
+        assert model["worst_bank"] == 1 and model["self_bank"] <= 2
+        per = model["shape"][2]
+        assert set(model["runs"].tolist()) == {16 * per, 8 * (rows % (2 * per))}
+        return
     x, z, plan = k4_inputs(n, rows)
     cluster = port_fused_real.rfft_rows_transpose_plan(n, rows)[2]
     out, writes, worst, runs = k4_store_model(z, rows, plan, cluster=cluster)
@@ -326,7 +352,16 @@ def test_k4_store_is_conflict_free_and_wide_at_every_plan(n):
     the store's reads are conflict-free, and each warp writes one run of
     16·min(P·C, 32) bytes per output row (P pairs a CTA, C CTAs a cluster).
     The bank pattern and the runs do not depend on the data: zeros, and
-    the pairs of two full groups, stand for the grid."""
+    the pairs of two full groups, stand for the grid.  At 16384, K4's own
+    kernel there (``k4_16k_model``'s pattern) at both of its cluster shapes:
+    runs of 16·R bytes (R pairs a cluster), whole sectors at 8 CTAs of 2."""
+    if n == MAX_KERNEL_N:
+        for rows, shape, width in ((64, (32, 8, 2), 32), (66, (32, 16, 4), 64)):
+            model = k4_16k_model(None, rows=rows)
+            assert model["shape"] == shape and (model["writes"] == 1).all()
+            assert model["worst_bank"] == 1 and model["self_bank"] <= 2
+            assert max(model["runs"]) == width and model["stores_whole"] == (width == 32)
+        return
     widths, per_ctas = [], set()
     for grid_pairs in (100000, 4096, 2048, 128, 19, 2, 1):
         plan = port_fft_kernel.complex_rows_plan(n, grid_pairs)
@@ -351,10 +386,15 @@ def test_k4_store_is_conflict_free_and_wide_at_every_plan(n):
 def test_k4_store_model_matches_reference_rfft_rows_transpose_op(n, rows):
     """The model of K4 against the reference's fused real op (Pallas,
     interpret mode) at ``1e-3·sqrt(n)``, and the port's op on the CPU (the
-    plain version) against both."""
-    x, z, plan = k4_inputs(n, rows)
-    cluster = port_fused_real.rfft_rows_transpose_plan(n, rows)[2]
-    got, *_ = k4_store_model(z, rows, plan, cluster=cluster)
+    plain version) against both; at 16384 the model of K4's own kernel
+    there (``k4_16k_model``)."""
+    if n == MAX_KERNEL_N:
+        x = real_signal(31 * n + rows, rows, n)
+        got = k4_16k_model(x)["out"]
+    else:
+        x, z, plan = k4_inputs(n, rows)
+        cluster = port_fused_real.rfft_rows_transpose_plan(n, rows)[2]
+        got, *_ = k4_store_model(z, rows, plan, cluster=cluster)
     want = np.asarray(ref_rfused_op(jnp.asarray(x)))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-3 * np.sqrt(n))
     plain = to_numpy(port_fused_real.rfft_rows_transpose_op(to_torch(x)))
