@@ -64,6 +64,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import as_tensor, resolve_device
+from repro_torch._trace import span
 from repro_torch.core.fpm import FPMSet
 from repro_torch.core.partition import PartitionResult, lb_partition, partition_rows
 from repro_torch.core.pfft import (_complex_limb, _real_limb, device_groups,
@@ -197,21 +198,24 @@ class PfftPlan:
         ``(n, n)`` signal alone gives, stacked: each dispatch group of each
         unfused phase runs once over the rows of all the signals (one
         launch of the row kernel per group under ``radix=4``, whatever the
-        batch), and a fused schedule runs its two fused launches over them
-        and one permuting copy.  The result is ``(..., n, n)``, or ``(...,
-        n, n//2+1)`` for the ``rfft-*`` methods.
+        batch), and a fused schedule runs its two fused launches over them.
+        The result is ``(..., n, n)``, or ``(..., n, n//2+1)`` for the
+        ``rfft-*`` methods; a fused schedule returns it as a permuted view
+        of its last launch's output, with the batch fastest in memory (no
+        copy), so a batched fused result is not contiguous.
 
         A distributed plan takes this rank's ``(..., n/p, n)`` row blocks
         and returns its blocks of the result, one distributed transform per
         signal of the batch; every rank of the mesh calls it alike.
         """
-        m = _on_plan_device(m, self.device)
-        if m.ndim < 2 or tuple(m.shape[-2:]) != (self.rows, self.n):
-            raise ValueError(
-                f"plan is for ({self.rows}, {self.n}) "
-                f"{'row blocks' if self.mesh is not None else 'signals'} "
-                f"(optionally with leading batch dims), got {tuple(m.shape)}")
-        return self._run(m.contiguous())
+        with span("execute"):
+            m = _on_plan_device(m, self.device)
+            if m.ndim < 2 or tuple(m.shape[-2:]) != (self.rows, self.n):
+                raise ValueError(
+                    f"plan is for ({self.rows}, {self.n}) "
+                    f"{'row blocks' if self.mesh is not None else 'signals'} "
+                    f"(optionally with leading batch dims), got {tuple(m.shape)}")
+            return self._run(m.contiguous())
 
     def execute_many(self, ms, *, pad_to: int | None = None,
                      stages: dict | None = None) -> list:

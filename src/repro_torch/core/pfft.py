@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import as_tensor, complex_result_type
+from repro_torch._trace import span
 from repro_torch.core.fpm import FPMSet
 from repro_torch.core.partition import PartitionResult, lb_partition, partition_rows
 from repro_torch.fft.fft2d import (fft_rows, fft_rows_then_transpose,
@@ -315,10 +316,12 @@ def _complex_limb(m: torch.Tensor, d: np.ndarray, schedule: SegmentSchedule,
         return _fused_phases(m, fft_rows_then_transpose, fused)
     if groups is None:
         groups = device_groups(schedule, m.device)
-    m = segment_row_ffts(m, d, schedule=schedule, groups=groups)
-    m = m.transpose(-1, -2).contiguous()
-    m = segment_row_ffts(m, d, schedule=schedule, groups=groups)
-    return m.transpose(-1, -2).contiguous()
+    with span("phase1"):
+        m = segment_row_ffts(m, d, schedule=schedule, groups=groups)
+        m = m.transpose(-1, -2).contiguous()
+    with span("phase2"):
+        m = segment_row_ffts(m, d, schedule=schedule, groups=groups)
+        return m.transpose(-1, -2).contiguous()
 
 
 def _fused_phases(m: torch.Tensor, first, config: PlanConfig) -> torch.Tensor:
@@ -332,17 +335,20 @@ def _fused_phases(m: torch.Tensor, first, config: PlanConfig) -> torch.Tensor:
     A stack of B matrices runs as B·n rows: phase 1 writes ``(w, B·n)``,
     whose ``(w·B, n)`` rows are exactly phase 2's rows of every matrix,
     and phase 2 writes ``(n, w·B)`` — the result in ``(n, w, B)`` order,
-    which one permuting copy brings to ``(B, n, w)``.  Two launches
-    whatever B, for one more copy: on the H100 this beats transforming the
+    returned as its ``(B, n, w)`` permuted view, with the batch fastest in
+    memory: no copy is made, so for B > 1 the result is not contiguous.
+    Two launches whatever B: on the H100 this beats transforming the
     matrices one at a time at N = 1024 ... 8192 and B = 2 and 8 (PERF.md).
     """
     radix = config.radix if config.radix == 4 else None
     n = m.shape[-1]
     flat = m.reshape(-1, n)
     b = flat.shape[0] // n
-    h = first(flat, radix=radix)                                 # (w, B·n)
+    with span("phase1"):
+        h = first(flat, radix=radix)                             # (w, B·n)
     w = h.shape[0]
-    z = fft_rows_then_transpose(h.reshape(w * b, n), radix=radix)  # (n, w·B)
+    with span("phase2"):
+        z = fft_rows_then_transpose(h.reshape(w * b, n), radix=radix)  # (n, w·B)
     return z.reshape(n, w, b).permute(2, 0, 1).reshape(m.shape[:-2] + (n, w))
 
 
@@ -551,11 +557,13 @@ def _real_limb(m: torch.Tensor, d: np.ndarray, schedule: SegmentSchedule,
         return _fused_phases(m, rfft_rows_then_transpose, fused)
     if groups is None:
         groups = real_limb_groups(schedule, d, m.device)
-    h = segment_row_rffts(m, d, schedule=schedule, groups=groups[0])
-    h = h.transpose(-1, -2).contiguous()                      # (..., nh, n)
+    with span("phase1"):
+        h = segment_row_rffts(m, d, schedule=schedule, groups=groups[0])
+        h = h.transpose(-1, -2).contiguous()                  # (..., nh, n)
     d2, sched2 = _clip_schedule(schedule, np.asarray(d), nh)
-    h = segment_row_ffts(h, d2, schedule=sched2, groups=groups[1])
-    return h.transpose(-1, -2).contiguous()                   # (..., n, nh)
+    with span("phase2"):
+        h = segment_row_ffts(h, d2, schedule=sched2, groups=groups[1])
+        return h.transpose(-1, -2).contiguous()               # (..., n, nh)
 
 
 def _real_config(config: PlanConfig | None) -> PlanConfig:

@@ -37,6 +37,7 @@ import math
 
 import torch
 
+from repro_torch._trace import span
 from repro_torch.kernels import _build
 
 __all__ = [
@@ -263,11 +264,12 @@ def launch(fn_name: str, x: torch.Tensor, out: torch.Tensor, **args) -> None:
     """Launch one of the library's kernels, ``fn_name(in, out, *args,
     stream)``, on the current stream of ``x``'s device; raises when the
     launch is refused.  ``args`` are passed in the order given."""
-    lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, fn_name)(x.data_ptr(), out.data_ptr(), *args.values(),
-                                    stream)
+    with span("launch"):
+        lib = _build.load_library()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = getattr(lib, fn_name)(x.data_ptr(), out.data_ptr(),
+                                        *args.values(), stream)
     if err != 0:
         detail = ", ".join(f"{k}={v}" for k, v in args.items())
         raise KernelLaunchError(f"{fn_name}({detail}) failed with CUDA error {err}")
