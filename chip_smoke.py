@@ -19,7 +19,11 @@ each of which ends the run with a non-zero exit code when it fails:
                  2^17, 256 x 2^18 (its cluster kernel), 128 x 2^19 and 1 x
                  2^24 (its two passes) both ways, and K2b (both ways), K3b
                  and K4b at 2048 x 32768, 512 x 2^17, 1 x 2^24 and 2049 x
-                 32768; the transpose bit for bit); untimed, beside the
+                 32768; K2 and K2b at a row stride padded to a multiple of
+                 4 at 8193 x 16384, 16385 x 32768 and 513 x 2^17, the
+                 padding left as it was, the view equal to the dense call,
+                 counted under ``fft_rows_transpose_padded``; the
+                 transpose bit for bit); untimed, beside the
                  dry-run worker.
    ``kernels``   each kernel's time beside the plain version's, the library's
                  and the card's bound at the main path's shape (K1-K4 also at
@@ -44,8 +48,9 @@ each of which ends the run with a non-zero exit code when it fails:
                  K2b), a 4 GiB signal; ``rfft-fpm-pad`` at N = 16384 with a
                  segment padded to 32768 under ``radix=4`` (K3 and K3b, then
                  K1 and K1b), and fused ``rfft-lb`` on the same signal (K4,
-                 then K2 over 8193 rows, both their sources at 16384), its
-                 two phases also timed alone.
+                 then K2 over 8193 rows at a padded stride, both their
+                 sources at 16384; its answer a view of phase 2's buffer,
+                 two kernels on the card), its two phases also timed alone.
 6. ``planner``   the single-device planner: ``plan_pfft(tune="estimate")``
                  for ``fpm`` / ``rfft-fpm`` / ``fpm-pad`` at N = 8192,
                  ``tune="measure"`` into a fresh wisdom file for ``lb`` and
@@ -266,8 +271,11 @@ from repro_torch.kernels.fft.large import (CLUSTER_MAX_N, cluster_plan,  # noqa:
 from repro_torch.kernels.fft.real import rfft_rows_plain  # noqa: E402
 from repro_torch.kernels.fft.real_large import rfft_rows_large_plain  # noqa: E402
 from repro_torch.kernels.fused.kernel import fft_rows_transpose_plain  # noqa: E402
+from repro_torch.kernels.fused import kernel as fused_kernel_mod  # noqa: E402
+from repro_torch.kernels.fused import large as fused_large_mod  # noqa: E402
 from repro_torch.kernels.fused.large import (  # noqa: E402
-    TRANSPOSE_CLUSTER_LENGTHS, fft_rows_transpose_large_plain, transpose_cluster_plan)
+    TRANSPOSE_CLUSTER_LENGTHS, fft_rows_transpose_large_plain, padded_out_stride,
+    transpose_cluster_plan)
 from repro_torch.kernels.fused.real import rfft_rows_transpose_plain  # noqa: E402
 from repro_torch.kernels.fused.real_large import (  # noqa: E402
     rfft_rows_transpose_large_plain)
@@ -369,6 +377,9 @@ TWO_PASS_DESIGN = "columns_fastest+store_runs_16_rows"
 # length).
 SIBLING_SHAPES = [K1B_SHAPES[0], K2B_TWO_PASS_SHAPE, (1, 1 << 24),
                   (2049, 1 << 15), (16385, 1 << 15), (3, 1 << 15), (1023, 1 << 16)]
+# K2 and K2b writing at a row stride padded to a multiple of 4 (pad_stride):
+# phase 2 of the fused real plan at 16384 and 32768, and K2b's two passes.
+PADDED_SHAPES = [(8193, 1 << 14), (16385, 1 << 15), (513, 1 << 17)]
 TRANSPOSE_SHAPES = [(1, 1), (37, 129), (1000, 3), (4096, 8192), (8192, 8192)]
 # Every other element size the transpose kernel is built for, at small shapes.
 TRANSPOSE_OTHER_DTYPES = [torch.uint8, torch.float16, torch.float64, torch.complex128]
@@ -659,6 +670,7 @@ def check_kernels(gen: torch.Generator) -> dict[str, float]:
     check_transpose(gen, worst)
     check_large_kernel(gen, worst)
     check_large_siblings(gen, worst)
+    check_padded_stride(gen)
     return worst
 
 
@@ -877,6 +889,61 @@ def check_large_siblings(gen: torch.Generator, worst: dict) -> None:
             worst["rfft_rows_large"] = errs["rfft_rows_large_err"]
             worst["rfft_rows_transpose_large"] = errs["rfft_rows_transpose_large_err"]
         del xr, lib, got, got_t
+
+
+@contextlib.contextmanager
+def recorded_outputs(fill: bool = False):
+    """The output buffers K2 and K2b allocate while the block runs (their
+    launchers' ``transposed_out``), each filled with NaN before its launch
+    where ``fill``."""
+    buffers: list[torch.Tensor] = []
+    made = fused_large_mod.transposed_out
+
+    def recorded(x, n, rows, pad_stride):
+        out, stride = made(x, n, rows, pad_stride)
+        buffers.append(out.fill_(float("nan")) if fill else out)
+        return out, stride
+
+    fused_kernel_mod.transposed_out = fused_large_mod.transposed_out = recorded
+    try:
+        yield buffers
+    finally:
+        fused_kernel_mod.transposed_out = fused_large_mod.transposed_out = made
+
+
+def check_padded_stride(gen: torch.Generator) -> None:
+    """K2 and K2b with ``pad_stride=True`` at ``PADDED_SHAPES``, both ways:
+    the output buffer filled with NaN before the launch keeps NaN in its
+    padding columns (nothing written past ``rows``), its ``(n, rows)`` view
+    is the answer and equals the dense call's bit for bit, and
+    ``fft_rows_transpose_padded`` counts one a call of the cluster kernel
+    (one a chunk of the two passes)."""
+    for rows, n in PADDED_SHAPES:
+        x = random_signal(gen, rows, n)
+        stride = padded_out_stride(n, rows)
+        for inverse in (False, True):
+            dense = fft_rows_transpose_op(x, inverse=inverse)
+            before = launch_counts()["fft_rows_transpose_padded"]
+            with recorded_outputs(fill=True) as buffers:
+                got = fft_rows_transpose_op(x, inverse=inverse, pad_stride=True)
+            torch.cuda.synchronize()
+            padded = launch_counts()["fft_rows_transpose_padded"] - before
+            chunks = 1 if n in TRANSPOSE_CLUSTER_LENGTHS else -(-rows // scratch_rows(n))
+            (buf,) = buffers
+            checks = {
+                "strided_view": (got.stride() == (stride, 1) and got.shape == (n, rows)
+                                 and buf.shape == (n, stride)),
+                "shares_buffer": (got.untyped_storage().data_ptr()
+                                  == buf.untyped_storage().data_ptr()),
+                "padding_untouched": bool(torch.isnan(buf[:, rows:]).all()),
+                "equal_to_dense": torch.equal(got, dense),
+                "padded_launches": padded == chunks}
+            log("kernels", rows=rows, n=n, inverse=inverse, padded_stride=stride, **checks)
+            if not all(checks.values()):
+                raise AssertionError(f"K2/K2b at a padded stride, rows={rows} n={n} "
+                                     f"inverse={inverse}: {checks}")
+            del dense, got, buf, buffers
+        del x
 
 
 def wide_records(gen: torch.Generator) -> dict[str, dict]:
@@ -1292,11 +1359,18 @@ def call_launches(calls) -> dict[str, int]:
     at ``TRANSPOSE_CLUSTER_LENGTHS``; else two
     (passes A, B) per chunk of ``scratch_rows(n)`` rows (row pairs for the
     real kernels, whose pass B splits), K1b's and K2b's also under
-    ``<kernel>_large_two_pass``.  Calls with no rows launch nothing."""
+    ``<kernel>_large_two_pass``.  Calls with no rows launch nothing.  The
+    ``fft_rows_transpose`` calls are fused plans' phases, which pad the
+    output's stride from n = 16384 on where rows % 4 != 0: one
+    ``fft_rows_transpose_padded`` a call of the cluster kernel, or a chunk
+    of the two passes."""
     out: dict[str, int] = {}
     for name, rows, n in calls:
         if rows == 0:
             continue
+        if name == "fft_rows_transpose" and padded_out_stride(n, rows) > rows:
+            chunks = 1 if n <= max(TRANSPOSE_CLUSTER_LENGTHS) else -(-rows // scratch_rows(n))
+            out["fft_rows_transpose_padded"] = out.get("fft_rows_transpose_padded", 0) + chunks
         if n <= MAX_KERNEL_N:
             out[name] = out.get(name, 0) + 1
             if n == MAX_KERNEL_N and name in WIDE_SOURCES:
@@ -1598,13 +1672,14 @@ def phase_main_path_real(gen: torch.Generator, fpms,
     # Fused rfft-lb at N = 16384 on the same 1 GiB real signal, against
     # torch.fft.rfft2: phase 1 one call of K4 over the N rows, phase 2 one of
     # K2 over the N//2+1 spectral rows, each its own source at 16384
-    # (rfft_rows_transpose_16k.cu, fft_rows_transpose_cluster.cu).
+    # (rfft_rows_transpose_16k.cu, fft_rows_transpose_cluster.cu), K2 at a
+    # padded stride.
     oracle = torch.fft.rfft2(wide)
-    plan = plan_pfft(n, p=P, method="rfft-lb", config=fused, dtype="float32")
-    check_execute(plan, wide, oracle, f"rfft-lb-{n}/{fused.describe()}",
+    wide_plan = plan_pfft(n, p=P, method="rfft-lb", config=fused, dtype="float32")
+    check_execute(wide_plan, wide, oracle, f"rfft-lb-{n}/{fused.describe()}",
                   call_launches([("rfft_rows_transpose", n, n), ("fft_rows_transpose", nh, n)]),
                   big_runs, "main_path_real")
-    del oracle, plan
+    del oracle
 
     # ---- the real path's single drive ends
     counts = end_drive("main_path_real", (
@@ -1612,12 +1687,29 @@ def phase_main_path_real(gen: torch.Generator, fpms,
         "rfft_rows_large", "rfft_rows_transpose_large", "fft_rows_large",
         "fft_rows_transpose_large", "rfft_rows_transpose_16k", "fft_rows_transpose_16k"))
     time_runs(big_runs, card, reps=3)
+    # Its answer is phase 2's padded buffer itself: two kernels on the card
+    # and no copy.
+    answer: list[torch.Tensor] = []
+    with recorded_outputs() as buffers:
+        seen = launches_of(lambda: answer.append(wide_plan.execute(wide)))
+    checks = {"padded_stride": answer[0].stride() == (padded_out_stride(n, nh), 1),
+              "shares_phase2_buffer": (answer[0].untyped_storage().data_ptr()
+                                       == buffers[-1].untyped_storage().data_ptr()),
+              "two_kernels": seen["device_kernels"] == 2}
+    log("main_path_real", run=f"rfft-lb-{n}/fused answer", stride=list(answer[0].stride()),
+        device_kernels=seen["device_kernels"], **checks)
+    if not all(checks.values()):
+        raise AssertionError(f"fused rfft-lb at {n}: the answer is not phase 2's "
+                             f"padded buffer: {checks}, {seen}")
+    del answer, buffers, wide_plan
     # The fused rfft-lb plan's two phases at N = 16384 alone: K4 on the N
-    # real rows, K2 on its (N//2+1, N) output.
+    # real rows, K2 on its (N//2+1, N) output, dense and at the padded stride.
     spec = rfft_rows_transpose_op(wide)
     log("main_path_time", card=card, run=f"rfft-lb-{N_WIDE}/fused phases", n=N_WIDE,
         phase1_rfft_rows_transpose_ms=time_ms(lambda: rfft_rows_transpose_op(wide), reps=5),
-        phase2_fft_rows_transpose_ms=time_ms(lambda: fft_rows_transpose_op(spec), reps=5))
+        phase2_fft_rows_transpose_ms=time_ms(lambda: fft_rows_transpose_op(spec), reps=5),
+        phase2_padded_ms=time_ms(lambda: fft_rows_transpose_op(spec, pad_stride=True),
+                                 reps=5))
     del big, wide, big_runs, spec
     torch.cuda.empty_cache()
     return counts, runs
@@ -3174,7 +3266,8 @@ def recurrent_bounds(model: torch.nn.Module, batch: int, prompt: int) -> dict:
 def launches_of(fn) -> dict[str, float]:
     """The kernel launches of one call of ``fn``: the runtime's launch calls
     on the host and the kernels on the card, as ``torch.profiler`` (CUPTI)
-    records them; beside them the kernels' summed time on the card and the
+    records them, less the card-side copies of host annotations (the port's
+    spans); beside them the kernels' summed time on the card and the
     call's time on the host clock (its end synchronised), whose difference
     is the card's idle time."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
@@ -3188,7 +3281,8 @@ def launches_of(fn) -> dict[str, float]:
     host = sum(1 for e in events if e.name.startswith(("cudaLaunchKernel",
                                                        "cuLaunchKernel")))
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and not e.name.startswith("Memcpy") and not e.name.startswith("Memset")]
+               and not e.name.startswith("Memcpy") and not e.name.startswith("Memset")
+               and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     return {"host_launch_calls": host, "device_kernels": len(kernels),
             "device_kernel_ms": busy_ms, "wall_ms": wall_ms,

@@ -202,7 +202,11 @@ class PfftPlan:
         The result is ``(..., n, n)``, or ``(..., n, n//2+1)`` for the
         ``rfft-*`` methods; a fused schedule returns it as a permuted view
         of its last launch's output, with the batch fastest in memory (no
-        copy), so a batched fused result is not contiguous.
+        copy), so a batched fused result is not contiguous.  A fused
+        ``rfft-*`` plan at n >= 16384 on a card writes that output with its
+        row stride rounded up to a multiple of 4 elements, so its ``(...,
+        n, n//2+1)`` half spectrum is such a view even unbatched;
+        ``.contiguous()`` gives the dense copy.
 
         A distributed plan takes this rank's ``(..., n/p, n)`` row blocks
         and returns its blocks of the result, one distributed transform per

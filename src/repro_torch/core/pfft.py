@@ -339,6 +339,15 @@ def _fused_phases(m: torch.Tensor, first, config: PlanConfig) -> torch.Tensor:
     memory: no copy is made, so for B > 1 the result is not contiguous.
     Two launches whatever B: on the H100 this beats transforming the
     matrices one at a time at N = 1024 ... 8192 and B = 2 and 8 (PERF.md).
+
+    Phase 2 lets its kernel pad the row stride of its output to a multiple
+    of 4 elements (``pad_stride``).  From N = 16384 on a card, a real
+    limb's w·B rows (w = n//2+1 is odd) are written at a stride of w·B
+    rounded up to a multiple of 4 (where B is not a multiple of 4), so that
+    each 32-byte run of the transposed store is a whole sector; the result
+    is a view of that buffer, not contiguous even at B = 1, and
+    ``.contiguous()`` gives the dense copy.  A complex limb's n·B rows are a multiple of 4 already
+    and are written dense.
     """
     radix = config.radix if config.radix == 4 else None
     n = m.shape[-1]
@@ -348,7 +357,8 @@ def _fused_phases(m: torch.Tensor, first, config: PlanConfig) -> torch.Tensor:
         h = first(flat, radix=radix)                             # (w, B·n)
     w = h.shape[0]
     with span("phase2"):
-        z = fft_rows_then_transpose(h.reshape(w * b, n), radix=radix)  # (n, w·B)
+        z = fft_rows_then_transpose(h.reshape(w * b, n), radix=radix,
+                                    pad_stride=True)             # (n, w·B)
     return z.reshape(n, w, b).permute(2, 0, 1).reshape(m.shape[:-2] + (n, w))
 
 
@@ -574,7 +584,12 @@ def _real_config(config: PlanConfig | None) -> PlanConfig:
 
 
 def rpfft_lb(m, p: int, *, config: PlanConfig | None = None) -> torch.Tensor:
-    """Real-input PFFT-LB: even row distribution, half-spectrum output."""
+    """Real-input PFFT-LB: even row distribution, half-spectrum output.
+
+    Under ``fused=True`` at N >= 16384 on a card, the ``(N, N//2+1)`` half
+    spectrum comes back as a view whose row stride is rounded up to a
+    multiple of 4 elements (``_fused_phases``); ``.contiguous()`` gives the
+    dense copy.  The same holds for ``rpfft_fpm``."""
     m = as_tensor(m)
     cfg = _real_config(config)
     d = lb_partition(m.shape[0], p).d
@@ -586,7 +601,8 @@ def rpfft_fpm(m, fpms: FPMSet, eps: float = 0.05, *,
               return_partition: bool = False):
     """Real-input PFFT-FPM: FPM-optimal row distribution, half-spectrum
     output.  The partition is computed for the full N rows (phase 1 sees
-    all of them); phase 2 prefix-clips it to the half spectrum."""
+    all of them); phase 2 prefix-clips it to the half spectrum.  A fused
+    schedule at N >= 16384 returns a view with padded rows (``rpfft_lb``)."""
     m = as_tensor(m)
     n = m.shape[0]
     cfg = _real_config(config)

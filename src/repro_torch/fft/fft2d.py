@@ -58,14 +58,17 @@ def fft_rows(m, *, use_stockham: bool = False, backend: str | None = None,
 
 
 def fft_rows_then_transpose(m, *, backend: str | None = None,
-                            radix: int | None = None) -> torch.Tensor:
+                            radix: int | None = None,
+                            pad_stride: bool = False) -> torch.Tensor:
     """One fused phase: ``FFT_rows(m).T`` without the intermediate matrix.
 
     Dispatches to the fused kernel when it applies (2-D input, power-of-two
     row length above 1, single-precision data — the kernel computes in
     float32, so wider types keep the full-precision path); otherwise
     computes the same value as ``fft_rows`` + a transposed copy so callers
-    can use it unconditionally.
+    can use it unconditionally.  ``pad_stride`` goes to the kernel's op
+    (``fft_rows_transpose_op``): the result may then be a view whose rows
+    are padded to a multiple of 4 elements.
     """
     m = as_tensor(m)
     n = m.shape[-1]
@@ -73,7 +76,7 @@ def fft_rows_then_transpose(m, *, backend: str | None = None,
                 and complex_result_type(m) == torch.complex64)
     if eligible and backend in (None, "cuda", "fused"):
         from repro_torch.kernels.fused.ops import fft_rows_transpose_op
-        return fft_rows_transpose_op(m, radix=radix)
+        return fft_rows_transpose_op(m, radix=radix, pad_stride=pad_stride)
     if backend == "fused":
         backend = None
     return fft_rows(m, backend=backend).transpose(-1, -2).contiguous()

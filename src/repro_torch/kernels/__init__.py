@@ -45,13 +45,18 @@ def launch_counts() -> dict[str, int]:
     ``rfft_rows_16k`` and ``rfft_rows_transpose_16k`` the shares of
     ``fft_rows_transpose``, ``rfft_rows`` and ``rfft_rows_transpose`` that
     ran their kernels of n = 16384 (K2's and K4's cluster kernels, K3's
-    persistent one)."""
+    persistent one); ``fft_rows_transpose_padded`` the launches of K2 at
+    16384 and the calls of K2b's cluster kernel and chunks of its two passes
+    that wrote their output at a row stride padded above its rows
+    (``pad_stride=True``, rows not a multiple of 4)."""
     counts = {name: module.launch_count() for name, module in _COUNTED.items()}
     counts["fft_rows_large_two_pass"] = _large_kernel.two_pass_launch_count()
     counts["fft_rows_large_long"] = _large_kernel.long_cluster_launch_count()
     counts["fft_rows_transpose_large_two_pass"] = (
         _fused_large_kernel.two_pass_launch_count())
     counts["fft_rows_transpose_16k"] = _fused_kernel.launch_count_16k()
+    counts["fft_rows_transpose_padded"] = (_fused_kernel.padded_launch_count()
+                                           + _fused_large_kernel.padded_launch_count())
     counts["rfft_rows_16k"] = _real_kernel.launch_count_16k()
     counts["rfft_rows_transpose_16k"] = _fused_real_kernel.launch_count_16k()
     return counts

@@ -22,6 +22,9 @@ one-pass four-step cluster kernel (``csrc/fft_rows_transpose_cluster.cu``,
 each row split over the CTAs of a cluster, four CTAs an SM.
 ``fft_rows_transpose_plan`` still gives the cluster rule at 16384: the
 four-step's pass B (``csrc/fourstep.cuh``) stores rows of n2 = 16384 by it.
+That kernel takes an output stride, so at 16384 ``pad_stride=True`` pads the
+output's rows to whole sectors as K2b's launchers do
+(``kernels.fused.large.padded_out_stride``).
 """
 
 from __future__ import annotations
@@ -30,10 +33,11 @@ import torch
 
 from repro_torch.kernels.fft.kernel import (_CTA_THREADS, MAX_KERNEL_N, check_kernel_input,
                                             complex_rows_plan, fft_rows_plain, launch)
-from repro_torch.kernels.fused.large import fft_rows_transpose_large_cuda
+from repro_torch.kernels.fused.large import fft_rows_transpose_large_cuda, transposed_out
 
 __all__ = ["STORE_CLUSTER", "fft_rows_transpose_cuda", "fft_rows_transpose_plain",
-           "fft_rows_transpose_plan", "launch_count", "launch_count_16k", "reset_launch_count"]
+           "fft_rows_transpose_plan", "launch_count", "launch_count_16k",
+           "padded_launch_count", "reset_launch_count"]
 
 # CTAs of a cluster where a CTA holds one row (``kStoreCluster`` of
 # ``csrc/fft_rows_transpose.cu``): 8 bytes of each row per output row, so a
@@ -43,6 +47,7 @@ STORE_CLUSTER = 4
 
 _launches = 0
 _launches_16k = 0
+_launches_padded = 0
 
 
 def launch_count() -> int:
@@ -56,9 +61,15 @@ def launch_count_16k() -> int:
     return _launches_16k
 
 
+def padded_launch_count() -> int:
+    """The launches of the cluster kernel at n = 16384 that wrote their
+    output at a row stride above its rows (``pad_stride=True``)."""
+    return _launches_padded
+
+
 def reset_launch_count() -> None:
-    global _launches, _launches_16k
-    _launches = _launches_16k = 0
+    global _launches, _launches_16k, _launches_padded
+    _launches = _launches_16k = _launches_padded = 0
 
 
 def fft_rows_transpose_plain(x: torch.Tensor, *, inverse: bool = False,
@@ -86,32 +97,35 @@ def fft_rows_transpose_plan(n: int, rows: int) -> tuple[int, int, int, int]:
 
 
 def fft_rows_transpose_cuda(x: torch.Tensor, *, inverse: bool = False,
-                            radix: int = 4) -> torch.Tensor:
+                            radix: int = 4, pad_stride: bool = False) -> torch.Tensor:
     """K2 on a (rows, n) complex64 CUDA tensor -> ``FFT_rows(x).T`` of shape
-    (n, rows), one launch a call: below ``MAX_KERNEL_N``
-    ``csrc/fft_rows_transpose.cu`` in the launch shape of
+    (n, rows), contiguous; with ``pad_stride``, from n = ``MAX_KERNEL_N``
+    on, a view of an ``(n, padded_out_stride(n, rows))`` buffer (every
+    output row on a 32-byte boundary).  One launch a call: below
+    ``MAX_KERNEL_N`` ``csrc/fft_rows_transpose.cu`` in the launch shape of
     ``fft_rows_transpose_plan`` (the C side picks the cluster from n), at
     ``MAX_KERNEL_N`` ``csrc/fft_rows_transpose_cluster.cu`` in the shape
     ``transpose_cluster_plan(n)``; rows longer than ``MAX_KERNEL_N`` (up to
     ``MAX_LARGE_N``) go to K2b
     (``kernels.fused.large.fft_rows_transpose_large_cuda``).  Does not
     synchronise."""
-    global _launches, _launches_16k
+    global _launches, _launches_16k, _launches_padded
     rows, n = check_kernel_input(x, "fft_rows_transpose_cuda")
     if radix not in (2, 4):
         raise ValueError(f"unsupported radix {radix}")
     if n > MAX_KERNEL_N:
-        return fft_rows_transpose_large_cuda(x, inverse=inverse)
-    out = torch.empty((n, rows), dtype=x.dtype, device=x.device)
+        return fft_rows_transpose_large_cuda(x, inverse=inverse, pad_stride=pad_stride)
+    out, stride = transposed_out(x, n, rows, pad_stride)
     if rows == 0:
         return out
     if n == MAX_KERNEL_N:
         launch("repro_fft_rows_transpose_cluster", x, out, rows=rows, n=n,
-               inverse=int(inverse), out_stride=rows)
+               inverse=int(inverse), out_stride=stride)
         _launches_16k += 1
+        _launches_padded += stride > rows
     else:
         rows_per_cta, threads, *_ = fft_rows_transpose_plan(n, rows)
         launch("repro_fft_rows_transpose", x, out, rows=rows, n=n, radix=radix,
                inverse=int(inverse), rows_per_cta=rows_per_cta, threads=threads)
     _launches += 1
-    return out
+    return out if stride == rows else out[:, :rows]

@@ -27,6 +27,13 @@ chunk, each chunk writing its columns of the ``(n, rows)`` output.
 
 ``launch_count`` counts every CUDA launch: one a call of the cluster kernel,
 two a chunk of the two passes; ``two_pass_launch_count`` the latter alone.
+
+Both write the ``(n, rows)`` output at a row stride, ``out_stride``.  At an
+odd stride (the n/2 + 1 rows of a real limb's phase 2) the 32-byte run a
+cluster stores in each output row straddles two sectors in three rows of
+four; ``pad_stride=True`` lets the launchers write into an ``(n,
+padded_out_stride(n, rows))`` buffer and return its first ``rows`` columns,
+so that every run is a whole sector.
 """
 
 from __future__ import annotations
@@ -41,7 +48,8 @@ from repro_torch.kernels.fft.large import (_columns_pass, _rows_pass, kernel_spl
 __all__ = ["TRANSPOSE_CLUSTER_CTAS", "TRANSPOSE_CLUSTER_LENGTHS",
            "TRANSPOSE_CLUSTER_ROWS", "fft_rows_transpose_cluster_cuda",
            "fft_rows_transpose_large_cuda", "fft_rows_transpose_large_plain",
-           "launch_count", "reset_launch_count", "transpose_cluster_plan",
+           "launch_count", "padded_launch_count", "padded_out_stride",
+           "reset_launch_count", "transpose_cluster_plan", "transposed_out",
            "two_pass_launch_count"]
 
 # The lengths of the one-pass cluster kernel
@@ -54,6 +62,7 @@ TRANSPOSE_CLUSTER_ROWS = 4
 
 _launches = 0
 _two_pass_launches = 0
+_padded_launches = 0
 
 
 def launch_count() -> int:
@@ -68,9 +77,37 @@ def two_pass_launch_count() -> int:
     return _two_pass_launches
 
 
+def padded_launch_count() -> int:
+    """The calls of the cluster kernel and the chunks of the two passes that
+    wrote their output at a row stride above its rows (``pad_stride=True``
+    and rows not a multiple of 4)."""
+    return _padded_launches
+
+
 def reset_launch_count() -> None:
-    global _launches, _two_pass_launches
-    _launches = _two_pass_launches = 0
+    global _launches, _two_pass_launches, _padded_launches
+    _launches = _two_pass_launches = _padded_launches = 0
+
+
+def padded_out_stride(n: int, rows: int) -> int:
+    """The row stride of K2's or K2b's ``(n, rows)`` output where the caller
+    lets it pad: ``rows`` rounded up to a multiple of
+    ``TRANSPOSE_CLUSTER_ROWS`` (4 complex64, a 32-byte sector) where the
+    kernel that serves ``n`` takes an ``out_stride`` (the cluster kernel from
+    16384, the two passes above 65536), else ``rows``."""
+    if n < TRANSPOSE_CLUSTER_LENGTHS[0]:
+        return rows
+    return -(-rows // TRANSPOSE_CLUSTER_ROWS) * TRANSPOSE_CLUSTER_ROWS
+
+
+def transposed_out(x: torch.Tensor, n: int, rows: int,
+                   pad_stride: bool) -> tuple[torch.Tensor, int]:
+    """The output buffer of a transposed store of ``x``'s ``rows`` rows of
+    length ``n``, ``(n, stride)``, and its stride: ``padded_out_stride(n,
+    rows)`` where ``pad_stride``, else ``rows``.  The answer is the buffer's
+    first ``rows`` columns."""
+    stride = padded_out_stride(n, rows) if pad_stride else rows
+    return torch.empty((n, stride), dtype=x.dtype, device=x.device), stride
 
 
 def transpose_cluster_plan(n: int) -> tuple[int, int, int, int, int, int]:
@@ -107,40 +144,45 @@ def fft_rows_transpose_large_plain(x: torch.Tensor, *, inverse: bool = False,
     return c.permute(2, 0, 1).reshape(n, rows)
 
 
-def fft_rows_transpose_cluster_cuda(x: torch.Tensor, *,
-                                    inverse: bool = False) -> torch.Tensor:
+def fft_rows_transpose_cluster_cuda(x: torch.Tensor, *, inverse: bool = False,
+                                    pad_stride: bool = False) -> torch.Tensor:
     """Launch ``csrc/fft_rows_transpose_cluster.cu`` once: (rows, n)
     complex64 CUDA tensor, n in ``TRANSPOSE_CLUSTER_LENGTHS``, ->
     ``FFT_rows(x).T`` of shape (n, rows) in the shape
-    ``transpose_cluster_plan(n)``.  No scratch.  Does not synchronise."""
-    global _launches
+    ``transpose_cluster_plan(n)``, contiguous; with ``pad_stride``, a view
+    of an ``(n, padded_out_stride(n, rows))`` buffer.  No scratch.  Does not
+    synchronise."""
+    global _launches, _padded_launches
     rows, n = check_kernel_input(x, "fft_rows_transpose_cluster_cuda")
     transpose_cluster_plan(n)
-    out = torch.empty((n, rows), dtype=x.dtype, device=x.device)
+    out, stride = transposed_out(x, n, rows, pad_stride)
     if rows == 0:
         return out
     launch("repro_fft_rows_transpose_cluster", x, out, rows=rows, n=n,
-           inverse=int(inverse), out_stride=rows)
+           inverse=int(inverse), out_stride=stride)
     _launches += 1
-    return out
+    _padded_launches += stride > rows
+    return out if stride == rows else out[:, :rows]
 
 
-def fft_rows_transpose_large_cuda(x: torch.Tensor, *,
-                                  inverse: bool = False) -> torch.Tensor:
+def fft_rows_transpose_large_cuda(x: torch.Tensor, *, inverse: bool = False,
+                                  pad_stride: bool = False) -> torch.Tensor:
     """K2b on a (rows, n) complex64 CUDA tensor -> ``FFT_rows(x).T`` of shape
-    (n, rows).  At n in ``TRANSPOSE_CLUSTER_LENGTHS`` one launch of the
-    cluster kernel (``fft_rows_transpose_cluster_cuda``); above,
+    (n, rows), contiguous, or with ``pad_stride`` a view of an ``(n,
+    padded_out_stride(n, rows))`` buffer.  At n in
+    ``TRANSPOSE_CLUSTER_LENGTHS`` one launch of the cluster kernel
+    (``fft_rows_transpose_cluster_cuda``); above,
     ``csrc/fft_rows_transpose_large.cu``'s two passes by chunk of
     ``scratch_rows(n)`` rows at the split of ``two_pass_split`` (both
     factors in the kernels' range, ``kernel_split``), pass A's shape
     ``columns_plan(n1)``, pass B's ``rows_plan(n2, cap*n1)`` with cap =
     ``scratch_capacity(chunk rows)``.  Does not synchronise."""
-    global _launches, _two_pass_launches
+    global _launches, _two_pass_launches, _padded_launches
     rows, n = check_kernel_input(x, "fft_rows_transpose_large_cuda")
     if n in TRANSPOSE_CLUSTER_LENGTHS:
-        return fft_rows_transpose_cluster_cuda(x, inverse=inverse)
+        return fft_rows_transpose_cluster_cuda(x, inverse=inverse, pad_stride=pad_stride)
     n1, n2 = kernel_split(n, two_pass_split(n)[0], "fft_rows_transpose_large_cuda")
-    out = torch.empty((n, rows), dtype=x.dtype, device=x.device)
+    out, stride = transposed_out(x, n, rows, pad_stride)
     if rows == 0:
         return out
     chunk = scratch_rows(n)
@@ -151,8 +193,9 @@ def fft_rows_transpose_large_cuda(x: torch.Tensor, *,
         rows_per_cta, threads, _ = rows_plan(n2, scratch_capacity(r1 - r0) * n1)
         launch("repro_fft_rows_transpose_large", x[r0:r1], out[:, r0:],
                scratch=scratch.data_ptr(), rows=r1 - r0, n1=n1, n2=n2,
-               inverse=int(inverse), out_stride=rows, rows_per_cta=rows_per_cta,
+               inverse=int(inverse), out_stride=stride, rows_per_cta=rows_per_cta,
                threads=threads)
         _launches += 2
         _two_pass_launches += 2
-    return out
+        _padded_launches += stride > rows
+    return out if stride == rows else out[:, :rows]

@@ -22,8 +22,8 @@ from repro_torch.kernels.fused.large import fft_rows_transpose_large_plain
 __all__ = ["fft_rows_transpose_op"]
 
 
-def fft_rows_transpose_op(x, *, inverse: bool = False,
-                          radix: int | None = None) -> torch.Tensor:
+def fft_rows_transpose_op(x, *, inverse: bool = False, radix: int | None = None,
+                          pad_stride: bool = False) -> torch.Tensor:
     """Fused ``FFT_rows(x).T``.  x: (rows, n) complex, n a power of two up
     to ``MAX_LARGE_N``: K2 (one launch) up to ``MAX_KERNEL_N``, the
     four-step K2b above (one launch over clusters at n <= 65536, two passes
@@ -31,7 +31,10 @@ def fft_rows_transpose_op(x, *, inverse: bool = False,
 
     ``radix=None`` auto-selects; it chooses the plain version's stage loop
     up to ``MAX_KERNEL_N``, while the CUDA kernels' passes depend on ``n``
-    only."""
+    only.  ``pad_stride=True`` lets the CUDA kernels from n = 16384 on write
+    into rows padded to a multiple of 4 and return the ``(n, rows)`` view of
+    that buffer (``kernels.fused.large.padded_out_stride``); the CPU's plain
+    versions return a contiguous result whatever it says."""
     x = as_tensor(x)
     if x.ndim != 2:
         raise ValueError(f"fused op takes a 2-D matrix, got shape {tuple(x.shape)}")
@@ -42,7 +45,8 @@ def fft_rows_transpose_op(x, *, inverse: bool = False,
     if n == 1:  # the length-1 DFT is the identity: only the transpose is left
         return x2.to(out_dtype).T.contiguous()
     if x2.is_cuda:
-        out = fft_rows_transpose_cuda(x2, inverse=inverse, radix=radix)
+        out = fft_rows_transpose_cuda(x2, inverse=inverse, radix=radix,
+                                      pad_stride=pad_stride)
     elif n > MAX_KERNEL_N:
         out = fft_rows_transpose_large_plain(x2, inverse=inverse)
     else:

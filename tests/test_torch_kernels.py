@@ -337,6 +337,7 @@ def test_cpu_ops_launch_nothing_and_build_nothing():
         "fft_rows": 0, "fft_rows_large": 0, "fft_rows_large_long": 0,
         "fft_rows_large_two_pass": 0,
         "fft_rows_transpose": 0, "fft_rows_transpose_16k": 0,
+        "fft_rows_transpose_padded": 0,
         "fft_rows_transpose_large": 0, "fft_rows_transpose_large_two_pass": 0,
         "rfft_rows": 0, "rfft_rows_16k": 0, "rfft_rows_large": 0,
         "rfft_rows_transpose": 0, "rfft_rows_transpose_16k": 0,

@@ -276,7 +276,8 @@ def test_limb_accepts_a_transposed_view():
     ("library", 0, 0), ("stockham", 0, 0), ("kernel", 2, 0), ("fused", 0, 2)])
 def test_limb_routes_configs_to_the_right_op(config, expect_k1, expect_k2, monkeypatch):
     """radix=4 reaches the row-FFT op twice (one group, two phases), fused the
-    fused op twice; radix=2 + fused still runs the fused op, at its own radix."""
+    fused op twice, phase 2 letting it pad its output's row stride;
+    radix=2 + fused still runs the fused op, at its own radix."""
     from repro_torch.kernels.fft import ops as k1
     from repro_torch.kernels.fused import ops as k2
     calls = {"k1": [], "k2": []}
@@ -289,13 +290,15 @@ def test_limb_routes_configs_to_the_right_op(config, expect_k1, expect_k2, monke
     port_pfft.pfft_lb(m, 4, config=port_plan.PlanConfig(**CONFIGS[config]))
     assert (len(calls["k1"]), len(calls["k2"])) == (expect_k1, expect_k2)
     assert all(kw == {"radix": 4} for kw in calls["k1"])
-    assert all(kw == {"radix": None} for kw in calls["k2"])
+    def phases(radix):
+        return [{"radix": radix, "pad_stride": False}, {"radix": radix, "pad_stride": True}]
+    assert calls["k2"] == phases(None)[:expect_k2]
     calls["k2"].clear()
     port_pfft.pfft_lb(m, 4, config=port_plan.PlanConfig(radix=2, fused=True))
-    assert calls["k2"] == [{"radix": None}] * 2
+    assert calls["k2"] == phases(None)
     calls["k2"].clear()
     port_pfft.pfft_lb(m, 4, config=port_plan.PlanConfig(radix=4, fused=True))
-    assert calls["k2"] == [{"radix": 4}] * 2
+    assert calls["k2"] == phases(4)
 
 
 def test_cpu_limbs_launch_no_kernel():
